@@ -1,0 +1,35 @@
+"""Per-pixel angles and back-projected points (counterpart of
+`tpufusion/geometry/encoding.py::pixel_angles` / `pixel_points`).
+
+  theta = (col + X_MIN) * res_h ;  phi = (row + Y_MIN) * res_v
+  p     = (d cos theta, -d sin theta, height)
+
+`pixel_rotations` (the "head" center) and the label codecs wait for
+later slices (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpufusion.config import RangeViewSpec
+
+
+def pixel_angles(
+    spec: RangeViewSpec, device: torch.device | str = "cpu"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(theta, phi), each (H, W) float32."""
+    rows = torch.arange(spec.height, dtype=torch.float32, device=device)
+    cols = torch.arange(spec.width, dtype=torch.float32, device=device)
+    theta = (cols + spec.x_min) * spec.res_h_rad
+    phi = (rows + spec.y_min) * spec.res_v_rad
+    theta = theta[None, :].expand(spec.height, spec.width)
+    phi = phi[:, None].expand(spec.height, spec.width)
+    return theta, phi
+
+
+def pixel_points(image: torch.Tensor, spec: RangeViewSpec) -> torch.Tensor:
+    """(..., H, W, >=2) distance/height image -> (..., H, W, 3) points."""
+    theta, _ = pixel_angles(spec, image.device)
+    d, h = image[..., 0], image[..., 1]
+    return torch.stack([d * torch.cos(theta), -d * torch.sin(theta), h], dim=-1)
