@@ -9,19 +9,33 @@ it runs on a machine with the card but without JAX:
 (--noconftest: tests/conftest.py imports jax; the file imports nothing
 from the tests directory either, whose name another installed package may
 shadow.) Tolerance: none — both kernels compute exact integer answers;
-1e-3 on the main path's poses against the JAX golden (CUDA's atan2f /
-sinf / cosf differ by ulps from the CPU's).
+1e-3 on float32 poses against the JAX goldens (CUDA's atan2f / sinf /
+cosf differ by ulps from the CPU's), poses from the bf16 FCN included
+(they read 3.8e-6 on an H100); the bf16 FCN's own output within
+tpufusion_torch/_golden.py's BF16_* limits of JAX's.
 """
 
+import dataclasses
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from tpufusion_torch import RangeViewSpec
+from tpufusion_torch import DecodeConfig, RangeViewSpec
+from tpufusion_torch._golden import (
+    BF16_PROB_ATOL,
+    BF16_REG_ATOL,
+    BF16_REG_DIFFER_SHARE,
+    bf16_fcn_readings,
+    load_npz,
+    wrapped_pose_diff,
+)
 from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
-from tpufusion_torch.geometry.range_view import _frame_pixels_keys
+from tpufusion_torch.decode import decode
+from tpufusion_torch.geometry.range_view import _frame_pixels_keys, range_view_project_batch
+from tpufusion_torch.models.fcn import FCN
+from tpufusion_torch.models.io import asset_configs, load_state_npz
 from tpufusion_torch.ops import cc, components, projection
 from tpufusion_torch.predict import make_e2e_step
 from tpufusion_torch.serve.pipeline import LidarPipeline
@@ -31,18 +45,21 @@ SPEC = RangeViewSpec()
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSET = os.path.join(_REPO, "tpufusion", "assets", "synthetic_detector.npz")
 GOLDEN = os.path.join(_REPO, "tests", "data", "torch_port_golden.npz")
+GOLDEN_MULTI = os.path.join(_REPO, "tests", "data", "torch_port_golden_multi.npz")
+POSE_TOL = 1e-3
 
 
 @pytest.fixture
 def cuda_device():
-    """The first CUDA device, TF32 off; skips the test where there is none
-    (decided inside the test, so every xdist worker collects the same
-    tests)."""
+    """The first CUDA device, TF32 off (set again after the test); skips
+    the test where there is none (decided inside the test, so every
+    xdist worker collects the same tests)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU mode)")
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda", 0)
+    torch.set_float32_matmul_precision("highest")
+    yield torch.device("cuda", 0)
+    torch.set_float32_matmul_precision("highest")
 
 
 def _proj_inputs(device, batch=4, n=8192, seed=3):
@@ -57,7 +74,7 @@ def _proj_inputs(device, batch=4, n=8192, seed=3):
 
 
 def test_projection_kernel_is_bit_identical(cuda_device):
-    for batch, n in ((4, 8192), (64, 32768), (3, 4097)):
+    for batch, n in ((4, 8192), (64, 32768), (16, 131072), (3, 4097)):
         args = _proj_inputs(cuda_device, batch, n)
         before = projection.LAUNCHES
         got = projection.nearest_wins_image(*args, SPEC)
@@ -121,7 +138,86 @@ def test_main_path_runs_both_kernels_and_matches_golden(cuda_device):
     with np.load(GOLDEN) as z:
         poses, found = step(z["points"], z["valid"])
         np.testing.assert_array_equal(found.cpu().numpy(), z["found"])
-        diff = poses.cpu().numpy() - z["poses"]
-        diff[:, 3] = (diff[:, 3] + np.pi) % (2 * np.pi) - np.pi  # yaw is an angle
-        assert np.abs(diff).max() < 1e-3
+        assert _pose_diff(poses, z["poses"]) < POSE_TOL
 
+
+def _pose_diff(got, want):
+    return wrapped_pose_diff(got, want).max()
+
+
+def test_bf16_top4_path_runs_in_bf16_and_matches_golden(cuda_device):
+    """Config 5's path on the card: the asset's FCN in bf16 (its convs
+    really return bf16) against the golden's sample of JAX's bf16 FCN
+    output, and top-4 poses against JAX's bf16 answer."""
+    g = load_npz(GOLDEN_MULTI)
+    mcfg, dcfg = asset_configs(ASSET)
+    model = FCN(dataclasses.replace(mcfg, dtype="bfloat16"))
+    load_state_npz(ASSET, model)
+    model = model.to(cuda_device).eval()
+    dtypes = []
+    model.conv1.register_forward_hook(lambda m, i, o: dtypes.append(o.dtype))
+    p0, c0 = projection.LAUNCHES, cc.LAUNCHES
+    poses, found = make_e2e_step(model, SPEC, dcfg, max_obstacles=4)(
+        g["multi_points"], g["multi_valid"]
+    )
+    torch.cuda.synchronize()
+    assert dtypes == [torch.bfloat16]
+    assert projection.LAUNCHES > p0 and cc.LAUNCHES > c0
+    np.testing.assert_array_equal(found.cpu().numpy(), g["direct_bf16_found"])
+    assert _pose_diff(poses, g["direct_bf16_poses"]) < POSE_TOL
+    with torch.inference_mode():
+        out = model(range_view_project_batch(
+            torch.from_numpy(g["multi_points"]).to(cuda_device), SPEC,
+            torch.from_numpy(g["multi_valid"]).to(cuda_device),
+        ))
+    dp, dr, n_diff, n = bf16_fcn_readings(
+        out.cpu().numpy(), g["bf16_fcn_prob"], g["bf16_fcn_reg"]
+    )
+    assert dp <= BF16_PROB_ATOL and dr <= BF16_REG_ATOL
+    assert n_diff <= BF16_REG_DIFFER_SHARE * n
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_corner_decode_matches_golden(cuda_device, precision):
+    """decode_batch, decode_batch_multi(k=4) and the 64-candidate
+    overflow case on the label-encoded corner outputs, also with the
+    process's float32 matmuls set to TF32 ("high"): the decode pins full
+    float32 for its own matmuls and leaves the setting as it was."""
+    g = load_npz(GOLDEN_MULTI)
+    torch.set_float32_matmul_precision(precision)
+    images = range_view_project_batch(
+        torch.from_numpy(g["multi_points"][:2]).to(cuda_device), SPEC,
+        torch.from_numpy(g["multi_valid"][:2]).to(cuda_device),
+    )
+    y = torch.from_numpy(g["corner_ypred"]).to(cuda_device)
+    for case, cfg in (("corner", DecodeConfig()),
+                      ("corner_k64", DecodeConfig(max_candidates=64))):
+        out = decode.decode_batch(y, images, SPEC, cfg)
+        np.testing.assert_array_equal(out["found"].cpu().numpy(), g[f"{case}_found"])
+        np.testing.assert_array_equal(
+            out["vote_overflow"].cpu().numpy(), g[f"{case}_overflow"]
+        )
+        assert _pose_diff(out["pose"], g[f"{case}_poses"]) < POSE_TOL
+    out = decode.decode_batch_multi(y, images, SPEC, DecodeConfig(), 4)
+    np.testing.assert_array_equal(out["found"].cpu().numpy(), g["corner_multi_found"])
+    np.testing.assert_array_equal(
+        out["vote_overflow"].cpu().numpy(), g["corner_multi_overflow"]
+    )
+    assert _pose_diff(out["poses"], g["corner_multi_poses"]) < POSE_TOL
+    assert torch.get_float32_matmul_precision() == precision
+
+
+def test_topk_order_with_ties_matches_the_cpu(cuda_device):
+    """torch.topk on the card ranks the unique key as on the CPU: equal
+    areas to the smaller root, padding entries when k exceeds the
+    clusters."""
+    prob = np.zeros((2, 32, 181), np.float32)
+    for r0, c0 in ((4, 150), (4, 40), (18, 90), (18, 10)):
+        prob[0, r0 : r0 + 8, c0 : c0 + 12] = 1.0
+    prob[1, 12:18, 100:110] = 1.0
+    cfg = DecodeConfig(min_bbox_area=8.0)
+    for k in (1, 3, 6):
+        got = decode.find_obstacles_topk(torch.from_numpy(prob).to(cuda_device), cfg, k)
+        want = decode.find_obstacles_topk(torch.from_numpy(prob), cfg, k)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)

@@ -104,16 +104,43 @@ def test_port_matches_golden_on_cpu(pipeline):
 
 
 def test_port_imports_no_jax():
-    """The port, driven through its main path, never loads jax or flax."""
+    """The port, driven through its paths (the server, the bf16 top-4
+    step, the tracker and scoring, the corner head, predict_images),
+    never loads jax or flax."""
     code = textwrap.dedent(
         """
-        import sys
+        import dataclasses, sys
         import numpy as np
-        from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+        import torch
+        torch.set_num_threads(2)  # beside the test workers
+        from tpufusion.eval.scoring import score_multi_poses
+        from tpufusion_torch.data.synthetic import (
+            synthesize_beam_scan_batch, synthesize_beam_tracking_sequence)
+        from tpufusion_torch.models.fcn import FCN
+        from tpufusion_torch.models.io import asset_configs, load_state_npz
+        from tpufusion_torch.predict import make_e2e_step, predict_images
         from tpufusion_torch.serve.pipeline import LidarPipeline
+        from tpufusion_torch.serve.tracker import PoseTracker, track_quality_metrics
+        from tpufusion.config import DEFAULT
+        from tpufusion_torch import DecodeConfig, ModelConfig, RangeViewSpec
         pipe = LidarPipeline.from_asset(sys.argv[1], "cpu")
         points, _, valid = synthesize_beam_scan_batch(np.random.default_rng(0), 1)
         pose, found = pipe.predict_position(points[0][valid[0]])
+        assert pipe.fake_predict(points[0][valid[0]]).shape == (3,)
+        mcfg, dcfg = asset_configs(sys.argv[1])
+        model = FCN(dataclasses.replace(mcfg, dtype="bfloat16"))
+        load_state_npz(sys.argv[1], model)
+        seq, gt, sv = synthesize_beam_tracking_sequence(np.random.default_rng(1), 3)
+        poses, founds = make_e2e_step(model, RangeViewSpec(), dcfg, max_obstacles=4)(seq, sv)
+        trails = PoseTracker(dt=0.1).run_multi(poses.numpy(), founds.numpy())
+        track_quality_metrics(trails, gt["center"])
+        score_multi_poses(poses.numpy(), founds.numpy(), gt["center"], gt["yaw"], gt["size"])
+        corner = FCN(ModelConfig())
+        corner.deconv6a.bias.data = torch.tensor([2.0, -2.0])  # background-leaning
+        make_e2e_step(corner, RangeViewSpec(), DecodeConfig(), head="corner",
+                      max_obstacles=2)(seq[:1], sv[:1])
+        images = np.zeros((1, 32, 1801, 3), np.float32)
+        predict_images(corner, images, DEFAULT, 1)
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
         assert not loaded, loaded
         print("NO_JAX_OK", found)
@@ -143,12 +170,19 @@ def test_numpy_beam_scans_feed_the_detector(pipeline):
         synthesize_beam_scan_batch(np.random.default_rng(0), 1, vehicle_surface="box")
 
 
-def test_e2e_options_not_ported_raise(pipeline):
+def test_e2e_step_rejects_unknown_head_and_k(pipeline):
     spec, dcfg = pipeline.cfg.range_view, pipeline.cfg.decode
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_e2e_step(pipeline.model, spec, dcfg, head="corner")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_e2e_step(pipeline.model, spec, dcfg, max_obstacles=2)
+    with pytest.raises(ValueError, match="head"):
+        make_e2e_step(pipeline.model, spec, dcfg, head="box")
+    with pytest.raises(ValueError, match="max_obstacles"):
+        make_e2e_step(pipeline.model, spec, dcfg, max_obstacles=0)
+
+
+def test_pipeline_fake_predict_is_the_cloud_mean():
+    points = np.random.default_rng(0).normal(size=(100, 4)).astype(np.float32)
+    np.testing.assert_allclose(
+        LidarPipeline.fake_predict(points), points[:, :3].astype(np.float64).mean(axis=0)
+    )
 
 
 def test_from_asset_raises_on_a_mismatched_asset(tmp_path):

@@ -1,16 +1,19 @@
 """Beam-structured synthetic Velodyne scans in numpy (counterpart of
-`tpufusion/data/synthetic.py::synthesize_beam_scan_batch` and
-`_raycast_scene`, default `vehicle_surface="circle"`).
+`tpufusion/data/synthetic.py::synthesize_beam_scan_batch`,
+`synthesize_beam_multi_vehicle_batch`, `synthesize_beam_tracking_sequence`
+and `_raycast_scene`, default `vehicle_surface="circle"`).
 
-Each (beam, azimuth) ray of an HDL-32-like sweep is cast against a ground
-plane, one vehicle (a rotationally symmetric rounded box: a circle of
-radius 0.8 * half the footprint diagonal, within the box's z extent) and
-K vertical clutter objects; the nearest hit wins, so occlusion shadows
-and range-dependent density emerge from geometry. Rays with no return, or
-dropped by the range-dependent dropout model, are invalid and parked at
-the origin. Same distribution as the reference generator, not the same
-bits: a `numpy.random.Generator` replaces `jax.random`. The ellipse and
-box surfaces wait (ROADMAP Queue 1: tools).
+Each (beam, azimuth) ray of a spinning sweep (32 beams by default, 64 at
+131,072 points) is cast against a ground plane, the vehicles (each a
+rotationally symmetric rounded box: a circle of radius 0.8 * half the
+footprint diagonal, within the box's z extent) and K vertical clutter
+objects; the nearest hit wins, so occlusion shadows and range-dependent
+density emerge from geometry. Rays with no return, or dropped by the
+range-dependent dropout model, are invalid and parked at the origin.
+Same distribution as the reference generators, not the same bits: a
+`numpy.random.Generator` replaces `jax.random`. The ellipse and box
+surfaces, and with them the oriented tracking sequence, wait (ROADMAP
+Queue 1: tools).
 """
 
 from __future__ import annotations
@@ -118,6 +121,30 @@ def _raycast_scene(
     return points, valid
 
 
+def _check_beams(n_points: int, n_beams: int) -> None:
+    if n_points % n_beams:
+        raise ValueError(f"n_points {n_points} must be a multiple of n_beams {n_beams}")
+
+
+def _slot_centers(rng: np.random.Generator, batch: int, n_vehicles: int) -> np.ndarray:
+    """(B, V, 3) vehicle centers at evenly spaced azimuth slots, turned
+    per frame, +-0.3 rad jitter, 8-30 m away: clusters stay disjoint in
+    azimuth (the reference's synthesize_multi_vehicle_batch layout)."""
+    if not 1 <= n_vehicles <= 5:
+        raise ValueError(
+            f"the slot layout keeps clusters disjoint only for 1-5 vehicles, got {n_vehicles}"
+        )
+    b, v = batch, n_vehicles
+    base = np.linspace(0.0, 2.0 * np.pi, v, endpoint=False)
+    frame_rot = rng.uniform(-np.pi, np.pi, (b, 1))
+    jitter = rng.uniform(-0.3, 0.3, (b, v))
+    angle = base[None, :] + frame_rot + jitter
+    dist = rng.uniform(8.0, 30.0, (b, v))
+    return np.stack(
+        [dist * np.cos(angle), dist * np.sin(angle), np.full((b, v), -0.7)], axis=-1
+    )
+
+
 def synthesize_beam_scan_batch(
     rng: np.random.Generator,
     batch: int,
@@ -140,8 +167,7 @@ def synthesize_beam_scan_batch(
             f"vehicle_surface={vehicle_surface!r} is not ported yet "
             "(ROADMAP Queue 1: tools); use 'circle'"
         )
-    if n_points % n_beams:
-        raise ValueError(f"n_points {n_points} must be a multiple of n_beams {n_beams}")
+    _check_beams(n_points, n_beams)
     b = batch
     dist = rng.uniform(8.0, 30.0, b)
     angle = rng.uniform(-np.pi, np.pi, b)
@@ -164,5 +190,71 @@ def synthesize_beam_scan_batch(
         "center": center.astype(np.float32),
         "size": size.astype(np.float32),
         "yaw": yaw.astype(np.float32),
+    }
+    return points, gt, valid
+
+
+def synthesize_beam_multi_vehicle_batch(
+    rng: np.random.Generator,
+    batch: int,
+    n_points: int = 32768,
+    n_vehicles: int = 2,
+    n_beams: int = 32,
+    max_range: float = 60.0,
+    n_clutter: int = 24,
+    dropout: float = 0.12,
+) -> tuple[np.ndarray, dict[str, np.ndarray], np.ndarray]:
+    """Beam-structured multi-vehicle scenes -> (points (B, N, 4), gt
+    {center, size (B, V, 3), yaw (B, V)}, valid (B, N))."""
+    _check_beams(n_points, n_beams)
+    center = _slot_centers(rng, batch, n_vehicles)
+    size = np.broadcast_to(np.array([4.2, 1.6, 1.5]), center.shape).copy()
+    points, valid = _raycast_scene(
+        rng, batch, n_beams, n_points // n_beams, center, size,
+        max_range, n_clutter, dropout,
+    )
+    gt = {
+        "center": center.astype(np.float32),
+        "size": size.astype(np.float32),
+        "yaw": np.zeros(center.shape[:2], np.float32),
+    }
+    return points, gt, valid
+
+
+def synthesize_beam_tracking_sequence(
+    rng: np.random.Generator,
+    frames: int,
+    n_points: int = 32768,
+    n_vehicles: int = 2,
+    n_beams: int = 32,
+    dt: float = 0.1,
+    max_range: float = 60.0,
+    n_clutter: int = 24,
+    dropout: float = 0.12,
+    oriented: bool = False,
+) -> tuple[np.ndarray, dict[str, np.ndarray], np.ndarray]:
+    """A temporal sequence: V vehicles on constant-velocity paths (per-axis
+    speed up to 2 m/s) from one slot layout, clutter and sweep phase drawn
+    anew every frame -> (points (F, N, 4), gt (F, V, ...), valid (F, N))."""
+    if oriented:
+        raise NotImplementedError(
+            "oriented=True (ellipse surface) is not ported yet "
+            "(ROADMAP Queue 1: tools)"
+        )
+    _check_beams(n_points, n_beams)
+    f, v = frames, n_vehicles
+    c0 = _slot_centers(rng, 1, v)[0]
+    vel = rng.uniform(-2.0, 2.0, (v, 3))
+    vel[:, 2] = 0.0
+    centers = c0[None] + vel[None] * (np.arange(f)[:, None, None] * dt)
+    size = np.broadcast_to(np.array([4.2, 1.6, 1.5]), centers.shape).copy()
+    points, valid = _raycast_scene(
+        rng, f, n_beams, n_points // n_beams, centers, size,
+        max_range, n_clutter, dropout,
+    )
+    gt = {
+        "center": centers.astype(np.float32),
+        "size": size.astype(np.float32),
+        "yaw": np.zeros((f, v), np.float32),
     }
     return points, gt, valid

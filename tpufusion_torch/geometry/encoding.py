@@ -1,11 +1,12 @@
-"""Per-pixel angles and back-projected points (counterpart of
-`tpufusion/geometry/encoding.py::pixel_angles` / `pixel_points`).
+"""Per-pixel angles, back-projected points and rotations (counterpart of
+`tpufusion/geometry/encoding.py::pixel_angles`, `pixel_points` and
+`pixel_rotations`).
 
   theta = (col + X_MIN) * res_h ;  phi = (row + Y_MIN) * res_v
   p     = (d cos theta, -d sin theta, height)
+  R     = Rz(theta) @ Ry(phi)
 
-`pixel_rotations` (the "head" center) and the label codecs wait for
-later slices (ROADMAP Queue 1).
+The label codecs wait for the training slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from tpufusion.config import RangeViewSpec
+from tpufusion_torch.geometry.boxes import rot_y, rot_z
 
 
 def pixel_angles(
@@ -33,3 +35,11 @@ def pixel_points(image: torch.Tensor, spec: RangeViewSpec) -> torch.Tensor:
     theta, _ = pixel_angles(spec, image.device)
     d, h = image[..., 0], image[..., 1]
     return torch.stack([d * torch.cos(theta), -d * torch.sin(theta), h], dim=-1)
+
+
+def pixel_rotations(
+    spec: RangeViewSpec, device: torch.device | str = "cpu"
+) -> torch.Tensor:
+    """R = Rz(theta) @ Ry(phi) per pixel: (H, W, 3, 3) float32."""
+    theta, phi = pixel_angles(spec, device)
+    return rot_z(theta) @ rot_y(phi)

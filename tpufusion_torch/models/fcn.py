@@ -9,7 +9,14 @@
     -> cls: deconv5a (vs, 2) relu, crop left crop5, concat conv1,
             deconv6a (vs, 4), crop to W, softmax, clip(1e-7, 1)
     -> reg: deconv5b/6b mirror (linear, or relu for a relu corner head)
-  output (B, H, W, 2 + reg) NHWC
+  output (B, H, W, 2 + reg) NHWC, float32
+
+dtype "bfloat16" computes as flax does with dtype=bf16 and float32
+params: each conv casts its input, kernel and bias to bf16 and adds the
+bias after the convolution, activations stay bf16 between layers, the
+BatchNorm runs on the float32 input, the softmax on d6a cast to float32,
+and the regression output is cast to float32. Parameters stay float32,
+so the same npz loads for either dtype.
 
 Weights keep flax's layouts (kernels HWIO) in the state dict so the npz
 keys and arrays load as they are; the forward maps them to torch's:
@@ -33,6 +40,7 @@ from tpufusion.config import ModelConfig
 
 _KERAS_EPSILON = 1e-7
 _K = 5
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DIRECT_CHANNELS = 8  # geometry/encoding.py: dc(3), lwh(3), sin, cos
 DIRECT_CHANNELS_DUAL = 10
 
@@ -50,6 +58,11 @@ def _transpose_pad(s: int, k: int = _K) -> tuple[int, int]:
     return pad_a, pad_len - pad_a
 
 
+def _bias(bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """flax's `y += bias` after the convolution, in the compute dtype."""
+    return bias.to(x.dtype).view(-1, 1, 1)
+
+
 class Conv(nn.Module):
     """flax nnx.Conv(k=5, padding="SAME"); `kernel` is HWIO."""
 
@@ -59,12 +72,12 @@ class Conv(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(_K, _K, cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW, x's dtype
         (sh, sw), (h, w) = self.strides, x.shape[2:]
         ph, pw = _same_pad(h, sh), _same_pad(w, sw)
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        wt = self.kernel.permute(3, 2, 0, 1)  # OIHW
-        return F.conv2d(x, wt, self.bias, stride=self.strides)
+        wt = self.kernel.to(x.dtype).permute(3, 2, 0, 1)  # OIHW
+        return F.conv2d(x, wt, stride=self.strides) + _bias(self.bias, x)
 
 
 class ConvTranspose(nn.Module):
@@ -88,7 +101,8 @@ class ConvTranspose(nn.Module):
         z[:, :, ::sh, ::sw] = x
         ph, pw = _transpose_pad(sh), _transpose_pad(sw)
         z = F.pad(z, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(z, self.kernel.permute(3, 2, 0, 1), self.bias)
+        wt = self.kernel.to(x.dtype).permute(3, 2, 0, 1)
+        return F.conv2d(z, wt) + _bias(self.bias, x)
 
 
 class BatchNorm(nn.Module):
@@ -117,12 +131,10 @@ class FCN(nn.Module):
                 "SampleWiseBN is not ported yet (ROADMAP Queue 1: training "
                 "and the keras import)"
             )
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"FCN dtype {cfg.dtype!r} is not ported yet (ROADMAP Queue 1: "
-                "bf16 FCN); use float32"
-            )
+        if cfg.dtype not in _DTYPES:
+            raise ValueError(f"unknown FCN dtype {cfg.dtype!r}")
         self.cfg = cfg
+        self.compute_dtype = _DTYPES[cfg.dtype]
         vs = cfg.vertical_stride
         wm = cfg.width_multiplier
         if cfg.batch_norm:
@@ -153,7 +165,7 @@ class FCN(nn.Module):
         x = x.to(torch.float32).permute(0, 3, 1, 2)
         if cfg.batch_norm:
             x = self.norm(x)
-        x = F.pad(x, (0, 3))
+        x = F.pad(x, (0, 3)).to(self.compute_dtype)
 
         c1 = F.relu(self.conv1(x))
         c2 = F.relu(self.conv2(c1))
@@ -164,7 +176,7 @@ class FCN(nn.Module):
 
         d5a = F.relu(self.deconv5a(cat4))[:, :, :, crop5:]
         d6a = self.deconv6a(torch.cat([c1, d5a], dim=1))[:, :, :, :w]
-        probs = torch.softmax(d6a, dim=1).clamp(_KERAS_EPSILON, 1.0)
+        probs = torch.softmax(d6a.float(), dim=1).clamp(_KERAS_EPSILON, 1.0)
         if not cfg.use_regression:
             return probs.permute(0, 2, 3, 1).contiguous()
 
@@ -172,4 +184,4 @@ class FCN(nn.Module):
         d6b = self.deconv6b(torch.cat([c1, d5b], dim=1))[:, :, :, :w]
         if cfg.head == "corner" and cfg.reg_output_activation == "relu":
             d6b = F.relu(d6b)  # reference-compat; direct targets are signed
-        return torch.cat([probs, d6b], dim=1).permute(0, 2, 3, 1).contiguous()
+        return torch.cat([probs, d6b.float()], dim=1).permute(0, 2, 3, 1).contiguous()

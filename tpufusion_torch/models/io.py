@@ -1,4 +1,5 @@
-"""npz weight loading (counterpart of `tpufusion/models/io.py`).
+"""npz weight loading (counterpart of `tpufusion/models/io.py`) and the
+detector assets' json settings.
 
 Keys are the '/'-joined nnx state paths the JAX package writes
 (`conv1/kernel`, `norm/mean`, ...), which are also this FCN's state-dict
@@ -7,10 +8,13 @@ keys with '.' for '/'. A missing or extra key raises, as in JAX.
 
 from __future__ import annotations
 
+import dataclasses
+import json
+
 import numpy as np
 import torch
 
-from tpufusion.config import ModelConfig
+from tpufusion.config import DecodeConfig, ModelConfig
 from tpufusion_torch.models.fcn import FCN
 
 
@@ -26,7 +30,7 @@ def load_arrays(model: torch.nn.Module, arrays: dict[str, np.ndarray]) -> None:
             v = np.asarray(arrays[k.replace(".", "/")])
             if tuple(v.shape) != tuple(t.shape):
                 raise ValueError(f"{k}: shape {v.shape} != model {tuple(t.shape)}")
-            t.copy_(torch.from_numpy(v.astype(np.float32, copy=False)))
+            t.copy_(torch.tensor(v, dtype=torch.float32))
 
 
 def fcn_from_arrays(
@@ -41,3 +45,15 @@ def load_state_npz(path: str, model: torch.nn.Module) -> None:
     """Loads weights saved by tpufusion.models.io.save_state_npz."""
     with np.load(path) as z:
         load_arrays(model, {k: z[k] for k in z.files})
+
+
+def asset_configs(path: str) -> tuple[ModelConfig, DecodeConfig]:
+    """A detector asset's settings: the "model" and "decode" entries of
+    `path + ".json"` over the config defaults (as the reference's
+    benchmarks read them)."""
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    return (
+        dataclasses.replace(ModelConfig(), **meta.get("model", {})),
+        dataclasses.replace(DecodeConfig(), **meta.get("decode", {})),
+    )

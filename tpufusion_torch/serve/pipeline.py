@@ -1,6 +1,7 @@
 """Online inference facade (counterpart of `tpufusion/serve/pipeline.py::
 LidarPipeline`): one fused step (projection + FCN + decode) behind a
-`predict_position(points)` call.
+`predict_position(points)` call, plus the reference's `fake_predict`
+(the cloud's mean, for smoke-testing transports without weights).
 
 Unlike the reference facade, the step is built with the model's own head
 (`head=cfg.model.head`), so a direct-head asset decodes through the
@@ -9,15 +10,12 @@ direct decode.
 
 from __future__ import annotations
 
-import dataclasses
-import json
-
 import numpy as np
 import torch
 
-from tpufusion.config import DEFAULT, DecodeConfig, ModelConfig, PipelineConfig
+from tpufusion.config import DEFAULT, PipelineConfig
 from tpufusion_torch.models.fcn import FCN
-from tpufusion_torch.models.io import load_state_npz
+from tpufusion_torch.models.io import asset_configs, load_state_npz
 from tpufusion_torch.predict import make_e2e_step
 
 
@@ -43,10 +41,7 @@ class LidarPipeline:
         """A detector asset: weights `path` (.npz) plus `path + ".json"`,
         whose "model" and "decode" entries override the config defaults.
         An unreadable or mismatched asset raises."""
-        with open(path + ".json") as f:
-            meta = json.load(f)
-        mcfg = dataclasses.replace(ModelConfig(), **meta.get("model", {}))
-        dcfg = dataclasses.replace(DecodeConfig(), **meta.get("decode", {}))
+        mcfg, dcfg = asset_configs(path)
         cfg = DEFAULT.replace(model=mcfg, decode=dcfg)
         model = FCN(mcfg, in_channels=3)
         load_state_npz(path, model)
@@ -66,3 +61,8 @@ class LidarPipeline:
         pts, valid = self._pad(np.asarray(points, np.float32))
         pose, found = self._step(pts[None], valid[None])
         return pose[0].cpu().numpy(), bool(found[0])
+
+    @staticmethod
+    def fake_predict(points: np.ndarray) -> np.ndarray:
+        """Mean of the cloud — the reference node's fake_model."""
+        return np.asarray(points, np.float64)[:, :3].mean(axis=0)
