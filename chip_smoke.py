@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 It builds both CUDA kernels from the checkout's sources, holds each
-against its plain PyTorch version on the card, and drives the lidar
-detector's serving paths at full geometry (32 x 1801 range view) through
+against its plain PyTorch version on the card (phases 2-3: real inputs
+and the adversarial ones of `tpufusion_torch/ops/parity_inputs.py`, which
+aim at the CC's strip borders and the z-buffer's cluster), and drives the
+lidar detector's serving paths at full geometry (32 x 1801 range view) through
 the entry points a user calls, each with the kernels' launch counts set
 to 0 before it and read after it:
 
@@ -27,12 +29,18 @@ to 0 before it and read after it:
 
 Every answer is held against the committed JAX goldens
 (tests/data/torch_port_golden.npz, tests/data/torch_port_golden_multi.npz);
-times are CUDA events over distinct inputs.
+times are CUDA events over distinct inputs, and for the kernels also
+device time (the kernels' own durations, torch.profiler).
 
 Every phase asserts; a failure raises, so the exit code is non-zero and
 the final line is never printed. Without a CUDA device it exits non-zero
 at once. The last three lines are a JSON object with the per-kernel
-results, the card's `name, power.limit` as nvidia-smi reports them, and
+results (launches on the driven paths, largest difference from the plain
+version, and at 64 x 32,768 the kernel's, the plain version's and the
+library yardstick's device time in turns, and the kernel's time a call,
+beside the kernel's bound: its bytes at 3.35 TB/s,
+`tpufusion_torch/kernel_bench.py`), the card's
+`name, power.limit` as nvidia-smi reports them, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -49,6 +57,15 @@ import time
 import numpy as np
 import torch
 
+from tpufusion_torch.kernel_bench import (
+    cc_bound_ms,
+    device_ms,
+    scatter_amin_yardstick,
+    time_ms,
+    time_turns,
+    zbuffer_bound_ms,
+)
+
 BATCH = 64  # frames per batch on the e2e path and the corner row
 N_POINTS = 32768  # points per frame
 REQUESTS = 8  # single-frame requests the server answers
@@ -58,6 +75,7 @@ C5_POINTS = 131072  # config 5: points per frame (64 beams x 2,048 azimuths)
 C5_BEAMS = 64
 C5_TIMED = 6  # config 5: distinct batches per timing
 TRACK_FRAMES = 16  # config 5's tracking sequence (two vehicles, 32,768 points)
+SWEEP_CAP = 16384  # plain CC sweeps: the serpentines need ~9,000 to converge
 # card vs JAX-on-CPU golden (CUDA atan2f/sinf/cosf ulps), poses from the
 # bf16 FCN included: they read 3.8e-6 on an H100, and rounding each bf16
 # convolution once instead of twice (a fault) moves them 3.7e-3
@@ -79,31 +97,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, inputs, warmup: int = 2) -> float:
-    """Mean ms per call over distinct inputs, between CUDA events."""
-    for x in inputs[:warmup]:
-        fn(x)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for x in inputs:
-        fn(x)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / len(inputs)
-
-
-def time_pair(kernel, plain, inputs) -> tuple[float, float]:
-    """Kernel and plain version timed in turns (plain, kernel, kernel,
-    plain) on the same inputs; the mean of each pair."""
-    p1 = time_ms(plain, inputs)
-    k1 = time_ms(kernel, inputs)
-    k2 = time_ms(kernel, inputs)
-    p2 = time_ms(plain, inputs)
-    return (k1 + k2) / 2, (p1 + p2) / 2
 
 
 def drive(label: str, fn, totals: dict[str, int]):
@@ -204,7 +197,7 @@ def phase_config5(dev, spec, gm, models, dcfg, totals):
     """Phase 7: config 5 (bf16, top-4, 16 x 131,072 points at 64 beams,
     then the tracker on a 16-frame two-vehicle sequence). Returns the
     step and the sequence's (poses, found) on the host."""
-    from tpufusion.eval.scoring import score_multi_poses
+    from tpufusion_torch.eval.scoring import score_multi_poses
     from tpufusion_torch.data.synthetic import (
         synthesize_beam_scan_batch,
         synthesize_beam_tracking_sequence,
@@ -333,6 +326,45 @@ def phase_assets(dev, spec, gm):
                     poses, found, gm[f"{tag}_poses"], gm[f"{tag}_found"])
 
 
+def kernel_turns(spec, zargs, masks, dcfg) -> dict:
+    """Both kernels timed in turns with their plain versions (and the
+    z-buffer with its library yardstick, `scatter_reduce_` "amin" into a
+    filled grid) on distinct inputs, as device time (the kernels' own
+    durations) and as time a call (CUDA events, the host's launch work
+    included), beside their bounds from the same inputs:
+    {"z": {...}, "cc": {...}}, times in ms, "<fn>_call" for a call's."""
+    from tpufusion_torch.ops import cc, components, projection
+
+    p = spec.height * spec.width
+    yard = [scatter_amin_yardstick(*a[:3], p) for a in zargs]
+    zfns = {
+        "kernel": lambda i: projection.nearest_wins_image(*zargs[i], spec),
+        "plain": lambda i: projection.nearest_wins_image_reference(*zargs[i], spec),
+        "library": lambda i: yard[i](),
+    }
+    cfns = {
+        "kernel": lambda m: cc.connected_components_with_bbox(m, dcfg.max_cc_iters),
+        "plain": lambda m: components.connected_components_with_bbox(m, dcfg.max_cc_iters),
+    }
+    out = {}
+    for name, fns, inputs in (("z", zfns, list(range(len(zargs)))), ("cc", cfns, masks)):
+        out[name] = time_turns(fns, inputs, device_ms)
+        out[name].update({f"{k}_call": v for k, v in time_turns(fns, inputs).items()})
+    out["z"]["bound"] = float(np.mean([zbuffer_bound_ms(*a[:3], p) for a in zargs]))
+    out["cc"]["bound"] = float(np.mean([cc_bound_ms(m) for m in masks]))
+    return out
+
+
+def turns_line(t: dict) -> str:
+    z, c = t["z"], t["cc"]
+    return (f"device time (a call): z-buffer kernel {z['kernel']:.4f} ({z['kernel_call']:.4f}) "
+            f"ms, plain {z['plain']:.4f} ({z['plain_call']:.4f}) ms, library scatter_reduce_ "
+            f"{z['library']:.4f} ({z['library_call']:.4f}) ms, bound {z['bound']:.4f} ms, "
+            f"kernel at {z['bound'] / z['kernel']:.1%} of it; CC kernel {c['kernel']:.4f} "
+            f"({c['kernel_call']:.4f}) ms, plain {c['plain']:.4f} ({c['plain_call']:.4f}) ms, "
+            f"bound {c['bound']:.4f} ms, kernel at {c['bound'] / c['kernel']:.1%} of it")
+
+
 def phase_times(dev, spec, models, dcfg, c5_step, cstep, cmodel, seq, batches,
                 images64, card):
     """Phase 10: times on the card, CUDA events over distinct inputs."""
@@ -384,13 +416,7 @@ def phase_times(dev, spec, models, dcfg, c5_step, cstep, cmodel, seq, batches,
         log(f"phase 10 parity at {C5_POINTS} points per frame: z-buffer "
             f"bit-identical {z_same}; CC labels + extents equal {cc_same}")
         assert z_same and cc_same, "a kernel differs from its plain version"
-        z_ms, z_plain = time_pair(
-            lambda a: projection.nearest_wins_image(*a, spec),
-            lambda a: projection.nearest_wins_image_reference(*a, spec), zargs)
-        cc_ms, cc_plain = time_pair(
-            lambda m: cc.connected_components_with_bbox(m, dcfg.max_cc_iters),
-            lambda m: components.connected_components_with_bbox(m, dcfg.max_cc_iters),
-            masks)
+        zt = kernel_turns(spec, zargs, masks, dcfg)
         torch.cuda.reset_peak_memory_stats()
         corner_ms = time_ms(lambda pv: cstep(*pv), batches)
         corner_peak = torch.cuda.max_memory_allocated() / 2**20
@@ -421,9 +447,7 @@ def phase_times(dev, spec, models, dcfg, c5_step, cstep, cmodel, seq, batches,
     log(f"  FCN float32 vs bf16: {b64} x 32 x 1801 {fcn[('64', 'float32')]:.3f} vs "
         f"{fcn[('64', 'bfloat16')]:.3f} ms; {C5_BATCH} x 32 x 1801 (131,072-point "
         f"frames) {fcn[('c5', 'float32')]:.3f} vs {fcn[('c5', 'bfloat16')]:.3f} ms {where}")
-    log(f"  at {C5_POINTS} points per frame ({C5_BATCH} frames): z-buffer kernel "
-        f"{z_ms:.4f} ms vs plain {z_plain:.4f} ms; CC kernel {cc_ms:.4f} ms vs "
-        f"plain {cc_plain:.4f} ms {where}")
+    log(f"  at {C5_POINTS} points per frame ({C5_BATCH} frames): {turns_line(zt)} {where}")
     log(f"  tracker (host, PoseTracker.run_multi, {len(seq[0])} frames x top-4, "
         f"{reps} runs): {track_ms:.4f} ms/frame")
 
@@ -442,7 +466,7 @@ def main() -> int:
         _frame_pixels_keys,
         range_view_project_batch,
     )
-    from tpufusion_torch.ops import cc, components, projection
+    from tpufusion_torch.ops import cc, components, parity_inputs, projection
     from tpufusion_torch.predict import make_e2e_step
     from tpufusion_torch.serve.pipeline import LidarPipeline
 
@@ -500,6 +524,17 @@ def main() -> int:
         log(f"phase 2 z-buffer {label}: bit-identical to plain = {same}, "
             f"max |diff| = {proj_err}")
         assert same, f"z-buffer kernel differs from its plain version ({label})"
+    for b, n, kinds in parity_inputs.ZBUFFER_SHAPES:
+        args = [torch.from_numpy(a).to(dev) for a in parity_inputs.zbuffer_args(
+            b, n, spec.height * spec.width, kinds=kinds)]
+        got = projection.nearest_wins_image(*args, spec)
+        want = projection.nearest_wins_image_reference(*args, spec)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        proj_err = max(proj_err, float((got - want).abs().max()))
+        log(f"phase 2 z-buffer adversarial {b}x{n} ({', '.join(kinds)}): "
+            f"bit-identical to plain = {same}")
+        assert same, f"z-buffer kernel differs from its plain version ({b}x{n} {kinds})"
 
     # -- phase 3: CC kernel vs the plain sweeps ----------------------------
     pipe = LidarPipeline.from_asset(ASSET, dev)
@@ -518,16 +553,19 @@ def main() -> int:
         )
         heat = heat_mask(model(scan_imgs)[..., 1], dcfg)
     cc_err = 0
-    for label, mask in (("densities 0/0.05/0.4 + seam blob",
-                         torch.from_numpy(np.stack(synth)).to(dev)),
-                        (f"asset heat masks x{BATCH}", heat)):
+    cases = [("densities 0/0.05/0.4 + seam blob", torch.from_numpy(np.stack(synth)).to(dev)),
+             (f"asset heat masks x{BATCH}", heat)] + [
+        (f"adversarial x{b} ({', '.join(parity_inputs.cc_frames()) if b > 1 else 'serpentine'})",
+         torch.from_numpy(parity_inputs.cc_batch(b)).to(dev))
+        for b in parity_inputs.CC_BATCHES]
+    for label, mask in cases:
         before = cc.LAUNCHES
         got = cc.connected_components_with_bbox(mask, dcfg.max_cc_iters, dcfg.cc_impl)
-        _, sweeps = components.propagate(components.init_state(mask), mask, 4096)
-        want = components.connected_components_with_bbox(mask, 4096)
+        _, sweeps = components.propagate(components.init_state(mask), mask, SWEEP_CAP)
+        want = components.connected_components_with_bbox(mask, SWEEP_CAP)
         torch.cuda.synchronize()
         assert cc.LAUNCHES == before + 1, "CC kernel not launched"
-        assert int(sweeps.max()) < 4096, "plain sweeps did not converge"
+        assert int(sweeps.max()) < SWEEP_CAP, "plain sweeps did not converge"
         same = torch.equal(got[0], want[0]) and all(
             torch.equal(g[mask], w[mask]) for g, w in zip(got[1:], want[1:])
         )
@@ -609,13 +647,7 @@ def main() -> int:
         fcn_ms = time_ms(model, images)
         dec_ms = time_ms(lambda ip: decode_batch_direct(ip[1], ip[0], spec, dcfg),
                          list(zip(images, preds)))
-        k1_ms, k1_plain = time_pair(
-            lambda a: projection.nearest_wins_image(*a, spec),
-            lambda a: projection.nearest_wins_image_reference(*a, spec), zargs)
-        k2_ms, k2_plain = time_pair(
-            lambda m: cc.connected_components_with_bbox(m, dcfg.max_cc_iters),
-            lambda m: components.connected_components_with_bbox(m, dcfg.max_cc_iters),
-            masks)
+        kt = kernel_turns(spec, zargs, masks, dcfg)
     for r in requests[:3]:
         pipe.predict_position(r)  # warm-up
     lat = []
@@ -629,9 +661,8 @@ def main() -> int:
     log(f"  e2e: {e2e_ms:.3f} ms/batch = {BATCH * 1e3 / e2e_ms:.1f} frames/s; "
         f"peak device memory {peak_mb:.0f} MiB {where}")
     log(f"  stages: projection {proj_ms:.3f} ms, FCN {fcn_ms:.3f} ms, decode "
-        f"{dec_ms:.3f} ms (CC inside the decode {k2_ms:.3f} ms) {where}")
-    log(f"  z-buffer kernel {k1_ms:.4f} ms vs plain {k1_plain:.4f} ms; "
-        f"CC kernel {k2_ms:.4f} ms vs plain {k2_plain:.4f} ms {where}")
+        f"{dec_ms:.3f} ms (CC inside the decode {kt['cc']['kernel_call']:.3f} ms a call) {where}")
+    log(f"  {turns_line(kt)} {where}")
     log(f"  single-frame request (host clock, {len(lat)} requests): p50 "
         f"{np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms {where}")
 
@@ -645,17 +676,21 @@ def main() -> int:
     phase_times(dev, spec, models, adcfg, c5_step, cstep, cmodel,
                 (seq_poses, seq_found), batches, images, card)
 
+    z, c = kt["z"], kt["cc"]
     kernels = [
         {"name": "nearest_wins_image", "route": "cuda",
          "source": "tpufusion_torch/csrc/nearest_wins.cu",
          "replaces": "tpufusion/ops/pallas_projection.py:146",
          "launches": totals["nearest_wins_image"], "max_abs_err": proj_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "ms": z["kernel"], "plain_ms": z["plain"], "bound_ms": z["bound"],
+         "bound_by": "bytes", "library_ms": z["library"], "call_ms": z["kernel_call"]},
         {"name": "connected_components_with_bbox", "route": "cuda",
          "source": "tpufusion_torch/csrc/components.cu",
          "replaces": "tpufusion/ops/pallas_cc.py:102",
          "launches": totals["connected_components_with_bbox"],
-         "max_abs_err": cc_err, "ms": k2_ms, "plain_ms": k2_plain},
+         "max_abs_err": cc_err, "ms": c["kernel"], "plain_ms": c["plain"],
+         "bound_ms": c["bound"], "bound_by": "bytes", "library_ms": None,
+         "call_ms": c["kernel_call"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

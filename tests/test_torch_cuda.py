@@ -8,7 +8,9 @@ it runs on a machine with the card but without JAX:
 
 (--noconftest: tests/conftest.py imports jax; the file imports nothing
 from the tests directory either, whose name another installed package may
-shadow.) Tolerance: none — both kernels compute exact integer answers;
+shadow.) The adversarial kernel inputs are
+`tpufusion_torch/ops/parity_inputs.py`'s, which chip_smoke.py phases 2-3
+run too. Tolerance: none — both kernels compute exact integer answers;
 1e-3 on float32 poses against the JAX goldens (CUDA's atan2f / sinf /
 cosf differ by ulps from the CPU's), poses from the bf16 FCN included
 (they read 3.8e-6 on an H100); the bf16 FCN's own output within
@@ -36,7 +38,7 @@ from tpufusion_torch.decode import decode
 from tpufusion_torch.geometry.range_view import _frame_pixels_keys, range_view_project_batch
 from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.models.io import asset_configs, load_state_npz
-from tpufusion_torch.ops import cc, components, projection
+from tpufusion_torch.ops import cc, components, parity_inputs, projection
 from tpufusion_torch.predict import make_e2e_step
 from tpufusion_torch.serve.pipeline import LidarPipeline
 
@@ -84,6 +86,23 @@ def test_projection_kernel_is_bit_identical(cuda_device):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize(
+    "batch,n,kinds", parity_inputs.ZBUFFER_SHAPES,
+    ids=[f"{b}x{n}-{k[0] if len(k) == 1 else 'mixed'}"
+         for b, n, k in parity_inputs.ZBUFFER_SHAPES],
+)
+def test_projection_kernel_adversarial_inputs(cuda_device, batch, n, kinds):
+    """A whole frame in one pixel, exact-key ties, invalid points with
+    garbage ids, an empty frame, points all in one cluster CTA's slice."""
+    p = SPEC.height * SPEC.width
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in parity_inputs.zbuffer_args(batch, n, p, kinds=kinds)]
+    got = projection.nearest_wins_image(*args, SPEC)
+    want = projection.nearest_wins_image_reference(*args, SPEC)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_projection_kernel_rejects_bad_inputs(cuda_device):
     pix, key, ok, payload = _proj_inputs(cuda_device)
     with pytest.raises(ValueError, match="int32"):
@@ -116,6 +135,27 @@ def test_cc_kernel_matches_twin(cuda_device):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("batch", parity_inputs.CC_BATCHES)
+def test_cc_kernel_adversarial_masks(cuda_device, batch):
+    """Full foreground, serpentines across every strip border, a comb and
+    stripes on the border columns, a checkerboard, blobs at columns 0 and
+    1800, the ragged last strip, frame b's last strip beside frame b+1's
+    first; the plain sweeps run to convergence."""
+    mask = torch.from_numpy(parity_inputs.cc_batch(batch)).to(cuda_device)
+    got = cc.connected_components_with_bbox(mask)
+    _, sweeps = components.propagate(components.init_state(mask), mask, 16384)
+    want = components.connected_components_with_bbox(mask, 16384)
+    torch.cuda.synchronize()
+    assert int(sweeps.max()) < 16384  # the plain sweeps converged
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g[mask], w[mask])
+    big = components._BIG
+    bg = ~mask
+    assert (got[1][bg] == big).all() and (got[2][bg] == -big).all()
+    assert (got[3][bg] == big).all() and (got[4][bg] == -big).all()
+
+
 def test_cc_kernel_rejects_bad_inputs(cuda_device):
     mask = torch.zeros((2, 32, 181), dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError, match="bool"):
@@ -124,6 +164,9 @@ def test_cc_kernel_rejects_bad_inputs(cuda_device):
         cc.connected_components_with_bbox(mask.transpose(1, 2))
     with pytest.raises(ValueError, match="impl"):
         cc.connected_components_with_bbox(mask, 128, "scan")
+    with pytest.raises(ValueError, match="H <= 32"):  # a strip holds 32 rows
+        cc.connected_components_with_bbox(torch.zeros((1, 33, 64), dtype=torch.bool,
+                                                      device=cuda_device))
 
 
 def test_main_path_runs_both_kernels_and_matches_golden(cuda_device):

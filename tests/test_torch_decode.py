@@ -25,15 +25,17 @@ from tests.torch_golden import (
     jax_asset_model,
     jax_beam_scans,
     jax_forward,
+    to_jax_config,
     wrapped_pose_diff,
 )
-from tpufusion.config import DecodeConfig, RangeViewSpec
 from tpufusion.decode import decode as jd
 from tpufusion.geometry.encoding import pixel_points
 from tpufusion.geometry.range_view import range_view_project_batch
+from tpufusion_torch import DecodeConfig, RangeViewSpec
 from tpufusion_torch.decode import decode as td
 
 SPEC = RangeViewSpec()
+JSPEC = to_jax_config(SPEC)  # the JAX side gets its own config classes
 _jax_decode = jax.jit(jd.decode_batch_direct, static_argnums=(2, 3, 4))
 _jax_heat = jax.jit(jax.vmap(jd._heat_components, in_axes=(0, None)), static_argnums=1)
 
@@ -43,7 +45,7 @@ def frames():
     """Four beam-scan frames: JAX images and the asset's JAX FCN output."""
     pts, valid = jax_beam_scans(0, 4)
     images = np.array(
-        range_view_project_batch(jnp.asarray(pts), SPEC, jnp.asarray(valid))
+        range_view_project_batch(jnp.asarray(pts), JSPEC, jnp.asarray(valid))
     )
     return images, jax_forward(jax_asset_model(), images)
 
@@ -67,7 +69,7 @@ DECODE_CFGS = {
 def test_decode_matches_jax(frames, name):
     images, preds = frames
     cfg = DECODE_CFGS[name]()
-    want = _jax_decode(jnp.asarray(preds), jnp.asarray(images), SPEC, cfg, 1)
+    want = _jax_decode(jnp.asarray(preds), jnp.asarray(images), JSPEC, to_jax_config(cfg), 1)
     got = td.decode_batch_direct(
         torch.from_numpy(preds), torch.from_numpy(images), SPEC, cfg, 1
     )
@@ -85,7 +87,7 @@ def test_heat_components_match_jax(frames, name):
     images, preds = frames
     cfg = DECODE_CFGS[name]()
     got = [t.numpy() for t in td._heat_components(torch.from_numpy(preds[..., 1]), cfg)]
-    wants = [np.asarray(x) for x in _jax_heat(jnp.asarray(preds[..., 1]), cfg)]
+    wants = [np.asarray(x) for x in _jax_heat(jnp.asarray(preds[..., 1]), to_jax_config(cfg))]
     for b in range(len(preds)):
         want = [w[b] for w in wants]
         mask = want[0]
@@ -112,7 +114,8 @@ def test_back_projection_fallback_matches_jax(frames):
     for b in range(len(img)):
         xyz, c2, ok = jd.back_project_2d_to_3d(
             jnp.asarray(centroid[b]), jnp.asarray(bbox[b]),
-            jnp.asarray(img[b, ..., 0]), jnp.asarray(img[b, ..., 1]), SPEC, cfg,
+            jnp.asarray(img[b, ..., 0]), jnp.asarray(img[b, ..., 1]), JSPEC,
+            to_jax_config(cfg),
         )
         np.testing.assert_array_equal(got[1][b].numpy(), np.asarray(c2))
         assert bool(got[2][b]) == bool(ok)
@@ -139,7 +142,7 @@ def two_vehicle_frames():
         pts = np.concatenate([z["multi_points"][:1], z["ell_points"][:1]])
         valid = np.concatenate([z["multi_valid"][:1], z["ell_valid"][:1]])
     images = np.array(
-        range_view_project_batch(jnp.asarray(pts), SPEC, jnp.asarray(valid))
+        range_view_project_batch(jnp.asarray(pts), JSPEC, jnp.asarray(valid))
     )
     return {
         "asset": (images, jax_forward(jax_asset_model(), images)),
@@ -152,7 +155,7 @@ def _mixed(**change):
 
 
 def _check(images, preds, cfg, k):
-    want = _jax_decode(jnp.asarray(preds), jnp.asarray(images), SPEC, cfg, k)
+    want = _jax_decode(jnp.asarray(preds), jnp.asarray(images), JSPEC, to_jax_config(cfg), k)
     got = td.decode_batch_direct(
         torch.from_numpy(preds), torch.from_numpy(images), SPEC, cfg, k
     )
@@ -213,7 +216,7 @@ def test_silhouette_quantiles_match_jax(frames, n_points):
     pixels (raster order) of the first frame's largest cluster."""
     images, preds = frames
     img = images[:1]
-    heat = _jax_heat(jnp.asarray(preds[:1, ..., 1]), _asset())
+    heat = _jax_heat(jnp.asarray(preds[:1, ..., 1]), to_jax_config(_asset()))
     mask, labels = np.asarray(heat[0])[0], np.asarray(heat[1])[0]
     valid = (img[0, ..., 0] > 0) & (img[0, ..., 1] > SPEC.min_height)
     roots, counts = np.unique(labels[mask & valid], return_counts=True)
@@ -221,14 +224,14 @@ def test_silhouette_quantiles_match_jax(frames, n_points):
     assert members.sum() >= 60
     cluster = np.zeros_like(members)
     cluster.flat[np.flatnonzero(members)[:n_points]] = True
-    seed = np.asarray(pixel_points(jnp.asarray(img[0]), SPEC))[members].mean(axis=0)
+    seed = np.asarray(pixel_points(jnp.asarray(img[0]), JSPEC))[members].mean(axis=0)
     # a ray 45 degrees off the heading weighs both box axes' quantiles
     yaw = np.float32(np.arctan2(seed[1], seed[0]) - np.pi / 4)
     lwh = np.array([4.2, 1.6, 1.5], np.float32)
     want = np.asarray(
         jd._silhouette_center(
-            jnp.asarray(preds[0]), jnp.asarray(img[0]), jnp.asarray(cluster), SPEC,
-            _asset(), jnp.asarray(yaw), jnp.asarray(lwh), jnp.asarray(seed),
+            jnp.asarray(preds[0]), jnp.asarray(img[0]), jnp.asarray(cluster), JSPEC,
+            to_jax_config(_asset()), jnp.asarray(yaw), jnp.asarray(lwh), jnp.asarray(seed),
         )
     )
     got = td._silhouette_center(

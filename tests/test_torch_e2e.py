@@ -25,7 +25,7 @@ from tests.torch_golden import (
     jax_beam_scans,
     jax_e2e,
 )
-from tpufusion.config import RangeViewSpec
+from tpufusion_torch import RangeViewSpec
 from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
 from tpufusion_torch.geometry.range_view import range_view_project_batch
 from tpufusion_torch.predict import make_e2e_step
@@ -106,14 +106,14 @@ def test_port_matches_golden_on_cpu(pipeline):
 def test_port_imports_no_jax():
     """The port, driven through its paths (the server, the bf16 top-4
     step, the tracker and scoring, the corner head, predict_images),
-    never loads jax or flax."""
+    never loads jax, flax or the JAX package."""
     code = textwrap.dedent(
         """
         import dataclasses, sys
         import numpy as np
         import torch
         torch.set_num_threads(2)  # beside the test workers
-        from tpufusion.eval.scoring import score_multi_poses
+        from tpufusion_torch.config import DEFAULT
         from tpufusion_torch.data.synthetic import (
             synthesize_beam_scan_batch, synthesize_beam_tracking_sequence)
         from tpufusion_torch.models.fcn import FCN
@@ -121,7 +121,7 @@ def test_port_imports_no_jax():
         from tpufusion_torch.predict import make_e2e_step, predict_images
         from tpufusion_torch.serve.pipeline import LidarPipeline
         from tpufusion_torch.serve.tracker import PoseTracker, track_quality_metrics
-        from tpufusion.config import DEFAULT
+        from tpufusion_torch.eval.scoring import score_multi_poses
         from tpufusion_torch import DecodeConfig, ModelConfig, RangeViewSpec
         pipe = LidarPipeline.from_asset(sys.argv[1], "cpu")
         points, _, valid = synthesize_beam_scan_batch(np.random.default_rng(0), 1)
@@ -141,7 +141,8 @@ def test_port_imports_no_jax():
                       max_obstacles=2)(seq[:1], sv[:1])
         images = np.zeros((1, 32, 1801, 3), np.float32)
         predict_images(corner, images, DEFAULT, 1)
-        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "flax", "tpufusion"))
         assert not loaded, loaded
         print("NO_JAX_OK", found)
         """

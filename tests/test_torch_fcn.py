@@ -30,11 +30,12 @@ from tests.torch_golden import (
     jax_forward,
     load_npz,
     port_asset_model,
+    to_jax_config,
 )
-from tpufusion.config import ModelConfig, RangeViewSpec
 from tpufusion.geometry.range_view import range_view_project_batch
 from tpufusion.models.fcn import FCN as JaxFCN
 from tpufusion.models.io import save_state_npz
+from tpufusion_torch import ModelConfig, RangeViewSpec
 from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.models.io import fcn_from_arrays, load_state_npz
 
@@ -54,7 +55,9 @@ def _golden_images():
     with np.load(GOLDEN) as z:
         pts, valid = z["points"], z["valid"]
     return np.array(
-        range_view_project_batch(jnp.asarray(pts), RangeViewSpec(), jnp.asarray(valid))
+        range_view_project_batch(
+            jnp.asarray(pts), to_jax_config(RangeViewSpec()), jnp.asarray(valid)
+        )
     )
 
 
@@ -94,7 +97,7 @@ def test_fcn_random_corner_head_width_201_matches_jax(tmp_path):
     channels) on the 32 x 201 geometry of RangeViewSpec(res_h_deg=1.8)."""
     spec = RangeViewSpec(res_h_deg=1.8)
     cfg = ModelConfig()
-    jax_model = JaxFCN(cfg, in_channels=3, rngs=nnx.Rngs(1))
+    jax_model = JaxFCN(to_jax_config(cfg), in_channels=3, rngs=nnx.Rngs(1))
     save_state_npz(str(tmp_path / "m.npz"), jax_model)
     port = FCN(cfg)
     load_state_npz(str(tmp_path / "m.npz"), port)

@@ -35,13 +35,14 @@ from tests.torch_golden import (
     jax_model_from_arrays,
     load_npz,
     port_asset_model,
+    to_jax_config,
     wrapped_pose_diff,
 )
-from tpufusion.config import DEFAULT, DecodeConfig, ModelConfig, RangeViewSpec
 from tpufusion.decode import decode as jd
 from tpufusion.geometry.range_view import range_view_project_batch as jax_project
 from tpufusion.predict import predict_images as jax_predict_images
 from tpufusion_torch._golden import BF16_REG_DIFFER_SHARE, bf16_fcn_readings
+from tpufusion_torch.config import DEFAULT, DecodeConfig, ModelConfig, RangeViewSpec
 from tpufusion_torch.data.synthetic import (
     synthesize_beam_multi_vehicle_batch,
     synthesize_beam_scan_batch,
@@ -55,6 +56,7 @@ from tpufusion_torch.predict import make_e2e_step, predict_images
 from tpufusion_torch.serve.tracker import PoseTracker, track_quality_metrics
 
 SPEC = RangeViewSpec()
+JSPEC = to_jax_config(SPEC)  # the JAX side gets its own config classes
 
 
 @pytest.fixture(scope="module")
@@ -212,7 +214,8 @@ def test_corner_decode_intermediates_match_jax(jax_golden):
     y, images = _corner_inputs(jax_golden)
     got = td.decode_batch(y, images, SPEC, DecodeConfig())
     want = jax.jit(jd.decode_batch, static_argnums=(2, 3))(
-        jnp.asarray(y.numpy()), jnp.asarray(images.numpy()), SPEC, DecodeConfig()
+        jnp.asarray(y.numpy()), jnp.asarray(images.numpy()), JSPEC,
+        to_jax_config(DecodeConfig()),
     )
     assert sorted(got) == sorted(want)
     for k in ("found", "centroid_2d", "bbox_2d", "area", "vote_overflow"):
@@ -242,7 +245,7 @@ def test_corner_vote_overflow_keeps_the_scan_order(jax_golden):
         )
         w_pose, w_box, w_ok, w_over = jax_vote(
             jnp.asarray(y.numpy()), jnp.asarray(images.numpy()),
-            jnp.asarray(bbox.numpy()), jnp.asarray(xyz.numpy()), SPEC, cfg,
+            jnp.asarray(bbox.numpy()), jnp.asarray(xyz.numpy()), JSPEC, to_jax_config(cfg),
         )
         np.testing.assert_array_equal(ok[:, 0].numpy(), np.asarray(w_ok))
         np.testing.assert_array_equal(overflow[:, 0].numpy(), np.asarray(w_over))
@@ -313,14 +316,16 @@ def test_predict_images_matches_jax(jax_golden, head):
     one padded)."""
     pts = np.concatenate([jax_golden["multi_points"], jax_golden["ell_points"]])
     valid = np.concatenate([jax_golden["multi_valid"], jax_golden["ell_valid"]])
-    images = np.asarray(jax_project(jnp.asarray(pts), SPEC, jnp.asarray(valid)))
+    images = np.asarray(jax_project(jnp.asarray(pts), JSPEC, jnp.asarray(valid)))
     mcfg, dcfg = asset_configs()
     if head == "corner":
         mcfg, arrays = maker.hybrid_corner_arrays()
     else:
         arrays = load_npz(ASSET)
     cfg = DEFAULT.replace(model=mcfg, decode=dcfg)
-    want_p, want_f = jax_predict_images(jax_model_from_arrays(mcfg, arrays), images, cfg, 2)
+    want_p, want_f = jax_predict_images(
+        jax_model_from_arrays(mcfg, arrays), images, to_jax_config(cfg), 2
+    )
     got_p, got_f = predict_images(fcn_from_arrays(arrays, mcfg), images, cfg, 2)
     assert got_p.shape == (5, 7) and got_p.dtype == np.float32 and got_f.shape == (5,)
     _assert_poses(got_p, got_f, want_p, want_f, POSE_ATOL)
@@ -328,6 +333,7 @@ def test_predict_images_matches_jax(jax_golden, head):
 
 
 def _jax_topk(prob, cfg, k):
+    cfg = to_jax_config(cfg)
     fn = jax.vmap(lambda p: jd.find_obstacles_topk(p, cfg, k))
     return [np.asarray(x) for x in jax.jit(fn)(jnp.asarray(prob))]
 
@@ -357,8 +363,9 @@ def test_topk_order_with_ties_matches_lax_top_k(k):
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
     comps = td._heat_components(torch.from_numpy(prob), cfg)
     idx = td._topk_roots(*comps, cfg, k)[0].numpy()
+    jcfg = to_jax_config(cfg)
     jidx = jax.jit(
-        jax.vmap(lambda p: jd._topk_roots(*jd._heat_components(p, cfg), cfg, k)[0])
+        jax.vmap(lambda p: jd._topk_roots(*jd._heat_components(p, jcfg), jcfg, k)[0])
     )(jnp.asarray(prob))
     np.testing.assert_array_equal(idx, np.asarray(jidx))
     if k == 6:
@@ -371,7 +378,8 @@ def test_find_obstacle_ties_match_jax():
     prob = _blob_frames()
     cfg = DecodeConfig(min_bbox_area=8.0)
     got = td.find_obstacle(torch.from_numpy(prob), cfg)
-    want = jax.jit(jax.vmap(lambda p: jd.find_obstacle(p, cfg)))(jnp.asarray(prob))
+    jcfg = to_jax_config(cfg)
+    want = jax.jit(jax.vmap(lambda p: jd.find_obstacle(p, jcfg)))(jnp.asarray(prob))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
@@ -397,7 +405,7 @@ def _detections(seed=0, frames=20):
 
 
 def test_tracker_matches_jax_module():
-    """The port's tracker is the reference's file: the same detections
+    """The port's copy of the reference's tracker: the same detections
     give identical trails and metrics."""
     from tpufusion.serve import tracker as jt
 

@@ -11,16 +11,16 @@ import pytest
 import torch
 
 from tests.conftest import synthetic_cloud
-from tests.torch_golden import jax_beam_scans
-from tpufusion.config import RangeViewSpec
+from tests.torch_golden import jax_beam_scans, to_jax_config
 from tpufusion.geometry import range_view as jrv
 from tpufusion.ops.scatter import nearest_wins_sort
-from tpufusion_torch import _build
+from tpufusion_torch import RangeViewSpec, _build
 from tpufusion_torch.geometry import range_view as trv
 from tpufusion_torch.ops import projection
 from tpufusion_torch.ops.scatter import _sortable_bits, nearest_wins_reference
 
 SPEC = RangeViewSpec()
+JSPEC = to_jax_config(SPEC)  # the JAX side gets its own config classes
 
 
 def _proj_check_inputs():
@@ -59,7 +59,7 @@ def _port(points, valid=None):
 def _jax(points, valid, method):
     return np.asarray(
         jrv.range_view_project_batch(
-            jnp.asarray(points), SPEC, jnp.asarray(valid), method
+            jnp.asarray(points), JSPEC, jnp.asarray(valid), method
         )
     )
 
@@ -73,7 +73,7 @@ def test_plain_zbuffer_matches_nearest_wins_sort():
     for b in range(len(batch)):
         pts = jnp.asarray(batch[b])
         ok = jnp.all(jnp.isfinite(pts), axis=1) & jnp.asarray(valid[b])
-        row, col, l2 = jrv.project_to_pixels(pts, SPEC)
+        row, col, l2 = jrv.project_to_pixels(pts, JSPEC)
         pix = row * SPEC.width + col
         want_w, want_o = nearest_wins_sort(pix, l2, ok, num_pixels)
         pix_t.append(np.array(pix))
@@ -126,7 +126,7 @@ def test_projection_matches_jax_pallas_interpret():
     odd = batch[1:2, :4097]
     np.testing.assert_array_equal(
         _port(odd),
-        np.asarray(jrv.range_view_project(jnp.asarray(odd[0]), SPEC, None, "pallas"))[None],
+        np.asarray(jrv.range_view_project(jnp.asarray(odd[0]), JSPEC, None, "pallas"))[None],
     )
 
 

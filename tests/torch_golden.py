@@ -2,8 +2,9 @@
 
 The same numpy inputs go through the JAX package (on the CPU, as
 tests/conftest.py forces) and through its counterpart in
-`tpufusion_torch`; arrays cross between the two as numpy. JAX is imported
-inside the functions that need it.
+`tpufusion_torch`; arrays cross between the two as numpy, and configs
+through `to_jax_config` / `to_port_config`, so each framework gets its
+own config classes. JAX is imported inside the functions that need it.
 """
 
 from __future__ import annotations
@@ -51,10 +52,36 @@ if _WORKERS > 1:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
+def _convert(cfg, module):
+    cls = getattr(module, type(cfg).__name__)
+    kw = dataclasses.asdict(cfg)
+    for f in dataclasses.fields(cls):
+        value = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(value):  # asdict made it a dict
+            kw[f.name] = _convert(value, module)
+    return cls(**kw)
+
+
+def to_jax_config(cfg):
+    """A config dataclass (nested ones included) as the JAX package's
+    class of the same name, field by field."""
+    import tpufusion.config
+
+    return _convert(cfg, tpufusion.config)
+
+
+def to_port_config(cfg):
+    """A config dataclass (nested ones included) as the port's class of
+    the same name, field by field."""
+    import tpufusion_torch.config
+
+    return _convert(cfg, tpufusion_torch.config)
+
+
 def asset_configs(asset: str = ASSET):
     """(ModelConfig, DecodeConfig) of a shipped detector asset, from its
-    json, as the JAX benchmarks read it (float32 FCN here). Both
-    frameworks share these tpufusion.config dataclasses."""
+    json, as the JAX benchmarks read it (float32 FCN here), in the port's
+    classes."""
     return models_io.asset_configs(asset)
 
 
@@ -67,14 +94,16 @@ def port_asset_model(asset: str = ASSET, dtype: str = "float32"):
 
 
 def jax_model_from_arrays(mcfg, arrays: dict[str, np.ndarray]):
-    """The JAX FCN of `mcfg` holding npz-style `arrays`. Built abstract and
-    filled (what tpufusion.models.io.load_state_npz stores, without its
-    random init, which costs ~10 s of eager CPU ops)."""
+    """The JAX FCN of `mcfg` (either framework's class) holding npz-style
+    `arrays`. Built abstract and filled (what
+    tpufusion.models.io.load_state_npz stores, without its random init,
+    which costs ~10 s of eager CPU ops)."""
     import jax.numpy as jnp
     from flax import nnx
 
     from tpufusion.models.fcn import FCN
 
+    mcfg = to_jax_config(mcfg)
     graphdef, state = nnx.split(
         nnx.eval_shape(lambda: FCN(mcfg, in_channels=3, rngs=nnx.Rngs(0)))
     )
@@ -134,7 +163,8 @@ def jax_e2e(points: np.ndarray, valid: np.ndarray):
 
 def jax_step(model, dcfg, points, valid, k: int = 1, head: str = "direct"):
     """JAX make_e2e_step(model, dcfg, max_obstacles=k, head=head) on
-    numpy points -> (poses, found) as numpy."""
+    numpy points -> (poses, found) as numpy; `dcfg` in either framework's
+    class."""
     import jax.numpy as jnp
     from flax import nnx
 
@@ -143,7 +173,7 @@ def jax_step(model, dcfg, points, valid, k: int = 1, head: str = "direct"):
 
     graphdef, state = nnx.split(model)
     step = make_e2e_step(
-        graphdef, RangeViewSpec(), dcfg, max_obstacles=k, head=head
+        graphdef, RangeViewSpec(), to_jax_config(dcfg), max_obstacles=k, head=head
     )
     poses, found = step(state, jnp.asarray(points), jnp.asarray(valid))
     return np.asarray(poses), np.asarray(found)

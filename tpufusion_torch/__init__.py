@@ -8,10 +8,11 @@ under `csrc/`, built for sm_90a at first use (`_build.py`) and launched
 through a wrapper that takes the plain PyTorch version only for tensors
 that lie on the CPU.
 
-Ported so far: the lidar serving path, raw points -> range view -> FCN ->
-direct-pose decode -> pose (`predict.make_e2e_step`,
-`serve.pipeline.LidarPipeline`), and a numpy beam-scan generator
-(`data.synthetic`) to feed it where JAX is not installed.
+Ported so far: the lidar detector's serving path, raw points -> range
+view -> FCN (float32 or bf16) -> direct, top-K or corner decode -> poses
+(`predict.make_e2e_step`, `serve.pipeline.LidarPipeline`), the tracker
+(`serve.tracker`), top-K scoring (`eval.scoring`), and numpy beam-scan
+generators (`data.synthetic`) to feed it where JAX is not installed.
 
 Subpackages
 -----------
@@ -20,14 +21,17 @@ ops        nearest-wins z-buffer and connected components (kernel wrappers
            + plain versions)
 models     FCN inference, npz weight loading
 decode     direct-pose decode
-serve      single-frame server facade
+serve      single-frame server facade, multi-frame tracker
+eval       top-K pose scoring
 data       numpy beam-structured synthetic scans
 
-The configuration dataclasses are the reference's own (`tpufusion.config`
-imports neither jax nor flax); nothing in this package imports jax.
+The package imports nothing of the JAX package: it keeps its own copy of
+the configuration dataclasses (`config.py`) and of the numpy modules it
+needs (the tracker, the scoring), and `tests/test_torch_imports.py` holds
+it to that.
 """
 
-from tpufusion.config import (  # noqa: F401
+from tpufusion_torch.config import (  # noqa: F401
     DecodeConfig,
     ModelConfig,
     PipelineConfig,

@@ -43,7 +43,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from tpufusion.config import DecodeConfig, RangeViewSpec
+from tpufusion_torch.config import DecodeConfig, RangeViewSpec
 from tpufusion_torch.geometry.boxes import rot_y, rot_z
 from tpufusion_torch.geometry.encoding import (
     pixel_angles,

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from tpufusion.config import RangeViewSpec
+from tpufusion_torch.config import RangeViewSpec
 from tpufusion_torch.geometry.boxes import rot_y, rot_z
 
 

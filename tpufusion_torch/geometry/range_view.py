@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from tpufusion.config import RangeViewSpec
+from tpufusion_torch.config import RangeViewSpec
 from tpufusion_torch.ops.projection import nearest_wins_image
 from tpufusion_torch.ops.scatter import _sortable_bits
 

@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpufusion.config import ModelConfig
+from tpufusion_torch.config import ModelConfig
 
 _KERAS_EPSILON = 1e-7
 _K = 5

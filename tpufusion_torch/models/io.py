@@ -14,7 +14,7 @@ import json
 import numpy as np
 import torch
 
-from tpufusion.config import DecodeConfig, ModelConfig
+from tpufusion_torch.config import DecodeConfig, ModelConfig
 from tpufusion_torch.models.fcn import FCN
 
 

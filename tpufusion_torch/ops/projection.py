@@ -6,15 +6,15 @@ _gather_image`). `nearest_wins_image` takes what the range view computed
 once in torch — pixel ids, sortable L2 keys, validity, payload — and
 returns the (B, H, W, 3) image. For tensors on the CPU it runs the plain
 version (`nearest_wins_image_reference`); for CUDA tensors it launches the
-kernel, or raises.
+kernel (one launch, one 16-CTA cluster a frame), or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpufusion.config import RangeViewSpec
 from tpufusion_torch import _build
+from tpufusion_torch.config import RangeViewSpec
 from tpufusion_torch.ops.scatter import nearest_wins_reference
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
@@ -81,16 +81,14 @@ def nearest_wins_image(
         if t.device != pix.device:
             raise ValueError("all inputs must be on one device")
     lib = _build.load()
-    grid = torch.full(
-        (b, p), torch.iinfo(torch.int64).max, dtype=torch.int64, device=pix.device
-    )
+    grids = torch.empty((b, p), dtype=torch.int64, device=pix.device)  # the kernel fills it
     img = torch.empty((b, spec.height, spec.width, 3), dtype=torch.float32,
                       device=pix.device)
     with torch.cuda.device(pix.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tf_nearest_wins_image(
             pix.data_ptr(), key_bits.data_ptr(), valid.data_ptr(),
-            payload.data_ptr(), grid.data_ptr(), img.data_ptr(),
+            payload.data_ptr(), grids.data_ptr(), img.data_ptr(),
             b, n, p, float(spec.min_height), stream,
         )
     _build.check(lib, err, "nearest_wins_image")

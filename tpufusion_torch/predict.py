@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpufusion.config import DEFAULT, DecodeConfig, PipelineConfig, RangeViewSpec
+from tpufusion_torch.config import DEFAULT, DecodeConfig, PipelineConfig, RangeViewSpec
 from tpufusion_torch.decode.decode import (
     decode_batch,
     decode_batch_direct,

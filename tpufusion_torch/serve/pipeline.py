@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpufusion.config import DEFAULT, PipelineConfig
+from tpufusion_torch.config import DEFAULT, PipelineConfig
 from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.models.io import asset_configs, load_state_npz
 from tpufusion_torch.predict import make_e2e_step
