@@ -26,9 +26,27 @@ to 0 before it and read after it:
   phase 9      the mixed-family and wide-yaw assets, top-4
   phase 10     times of config 5, the corner row, the bf16 FCN, both
                kernels at 131,072 points per frame, the tracker
+  phase 11     the BEV rasterizer on the card against the CPU and JAX's
+               cells (beam scans and the edge-case cloud)
+  phase 12     config 1: one frame x 32,768 points through range view +
+               BEV + bf16 FCN (`benchmarks.config1_single_frame`)
+  phase 13     config 3 at full width: batch 8 x 32,768 points, camera
+               512 x 1368 painted onto the 1199 x 180 BEV, the bf16 BEV
+               FCN and the late-fusion net with the shipped
+               `fusion_net.npz` (`benchmarks.config3_fused`,
+               `serve.fusion.predict_fusion`)
+  phase 14     the replay server (`serve.replay.ReplayHarness`, chunk 64,
+               270 frames, a pinned ring of 2) against `make_e2e_step`,
+               then the prediction CSV, the tracklet XML and the scoring
+
+The z-buffer kernel runs on every path; configs 1 and 3 decode nothing,
+so the CC kernel is not on theirs. Phases 12 and 13 hold the z-buffer
+kernel against its plain version on their own points (1 x 32,768 and the
+8 x 32,768 camera-wedge scans) before they drive the path.
 
 Every answer is held against the committed JAX goldens
-(tests/data/torch_port_golden.npz, tests/data/torch_port_golden_multi.npz);
+(tests/data/torch_port_golden.npz, torch_port_golden_multi.npz,
+torch_port_golden_fusion.npz);
 times are CUDA events over distinct inputs, and for the kernels also
 device time (the kernels' own durations, torch.profiler).
 
@@ -50,13 +68,13 @@ import dataclasses
 import hashlib
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
+from tpufusion_torch.benchmarks import card_line
 from tpufusion_torch.kernel_bench import (
     cc_bound_ms,
     device_ms,
@@ -85,23 +103,26 @@ ASSETS = os.path.join(HERE, "tpufusion", "assets")
 ASSET = os.path.join(ASSETS, "synthetic_detector.npz")
 GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_golden.npz")
 GOLDEN_MULTI = os.path.join(HERE, "tests", "data", "torch_port_golden_multi.npz")
+GOLDEN_FUSION = os.path.join(HERE, "tests", "data", "torch_port_golden_fusion.npz")
+FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
+C3_BATCH = 8  # config 3: frames per batch
+REPLAY_FRAMES = 270  # the replay server: 4 chunks of 64 and a partial one
+REPLAY_CHUNK = 64
+# benchmarks.measure at its defaults: a warm-up and 6 inputs x 3 between the
+# events, then a warm-up and the 6 inputs once more for the device time
+MEASURE_CALLS = 1 + 6 * 3 + 1 + 6
+BOTH_KERNELS = ("nearest_wins_image", "connected_components_with_bbox")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def drive(label: str, fn, totals: dict[str, int]):
+def drive(label: str, fn, totals: dict[str, int], expect=BOTH_KERNELS):
     """Runs one serving path with both kernels' launch counts set to 0,
-    asserts that it launched each, and adds its counts to `totals`."""
+    asserts that it launched each kernel of `expect` (the kernels on that
+    path), and adds its counts to `totals`. Returns (fn's result, the
+    counts)."""
     from tpufusion_torch.ops import cc, projection
 
     projection.LAUNCHES = 0
@@ -112,9 +133,25 @@ def drive(label: str, fn, totals: dict[str, int]):
               "connected_components_with_bbox": cc.LAUNCHES}
     log(f"  {label}: kernel launches {counts}")
     for k, n in counts.items():
-        assert n > 0, f"{label} never launched {k}"
+        assert n > 0 or k not in expect, f"{label} never launched {k}"
         totals[k] += n
-    return out
+    return out, counts
+
+
+def check_zbuffer(label: str, points, valid, spec) -> None:
+    """Holds the z-buffer kernel against its plain version on a path's
+    own (B, N) points: bit-identical, or the run fails."""
+    from tpufusion_torch.geometry.range_view import _frame_pixels_keys
+    from tpufusion_torch.ops import projection
+
+    with torch.inference_mode():
+        args = _frame_pixels_keys(points, spec, valid)
+        got = projection.nearest_wins_image(*args, spec)
+        want = projection.nearest_wins_image_reference(*args, spec)
+    same = torch.equal(got, want)
+    log(f"  z-buffer kernel on {label} ({points.shape[0]} x {points.shape[1]} points): "
+        f"bit-identical to plain = {same}")
+    assert same, f"z-buffer kernel differs from its plain version ({label})"
 
 
 def check_poses(label: str, poses, found, want_poses, want_found) -> float:
@@ -174,7 +211,7 @@ def phase_bf16(dev, spec, g, gm):
     assert out16.dtype == torch.float32 and out16.shape == out32.shape
     dp = float((out16[..., :2] - out32[..., :2]).abs().max())
     dr = float((out16[..., 2:] - out32[..., 2:]).abs().max())
-    found = {dt: make_e2e_step(m, spec, dcfg)(pts, valid)[1].cpu().numpy()
+    found = {dt: make_e2e_step(m, spec, dcfg, device=dev)(pts, valid)[1].cpu().numpy()
              for dt, m in models.items()}
     log(f"phase 6 bf16 FCN ({len(pts)} golden frames): conv1 output dtype "
         f"{conv_dtypes[0]}; bf16 vs float32 largest difference: probability "
@@ -205,7 +242,7 @@ def phase_config5(dev, spec, gm, models, dcfg, totals):
     from tpufusion_torch.predict import make_e2e_step
     from tpufusion_torch.serve.tracker import PoseTracker, track_quality_metrics
 
-    step = make_e2e_step(models["bfloat16"], spec, dcfg, max_obstacles=4)
+    step = make_e2e_step(models["bfloat16"], spec, dcfg, max_obstacles=4, device=dev)
     pts, gt, valid = synthesize_beam_scan_batch(
         np.random.default_rng(500), C5_BATCH, C5_POINTS, n_beams=C5_BEAMS)
     seq, sgt, svalid = synthesize_beam_tracking_sequence(
@@ -220,7 +257,7 @@ def phase_config5(dev, spec, gm, models, dcfg, totals):
     log(f"phase 7 config 5: bf16 FCN, top-4, {C5_BATCH} x {C5_POINTS} points "
         f"({C5_BEAMS} beams), then {TRACK_FRAMES} frames x {N_POINTS} points "
         "of two vehicles through PoseTracker.run_multi")
-    poses, found, sp, sf, trails = drive("config 5", path, totals)
+    (poses, found, sp, sf, trails), _ = drive("config 5", path, totals)
     poses, found = poses.cpu().numpy(), found.cpu().numpy()
     assert poses.shape == (C5_BATCH, 4, 7) and found.shape == (C5_BATCH, 4)
     assert np.isfinite(poses).all() and np.isfinite(sp).all()
@@ -236,7 +273,7 @@ def phase_config5(dev, spec, gm, models, dcfg, totals):
     assert found[:, 0].mean() >= 0.75 and np.median(xy) < 1.0, "config 5 misses"
     assert len(trails) >= 1, "no confirmed track"
     for tag, model in (("bf16", models["bfloat16"]), ("f32", models["float32"])):
-        gp, gf = make_e2e_step(model, spec, dcfg, max_obstacles=4)(
+        gp, gf = make_e2e_step(model, spec, dcfg, max_obstacles=4, device=dev)(
             gm["multi_points"], gm["multi_valid"])
         check_poses(f"JAX golden, top-4 {tag} (3 two-vehicle frames)", gp, gf,
                     gm[f"direct_{tag}_poses"], gm[f"direct_{tag}_found"])
@@ -290,21 +327,21 @@ def phase_corner(dev, spec, gm, batches, totals):
         harrays[f"{name}/bias"] = np.zeros(hcfg.num_corner_outputs, np.float32)
     for tag, dtype, k in (("k1", "float32", 1), ("k4", "float32", 4),
                           ("bf16_k4", "bfloat16", 4)):
-        model = fcn_from_arrays(harrays, dataclasses.replace(hcfg, dtype=dtype)).to(dev)
-        hp, hf = make_e2e_step(model, spec, dcfg, max_obstacles=k, head="corner")(
+        model = fcn_from_arrays(harrays, dataclasses.replace(hcfg, dtype=dtype), device=dev)
+        hp, hf = make_e2e_step(model, spec, dcfg, max_obstacles=k, head="corner", device=dev)(
             gm["multi_points"], gm["multi_valid"])
         check_poses(f"corner head on the asset's trunk, e2e {tag}", hp, hf,
                     gm[f"hybrid_{tag}_poses"], gm[f"hybrid_{tag}_found"])
 
     barrays = {k.split("/", 1)[1]: v for k, v in gm.items() if k.startswith("bench_corner/")}
     cmodel = fcn_from_arrays(
-        barrays, dataclasses.replace(ModelConfig(), dtype="bfloat16")).to(dev)
-    cstep = make_e2e_step(cmodel, spec, DecodeConfig(), head="corner")
+        barrays, dataclasses.replace(ModelConfig(), dtype="bfloat16"), device=dev)
+    cstep = make_e2e_step(cmodel, spec, DecodeConfig(), head="corner", device=dev)
     bp, bf = cstep(gm["multi_points"], gm["multi_valid"])
     check_poses("bench.py corner row FCN (bf16, seeded init), 3 golden frames",
                 bp, bf, gm["bench_corner_poses"], gm["bench_corner_found"])
-    cp, cf = drive(f"corner row, batch {len(batches[0][0])} x {N_POINTS}",
-                   lambda: cstep(*batches[0]), totals)
+    (cp, cf), _ = drive(f"corner row, batch {len(batches[0][0])} x {N_POINTS}",
+                        lambda: cstep(*batches[0]), totals)
     assert cp.shape == (len(batches[0][0]), 7) and torch.isfinite(cp).all()
     return cstep, cmodel
 
@@ -321,7 +358,7 @@ def phase_assets(dev, spec, gm):
     for tag, name in (("mixed", "synthetic_detector_mixed.npz"),
                       ("yaw", "synthetic_detector_yaw.npz")):
         model, dcfg = asset_fcn(os.path.join(ASSETS, name), "float32", dev)
-        poses, found = make_e2e_step(model, spec, dcfg, max_obstacles=4)(pts, valid)
+        poses, found = make_e2e_step(model, spec, dcfg, max_obstacles=4, device=dev)(pts, valid)
         check_poses(f"{name} (yaw {dcfg.direct_yaw_frame}, fit {dcfg.fit_boundary})",
                     poses, found, gm[f"{tag}_poses"], gm[f"{tag}_found"])
 
@@ -450,6 +487,273 @@ def phase_times(dev, spec, models, dcfg, c5_step, cstep, cmodel, seq, batches,
     log(f"  at {C5_POINTS} points per frame ({C5_BATCH} frames): {turns_line(zt)} {where}")
     log(f"  tracker (host, PoseTracker.run_multi, {len(seq[0])} frames x top-4, "
         f"{reps} runs): {track_ms:.4f} ms/frame")
+
+
+def bev_check(label: str, got, want) -> float:
+    """Asserts two (B, nx, ny, C) rasters hold the same cells, with the
+    max channels bit-identical and the density within 1e-4 (of 255);
+    returns the density's largest difference."""
+    same_cells = np.array_equal(got[..., 0] > 0, want[..., 0] > 0)
+    same_max = np.array_equal(got[..., 1:], want[..., 1:])
+    dd = float(np.abs(got[..., 0] - want[..., 0]).max())
+    log(f"  {label}: occupied cells equal = {same_cells} ({int((want[..., 0] > 0).sum())}), "
+        f"height + intensity bit-identical = {same_max}, density max |diff| = {dd:.3e} "
+        "(tolerance 1e-4)")
+    assert same_cells and same_max and dd <= 1e-4, f"BEV differs ({label})"
+    return dd
+
+
+def phase_bev(dev, gf, scan_pts, scan_valid):
+    """Phase 11: bev_rasterize_batch on the card against the same function
+    on the CPU and against the golden's JAX cells."""
+    from tpufusion_torch._golden import dense_cells
+    from tpufusion_torch.config import BevSpec
+    from tpufusion_torch.geometry.bev import bev_rasterize_batch
+    from tpufusion_torch.ops.parity_inputs import bev_edge_cloud
+
+    spec = BevSpec()
+    log(f"phase 11 BEV {spec.nx} x {spec.ny} x 3 (density, max height, max intensity)")
+    with torch.inference_mode():
+        for label, p, v in ((f"beam scans {len(scan_pts)}x{scan_pts.shape[1]}, card vs CPU",
+                             scan_pts, scan_valid),
+                            ("golden frames (2 stretched scans + edge-case cloud), card vs CPU",
+                             gf["bev_points"], gf["bev_valid"])):
+            pt, vt = torch.from_numpy(p), torch.from_numpy(v)
+            got = bev_rasterize_batch(pt.to(dev), spec, vt.to(dev)).cpu().numpy()
+            bev_check(label, got, bev_rasterize_batch(pt, spec, vt).numpy())
+    want = dense_cells(gf["bev_index"], gf["bev_values"], got.shape)
+    bev_check("golden frames, card vs JAX's cells", got, want)
+    # why geometry/bev.py divides by a tensor: with a Python number as the
+    # divisor torch multiplies by its reciprocal on the card
+    edge, _ = bev_edge_cloud(spec, n=65536)
+    moved = {}
+    for axis, res in (("x", spec.res_x), ("y", spec.res_y)):
+        v = torch.from_numpy(edge[:, "xy".index(axis)]).to(dev)
+        d = v[torch.isfinite(v)] + spec.max_range
+        by_tensor = torch.floor(d / torch.tensor(res, dtype=torch.float32, device=dev))
+        moved[axis] = (int((torch.floor(d / res) != by_tensor).sum()), d.numel())
+    log("  a Python-number divisor on this card would move "
+        + ", ".join(f"{m} of {n} edge-cloud {a} values" for a, (m, n) in moved.items())
+        + " into another bin (the tensor divisor: 0 against the CPU, above)")
+
+
+def phase_config1(dev, gm, card, totals):
+    """Phase 12: config 1, one frame a step through range view + BEV +
+    the bf16 FCN of the reference benchmark (seeded init, deconv6a bias
+    [2, -2]: the golden's bench_corner weights)."""
+    from tpufusion_torch import ModelConfig, benchmarks
+    from tpufusion_torch.geometry.bev import bev_rasterize_batch
+    from tpufusion_torch.models.io import fcn_from_arrays
+
+    arrays = {k.split("/", 1)[1]: v for k, v in gm.items() if k.startswith("bench_corner/")}
+    model = fcn_from_arrays(arrays, ModelConfig(dtype="bfloat16"), device=dev)
+    log(f"phase 12 config 1: 1 x {N_POINTS} points, range view + BEV + bf16 FCN")
+    (p, v), = benchmarks.point_sets(1, 1, N_POINTS, dev)
+    check_zbuffer("config 1's frame", p, v, benchmarks.SPEC)
+    (preds, bev), counts = drive("one step", lambda: benchmarks.make_config1_step(model, dev)(p, v),
+                                 totals, expect=BOTH_KERNELS[:1])
+    assert counts == {"nearest_wins_image": 1, "connected_components_with_bbox": 0}
+    assert preds.shape == (1, 32, 1801, 26) and bev.shape == (1, 1199, 180, 3)
+    assert torch.isfinite(preds).all() and preds.dtype == torch.float32
+    with torch.inference_mode():
+        bev_check("the step's BEV, card vs CPU", bev.cpu().numpy(),
+                  bev_rasterize_batch(p.cpu(), valid=v.cpu()).numpy())
+    row, counts = drive("config1_single_frame (warm-up + 6 distinct frames x 3 timed, "
+                        "then warm-up + 6 for the device time)",
+                        lambda: benchmarks.config1_single_frame(dev, model), totals,
+                        expect=BOTH_KERNELS[:1])
+    assert counts["nearest_wins_image"] == MEASURE_CALLS, "config 1: one z-buffer launch a step"
+    log(f"  {json.dumps(row)} [{card}]")
+    return row
+
+
+def phase_config3(dev, gf, card, totals):
+    """Phase 13: config 3. The fusion net (float32, bf16) and the seg
+    output against JAX on the golden's frames, then the full-width step,
+    predict_fusion's CSV, and the times."""
+    import csv
+    import tempfile
+
+    from tpufusion_torch import ModelConfig, _golden, benchmarks
+    from tpufusion_torch.data.synthetic import build_fusion_dataset
+    from tpufusion_torch.geometry.bev import bev_rasterize_batch
+    from tpufusion_torch.geometry.camera import paint_bev, paint_table, synthetic_camera
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.models.io import fcn_from_arrays, fusion_from_asset
+    from tpufusion_torch.serve.fusion import predict_fusion
+
+    log(f"phase 13 config 3: camera 512 x 1368 painted onto the BEV + bf16 BEV FCN + "
+        f"FusionNet ({os.path.relpath(FUSION_ASSET, HERE)})")
+    data = _golden.fusion_golden_data(dev)
+    same_cam = np.array_equal(data["cam_sha256"], gf["fusion_cam_sha256"])
+    log(f"  golden frames: {len(data['cam'])} camera frames made again from seed "
+        f"{_golden.FUSION_SEED}, digests equal the golden's = {same_cam}")
+    assert same_cam, "the regenerated camera frames are not the golden's"
+    pts = torch.from_numpy(gf["fusion_points"]).to(dev)
+    valid = torch.from_numpy(gf["fusion_valid"]).to(dev)
+    cam = torch.from_numpy(data["cam"]).to(dev)
+    radar = torch.from_numpy(gf["fusion_radar"]).to(dev)
+    nets = {}
+    with torch.inference_mode():
+        lidar = range_view_project_batch(pts, valid=valid)
+        for tag, dtype, atol in (("f32", "float32", _golden.F32_FUSION_ATOL),
+                                 ("bf16", "bfloat16", _golden.BF16_FUSION_ATOL)):
+            nets[tag] = fusion_from_asset(FUSION_ASSET, dev, dtype)
+            centroid, rz = nets[tag](cam, lidar, radar)
+            dc = float(np.abs(centroid.cpu().numpy() - gf[f"fusion_{tag}_centroid"]).max())
+            dr = float(np.abs(rz.cpu().numpy() - gf[f"fusion_{tag}_rz"]).max())
+            log(f"  FusionNet {dtype} vs JAX's {dtype} on the golden frames: centroid "
+                f"{dc:.4e} (tolerance {atol:.1e}), rz {dr:.4e} (tolerance "
+                f"{_golden.FUSION_RZ_ATOL:.1e})")
+            assert dc <= atol and dr <= _golden.FUSION_RZ_ATOL, (
+                f"the {dtype} fusion net differs from JAX's")
+    gap_c = float(np.abs(gf["fusion_f32_centroid"] - gf["fusion_bf16_centroid"]).max())
+    gap_r = float(np.abs(gf["fusion_f32_rz"] - gf["fusion_bf16_rz"]).max())
+    log(f"  (JAX's own float32 vs bf16 on these frames: centroid {gap_c:.4e}, rz {gap_r:.4e})")
+
+    arrays = {k.split("/", 1)[1]: v for k, v in gf.items() if k.startswith("bev_fcn/")}
+    bev_fcn = fcn_from_arrays(arrays, ModelConfig(dtype="bfloat16"), device=dev)
+    step = benchmarks.make_config3_step(bev_fcn, nets["bf16"], dev)
+    n = _golden.SEG_FRAMES
+    seg, _, _ = step(pts[:n], valid[:n], cam[:n], radar[:n])
+    worst, share = _golden.seg_readings(seg.cpu().numpy(), gf["seg_prob"])
+    log(f"  seg vs JAX's on {n} golden frames (every {_golden.SEG_STRIDE}th pixel): largest "
+        f"difference {worst:.4e} (tolerance {_golden.BF16_SEG_ATOL:.4e}), {share:.2%} differ "
+        f"(at most {_golden.BF16_SEG_DIFFER_SHARE:.0%})")
+    assert worst <= _golden.BF16_SEG_ATOL and share <= _golden.BF16_SEG_DIFFER_SHARE
+
+    # full width: 8 x 32,768 points with rendered camera frames and radar
+    full = build_fusion_dataset(C3_BATCH, 300, device=dev)
+    args = [torch.from_numpy(full[k]).to(dev) for k in ("points", "valid", "cam", "radar")]
+    check_zbuffer("config 3's camera-wedge scans", args[0], args[1], benchmarks.SPEC)
+    (seg, centroid, rz), counts = drive(
+        f"one step, batch {C3_BATCH} x {N_POINTS}", lambda: step(*args), totals,
+        expect=BOTH_KERNELS[:1])
+    assert counts == {"nearest_wins_image": 1, "connected_components_with_bbox": 0}
+    assert seg.shape == (C3_BATCH, 180, 1197, 26) and centroid.shape == (C3_BATCH, 3)
+    assert rz.shape == (C3_BATCH, 1)
+    assert all(torch.isfinite(t).all() for t in (seg, centroid, rz))
+    centroid, rz = centroid.cpu().numpy(), rz.cpu().numpy()
+    xy = np.linalg.norm(centroid[:, :2] - full["centroid"][:, :2], axis=1)
+    log(f"  trained fusion net on {C3_BATCH} generated scenes: xy error median "
+        f"{np.median(xy):.3f} m, max {xy.max():.3f} m; rz error mean "
+        f"{np.abs(rz - full['rz']).mean():.4f} rad")
+    assert np.median(xy) < 2.0, "the fusion net misses the vehicles"
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "fusion_predictions.csv")
+        n_rows = C3_BATCH - 3  # a padded last batch
+        sub = {k: full[k][:n_rows] for k in ("cam", "lidar", "radar")}
+        predict_fusion(nets["bf16"], sub, full["timestamps"][:n_rows].tolist(), path,
+                       batch_size=C3_BATCH, device=dev)
+        with open(path) as f:
+            rows = list(csv.DictReader(f))
+    assert [int(r["timestamp"]) for r in rows] == full["timestamps"][:n_rows].tolist()
+    back = np.array([[float(r[k]) for k in ("tx", "ty", "tz", "rz")] for r in rows], np.float32)
+    want = np.concatenate([centroid, rz], axis=1)[:n_rows]
+    dcsv = float(np.abs(back - want).max())
+    log(f"  predict_fusion: {len(rows)} rows (one batch of {C3_BATCH}, padded) read back; "
+        f"largest difference from the step's (centroid, rz) {dcsv:.3e}")
+    assert dcsv <= 1e-5 and all(float(r[k]) == 0.0 for r in rows for k in ("rx", "ry", "l", "w", "h"))
+
+    row, counts = drive("config3_fused (warm-up + 6 distinct batches x 3 timed, then "
+                        "warm-up + 6 for the device time)",
+                        lambda: benchmarks.config3_fused(dev, bev_fcn, nets["bf16"]), totals,
+                        expect=BOTH_KERNELS[:1])
+    assert counts["nearest_wins_image"] == MEASURE_CALLS, "config 3: one z-buffer launch a step"
+    log(f"  {json.dumps(row)} [{card}]")
+
+    # stage times over the same kind of distinct inputs
+    sets = benchmarks.config3_inputs(dev, C3_BATCH, N_POINTS, 6)
+    fusion, spec = nets["bf16"], benchmarks.FUSED_BEV
+    table = paint_table(synthetic_camera(1368, 512, 1400.0), spec, dev)
+    with torch.inference_mode():
+        fused = [benchmarks.fuse_bev(p, v, c, table, spec) for p, v, c, _ in sets]
+        images = [range_view_project_batch(p, valid=v) for p, v, _, _ in sets]
+        ms = {
+            "BEV": time_ms(lambda a: bev_rasterize_batch(a[0], spec, a[1]), sets),
+            "paint": time_ms(lambda a: paint_bev(a[2], table), sets),
+            "BEV FCN": time_ms(bev_fcn, fused),
+            "projection": time_ms(lambda a: range_view_project_batch(a[0], valid=a[1]), sets),
+            "camera FCN features": time_ms(lambda a: fusion.camera_fcn.features(a[2]), sets),
+            "lidar FCN features": time_ms(fusion.lidar_fcn.features, images),
+            "fusion net (both FCNs, pools, dense layers, heads)": time_ms(
+                lambda ai: fusion(ai[0][2], ai[1], ai[0][3]), list(zip(sets, images))),
+        }
+    log("  stages, ms a batch of 8: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f" [{card}]")
+    return row
+
+
+def phase_replay(dev, card, totals):
+    """Phase 14: the replay server on 270 stored frames (chunk 64, a
+    pinned ring of 2) against make_e2e_step on the same frames, then the
+    prediction CSV, the tracklet XML and the scoring."""
+    import tempfile
+
+    from tpufusion_torch.config import DEFAULT
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.eval.scoring import score_poses
+    from tpufusion_torch.eval.submission import generate_submission, write_predictions_csv
+    from tpufusion_torch.eval.tracklet_xml import parse_tracklet_xml
+    from tpufusion_torch.models.io import asset_configs
+    from tpufusion_torch.predict import make_e2e_step
+    from tpufusion_torch.serve.replay import ReplayHarness
+
+    mcfg, dcfg = asset_configs(ASSET)
+    cfg = DEFAULT.replace(model=mcfg, decode=dcfg)
+    model, _ = asset_fcn(ASSET, "float32", dev)
+    frames, truths = [], []
+    for i, lo in enumerate(range(0, REPLAY_FRAMES, REPLAY_CHUNK)):
+        p, gt, _ = synthesize_beam_scan_batch(
+            np.random.default_rng(900 + i), min(REPLAY_CHUNK, REPLAY_FRAMES - lo), N_POINTS)
+        frames.append(p)
+        truths.append(np.concatenate([gt["center"], gt["yaw"][:, None], gt["size"]], axis=1))
+    points, truth = np.concatenate(frames), np.concatenate(truths)
+    harness = ReplayHarness(cfg, model, chunk=REPLAY_CHUNK, host_ring=2, device=dev)
+    log(f"phase 14 replay server: {REPLAY_FRAMES} stored frames x {N_POINTS} points, chunk "
+        f"{REPLAY_CHUNK}, host_ring 2, head {mcfg.head!r}")
+    (poses, founds, stats), counts = drive("ReplayHarness.run", lambda: harness.run(points), totals)
+    n_chunks = -(-REPLAY_FRAMES // REPLAY_CHUNK)
+    assert counts["nearest_wins_image"] == n_chunks + 1, "one z-buffer launch a chunk + warm-up"
+    assert all(host.is_pinned() for host, _, _ in harness._ring), "the ring is not pinned"
+    assert poses.shape == (REPLAY_FRAMES, 7) and founds.shape == (REPLAY_FRAMES,)
+    step = make_e2e_step(model, cfg.range_view, dcfg, head=mcfg.head, device=dev)
+    want_p, want_f = [], []
+    for lo in range(0, REPLAY_FRAMES, REPLAY_CHUNK):
+        chunk = points[lo : lo + REPLAY_CHUNK]
+        pad = REPLAY_CHUNK - len(chunk)
+        if pad:
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
+        p, f = step(chunk)
+        want_p.append(p.cpu().numpy()[: REPLAY_CHUNK - pad])
+        want_f.append(f.cpu().numpy()[: REPLAY_CHUNK - pad])
+    want_p, want_f = np.concatenate(want_p), np.concatenate(want_f)
+    dp = float(np.abs(poses - want_p).max())
+    log(f"  against make_e2e_step on the same frames: found equal = "
+        f"{np.array_equal(founds, want_f)} ({int(founds.sum())}/{REPLAY_FRAMES}), largest "
+        f"pose difference {dp:.3e}")
+    assert np.array_equal(founds, want_f) and dp <= 1e-5, "the replay server's poses differ"
+    log(f"  LatencyStats.summary(): {json.dumps(stats.summary())} (host clock a chunk, "
+        f"readback included) [{card}]")
+
+    ts = (1_490_000_000_000 + np.arange(REPLAY_FRAMES) * 100_000).tolist()
+    size = {"l": 4.2, "w": 1.6, "h": 1.5}
+    with tempfile.TemporaryDirectory() as d:
+        csv_path, xml_path = os.path.join(d, "pred.csv"), os.path.join(d, "sub.xml")
+        write_predictions_csv(poses, ts, csv_path)
+        generate_submission(csv_path, ts, size, xml_path)
+        tracklets = parse_tracklet_xml(xml_path)
+    assert len(tracklets) == 1 and len(tracklets[0].poses) == REPLAY_FRAMES
+    assert (tracklets[0].l, tracklets[0].w, tracklets[0].h) == (4.2, 1.6, 1.5)
+    back = np.array([[q[k] for k in ("tx", "ty", "tz", "rz")] for q in tracklets[0].poses])
+    dx = float(np.abs(back - poses[:, :4]).max())
+    scores = score_poses(poses, truth, pose_frame="orbit")
+    log(f"  CSV -> tracklet XML -> parsed: {len(tracklets[0].poses)} poses, largest "
+        f"difference from the served poses {dx:.2e} (the XML keeps 6 decimals)")
+    log(f"  score_poses vs the generator's truth: {json.dumps(scores)}")
+    assert dx <= 1e-5, "the submission does not carry the served poses"
+    assert scores["detection_rate"] >= 0.9 and scores["mean_xy_err"] < 1.0, "the server misses"
+    return stats.summary()
 
 
 def main() -> int:
@@ -582,7 +886,7 @@ def main() -> int:
         assert same, f"CC kernel differs from the plain sweeps ({label})"
 
     # -- phase 4: the main path --------------------------------------------
-    step = make_e2e_step(model, spec, dcfg)
+    step = make_e2e_step(model, spec, dcfg, device=dev)
     req_pts, req_gt, req_valid = synthesize_beam_scan_batch(
         np.random.default_rng(1), REQUESTS, N_POINTS
     )
@@ -675,6 +979,13 @@ def main() -> int:
     phase_assets(dev, spec, gm)
     phase_times(dev, spec, models, adcfg, c5_step, cstep, cmodel,
                 (seq_poses, seq_found), batches, images, card)
+
+    # -- phases 11-14: BEV, configs 1 and 3, the replay server -------------
+    gf = load_npz(GOLDEN_FUSION)
+    phase_bev(dev, gf, scan_pts, scan_valid)
+    phase_config1(dev, gm, card, totals)
+    phase_config3(dev, gf, card, totals)
+    phase_replay(dev, card, totals)
 
     z, c = kt["z"], kt["cc"]
     kernels = [

@@ -32,8 +32,25 @@ tests/data/torch_port_golden_multi.npz: the rest of the serving path.
                 JAX init, deconv6a bias [2, -2]) and its bf16 corner e2e
                 answer on multi (bench_corner_*)
 
-tests/test_torch_e2e.py and tests/test_torch_multi.py recompute both and
-fail when a file is stale.
+tests/data/torch_port_golden_fusion.npz: the BEV, the fusion net and
+config 3 (tpufusion_torch/_golden.py names the seeds and sizes).
+  bev_*         3 frames x 4,096 points (two stretched beam scans and the
+                edge-case cloud) and JAX's bev_rasterize_batch on them
+                (default BevSpec) as the non-zero cells' flat indices and
+                values
+  fusion_*      8 fusion frames from the port's numpy generator: the lidar
+                points, masks and radar rows are stored, the camera frames
+                are made again from the seed and held to fusion_cam_sha256;
+                JAX's FusionNet with the shipped fusion_net.npz on them in
+                float32 and bfloat16 (fusion_{f32,bf16}_{centroid,rz})
+  bev_fcn/*     config 3's BEV FCN (default ModelConfig in bf16, seeded
+                JAX init nnx.Rngs(1))
+  seg_prob      config 3's seg on the first 2 fusion frames (BEV with the
+                height channel + the painted camera through the BEV FCN):
+                the foreground probability at every 17th pixel
+
+tests/test_torch_e2e.py, tests/test_torch_multi.py and
+tests/test_torch_fusion.py recompute them and fail when a file is stale.
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 """
@@ -134,14 +151,7 @@ def bench_corner_arrays() -> tuple:
     from tpufusion.models.fcn import FCN
 
     mcfg = dataclasses.replace(ModelConfig(), dtype="bfloat16")
-    state = jax.jit(
-        lambda: nnx.to_pure_dict(nnx.state(FCN(mcfg, in_channels=3, rngs=nnx.Rngs(0))))
-    )()
-    arrays = {
-        f"{layer}/{leaf}": np.asarray(v, np.float32)
-        for layer, leaves in state.items()
-        for leaf, v in leaves.items()
-    }
+    arrays = seeded_fcn_arrays(mcfg, 0)
     arrays["deconv6a/bias"] = np.array([2.0, -2.0], np.float32)
     return mcfg, arrays
 
@@ -245,11 +255,121 @@ def golden_multi_arrays() -> dict[str, np.ndarray]:
     return out
 
 
+def seeded_fcn_arrays(mcfg, seed: int) -> dict[str, np.ndarray]:
+    """npz-style arrays of the JAX FCN's seeded init (nnx.Rngs(seed))."""
+    import jax
+    from flax import nnx
+
+    from tpufusion.models.fcn import FCN
+
+    state = jax.jit(
+        lambda: nnx.to_pure_dict(nnx.state(FCN(mcfg, in_channels=3, rngs=nnx.Rngs(seed))))
+    )()
+    return {
+        f"{layer}/{leaf}": np.asarray(v, np.float32)
+        for layer, leaves in state.items()
+        for leaf, v in leaves.items()
+    }
+
+
+def jax_fusion_asset(dtype: str):
+    """The JAX FusionNet the reference's fused benchmark builds, with the
+    shipped asset's weights, computing in `dtype`."""
+    import json
+
+    from flax import nnx
+
+    from tests.torch_golden import FUSION_ASSET
+    from tpufusion.config import ModelConfig
+    from tpufusion.models.fusion import FusionNet
+    from tpufusion.models.io import load_state_npz
+
+    with open(FUSION_ASSET + ".json") as f:
+        meta = json.load(f)
+    net = FusionNet(
+        lidar_model=ModelConfig(dtype=dtype),
+        camera_model=ModelConfig(vertical_stride=2, use_regression=False, dtype=dtype),
+        lidar_pool=tuple(meta["lidar_pool"]), cam_pool=tuple(meta["cam_pool"]),
+        rngs=nnx.Rngs(2),
+    )
+    load_state_npz(FUSION_ASSET, net)
+    return net
+
+
+def jax_config3_seg(bev_fcn, points, valid, cam_img) -> np.ndarray:
+    """The seg output of the reference's fused benchmark step."""
+    import jax.numpy as jnp
+
+    from tests.torch_golden import jax_apply
+    from tpufusion.config import BevSpec
+    from tpufusion.geometry.bev import bev_rasterize_batch
+    from tpufusion.geometry.camera import rgb_onto_bev, synthetic_camera
+
+    cam = synthetic_camera(1368, 512, 1400.0)
+    spec = BevSpec(with_height_channel=True, with_intensity_channel=False)
+    hc, wc, nx, ny = cam.height, cam.width, spec.nx, spec.ny
+    vv = np.broadcast_to(np.arange(hc, dtype=np.float32)[:, None, None], (hc, wc, 1))
+    uu = np.broadcast_to(np.arange(wc, dtype=np.float32)[None, :, None], (hc, wc, 1))
+    v_t = jnp.asarray(rgb_onto_bev(vv, cam, nx, ny)[..., 0].astype(np.int32))
+    u_t = jnp.asarray(rgb_onto_bev(uu, cam, nx, ny)[..., 0].astype(np.int32))
+    ok_t = jnp.asarray(rgb_onto_bev(np.ones((hc, wc, 1), np.float32), cam, nx, ny)[..., 0] > 0)
+
+    def fn(model, points, valid, cam_img):
+        bev = bev_rasterize_batch(points, spec, valid)
+        painted = jnp.where(ok_t, cam_img[:, v_t, u_t, 0], 0.0)
+        fused = jnp.concatenate([bev, painted[..., None]], axis=-1)
+        fused = jnp.swapaxes(fused, 1, 2)[:, :, : nx - 2, :]
+        return model(fused, train=False)
+
+    return jax_apply(bev_fcn, fn, points, valid, cam_img)
+
+
+def golden_fusion_arrays() -> dict[str, np.ndarray]:
+    import jax.numpy as jnp
+
+    from tests.torch_golden import jax_apply, jax_model_from_arrays
+    from tpufusion.config import BevSpec, ModelConfig, RangeViewSpec
+    from tpufusion.geometry.bev import bev_rasterize_batch
+    from tpufusion.geometry.range_view import range_view_project_batch
+    from tpufusion_torch import _golden
+    from tpufusion_torch.config import BevSpec as PortBevSpec
+
+    out: dict[str, np.ndarray] = {}
+    pts, valid = _golden.bev_golden_inputs(PortBevSpec())
+    out["bev_points"], out["bev_valid"] = pts, valid
+    bev = np.asarray(bev_rasterize_batch(jnp.asarray(pts), BevSpec(), jnp.asarray(valid)))
+    out["bev_index"], out["bev_values"] = _golden.sparse_cells(bev)
+
+    data = _golden.fusion_golden_data("cpu")
+    out["fusion_points"], out["fusion_valid"] = data["points"], data["valid"]
+    out["fusion_radar"], out["fusion_cam_sha256"] = data["radar"], data["cam_sha256"]
+    lidar = range_view_project_batch(
+        jnp.asarray(data["points"]), RangeViewSpec(), jnp.asarray(data["valid"]), "exact"
+    )
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        centroid, rz = jax_apply(
+            jax_fusion_asset(dtype), lambda m, c, l, r: m(c, l, r, train=False),
+            data["cam"], lidar, data["radar"],
+        )
+        out[f"fusion_{tag}_centroid"], out[f"fusion_{tag}_rz"] = centroid, rz
+
+    bcfg = ModelConfig(dtype="bfloat16")
+    barrays = seeded_fcn_arrays(bcfg, 1)
+    out.update({f"bev_fcn/{k}": v for k, v in barrays.items()})
+    n = _golden.SEG_FRAMES
+    seg = jax_config3_seg(
+        jax_model_from_arrays(bcfg, barrays), data["points"][:n], data["valid"][:n],
+        data["cam"][:n],
+    )
+    out["seg_prob"] = _golden.seg_golden_sample(seg)
+    return out
+
+
 def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from tests.torch_golden import GOLDEN, GOLDEN_MULTI
+    from tests.torch_golden import GOLDEN, GOLDEN_FUSION, GOLDEN_MULTI
 
     arrays = golden_arrays()
     if not arrays["found"].all():
@@ -263,6 +383,12 @@ def main() -> None:
     for key in sorted(multi):
         if key.endswith("found") or key.endswith("overflow"):
             print(f"  {key}: {multi[key].astype(int).tolist()}")
+    fusion = golden_fusion_arrays()
+    np.savez_compressed(GOLDEN_FUSION, **fusion)
+    print(f"wrote {GOLDEN_FUSION} ({os.path.getsize(GOLDEN_FUSION)} bytes)")
+    for tag in ("centroid", "rz"):
+        gap = np.abs(fusion[f"fusion_f32_{tag}"] - fusion[f"fusion_bf16_{tag}"]).max()
+        print(f"  JAX float32 vs bf16 {tag}: {gap:.4e}")
 
 
 if __name__ == "__main__":

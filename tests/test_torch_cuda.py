@@ -76,7 +76,7 @@ def _proj_inputs(device, batch=4, n=8192, seed=3):
 
 
 def test_projection_kernel_is_bit_identical(cuda_device):
-    for batch, n in ((4, 8192), (64, 32768), (16, 131072), (3, 4097)):
+    for batch, n in ((4, 8192), (1, 32768), (8, 32768), (64, 32768), (16, 131072), (3, 4097)):
         args = _proj_inputs(cuda_device, batch, n)
         before = projection.LAUNCHES
         got = projection.nearest_wins_image(*args, SPEC)
@@ -264,3 +264,82 @@ def test_topk_order_with_ties_matches_the_cpu(cuda_device):
         want = decode.find_obstacles_topk(torch.from_numpy(prob), cfg, k)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+# -- BEV, the fusion net and the replay server's pinned ring -----------------
+
+GOLDEN_FUSION = os.path.join(_REPO, "tests", "data", "torch_port_golden_fusion.npz")
+FUSION_ASSET = os.path.join(_REPO, "tpufusion", "assets", "fusion_net.npz")
+
+
+def test_bev_on_the_card_matches_the_cpu_and_jax(cuda_device):
+    """Counts (the occupied cells) and both max channels bit-identical to
+    the CPU's and to JAX's cells; the density within 1e-4 of 255."""
+    from tpufusion_torch import _golden
+    from tpufusion_torch.config import BevSpec
+    from tpufusion_torch.geometry.bev import bev_rasterize_batch
+
+    g = load_npz(GOLDEN_FUSION)
+    pts, valid = torch.from_numpy(g["bev_points"]), torch.from_numpy(g["bev_valid"])
+    got = bev_rasterize_batch(pts.to(cuda_device), BevSpec(), valid.to(cuda_device)).cpu().numpy()
+    for want in (bev_rasterize_batch(pts, BevSpec(), valid).numpy(),
+                 _golden.dense_cells(g["bev_index"], g["bev_values"], got.shape)):
+        np.testing.assert_array_equal(got[..., 0] > 0, want[..., 0] > 0)
+        np.testing.assert_array_equal(got[..., 1:], want[..., 1:])
+        np.testing.assert_allclose(got[..., 0], want[..., 0], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("tag,dtype", [("f32", "float32"), ("bf16", "bfloat16")])
+def test_fusion_net_matches_golden(cuda_device, tag, dtype, precision):
+    """The shipped fusion asset on the golden's 8 frames against JAX's
+    answer, also with the process's float32 matmuls set to TF32: the net
+    pins full float32 for its dense layers."""
+    from tpufusion_torch import _golden
+    from tpufusion_torch.models.io import fusion_from_asset
+
+    g = load_npz(GOLDEN_FUSION)
+    data = _golden.fusion_golden_data(cuda_device)
+    np.testing.assert_array_equal(data["cam_sha256"], g["fusion_cam_sha256"])
+    torch.set_float32_matmul_precision(precision)
+    net = fusion_from_asset(FUSION_ASSET, cuda_device, dtype)
+    with torch.inference_mode():
+        lidar = range_view_project_batch(
+            torch.from_numpy(g["fusion_points"]).to(cuda_device), SPEC,
+            torch.from_numpy(g["fusion_valid"]).to(cuda_device))
+        centroid, rz = net(torch.from_numpy(data["cam"]).to(cuda_device), lidar,
+                           torch.from_numpy(g["fusion_radar"]).to(cuda_device))
+    atol = _golden.F32_FUSION_ATOL if tag == "f32" else _golden.BF16_FUSION_ATOL
+    np.testing.assert_allclose(centroid.cpu().numpy(), g[f"fusion_{tag}_centroid"], rtol=0, atol=atol)
+    np.testing.assert_allclose(
+        rz.cpu().numpy(), g[f"fusion_{tag}_rz"], rtol=0, atol=_golden.FUSION_RZ_ATOL)
+    assert torch.get_float32_matmul_precision() == precision
+
+
+@pytest.mark.parametrize("host_ring", [0, 2, 3])
+def test_replay_ring_is_pinned_and_answers_like_the_step(cuda_device, host_ring):
+    """150 frames at chunk 64 (a padded last chunk) through the pinned
+    ring and the copy stream: the same poses as make_e2e_step on the
+    same chunks."""
+    from tpufusion_torch.config import DEFAULT
+    from tpufusion_torch.serve.replay import ReplayHarness
+
+    mcfg, dcfg = asset_configs(ASSET)
+    model = FCN(mcfg)
+    load_state_npz(ASSET, model)
+    cfg = DEFAULT.replace(model=mcfg, decode=dcfg)
+    points = np.concatenate([
+        synthesize_beam_scan_batch(np.random.default_rng(40 + i), 50)[0] for i in range(3)])
+    harness = ReplayHarness(cfg, model, chunk=64, host_ring=host_ring, device=cuda_device)
+    poses, founds, stats = harness.run(points)
+    if host_ring:
+        assert len(harness._ring) == host_ring
+        assert all(h.is_pinned() and d.is_cuda for h, d, _ in harness._ring)
+    step = make_e2e_step(model, SPEC, dcfg, head=mcfg.head, device=cuda_device)
+    padded = np.concatenate([points, np.repeat(points[-1:], 42, axis=0)])
+    for lo in range(0, 150, 64):
+        p, f = step(padded[lo : lo + 64])
+        n = min(64, 150 - lo)
+        np.testing.assert_array_equal(founds[lo : lo + n], f.cpu().numpy()[:n])
+        assert np.abs(poses[lo : lo + n] - p.cpu().numpy()[:n]).max() <= 1e-5
+    assert founds.mean() > 0.9 and stats.frames == 192

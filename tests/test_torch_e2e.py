@@ -47,7 +47,7 @@ def pipeline():
 
 def _step(pipeline):
     return make_e2e_step(
-        pipeline.model, pipeline.cfg.range_view, pipeline.cfg.decode
+        pipeline.model, pipeline.cfg.range_view, pipeline.cfg.decode, device="cpu"
     )
 
 
@@ -131,16 +131,17 @@ def test_port_imports_no_jax():
         model = FCN(dataclasses.replace(mcfg, dtype="bfloat16"))
         load_state_npz(sys.argv[1], model)
         seq, gt, sv = synthesize_beam_tracking_sequence(np.random.default_rng(1), 3)
-        poses, founds = make_e2e_step(model, RangeViewSpec(), dcfg, max_obstacles=4)(seq, sv)
+        poses, founds = make_e2e_step(
+            model, RangeViewSpec(), dcfg, max_obstacles=4, device="cpu")(seq, sv)
         trails = PoseTracker(dt=0.1).run_multi(poses.numpy(), founds.numpy())
         track_quality_metrics(trails, gt["center"])
         score_multi_poses(poses.numpy(), founds.numpy(), gt["center"], gt["yaw"], gt["size"])
         corner = FCN(ModelConfig())
         corner.deconv6a.bias.data = torch.tensor([2.0, -2.0])  # background-leaning
         make_e2e_step(corner, RangeViewSpec(), DecodeConfig(), head="corner",
-                      max_obstacles=2)(seq[:1], sv[:1])
+                      max_obstacles=2, device="cpu")(seq[:1], sv[:1])
         images = np.zeros((1, 32, 1801, 3), np.float32)
-        predict_images(corner, images, DEFAULT, 1)
+        predict_images(corner, images, DEFAULT, 1, device="cpu")
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "flax", "tpufusion"))
         assert not loaded, loaded
@@ -174,9 +175,9 @@ def test_numpy_beam_scans_feed_the_detector(pipeline):
 def test_e2e_step_rejects_unknown_head_and_k(pipeline):
     spec, dcfg = pipeline.cfg.range_view, pipeline.cfg.decode
     with pytest.raises(ValueError, match="head"):
-        make_e2e_step(pipeline.model, spec, dcfg, head="box")
+        make_e2e_step(pipeline.model, spec, dcfg, head="box", device="cpu")
     with pytest.raises(ValueError, match="max_obstacles"):
-        make_e2e_step(pipeline.model, spec, dcfg, max_obstacles=0)
+        make_e2e_step(pipeline.model, spec, dcfg, max_obstacles=0, device="cpu")
 
 
 def test_pipeline_fake_predict_is_the_cloud_mean():

@@ -117,7 +117,7 @@ def test_fcn_random_corner_head_width_201_matches_jax(tmp_path):
 def test_fcn_from_arrays_equals_load_state_npz():
     mcfg, _ = asset_configs()
     arrays = load_npz(ASSET)
-    a = fcn_from_arrays(arrays, mcfg)
+    a = fcn_from_arrays(arrays, mcfg, device="cpu")
     b = FCN(mcfg)
     load_state_npz(ASSET, b)
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
@@ -130,12 +130,12 @@ def test_load_rejects_missing_extra_and_misshaped_keys():
     missing = dict(arrays)
     del missing["conv1/bias"]
     with pytest.raises(ValueError, match="conv1/bias"):
-        fcn_from_arrays(missing, mcfg)
+        fcn_from_arrays(missing, mcfg, device="cpu")
     extra = dict(arrays, **{"conv9/kernel": np.zeros(3, np.float32)})
     with pytest.raises(ValueError, match="conv9"):
-        fcn_from_arrays(extra, mcfg)
+        fcn_from_arrays(extra, mcfg, device="cpu")
     with pytest.raises(ValueError, match="shape"):
-        fcn_from_arrays(arrays, dataclasses.replace(mcfg, width_multiplier=1))
+        fcn_from_arrays(arrays, dataclasses.replace(mcfg, width_multiplier=1), device="cpu")
 
 
 @pytest.mark.parametrize("change", [{"sample_wise_bn": True}])

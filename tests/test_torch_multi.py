@@ -107,10 +107,10 @@ def test_e2e_direct_top4_matches_jax(jax_golden, dtype):
     atol = POSE_ATOL if dtype == "float32" else BF16_POSE_ATOL
     pts, valid = jax_golden["multi_points"], jax_golden["multi_valid"]
     want_p, want_f = jax_golden[f"direct_{tag}_poses"], jax_golden[f"direct_{tag}_found"]
-    poses, found = make_e2e_step(model, SPEC, dcfg, max_obstacles=4)(pts, valid)
+    poses, found = make_e2e_step(model, SPEC, dcfg, max_obstacles=4, device="cpu")(pts, valid)
     assert poses.shape == (3, 4, 7) and found.shape == (3, 4)
     _assert_poses(poses, found, want_p, want_f, atol)
-    poses1, found1 = make_e2e_step(model, SPEC, dcfg)(pts, valid)
+    poses1, found1 = make_e2e_step(model, SPEC, dcfg, device="cpu")(pts, valid)
     assert poses1.shape == (3, 7)
     _assert_poses(poses1, found1, want_p[:, 0], want_f[:, 0], atol)
 
@@ -170,7 +170,7 @@ def test_e2e_assets_top4_match_jax(jax_golden, asset):
     pts = np.stack([jax_golden["multi_points"][0], jax_golden["ell_points"][0]])
     valid = np.stack([jax_golden["multi_valid"][0], jax_golden["ell_valid"][0]])
     frames = [0, 3]
-    poses, found = make_e2e_step(model, SPEC, dcfg, max_obstacles=4)(pts, valid)
+    poses, found = make_e2e_step(model, SPEC, dcfg, max_obstacles=4, device="cpu")(pts, valid)
     _assert_poses(
         poses, found, jax_golden[f"{asset}_poses"][frames],
         jax_golden[f"{asset}_found"][frames], POSE_ATOL,
@@ -282,10 +282,10 @@ def test_e2e_corner_head_matches_jax(jax_golden, tag):
     k = int(tag[-1])
     if bf16:
         mcfg = dataclasses.replace(mcfg, dtype="bfloat16")
-    model = fcn_from_arrays(arrays, mcfg)
+    model = fcn_from_arrays(arrays, mcfg, device="cpu")
     _, dcfg = asset_configs()
     poses, found = make_e2e_step(
-        model, SPEC, dcfg, max_obstacles=k, head="corner"
+        model, SPEC, dcfg, max_obstacles=k, head="corner", device="cpu"
     )(jax_golden["multi_points"], jax_golden["multi_valid"])
     assert poses.shape == ((3, 7) if k == 1 else (3, k, 7))
     _assert_poses(
@@ -300,8 +300,9 @@ def test_e2e_bench_corner_row_matches_jax(jax_golden):
     arrays = {
         k.split("/", 1)[1]: v for k, v in jax_golden.items() if k.startswith("bench_corner/")
     }
-    model = fcn_from_arrays(arrays, dataclasses.replace(ModelConfig(), dtype="bfloat16"))
-    poses, found = make_e2e_step(model, SPEC, DecodeConfig(), head="corner")(
+    model = fcn_from_arrays(
+        arrays, dataclasses.replace(ModelConfig(), dtype="bfloat16"), device="cpu")
+    poses, found = make_e2e_step(model, SPEC, DecodeConfig(), head="corner", device="cpu")(
         jax_golden["multi_points"], jax_golden["multi_valid"]
     )
     _assert_poses(
@@ -326,7 +327,8 @@ def test_predict_images_matches_jax(jax_golden, head):
     want_p, want_f = jax_predict_images(
         jax_model_from_arrays(mcfg, arrays), images, to_jax_config(cfg), 2
     )
-    got_p, got_f = predict_images(fcn_from_arrays(arrays, mcfg), images, cfg, 2)
+    got_p, got_f = predict_images(
+        fcn_from_arrays(arrays, mcfg, device="cpu"), images, cfg, 2, device="cpu")
     assert got_p.shape == (5, 7) and got_p.dtype == np.float32 and got_f.shape == (5,)
     _assert_poses(got_p, got_f, want_p, want_f, POSE_ATOL)
     assert got_f.sum() >= 3
@@ -427,7 +429,7 @@ def test_numpy_multi_vehicle_scans_feed_the_top4_path():
     a 16-frame tracking sequence, and 64 beams at 131,072 points; the
     asset finds both vehicles and the tracker confirms both."""
     model, dcfg = _asset_fcn(ASSET)
-    step = make_e2e_step(model, SPEC, dcfg, max_obstacles=4)
+    step = make_e2e_step(model, SPEC, dcfg, max_obstacles=4, device="cpu")
     pts, gt, valid = synthesize_beam_multi_vehicle_batch(np.random.default_rng(3), 2)
     assert pts.shape == (2, 32768, 4) and gt["center"].shape == (2, 2, 3)
     poses, found = step(pts, valid)

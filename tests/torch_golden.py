@@ -32,6 +32,8 @@ MIXED_ASSET = os.path.join(ASSETS, "synthetic_detector_mixed.npz")
 YAW_ASSET = os.path.join(ASSETS, "synthetic_detector_yaw.npz")
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden.npz")
 GOLDEN_MULTI = os.path.join(REPO, "tests", "data", "torch_port_golden_multi.npz")
+GOLDEN_FUSION = os.path.join(REPO, "tests", "data", "torch_port_golden_fusion.npz")
+FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
 GOLDEN_SEED = 11  # JAX PRNGKey of the golden frames
 
 # tolerances (stated once, used by every golden test)
@@ -93,26 +95,69 @@ def port_asset_model(asset: str = ASSET, dtype: str = "float32"):
     return model.eval()
 
 
-def jax_model_from_arrays(mcfg, arrays: dict[str, np.ndarray]):
-    """The JAX FCN of `mcfg` (either framework's class) holding npz-style
-    `arrays`. Built abstract and filled (what
-    tpufusion.models.io.load_state_npz stores, without its random init,
-    which costs ~10 s of eager CPU ops)."""
+def jax_module_from_arrays(build, arrays: dict[str, np.ndarray]):
+    """The nnx module `build()` makes, holding npz-style `arrays` ('/'-
+    joined state paths) as float32. Built abstract and filled (what
+    tpufusion.models.io.load_state_npz stores, without the random init,
+    which costs ~10 s of eager CPU ops a network). RNG state (dropout
+    keys) stays abstract: inference never reads it."""
     import jax.numpy as jnp
+    from flax import nnx
+
+    graphdef, learned, rest = nnx.split(
+        nnx.eval_shape(build), nnx.Any(nnx.Param, nnx.BatchStat), ...
+    )
+    pure: dict = {}
+    for key, value in arrays.items():
+        *path, leaf = key.split("/")
+        node = pure
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = jnp.asarray(value, jnp.float32)
+    nnx.replace_by_pure_dict(learned, pure)
+    return nnx.merge(graphdef, learned, rest)
+
+
+def jax_model_from_arrays(mcfg, arrays: dict[str, np.ndarray], in_channels: int = 3):
+    """The JAX FCN of `mcfg` (either framework's class) holding npz-style
+    `arrays`."""
     from flax import nnx
 
     from tpufusion.models.fcn import FCN
 
     mcfg = to_jax_config(mcfg)
-    graphdef, state = nnx.split(
-        nnx.eval_shape(lambda: FCN(mcfg, in_channels=3, rngs=nnx.Rngs(0)))
+    return jax_module_from_arrays(
+        lambda: FCN(mcfg, in_channels=in_channels, rngs=nnx.Rngs(0)), arrays
     )
-    pure: dict = {}
-    for key, value in arrays.items():
-        layer, leaf = key.split("/")
-        pure.setdefault(layer, {})[leaf] = jnp.asarray(value)
-    nnx.replace_by_pure_dict(state, pure)
-    return nnx.merge(graphdef, state)
+
+
+def jax_apply(model, fn, *args):
+    """fn(model, *args) under jit with the model's learned state as an
+    argument (eager nnx runs op by op); the result's leaves as numpy."""
+    import jax
+    from flax import nnx
+
+    graphdef, learned, rest = nnx.split(model, nnx.Any(nnx.Param, nnx.BatchStat), ...)
+    out = jax.jit(lambda st, *a: fn(nnx.merge(graphdef, st, rest), *a))(learned, *args)
+    return jax.tree.map(np.asarray, out)
+
+
+def random_arrays(module: torch.nn.Module, seed: int) -> dict[str, np.ndarray]:
+    """npz-style float32 arrays for every entry of a port module's state,
+    from a numpy seed: kernels U(-0.05, 0.05) (the reference's init),
+    biases U(-0.5, 0.5), BatchNorm statistics away from the identity."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, t in module.state_dict().items():
+        shape = tuple(t.shape)
+        if key.endswith("kernel"):
+            v = rng.uniform(-0.05, 0.05, shape)
+        elif key.endswith(("norm.var", "norm.scale")):
+            v = rng.uniform(0.5, 1.5, shape)
+        else:
+            v = rng.uniform(-0.5, 0.5, shape)
+        out[key.replace(".", "/")] = v.astype(np.float32)
+    return out
 
 
 def jax_asset_model(asset: str = ASSET, dtype: str = "float32"):
@@ -125,12 +170,7 @@ def jax_asset_model(asset: str = ASSET, dtype: str = "float32"):
 
 def jax_forward(model, images: np.ndarray) -> np.ndarray:
     """The JAX FCN's inference output, jitted (eager nnx runs op by op)."""
-    import jax
-    from flax import nnx
-
-    graphdef, state = nnx.split(model)
-    fwd = jax.jit(lambda st, x: nnx.merge(graphdef, st)(x, train=False))
-    return np.array(fwd(state, images))
+    return np.array(jax_apply(model, lambda m, x: m(x, train=False), images))
 
 
 def jax_beam_scans(seed: int, batch: int, n_points: int = 32768):
@@ -163,8 +203,8 @@ def jax_e2e(points: np.ndarray, valid: np.ndarray):
 
 def jax_step(model, dcfg, points, valid, k: int = 1, head: str = "direct"):
     """JAX make_e2e_step(model, dcfg, max_obstacles=k, head=head) on
-    numpy points -> (poses, found) as numpy; `dcfg` in either framework's
-    class."""
+    numpy points (`valid` may be None) -> (poses, found) as numpy; `dcfg`
+    in either framework's class."""
     import jax.numpy as jnp
     from flax import nnx
 
@@ -175,7 +215,9 @@ def jax_step(model, dcfg, points, valid, k: int = 1, head: str = "direct"):
     step = make_e2e_step(
         graphdef, RangeViewSpec(), to_jax_config(dcfg), max_obstacles=k, head=head
     )
-    poses, found = step(state, jnp.asarray(points), jnp.asarray(valid))
+    poses, found = step(
+        state, jnp.asarray(points), None if valid is None else jnp.asarray(valid)
+    )
     return np.asarray(poses), np.asarray(found)
 
 

@@ -14,11 +14,31 @@ Same distribution as the reference generators, not the same bits: a
 `numpy.random.Generator` replaces `jax.random`. The ellipse and box
 surfaces, and with them the oriented tracking sequence, wait (ROADMAP
 Queue 1: tools).
+
+`render_camera_frames` and `build_fusion_dataset` (counterparts of
+`tpufusion/tools/train_fusion_synthetic.py::render_camera_frames` and
+`build_dataset`) make aligned camera + lidar + radar inputs for the
+fusion net: the vehicle spawns inside the camera's field of view, a
+synthetic pinhole renders it as a bright box on smooth noise at the
+reference's 512 x 1368 crop, the radar reports the cluster's noisy
+(range, angle), and three offset timestamp streams are joined by
+`data.align`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from tpufusion_torch.config import CameraConfig, RangeViewSpec
+from tpufusion_torch.data.fusion import build_fusion_batches
+from tpufusion_torch.geometry.boxes import _CORNER_SIGNS
+from tpufusion_torch.geometry.camera import CameraModel, synthetic_camera
+from tpufusion_torch.geometry.range_view import range_view_project_batch
+
+# the reference's full camera geometry (512 x 1368 crop of a 1024-row image)
+FUSION_CAMERA = CameraConfig(width=1368, height=512, crop_top=0)
+FUSION_FOV = (-0.42, 0.42)  # the camera's field-of-view wedge (~24 deg half)
 
 
 def _raycast_scene(
@@ -154,12 +174,14 @@ def synthesize_beam_scan_batch(
     max_yaw: float = 0.05,
     n_clutter: int = 24,
     dropout: float = 0.12,
+    angle_range: tuple[float, float] = (-np.pi, np.pi),
     vehicle_surface: str = "circle",
 ) -> tuple[np.ndarray, dict[str, np.ndarray], np.ndarray]:
     """Beam-structured single-vehicle scenes -> (points (B, N, 4) float32,
     gt {center (B, 3), size (B, 3), yaw (B,)}, valid (B, N) bool).
 
-    The vehicle sits 8-30 m away at a uniform azimuth; as in the
+    The vehicle sits 8-30 m away at a uniform azimuth within angle_range
+    (e.g. a camera's field of view, for fusion inputs); as in the
     reference, the physical cluster is at Rz(yaw) @ center while gt
     "center" stays unrotated (the orbit-origin convention)."""
     if vehicle_surface != "circle":
@@ -170,7 +192,7 @@ def synthesize_beam_scan_batch(
     _check_beams(n_points, n_beams)
     b = batch
     dist = rng.uniform(8.0, 30.0, b)
-    angle = rng.uniform(-np.pi, np.pi, b)
+    angle = rng.uniform(angle_range[0], angle_range[1], b)
     center = np.stack(
         [dist * np.cos(angle), dist * np.sin(angle), np.full(b, -0.7)], axis=-1
     )
@@ -258,3 +280,87 @@ def synthesize_beam_tracking_sequence(
         "yaw": np.zeros((f, v), np.float32),
     }
     return points, gt, valid
+
+
+def render_camera_frames(
+    centers_phys: np.ndarray,  # (F, 3) physical cluster centers
+    sizes: np.ndarray,  # (F, 3)
+    cam: CameraModel,
+    rng: np.random.Generator,
+) -> np.ndarray:
+    """(F, Hc, Wc, 1) grayscale frames: smooth noise background + a bright
+    vehicle box whose position and scale encode direction and distance
+    (the signal a real camera contributes to late fusion)."""
+    f = len(centers_phys)
+    hc, wc = FUSION_CAMERA.height, FUSION_CAMERA.width
+    out = np.empty((f, hc, wc, 1), np.float32)
+    vcrop = (cam.height - hc) // 2  # center crop rows like the reference's 430:942
+    for i in range(f):
+        img = rng.uniform(0.05, 0.25, (hc, wc)).astype(np.float32)
+        # cheap smoothing: two half-resolution averages
+        img = 0.5 * img + 0.5 * img[::-1, ::-1]
+        c, s = centers_phys[i], sizes[i]
+        corners = c + _CORNER_SIGNS * s / 2.0
+        uv = cam.project_lidar_to_pixels(corners)
+        if np.all(corners @ [1, 0, 0] > 0.5):  # in front of the camera
+            u0, v0 = uv.min(axis=0)
+            u1, v1 = uv.max(axis=0)
+            v0, v1 = v0 - vcrop, v1 - vcrop
+            u0, u1 = np.clip([u0, u1], 0, wc - 1).astype(int)
+            v0, v1 = np.clip([v0, v1], 0, hc - 1).astype(int)
+            if u1 > u0 and v1 > v0:
+                shade = rng.uniform(0.7, 1.0)
+                img[v0:v1, u0:u1] = shade
+                # windows: darker band in the upper third
+                vb = v0 + max(1, (v1 - v0) // 4)
+                img[v0:vb, u0:u1] = shade * 0.5
+        out[i, :, :, 0] = img
+    return out
+
+
+def build_fusion_dataset(
+    n_frames: int,
+    seed: int,
+    spec: RangeViewSpec = RangeViewSpec(),
+    n_points: int = 32768,
+    device: torch.device | str = "cuda",
+) -> dict[str, np.ndarray]:
+    """Aligned {cam (F, 512, 1368, 1), lidar (F, H, W, 3), radar (F, 2),
+    centroid (F, 3), rz (F, 1)} numpy arrays for n_frames scenes, plus the
+    raw "points" (F, N, 4) and "valid" (F, N) the lidar images came from.
+    The range view is projected on `device` (the card unless the caller
+    asks for "cpu")."""
+    cam = synthetic_camera(FUSION_CAMERA.width, 1024, 1400.0)
+    rng = np.random.default_rng(seed)
+    pts, gt, valid = synthesize_beam_scan_batch(
+        rng, n_frames, n_points, angle_range=FUSION_FOV
+    )
+    with torch.inference_mode():
+        imgs = range_view_project_batch(
+            torch.from_numpy(pts).to(device), spec, torch.from_numpy(valid).to(device)
+        ).cpu().numpy()
+    center, yaw, size = gt["center"], gt["yaw"], gt["size"]
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    phys = np.stack(
+        [cy * center[:, 0] - sy * center[:, 1], sy * center[:, 0] + cy * center[:, 1],
+         center[:, 2]],
+        axis=-1,
+    )
+    cam_frames = render_camera_frames(phys, size, cam, rng)
+
+    # radar: sensor-noised polar observation of the physical cluster
+    rr = np.linalg.norm(phys[:, :2], axis=1) + rng.normal(0, 0.25, n_frames)
+    ra = np.arctan2(phys[:, 1], phys[:, 0]) + rng.normal(0, 0.008, n_frames)
+    radar = np.stack([rr, ra], axis=-1).astype(np.float32)
+
+    # deliberately offset timestamp streams through the aligner (scenes
+    # are independent, so every stream runs at the frame rate; the
+    # offsets still exercise the nearest-timestamp joins)
+    t0 = 1_490_000_000_000
+    lidar_ts = t0 + np.arange(n_frames) * 100_000  # 10 Hz (us)
+    cam_ts = lidar_ts + 7_000
+    radar_ts = lidar_ts + 3_000
+    poses = np.concatenate([center, yaw[:, None]], axis=1).astype(np.float32)
+    data = build_fusion_batches(cam_frames, cam_ts, poses, imgs, lidar_ts, radar, radar_ts)
+    data.update(points=pts, valid=valid, timestamps=cam_ts)
+    return data

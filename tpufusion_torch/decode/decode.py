@@ -36,13 +36,13 @@ argmin must stay ties; see geometry/range_view.py).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 
 import torch
 import torch.nn.functional as F
 
+from tpufusion_torch._precision import full_f32_matmuls as _full_f32_matmuls
 from tpufusion_torch.config import DecodeConfig, RangeViewSpec
 from tpufusion_torch.geometry.boxes import rot_y, rot_z
 from tpufusion_torch.geometry.encoding import (
@@ -190,22 +190,6 @@ def find_obstacle(prob: torch.Tensor, cfg: DecodeConfig = DecodeConfig()):
     areas; a cluster's root is its smallest flat index, so that is
     lax.top_k's stable order at k = 1."""
     return tuple(t[:, 0] for t in find_obstacles_topk(prob, cfg, 1))
-
-
-@contextlib.contextmanager
-def _full_f32_matmuls():
-    """float32 matmuls in full precision inside the block (or the
-    decorated function), the process's setting restored after. With
-    torch.set_float32_matmul_precision("high") anywhere in the process
-    they would run in TF32 on the card ("medium": bf16 passes in oneDNN
-    on some CPUs), and the corner vote's neighbour count would move
-    pairs across its distance threshold."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
 
 
 def back_project_2d_to_3d(

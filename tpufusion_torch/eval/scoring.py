@@ -1,5 +1,6 @@
-"""Top-K pose scoring: the port's copy of `score_multi_poses` and the
-helpers it needs from the JAX package's numpy module
+"""Pose scoring: the port's copy of `score_poses` (one box a frame),
+`score_multi_poses` (top-K) and the helpers they need from the JAX
+package's numpy module
 (`tpufusion/eval/scoring.py`): the orbit/physical frame conversions,
 yaw-aware 3D box IoU (rotated-rectangle polygon clip in BEV x vertical
 overlap) and per-pose errors. `tests/test_torch_imports.py` holds it
@@ -119,6 +120,46 @@ def pose_errors(pred, truth) -> dict[str, float]:
         "xy_err": float(np.linalg.norm(p[:2] - t[:2])),
         "yaw_err": float(min(dyaw, np.pi - dyaw)),
     }
+
+
+def score_poses(
+    preds: np.ndarray, truths: np.ndarray, iou_thresholds=(0.25, 0.5),
+    pose_frame: str = "physical",
+) -> dict[str, float]:
+    """Batched scoring: preds/truths (F, 7). Frames with all-zero preds are
+    misses (the decode's no-obstacle sentinel).
+
+    pose_frame="orbit" declares the tuples orbit-convention (what the
+    decode pipeline and the synthetic GT emit); both sides are converted
+    to the physical frame before errors/IoU (see module docstring)."""
+    if pose_frame == "orbit":
+        preds = orbit_to_physical(preds)
+        truths = orbit_to_physical(truths)
+    elif pose_frame != "physical":
+        raise ValueError(f"unknown pose_frame {pose_frame!r}")
+    preds = np.asarray(preds, np.float64)
+    truths = np.asarray(truths, np.float64)
+    found = ~np.all(preds[:, :3] == 0.0, axis=1)
+    ious = np.array(
+        [
+            box_iou_3d(p, t) if ok else 0.0
+            for p, t, ok in zip(preds, truths, found)
+        ]
+    )
+    errs = [
+        pose_errors(p, t) for p, t, ok in zip(preds, truths, found) if ok
+    ]
+    out = {
+        "frames": float(len(preds)),
+        "detection_rate": float(found.mean()) if len(preds) else 0.0,
+        "mean_iou": float(ious.mean()) if len(preds) else 0.0,
+    }
+    for th in iou_thresholds:
+        out[f"recall@iou{th}"] = float((ious >= th).mean())
+    if errs:
+        for k in ("trans_err", "xy_err", "yaw_err"):
+            out[f"mean_{k}"] = float(np.mean([e[k] for e in errs]))
+    return out
 
 
 def score_multi_poses(

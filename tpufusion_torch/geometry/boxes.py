@@ -1,10 +1,27 @@
-"""Rotation matrices (counterpart of `tpufusion/geometry/boxes.py::rot_z`
-and `rot_y`). The corner template, projection and footprint rects wait
-for the training slice (ROADMAP Queue 1)."""
+"""Rotation matrices and the corner sign table (counterpart of
+`tpufusion/geometry/boxes.py::rot_z`, `rot_y` and `_CORNER_SIGNS`). The
+corner projection and footprint rects wait for the training slice
+(ROADMAP Queue 1)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+# corner template signs in (l, w, h) halves, in the reference's order
+_CORNER_SIGNS = np.array(
+    [
+        [-1, +1, +1],
+        [-1, +1, -1],
+        [-1, -1, +1],
+        [-1, -1, -1],
+        [+1, +1, +1],
+        [+1, +1, -1],
+        [+1, -1, +1],
+        [+1, -1, -1],
+    ],
+    dtype=np.float32,
+)
 
 
 def rot_z(angle: torch.Tensor) -> torch.Tensor:

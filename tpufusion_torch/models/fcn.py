@@ -10,6 +10,10 @@
             deconv6a (vs, 4), crop to W, softmax, clip(1e-7, 1)
     -> reg: deconv5b/6b mirror (linear, or relu for a relu corner head)
   output (B, H, W, 2 + reg) NHWC, float32
+  features(x): the pre-softmax deconv6a map, NHWC, compute dtype
+
+vs = 1 for the lidar range view (32 x 1801 x 3) and the BEV (180 x 1197
+x 3), vs = 2 without the regression branch for the camera (512 x 1368 x 1).
 
 dtype "bfloat16" computes as flax does with dtype=bf16 and float32
 params: each conv casts its input, kernel and bias to bf16 and adds the
@@ -61,6 +65,19 @@ def _transpose_pad(s: int, k: int = _K) -> tuple[int, int]:
 def _bias(bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """flax's `y += bias` after the convolution, in the compute dtype."""
     return bias.to(x.dtype).view(-1, 1, 1)
+
+
+def uniform_init_(model: nn.Module, seed: int) -> None:
+    """Draws every `kernel` of `model` from U(-0.05, 0.05) (keras's
+    random_uniform, the reference FCN's initializer) with a generator
+    made from `seed`; biases and the BatchNorm stay as built (zeros, the
+    identity). For benchmarks and smoke runs that need weights but no
+    trained asset; the values are not the reference's for the same seed."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            if name.endswith("kernel"):
+                param.copy_(torch.rand(param.shape, generator=gen) * 0.1 - 0.05)
 
 
 class Conv(nn.Module):
@@ -158,8 +175,12 @@ class FCN(nn.Module):
             return DIRECT_CHANNELS_DUAL
         return DIRECT_CHANNELS
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) float32 -> (B, H, W, 2 [+ reg]) float32."""
+    def _trunk(self, x: torch.Tensor):
+        """Shared encoder and the deconv6a head, NCHW in the compute
+        dtype. The crops follow the input width, so the lidar (1801,
+        conv1 width 451, crop5 = 1), camera (1368, conv1 width 343,
+        crop5 = 1, 1372 cropped to 1368) and BEV (1197, conv1 width 300,
+        crop5 = 0) geometries all come out at the input's width."""
         cfg = self.cfg
         w = x.shape[2]
         x = x.to(torch.float32).permute(0, 3, 1, 2)
@@ -176,6 +197,12 @@ class FCN(nn.Module):
 
         d5a = F.relu(self.deconv5a(cat4))[:, :, :, crop5:]
         d6a = self.deconv6a(torch.cat([c1, d5a], dim=1))[:, :, :, :w]
+        return d6a, (c1, cat4, crop5, w)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) float32 -> (B, H, W, 2 [+ reg]) float32."""
+        cfg = self.cfg
+        d6a, (c1, cat4, crop5, w) = self._trunk(x)
         probs = torch.softmax(d6a.float(), dim=1).clamp(_KERAS_EPSILON, 1.0)
         if not cfg.use_regression:
             return probs.permute(0, 2, 3, 1).contiguous()
@@ -185,3 +212,10 @@ class FCN(nn.Module):
         if cfg.head == "corner" and cfg.reg_output_activation == "relu":
             d6b = F.relu(d6b)  # reference-compat; direct targets are signed
         return torch.cat([probs, d6b.float()], dim=1).permute(0, 2, 3, 1).contiguous()
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) -> the pre-softmax deconv6a map (B, H', W, 2) in
+        the compute dtype, NHWC: the tap the fusion net consumes. H' is H
+        for vertical_stride 1 and for heights the three vertical strides
+        divide (the camera's 512 at stride 2)."""
+        return self._trunk(x)[0].permute(0, 2, 3, 1)

@@ -1,5 +1,5 @@
-"""npz weight loading (counterpart of `tpufusion/models/io.py`) and the
-detector assets' json settings.
+"""npz weight loading (counterpart of `tpufusion/models/io.py`), the
+detector assets' json settings and the fusion asset's loader.
 
 Keys are the '/'-joined nnx state paths the JAX package writes
 (`conv1/kernel`, `norm/mean`, ...), which are also this FCN's state-dict
@@ -14,8 +14,9 @@ import json
 import numpy as np
 import torch
 
-from tpufusion_torch.config import DecodeConfig, ModelConfig
+from tpufusion_torch.config import CameraConfig, DecodeConfig, ModelConfig
 from tpufusion_torch.models.fcn import FCN
+from tpufusion_torch.models.fusion import FusionNet
 
 
 def load_arrays(model: torch.nn.Module, arrays: dict[str, np.ndarray]) -> None:
@@ -34,11 +35,16 @@ def load_arrays(model: torch.nn.Module, arrays: dict[str, np.ndarray]) -> None:
 
 
 def fcn_from_arrays(
-    arrays: dict[str, np.ndarray], cfg: ModelConfig, in_channels: int = 3
+    arrays: dict[str, np.ndarray],
+    cfg: ModelConfig,
+    in_channels: int = 3,
+    device: torch.device | str = "cuda",
 ) -> FCN:
+    """The FCN of `cfg` holding npz-style `arrays`, on `device` (the card
+    unless the caller asks for "cpu"; without a card that raises)."""
     model = FCN(cfg, in_channels)
     load_arrays(model, arrays)
-    return model.eval()
+    return model.to(device).eval()
 
 
 def load_state_npz(path: str, model: torch.nn.Module) -> None:
@@ -57,3 +63,33 @@ def asset_configs(path: str) -> tuple[ModelConfig, DecodeConfig]:
         dataclasses.replace(ModelConfig(), **meta.get("model", {})),
         dataclasses.replace(DecodeConfig(), **meta.get("decode", {})),
     )
+
+
+def fusion_from_asset(
+    path: str,
+    device: torch.device | str = "cuda",
+    dtype: str = "bfloat16",
+) -> FusionNet:
+    """The fusion net of a shipped asset: weights `path` (.npz, float16
+    or float32, cast to float32 parameters) plus `path + ".json"`, which
+    names the pools (`lidar_pool`, `cam_pool`) and the camera's width and
+    height. Both FCNs compute in `dtype` (bf16, as the reference's fused
+    benchmark builds them). The net is moved to `device` (the card unless
+    the caller asks for "cpu"). An unreadable asset, a missing entry or
+    any key or shape mismatch raises: there is no fall-back to random
+    weights."""
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    cam = meta.get("camera", {})
+    camera = dataclasses.replace(
+        CameraConfig(), **{k: int(cam[k]) for k in ("width", "height") if k in cam}
+    )
+    net = FusionNet(
+        lidar_model=ModelConfig(dtype=dtype),
+        camera_model=ModelConfig(vertical_stride=2, use_regression=False, dtype=dtype),
+        camera=camera,
+        lidar_pool=tuple(meta["lidar_pool"]),
+        cam_pool=tuple(meta["cam_pool"]),
+    )
+    load_state_npz(path, net)
+    return net.to(device).eval()

@@ -1,6 +1,7 @@
 """Adversarial inputs that hold the two CUDA kernels against their plain
 versions (`tests/test_torch_cuda.py` and `chip_smoke.py` phases 2-3 run
-the same ones). Numpy only, made from a seed.
+the same ones), and the BEV rasterizer's edge-case cloud. Numpy only,
+made from a seed.
 
 The CC masks aim at the strip tiling of `csrc/components.cu` (64-column
 full-height strips, 28 full ones and a ragged 9-column last one at width
@@ -114,10 +115,12 @@ def cc_batch(batch: int, seed: int = 0, height: int = 32, width: int = 1801) -> 
 
 CC_BATCHES = (1, 16, 64)  # batch sizes of the cc_batch cases
 ZBUFFER_KINDS = ("one_pixel", "ties", "garbage_ids", "all_invalid", "one_cta", "uniform")
-# (batch, points per frame, kinds): each kind alone in one frame, then
-# the kinds in turn at the main path's shapes and at an odd N
+# (batch, points per frame, kinds): each kind alone in one frame (config
+# 1's shape), then the kinds in turn at the other serving shapes (config
+# 3's 8, config 2's 64, config 5's 16 x 131,072) and at an odd N
 ZBUFFER_SHAPES = [(1, 32768, (k,)) for k in ZBUFFER_KINDS] + [
-    (64, 32768, ZBUFFER_KINDS), (16, 131072, ZBUFFER_KINDS), (3, 4097, ZBUFFER_KINDS)]
+    (8, 32768, ZBUFFER_KINDS), (64, 32768, ZBUFFER_KINDS), (16, 131072, ZBUFFER_KINDS),
+    (3, 4097, ZBUFFER_KINDS)]
 
 
 def zbuffer_args(batch: int, n: int, num_pixels: int, seed: int = 0, kinds=ZBUFFER_KINDS):
@@ -156,3 +159,27 @@ def zbuffer_args(batch: int, n: int, num_pixels: int, seed: int = 0, kinds=ZBUFF
         a[:, n // 2 : n // 2 + k] = a[:, :k]
     payload = rng.standard_normal((batch, n, 3)).astype(np.float32)
     return pix, dist.view(np.int32), valid, payload
+
+
+def bev_edge_cloud(spec, seed: int = 5, n: int = 4096):
+    """(points (n, 4) float32, valid (n,) bool) for the BEV rasterizer:
+    random points over and beyond the grid, points exactly on bin edges
+    and at +-max_range (the last edge is inclusive), one ulp outside,
+    NaN / inf rows, a crowded corner cell, masked rows. `spec` is a
+    BevSpec."""
+    rng = np.random.default_rng(seed)
+    r = spec.max_range
+    pts = rng.uniform(-1.1 * r, 1.1 * r, (n, 4)).astype(np.float32)
+    pts[:, 2] = rng.uniform(-3, 3, n)
+    kx = rng.integers(0, spec.nx + 1, 600)
+    ky = rng.integers(0, spec.ny + 1, 600)
+    pts[:600, 0] = (-r + spec.res_x * kx).astype(np.float32)  # on x edges
+    pts[300:900, 1] = (-r + spec.res_y * ky).astype(np.float32)  # on y edges
+    pts[900:906, :2] = [[r, r], [-r, -r], [r, -r], [-r, r], [r, 0], [0, -r]]
+    pts[906, 0] = np.nextafter(np.float32(r), np.float32(np.inf))
+    pts[907, 1] = np.nextafter(np.float32(-r), np.float32(-np.inf))
+    pts[910, 0], pts[911, 2], pts[912, 3] = np.nan, np.inf, -np.inf
+    pts[920:940] = pts[900]  # a crowded corner cell
+    valid = rng.random(n) > 0.2
+    valid[900:908] = True
+    return pts, valid

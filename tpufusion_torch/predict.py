@@ -46,20 +46,22 @@ def make_e2e_step(
     method: str = "exact",
     max_obstacles: int = 1,
     head: str = "direct",
+    device: torch.device | str = "cuda",
 ):
     """Returns step(points (B, N, 4), valid (B, N) | None) -> (poses,
-    found) on the model's device: (B, 7) and (B,) for max_obstacles = 1,
+    found) on `device`: (B, 7) and (B,) for max_obstacles = 1,
     (B, K, 7) and (B, K) top-K clusters for max_obstacles = K > 1.
     head="direct" decodes the direct-pose head, head="corner" the corner
     vote (the reference's default is "corner"; the port's is the shipped
-    asset's "direct"). Inputs may be numpy arrays or tensors; they are
-    moved to the model's device."""
+    asset's "direct"). The model is moved to `device` (the card unless
+    the caller asks for "cpu"; without a card that raises) and the
+    inputs, numpy arrays or tensors, follow it."""
     if head not in _HEADS:
         raise ValueError(f"unknown head {head!r}")
     if max_obstacles < 1:
         raise ValueError(f"max_obstacles must be >= 1, got {max_obstacles}")
-    device = next(model.parameters()).device
-    model.eval()
+    device = torch.device(device)
+    model.to(device).eval()
 
     def as_tensor(x, dtype):
         if isinstance(x, np.ndarray):
@@ -83,13 +85,15 @@ def predict_images(
     images: np.ndarray,  # (F, H, W, 3) range-view tensors
     cfg: PipelineConfig = DEFAULT,
     batch: int = 32,
+    device: torch.device | str = "cuda",
 ) -> tuple[np.ndarray, np.ndarray]:
     """Returns (poses (F, 7), found (F,)) as numpy. The decode follows
     cfg.model.head (the direct decode for "direct", else the corner
     vote). The last partial batch is padded with copies of its last
-    frame, as the reference pads it to keep one compiled shape."""
-    device = next(model.parameters()).device
-    model.eval()
+    frame, as the reference pads it to keep one compiled shape. The
+    model is moved to `device` (without a card, "cuda" raises)."""
+    device = torch.device(device)
+    model.to(device).eval()
     spec, dcfg = cfg.range_view, cfg.decode
     head = "direct" if cfg.model.head == "direct" else "corner"
     f = len(images)

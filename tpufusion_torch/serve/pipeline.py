@@ -25,18 +25,24 @@ class LidarPipeline:
         model: FCN,
         cfg: PipelineConfig = DEFAULT,
         max_points: int | None = None,
+        device: torch.device | str = "cuda",
     ):
+        """The model is moved to `device`: the card unless the caller
+        asks for "cpu" (without a card, "cuda" raises)."""
         self.cfg = cfg
-        self.model = model.eval()
+        self.model = model.to(device).eval()
         self.max_points = max_points or cfg.max_points
         self._step = make_e2e_step(
             self.model, cfg.range_view, cfg.decode, cfg.projection_method,
-            head=cfg.model.head,
+            head=cfg.model.head, device=device,
         )
 
     @classmethod
     def from_asset(
-        cls, path: str, device: torch.device | str, max_points: int | None = None
+        cls,
+        path: str,
+        device: torch.device | str = "cuda",
+        max_points: int | None = None,
     ) -> "LidarPipeline":
         """A detector asset: weights `path` (.npz) plus `path + ".json"`,
         whose "model" and "decode" entries override the config defaults.
@@ -45,7 +51,7 @@ class LidarPipeline:
         cfg = DEFAULT.replace(model=mcfg, decode=dcfg)
         model = FCN(mcfg, in_channels=3)
         load_state_npz(path, model)
-        return cls(model.to(device), cfg, max_points)
+        return cls(model, cfg, max_points, device)
 
     def _pad(self, points: np.ndarray):
         n = self.max_points
