@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (tpufusion_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--training-only]
 
 It builds both CUDA kernels from the checkout's sources, holds each
 against its plain PyTorch version on the card (phases 2-3: real inputs
@@ -9,7 +9,7 @@ and the adversarial ones of `tpufusion_torch/ops/parity_inputs.py`, which
 aim at the CC's strip borders and the z-buffer's cluster), and drives the
 lidar detector's serving paths at full geometry (32 x 1801 range view) through
 the entry points a user calls, each with the kernels' launch counts set
-to 0 before it and read after it:
+to 0 before it and read after it, and then the training paths:
 
   phases 4-5   the float32 direct path with the shipped detector asset
                (`LidarPipeline.predict_position`, `make_e2e_step`,
@@ -39,16 +39,40 @@ to 0 before it and read after it:
                270 frames, a pinned ring of 2) against `make_e2e_step`,
                then the prediction CSV, the tracklet XML and the scoring
 
-The z-buffer kernel runs on every path; configs 1 and 3 decode nothing,
-so the CC kernel is not on theirs. Phases 12 and 13 hold the z-buffer
+  phase 15     one train step (`train.train_step.make_train_step`) against
+               the reference's on 4 x 32,768 points: the asset's direct
+               head in float32 and bf16, and a corner head rolled by the
+               reference's shifts (labels, loss, metrics, every gradient
+               tensor, the BatchNorm statistics after the step)
+  phase 16     `train.trainer.Trainer.fit` at full width: 4 scene batches
+               of 32 x 32,768 points through `BatchPipeline`, 2 epochs, a
+               checkpoint, `resume()` into a fresh trainer, one more
+               epoch; the default widths in bf16 with the corner head and
+               the asset's direct-head geometry in float32; no host sync
+               in the step loop; the step's time and its split
+  phase 17     `train.fusion_trainer.train_fusion` at full width (camera
+               512 x 1368, pools (2, 8) / (8, 8), bf16 FCNs, 32 frames,
+               batch 8), unlocked and locked, and one fusion step against
+               the reference's loss and gradients
+  phase 18     config 4 (`benchmarks.config4_full_eval`): 128 frames at
+               batch 32 x 32,768 with the shipped asset, CSV -> tracklet
+               XML -> scoring; then with a detector quick-trained here at
+               a reduced depth
+
+The z-buffer kernel runs on every path; configs 1 and 3 and the train
+steps decode nothing, so the CC kernel is not on theirs. Phases 12 and 13 hold the z-buffer
 kernel against its plain version on their own points (1 x 32,768 and the
 8 x 32,768 camera-wedge scans) before they drive the path.
 
 Every answer is held against the committed JAX goldens
 (tests/data/torch_port_golden.npz, torch_port_golden_multi.npz,
-torch_port_golden_fusion.npz);
+torch_port_golden_fusion.npz, torch_port_golden_train.npz);
 times are CUDA events over distinct inputs, and for the kernels also
 device time (the kernels' own durations, torch.profiler).
+
+With --training-only it builds the kernels and runs phases 15-18 alone
+(about a minute; their times then stand without the earlier phases'
+tensors on the card) and prints no kernels line.
 
 Every phase asserts; a failure raises, so the exit code is non-zero and
 the final line is never printed. Without a CUDA device it exits non-zero
@@ -104,6 +128,11 @@ ASSET = os.path.join(ASSETS, "synthetic_detector.npz")
 GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_golden.npz")
 GOLDEN_MULTI = os.path.join(HERE, "tests", "data", "torch_port_golden_multi.npz")
 GOLDEN_FUSION = os.path.join(HERE, "tests", "data", "torch_port_golden_fusion.npz")
+GOLDEN_TRAIN = os.path.join(HERE, "tests", "data", "torch_port_golden_train.npz")
+TRAIN_BATCH = 32  # frames per train batch (phases 16 and 18)
+TRAIN_SCENE_BATCHES = 4  # phase 16: distinct scene batches in the dataset
+FUSION_TRAIN_FRAMES = 32  # phase 17
+C4_FRAMES = 128  # config 4
 FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
 C3_BATCH = 8  # config 3: frames per batch
 REPLAY_FRAMES = 270  # the replay server: 4 chunks of 64 and a partial one
@@ -756,7 +785,327 @@ def phase_replay(dev, card, totals):
     return stats.summary()
 
 
-def main() -> int:
+def phase_train_golden(dev, spec, gm, gt, totals):
+    """Phase 15: one train step of each TRAIN_CASES entry on the train
+    golden's frames against the reference's."""
+    from tpufusion_torch import _golden
+
+    batch = _golden.train_golden_inputs()
+    same = str(batch["sha256"]) == str(gt["inputs_sha256"])
+    log(f"phase 15 train step against the reference: {_golden.TRAIN_FRAMES} x "
+        f"{_golden.TRAIN_POINTS} points from seed {_golden.TRAIN_SEED}, digest equals the "
+        f"golden's = {same}")
+    assert same, "the regenerated train frames are not the golden's"
+    check_zbuffer("the train golden's frames", torch.from_numpy(batch["points"]).to(dev),
+                  torch.from_numpy(batch["valid"]).to(dev), spec)
+    readings = {}
+    for case, what in _golden.TRAIN_CASES.items():
+        shifts = gt.get(f"{case}/shifts")
+        labels = _golden.port_case_labels(case, ASSET, gm, batch, dev, shifts)
+        pixels_equal, label_abs = _golden.label_readings(labels, gt, case)
+        got, counts = drive(
+            f"train step {case} (head {what['head']}, {what['dtype']}"
+            + (f", rolled by {shifts.tolist()}" if shifts is not None else "") + ")",
+            lambda: _golden.port_train_case(case, ASSET, gm, batch, dev, shifts),
+            totals, expect=BOTH_KERNELS[:1])
+        assert counts == {"nearest_wins_image": 1, "connected_components_with_bbox": 0}, (
+            "a train step launches the z-buffer once and never the CC")
+        r = _golden.train_case_readings(got, gt, case)
+        lim = _golden.train_case_limits(case)
+        readings[case] = r
+        log(f"    foreground pixels equal = {pixels_equal}, label values {label_abs:.3e} "
+            f"(limit {_golden.TRAIN_LABEL_ATOL:.0e}); loss {got['loss']:.6f} vs "
+            f"{float(gt[case + '/loss']):.6f}: relative {r['loss_rel']:.3e} (limit "
+            f"{lim['loss_rel']:.1e}); worst gradient tensor {r['worst_grad']} "
+            f"{r['grad_rel']:.3e} of its largest entry (limit {lim['grad_rel']:.1e}), conv "
+            f"biases {r['bias_grad_rel']:.3e} (limit {lim['bias_grad_rel']:.1e}); running "
+            f"stats {r['stats_abs']:.3e} (limit {lim['stats_abs']:.0e}); metrics "
+            f"{r['metrics_abs']:.3e}")
+        assert pixels_equal and label_abs <= _golden.TRAIN_LABEL_ATOL, f"{case}: labels differ"
+        for k, v in lim.items():
+            assert r[k] <= v, f"{case}: {k} {r[k]:.3e} over {v:.3e}"
+        assert r["metrics_abs"] <= 1e-3, f"{case}: metrics differ"
+    return readings
+
+
+def _sync_events(prof) -> dict[str, int]:
+    """Calls that make the host wait for the card, counted in a profile.
+    The profiler itself synchronizes the device once when it stops; that
+    one call is left out."""
+    names = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+             "aten::item", "aten::_local_scalar_dense")
+    counts = {e.key: e.count for e in prof.key_averages() if e.key in names}
+    counts["cudaDeviceSynchronize"] = counts.get("cudaDeviceSynchronize", 0) - 1
+    return {k: n for k, n in counts.items() if n > 0}
+
+
+def phase_trainer(dev, spec, card, totals):
+    """Phase 16: Trainer.fit at full width, a checkpoint, resume, and the
+    step's time and split."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpufusion_torch.config import DEFAULT, LossConfig, ModelConfig, TrainConfig
+    from tpufusion_torch.data.pipeline import BatchPipeline
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.models.io import asset_configs
+    from tpufusion_torch.models.losses import weighted_pose_loss
+    from tpufusion_torch.train.stats import population_weights
+    from tpufusion_torch.train.train_step import encode_batch
+    from tpufusion_torch.train.trainer import Trainer
+
+    parts = [synthesize_beam_scan_batch(np.random.default_rng(1600 + i), TRAIN_BATCH, N_POINTS)
+             for i in range(TRAIN_SCENE_BATCHES)]
+    data = {"points": np.concatenate([p for p, _, _ in parts]),
+            "valid": np.concatenate([v for _, _, v in parts])}
+    for k in ("center", "size", "yaw"):
+        data[k] = np.concatenate([gt[k] for _, gt, _ in parts])
+    stats = population_weights(data["center"], data["size"], data["yaw"], spec, device=dev)
+    loss_cfg = LossConfig(obj_to_bkg_ratio=stats["positive_to_negative_ratio"],
+                          avg_obj_size=stats["average_area"])
+    log(f"phase 16 Trainer.fit: {TRAIN_SCENE_BATCHES} scene batches of {TRAIN_BATCH} x "
+        f"{N_POINTS} points ({len(data['points'])} frames), BatchPipeline batch {TRAIN_BATCH}, "
+        f"2 epochs + a checkpoint + resume + 1 epoch; population_weights {stats}")
+    amcfg, adcfg = asset_configs(ASSET)
+    runs = (("default widths, corner head, bf16, roll augmentation",
+             ModelConfig(dtype="bfloat16"), DEFAULT.decode, True),
+            ("the asset's geometry (width 2, direct head), float32", amcfg, adcfg, False))
+    rows = {}
+    for tag, mcfg, dcfg, augment in runs:
+        cfg = DEFAULT.replace(
+            model=mcfg, decode=dcfg, loss=loss_cfg,
+            train=TrainConfig(batch_size=TRAIN_BATCH, epochs=2, learning_rate=3e-3,
+                              augment=augment, seed=0))
+        with tempfile.TemporaryDirectory() as outdir:
+            trainer = Trainer(cfg, outdir=outdir, device=dev)
+            pipe = BatchPipeline(data, TRAIN_BATCH, seed=0, device=dev)
+            assert pipe._dev is not None, "the dataset should be device-resident"
+            hist, counts = drive(f"fit, {tag}", lambda: trainer.fit(pipe), totals,
+                                 expect=BOTH_KERNELS[:1])
+            steps = 2 * TRAIN_SCENE_BATCHES
+            assert counts == {"nearest_wins_image": steps, "connected_components_with_bbox": 0}
+            losses = hist.batch["loss"]
+            first, last = hist.epoch["loss"]
+            log(f"    step losses {[round(x, 3) for x in losses]}; epoch means {first:.4f} -> "
+                f"{last:.4f}; checkpoints {trainer.ckpt.steps()}")
+            assert len(losses) == steps and np.isfinite(losses).all(), "a loss is not finite"
+            assert last < first, "the mean loss did not fall"
+            assert trainer.ckpt.latest_step() == steps
+            assert os.path.exists(os.path.join(outdir, "pr_curve.csv"))
+            assert os.path.exists(os.path.join(outdir, "metrics.jsonl"))
+
+            resumed = Trainer(cfg, outdir=outdir, device=dev)
+            assert resumed.resume() and resumed.step == steps
+            moments = all(
+                torch.equal(trainer.optimizer.state[a][m], resumed.optimizer.state[b][m])
+                for a, b in zip(trainer.model.parameters(), resumed.model.parameters())
+                for m in ("mu", "nu"))
+            same_rng = torch.equal(trainer.generator.get_state(), resumed.generator.get_state())
+            probe = {k: torch.from_numpy(v[:TRAIN_BATCH]).to(dev) for k, v in data.items()}
+            la, _ = trainer.train_step(trainer.model, trainer.optimizer, probe, trainer.generator)
+            lb, _ = resumed.train_step(resumed.model, resumed.optimizer, probe, resumed.generator)
+            log(f"    resume: step {resumed.step}, optimizer count {resumed.optimizer.count}, "
+                f"moments equal = {moments}, generator state equal = {same_rng}; next step's "
+                f"loss {float(la):.6f} (uninterrupted) vs {float(lb):.6f} (resumed)")
+            assert moments and same_rng and float(la) == float(lb), "resume is not exact"
+            hist2, _ = drive("one more epoch after resume",
+                             lambda: resumed.fit(pipe, epochs=1), totals, expect=BOTH_KERNELS[:1])
+            assert np.isfinite(hist2.batch["loss"]).all() and resumed.step == steps + TRAIN_SCENE_BATCHES
+
+            # no host sync in the step loop: 8 steps, the pipeline's gathers included
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    for b in pipe.epoch():
+                        trainer.train_step(trainer.model, trainer.optimizer, b, trainer.generator)
+            syncs = _sync_events(prof)
+            torch.cuda.synchronize()
+            log(f"    8 profiled steps (2 epochs of the pipeline): host-sync calls {syncs or 'none'} "
+                "(stream / device / event synchronize, aten::item)")
+            assert not syncs, "the step loop waits for the card"
+
+            # times: the step and its parts over 8 distinct batches
+            batches = [b for _ in range(2) for b in pipe.epoch()]
+            model, opt, gen = trainer.model, trainer.optimizer, trainer.generator
+            head, yaw_frame = mcfg.head, dcfg.direct_yaw_frame
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated() / 2**20
+            step_ms = time_ms(lambda b: trainer.train_step(model, opt, b, gen), batches)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            busy_ms = device_ms(lambda b: trainer.train_step(model, opt, b, gen), batches)
+            with torch.no_grad():
+                images = [range_view_project_batch(b["points"], spec, b["valid"]) for b in batches]
+                with_images = [dict(b, images=im) for b, im in zip(batches, images)]
+                labels = [encode_batch(b, spec, head, yaw_frame)[1] for b in with_images]
+                proj_ms = time_ms(
+                    lambda b: range_view_project_batch(b["points"], spec, b["valid"]), batches)
+                enc_ms = time_ms(lambda b: encode_batch(b, spec, head, yaw_frame), with_images)
+            pairs = list(zip(images, labels))
+
+            def forward(il):
+                return weighted_pose_loss(model(il[0], train=True), il[1], loss_cfg)
+
+            def forward_backward(il):
+                opt.zero_grad(set_to_none=True)
+                forward(il).backward()
+
+            fwd_ms = time_ms(forward, pairs)
+            fb_ms = time_ms(forward_backward, pairs)
+            opt_ms = time_ms(lambda _: opt.step(), batches)
+            rows[tag] = {"ms_per_step": round(step_ms, 3),
+                         "frames_per_s": round(TRAIN_BATCH * 1e3 / step_ms, 1),
+                         "device_ms_per_step": round(busy_ms, 3),
+                         "device_busy": round(busy_ms / step_ms, 3),
+                         "projection_ms": round(proj_ms, 3), "label_encode_ms": round(enc_ms, 3),
+                         "forward_ms": round(fwd_ms, 3), "backward_ms": round(fb_ms - fwd_ms, 3),
+                         "optimizer_ms": round(opt_ms, 3), "peak_device_mib": round(peak, 1),
+                         "resident_before_mib": round(resident, 1)}
+            log(f"    times over {len(batches)} distinct batches of {TRAIN_BATCH} x {N_POINTS}: "
+                f"{json.dumps(rows[tag])} [{card}]")
+    return rows
+
+
+def phase_fusion_train(dev, gf, gt, card, totals):
+    """Phase 17: train_fusion at full width, unlocked and locked, and one
+    fusion step against the reference's loss and gradients."""
+    from tpufusion_torch import ModelConfig, _golden
+    from tpufusion_torch.data.synthetic import build_fusion_dataset
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.models.fusion import FusionNet, init_fusion_
+    from tpufusion_torch.train.fusion_trainer import train_fusion
+
+    log(f"phase 17 fusion training: camera 512 x 1368 x 1, pools (2, 8) / (8, 8), bf16 FCNs, "
+        f"{FUSION_TRAIN_FRAMES} frames x {N_POINTS} points, batch {C3_BATCH}")
+    data, counts = drive(
+        "build_fusion_dataset", lambda: build_fusion_dataset(FUSION_TRAIN_FRAMES, 700, device=dev),
+        totals, expect=BOTH_KERNELS[:1])
+    net = FusionNet(
+        lidar_model=ModelConfig(dtype="bfloat16"),
+        camera_model=ModelConfig(vertical_stride=2, use_regression=False, dtype="bfloat16"),
+        lidar_pool=(2, 8), cam_pool=(8, 8))
+    init_fusion_(net, 0)
+    steps = FUSION_TRAIN_FRAMES // C3_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    losses = train_fusion(net, data, epochs=2, batch_size=C3_BATCH, device=dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    more = train_fusion(net, data, epochs=2, batch_size=C3_BATCH, seed=1, device=dev)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3 / (2 * steps)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"    nothing locked: epoch mean losses {[round(x, 4) for x in losses + more]} "
+        f"({steps} steps an epoch); first 2 epochs {first_s:.2f} s (cuDNN's first calls "
+        f"included), then {warm_ms:.3f} ms a step (host clock, one loss readback a step); "
+        f"peak device memory {peak:.0f} MiB, {resident:.0f} MiB resident before [{card}]")
+    assert np.isfinite(losses + more).all(), "a fusion loss is not finite"
+    assert more[-1] < losses[0], "the fusion loss did not fall"
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    locked = train_fusion(net, data, epochs=1, batch_size=C3_BATCH, lock_lidar=True,
+                          lock_camera=True, seed=2, device=dev)
+    after = net.state_dict()
+    fcn_params = [k for k, _ in net.named_parameters() if k.startswith(("lidar_fcn.", "camera_fcn."))]
+    unchanged = all(torch.equal(before[k], after[k]) for k in fcn_params)
+    moved = [k for k, _ in net.named_parameters()
+             if k not in fcn_params and not torch.equal(before[k], after[k])]
+    stats_moved = not torch.equal(before["lidar_fcn.norm.mean"], after["lidar_fcn.norm.mean"])
+    log(f"    both FCNs locked: loss {locked[0]:.4f}; {len(fcn_params)} FCN parameters "
+        f"bit-unchanged = {unchanged}; {len(moved)} branch and head parameters moved; the locked "
+        f"FCNs' BatchNorm running stats moved = {stats_moved} (they run with train=True, as in "
+        "the reference)")
+    heads = [k for k, _ in net.named_parameters() if "_head." in k]
+    assert unchanged and set(heads) <= set(moved), "locking: the FCNs moved or a head did not"
+    assert stats_moved and np.isfinite(locked).all()
+
+    gdata = _golden.fusion_golden_data(dev)
+    assert np.array_equal(gdata["cam_sha256"], gf["fusion_cam_sha256"])
+    gdata["radar"] = gf["fusion_radar"]
+    with torch.no_grad():
+        lidar = range_view_project_batch(torch.from_numpy(gf["fusion_points"]).to(dev),
+                                         valid=torch.from_numpy(gf["fusion_valid"]).to(dev))
+    readings = {}
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        got = _golden.port_fusion_step(FUSION_ASSET, dtype, gdata, lidar, dev)
+        r = _golden.fusion_step_readings(got, gt, tag)
+        readings[tag] = r
+        log(f"    one {dtype} step (train=True, dropout off) on the fusion golden's "
+            f"{len(gdata['cam'])} frames: loss {got['loss']:.6f} vs {float(gt[f'fusion_{tag}/loss']):.6f}, "
+            f"relative {r['loss_rel']:.3e} (limit {_golden.FUSION_TRAIN_LOSS_RTOL[tag]:.1e}); "
+            f"gradients relative to each tensor's largest entry: worst {r['worst_grad']} "
+            f"{r['grad_rel']:.3e} (limit {_golden.FUSION_TRAIN_GRAD_RTOL[tag]:.1e}), the lidar "
+            f"FCN's {r['lidar_fcn_grad_rel']:.3e} (limit "
+            f"{_golden.FUSION_TRAIN_LIDAR_FCN_GRAD_RTOL[tag]:.1e}), bf16 conv biases "
+            f"{r['bias_grad_rel']:.3e} (limit {_golden.FUSION_TRAIN_BF16_BIAS_GRAD_RTOL:.1e}); "
+            f"BatchNorm stats {r['stats_abs']:.3e}"
+            + (f"; over the limit: {r['over']}" if r["over"] else ""))
+        assert r["loss_rel"] <= _golden.FUSION_TRAIN_LOSS_RTOL[tag], f"fusion {dtype}: loss differs"
+        assert not r["over"], f"fusion {dtype}: gradients differ"
+        assert r["stats_abs"] <= 1e-4, f"fusion {dtype}: BatchNorm statistics differ"
+    return {"ms_per_step": warm_ms, "peak_device_mib": peak, **readings}
+
+
+def phase_config4(dev, spec, card, totals):
+    """Phase 18: config 4 with the shipped asset, then with a detector
+    quick-trained here at a reduced depth."""
+    from tpufusion_torch import benchmarks
+    from tpufusion_torch.predict import make_e2e_step
+
+    calls = 1 + (C4_FRAMES // TRAIN_BATCH) * 3 + 1 + 2 * (C4_FRAMES // TRAIN_BATCH)
+    log(f"phase 18 config 4: {C4_FRAMES} frames at batch {TRAIN_BATCH} x {N_POINTS}, "
+        "CSV -> tracklet XML -> score_poses")
+    row, counts = drive(
+        f"config4_full_eval(weights='asset') ({calls} e2e steps: warm-up, 4 batches x 3 timed, "
+        "warm-up + 4 for the device time, 4 drained)",
+        lambda: benchmarks.config4_full_eval(dev, frames=C4_FRAMES, batch=TRAIN_BATCH), totals)
+    assert counts == {"nearest_wins_image": calls, "connected_components_with_bbox": calls}, (
+        "config 4: both kernels once a step")
+    log(f"  {json.dumps(row)} [{card}]")
+    assert row["detection_rate"] >= 0.9 and row["recall@iou0.25"] >= 0.8, "config 4 misses"
+    assert row["mean_xy_err"] < 1.0 and row["submission_recall@iou0.25"] >= 0.8
+
+    depth = {"n_batches": 2, "steps_per_batch": 5}
+    (model, dcfg, head), counts = drive(
+        f"quick_trained_model at a reduced depth ({depth}; the default is 8 x 15)",
+        lambda: benchmarks.quick_trained_model(dev, N_POINTS, **depth), totals,
+        expect=BOTH_KERNELS[:1])
+    assert counts["nearest_wins_image"] == 10, "one z-buffer launch a train step"
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    (p, v), = benchmarks.point_sets(1, TRAIN_BATCH, N_POINTS, dev)
+    poses, found = make_e2e_step(model, spec, dcfg, head=head, device=dev)(p, v)
+    log(f"    weights finite = {finite}; the {head} decode of its output on one batch: poses "
+        f"finite = {bool(torch.isfinite(poses).all())}, found {int(found.sum())}/{TRAIN_BATCH}")
+    assert finite and poses.shape == (TRAIN_BATCH, 7) and torch.isfinite(poses).all()
+    qrow, counts = drive(
+        f"config4_full_eval(weights='quick_train', {depth}, reps=1)",
+        lambda: benchmarks.config4_full_eval(dev, "quick_train", frames=C4_FRAMES,
+                                             batch=TRAIN_BATCH, reps=1, quick_train=depth), totals)
+    log(f"  {json.dumps(qrow)} (reduced depth: 2 scene batches x 5 steps) [{card}]")
+    assert qrow["weights"] == "quick_train" and qrow["head"] == "corner"
+    return row
+
+
+def training_phases(dev, spec, gm, gf, card, totals) -> None:
+    """Phases 15-18: the train step against the reference, the trainer,
+    fusion training, config 4."""
+    from tpufusion_torch._golden import load_npz
+
+    gt = load_npz(GOLDEN_TRAIN)
+    phase_train_golden(dev, spec, gm, gt, totals)
+    phase_trainer(dev, spec, card, totals)
+    phase_fusion_train(dev, gf, gt, card, totals)
+    phase_config4(dev, spec, card, totals)
+
+
+def main(argv=()) -> int:
+    unknown = [a for a in argv if a != "--training-only"]
+    if unknown:
+        print(f"chip_smoke: unknown arguments {unknown}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
@@ -802,6 +1151,14 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    if "--training-only" in argv:
+        totals = dict.fromkeys(BOTH_KERNELS, 0)
+        training_phases(dev, spec, load_npz(GOLDEN_MULTI), load_npz(GOLDEN_FUSION), card, totals)
+        log(f"kernel launches over phases 15-18: {totals}")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- phase 2: z-buffer kernel vs its plain version ---------------------
     rng = np.random.default_rng(3)
@@ -987,6 +1344,9 @@ def main() -> int:
     phase_config3(dev, gf, card, totals)
     phase_replay(dev, card, totals)
 
+    # -- phases 15-18: training and config 4 -------------------------------
+    training_phases(dev, spec, gm, gf, card, totals)
+
     z, c = kt["z"], kt["cc"]
     kernels = [
         {"name": "nearest_wins_image", "route": "cuda",
@@ -1011,4 +1371,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

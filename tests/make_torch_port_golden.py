@@ -49,8 +49,31 @@ config 3 (tpufusion_torch/_golden.py names the seeds and sizes).
                 height channel + the painted camera through the BEV FCN):
                 the foreground probability at every 17th pixel
 
-tests/test_torch_e2e.py, tests/test_torch_multi.py and
-tests/test_torch_fusion.py recompute them and fail when a file is stale.
+tests/data/torch_port_golden_train.npz: one train step of the reference
+(tpufusion_torch/_golden.py names the seeds, sizes and cases).
+  inputs_sha256 the digest of the 4 frames x 32,768 points (and their
+                ground truth) the port's numpy generator makes from
+                TRAIN_SEED; they are made again where the golden is used
+  <case>/*      for direct_f32 (the shipped asset's model and yaw frame,
+                no augmentation), corner_f32 (a corner head on the asset's
+                trunk, rolled by corner_f32/shifts, JAX's own draws) and
+                direct_bf16: the labels' foreground pixels and every 5th
+                one's values, make_train_step's loss and metrics and the
+                BatchNorm statistics after it, and every gradient tensor
+                (bf16: the upper 16 bits, which hold them exactly)
+  fusion_{f32,bf16}/*  one fusion step (train=True, dropout rates 0) of
+                the shipped fusion_net.npz on the fusion golden's 8
+                frames: the loss, each gradient tensor's largest entry and
+                a sample of its entries, the BatchNorm statistics after
+
+tests/test_torch_e2e.py, tests/test_torch_multi.py,
+tests/test_torch_fusion.py and tests/test_torch_train.py recompute them
+(the train golden's fusion steps excepted: 8 full-size camera frames
+backward) and fail when a file is stale.
+
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train]
+
+With `train` only the train golden is rewritten.
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 """
@@ -365,11 +388,166 @@ def golden_fusion_arrays() -> dict[str, np.ndarray]:
     return out
 
 
+def jax_train_case(case: str, batch: dict, multi_golden: dict) -> dict[str, np.ndarray]:
+    """The reference's train step for a TRAIN_CASES entry: its labels,
+    `make_train_step`'s loss, metrics and BatchNorm statistics, and the
+    gradients of the same loss on a second copy of the model."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from flax import nnx
+
+    from tests.torch_golden import ASSET, asset_configs, jax_model_from_arrays, load_npz
+    from tpufusion.config import LossConfig, RangeViewSpec, TrainConfig
+    from tpufusion.data.augment import roll_frame, sample_roll
+    from tpufusion.geometry.encoding import encode_direct_label_batch, encode_label_batch
+    from tpufusion.geometry.range_view import range_view_project_batch
+    from tpufusion.models.losses import weighted_pose_loss
+    from tpufusion.train.train_step import make_train_step
+    from tpufusion_torch import _golden
+
+    what = _golden.TRAIN_CASES[case]
+    mcfg, dcfg = asset_configs()
+    arrays = load_npz(ASSET)
+    if what["head"] == "corner":
+        arrays = _golden.hybrid_corner_arrays(arrays, multi_golden)
+    mcfg = dataclasses.replace(mcfg, head=what["head"], dtype=what["dtype"])
+    spec = RangeViewSpec()
+    jb = {k: jnp.asarray(batch[k]) for k in ("points", "valid", "center", "size", "yaw")}
+    images = range_view_project_batch(jb["points"], spec, jb["valid"])
+    if what["head"] == "direct":
+        labels = jax.jit(
+            lambda c, s, y, im: encode_direct_label_batch(
+                c, s, y, im, spec, yaw_frame=dcfg.direct_yaw_frame)
+        )(jb["center"], jb["size"], jb["yaw"], images)
+    else:
+        labels = jax.jit(lambda c, s, y, im: encode_label_batch(c, s, y, im, spec))(
+            jb["center"], jb["size"], jb["yaw"], images)
+    out = {}
+    key = jax.random.PRNGKey(_golden.TRAIN_SHIFT_SEED)
+    if what["augment"]:
+        # augment_batch's own draws: one key a frame, split from the step's
+        keys = jax.random.split(key, len(batch["points"]))
+        shifts = jax.vmap(lambda k, c, s, y: sample_roll(k, c, s, y, spec))(
+            keys, jb["center"], jb["size"], jb["yaw"])
+        out["shifts"] = np.asarray(shifts, np.int64)
+        images, labels = jax.vmap(roll_frame)(images, labels, shifts)
+    out["label_index"], out["label_values"] = _golden.sparse_labels(np.asarray(labels))
+
+    tcfg = TrainConfig(batch_size=len(batch["points"]), augment=what["augment"])
+    model = jax_model_from_arrays(mcfg, arrays)
+    step = make_train_step(spec, LossConfig(), tcfg, head=what["head"],
+                           yaw_frame=dcfg.direct_yaw_frame)
+    opt = nnx.Optimizer(model, optax.adam(_golden.TRAIN_LR), wrt=nnx.Param)
+    _, metrics = step(model, opt, jb, key)
+    for k, v in metrics.items():
+        out[k] = np.asarray(v, np.float32)
+    out["norm_mean"] = np.asarray(model.norm.mean[...])
+    out["norm_var"] = np.asarray(model.norm.var[...])
+
+    fresh = jax_model_from_arrays(mcfg, arrays)
+
+    @nnx.jit
+    def grads_of(m, images, labels):
+        return nnx.grad(
+            lambda m: weighted_pose_loss(m(images, train=True), labels, LossConfig()))(m)
+
+    grads = nnx.to_pure_dict(grads_of(fresh, images, labels))
+    for layer, leaves in grads.items():
+        for leaf, g in leaves.items():
+            g = np.asarray(g, np.float32)
+            exact = what["dtype"] == "bfloat16" and not (g.view(np.uint32) & 0xFFFF).any()
+            out[f"grad/{layer}/{leaf}"] = _golden.bf16_bits(g) if exact else g
+    return out
+
+
+def jax_fusion_step(dtype: str, data: dict, lidar) -> dict[str, np.ndarray]:
+    """One fusion step's loss, gradients (sampled) and BatchNorm
+    statistics from the reference: the shipped asset, train=True, every
+    dropout rate 0."""
+    import jax.numpy as jnp
+    from flax import nnx
+
+    from tpufusion.models.fusion import fusion_loss
+    from tpufusion_torch import _golden
+
+    net = jax_fusion_asset(dtype)
+    for branch in (net.cam_branch, net.lidar_branch):
+        branch.dropout1.rate = branch.dropout2.rate = 0.0
+
+    @nnx.jit
+    def run(net, cam, lidar, radar, centroid, rz):
+        return nnx.value_and_grad(
+            lambda n: fusion_loss(n(cam, lidar, radar, train=True), (centroid, rz)),
+            argnums=nnx.DiffState(0, nnx.Param))(net)
+
+    loss, grads = run(net, *(jnp.asarray(a) for a in (
+        data["cam"], lidar, data["radar"], data["centroid"], data["rz"])))
+    out = {"loss": np.asarray(loss, np.float32)}
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(v, np.float32)
+
+    for key, g in walk(nnx.to_pure_dict(grads)):
+        out[f"grad/{key}"] = _golden.grad_sample(g)
+        out[f"grad_max/{key}"] = np.asarray(np.abs(g).max(), np.float32)
+    for name in ("lidar_fcn", "camera_fcn"):
+        norm = getattr(net, name).norm
+        out[f"stats/{name}/norm/mean"] = np.asarray(norm.mean[...])
+        out[f"stats/{name}/norm/var"] = np.asarray(norm.var[...])
+    return out
+
+
+def golden_train_arrays(with_fusion: bool = True, previous: dict | None = None) -> dict:
+    """The train golden. with_fusion=False copies the fusion steps from
+    `previous` (the file as it is) instead of computing them again."""
+    import jax.numpy as jnp
+
+    from tests.torch_golden import GOLDEN_MULTI, load_npz
+    from tpufusion.config import RangeViewSpec
+    from tpufusion.geometry.range_view import range_view_project_batch
+    from tpufusion_torch import _golden
+
+    batch = _golden.train_golden_inputs()
+    gm = load_npz(GOLDEN_MULTI)
+    out: dict[str, np.ndarray] = {"inputs_sha256": batch["sha256"]}
+    for case in _golden.TRAIN_CASES:
+        out.update({f"{case}/{k}": v for k, v in jax_train_case(case, batch, gm).items()})
+    if not with_fusion:
+        out.update({k: v for k, v in (previous or {}).items() if k.startswith("fusion_")})
+        return out
+    data = _golden.fusion_golden_data("cpu")
+    lidar = np.asarray(range_view_project_batch(
+        jnp.asarray(data["points"]), RangeViewSpec(), jnp.asarray(data["valid"]), "exact"))
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        out.update({f"fusion_{tag}/{k}": v for k, v in jax_fusion_step(dtype, data, lidar).items()})
+    return out
+
+
+def write_train_golden() -> None:
+    from tests.torch_golden import GOLDEN_TRAIN
+
+    train = golden_train_arrays()
+    np.savez_compressed(GOLDEN_TRAIN, **train)
+    print(f"wrote {GOLDEN_TRAIN} ({os.path.getsize(GOLDEN_TRAIN)} bytes)")
+    for key in sorted(train):
+        if key.endswith("/loss"):
+            print(f"  {key}: {float(train[key]):.6f}")
+
+
 def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     from tests.torch_golden import GOLDEN, GOLDEN_FUSION, GOLDEN_MULTI
+
+    if sys.argv[1:] == ["train"]:
+        write_train_golden()
+        return
 
     arrays = golden_arrays()
     if not arrays["found"].all():
@@ -389,6 +567,7 @@ def main() -> None:
     for tag in ("centroid", "rz"):
         gap = np.abs(fusion[f"fusion_f32_{tag}"] - fusion[f"fusion_bf16_{tag}"]).max()
         print(f"  JAX float32 vs bf16 {tag}: {gap:.4e}")
+    write_train_golden()
 
 
 if __name__ == "__main__":

@@ -343,3 +343,115 @@ def test_replay_ring_is_pinned_and_answers_like_the_step(cuda_device, host_ring)
         np.testing.assert_array_equal(founds[lo : lo + n], f.cpu().numpy()[:n])
         assert np.abs(poses[lo : lo + n] - p.cpu().numpy()[:n]).max() <= 1e-5
     assert founds.mean() > 0.9 and stats.frames == 192
+
+
+# -- training on the card ------------------------------------------------------
+
+GOLDEN_TRAIN = os.path.join(_REPO, "tests", "data", "torch_port_golden_train.npz")
+
+
+@pytest.mark.parametrize("case", ["direct_f32", "corner_f32", "direct_bf16"])
+def test_train_step_matches_the_reference_on_the_card(cuda_device, case):
+    """One make_train_step call at full width (4 x 32,768 points, the
+    shipped asset's model) against the reference's step: labels, loss,
+    metrics, every gradient tensor, the BatchNorm statistics; one z-buffer
+    launch, no CC launch."""
+    from tpufusion_torch import _golden
+
+    golden, gm = load_npz(GOLDEN_TRAIN), load_npz(GOLDEN_MULTI)
+    batch = _golden.train_golden_inputs()
+    assert str(batch["sha256"]) == str(golden["inputs_sha256"])
+    shifts = golden.get(f"{case}/shifts")
+    labels = _golden.port_case_labels(case, ASSET, gm, batch, cuda_device, shifts)
+    same, label_abs = _golden.label_readings(labels, golden, case)
+    assert same and label_abs <= _golden.TRAIN_LABEL_ATOL
+    z, c = projection.LAUNCHES, cc.LAUNCHES
+    got = _golden.port_train_case(case, ASSET, gm, batch, cuda_device, shifts)
+    assert (projection.LAUNCHES, cc.LAUNCHES) == (z + 1, c)
+    readings = _golden.train_case_readings(got, golden, case)
+    for k, limit in _golden.train_case_limits(case).items():
+        assert readings[k] <= limit, (k, readings)
+    assert readings["metrics_abs"] <= 1e-3
+
+
+@pytest.mark.parametrize("tag, dtype", [("f32", "float32"), ("bf16", "bfloat16")])
+def test_fusion_step_matches_the_reference_on_the_card(cuda_device, tag, dtype):
+    from tpufusion_torch import _golden
+
+    gf, gt = load_npz(GOLDEN_FUSION), load_npz(GOLDEN_TRAIN)
+    data = _golden.fusion_golden_data(cuda_device)
+    data["radar"] = gf["fusion_radar"]
+    with torch.no_grad():
+        lidar = range_view_project_batch(
+            torch.from_numpy(gf["fusion_points"]).to(cuda_device), SPEC,
+            torch.from_numpy(gf["fusion_valid"]).to(cuda_device))
+    got = _golden.port_fusion_step(FUSION_ASSET, dtype, data, lidar, cuda_device)
+    r = _golden.fusion_step_readings(got, gt, tag)
+    assert r["loss_rel"] <= _golden.FUSION_TRAIN_LOSS_RTOL[tag] and not r["over"], r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_max_pool_gradient_ties_on_the_card_go_where_the_cpus_go(cuda_device, dtype):
+    """cuDNN's / ATen's max-pool backward sends a tied window's gradient to
+    the first maximum in row-major order, as the CPU's and the reference's."""
+    from tpufusion_torch.models.fusion import _max_pool_nhwc
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 3, (2, 16, 40, 2)).astype(np.float32))
+    grads = []
+    for device in ("cpu", cuda_device):
+        for pool in ((2, 8), (8, 8)):
+            w = torch.from_numpy(
+                np.random.default_rng(1).normal(size=(2, 16 // pool[0], 40 // pool[1], 2))
+                .astype(np.float32)).to(device)
+            xt = x.clone().to(device).requires_grad_()  # a leaf on its device
+            (_max_pool_nhwc(xt.to(dtype), pool).float() * w).sum().backward()
+            grads.append(xt.grad.cpu())
+    assert torch.equal(grads[0], grads[2]) and torch.equal(grads[1], grads[3])
+
+
+def test_checkpoint_round_trips_on_the_card(cuda_device, tmp_path):
+    """Trainer.fit, a checkpoint, resume into a fresh trainer: the same
+    weights, moments and generator state, and the same next step's loss."""
+    from tpufusion_torch.config import DEFAULT, ModelConfig, TrainConfig
+    from tpufusion_torch.data.pipeline import BatchPipeline
+    from tpufusion_torch.train.trainer import Trainer
+
+    pts, gt, valid = synthesize_beam_scan_batch(np.random.default_rng(5), 16)
+    data = {"points": pts, "valid": valid, **gt}
+    cfg = DEFAULT.replace(
+        model=ModelConfig(dtype="bfloat16"),
+        train=TrainConfig(batch_size=8, epochs=1, augment=True, learning_rate=3e-3))
+    trainer = Trainer(cfg, outdir=str(tmp_path / "run"), device=cuda_device)
+    pipe = BatchPipeline(data, 8, seed=0, device=cuda_device)
+    z = projection.LAUNCHES
+    hist = trainer.fit(pipe)
+    assert projection.LAUNCHES == z + 2 and np.isfinite(hist.batch["loss"]).all()
+    resumed = Trainer(cfg, outdir=str(tmp_path / "run"), device=cuda_device)
+    assert resumed.resume() and resumed.step == 2
+    for a, b in zip(trainer.model.parameters(), resumed.model.parameters()):
+        assert b.is_cuda and torch.equal(a, b)
+        assert torch.equal(trainer.optimizer.state[a]["nu"], resumed.optimizer.state[b]["nu"])
+    probe = next(iter(pipe))
+    la, _ = trainer.train_step(trainer.model, trainer.optimizer, probe, trainer.generator)
+    lb, _ = resumed.train_step(resumed.model, resumed.optimizer, probe, resumed.generator)
+    assert float(la) == float(lb)
+
+
+def test_config4_row_on_the_card(cuda_device):
+    """Config 4 with the shipped asset: both kernels once a step, the
+    detector's scores on 128 generated frames."""
+    import json
+
+    from tpufusion_torch import benchmarks
+
+    z, c = projection.LAUNCHES, cc.LAUNCHES
+    row = benchmarks.config4_full_eval(cuda_device, reps=1)
+    steps = 1 + 4 + 1 + 4 + 4  # warm-up, 4 timed, warm-up + 4 for the device time, 4 drained
+    assert (projection.LAUNCHES - z, cc.LAUNCHES - c) == (steps, steps)
+    json.dumps(row)
+    assert row["config"] == 4 and row["weights"] == "asset" and row["head"] == "direct"
+    assert row["timer"] == "CUDA events" and row["value"] > 0
+    assert row["detection_rate"] >= 0.9 and row["recall@iou0.25"] >= 0.8 and row["mean_xy_err"] < 1.0
+    with pytest.raises(ValueError, match="weights"):
+        benchmarks.config4_full_eval(cuda_device, weights="fallback")

@@ -140,8 +140,14 @@ def test_load_rejects_missing_extra_and_misshaped_keys():
 
 @pytest.mark.parametrize("change", [{"sample_wise_bn": True}])
 def test_fcn_options_not_ported_raise(change):
-    with pytest.raises(NotImplementedError):
-        FCN(dataclasses.replace(ModelConfig(), **change))
+    """No FCN option is left unported: sample_wise_bn, the last one that
+    raised NotImplementedError, builds once it is told the image size (as
+    the reference asks for it) and raises a ValueError without it."""
+    cfg = dataclasses.replace(ModelConfig(), **change)
+    with pytest.raises(ValueError, match="image_hw"):
+        FCN(cfg)
+    model = FCN(cfg, image_hw=(8, 201))
+    assert model.norm.mean.shape == (8 * 201,)
 
 
 def test_fcn_rejects_an_unknown_dtype():

@@ -29,13 +29,22 @@ from tests.torch_golden import (
     wrapped_pose_diff,
 )
 from tpufusion_torch import benchmarks
-from tpufusion_torch.config import DEFAULT
+from tpufusion_torch.config import DEFAULT, LossConfig, RangeViewSpec, TrainConfig
+from tpufusion_torch.data.pipeline import BatchPipeline
 from tpufusion_torch.data.synthetic import build_fusion_dataset, synthesize_beam_scan_batch
+from tpufusion_torch.geometry import encoding
+from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.models.io import fcn_from_arrays, fusion_from_asset
 from tpufusion_torch.predict import make_e2e_step, predict_images
 from tpufusion_torch.serve.fusion import predict_fusion
 from tpufusion_torch.serve.pipeline import LidarPipeline
 from tpufusion_torch.serve.replay import LatencyStats, ReplayHarness
+from tpufusion_torch.train.checkpoint import CheckpointManager
+from tpufusion_torch.train.fusion_trainer import train_fusion
+from tpufusion_torch.train.optim import Adam
+from tpufusion_torch.train.stats import population_weights
+from tpufusion_torch.train.train_step import make_eval_step, make_train_step
+from tpufusion_torch.train.trainer import Trainer
 
 
 def _asset_cfg():
@@ -121,7 +130,70 @@ def _call_predict_fusion(tmp_path, **kw):
 _POINTS = np.zeros((1, 2048, 4), np.float32)
 _SMALL = dict(n_points=2048, n_sets=1, reps=1)
 
+_SMALL_SPEC = RangeViewSpec(res_h_deg=1.8)  # 32 x 201
+_TRAIN_CFG = DEFAULT.replace(range_view=_SMALL_SPEC, train=TrainConfig(batch_size=2, augment=False))
+
+
+def _scene():
+    p, gt, v = synthesize_beam_scan_batch(np.random.default_rng(3), 2, 2048)
+    return {"points": p, "valid": v, **gt}
+
+
+def _call_train_step(tmp_path, make=make_train_step, **kw):
+    model = FCN(DEFAULT.model, seed=0)
+    if make is make_eval_step:
+        return make(_SMALL_SPEC, LossConfig(), **kw)(model, _scene())[0]
+    step = make(_SMALL_SPEC, LossConfig(), _TRAIN_CFG.train, **kw)
+    return step(model, Adam(model.parameters()), _scene())[0]
+
+
+def _call_restore(tmp_path, **kw):
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(7, FCN(DEFAULT.model, seed=0))
+    model = FCN(DEFAULT.model)
+    assert mgr.restore(model, **kw) == 7
+    return model
+
+
+def _call_train_fusion(tmp_path, **kw):
+    net = fusion_from_asset(FUSION_ASSET, "cpu", "float32")
+    data = build_fusion_dataset(2, seed=2, n_points=2048, device="cpu")
+    return train_fusion(net, data, epochs=1, batch_size=2, **kw)
+
+
+def _call_codec(fn):
+    """The codecs work where their image lies: the image is made on the
+    device asked for, the card by default."""
+    def call(tmp_path, device="cuda"):
+        scene = _scene()
+        image = torch.zeros(2, 32, 201, 3, device=device)
+        return fn(scene["center"], scene["size"], scene["yaw"], image, _SMALL_SPEC)
+    return call
+
+
+_QUICK = dict(n_batches=1, steps_per_batch=1, batch=2)
+
 ENTRY_POINTS = {
+    "Trainer": lambda tmp, **kw: Trainer(_TRAIN_CFG, outdir=str(tmp / "run"), **kw).model,
+    "make_train_step": _call_train_step,
+    "make_eval_step": lambda tmp, **kw: _call_train_step(tmp, make_eval_step, **kw),
+    "train_fusion": _call_train_fusion,
+    "CheckpointManager.restore": _call_restore,
+    "BatchPipeline": lambda tmp, **kw: next(iter(BatchPipeline(_scene(), 2, **kw)))["points"],
+    "BatchPipeline(streaming)": lambda tmp, **kw: next(iter(BatchPipeline(
+        _scene(), 2, device_resident=False, **kw)))["points"],
+    "population_weights": lambda tmp, **kw: population_weights(
+        _scene()["center"], _scene()["size"], _scene()["yaw"], _SMALL_SPEC, **kw),
+    "encode_label_batch": _call_codec(encoding.encode_label_batch),
+    "encode_direct_label_batch": _call_codec(encoding.encode_direct_label_batch),
+    "pixel_angles": lambda tmp, **kw: encoding.pixel_angles(_SMALL_SPEC, **kw),
+    "pixel_rotations": lambda tmp, **kw: encoding.pixel_rotations(_SMALL_SPEC, **kw),
+    "config4_full_eval": lambda tmp, **kw: benchmarks.config4_full_eval(
+        frames=2, batch=2, n_points=2048, reps=1, **kw),
+    "config4_full_eval(quick_train)": lambda tmp, **kw: benchmarks.config4_full_eval(
+        weights="quick_train", frames=2, batch=2, n_points=2048, reps=1, quick_train=_QUICK, **kw),
+    "quick_trained_model": lambda tmp, **kw: benchmarks.quick_trained_model(
+        n_points=2048, **_QUICK, **kw)[0],
     "make_e2e_step": lambda tmp, **kw: make_e2e_step(
         port_asset_model(), DEFAULT.range_view, asset_configs()[1], **kw)(_POINTS),
     "predict_images": lambda tmp, **kw: predict_images(

@@ -33,6 +33,7 @@ YAW_ASSET = os.path.join(ASSETS, "synthetic_detector_yaw.npz")
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden.npz")
 GOLDEN_MULTI = os.path.join(REPO, "tests", "data", "torch_port_golden_multi.npz")
 GOLDEN_FUSION = os.path.join(REPO, "tests", "data", "torch_port_golden_fusion.npz")
+GOLDEN_TRAIN = os.path.join(REPO, "tests", "data", "torch_port_golden_train.npz")
 FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
 GOLDEN_SEED = 11  # JAX PRNGKey of the golden frames
 

@@ -8,7 +8,8 @@ under `csrc/`, built for sm_90a at first use (`_build.py`) and launched
 through a wrapper that takes the plain PyTorch version only for tensors
 that lie on the CPU.
 
-Ported so far: everything that serves. The lidar detector's path, raw
+Ported so far: everything that serves and everything that trains. The
+lidar detector's path, raw
 points -> range view -> FCN (float32 or bf16) -> direct, top-K or corner
 decode -> poses (`predict.make_e2e_step`, `serve.pipeline.LidarPipeline`),
 the chunked replay server (`serve.replay.ReplayHarness`), the tracker
@@ -16,9 +17,15 @@ the chunked replay server (`serve.replay.ReplayHarness`), the tracker
 (`geometry.bev`, `geometry.camera`), the camera + lidar + radar fusion
 net and its inference loop (`models.fusion`, `models.io.fusion_from_asset`,
 `serve.fusion.predict_fusion`), the serving benchmarks (`benchmarks`,
-configs 1-3), scoring and the submission writers (`eval`), and numpy
-generators (`data.synthetic`) to feed them where JAX is not installed.
-Training and the tools are not ported yet.
+configs 1-4), scoring and the submission writers (`eval`), numpy
+generators (`data.synthetic`) to feed them where JAX is not installed,
+and training: the label codecs (`geometry.encoding`), the roll
+augmentation (`data.augment`), the class-balanced loss (`models.losses`),
+the detector trainer (`train.trainer.Trainer`, `train.train_step`,
+`data.pipeline.BatchPipeline`, `train.checkpoint`), the fusion trainer
+(`train.fusion_trainer.train_fusion`) and the optimizer pieces with
+optax's semantics (`train.optim`). Data parallelism, the keras importer
+and the tools are not ported yet.
 
 Every entry point takes `device` and defaults to "cuda": it moves its
 model to the card and its inputs follow; without a card it raises. The
@@ -26,20 +33,23 @@ tests pass device="cpu".
 
 Subpackages
 -----------
-geometry   range-view projection, pixel angles/points, BEV rasterizer,
-           camera model and paint table
+geometry   range-view projection, pixel angles/points, box corners and
+           rects, label codecs, BEV rasterizer, camera model and paint table
 ops        nearest-wins z-buffer and connected components (kernel wrappers
            + plain versions), the BEV's count / max scatters
-models     FCN inference (lidar, camera and BEV geometries), FusionNet,
-           npz weight loading
+models     FCN (lidar, camera and BEV geometries; inference and training
+           mode), FusionNet, the losses and metrics, npz weights in and out
+train      optimizer pieces, train / eval steps, trainers, checkpoints,
+           population statistics, PR curves
 decode     direct-pose decode, corner vote, top-K
 serve      single-frame server facade, replay server, fusion inference
            loop, multi-frame tracker
 eval       pose scoring, prediction CSV, tracklet XML, interpolation
 data       numpy beam-structured synthetic scans and fusion frames,
            the join of the three sensor streams into fusion samples,
-           timestamp alignment, radar tracks
-benchmarks serving configs 1-3
+           timestamp alignment, radar tracks, the roll augmentation, the
+           batch pipeline
+benchmarks configs 1-4
 
 The package imports nothing of the JAX package: it keeps its own copy of
 the configuration dataclasses (`config.py`) and of the numpy modules it

@@ -152,3 +152,294 @@ def fusion_golden_data(device) -> dict[str, np.ndarray]:
     data["cam_sha256"] = np.array(
         [hashlib.sha256(np.ascontiguousarray(f).tobytes()).hexdigest() for f in data["cam"]])
     return data
+
+
+# -- the train golden (tests/data/torch_port_golden_train.npz) ----------------
+# One train step of the reference on TRAIN_FRAMES frames x TRAIN_POINTS points
+# from the port's numpy generator (TRAIN_SEED): a digest of the inputs, the
+# labels' foreground pixels, the loss, the metrics, every gradient tensor and
+# the BatchNorm statistics after the step, for each of TRAIN_CASES; and one
+# fusion step (dropout off) on the fusion golden's frames.
+TRAIN_SEED = 51
+TRAIN_FRAMES = 4
+TRAIN_POINTS = 32768
+TRAIN_LR = 1e-3
+TRAIN_SHIFT_SEED = 5  # jax.random.PRNGKey of the corner case's roll shifts
+LABEL_STRIDE = 5  # the golden keeps every 5th foreground pixel's label values
+# the shipped asset's direct head; a corner head on its trunk (the multi
+# golden's hybrid/* kernels) with the roll augmentation; the direct head in bf16
+TRAIN_CASES = {
+    "direct_f32": {"head": "direct", "dtype": "float32", "augment": False},
+    "corner_f32": {"head": "corner", "dtype": "float32", "augment": True},
+    "direct_bf16": {"head": "direct", "dtype": "bfloat16", "augment": False},
+}
+# Limits of a card's step against the reference's step on the CPU (float32):
+# the loss relative, each gradient tensor relative to its largest entry, the
+# running statistics absolute, label values absolute. An H100 reads 1.1e-6,
+# 1.0e-5 (direct) / 1.2e-5 (corner), 3.8e-6 and 4.8e-7 / 1.9e-6; the port on
+# the CPU 1.2e-6, 1.4e-5 / 5.2e-6, 3.8e-6 and 8.3e-7 / 1.9e-6. In bf16 the
+# card reads 3.2e-3 for the kernels and 2.0e-2 for the conv biases, the CPU
+# 4.5e-3 and 2.0e-2.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_STATS_ATOL = 1e-5
+TRAIN_LABEL_ATOL = 1e-4
+# bf16: kernels' gradients pass through bf16 convolutions on both sides (a
+# relative step of 2**-8 an element). A conv bias's gradient is a sum of bf16
+# values over every pixel of the batch: torch sums it in float32 and rounds
+# once; XLA on the CPU, where the golden is made, keeps bf16 partial sums, so
+# the reference's own bf16 bias gradients lie up to 0.30 of a tensor's largest
+# entry from its float32 ones while its kernels' lie within 0.04 (ROADMAP
+# Queue 3). A bf16 conv bias gradient is therefore held to the nearer of the
+# reference's bf16 and float32 gradients.
+BF16_TRAIN_LOSS_RTOL = 2.0**-8
+BF16_TRAIN_GRAD_RTOL = 2.0**-6
+BF16_TRAIN_BIAS_GRAD_RTOL = 2.0**-4
+FUSION_GRAD_STRIDE = 257  # the golden keeps every 257th entry of a large gradient
+# The fusion step on the fusion golden's 8 frames. float32: the lidar frames
+# hold 4,096 points, so the height channel is nearly constant (the fill value)
+# and flax's float32 E[x^2] - E[x]^2 loses digits in the reference itself: its
+# lidar-FCN gradients lie 4.5e-3 from a float64 run of the same step, the
+# port's 3e-6 (ROADMAP Queue 3). Hence two limits.
+FUSION_TRAIN_LOSS_RTOL = {"f32": 1e-4, "bf16": 2.0**-8}
+FUSION_TRAIN_GRAD_RTOL = {"f32": 1e-3, "bf16": 2.0**-6}
+FUSION_TRAIN_LIDAR_FCN_GRAD_RTOL = {"f32": 1e-2, "bf16": 2.0**-6}
+# bf16 conv biases, against the nearer of the reference's two gradients: they
+# read 9.2e-2 on the CPU and an H100, where the reference's own two lie 0.30 apart
+FUSION_TRAIN_BF16_BIAS_GRAD_RTOL = 2.0**-2
+
+
+def _sha256(*arrays: np.ndarray) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def train_golden_inputs() -> dict[str, np.ndarray]:
+    """The train golden's batch made again from TRAIN_SEED: points, valid,
+    center, size, yaw, and "sha256", the digest the golden holds."""
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+
+    pts, gt, valid = synthesize_beam_scan_batch(
+        np.random.default_rng(TRAIN_SEED), TRAIN_FRAMES, TRAIN_POINTS)
+    batch = {"points": pts, "valid": valid, **gt}
+    batch["sha256"] = np.array(_sha256(*(batch[k] for k in ("points", "valid", "center", "size", "yaw"))))
+    return batch
+
+
+def hybrid_corner_arrays(asset_arrays: dict, multi_golden: dict, nreg: int = 24) -> dict:
+    """The asset's trunk with the multi golden's corner regression branch
+    (hybrid/deconv5b, hybrid/deconv6b; zero biases)."""
+    arrays = {k: v for k, v in asset_arrays.items()
+              if not k.startswith(("deconv5b/", "deconv6b/"))}
+    for name in ("deconv5b", "deconv6b"):
+        arrays[f"{name}/kernel"] = multi_golden[f"hybrid/{name}/kernel"]
+        arrays[f"{name}/bias"] = np.zeros(nreg, np.float32)
+    return arrays
+
+
+def sparse_labels(labels: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """A label batch (B, H, W, C) -> (flat index of every foreground pixel,
+    the label values at every LABEL_STRIDE-th of them)."""
+    flat = labels.reshape(-1, labels.shape[-1])
+    index = np.flatnonzero(flat[:, 1] > 0.5).astype(np.int64)
+    return index, flat[index[::LABEL_STRIDE]]
+
+
+def bf16_bits(a: np.ndarray) -> np.ndarray:
+    """float32 values that are exact in bf16 -> their upper 16 bits."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    assert not (bits & 0xFFFF).any(), "not exact in bf16"
+    return (bits >> 16).astype(np.uint16)
+
+
+def from_bf16_bits(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def grad_sample(g: np.ndarray) -> np.ndarray:
+    """What the golden keeps of a fusion gradient: all of a small tensor,
+    every FUSION_GRAD_STRIDE-th entry of a large one."""
+    flat = np.asarray(g, np.float32).reshape(-1)
+    return flat if flat.size <= 4096 else flat[::FUSION_GRAD_STRIDE]
+
+
+def _train_case_setup(case: str, asset_path: str, multi_golden: dict, batch: dict, device,
+                      shifts=None):
+    """(model, tensors, spec, head, yaw_frame, augment) of a TRAIN_CASES entry."""
+    import dataclasses
+
+    import torch
+
+    from tpufusion_torch.config import RangeViewSpec
+    from tpufusion_torch.models.fcn import FCN
+    from tpufusion_torch.models.io import asset_configs, load_arrays
+
+    what = TRAIN_CASES[case]
+    mcfg, dcfg = asset_configs(asset_path)
+    arrays = load_npz(asset_path)
+    if what["head"] == "corner":
+        arrays = hybrid_corner_arrays(arrays, multi_golden)
+    model = FCN(dataclasses.replace(mcfg, head=what["head"], dtype=what["dtype"]))
+    load_arrays(model, arrays)
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
+               for k in ("points", "valid", "center", "size", "yaw")}
+    if shifts is not None:
+        tensors["shifts"] = torch.from_numpy(np.asarray(shifts, np.int64)).to(device)
+    return model.to(device), tensors, RangeViewSpec(), what["head"], dcfg.direct_yaw_frame, what["augment"]
+
+
+def port_case_labels(case: str, asset_path: str, multi_golden: dict, batch: dict, device,
+                     shifts=None) -> np.ndarray:
+    """The labels the port's train step of `case` trains on (encoded from
+    the projected points, rolled by `shifts` where the case augments)."""
+    from tpufusion_torch.data.augment import roll_frame
+    from tpufusion_torch.train.train_step import encode_batch
+
+    _, tensors, spec, head, yaw_frame, augment = _train_case_setup(
+        case, asset_path, multi_golden, batch, device, shifts)
+    images, labels = encode_batch(tensors, spec, head, yaw_frame)
+    if augment:
+        _, labels = roll_frame(images, labels, tensors["shifts"])
+    return labels.cpu().numpy()
+
+
+def port_train_case(case: str, asset_path: str, multi_golden: dict, batch: dict, device,
+                    shifts=None) -> dict:
+    """One `make_train_step` call of the port for a TRAIN_CASES entry, on
+    `batch` (numpy, as `train_golden_inputs` makes it) moved to `device`:
+    {"loss", "precision", "recall", "reg_mse", "grads" {key: array},
+    "norm_mean", "norm_var"} as numpy. One projection: one z-buffer launch."""
+    from tpufusion_torch.config import LossConfig, TrainConfig
+    from tpufusion_torch.train.optim import Adam
+    from tpufusion_torch.train.train_step import make_train_step
+
+    model, tensors, spec, head, yaw_frame, augment = _train_case_setup(
+        case, asset_path, multi_golden, batch, device, shifts)
+    step = make_train_step(
+        spec, LossConfig(), TrainConfig(batch_size=TRAIN_FRAMES, augment=augment),
+        head=head, yaw_frame=yaw_frame, device=device)
+    _, metrics = step(model, Adam(model.parameters(), TRAIN_LR), tensors)
+    out = {k: float(v) for k, v in metrics.items()}
+    out["grads"] = {n.replace(".", "/"): p.grad.cpu().numpy() for n, p in model.named_parameters()}
+    out["norm_mean"] = model.norm.mean.cpu().numpy()
+    out["norm_var"] = model.norm.var.cpu().numpy()
+    return out
+
+
+def label_readings(labels: np.ndarray, golden: dict, case: str) -> tuple[bool, float]:
+    """(the foreground pixels equal the golden's, the largest difference of
+    the sampled label values)."""
+    index, values = sparse_labels(labels)
+    if not np.array_equal(index, golden[f"{case}/label_index"]):
+        return False, float("inf")
+    return True, float(np.abs(values - golden[f"{case}/label_values"]).max())
+
+
+def train_case_readings(got: dict, golden: dict, case: str) -> dict[str, float]:
+    """A port step (`port_train_case`) against the golden's: {"loss_rel",
+    "grad_rel" (the worst kernel or BatchNorm tensor, relative to the
+    golden tensor's largest entry), "bias_grad_rel", "worst_grad" (its
+    key), "stats_abs", "metrics_abs"}."""
+    bf16 = TRAIN_CASES[case]["dtype"] == "bfloat16"
+    out = {"loss_rel": abs(got["loss"] - float(golden[f"{case}/loss"]))
+           / abs(float(golden[f"{case}/loss"]))}
+    def golden_grad(which: str, key: str) -> np.ndarray:
+        want = golden[f"{which}/grad/{key}"]
+        return from_bf16_bits(want) if want.dtype == np.uint16 else want
+
+    def rel_to(which: str, key: str, g: np.ndarray) -> float:
+        want = golden_grad(which, key)
+        return float(np.abs(g - want).max() / max(float(np.abs(want).max()), 1e-30))
+
+    rel = {key: rel_to(case, key, g) for key, g in got["grads"].items()}
+    conv_bias = {k: v for k, v in rel.items() if k.endswith("/bias") and not k.startswith("norm/")}
+    if bf16:  # the nearer of the reference's bf16 and float32 gradients
+        f32_case = next(c for c, w in TRAIN_CASES.items()
+                        if w["dtype"] == "float32" and w["head"] == TRAIN_CASES[case]["head"])
+        conv_bias = {k: min(v, rel_to(f32_case, k, got["grads"][k])) for k, v in conv_bias.items()}
+    rest = {k: v for k, v in rel.items() if k not in conv_bias}
+    out["worst_grad"] = max(rest, key=rest.get)
+    out["grad_rel"] = rest[out["worst_grad"]]
+    out["bias_grad_rel"] = max(conv_bias.values())
+    out["stats_abs"] = float(max(
+        np.abs(got["norm_mean"] - golden[f"{case}/norm_mean"]).max(),
+        np.abs(got["norm_var"] - golden[f"{case}/norm_var"]).max()))
+    out["metrics_abs"] = float(max(
+        abs(got[k] - float(golden[f"{case}/{k}"])) for k in ("precision", "recall", "reg_mse")))
+    return out
+
+
+def train_case_limits(case: str) -> dict[str, float]:
+    """The limits `train_case_readings` is held to for `case`."""
+    if TRAIN_CASES[case]["dtype"] == "bfloat16":
+        return {"loss_rel": BF16_TRAIN_LOSS_RTOL, "grad_rel": BF16_TRAIN_GRAD_RTOL,
+                "bias_grad_rel": BF16_TRAIN_BIAS_GRAD_RTOL, "stats_abs": TRAIN_STATS_ATOL}
+    return {"loss_rel": TRAIN_LOSS_RTOL, "grad_rel": TRAIN_GRAD_RTOL,
+            "bias_grad_rel": TRAIN_GRAD_RTOL, "stats_abs": TRAIN_STATS_ATOL}
+
+
+def port_fusion_step(asset_path: str, dtype: str, data: dict, lidar, device) -> dict:
+    """Loss and gradients of one fusion train step's forward and backward
+    (train=True, dropout off) of the shipped fusion asset in `dtype` on
+    `data` (cam, radar, centroid, rz; numpy) and the projected `lidar`
+    images: {"loss", "grads" {key: array}, "stats" {key: array}}."""
+    import torch
+
+    from tpufusion_torch.models.fusion import fusion_loss
+    from tpufusion_torch.models.io import fusion_from_asset
+
+    net = fusion_from_asset(asset_path, device, dtype)
+    net.cam_branch.rate = net.lidar_branch.rate = 0.0
+    put = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+    out = net(put(data["cam"]), put(lidar), put(data["radar"]), train=True)
+    loss = fusion_loss(out, (put(data["centroid"]), put(data["rz"])))
+    loss.backward()
+    # the lidar FCN's regression branch is not on the features' path: no
+    # gradient here, zeros in the reference
+    return {
+        "loss": float(loss.detach()),
+        "grads": {n.replace(".", "/"): (torch.zeros_like(p) if p.grad is None else p.grad)
+                  .cpu().numpy() for n, p in net.named_parameters()},
+        "stats": {k.replace(".", "/"): v.cpu().numpy() for k, v in net.state_dict().items()
+                  if k.endswith(("norm.mean", "norm.var"))},
+    }
+
+
+def fusion_step_readings(got: dict, golden: dict, tag: str) -> dict:
+    """A port fusion step against the golden's sample: {"loss_rel",
+    "grad_rel" (the worst tensor's sampled entries relative to the golden
+    tensor's largest entry, the lidar FCN and bf16 conv biases apart),
+    "worst_grad", "lidar_fcn_grad_rel", "bias_grad_rel" (bf16: conv biases
+    against the nearer of the reference's bf16 and float32 gradients),
+    "stats_abs", "over" (the tensors over their limit)}."""
+    want_loss = float(golden[f"fusion_{tag}/loss"])
+
+    def rel_to(which: str, key: str, g: np.ndarray) -> float:
+        scale = max(float(golden[f"fusion_{which}/grad_max/{key}"]), 1e-30)
+        return float(np.abs(grad_sample(g) - golden[f"fusion_{which}/grad/{key}"]).max() / scale)
+
+    groups: dict[str, dict[str, float]] = {"rest": {}, "lidar_fcn": {}, "bias": {}}
+    limits = {"rest": FUSION_TRAIN_GRAD_RTOL[tag], "lidar_fcn": FUSION_TRAIN_LIDAR_FCN_GRAD_RTOL[tag],
+              "bias": FUSION_TRAIN_BF16_BIAS_GRAD_RTOL}
+    for key, g in got["grads"].items():
+        conv_bias = "_fcn/" in key and key.endswith("/bias") and "/norm/" not in key
+        if tag == "bf16" and conv_bias:
+            groups["bias"][key] = min(rel_to("bf16", key, g), rel_to("f32", key, g))
+        else:
+            groups["lidar_fcn" if key.startswith("lidar_fcn/") else "rest"][key] = rel_to(tag, key, g)
+    worst = max(groups["rest"], key=groups["rest"].get)
+    stats = max(float(np.abs(v - golden[f"fusion_{tag}/stats/{k}"]).max())
+                for k, v in got["stats"].items())
+    return {
+        "loss_rel": abs(got["loss"] - want_loss) / abs(want_loss),
+        "grad_rel": groups["rest"][worst], "worst_grad": worst,
+        "lidar_fcn_grad_rel": max(groups["lidar_fcn"].values()),
+        "bias_grad_rel": max(groups["bias"].values(), default=0.0),
+        "stats_abs": stats,
+        "over": sorted(k for name, group in groups.items() for k, v in group.items()
+                       if v > limits[name]),
+    }

@@ -473,7 +473,7 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center):
 
     def local_mean():
         # sin/cos(yaw + theta_pixel): rotate each pixel's vector back first
-        theta, _ = pixel_angles(spec, y_pred.device)
+        theta, _ = pixel_angles(spec, device=y_pred.device)
         st, ct = torch.sin(theta), torch.cos(theta)
         s_px, c_px = yp[..., 8], yp[..., 9]
         return wmean(s_px * ct - c_px * st), wmean(c_px * ct + s_px * st)
@@ -522,7 +522,7 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center):
     if with_center:
         # per-pixel decoded physical center R dc + p, averaged, then back
         # to the reference's frame: Rz(-yaw) c_phys
-        rot = pixel_rotations(spec, y_pred.device)
+        rot = pixel_rotations(spec, device=y_pred.device)
         c_px = (rot @ yp[..., 2:5, None])[..., 0] + p
         c_phys = (c_px * wgt[..., None]).sum(dim=(-3, -2)) / tot[..., None]
         c, s = torch.cos(-yaw), torch.sin(-yaw)

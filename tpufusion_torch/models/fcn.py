@@ -1,8 +1,10 @@
-"""Fully convolutional segmentation + regression network, inference only
-(counterpart of `tpufusion/models/fcn.py::FCN`).
+"""Fully convolutional segmentation + regression network (counterpart of
+`tpufusion/models/fcn.py::FCN`).
 
   input (B, H, W, C) NHWC
-    -> feature-wise BatchNorm (running stats, eps 1e-3)
+    -> feature-wise BatchNorm (eps 1e-3; running stats, or with
+       train=True the batch's, which also move the running stats), or
+       the per-pixel-position SampleWiseBN
     -> zero-pad width (0, 3)
     -> conv1/2/3 5x5, strides (vs, 4)/(vs, 2)/(vs, 2), relu
     -> deconv4 (vs, 2) relu, concat conv2
@@ -28,8 +30,15 @@ flax "SAME" pads more at the end for strided convs, so padding is an
 explicit `F.pad`; flax `ConvTranspose(transpose_kernel=False)` is a conv
 over the stride-dilated input with the unflipped kernel and padding
 (k + s - 2) split as jax's `_conv_transpose_padding`.
-Convolutions go to torch's own conv ops (cuDNN on the card), as the
-reference leaves them to XLA.
+Convolutions go to torch's own conv ops (cuDNN on the card) and their
+gradients to autograd, as the reference leaves both to XLA.
+
+Training: `forward(x, train=True)` normalises with the batch's statistics
+as flax does. `torch.nn.BatchNorm2d` is not used: it keeps the unbiased
+variance in its running stats and another momentum convention; flax keeps
+the biased one, `ra = 0.99 ra + 0.01 batch`, and computes the variance as
+E[x^2] - E[x]^2 in float32. In bf16 the parameters and their gradients
+stay float32 (each conv casts its kernel, and the cast is differentiable).
 """
 
 from __future__ import annotations
@@ -41,12 +50,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpufusion_torch.config import ModelConfig
+from tpufusion_torch.geometry.encoding import (  # noqa: F401  (re-exported)
+    DIRECT_CHANNELS,
+    DIRECT_CHANNELS_DUAL,
+)
 
 _KERAS_EPSILON = 1e-7
 _K = 5
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-DIRECT_CHANNELS = 8  # geometry/encoding.py: dc(3), lwh(3), sin, cos
-DIRECT_CHANNELS_DUAL = 10
 
 
 def _same_pad(n: int, s: int, k: int = _K) -> tuple[int, int]:
@@ -67,13 +78,13 @@ def _bias(bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return bias.to(x.dtype).view(-1, 1, 1)
 
 
-def uniform_init_(model: nn.Module, seed: int) -> None:
+def uniform_init_(model: nn.Module, seed: int | torch.Generator) -> None:
     """Draws every `kernel` of `model` from U(-0.05, 0.05) (keras's
-    random_uniform, the reference FCN's initializer) with a generator
-    made from `seed`; biases and the BatchNorm stay as built (zeros, the
-    identity). For benchmarks and smoke runs that need weights but no
-    trained asset; the values are not the reference's for the same seed."""
-    gen = torch.Generator().manual_seed(seed)
+    random_uniform, the reference FCN's initializer) with a CPU generator
+    made from `seed` (or the generator itself); biases and the BatchNorm
+    stay as built (zeros, the identity). The distribution is the
+    reference's; the values are not its values for the same seed."""
+    gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, param in model.named_parameters():
             if name.endswith("kernel"):
@@ -122,39 +133,91 @@ class ConvTranspose(nn.Module):
         return F.conv2d(z, wt) + _bias(self.bias, x)
 
 
-class BatchNorm(nn.Module):
-    """Feature-wise inference BatchNorm over the channel axis (NCHW)."""
+def _move_running(stat: torch.Tensor, batch_stat: torch.Tensor, momentum: float) -> None:
+    with torch.no_grad():
+        stat.mul_(momentum).add_(batch_stat.detach(), alpha=1.0 - momentum)
 
-    def __init__(self, channels: int, epsilon: float = 1e-3):
+
+class BatchNorm(nn.Module):
+    """Feature-wise BatchNorm over the channel axis (NCHW), flax's
+    nnx.BatchNorm(momentum=0.99, epsilon=1e-3)."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-3, momentum: float = 0.99):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        mean, var = self.mean, self.var
+        if train:
+            # flax's fast variance: E[x^2] - E[x]^2, clipped at 0, biased;
+            # the same biased value moves the running variance
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            _move_running(self.mean, mean, self.momentum)
+            _move_running(self.var, var, self.momentum)
         # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
         c = (-1, 1, 1)
-        return (x - self.mean.view(c)) * mul.view(c) + self.bias.view(c)
+        return (x - mean.view(c)) * mul.view(c) + self.bias.view(c)
+
+
+class SampleWiseBN(nn.Module):
+    """Per-pixel-position batch norm: one statistic per pixel position,
+    shared across channels (the reference's sample-wise flavour, whose
+    normalize parameters are H*W long). Inference applies the stored
+    moving statistics; training uses the batch's over the batch and
+    channel axes and moves the stored ones."""
+
+    def __init__(self, num_positions: int, epsilon: float = 1e-3, momentum: float = 0.99):
+        super().__init__()
+        self.epsilon = epsilon
+        self.momentum = momentum
+        self.scale = nn.Parameter(torch.ones(num_positions))
+        self.bias = nn.Parameter(torch.zeros(num_positions))
+        self.register_buffer("mean", torch.zeros(num_positions))
+        self.register_buffer("var", torch.ones(num_positions))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:  # NCHW
+        b, c, h, w = x.shape
+        flat = x.reshape(b, c, h * w)
+        mean, var = self.mean, self.var
+        if train:
+            mean = flat.mean(dim=(0, 1))
+            var = flat.var(dim=(0, 1), unbiased=False)
+            _move_running(self.mean, mean, self.momentum)
+            _move_running(self.var, var, self.momentum)
+        y = (flat - mean) * torch.rsqrt(var + self.epsilon)
+        return (y * self.scale + self.bias).reshape(b, c, h, w)
 
 
 class FCN(nn.Module):
-    def __init__(self, cfg: ModelConfig, in_channels: int = 3):
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        in_channels: int = 3,
+        image_hw: tuple[int, int] | None = None,
+        seed: int | None = None,
+    ):
+        """`seed` given, the kernels are drawn as the reference draws them
+        (`uniform_init_`); without it every kernel is zero until weights
+        are loaded. `image_hw` is needed for `cfg.sample_wise_bn`."""
         super().__init__()
-        if cfg.sample_wise_bn:
-            raise NotImplementedError(
-                "SampleWiseBN is not ported yet (ROADMAP Queue 1: training "
-                "and the keras import)"
-            )
         if cfg.dtype not in _DTYPES:
             raise ValueError(f"unknown FCN dtype {cfg.dtype!r}")
         self.cfg = cfg
         self.compute_dtype = _DTYPES[cfg.dtype]
         vs = cfg.vertical_stride
         wm = cfg.width_multiplier
-        if cfg.batch_norm:
+        if cfg.sample_wise_bn:
+            if image_hw is None:
+                raise ValueError("sample_wise_bn needs image_hw")
+            self.norm = SampleWiseBN(image_hw[0] * image_hw[1])
+        elif cfg.batch_norm:
             self.norm = BatchNorm(in_channels)
         self.conv1 = Conv(in_channels, 4 * wm, (vs, 4))
         self.conv2 = Conv(4 * wm, 6 * wm, (vs, 2))
@@ -166,6 +229,8 @@ class FCN(nn.Module):
             nreg = self.num_reg_channels
             self.deconv5b = ConvTranspose(22 * wm, nreg, (vs, 2))
             self.deconv6b = ConvTranspose(4 * wm + nreg, nreg, (vs, 4))
+        if seed is not None:
+            uniform_init_(self, seed)
 
     @property
     def num_reg_channels(self) -> int:
@@ -175,7 +240,7 @@ class FCN(nn.Module):
             return DIRECT_CHANNELS_DUAL
         return DIRECT_CHANNELS
 
-    def _trunk(self, x: torch.Tensor):
+    def _trunk(self, x: torch.Tensor, train: bool = False):
         """Shared encoder and the deconv6a head, NCHW in the compute
         dtype. The crops follow the input width, so the lidar (1801,
         conv1 width 451, crop5 = 1), camera (1368, conv1 width 343,
@@ -184,8 +249,8 @@ class FCN(nn.Module):
         cfg = self.cfg
         w = x.shape[2]
         x = x.to(torch.float32).permute(0, 3, 1, 2)
-        if cfg.batch_norm:
-            x = self.norm(x)
+        if cfg.batch_norm or cfg.sample_wise_bn:
+            x = self.norm(x, train)
         x = F.pad(x, (0, 3)).to(self.compute_dtype)
 
         c1 = F.relu(self.conv1(x))
@@ -199,10 +264,12 @@ class FCN(nn.Module):
         d6a = self.deconv6a(torch.cat([c1, d5a], dim=1))[:, :, :, :w]
         return d6a, (c1, cat4, crop5, w)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) float32 -> (B, H, W, 2 [+ reg]) float32."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """(B, H, W, C) float32 -> (B, H, W, 2 [+ reg]) float32. With
+        train=True the input norm uses the batch's statistics and moves
+        its running ones."""
         cfg = self.cfg
-        d6a, (c1, cat4, crop5, w) = self._trunk(x)
+        d6a, (c1, cat4, crop5, w) = self._trunk(x, train)
         probs = torch.softmax(d6a.float(), dim=1).clamp(_KERAS_EPSILON, 1.0)
         if not cfg.use_regression:
             return probs.permute(0, 2, 3, 1).contiguous()
@@ -213,9 +280,9 @@ class FCN(nn.Module):
             d6b = F.relu(d6b)  # reference-compat; direct targets are signed
         return torch.cat([probs, d6b.float()], dim=1).permute(0, 2, 3, 1).contiguous()
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, H, W, C) -> the pre-softmax deconv6a map (B, H', W, 2) in
         the compute dtype, NHWC: the tap the fusion net consumes. H' is H
         for vertical_stride 1 and for heights the three vertical strides
         divide (the camera's 512 at stride 2)."""
-        return self._trunk(x)[0].permute(0, 2, 3, 1)
+        return self._trunk(x, train)[0].permute(0, 2, 3, 1)

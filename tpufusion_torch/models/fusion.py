@@ -1,18 +1,25 @@
-"""Camera + lidar + radar late-fusion pose regressor, inference only
-(counterpart of `tpufusion/models/fusion.py::FusionNet`).
+"""Camera + lidar + radar late-fusion pose regressor (counterpart of
+`tpufusion/models/fusion.py`: `FusionNet`, `fusion_loss`, and
+`trainable_parameters` for its `trainable_filter`).
 
   * per branch: the FCN's pre-softmax deconv6a feature map, max-pooled
-    (camera (4, 1) by default, lidar optionally) -> flatten -> dense 96
-    relu -> dense 48 relu (the reference's dropouts are the identity at
-    inference)
+    (camera (4, 1) by default, lidar optionally) -> flatten -> dropout 0.2
+    -> dense 96 relu -> dropout 0.2 -> dense 48 relu (the dropouts are
+    the identity unless train=True)
   * concat(cam48, lidar48, radar [r, a, r cos a, r sin a])
   * two 2-path elu heads -> centroid (3) and yaw rz (1)
 
 Parameter names and layouts are the reference's ('/' for '.':
 `cam_branch/dense1/kernel`, `centroid_head/a/bias`,
 `lidar_fcn/conv1/kernel`, dense kernels stored (in, out) as flax stores
-them), so `models.io.load_arrays` loads a reference npz as it is. The
-loss and the parameter filter wait for the training slice.
+them), so `models.io.load_arrays` loads a reference npz as it is.
+
+Training: dropout masks are drawn from the `torch.Generator` handed to
+`forward` (on the net's device), never from the global state; a keep mask
+of share 0.8 scaled by 1/0.8, as flax's Dropout. Its bits differ from
+`jax.random`'s. Locking a sub-network (`trainable_parameters`) only keeps
+its parameters from the optimizer: as in the reference the locked FCN
+still runs with train=True, so its BatchNorm's running statistics move.
 
 Where the reference's order of operations shows in the numbers it is
 kept: the feature maps leave the FCNs in the compute dtype and are pooled
@@ -30,7 +37,7 @@ from torch import nn
 
 from tpufusion_torch._precision import full_f32_matmuls
 from tpufusion_torch.config import CameraConfig, ModelConfig
-from tpufusion_torch.models.fcn import FCN
+from tpufusion_torch.models.fcn import FCN, uniform_init_
 
 
 class Dense(nn.Module):
@@ -45,15 +52,33 @@ class Dense(nn.Module):
         return x.float() @ self.kernel + self.bias
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax's Dropout in training: each element kept with probability
+    1 - rate and scaled by 1 / (1 - rate), the mask drawn from
+    `generator` on x's device. rate 0 returns x and draws nothing."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator on the net's device")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class _Branch(nn.Module):
-    def __init__(self, in_features: int):
+    def __init__(self, in_features: int, rate: float = 0.2):
         super().__init__()
+        self.rate = rate  # of both dropouts; a test may set it to 0.0
         self.dense1 = Dense(in_features, 96)
         self.dense2 = Dense(96, 48)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, W, C)
-        x = x.reshape(x.shape[0], -1)
-        return F.relu(self.dense2(F.relu(self.dense1(x))))
+    def forward(self, x: torch.Tensor, train: bool = False, generator=None) -> torch.Tensor:
+        x = x.reshape(x.shape[0], -1)  # (B, H, W, C) flattened
+        if train:
+            x = dropout(x, self.rate, generator)
+        x = F.relu(self.dense1(x))
+        if train:
+            x = dropout(x, self.rate, generator)
+        return F.relu(self.dense2(x))
 
 
 class _TwoPathHead(nn.Module):
@@ -71,7 +96,9 @@ def _max_pool_nhwc(x: torch.Tensor, pool: tuple[int, int]) -> torch.Tensor:
     """flax max_pool(window = strides = pool, padding="VALID") on an NHWC
     map, in x's dtype. VALID drops the remainder rows and columns
     (1368 // 8 = 171, 1801 // 8 = 225), which is `F.max_pool2d`'s default
-    floor mode."""
+    floor mode. Where a window holds its maximum more than once (common in
+    a bf16 map) the gradient goes to the first one in row-major order, on
+    the CPU and on the card, as XLA sends it."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=pool, stride=pool)
     return y.permute(0, 2, 3, 1)
 
@@ -105,18 +132,58 @@ class FusionNet(nn.Module):
         self.rz_head = _TwoPathHead(48 + 48 + 4, 1)
 
     @full_f32_matmuls()
-    def forward(self, cam_img, lidar_img, radar):
+    def forward(self, cam_img, lidar_img, radar, train: bool = False,
+                generator: torch.Generator | None = None):
         """cam_img (B, Hc, Wc, 1), lidar_img (B, 32, 1801, 3), radar
-        (B, 2) [range, angle] -> (centroid (B, 3), rz (B, 1)), float32."""
-        cam_feat = _max_pool_nhwc(self.camera_fcn.features(cam_img), self.cam_pool)
-        lidar_feat = self.lidar_fcn.features(lidar_img)
+        (B, 2) [range, angle] -> (centroid (B, 3), rz (B, 1)), float32.
+        train=True: both FCNs' BatchNorms use the batch's statistics and
+        the branches' dropouts draw from `generator`."""
+        cam_feat = _max_pool_nhwc(self.camera_fcn.features(cam_img, train), self.cam_pool)
+        lidar_feat = self.lidar_fcn.features(lidar_img, train)
         if self.lidar_pool is not None:
             lidar_feat = _max_pool_nhwc(lidar_feat, self.lidar_pool)
-        c = self.cam_branch(cam_feat)
-        l = self.lidar_branch(lidar_feat)
+        c = self.cam_branch(cam_feat, train, generator)
+        l = self.lidar_branch(lidar_feat, train, generator)
         # radar reaches the heads in both frames, polar and cartesian
         radar = radar.to(torch.float32)
         r, a = radar[..., 0:1], radar[..., 1:2]
         radar_feats = torch.cat([r, a, r * torch.cos(a), r * torch.sin(a)], dim=-1)
         x = torch.cat([c, l, radar_feats], dim=-1)
         return self.centroid_head(x), self.rz_head(x)
+
+
+def fusion_loss(outputs, targets) -> torch.Tensor:
+    """MSE over both heads."""
+    centroid, rz = outputs
+    t_centroid, t_rz = targets
+    return ((centroid - t_centroid) ** 2).mean() + ((rz - t_rz) ** 2).mean()
+
+
+def trainable_parameters(
+    net: FusionNet, lock_lidar: bool = False, lock_camera: bool = False
+) -> list[nn.Parameter]:
+    """The parameters the optimizer receives: all of them but those of a
+    locked FCN (the reference freezes layers by name)."""
+    locked = tuple(
+        prefix for prefix, lock in (("lidar_fcn.", lock_lidar), ("camera_fcn.", lock_camera))
+        if lock
+    )
+    return [p for name, p in net.named_parameters() if not (locked and name.startswith(locked))]
+
+
+def init_fusion_(net: FusionNet, seed: int) -> None:
+    """Draws the net's weights as the reference's constructor does, from a
+    CPU generator made of `seed`: every conv kernel and every dense kernel
+    but the heads' `out` from U(-0.05, 0.05), the heads' `out` kernels from
+    flax's default lecun-normal (a normal of variance 1 / fan_in truncated
+    at two standard deviations), biases zero. The distribution is the
+    reference's; the values are not its values for the same seed."""
+    gen = torch.Generator().manual_seed(seed)
+    uniform_init_(net, gen)
+    with torch.no_grad():
+        for head in (net.centroid_head, net.rz_head):
+            kernel = head.out.kernel
+            std = (1.0 / kernel.shape[0]) ** 0.5 / 0.87962566103423978
+            fresh = torch.empty(kernel.shape)
+            nn.init.trunc_normal_(fresh, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+            kernel.copy_(fresh)

@@ -1,9 +1,12 @@
-"""npz weight loading (counterpart of `tpufusion/models/io.py`), the
-detector assets' json settings and the fusion asset's loader.
+"""npz weight loading and saving (counterpart of `tpufusion/models/io.py`),
+the detector assets' json settings and the fusion asset's loader.
 
-Keys are the '/'-joined nnx state paths the JAX package writes
+Keys are the '/'-joined nnx state paths the JAX package writes and reads
 (`conv1/kernel`, `norm/mean`, ...), which are also this FCN's state-dict
-keys with '.' for '/'. A missing or extra key raises, as in JAX.
+keys with '.' for '/': a model trained by either package loads into the
+other. A missing or extra key raises, as in JAX. `optimizer_arrays` /
+`optimizer_from_arrays` carry Adam's step count and moments as numpy
+arrays keyed like the parameters.
 """
 
 from __future__ import annotations
@@ -51,6 +54,50 @@ def load_state_npz(path: str, model: torch.nn.Module) -> None:
     """Loads weights saved by tpufusion.models.io.save_state_npz."""
     with np.load(path) as z:
         load_arrays(model, {k: z[k] for k in z.files})
+
+
+def state_arrays(model: torch.nn.Module) -> dict[str, np.ndarray]:
+    """Every learned entry of `model` (parameters and batch statistics) as
+    numpy arrays under the '/'-joined keys."""
+    return {k.replace(".", "/"): v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+
+
+def save_state_npz(path: str, model: torch.nn.Module, dtype=None) -> None:
+    """Writes the single-file npz that `load_state_npz` of either package
+    reads. `dtype` (e.g. np.float16) downcasts the stored floating arrays;
+    loading casts back to float32."""
+    arrays = state_arrays(model)
+    if dtype is not None:
+        arrays = {
+            k: v.astype(dtype) if np.issubdtype(v.dtype, np.floating) else v
+            for k, v in arrays.items()
+        }
+    np.savez_compressed(path, **arrays)
+
+
+def optimizer_arrays(optimizer, model: torch.nn.Module) -> dict[str, np.ndarray]:
+    """`train.optim.Adam`'s state as numpy: "count", and "mu/<key>" and
+    "nu/<key>" for every parameter of `model` it has moments for."""
+    out = {"count": np.asarray(optimizer.count, np.int64)}
+    for name, p in model.named_parameters():
+        state = optimizer.state.get(p)
+        if state:
+            key = name.replace(".", "/")
+            out[f"mu/{key}"] = state["mu"].detach().cpu().numpy()
+            out[f"nu/{key}"] = state["nu"].detach().cpu().numpy()
+    return out
+
+
+def optimizer_from_arrays(optimizer, model: torch.nn.Module, arrays: dict[str, np.ndarray]) -> None:
+    """The inverse of `optimizer_arrays`: fills the optimizer's count and
+    the moments of every parameter of `model` that `arrays` holds."""
+    optimizer.count = int(arrays["count"])
+    for name, p in model.named_parameters():
+        key = name.replace(".", "/")
+        if f"mu/{key}" in arrays:
+            state = optimizer._state(p)
+            for moment in ("mu", "nu"):
+                state[moment].copy_(torch.as_tensor(arrays[f"{moment}/{key}"], dtype=p.dtype))
 
 
 def asset_configs(path: str) -> tuple[ModelConfig, DecodeConfig]:

@@ -1,0 +1,79 @@
+"""Class-balanced weighted loss with population statistics (counterpart
+of `tpufusion/models/losses.py`).
+
+Per-pixel negative log likelihood where background pixels are scaled by
+obj_to_bkg_ratio (W1) and foreground pixels by avg_obj_size /
+frame_fg_area (W2), all scaled by loss_scaler; the regression head adds a
+W2-weighted L2 term scaled by weight_bb. The norm is per pixel by default;
+`reference_compat` takes it over the whole batch, as the reference did.
+
+Inputs are (B, H, W, 2 + R) or (B, P, 2 + R); the loss is the mean over
+all batch x pixel elements.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpufusion_torch.config import LossConfig
+
+
+def _safe_norm(sq: torch.Tensor) -> torch.Tensor:
+    """sqrt(sq) whose gradient at 0 is 0: sqrt's own is infinite there, and
+    a zero-weight pixel with an exactly-zero diff would turn 0 * inf into
+    NaN. The value under the root is replaced before the root is taken."""
+    nonzero = sq > 0
+    return torch.sqrt(torch.where(nonzero, sq, 1.0)) * nonzero
+
+
+def weighted_pose_loss(
+    y_pred: torch.Tensor,
+    y_true: torch.Tensor,
+    cfg: LossConfig = LossConfig(),
+    use_regression: bool = True,
+) -> torch.Tensor:
+    if y_pred.ndim == 4:
+        b = y_pred.shape[0]
+        y_pred = y_pred.reshape(b, -1, y_pred.shape[-1])
+        y_true = y_true.reshape(b, -1, y_true.shape[-1])
+    max_pixels = y_true.shape[1]
+
+    obj_t = y_true[..., :2]
+    nll = obj_t * (-torch.log(y_pred[..., :2]))  # (B, P, 2)
+
+    bkg_t = obj_t[..., 0:1]
+    frg_t = obj_t[..., 1:2]
+    frg_area = frg_t.sum(dim=1, keepdim=True).clamp(cfg.epsilon, float(max_pixels))  # (B, 1, 1)
+
+    w1 = cfg.obj_to_bkg_ratio * bkg_t if cfg.use_w1 else bkg_t
+    w2 = frg_t * (cfg.avg_obj_size / frg_area) if cfg.use_w2 else frg_t
+    loss = ((w1 + w2) * nll).sum(dim=-1) * cfg.loss_scaler  # (B, P)
+
+    if use_regression:
+        diff = y_true[..., 2:] - y_pred[..., 2:]
+        if cfg.reg_channel_weights is not None:
+            if len(cfg.reg_channel_weights) != diff.shape[-1]:
+                raise ValueError(
+                    f"reg_channel_weights has {len(cfg.reg_channel_weights)} entries for "
+                    f"{diff.shape[-1]} regression channels"
+                )
+            # filled on the device one by one: a host copy would stall the step
+            cw = torch.stack([torch.full((), w, dtype=diff.dtype, device=diff.device)
+                              for w in cfg.reg_channel_weights])
+            diff = diff * cw
+        w2r = w2
+        if cfg.reg_target_norm_clip is not None:
+            # only pixels whose target is well defined are supervised; the
+            # others' diffs are zeroed too, so the batch-wide norm below
+            # cannot bring them back
+            tnorm = torch.sqrt((y_true[..., 2:] ** 2).sum(dim=-1, keepdim=True))
+            keep = tnorm <= cfg.reg_target_norm_clip
+            w2r = w2 * keep
+            diff = diff * keep
+        if cfg.reference_compat:
+            norm = _safe_norm((diff * diff).sum())  # one scalar for the batch
+        else:
+            norm = _safe_norm((diff * diff).sum(dim=-1, keepdim=True))
+        loss = loss + cfg.weight_bb * (w2r * norm).sum(dim=-1)
+
+    return loss.mean()
