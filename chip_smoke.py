@@ -56,8 +56,31 @@ to 0 before it and read after it, and then the training paths:
                the reference's loss and gradients
   phase 18     config 4 (`benchmarks.config4_full_eval`): 128 frames at
                batch 32 x 32,768 with the shipped asset, CSV -> tracklet
-               XML -> scoring; then with a detector quick-trained here at
-               a reduced depth
+               XML -> scoring, and its companion rows (the wide-yaw asset
+               on ellipse scenes, the mixed-family asset on circle,
+               ellipse and box scenes, 32 frames a family here, 128 in the
+               benchmark's default, both kernels held on one batch of
+               each family first); then with a
+               detector quick-trained here at a reduced depth, without
+               the companion rows (they use the shipped assets whatever
+               the weights: the first run drove them)
+
+  phase 19     data parallelism (`parallel/mesh.py`): (a) a mesh of one
+               over NCCL: the mesh train step (bf16 default widths, corner
+               head, roll) bit for bit the plain step at 32 x 32,768, no
+               host sync in 8 profiled steps, the two steps timed in turns
+               and the gradient all-reduce alone; (b) two ranks on the one
+               card over gloo run `parallel.dryrun.dryrun_multichip`'s four
+               phases at full geometry (32 x 1801, 32,768 points a frame),
+               each held against one process, each rank holding both
+               kernels against their plain versions on its own points
+  phase 20     config 5 (`benchmarks.config5_waymo_scale`): 16 x 131,072
+               points (64 beams) through the asset's top-4 decode, the
+               two-vehicle sequence through the tracker, and the oriented
+               row (the wide-yaw asset, ellipse vehicles, the physical
+               frame); both kernels held on its clouds first
+  phase 21     host-sync calls in 8 profiled steps of the direct f32 step,
+               configs 1, 3 and 5 (the serving paths' host scalars)
 
 The z-buffer kernel runs on every path; configs 1 and 3 and the train
 steps decode nothing, so the CC kernel is not on theirs. Phases 12 and 13 hold the z-buffer
@@ -72,7 +95,9 @@ device time (the kernels' own durations, torch.profiler).
 
 With --training-only it builds the kernels and runs phases 15-18 alone
 (about a minute; their times then stand without the earlier phases'
-tensors on the card) and prints no kernels line.
+tensors on the card) and prints no kernels line; --sync-counts runs
+phase 21 alone (it uses only entry points an earlier tree of the port
+has too, so the same script counts a parent commit's syncs).
 
 Every phase asserts; a failure raises, so the exit code is non-zero and
 the final line is never printed. Without a CUDA device it exits non-zero
@@ -133,6 +158,12 @@ TRAIN_BATCH = 32  # frames per train batch (phases 16 and 18)
 TRAIN_SCENE_BATCHES = 4  # phase 16: distinct scene batches in the dataset
 FUSION_TRAIN_FRAMES = 32  # phase 17
 C4_FRAMES = 128  # config 4
+# config 4's companion rows, frames a family: the benchmark's default is
+# C4_FRAMES; here fewer, to keep the script's time
+C4_COMPANION_FRAMES = 32
+C4_COMPANIONS = 4  # companion protocols: wide yaw, then circle, ellipse, box
+DP_RANKS = 2  # phase 19 (b): ranks sharing the one card over gloo
+SYNC_STEPS = 8  # phase 21: profiled steps a path
 FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
 C3_BATCH = 8  # config 3: frames per batch
 REPLAY_FRAMES = 270  # the replay server: 4 chunks of 64 and a partial one
@@ -143,7 +174,14 @@ MEASURE_CALLS = 1 + 6 * 3 + 1 + 6
 BOTH_KERNELS = ("nearest_wins_image", "connected_components_with_bbox")
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Prints a line; a phase's first line also says when it started (s
+    since the script began)."""
+    if msg.startswith("phase "):
+        msg += f" [at {time.perf_counter() - _T0:.0f} s]"
     print(msg, flush=True)
 
 
@@ -181,6 +219,35 @@ def check_zbuffer(label: str, points, valid, spec) -> None:
     log(f"  z-buffer kernel on {label} ({points.shape[0]} x {points.shape[1]} points): "
         f"bit-identical to plain = {same}")
     assert same, f"z-buffer kernel differs from its plain version ({label})"
+
+
+def check_cc(label: str, mask) -> None:
+    """Holds the CC kernel against the plain sweeps on a path's own
+    (B, H, W) heat masks: equal labels and foreground extents."""
+    from tpufusion_torch.ops import cc, components
+
+    mask = mask.contiguous()
+    with torch.inference_mode():
+        got = cc.connected_components_with_bbox(mask)
+        _, sweeps = components.propagate(components.init_state(mask), mask, SWEEP_CAP)
+        want = components.connected_components_with_bbox(mask, SWEEP_CAP)
+    same = torch.equal(got[0], want[0]) and all(
+        torch.equal(g[mask], w[mask]) for g, w in zip(got[1:], want[1:]))
+    log(f"  CC kernel on {label} ({mask.shape[0]} masks): equal to the plain sweeps = {same} "
+        f"(sweeps {int(sweeps.max())})")
+    assert int(sweeps.max()) < SWEEP_CAP and same, f"CC kernel differs from the plain sweeps ({label})"
+
+
+def check_both(label: str, model, dcfg, points, valid, spec) -> None:
+    """Both kernels against their plain versions on a path's points and on
+    `model`'s heat masks of them."""
+    from tpufusion_torch.decode.decode import heat_mask
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+
+    check_zbuffer(label, points, valid, spec)
+    with torch.inference_mode():
+        heat = heat_mask(model(range_view_project_batch(points, spec, valid))[..., 1], dcfg)
+    check_cc(label, heat)
 
 
 def check_poses(label: str, poses, found, want_poses, want_found) -> float:
@@ -1055,18 +1122,38 @@ def phase_config4(dev, spec, card, totals):
     from tpufusion_torch import benchmarks
     from tpufusion_torch.predict import make_e2e_step
 
-    calls = 1 + (C4_FRAMES // TRAIN_BATCH) * 3 + 1 + 2 * (C4_FRAMES // TRAIN_BATCH)
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+
+    batches = C4_FRAMES // TRAIN_BATCH
+    companion = C4_COMPANIONS * (C4_COMPANION_FRAMES // TRAIN_BATCH)
+    calls = 1 + batches * 3 + 1 + 2 * batches + companion
     log(f"phase 18 config 4: {C4_FRAMES} frames at batch {TRAIN_BATCH} x {N_POINTS}, "
-        "CSV -> tracklet XML -> score_poses")
+        "CSV -> tracklet XML -> score_poses; the companion rows at "
+        f"{C4_COMPANION_FRAMES} frames a family (the benchmark's default: {C4_FRAMES})")
+    families = (("wide_yaw (ellipse, max_yaw 0.45)", "synthetic_detector_yaw.npz", 4000, "ellipse", 0.45),
+                ("mixed_family circle", "synthetic_detector_mixed.npz", 4100, "circle", 0.05),
+                ("mixed_family ellipse", "synthetic_detector_mixed.npz", 4100, "ellipse", 0.45),
+                ("mixed_family box", "synthetic_detector_mixed.npz", 4100, "box", 0.45))
+    for label, name, seed, surface, max_yaw in families:
+        model, dcfg, _ = benchmarks.asset_model(benchmarks.detector_asset_path(name))
+        p, _, v = synthesize_beam_scan_batch(np.random.default_rng(seed), TRAIN_BATCH, N_POINTS,
+                                             max_yaw=max_yaw, vehicle_surface=surface)
+        check_both(f"{label}'s first batch", model.to(dev).eval(), dcfg,
+                   torch.from_numpy(p).to(dev), torch.from_numpy(v).to(dev), spec)
     row, counts = drive(
-        f"config4_full_eval(weights='asset') ({calls} e2e steps: warm-up, 4 batches x 3 timed, "
-        "warm-up + 4 for the device time, 4 drained)",
-        lambda: benchmarks.config4_full_eval(dev, frames=C4_FRAMES, batch=TRAIN_BATCH), totals)
+        f"config4_full_eval(weights='asset') ({calls} e2e steps: warm-up, {batches} batches x 3 "
+        f"timed, warm-up + {batches} for the device time, {batches} drained, {companion} in the "
+        "companion rows)",
+        lambda: benchmarks.config4_full_eval(dev, frames=C4_FRAMES, batch=TRAIN_BATCH,
+                                             companion_frames=C4_COMPANION_FRAMES), totals)
     assert counts == {"nearest_wins_image": calls, "connected_components_with_bbox": calls}, (
         "config 4: both kernels once a step")
     log(f"  {json.dumps(row)} [{card}]")
     assert row["detection_rate"] >= 0.9 and row["recall@iou0.25"] >= 0.8, "config 4 misses"
     assert row["mean_xy_err"] < 1.0 and row["submission_recall@iou0.25"] >= 0.8
+    wide, mixed = row["wide_yaw"], row["mixed_family"]
+    assert wide["detection_rate"] >= 0.9 and wide["recall@iou0.25"] >= 0.5, "wide-yaw row misses"
+    assert all(f["detection_rate"] >= 0.9 for f in mixed["per_family"].values()), "a family misses"
 
     depth = {"n_batches": 2, "steps_per_batch": 5}
     (model, dcfg, head), counts = drive(
@@ -1081,12 +1168,188 @@ def phase_config4(dev, spec, card, totals):
         f"finite = {bool(torch.isfinite(poses).all())}, found {int(found.sum())}/{TRAIN_BATCH}")
     assert finite and poses.shape == (TRAIN_BATCH, 7) and torch.isfinite(poses).all()
     qrow, counts = drive(
-        f"config4_full_eval(weights='quick_train', {depth}, reps=1)",
-        lambda: benchmarks.config4_full_eval(dev, "quick_train", frames=C4_FRAMES,
-                                             batch=TRAIN_BATCH, reps=1, quick_train=depth), totals)
+        f"config4_full_eval(weights='quick_train', {depth}, reps=1, no companion rows: "
+        "they use the shipped assets, driven above)",
+        lambda: benchmarks.config4_full_eval(
+            dev, "quick_train", frames=C4_FRAMES, batch=TRAIN_BATCH, reps=1, quick_train=depth,
+            companion_frames=0), totals)
     log(f"  {json.dumps(qrow)} (reduced depth: 2 scene batches x 5 steps) [{card}]")
     assert qrow["weights"] == "quick_train" and qrow["head"] == "corner"
+    assert "wide_yaw" not in qrow and "mixed_family" not in qrow
     return row
+
+
+def phase_data_parallel(dev, spec, card, totals):
+    """Phase 19: (a) a mesh of one over NCCL against the plain step, bit
+    for bit, with no host sync; (b) two gloo ranks on the one card through
+    dryrun_multichip's four phases at full geometry."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpufusion_torch.config import LossConfig, MeshConfig, ModelConfig, TrainConfig
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.models.fcn import FCN
+    from tpufusion_torch.parallel import dryrun
+    from tpufusion_torch.parallel.mesh import average_gradients, make_mesh
+    from tpufusion_torch.train.optim import Adam
+    from tpufusion_torch.train.train_step import make_train_step
+
+    log(f"phase 19 data parallelism: (a) a mesh of one over NCCL, {TRAIN_BATCH} x {N_POINTS} "
+        "points, bf16 default widths, corner head + roll")
+    mesh = make_mesh(MeshConfig(n_devices=1), device=dev)  # a group of one, NCCL
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # cuDNN's wgrad may sum in another order a call
+    try:
+        batches = []
+        for i in range(TRAIN_SCENE_BATCHES):
+            p, gt, v = synthesize_beam_scan_batch(np.random.default_rng(1900 + i), TRAIN_BATCH, N_POINTS)
+            batches.append({k: torch.from_numpy(a).to(dev) for k, a in {"points": p, "valid": v, **gt}.items()})
+        tcfg = TrainConfig(batch_size=TRAIN_BATCH, augment=True)
+        mcfg = ModelConfig(dtype="bfloat16")
+
+        def run(mesh_or_none, steps):
+            model = FCN(mcfg, seed=0).to(dev)
+            opt, gen = Adam(model.parameters(), 3e-3), torch.Generator(device=dev).manual_seed(0)
+            step = make_train_step(spec, LossConfig(), tcfg, mesh=mesh_or_none, device=dev)
+            outs = [step(model, opt, batches[i % len(batches)], gen) for i in range(steps)]
+            state = {**{f"grad/{n}": p.grad for n, p in model.named_parameters()},
+                     **{f"param/{n}": p.detach() for n, p in model.named_parameters()},
+                     **{f"buffer/{n}": b for n, b in model.named_buffers()},
+                     **{f"loss{i}": loss for i, (loss, _) in enumerate(outs)},
+                     **{f"{k}{i}": m for i, (_, ms) in enumerate(outs) for k, m in ms.items()}}
+            return state, (model, opt, gen, step)
+
+        plain, (pm, po, pg, pstep) = run(None, len(batches))
+        again, _ = run(None, len(batches))
+        meshed, (mm, mo, mg, mstep) = run(mesh, len(batches))
+        control = all(torch.equal(plain[k], again[k]) for k in plain)
+        differ = [k for k in plain if not torch.equal(plain[k], meshed[k])]
+        log(f"  {len(batches)} steps each: the plain step run twice bit-identical = {control}; "
+            f"the mesh step against it: {len(plain) - len(differ)} of {len(plain)} tensors "
+            f"(loss, metrics, gradients, parameters, BatchNorm statistics) bit-identical"
+            + (f"; differ: {differ[:6]}" if differ else ""))
+        assert control and not differ, "the mesh of one is not the plain step"
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(8):
+                mstep(mm, mo, batches[i % len(batches)], mg)
+        syncs = _sync_events(prof)
+        torch.cuda.synchronize()
+        log(f"  8 profiled mesh steps: host-sync calls {syncs or 'none'}")
+        assert not syncs, "the mesh step waits for the card"
+
+        params = [p for p in mm.parameters()]
+        n_floats = sum(p.numel() for p in params)
+        order = ("plain", "mesh", "mesh", "plain")
+        times = {k: [] for k in ("plain", "mesh")}
+        device_times = {k: [] for k in ("plain", "mesh")}
+        for which in order:
+            model, opt, gen, step = (pm, po, pg, pstep) if which == "plain" else (mm, mo, mg, mstep)
+            times[which].append(time_ms(lambda b: step(model, opt, b, gen), batches))
+            device_times[which].append(device_ms(lambda b: step(model, opt, b, gen), batches))
+        ar_ms = time_ms(lambda _: average_gradients(params, mesh), batches)
+        ar_dev = device_ms(lambda _: average_gradients(params, mesh), batches)
+        dp = {"ms_per_step": {k: [round(x, 3) for x in v] for k, v in times.items()},
+              "device_ms_per_step": {k: [round(x, 3) for x in v] for k, v in device_times.items()},
+              "allreduce_ms": round(ar_ms, 3), "allreduce_device_ms": round(ar_dev, 4),
+              "allreduce_floats": n_floats, "backend": mesh.backend, "world_size": mesh.world_size}
+        log(f"  times in turns {order} over {len(batches)} distinct batches: {json.dumps(dp)} [{card}]")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+
+    log(f"phase 19 (b) {DP_RANKS} ranks on the one card over gloo: dryrun_multichip at 32 x 1801, "
+        f"{2 * DP_RANKS} x {N_POINTS} points (phases 1-3), {DP_RANKS} x {N_POINTS} (phase 4)")
+    t0 = time.perf_counter()
+    out = dryrun.dryrun_multichip(DP_RANKS, device=dev, backend="gloo", spec=spec, n_points=N_POINTS,
+                                  full_points=N_POINTS, timed_steps=3)
+    wall = time.perf_counter() - t0
+    for r, rank in enumerate(out["ranks"]):
+        holds = {ph: rank[ph]["kernels"] for ph in rank}
+        log(f"  rank {r}: launches {json.dumps({ph: rank[ph]['launches'] for ph in rank})}; "
+            f"kernels against plain on its own points {json.dumps(holds)}")
+        assert rank["train"]["launches"] == {"nearest_wins_image": 1, "connected_components_with_bbox": 0}
+        for ph in ("corner", "flagship", "full_width"):
+            assert rank[ph]["launches"] == {"nearest_wins_image": 1, "connected_components_with_bbox": 1}
+            assert rank[ph]["kernels"]["zbuffer_equal"] and rank[ph]["kernels"]["cc_equal"]
+    train = out["ranks"][0]["train"]
+    log(f"  sharded train step {train['ms_per_step']:.3f} ms (its gloo gradient all-reduce alone "
+        f"{train['allreduce_ms']:.3f} ms) vs one process {train['one_process_ms_per_step']:.3f} ms "
+        f"(host clock, 3 steps, the card synchronized); the whole dry run {wall:.1f} s [{card}]")
+    for k, n in out["launches"].items():
+        totals[k] += n
+    log(f"  kernel launches over the ranks' sharded calls: {out['launches']}")
+    return dp, train
+
+
+def phase_config5_bench(dev, spec, card, totals):
+    """Phase 20: benchmarks.config5_waymo_scale with its oriented row;
+    both kernels held on its clouds first."""
+    from tpufusion_torch import benchmarks
+    from tpufusion_torch.data.synthetic import synthesize_beam_tracking_sequence
+
+    log(f"phase 20 config 5 (benchmarks.config5_waymo_scale): {C5_BATCH} x {C5_POINTS} points "
+        f"({C5_BEAMS} beams), the asset's top-4 decode, {TRACK_FRAMES} tracked frames, the oriented row")
+    model, dcfg, _ = benchmarks.asset_model(benchmarks.detector_asset_path())
+    (p, v), = benchmarks.point_sets(1, C5_BATCH, C5_POINTS, dev, C5_BEAMS)
+    check_both("config 5's first batch", model.to(dev).eval(), dcfg, p, v, spec)
+    ymodel, ydcfg, _ = benchmarks.asset_model(
+        benchmarks.detector_asset_path("synthetic_detector_yaw.npz"))
+    seq, _, sv = synthesize_beam_tracking_sequence(np.random.default_rng(88), TRACK_FRAMES, N_POINTS,
+                                                   oriented=True)
+    check_both("the oriented sequence", ymodel.to(dev).eval(), ydcfg, torch.from_numpy(seq).to(dev),
+               torch.from_numpy(sv).to(dev), spec)
+    calls = 1 + 4 * 3 + 1 + 4 + 2  # measure's warm-up, 4 sets x 3, device pass; two sequences
+    row, counts = drive(f"config5_waymo_scale ({calls} e2e steps)",
+                        lambda: benchmarks.config5_waymo_scale(dev), totals)
+    assert counts == {"nearest_wins_image": calls, "connected_components_with_bbox": calls}
+    log(f"  {json.dumps(row)} [{card}]")
+    assert row["detections"] >= TRACK_FRAMES and row["tracks"] >= 1, "config 5 tracks nothing"
+    assert row["box_recall"] >= 0.75 and row["oriented"]["box_recall"] >= 0.5, "config 5 misses"
+    return row
+
+
+def phase_host_syncs(dev, spec, card) -> dict:
+    """Phase 21: host-sync calls in SYNC_STEPS profiled steps (after a
+    warm-up) of the direct f32 step, config 1, config 3 and config 5, each
+    on one input set (the count does not depend on the data)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpufusion_torch import ModelConfig, benchmarks
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.models.io import fusion_from_asset
+    from tpufusion_torch.predict import make_e2e_step
+
+    def scans(batch, points, beams=32):
+        p, _, v = synthesize_beam_scan_batch(np.random.default_rng(2100), batch, points, n_beams=beams)
+        return [(torch.from_numpy(p).to(dev), torch.from_numpy(v).to(dev))]
+
+    f32, dcfg = asset_fcn(ASSET, "float32", dev)
+    bf16, _ = asset_fcn(ASSET, "bfloat16", dev)
+    c3 = benchmarks.make_config3_step(benchmarks.seeded_fcn(ModelConfig(), 1, dev),
+                                      fusion_from_asset(benchmarks.fusion_asset_path(), dev), dev)
+    paths = {
+        f"direct f32, {BATCH} x {N_POINTS}": (make_e2e_step(f32, spec, dcfg, device=dev),
+                                             scans(BATCH, N_POINTS)),
+        f"config 1, 1 x {N_POINTS}": (benchmarks.make_config1_step(
+            benchmarks.seeded_fcn(ModelConfig(), 0, dev), dev), scans(1, N_POINTS)),
+        f"config 3, {C3_BATCH} x {N_POINTS} + camera": (c3, benchmarks.config3_inputs(dev, C3_BATCH, N_POINTS, 1)),
+        f"config 5, {C5_BATCH} x {C5_POINTS}, top-4": (make_e2e_step(
+            bf16, spec, dcfg, max_obstacles=4, device=dev), scans(C5_BATCH, C5_POINTS, C5_BEAMS)),
+    }
+    counts = {}
+    log(f"phase 21 host-sync calls in {SYNC_STEPS} profiled steps after a warm-up "
+        "(stream / device / event synchronize, aten::item)")
+    for label, (fn, inputs) in paths.items():
+        fn(*inputs[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(SYNC_STEPS):
+                fn(*inputs[0])
+        counts[label] = _sync_events(prof)
+        torch.cuda.synchronize()
+        log(f"  host-sync calls, {label}: {counts[label] or 'none'} [{card}]")
+    return counts
 
 
 def training_phases(dev, spec, gm, gf, card, totals) -> None:
@@ -1102,7 +1365,7 @@ def training_phases(dev, spec, gm, gf, card, totals) -> None:
 
 
 def main(argv=()) -> int:
-    unknown = [a for a in argv if a != "--training-only"]
+    unknown = [a for a in argv if a not in ("--training-only", "--sync-counts")]
     if unknown:
         print(f"chip_smoke: unknown arguments {unknown}", file=sys.stderr)
         return 2
@@ -1151,6 +1414,12 @@ def main(argv=()) -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    if "--sync-counts" in argv:
+        phase_host_syncs(dev, spec, card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        return 0
     if "--training-only" in argv:
         totals = dict.fromkeys(BOTH_KERNELS, 0)
         training_phases(dev, spec, load_npz(GOLDEN_MULTI), load_npz(GOLDEN_FUSION), card, totals)
@@ -1346,6 +1615,12 @@ def main(argv=()) -> int:
 
     # -- phases 15-18: training and config 4 -------------------------------
     training_phases(dev, spec, gm, gf, card, totals)
+
+    # -- phases 19-21: data parallelism, config 5, host syncs --------------
+    phase_data_parallel(dev, spec, card, totals)
+    phase_config5_bench(dev, spec, card, totals)
+    syncs = phase_host_syncs(dev, spec, card)
+    assert not any(syncs.values()), f"a serving path synchronizes with the host: {syncs}"
 
     z, c = kt["z"], kt["cc"]
     kernels = [

@@ -440,18 +440,61 @@ def test_checkpoint_round_trips_on_the_card(cuda_device, tmp_path):
 
 def test_config4_row_on_the_card(cuda_device):
     """Config 4 with the shipped asset: both kernels once a step, the
-    detector's scores on 128 generated frames."""
+    detector's scores on 128 generated frames, and the companion rows'
+    (the wide-yaw asset, the mixed-family asset on three surfaces)."""
     import json
 
     from tpufusion_torch import benchmarks
 
     z, c = projection.LAUNCHES, cc.LAUNCHES
     row = benchmarks.config4_full_eval(cuda_device, reps=1)
-    steps = 1 + 4 + 1 + 4 + 4  # warm-up, 4 timed, warm-up + 4 for the device time, 4 drained
+    # warm-up, 4 timed, warm-up + 4 for the device time, 4 drained; then
+    # 4 batches a companion protocol: wide yaw, circle, ellipse, box
+    steps = 1 + 4 + 1 + 4 + 4 + 4 * 4
     assert (projection.LAUNCHES - z, cc.LAUNCHES - c) == (steps, steps)
-    json.dumps(row)
+    json.dumps(row, allow_nan=False)
+    assert row["wide_yaw"]["detection_rate"] >= 0.9
+    assert all(f["detection_rate"] >= 0.9 for f in row["mixed_family"]["per_family"].values())
     assert row["config"] == 4 and row["weights"] == "asset" and row["head"] == "direct"
     assert row["timer"] == "CUDA events" and row["value"] > 0
     assert row["detection_rate"] >= 0.9 and row["recall@iou0.25"] >= 0.8 and row["mean_xy_err"] < 1.0
     with pytest.raises(ValueError, match="weights"):
         benchmarks.config4_full_eval(cuda_device, weights="fallback")
+
+
+def test_mesh_of_one_is_the_plain_step(cuda_device):
+    """A data-parallel mesh of one over NCCL: after 2 train steps (bf16
+    default widths, corner head, the roll on) the loss, metrics, gradients,
+    parameters and BatchNorm statistics equal the plain step's bit for
+    bit, cuDNN set deterministic (its wgrad may sum in another order a
+    call otherwise)."""
+    import torch.distributed as dist
+
+    from tpufusion_torch.config import LossConfig, MeshConfig, ModelConfig, TrainConfig
+    from tpufusion_torch.parallel.mesh import make_mesh
+    from tpufusion_torch.train.optim import Adam
+    from tpufusion_torch.train.train_step import make_train_step
+
+    pts, gt, valid = synthesize_beam_scan_batch(np.random.default_rng(19), 4, 8192)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in {"points": pts, "valid": valid, **gt}.items()}
+    mesh = make_mesh(MeshConfig(n_devices=1), device=cuda_device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        outs = []
+        for m in (None, mesh):
+            model = FCN(ModelConfig(dtype="bfloat16"), seed=0).to(cuda_device)
+            opt, gen = Adam(model.parameters(), 3e-3), torch.Generator(device=cuda_device).manual_seed(0)
+            step = make_train_step(SPEC, LossConfig(), TrainConfig(batch_size=4), mesh=m, device=cuda_device)
+            steps = [step(model, opt, batch, gen) for _ in range(2)]
+            outs.append({**{f"loss{i}": loss for i, (loss, _) in enumerate(steps)},
+                         **{f"{k}{i}": v for i, (_, ms) in enumerate(steps) for k, v in ms.items()},
+                         **{f"grad/{n}": p.grad for n, p in model.named_parameters()},
+                         **{f"param/{n}": p.detach() for n, p in model.named_parameters()},
+                         **{f"buffer/{n}": b for n, b in model.named_buffers()}})
+        plain, meshed = outs
+        assert sorted(plain) == sorted(meshed)
+        assert [k for k in plain if not torch.equal(plain[k], meshed[k])] == []
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()

@@ -168,8 +168,8 @@ def test_numpy_beam_scans_feed_the_detector(pipeline):
     assert found.all()
     xy_err = np.linalg.norm(poses[:, :2].numpy() - gt["center"][:, :2], axis=1)
     assert xy_err.max() < 2.0, xy_err
-    with pytest.raises(NotImplementedError):
-        synthesize_beam_scan_batch(np.random.default_rng(0), 1, vehicle_surface="box")
+    with pytest.raises(ValueError, match="vehicle_surface"):
+        synthesize_beam_scan_batch(np.random.default_rng(0), 1, vehicle_surface="cube")
 
 
 def test_e2e_step_rejects_unknown_head_and_k(pipeline):

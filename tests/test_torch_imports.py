@@ -64,7 +64,8 @@ def test_importing_every_port_module_loads_no_jax_package():
         assert not bad, bad
         for name in ("train.trainer", "train.fusion_trainer", "train.optim", "train.checkpoint",
                      "train.train_step", "train.stats", "train.pr_curves", "data.pipeline",
-                     "data.augment", "models.losses", "models.metrics"):
+                     "data.augment", "models.losses", "models.metrics", "parallel.mesh",
+                     "parallel.dryrun", "tools.detector_envelope"):
             assert "tpufusion_torch." + name in names, name
         print("IMPORTED", len(names))
         """
@@ -74,7 +75,7 @@ def test_importing_every_port_module_loads_no_jax_package():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split("IMPORTED")[1]) >= 31
+    assert int(out.stdout.split("IMPORTED")[1]) >= 36
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -368,3 +369,41 @@ def test_score_poses_copy_matches(pose_frame):
     assert want["detection_rate"] == pytest.approx(23 / 24)
     with pytest.raises(ValueError, match="pose_frame"):
         port_scoring.score_poses(preds, truths, pose_frame="polar")
+
+
+# -- host scalars on the serving path ------------------------------------------------------
+
+_DEVICE_CONSTANT_SITES = {  # where a constant tensor is made inside a serving step
+    "geometry/bev.py": "_bucketize",
+    "decode/decode.py": ("corner_vote", "_silhouette_center"),
+    "ops/projection.py": "gather_image",
+}
+
+
+@pytest.mark.parametrize("rel", sorted(_DEVICE_CONSTANT_SITES))
+def test_serving_sites_make_no_host_scalars_on_the_card(rel):
+    """torch.tensor(<python number>, device=...) on the card is a pageable
+    host copy and a cudaStreamSynchronize: these sites fill on the device
+    (torch.full) or read a cached device constant (_constants.py) instead."""
+    names = _DEVICE_CONSTANT_SITES[rel]
+    names = (names,) if isinstance(names, str) else names
+    with open(os.path.join(PORT_DIR, rel)) as f:
+        tree = ast.parse(f.read())
+    funcs = {n.name: n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
+    for name in names:
+        for node in ast.walk(funcs[name]):
+            if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+                call = ast.unparse(node.func)
+                assert call not in ("torch.tensor", "torch.as_tensor"), (rel, name, node.lineno)
+
+
+def test_device_constants_are_made_once():
+    import torch
+
+    from tpufusion_torch._constants import device_constant
+
+    with torch.inference_mode():
+        a = device_constant((0.03, 0.97), torch.float32, "cpu")
+    b = device_constant([0.03, 0.97], torch.float32, torch.device("cpu"))
+    assert a is b and not a.is_inference()  # usable outside inference mode too
+    assert torch.equal(a, torch.tensor([0.03, 0.97], dtype=torch.float32))

@@ -445,7 +445,7 @@ def test_numpy_multi_vehicle_scans_feed_the_top4_path():
     assert track_quality_metrics(trails, sgt["center"])["vehicles_tracked"] == 2
     big, _, bvalid = synthesize_beam_scan_batch(np.random.default_rng(1), 1, 131072, n_beams=64)
     assert big.shape == (1, 131072, 4) and 0.4 < bvalid.mean() < 0.9
-    with pytest.raises(NotImplementedError):
-        synthesize_beam_tracking_sequence(np.random.default_rng(0), 2, oriented=True)
+    oseq, ogt, _ = synthesize_beam_tracking_sequence(np.random.default_rng(0), 2, oriented=True)
+    assert oseq.shape == (2, 32768, 4) and (ogt["yaw"] == ogt["yaw"][:1]).all()
     with pytest.raises(ValueError):
         synthesize_beam_multi_vehicle_batch(np.random.default_rng(0), 1, n_vehicles=6)

@@ -29,12 +29,14 @@ from tests.torch_golden import (
     wrapped_pose_diff,
 )
 from tpufusion_torch import benchmarks
-from tpufusion_torch.config import DEFAULT, LossConfig, RangeViewSpec, TrainConfig
+from tpufusion_torch.config import DEFAULT, LossConfig, MeshConfig, RangeViewSpec, TrainConfig
 from tpufusion_torch.data.pipeline import BatchPipeline
 from tpufusion_torch.data.synthetic import build_fusion_dataset, synthesize_beam_scan_batch
 from tpufusion_torch.geometry import encoding
 from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.models.io import fcn_from_arrays, fusion_from_asset
+from tpufusion_torch.parallel import dryrun
+from tpufusion_torch.parallel.mesh import make_mesh, shard_batch
 from tpufusion_torch.predict import make_e2e_step, predict_images
 from tpufusion_torch.serve.fusion import predict_fusion
 from tpufusion_torch.serve.pipeline import LidarPipeline
@@ -213,7 +215,32 @@ ENTRY_POINTS = {
     "config1_single_frame": lambda tmp, **kw: benchmarks.config1_single_frame(**_SMALL, **kw),
     "config2_replay": lambda tmp, **kw: benchmarks.config2_replay(batch=1, **_SMALL, **kw),
     "config3_fused": lambda tmp, **kw: benchmarks.config3_fused(batch=1, **_SMALL, **kw),
+    "config5_waymo_scale": lambda tmp, **kw: benchmarks.config5_waymo_scale(
+        batch=1, n_points=2048, n_beams=32, n_sets=1, reps=1, track_frames=2, track_points=2048,
+        **kw),
+    "make_mesh": lambda tmp, **kw: _call_make_mesh(**kw),
+    "dryrun_multichip": lambda tmp, **kw: dryrun.dryrun_multichip(
+        1, n_points=64, full_points=256, timeout=120, **kw),
+    "spawn": lambda tmp, **kw: _call_spawn(tmp, **kw),
 }
+
+
+def _call_spawn(tmp, **kw):
+    """One spawned rank; returns the tensor it made on its device."""
+    from tests.test_torch_parallel import save_rank_probe
+
+    path = str(tmp / "rank0.pt")
+    dryrun.spawn(save_rank_probe, 1, args=(path,), timeout=120, **kw)
+    return torch.load(path)
+
+
+def _call_make_mesh(**kw):
+    """A mesh of one (a group of one on a free port), this rank's rows."""
+    mesh = make_mesh(MeshConfig(n_devices=1), **kw)
+    try:
+        return shard_batch({"x": np.zeros((2, 3), np.float32)}, mesh)["x"]
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))

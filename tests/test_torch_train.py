@@ -672,9 +672,17 @@ def test_five_step_trajectory_losses_match():
 
 
 def test_a_mesh_waits_for_the_data_parallel_slice():
-    with pytest.raises(NotImplementedError, match="data parallelism"):
+    """Data parallelism over the batch is ported (tests/test_torch_parallel.py);
+    the spatial axis still waits for its slice, and what is not a mesh of
+    the port is refused, never taken for one."""
+    from tpufusion_torch.config import MeshConfig
+    from tpufusion_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(NotImplementedError, match="spatial mesh axis"):
+        make_mesh(MeshConfig(n_devices=2, n_spatial=2), device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
         make_train_step(SMALL, LossConfig(), TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="data parallelism"):
+    with pytest.raises(TypeError, match="batch_sharding"):
         pipeline.BatchPipeline({"x": np.zeros((4, 2))}, 2, sharding=object(), device="cpu")
 
 

@@ -24,8 +24,10 @@ augmentation (`data.augment`), the class-balanced loss (`models.losses`),
 the detector trainer (`train.trainer.Trainer`, `train.train_step`,
 `data.pipeline.BatchPipeline`, `train.checkpoint`), the fusion trainer
 (`train.fusion_trainer.train_fusion`) and the optimizer pieces with
-optax's semantics (`train.optim`). Data parallelism, the keras importer
-and the tools are not ported yet.
+optax's semantics (`train.optim`); data parallelism over the batch
+(`parallel.mesh`: torch.distributed, BatchNorm over the global batch;
+`parallel.dryrun.dryrun_multichip`). The spatial mesh axis, the keras
+importer and most tools are not ported yet.
 
 Every entry point takes `device` and defaults to "cuda": it moves its
 model to the card and its inputs follow; without a card it raises. The
@@ -45,11 +47,14 @@ decode     direct-pose decode, corner vote, top-K
 serve      single-frame server facade, replay server, fusion inference
            loop, multi-frame tracker
 eval       pose scoring, prediction CSV, tracklet XML, interpolation
-data       numpy beam-structured synthetic scans and fusion frames,
+data       numpy synthetic scenes (uniform clouds, beam-structured scans
+           with circle, ellipse or box vehicles) and fusion frames,
            the join of the three sensor streams into fusion samples,
            timestamp alignment, radar tracks, the roll augmentation, the
            batch pipeline
-benchmarks configs 1-4
+parallel   the data-parallel mesh, its collectives, the multi-rank dry run
+tools      base_condition_from_meta (the benchmarks' scene settings)
+benchmarks configs 1-5
 
 The package imports nothing of the JAX package: it keeps its own copy of
 the configuration dataclasses (`config.py`) and of the numpy modules it

@@ -1,4 +1,4 @@
-"""Benchmark configs 1-4 (counterpart of `tpufusion/benchmarks.py`).
+"""Benchmark configs 1-5 (counterpart of `tpufusion/benchmarks.py`).
 
   1. single velodyne frame: BEV + cylindrical projection + FCN forward
   2. 64-frame chunk replay: projection + FCN + tracklet box decode
@@ -8,10 +8,14 @@
   4. full evaluation at batch 32: predict -> CSV -> tracklet XML -> pose /
      IoU scoring against the generator's ground truth, with the shipped
      detector asset or, when the caller asks for it, a detector
-     quick-trained in the benchmark (the flagship row; the reference's
-     wide-yaw and mixed-family companion rows are not ported yet)
-
-Config 5 is driven by `chip_smoke.py`.
+     quick-trained in the benchmark; with the reference's companion rows:
+     the wide-yaw asset on its oriented-ellipse scenes (`wide_yaw`) and
+     the mixed-family asset on circle, ellipse and box scenes
+     (`mixed_family`)
+  5. Waymo scale: 64-beam clouds of 131,072 points through the asset's
+     top-4 decode, then a 16-frame two-vehicle sequence tracked by
+     `PoseTracker`, and the oriented row: ellipse vehicles heading along
+     their velocity, the wide-yaw asset, tracked in the physical frame
 
 Each config builds its step and its inputs (numpy beam scans made from
 seeds) and returns the reference's result dict plus the device it ran on.
@@ -21,10 +25,11 @@ more pass over the same inputs, the step's device time (the kernels' own
 durations) and its share of the time between the events; asked for the
 CPU (the tests do, at small sizes) it is timed on the host clock and says
 so. The FCN weights are drawn from a seed unless the caller passes a
-model; the fusion net's are the asset's, and a missing or mismatched asset
-raises.
+model; the fusion net's and the detector assets' are the shipped ones,
+and a missing or mismatched asset raises: the reference's companion rows
+drop themselves on any fault, these do not.
 
-Run: python -m tpufusion_torch.benchmarks [--configs 1,2,3,4] [--device cuda]
+Run: python -m tpufusion_torch.benchmarks [--configs 1,2,3,4,5] [--device cuda]
 — the card's name and power limit, then one JSON line per config.
 """
 
@@ -50,8 +55,11 @@ from tpufusion_torch.config import (
     ModelConfig,
     TrainConfig,
 )
-from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
-from tpufusion_torch.eval.scoring import score_poses
+from tpufusion_torch.data.synthetic import (
+    synthesize_beam_scan_batch,
+    synthesize_beam_tracking_sequence,
+)
+from tpufusion_torch.eval.scoring import orbit_to_physical, score_multi_poses, score_poses
 from tpufusion_torch.eval.submission import generate_submission, write_predictions_csv
 from tpufusion_torch.geometry.bev import bev_rasterize_batch
 from tpufusion_torch.geometry.camera import paint_bev, paint_table, synthetic_camera
@@ -61,6 +69,8 @@ from tpufusion_torch.models.fcn import FCN, uniform_init_
 from tpufusion_torch.models.fusion import FusionNet
 from tpufusion_torch.models.io import asset_configs, fusion_from_asset, load_state_npz
 from tpufusion_torch.predict import make_e2e_step
+from tpufusion_torch.serve.tracker import PoseTracker, track_quality_metrics
+from tpufusion_torch.tools.detector_envelope import base_condition_from_meta
 from tpufusion_torch.train.optim import Adam
 from tpufusion_torch.train.stats import population_weights
 from tpufusion_torch.train.train_step import make_train_step
@@ -95,11 +105,12 @@ def seeded_fcn(cfg: ModelConfig, seed: int, device) -> FCN:
     return model.to(device).eval()
 
 
-def point_sets(n_sets: int, batch: int, n_points: int, device):
+def point_sets(n_sets: int, batch: int, n_points: int, device, n_beams: int = 32):
     """Beam-structured scan batches on `device`: [(points, valid), ...]."""
     sets = []
     for i in range(n_sets):
-        p, _, v = synthesize_beam_scan_batch(np.random.default_rng(i), batch, n_points)
+        p, _, v = synthesize_beam_scan_batch(np.random.default_rng(i), batch, n_points,
+                                             n_beams=n_beams)
         sets.append((torch.from_numpy(p).to(device), torch.from_numpy(v).to(device)))
     return sets
 
@@ -301,10 +312,113 @@ def config3_fused(
     }
 
 
-def detector_asset_path() -> str:
-    """The shipped detector asset (the reference package's assets folder)."""
+def detector_asset_path(name: str = "synthetic_detector.npz") -> str:
+    """A shipped detector asset (the reference package's assets folder)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    return os.path.join(root, "tpufusion", "assets", "synthetic_detector.npz")
+    return os.path.join(root, "tpufusion", "assets", name)
+
+
+def asset_model(path: str) -> tuple[FCN, DecodeConfig, str]:
+    """(model, decode config, head) of a detector asset: its FCN in bf16
+    with the head and widths its json names, its weights, and the decode
+    thresholds of its json. Any fault raises."""
+    mcfg, dcfg = asset_configs(path)
+    model = FCN(dataclasses.replace(mcfg, dtype="bfloat16"), in_channels=3)
+    load_state_npz(path, model)
+    return model, dcfg, mcfg.head
+
+
+def decode_for_resolution(dcfg: DecodeConfig, meta: dict | None, n_points: int) -> DecodeConfig:
+    """An asset's decode overrides for the calibrated resolution nearest
+    `n_points` (its json's `decode_per_resolution` table, {points per
+    frame: {field: value}}) over `dcfg`; no table, `dcfg` unchanged."""
+    table = (meta or {}).get("decode_per_resolution") or {}
+    if not table:
+        return dcfg
+    key = min(table, key=lambda k: abs(int(k) - n_points))
+    return dataclasses.replace(dcfg, **table[key])
+
+
+def _rounded(v, nd: int = 3) -> float | None:
+    """A metric rounded, or None where it is absent (never a NaN, which
+    json.dumps would write as a token JSON parsers refuse)."""
+    if v is None or (isinstance(v, float) and np.isnan(v)):
+        return None
+    return round(v, nd)
+
+
+def _protocol_scores(fn, n_points: int, seed_base: int, scene_kw: dict, frames: int,
+                     batch: int, device) -> dict:
+    """The accuracy protocol of config 4's companion rows: `frames` scenes
+    of `scene_kw` from numpy seeds seed_base, seed_base + 1, ... in
+    batches of `batch`, through the e2e step `fn`, scored in the orbit
+    frame."""
+    poses, truths = [], []
+    for i in range(frames // batch):
+        pts, gt, valid = synthesize_beam_scan_batch(
+            np.random.default_rng(seed_base + i), batch, n_points, **scene_kw)
+        p, _ = fn(torch.from_numpy(pts).to(device), torch.from_numpy(valid).to(device))
+        poses.append(p.cpu().numpy())
+        truths.append(np.concatenate([gt["center"], gt["yaw"][:, None], gt["size"]], axis=1))
+    scores = score_poses(np.concatenate(poses), np.concatenate(truths), pose_frame="orbit")
+    return {
+        "detection_rate": scores["detection_rate"],
+        "mean_iou": _rounded(scores["mean_iou"]),
+        "recall@iou0.25": scores["recall@iou0.25"],
+        "mean_xy_err": _rounded(scores.get("mean_xy_err")),
+        "mean_yaw_err": _rounded(scores.get("mean_yaw_err")),
+    }
+
+
+def _companion_asset_eval(name: str, protocol, device) -> dict:
+    """Config 4's companion scaffolding: the named asset's e2e step handed
+    with its json to `protocol`, which returns the row. A missing or
+    unreadable asset raises (the reference drops the row)."""
+    path = detector_asset_path(name)
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    model, dcfg, head = asset_model(path)
+    out = protocol(meta, make_e2e_step(model, SPEC, dcfg, head=head, device=device))
+    out["asset"] = name
+    return out
+
+
+def mixed_family_eval(device: torch.device | str = "cuda", frames: int = 128,
+                      batch: int = 32) -> dict:
+    """The mixed-family asset (dual yaw codec, the boundary gated per
+    cluster) on each surface family in turn: circle scenes at yaw cap
+    min(max_yaw, 0.05), as trained, ellipse and box scenes at the asset's
+    max_yaw."""
+    def protocol(meta, fn):
+        n_points = int(meta.get("n_points", 32768))
+        max_yaw = float(meta.get("max_yaw", 0.45))
+        per_family = {}
+        for fam, surface in (("beam", "circle"), ("beam-ellipse", "ellipse"), ("beam-box", "box")):
+            fam_yaw = min(max_yaw, 0.05) if fam == "beam" else max_yaw
+            per_family[fam] = _protocol_scores(
+                fn, n_points, 4100, dict(max_yaw=fam_yaw, vehicle_surface=surface),
+                frames, batch, device)
+        cross = float(np.mean([f["mean_iou"] for f in per_family.values()]))
+        return {"max_yaw": max_yaw, "cross_family_mean_iou": round(cross, 3),
+                "per_family": per_family}
+
+    return _companion_asset_eval("synthetic_detector_mixed.npz", protocol, device)
+
+
+def wide_yaw_eval(device: torch.device | str = "cuda", frames: int = 128,
+                  batch: int = 32) -> dict:
+    """The wide-yaw asset (oriented-ellipse scenes, the local yaw codec)
+    on its own training distribution, from its json: the large-yaw regime
+    the flagship's reference-like scenes (rz ~ 0) leave out."""
+    def protocol(meta, fn):
+        scene_kw = base_condition_from_meta(meta)
+        n_points = scene_kw.pop("n_points")
+        out = _protocol_scores(fn, n_points, 4000, scene_kw, frames, batch, device)
+        out["max_yaw"] = scene_kw.get("max_yaw")
+        out["scenes"] = meta.get("scenes")
+        return out
+
+    return _companion_asset_eval("synthetic_detector_yaw.npz", protocol, device)
 
 
 def quick_trained_model(
@@ -349,6 +463,7 @@ def config4_full_eval(
     n_points: int = 32768,
     reps: int = 3,
     quick_train: dict | None = None,
+    companion_frames: int | None = None,
 ) -> dict:
     """Full evaluation: predict -> CSV -> tracklet XML -> pose / IoU
     scoring against the generator's ground truth.
@@ -362,13 +477,14 @@ def config4_full_eval(
 
     The device phase (the e2e step over the pre-staged batches) is timed
     as every other config; the host artifact phase (CSV, tracklet XML,
-    scoring) is timed apart, on the host clock."""
+    scoring) is timed apart, on the host clock. The companion rows
+    `wide_yaw` and `mixed_family` run the same accuracy protocol on
+    `companion_frames` scenes (default `frames`) a family. They always
+    use the shipped wide-yaw and mixed assets, whatever `weights` is;
+    companion_frames=0 leaves them out of the row."""
     device = torch.device(device)
     if weights == "asset":
-        mcfg, dcfg = asset_configs(detector_asset_path())
-        model = FCN(dataclasses.replace(mcfg, dtype="bfloat16"), in_channels=3)
-        load_state_npz(detector_asset_path(), model)
-        head = mcfg.head
+        model, dcfg, head = asset_model(detector_asset_path())
     elif weights == "quick_train":
         model, dcfg, head = quick_trained_model(device, n_points, **(quick_train or {}))
     else:
@@ -401,11 +517,8 @@ def config4_full_eval(
     sub[found, 4:7] = [size["l"], size["w"], size["h"]]
     sub_scores = score_poses(sub, truth, pose_frame="orbit")
     host_dt = time.perf_counter() - t0
-
-    def rounded(v):
-        return None if v is None else round(v, 3)
-
-    return {
+    cframes = companion_frames if companion_frames is not None else frames
+    row = {
         "config": 4,
         "metric": f"full eval: predict+XML+scoring, {len(poses)} frames @ batch {batch}",
         "value": round(batch / dt_dev, 1),
@@ -415,22 +528,109 @@ def config4_full_eval(
         "host_artifacts_ms_total": round(host_dt * 1e3, 1),
         "host_artifacts_ms_per_frame": round(host_dt * 1e3 / len(poses), 3),
         "detection_rate": scores["detection_rate"],
-        "mean_iou": rounded(scores["mean_iou"]),
+        "mean_iou": _rounded(scores["mean_iou"]),
         "recall@iou0.25": scores["recall@iou0.25"],
-        "mean_xy_err": rounded(scores.get("mean_xy_err")),
-        "submission_mean_iou": rounded(sub_scores["mean_iou"]),
+        "mean_xy_err": _rounded(scores.get("mean_xy_err")),
+        "submission_mean_iou": _rounded(sub_scores["mean_iou"]),
         "submission_recall@iou0.25": sub_scores["recall@iou0.25"],
         "device": _where(device),
         **how,
     }
+    if cframes:
+        row["wide_yaw"] = wide_yaw_eval(device, cframes, batch)
+        row["mixed_family"] = mixed_family_eval(device, cframes, batch)
+    return row
 
 
-CONFIGS = {1: config1_single_frame, 2: config2_replay, 3: config3_fused, 4: config4_full_eval}
+def _tracking_row(poses: np.ndarray, found: np.ndarray, gt: dict, physical: bool) -> dict:
+    """Tracking quality and per-box scores of a decoded sequence. With
+    `physical`, poses and ground truth are turned into the physical frame
+    before tracking: constant velocity holds for physical positions, not
+    orbit tuples, where a yaw error would pass for motion."""
+    track_poses, gt_centers = poses, gt["center"]
+    if physical:
+        track_poses = orbit_to_physical(poses)
+        truth = np.concatenate([gt["center"], gt["yaw"][..., None], gt["size"]], axis=-1)
+        gt_centers = orbit_to_physical(truth)[..., :3]
+    trails = PoseTracker(dt=0.1).run_multi(track_poses, found)
+    quality = track_quality_metrics(trails, gt_centers)
+    boxes = score_multi_poses(poses, found, gt["center"], gt["yaw"], gt["size"], pose_frame="orbit")
+    boxes = {k: None if isinstance(v, float) and np.isnan(v) else v for k, v in boxes.items()}
+    return {
+        "tracks": len(trails),
+        "vehicles_tracked": f"{quality['vehicles_tracked']}/{quality['vehicles_total']}",
+        "spurious_tracks": quality["spurious_tracks"],
+        "id_switches": quality["id_switches"],
+        "fragmentation": quality["fragmentation"],
+        "track_coverage": quality["coverage"],
+        "tracked_frames": len({f for trail in trails.values() for f, _ in trail}),
+        **boxes,
+    }
+
+
+def oriented_tracking_eval(device: torch.device | str = "cuda", frames: int = 16,
+                           n_points: int = 32768) -> dict:
+    """Config 5's oriented row: two vehicles rendered as ellipses heading
+    along their velocity (`synthesize_beam_tracking_sequence(oriented=
+    True)`, numpy seed 88), decoded top-4 by the wide-yaw asset and
+    tracked in the physical frame."""
+    path = detector_asset_path("synthetic_detector_yaw.npz")
+    model, dcfg, head = asset_model(path)
+    fn = make_e2e_step(model, SPEC, dcfg, max_obstacles=4, head=head, device=device)
+    pts, gt, valid = synthesize_beam_tracking_sequence(
+        np.random.default_rng(88), frames, n_points, n_vehicles=2, oriented=True)
+    p, fd = fn(torch.from_numpy(pts).to(device), torch.from_numpy(valid).to(device))
+    row = _tracking_row(p.cpu().numpy(), fd.cpu().numpy(), gt, physical=True)
+    return {"asset": os.path.basename(path), **row}
+
+
+def config5_waymo_scale(
+    device: torch.device | str = "cuda",
+    batch: int = 16,
+    n_points: int = 131072,
+    n_beams: int = 64,
+    n_sets: int = 4,
+    reps: int = 3,
+    track_frames: int = 16,
+    track_points: int = 32768,
+) -> dict:
+    """Waymo-scale clouds (64 beams x 2,048 azimuths = 131,072 points)
+    through the shipped asset's top-4 decode, timed as every config; then
+    a coherent `track_frames`-frame sequence of two vehicles on
+    constant-velocity paths (numpy seed 77) at the asset's training
+    density, decoded top-4 and tracked on the host, with per-box scores;
+    and the oriented row (`oriented_tracking_eval`)."""
+    device = torch.device(device)
+    model, dcfg, head = asset_model(detector_asset_path())
+    fn = make_e2e_step(model, SPEC, dcfg, max_obstacles=4, head=head, device=device)
+    dt, how = measure(fn, point_sets(n_sets, batch, n_points, device, n_beams), reps, device)
+    # tracking quality at the detector's training density: denser clouds
+    # quadruple the clutter and spawn clusters the asset never saw
+    pts, gt, valid = synthesize_beam_tracking_sequence(
+        np.random.default_rng(77), track_frames, track_points, n_vehicles=2)
+    p, fd = fn(torch.from_numpy(pts).to(device), torch.from_numpy(valid).to(device))
+    p, fd = p.cpu().numpy(), fd.cpu().numpy()
+    return {
+        "config": 5,
+        "metric": f"Waymo-scale {n_points}-pt clouds + top-4 decode + tracking",
+        "value": round(batch / dt, 1),
+        "unit": "frames/s/chip",
+        "devices": torch.cuda.device_count() if device.type == "cuda" else 1,
+        "detections": int(fd.sum()),
+        **_tracking_row(p, fd, gt, physical=False),
+        "device": _where(device),
+        **how,
+        "oriented": oriented_tracking_eval(device, track_frames, track_points),
+    }
+
+
+CONFIGS = {1: config1_single_frame, 2: config2_replay, 3: config3_fused, 4: config4_full_eval,
+           5: config5_waymo_scale}
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--configs", default="1,2,3")
+    ap.add_argument("--configs", default="1,2,3")  # 4 and 5 on request
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda":

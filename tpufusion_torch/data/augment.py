@@ -8,7 +8,10 @@ a uniform draw over [0, W - n_invalid) mapped around that interval is the
 same distribution without the rejection loop. A batch is rolled with one
 gather along the width. Random draws come from the `torch.Generator` the
 caller passes (on the CPU or on the card); its draws differ from
-`jax.random`'s, so `augment_batch` also takes the shifts themselves.
+`jax.random`'s, so `augment_batch` also takes the shifts themselves. On a
+data-parallel mesh every rank draws the global batch's uniforms from the
+same seeded generator and keeps its own rows, so the sharded step rolls
+each frame as the one-process step does.
 """
 
 from __future__ import annotations
@@ -33,16 +36,23 @@ def sample_roll(
     size: torch.Tensor,  # (..., 3)
     yaw: torch.Tensor,  # (...)
     spec: RangeViewSpec,
+    mesh=None,
 ) -> torch.Tensor:
     """(...) int64 shifts, uniform over the shifts that keep the object's
-    outer rect whole."""
+    outer rect whole. On a `mesh` the leading axis is this rank's rows of
+    the global batch."""
     w = spec.width
     ul_x, _, lr_x, _ = outer_rect(center, size, yaw, spec)
     lo = torch.clamp(w - lr_x, 0, w).to(torch.int64)  # first invalid shift
     hi = torch.maximum(torch.clamp(w - ul_x + 1, max=w).to(torch.int64), lo)  # one past the last
     n_invalid = hi - lo
     n_valid = torch.clamp(w - n_invalid, min=1)
-    u = _uniform(generator, lo.shape, lo.device)
+    if mesh is None:
+        u = _uniform(generator, lo.shape, lo.device)
+    else:  # the global batch's draws, this rank's rows
+        b = lo.shape[0]
+        u = _uniform(generator, (mesh.world_size * b, *lo.shape[1:]), lo.device)
+        u = u[mesh.rank * b : (mesh.rank + 1) * b]
     k = torch.minimum(torch.floor(u * n_valid).to(torch.int64), n_valid - 1)
     return torch.where(k < lo, k, k + n_invalid)
 
@@ -90,9 +100,10 @@ def augment_batch(
     yaws: torch.Tensor,
     spec: RangeViewSpec,
     shifts: torch.Tensor | None = None,
+    mesh=None,
 ):
     """Rolls every frame of the batch by its own valid shift. `shifts`
     (B,) given, they are used as they are and nothing is drawn."""
     if shifts is None:
-        shifts = sample_roll(generator, centers, sizes, yaws, spec)
+        shifts = sample_roll(generator, centers, sizes, yaws, spec, mesh)
     return roll_frame(images, labels, shifts)

@@ -14,6 +14,8 @@ from collections.abc import Iterator
 import numpy as np
 import torch
 
+from tpufusion_torch.parallel.mesh import BatchSharding
+
 
 def epoch_indices(
     n: int, batch_size: int, rng: np.random.Generator, shuffle: bool = True
@@ -43,7 +45,12 @@ class BatchPipeline:
     Otherwise each batch is cut on the host into pinned memory and copied
     with `non_blocking=True` one batch ahead of the consumer, so the copy
     of batch k+1 overlaps the work on batch k. Both give the same batches
-    for the same seed."""
+    for the same seed.
+
+    `sharding=batch_sharding(mesh)` (`parallel/mesh.py`): `batch_size` is
+    the global batch; every rank draws the same `epoch_indices` from the
+    same seed and yields its rows [r B/n, (r+1) B/n) of each global batch
+    on the mesh's device (`device` is then unused)."""
 
     def __init__(
         self,
@@ -57,11 +64,13 @@ class BatchPipeline:
         device_budget_bytes: int = 4 << 30,
         device: torch.device | str = "cuda",
     ):
+        self.rows = slice(None)  # this rank's columns of the epoch plan
         if sharding is not None:
-            raise NotImplementedError(
-                "a sharded pipeline is not ported: data parallelism over the "
-                "batch is its own slice of the port (ROADMAP Queue 1)"
-            )
+            if not isinstance(sharding, BatchSharding):
+                raise TypeError("sharding must be parallel.mesh.batch_sharding(mesh), got "
+                                f"{type(sharding).__name__}")
+            self.rows = sharding.rows(batch_size)
+            device = sharding.mesh.device
         self.data = {k: np.ascontiguousarray(v) for k, v in data.items()}
         self.n = len(next(iter(self.data.values())))
         self.batch_size = batch_size
@@ -97,6 +106,7 @@ class BatchPipeline:
         plan = epoch_indices(self.n, self.batch_size, self.rng, self.shuffle)
         if self.drop_remainder:
             plan = plan[: self.n // self.batch_size]
+        plan = np.ascontiguousarray(plan[:, self.rows])
         if self._dev is not None:
             # the whole epoch's row indices in one copy, from pinned memory:
             # a pageable copy a batch would make the host wait for the card

@@ -42,6 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from tpufusion_torch._constants import device_constant
 from tpufusion_torch._precision import full_f32_matmuls as _full_f32_matmuls
 from tpufusion_torch.config import DecodeConfig, RangeViewSpec
 from tpufusion_torch.geometry.boxes import rot_y, rot_z
@@ -331,7 +332,7 @@ def corner_vote(
     corners = reg @ rot.transpose(-1, -2) + p3[..., None, :]  # (B, n, K, 8, 3)
 
     c3 = centroid_3d[:, :, None, None, :]
-    delta = torch.tensor(cfg.far_delta, dtype=torch.float32, device=dev)
+    delta = device_constant(cfg.far_delta, torch.float32, dev)
     near = ((corners - c3).abs() <= delta).all(dim=-1).all(dim=-1)
     sel_valid = sel_valid & near
     flat = corners.reshape(b, n, k, 24)
@@ -560,7 +561,7 @@ def _silhouette_center(image, cluster, spec, yaw, lwh, seed):
     cy, sy = torch.cos(yaw), torch.sin(yaw)
     u = p[..., 0] * cy[..., None, None] + p[..., 1] * sy[..., None, None]
     v = -p[..., 0] * sy[..., None, None] + p[..., 1] * cy[..., None, None]
-    q = torch.tensor([0.03, 0.97], dtype=torch.float32, device=image.device)
+    q = device_constant((0.03, 0.97), torch.float32, image.device)
     # linear interpolation over the non-NaN values, as jnp.nanquantile
     min_u, max_u = torch.nanquantile(
         torch.where(mext, u, math.nan).flatten(-2), q, dim=-1

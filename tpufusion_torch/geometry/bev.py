@@ -30,8 +30,9 @@ def _bucketize(v: torch.Tensor, lo: float, res: float, nbins: int):
     edge inclusive. Returns (bucket int32 clipped to [0, nbins - 1],
     in-range mask)."""
     f32 = dict(dtype=torch.float32, device=v.device)
-    lo_t, res_t = torch.tensor(lo, **f32), torch.tensor(res, **f32)
-    last_edge = torch.tensor(lo + res * nbins, **f32)
+    # filled on the device: a host number copied to the card waits for it
+    lo_t, res_t = torch.full((), lo, **f32), torch.full((), res, **f32)
+    last_edge = torch.full((), lo + res * nbins, **f32)
     valid = (v >= lo_t) & (v <= last_edge)
     # a NaN's cast gives garbage here; the caller masks those points first
     bucket = torch.floor((v - lo_t) / res_t).clamp(0, nbins - 1).to(torch.int32)

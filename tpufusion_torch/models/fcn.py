@@ -39,6 +39,15 @@ variance in its running stats and another momentum convention; flax keeps
 the biased one, `ra = 0.99 ra + 0.01 batch`, and computes the variance as
 E[x^2] - E[x]^2 in float32. In bf16 the parameters and their gradients
 stay float32 (each conv casts its kernel, and the cast is differentiable).
+
+On a data-parallel mesh (`forward(x, train=True, mesh=...)`, see
+`parallel/mesh.py`) the batch statistics are the global batch's, as XLA's
+SPMD computes flax's over a batch-sharded array: BatchNorm averages E[x]
+and E[x^2] over the ranks, SampleWiseBN the mean and then the centred
+second moment (jnp.var's two passes), each through a differentiable
+all-reduce. `torch.nn.SyncBatchNorm` is not used: it keeps the unbiased
+variance and torch's momentum. Every rank's running statistics move alike.
+On a mesh of one, BatchNorm runs the plain path's ops bit for bit.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from tpufusion_torch.geometry.encoding import (  # noqa: F401  (re-exported)
     DIRECT_CHANNELS,
     DIRECT_CHANNELS_DUAL,
 )
+from tpufusion_torch.parallel.mesh import all_reduce_mean
 
 _KERAS_EPSILON = 1e-7
 _K = 5
@@ -151,13 +161,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:
         mean, var = self.mean, self.var
         if train:
             # flax's fast variance: E[x^2] - E[x]^2, clipped at 0, biased;
             # the same biased value moves the running variance
             mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            ex2 = (x * x).mean(dim=(0, 2, 3))
+            if mesh is not None:  # the global batch's terms
+                mean, ex2 = all_reduce_mean(torch.stack([mean, ex2]), mesh).unbind(0)
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             _move_running(self.mean, mean, self.momentum)
             _move_running(self.var, var, self.momentum)
         # flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
@@ -182,13 +195,20 @@ class SampleWiseBN(nn.Module):
         self.register_buffer("mean", torch.zeros(num_positions))
         self.register_buffer("var", torch.ones(num_positions))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:  # NCHW
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:  # NCHW
         b, c, h, w = x.shape
         flat = x.reshape(b, c, h * w)
         mean, var = self.mean, self.var
         if train:
+            # jnp.var's two passes: the mean, then the centred second
+            # moment, each the global batch's on a mesh
             mean = flat.mean(dim=(0, 1))
-            var = flat.var(dim=(0, 1), unbiased=False)
+            if mesh is not None:
+                mean = all_reduce_mean(mean, mesh)
+            d = flat - mean
+            var = (d * d).mean(dim=(0, 1))
+            if mesh is not None:
+                var = all_reduce_mean(var, mesh)
             _move_running(self.mean, mean, self.momentum)
             _move_running(self.var, var, self.momentum)
         y = (flat - mean) * torch.rsqrt(var + self.epsilon)
@@ -240,7 +260,7 @@ class FCN(nn.Module):
             return DIRECT_CHANNELS_DUAL
         return DIRECT_CHANNELS
 
-    def _trunk(self, x: torch.Tensor, train: bool = False):
+    def _trunk(self, x: torch.Tensor, train: bool = False, mesh=None):
         """Shared encoder and the deconv6a head, NCHW in the compute
         dtype. The crops follow the input width, so the lidar (1801,
         conv1 width 451, crop5 = 1), camera (1368, conv1 width 343,
@@ -250,7 +270,7 @@ class FCN(nn.Module):
         w = x.shape[2]
         x = x.to(torch.float32).permute(0, 3, 1, 2)
         if cfg.batch_norm or cfg.sample_wise_bn:
-            x = self.norm(x, train)
+            x = self.norm(x, train, mesh)
         x = F.pad(x, (0, 3)).to(self.compute_dtype)
 
         c1 = F.relu(self.conv1(x))
@@ -264,12 +284,13 @@ class FCN(nn.Module):
         d6a = self.deconv6a(torch.cat([c1, d5a], dim=1))[:, :, :, :w]
         return d6a, (c1, cat4, crop5, w)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:
         """(B, H, W, C) float32 -> (B, H, W, 2 [+ reg]) float32. With
         train=True the input norm uses the batch's statistics and moves
-        its running ones."""
+        its running ones; on a data-parallel `mesh` (this rank's rows) the
+        global batch's statistics."""
         cfg = self.cfg
-        d6a, (c1, cat4, crop5, w) = self._trunk(x, train)
+        d6a, (c1, cat4, crop5, w) = self._trunk(x, train, mesh)
         probs = torch.softmax(d6a.float(), dim=1).clamp(_KERAS_EPSILON, 1.0)
         if not cfg.use_regression:
             return probs.permute(0, 2, 3, 1).contiguous()

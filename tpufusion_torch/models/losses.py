@@ -9,6 +9,11 @@ W2-weighted L2 term scaled by weight_bb. The norm is per pixel by default;
 
 Inputs are (B, H, W, 2 + R) or (B, P, 2 + R); the loss is the mean over
 all batch x pixel elements.
+
+On a data-parallel mesh each rank passes its rows: the per-pixel terms
+make the global loss the mean of the ranks' losses (equal shards), and
+`reference_compat`'s one batch-wide norm sums diff^2 over every rank
+through a differentiable all-reduce before the root.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from tpufusion_torch.config import LossConfig
+from tpufusion_torch.parallel.mesh import all_reduce_sum
 
 
 def _safe_norm(sq: torch.Tensor) -> torch.Tensor:
@@ -31,6 +37,7 @@ def weighted_pose_loss(
     y_true: torch.Tensor,
     cfg: LossConfig = LossConfig(),
     use_regression: bool = True,
+    mesh=None,
 ) -> torch.Tensor:
     if y_pred.ndim == 4:
         b = y_pred.shape[0]
@@ -71,7 +78,8 @@ def weighted_pose_loss(
             w2r = w2 * keep
             diff = diff * keep
         if cfg.reference_compat:
-            norm = _safe_norm((diff * diff).sum())  # one scalar for the batch
+            sq = (diff * diff).sum()  # one scalar for the (global) batch
+            norm = _safe_norm(sq if mesh is None else all_reduce_sum(sq, mesh))
         else:
             norm = _safe_norm((diff * diff).sum(dim=-1, keepdim=True))
         loss = loss + cfg.weight_bb * (w2r * norm).sum(dim=-1)

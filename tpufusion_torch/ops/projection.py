@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from tpufusion_torch import _build
+from tpufusion_torch._constants import device_constant
 from tpufusion_torch.config import RangeViewSpec
 from tpufusion_torch.ops.scatter import nearest_wins_reference
 
@@ -32,9 +33,7 @@ def gather_image(
     vals = torch.gather(
         payload, 1, winner.to(torch.int64)[..., None].expand(-1, -1, 3)
     )
-    fills = torch.tensor(
-        [0.0, spec.min_height, 0.0], dtype=torch.float32, device=payload.device
-    )
+    fills = device_constant((0.0, spec.min_height, 0.0), torch.float32, payload.device)
     img = torch.where(occupied[..., None], vals, fills)
     return img.reshape(b, spec.height, spec.width, 3)
 

@@ -14,6 +14,15 @@ range-view `images` (B, H, W, 3) or raw `points` (B, N, 4) (+ `valid`
 (the card unless the caller asks for "cpu"): the model is moved there and
 the batch follows, which costs nothing when both already lie there, as a
 `BatchPipeline`'s batches and a `Trainer`'s model do.
+
+With a data-parallel `mesh` (`parallel/mesh.py`) each rank passes its rows
+of the global batch (`BatchPipeline(sharding=batch_sharding(mesh))` or
+`shard_batch`) and a model whose weights equal every other rank's
+(`replicate`): the step takes BatchNorm's statistics over the global
+batch, draws the roll for the global batch, averages the gradients over
+the ranks in one flat all-reduce before the optimizer, and returns the
+global loss and metrics, which the optimizer's plateau rule reads too.
+The collectives are enqueued on the stream; nothing waits for the card.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from tpufusion_torch.geometry.encoding import encode_direct_label_batch, encode_
 from tpufusion_torch.geometry.range_view import range_view_project_batch
 from tpufusion_torch.models.losses import weighted_pose_loss
 from tpufusion_torch.models.metrics import batch_metrics
+from tpufusion_torch.parallel.mesh import Mesh, all_reduce_mean, average_gradients
 
 
 def _on_device(model: torch.nn.Module, batch: dict, device: torch.device):
@@ -60,14 +70,6 @@ def encode_batch(batch, spec: RangeViewSpec, head: str, yaw_frame: str):
     return images, encode_label_batch(*gt, images, spec)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported: data parallelism over the batch is "
-            "its own slice of the port (ROADMAP Queue 1)"
-        )
-
-
 def make_train_step(
     spec: RangeViewSpec,
     loss_cfg: LossConfig,
@@ -89,9 +91,13 @@ def make_train_step(
     roll-invariant as stored). `generator` feeds the augmentation's draws;
     a batch may carry `shifts` (B,) to roll by instead. `optimizer` is
     `train.optim.Adam`: with every_k > 1 the parameters move on every
-    k-th call only."""
-    _no_mesh(mesh)
-    device = torch.device(device)
+    k-th call only; with a plateau rule it reads the step's loss.
+
+    `mesh` (a `parallel.mesh.Mesh`) makes it the data-parallel step of the
+    module docstring, on the mesh's device (`device` is then unused)."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), got {type(mesh).__name__}")
+    device = mesh.device if mesh is not None else torch.device(device)
 
     def train_step(model, optimizer, batch, generator=None):
         model, batch = _on_device(model, batch, device)
@@ -100,16 +106,19 @@ def make_train_step(
             with torch.no_grad():
                 images, labels = augment_batch(
                     generator, images, labels, batch["center"], batch["size"],
-                    batch["yaw"], spec, shifts=batch.get("shifts"),
+                    batch["yaw"], spec, shifts=batch.get("shifts"), mesh=mesh,
                 )
         optimizer.zero_grad(set_to_none=True)
-        preds = model(images, train=True)
-        loss = weighted_pose_loss(preds, labels, loss_cfg, use_regression)
+        preds = model(images, train=True, mesh=mesh)
+        loss = weighted_pose_loss(preds, labels, loss_cfg, use_regression, mesh=mesh)
         loss.backward()
-        optimizer.step()
         loss = loss.detach()
+        if mesh is not None:
+            average_gradients(model.parameters(), mesh)
+            loss = all_reduce_mean(loss, mesh)
+        optimizer.step(value=loss)
         with torch.no_grad():
-            metrics = batch_metrics(preds.detach(), labels, use_regression)
+            metrics = batch_metrics(preds.detach(), labels, use_regression, mesh)
         metrics["loss"] = loss
         return loss, metrics
 
