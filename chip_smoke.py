@@ -73,7 +73,11 @@ to 0 before it and read after it, and then the training paths:
                card over gloo run `parallel.dryrun.dryrun_multichip`'s four
                phases at full geometry (32 x 1801, 32,768 points a frame),
                each held against one process, each rank holding both
-               kernels against their plain versions on its own points
+               kernels against their plain versions on its own points;
+               (c) the same on two ranks of the one card laid out as 1
+               data x 2 spatial: the FCN width-sharded with halo
+               exchanges (`parallel/halo.py`), the halo's columns and ms a
+               step printed
   phase 20     config 5 (`benchmarks.config5_waymo_scale`): 16 x 131,072
                points (64 beams) through the asset's top-4 decode, the
                two-vehicle sequence through the tracker, and the oriented
@@ -163,6 +167,7 @@ C4_FRAMES = 128  # config 4
 C4_COMPANION_FRAMES = 32
 C4_COMPANIONS = 4  # companion protocols: wide yaw, then circle, ellipse, box
 DP_RANKS = 2  # phase 19 (b): ranks sharing the one card over gloo
+SPATIAL_RANKS = 2  # phase 19 (c): a 1 x 2 spatial mesh on the one card over gloo
 SYNC_STEPS = 8  # phase 21: profiled steps a path
 FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
 C3_BATCH = 8  # config 3: frames per batch
@@ -1182,7 +1187,8 @@ def phase_config4(dev, spec, card, totals):
 def phase_data_parallel(dev, spec, card, totals):
     """Phase 19: (a) a mesh of one over NCCL against the plain step, bit
     for bit, with no host sync; (b) two gloo ranks on the one card through
-    dryrun_multichip's four phases at full geometry."""
+    dryrun_multichip's four phases at full geometry; (c) the same four
+    phases on a 1 x 2 spatial mesh."""
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
@@ -1258,27 +1264,37 @@ def phase_data_parallel(dev, spec, card, totals):
         torch.backends.cudnn.deterministic = deterministic
         dist.destroy_process_group()
 
-    log(f"phase 19 (b) {DP_RANKS} ranks on the one card over gloo: dryrun_multichip at 32 x 1801, "
-        f"{2 * DP_RANKS} x {N_POINTS} points (phases 1-3), {DP_RANKS} x {N_POINTS} (phase 4)")
-    t0 = time.perf_counter()
-    out = dryrun.dryrun_multichip(DP_RANKS, device=dev, backend="gloo", spec=spec, n_points=N_POINTS,
-                                  full_points=N_POINTS, timed_steps=3)
-    wall = time.perf_counter() - t0
-    for r, rank in enumerate(out["ranks"]):
-        holds = {ph: rank[ph]["kernels"] for ph in rank}
-        log(f"  rank {r}: launches {json.dumps({ph: rank[ph]['launches'] for ph in rank})}; "
-            f"kernels against plain on its own points {json.dumps(holds)}")
-        assert rank["train"]["launches"] == {"nearest_wins_image": 1, "connected_components_with_bbox": 0}
-        for ph in ("corner", "flagship", "full_width"):
-            assert rank[ph]["launches"] == {"nearest_wins_image": 1, "connected_components_with_bbox": 1}
-            assert rank[ph]["kernels"]["zbuffer_equal"] and rank[ph]["kernels"]["cc_equal"]
-    train = out["ranks"][0]["train"]
-    log(f"  sharded train step {train['ms_per_step']:.3f} ms (its gloo gradient all-reduce alone "
-        f"{train['allreduce_ms']:.3f} ms) vs one process {train['one_process_ms_per_step']:.3f} ms "
-        f"(host clock, 3 steps, the card synchronized); the whole dry run {wall:.1f} s [{card}]")
-    for k, n in out["launches"].items():
-        totals[k] += n
-    log(f"  kernel launches over the ranks' sharded calls: {out['launches']}")
+    train = {}
+    for label, cfg in (("(b)", MeshConfig(n_devices=DP_RANKS)),
+                       ("(c)", MeshConfig(n_devices=SPATIAL_RANKS, n_spatial=SPATIAL_RANKS))):
+        n = cfg.n_devices
+        log(f"phase 19 {label} {n} ranks on the one card over gloo, mesh {dryrun.mesh_shape(cfg)}: "
+            f"dryrun_multichip at 32 x 1801, {2 * n} x {N_POINTS} points (phases 1-3), {n} x {N_POINTS} (phase 4)")
+        t0 = time.perf_counter()
+        out = dryrun.dryrun_multichip(n, device=dev, backend="gloo", spec=spec, n_points=N_POINTS,
+                                      full_points=N_POINTS, timed_steps=3, mesh_cfg=cfg)
+        wall = time.perf_counter() - t0
+        for r, rank in enumerate(out["ranks"]):
+            holds = {ph: rank[ph]["kernels"] for ph in rank}
+            log(f"  rank {r}: launches {json.dumps({ph: rank[ph]['launches'] for ph in rank})}; "
+                f"kernels against plain on its own points {json.dumps(holds)}")
+            assert rank["train"]["launches"] == {"nearest_wins_image": 1, "connected_components_with_bbox": 0}
+            for ph in ("corner", "flagship", "full_width"):
+                assert rank[ph]["launches"] == {"nearest_wins_image": 1, "connected_components_with_bbox": 1}
+                assert rank[ph]["kernels"]["zbuffer_equal"] and rank[ph]["kernels"]["cc_equal"]
+        tr = train[label] = out["ranks"][0]["train"]
+        if cfg.n_spatial > 1:
+            halo = tr["halo"]
+            log(f"  halo exchanges of one train step: {halo['calls']} forward, {halo['columns']} columns "
+                f"received, {halo['grad_columns']} gradient columns returned (32 x 1801, each rank the "
+                f"row's {2 * cfg.n_spatial} frames); "
+                f"alone, forward and backward: {tr['halo_ms']:.3f} ms a step (host clock) [{card}]")
+        log(f"  sharded train step {tr['ms_per_step']:.3f} ms (its gloo gradient all-reduce alone "
+            f"{tr['allreduce_ms']:.3f} ms) vs one process {tr['one_process_ms_per_step']:.3f} ms "
+            f"(host clock, 3 steps, the card synchronized); the whole dry run {wall:.1f} s [{card}]")
+        for k, v in out["launches"].items():
+            totals[k] += v
+        log(f"  kernel launches over the ranks' sharded calls: {out['launches']}")
     return dp, train
 
 

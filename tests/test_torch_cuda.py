@@ -498,3 +498,27 @@ def test_mesh_of_one_is_the_plain_step(cuda_device):
     finally:
         torch.backends.cudnn.deterministic = deterministic
         dist.destroy_process_group()
+
+
+def test_halo_exchanged_fcn_on_two_ranks_of_the_card(cuda_device):
+    """The FCN width-sharded over a 1 x 2 spatial mesh of two gloo ranks
+    sharing the card, its halo exchanged between them, against the
+    unsharded FCN on the card at 32 x 1801: float32 within 1e-5 of the
+    largest output; bf16 within the bf16 FCN's limits (probabilities 2^-8,
+    regression 2^-4, at most 5 % of regression outputs differing at all);
+    7 exchanges of 16 columns a forward on each rank."""
+    from tpufusion_torch.config import ModelConfig
+    from tpufusion_torch.parallel import dryrun
+
+    asset = dataclasses.replace(ModelConfig(), head="direct", width_multiplier=2,
+                                reg_output_activation="linear")
+    cases = {"asset_f32": asset, "asset_bf16": dataclasses.replace(asset, dtype="bfloat16"),
+             "corner_bf16": ModelConfig(dtype="bfloat16")}
+    got = dryrun.sharded_fcn_readings(2, cases, device=cuda_device, backend="gloo")
+    for name, r in got.items():
+        assert r["finite"] and r["ranks_halo"] == [[7, 16], [7, 16]], (name, r)
+    assert got["asset_f32"]["rel"] <= 1e-5, got["asset_f32"]
+    for name in ("asset_bf16", "corner_bf16"):
+        r = got[name]
+        assert r["prob_abs"] <= BF16_PROB_ATOL and r["reg_abs"] <= BF16_REG_ATOL, (name, r)
+        assert r["reg_differ_share"] <= BF16_REG_DIFFER_SHARE, (name, r)

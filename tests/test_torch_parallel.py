@@ -293,13 +293,16 @@ def test_mesh_helpers_on_every_rank(four_ranks):
 
 
 def test_dryrun_multichip_four_ranks(capsys):
-    """The four phases of the dry run on four gloo ranks: the train step,
-    the corner e2e step, the flagship and the flagship at 32 x 1801, each
-    sharded and held against one process (found equal, poses 1e-4)."""
+    """The four phases of the dry run on four gloo ranks, laid out as the
+    reference's dry run lays out four devices (2 data x 2 spatial): the
+    train step, the corner e2e step, the flagship and the flagship at 32 x
+    1801, each sharded and held against one process (found equal, poses
+    1e-4)."""
     out = dryrun.dryrun_multichip(4, device="cpu", timeout=SPAWN_TIMEOUT)
     printed = capsys.readouterr().out.strip().splitlines()
     assert printed == out["lines"] and len(printed) == 4
-    assert all("{'data': 4}" in line for line in printed)
+    assert out["mesh"] == {"data": 2, "spatial": 2}
+    assert all("{'data': 2, 'spatial': 2}" in line for line in printed)
     for phase in ("corner", "flagship", "full_width"):
         got = out["ranks"][0][phase]
         assert got["found_equal"] and got["pose_abs"] <= dryrun.POSE_ATOL
@@ -308,8 +311,20 @@ def test_dryrun_multichip_four_ranks(capsys):
 
 
 def test_spatial_axis_and_wrong_arguments_raise():
-    with pytest.raises(NotImplementedError, match="spatial mesh axis"):
-        make_mesh(MeshConfig(n_devices=2, n_spatial=2), device="cpu")
+    """A spatial axis lays the ranks out as the reference does (rank d at
+    data d // n_spatial, spatial d % n_spatial; every rank of a data row
+    takes the row's frames and its own block of columns), and a
+    n_spatial that does not divide the world raises."""
+    spatial = Mesh(group=None, rank=3, world_size=4, device=torch.device("cpu"), backend="gloo",
+                   axis_names=("data", "spatial"), n_spatial=2)
+    assert spatial.shape == {"data": 2, "spatial": 2}
+    assert (spatial.data_index, spatial.spatial_index) == (1, 1)
+    assert batch_sharding(spatial).rows(8) == slice(4, 8)
+    assert image_sharding(spatial, 4).columns(1801) == slice(901, 1801)
+    image = torch.arange(2 * 3 * 201).reshape(2, 3, 201)
+    assert torch.equal(constrain_spatial(image, spatial), image[:, :, 101:])
+    with pytest.raises(ValueError, match="6 ranks are not divisible by n_spatial=4"):
+        make_mesh(MeshConfig(n_devices=6, n_spatial=4), device="cpu")
     mesh = Mesh(group=None, rank=1, world_size=4, device=torch.device("cpu"), backend="gloo")
     assert batch_sharding(mesh).rows(8) == slice(2, 4)
     with pytest.raises(ValueError, match="does not split"):

@@ -46,6 +46,7 @@ from tpufusion_torch.train.fusion_trainer import train_fusion
 from tpufusion_torch.train.optim import Adam
 from tpufusion_torch.train.stats import population_weights
 from tpufusion_torch.train.train_step import make_eval_step, make_train_step
+from tpufusion_torch.tools.import_keras import load_reference_fcn
 from tpufusion_torch.train.trainer import Trainer
 
 
@@ -222,7 +223,16 @@ ENTRY_POINTS = {
     "dryrun_multichip": lambda tmp, **kw: dryrun.dryrun_multichip(
         1, n_points=64, full_points=256, timeout=120, **kw),
     "spawn": lambda tmp, **kw: _call_spawn(tmp, **kw),
+    "load_reference_fcn": lambda tmp, **kw: _call_load_reference_fcn(tmp, **kw),
 }
+
+
+def _call_load_reference_fcn(tmp, **kw):
+    from tests.torch_golden import write_shipped_h5
+
+    path = str(tmp / "lidar_model.h5")
+    write_shipped_h5(path, (32, 201), seed=0)
+    return load_reference_fcn(path, (32, 201), **kw)
 
 
 def _call_spawn(tmp, **kw):

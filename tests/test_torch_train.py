@@ -672,13 +672,15 @@ def test_five_step_trajectory_losses_match():
 
 
 def test_a_mesh_waits_for_the_data_parallel_slice():
-    """Data parallelism over the batch is ported (tests/test_torch_parallel.py);
-    the spatial axis still waits for its slice, and what is not a mesh of
-    the port is refused, never taken for one."""
+    """Data parallelism over the batch and the spatial axis are ported
+    (tests/test_torch_parallel.py, tests/test_torch_spatial.py): a data x
+    spatial mesh of two ranks asks for its process group rather than
+    refusing the axis, and what is not a mesh of the port is refused,
+    never taken for one."""
     from tpufusion_torch.config import MeshConfig
     from tpufusion_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError, match="spatial mesh axis"):
+    with pytest.raises(RuntimeError, match="a mesh of 2 ranks needs a process group"):
         make_mesh(MeshConfig(n_devices=2, n_spatial=2), device="cpu")
     with pytest.raises(TypeError, match="Mesh"):
         make_train_step(SMALL, LossConfig(), TrainConfig(), mesh=object())

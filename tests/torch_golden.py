@@ -231,3 +231,43 @@ def occupied_pixels(image: np.ndarray, min_height: float = -2.0) -> int:
     """Pixels that differ from the empty fill (0, min_height, 0)."""
     fill = np.array([0.0, min_height, 0.0], np.float32)
     return int((image != fill).any(axis=-1).sum())
+
+
+SHIPPED_LAYERS = {  # the shipped lidar_model.h5's layers: (kernel shape as Keras stores it)
+    "conv1": (5, 5, 3, 4), "conv2": (5, 5, 4, 6), "conv3": (5, 5, 6, 12),
+    "deconv4": (5, 5, 16, 12), "deconv5a": (5, 5, 8, 22), "deconv6a": (5, 5, 2, 12),
+}
+
+
+def write_shipped_h5(path, image_hw: tuple[int, int], seed: int, extra_layer: str | None = None,
+                     positions: int | None = None) -> None:
+    """A Keras-2-style weights file with the shipped model's layout (one
+    group a layer at the root, datasets `<layer>/<layer>/<name>:0`) and
+    seeded weights: range-view-scale normalize statistics, kernels
+    U(-0.1, 0.1), biases U(-0.1, 0.1). `extra_layer` adds a layer the
+    shipped file lacks (a regression head's "deconv5b"); `positions`
+    overrides the normalize length."""
+    import h5py
+
+    rng = np.random.default_rng(seed)
+    n = positions or image_hw[0] * image_hw[1]
+    layers = {"normalize": {"gamma": rng.uniform(0.5, 1.5, n), "beta": rng.uniform(-0.5, 0.5, n),
+                            "moving_mean": rng.uniform(0.0, 40.0, n),
+                            "moving_variance": rng.uniform(100.0, 900.0, n)}}
+    for name, shape in SHIPPED_LAYERS.items():
+        outputs = shape[2] if name.startswith("deconv") else shape[3]  # Keras: (kh, kw, out, in) for a deconv
+        layers[name] = {"kernel": rng.uniform(-0.1, 0.1, shape), "bias": rng.uniform(-0.1, 0.1, outputs)}
+    if extra_layer:
+        layers[extra_layer] = dict(layers["deconv5a"])
+    with h5py.File(path, "w") as f:
+        for layer, weights in layers.items():
+            g = f.create_group(layer).create_group(layer)
+            for name, v in weights.items():
+                g.create_dataset(f"{name}:0", data=np.asarray(v, np.float32))
+
+
+def range_view_inputs(seed: int, batch: int, width: int) -> np.ndarray:
+    """Range-view-like images (B, 32, width, 3): distances, heights, intensities."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(0, 90, (batch, 32, width)), rng.uniform(-2, 2, (batch, 32, width)),
+                     rng.uniform(0, 100, (batch, 32, width))], axis=-1).astype(np.float32)

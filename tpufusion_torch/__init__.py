@@ -24,10 +24,12 @@ augmentation (`data.augment`), the class-balanced loss (`models.losses`),
 the detector trainer (`train.trainer.Trainer`, `train.train_step`,
 `data.pipeline.BatchPipeline`, `train.checkpoint`), the fusion trainer
 (`train.fusion_trainer.train_fusion`) and the optimizer pieces with
-optax's semantics (`train.optim`); data parallelism over the batch
-(`parallel.mesh`: torch.distributed, BatchNorm over the global batch;
-`parallel.dryrun.dryrun_multichip`). The spatial mesh axis, the keras
-importer and most tools are not ported yet.
+optax's semantics (`train.optim`); data x spatial meshes
+(`parallel.mesh`: torch.distributed, BatchNorm over the global batch, the
+FCN's width sharded with `parallel.halo`'s exchanges;
+`parallel.dryrun.dryrun_multichip`); and the Keras importer
+(`tools.import_keras`). The dataset ETL, the CLI and most tools are not
+ported yet.
 
 Every entry point takes `device` and defaults to "cuda": it moves its
 model to the card and its inputs follow; without a card it raises. The
@@ -52,8 +54,10 @@ data       numpy synthetic scenes (uniform clouds, beam-structured scans
            the join of the three sensor streams into fusion samples,
            timestamp alignment, radar tracks, the roll augmentation, the
            batch pipeline
-parallel   the data-parallel mesh, its collectives, the multi-rank dry run
-tools      base_condition_from_meta (the benchmarks' scene settings)
+parallel   data x spatial meshes, their collectives and halo exchanges, the
+           multi-rank dry run
+tools      base_condition_from_meta (the benchmarks' scene settings), the
+           Keras importer
 benchmarks configs 1-5
 
 The package imports nothing of the JAX package: it keeps its own copy of

@@ -9,9 +9,9 @@ same distribution without the rejection loop. A batch is rolled with one
 gather along the width. Random draws come from the `torch.Generator` the
 caller passes (on the CPU or on the card); its draws differ from
 `jax.random`'s, so `augment_batch` also takes the shifts themselves. On a
-data-parallel mesh every rank draws the global batch's uniforms from the
-same seeded generator and keeps its own rows, so the sharded step rolls
-each frame as the one-process step does.
+mesh every rank draws the global batch's uniforms from the same seeded
+generator and keeps its data row's rows, so the sharded step rolls each
+frame as the one-process step does (the ranks of a row alike).
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ def sample_roll(
     mesh=None,
 ) -> torch.Tensor:
     """(...) int64 shifts, uniform over the shifts that keep the object's
-    outer rect whole. On a `mesh` the leading axis is this rank's rows of
-    the global batch."""
+    outer rect whole. On a `mesh` the leading axis is this rank's data
+    row's rows of the global batch."""
     w = spec.width
     ul_x, _, lr_x, _ = outer_rect(center, size, yaw, spec)
     lo = torch.clamp(w - lr_x, 0, w).to(torch.int64)  # first invalid shift
@@ -51,8 +51,8 @@ def sample_roll(
         u = _uniform(generator, lo.shape, lo.device)
     else:  # the global batch's draws, this rank's rows
         b = lo.shape[0]
-        u = _uniform(generator, (mesh.world_size * b, *lo.shape[1:]), lo.device)
-        u = u[mesh.rank * b : (mesh.rank + 1) * b]
+        u = _uniform(generator, (mesh.n_data * b, *lo.shape[1:]), lo.device)
+        u = u[mesh.data_index * b : (mesh.data_index + 1) * b]
     k = torch.minimum(torch.floor(u * n_valid).to(torch.int64), n_valid - 1)
     return torch.where(k < lo, k, k + n_invalid)
 

@@ -49,8 +49,9 @@ class BatchPipeline:
 
     `sharding=batch_sharding(mesh)` (`parallel/mesh.py`): `batch_size` is
     the global batch; every rank draws the same `epoch_indices` from the
-    same seed and yields its rows [r B/n, (r+1) B/n) of each global batch
-    on the mesh's device (`device` is then unused)."""
+    same seed and yields its data row's rows [d B/n, (d+1) B/n) of each
+    global batch (n data rows; the ranks of a row alike) on the mesh's
+    device (`device` is then unused)."""
 
     def __init__(
         self,

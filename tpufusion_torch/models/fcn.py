@@ -40,14 +40,24 @@ the biased one, `ra = 0.99 ra + 0.01 batch`, and computes the variance as
 E[x^2] - E[x]^2 in float32. In bf16 the parameters and their gradients
 stay float32 (each conv casts its kernel, and the cast is differentiable).
 
-On a data-parallel mesh (`forward(x, train=True, mesh=...)`, see
-`parallel/mesh.py`) the batch statistics are the global batch's, as XLA's
-SPMD computes flax's over a batch-sharded array: BatchNorm averages E[x]
-and E[x^2] over the ranks, SampleWiseBN the mean and then the centred
-second moment (jnp.var's two passes), each through a differentiable
-all-reduce. `torch.nn.SyncBatchNorm` is not used: it keeps the unbiased
-variance and torch's momentum. Every rank's running statistics move alike.
-On a mesh of one, BatchNorm runs the plain path's ops bit for bit.
+On a mesh (`forward(x, train=True, mesh=...)`, see `parallel/mesh.py`)
+the batch statistics are the global batch's, as XLA's SPMD computes
+flax's over a sharded array: BatchNorm takes E[x] and E[x^2] over the
+whole mesh (on a spatial mesh each rank's sums over its data row's global
+count, summed), SampleWiseBN the mean and then the centred second moment
+(jnp.var's two passes) of each position over the data axis, each through
+a differentiable all-reduce. `torch.nn.SyncBatchNorm` is not used: it
+keeps the unbiased variance and torch's momentum. Every rank's running
+statistics move alike. On a mesh of one, BatchNorm runs the plain path's
+ops bit for bit.
+
+On a spatial mesh (`forward(x, mesh=..., width=W)`, x this rank's columns
+of a global width W) every layer computes the columns it owns of its own
+global output, in `column_blocks` of that output's width, from a window
+of its input fetched with its neighbours' edge columns
+(`parallel/halo.py`): 1801 -> 1804 -> 451 -> 226 -> 113 -> 226 -> 452 ->
+451 -> 1804 -> 1801 at full width, every level's blocks uneven. The output
+holds this rank's columns of the global output.
 """
 
 from __future__ import annotations
@@ -63,7 +73,13 @@ from tpufusion_torch.geometry.encoding import (  # noqa: F401  (re-exported)
     DIRECT_CHANNELS,
     DIRECT_CHANNELS_DUAL,
 )
-from tpufusion_torch.parallel.mesh import all_reduce_mean
+from tpufusion_torch.parallel.halo import fetch_columns
+from tpufusion_torch.parallel.mesh import (
+    all_gather_columns,
+    all_reduce_mean,
+    column_blocks,
+    image_sharding,
+)
 
 _KERAS_EPSILON = 1e-7
 _K = 5
@@ -76,11 +92,20 @@ def _same_pad(n: int, s: int, k: int = _K) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _transpose_pad(s: int, k: int = _K) -> tuple[int, int]:
-    """jax's _conv_transpose_padding(k, s, "SAME")."""
+def _transpose_pad(s: int, k: int = _K, padding: str = "SAME") -> tuple[int, int]:
+    """jax's _conv_transpose_padding(k, s, padding)."""
+    if padding == "VALID":
+        pad_len = k + s - 2 + max(k - s, 0)
+        return k - 1, pad_len - (k - 1)
     pad_len = k + s - 2
     pad_a = k - 1 if s > k - 1 else int(math.ceil(pad_len / 2))
     return pad_a, pad_len - pad_a
+
+
+def _check_padding(padding: str) -> str:
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    return padding
 
 
 def _bias(bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -102,24 +127,37 @@ def uniform_init_(model: nn.Module, seed: int | torch.Generator) -> None:
 
 
 class Conv(nn.Module):
-    """flax nnx.Conv(k=5, padding="SAME"); `kernel` is HWIO."""
+    """flax nnx.Conv(k=5, padding="SAME" or "VALID"); `kernel` is HWIO."""
 
-    def __init__(self, cin: int, cout: int, strides: tuple[int, int]):
+    def __init__(self, cin: int, cout: int, strides: tuple[int, int], padding: str = "SAME"):
         super().__init__()
         self.strides = strides
+        self.padding = _check_padding(padding)
         self.kernel = nn.Parameter(torch.zeros(_K, _K, cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW, x's dtype
+    def pads(self, n: int, s: int) -> tuple[int, int]:
+        return _same_pad(n, s) if self.padding == "SAME" else (0, 0)
+
+    def forward(self, x: torch.Tensor, pw: tuple[int, int] | None = None) -> torch.Tensor:
+        """NCHW in x's dtype. `pw` given, the width is padded by it instead
+        of the layer's own padding (a window cut from a wider input)."""
         (sh, sw), (h, w) = self.strides, x.shape[2:]
-        ph, pw = _same_pad(h, sh), _same_pad(w, sw)
+        ph, pw = self.pads(h, sh), self.pads(w, sw) if pw is None else pw
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         wt = self.kernel.to(x.dtype).permute(3, 2, 0, 1)  # OIHW
         return F.conv2d(x, wt, stride=self.strides) + _bias(self.bias, x)
 
+    def window(self, out: slice, width: int) -> tuple[int, int]:
+        """The global input columns [a, b) that output columns `out` read,
+        for an input `width` wide (negative or past the width: padding)."""
+        s, pad_l = self.strides[1], self.pads(width, self.strides[1])[0]
+        return out.start * s - pad_l, (out.stop - 1) * s - pad_l + _K
+
 
 class ConvTranspose(nn.Module):
-    """flax nnx.ConvTranspose(k=5, padding="SAME"); `kernel` is HWIO.
+    """flax nnx.ConvTranspose(k=5, padding="SAME" or "VALID"); `kernel` is
+    HWIO.
 
     Written as flax computes it: insert stride-1 zeros between inputs,
     pad (pad_a, pad_b), correlate with the unflipped kernel. On the H100
@@ -127,20 +165,43 @@ class ConvTranspose(nn.Module):
     17.8 vs 27.2 ms for the asset's FCN at batch 64, 1.5 vs 17.0 ms at
     batch 1 (H100 80GB HBM3, 700 W)."""
 
-    def __init__(self, cin: int, cout: int, strides: tuple[int, int]):
+    def __init__(self, cin: int, cout: int, strides: tuple[int, int], padding: str = "SAME"):
         super().__init__()
         self.strides = strides
+        self.padding = _check_padding(padding)
         self.kernel = nn.Parameter(torch.zeros(_K, _K, cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout))
+
+    def pads(self, s: int) -> tuple[int, int]:
+        return _transpose_pad(s, padding=self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
         (sh, sw), (b, c, h, w) = self.strides, x.shape
         z = x.new_zeros(b, c, (h - 1) * sh + 1, (w - 1) * sw + 1)
         z[:, :, ::sh, ::sw] = x
-        ph, pw = _transpose_pad(sh), _transpose_pad(sw)
+        ph, pw = self.pads(sh), self.pads(sw)
         z = F.pad(z, (pw[0], pw[1], ph[0], ph[1]))
         wt = self.kernel.to(x.dtype).permute(3, 2, 0, 1)
         return F.conv2d(z, wt) + _bias(self.bias, x)
+
+    def window(self, out: slice) -> tuple[int, int]:
+        """The global input columns [a, b) that output columns `out` read:
+        output column o reads the dilated, padded columns [o, o + 5), and
+        input column i sits at i * s + pad_a there."""
+        s = self.strides[1]
+        pad_a = self.pads(s)[0]
+        return -((pad_a - out.start) // s), (out.stop + _K - 2 - pad_a) // s + 1
+
+    def forward_window(self, xw: torch.Tensor, out: slice) -> torch.Tensor:
+        """Output columns `out` from xw, the input columns `window(out)`."""
+        (sh, sw), (b, c, h, n) = self.strides, xw.shape
+        lead = self.window(out)[0] * sw + self.pads(sw)[0] - out.start
+        z = xw.new_zeros(b, c, (h - 1) * sh + 1, out.stop - out.start + _K - 1)
+        z[:, :, ::sh, lead: lead + (n - 1) * sw + 1: sw] = xw
+        ph = self.pads(sh)
+        z = F.pad(z, (0, 0, ph[0], ph[1]))
+        wt = self.kernel.to(xw.dtype).permute(3, 2, 0, 1)
+        return F.conv2d(z, wt) + _bias(self.bias, xw)
 
 
 def _move_running(stat: torch.Tensor, batch_stat: torch.Tensor, momentum: float) -> None:
@@ -161,15 +222,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None, width: int | None = None) -> torch.Tensor:
         mean, var = self.mean, self.var
         if train:
             # flax's fast variance: E[x^2] - E[x]^2, clipped at 0, biased;
             # the same biased value moves the running variance
-            mean = x.mean(dim=(0, 2, 3))
-            ex2 = (x * x).mean(dim=(0, 2, 3))
-            if mesh is not None:  # the global batch's terms
-                mean, ex2 = all_reduce_mean(torch.stack([mean, ex2]), mesh).unbind(0)
+            if mesh is not None and mesh.n_spatial > 1:
+                # this rank's sums over its data row's global count: the
+                # global terms are their sum over the mesh / the data rows
+                count = x.shape[0] * x.shape[2] * width
+                terms = torch.stack([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))]) / count
+                mean, ex2 = all_reduce_mean(terms, mesh).unbind(0)
+            else:
+                mean = x.mean(dim=(0, 2, 3))
+                ex2 = (x * x).mean(dim=(0, 2, 3))
+                if mesh is not None:  # the global batch's terms, equal row shards
+                    mean, ex2 = all_reduce_mean(torch.stack([mean, ex2]), mesh).unbind(0)
             var = torch.clamp(ex2 - mean * mean, min=0.0)
             _move_running(self.mean, mean, self.momentum)
             _move_running(self.var, var, self.momentum)
@@ -195,24 +263,40 @@ class SampleWiseBN(nn.Module):
         self.register_buffer("mean", torch.zeros(num_positions))
         self.register_buffer("var", torch.ones(num_positions))
 
-    def forward(self, x: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:  # NCHW
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None, width: int | None = None) -> torch.Tensor:
+        """NCHW. On a spatial mesh x holds this rank's columns of a global
+        `width`: it takes its own positions' statistics, reduced over the
+        data axis only, and its positions' scale and bias; the batch
+        statistics of every position are gathered over the spatial axis
+        before they move the running ones, so every rank keeps the whole
+        buffers, equal to every other rank's."""
         b, c, h, w = x.shape
+        cols = None
+        if mesh is not None and mesh.n_spatial > 1:
+            cols = image_sharding(mesh).columns(width)
+
+        def own(t):  # this rank's positions of a (H * width) vector
+            return t if cols is None else t.view(h, width)[:, cols].reshape(-1)
+
         flat = x.reshape(b, c, h * w)
-        mean, var = self.mean, self.var
+        mean, var = own(self.mean), own(self.var)
         if train:
             # jnp.var's two passes: the mean, then the centred second
             # moment, each the global batch's on a mesh
             mean = flat.mean(dim=(0, 1))
             if mesh is not None:
-                mean = all_reduce_mean(mean, mesh)
+                mean = all_reduce_mean(mean, mesh, axis="data")
             d = flat - mean
             var = (d * d).mean(dim=(0, 1))
             if mesh is not None:
-                var = all_reduce_mean(var, mesh)
-            _move_running(self.mean, mean, self.momentum)
-            _move_running(self.var, var, self.momentum)
+                var = all_reduce_mean(var, mesh, axis="data")
+            moved = torch.stack([mean, var]).detach()
+            if cols is not None:
+                moved = all_gather_columns(moved.view(2, h, w), mesh, width).reshape(2, -1)
+            _move_running(self.mean, moved[0], self.momentum)
+            _move_running(self.var, moved[1], self.momentum)
         y = (flat - mean) * torch.rsqrt(var + self.epsilon)
-        return (y * self.scale + self.bias).reshape(b, c, h, w)
+        return (y * own(self.scale) + own(self.bias)).reshape(b, c, h, w)
 
 
 class FCN(nn.Module):
@@ -284,19 +368,71 @@ class FCN(nn.Module):
         d6a = self.deconv6a(torch.cat([c1, d5a], dim=1))[:, :, :, :w]
         return d6a, (c1, cat4, crop5, w)
 
-    def forward(self, x: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:
+    def _sharded(self, x: torch.Tensor, train: bool, mesh, width: int | None):
+        """(d6a, d6b or None) on a spatial mesh: x (B, H, w, C) holds this
+        rank's columns (`column_blocks`) of a global `width`, and every
+        layer computes the columns it owns of its own global output under
+        the same rule, its input's halo fetched from its neighbours
+        (`parallel/halo.py`). The zero pad (0, 3) is the zeros past the
+        width that the halo already gives; the crops shift the global
+        columns a layer computes, so the concatenated maps own the same
+        columns. deconv5a and deconv5b read one fetch of cat4."""
+        if width is None:
+            raise ValueError("on a spatial mesh the FCN needs the input's global width")
+        cfg, k, s = self.cfg, mesh.n_spatial, mesh.spatial_index
+        w1 = -(-(width + 3) // self.conv1.strides[1])
+        w2 = -(-w1 // self.conv2.strides[1])
+        w3 = -(-w2 // self.conv3.strides[1])
+        if w3 * self.deconv4.strides[1] != w2:  # the unsharded torch.cat raises too
+            raise ValueError(f"a width of {width} does not round-trip the FCN ({w2} vs "
+                             f"{w3 * self.deconv4.strides[1]} columns)")
+        crop5 = w2 * self.deconv5a.strides[1] - w1
+
+        def conv(layer, t, w_in, w_pad, w_out):
+            outs = column_blocks(w_out, k)
+            return layer(fetch_columns(t, mesh, w_in, [layer.window(o, w_pad) for o in outs]), pw=(0, 0))
+
+        def fetch(layer, t, w_in, outs):
+            return fetch_columns(t, mesh, w_in, [layer.window(o) for o in outs])
+
+        x = x.to(torch.float32).permute(0, 3, 1, 2)
+        if cfg.batch_norm or cfg.sample_wise_bn:
+            x = self.norm(x, train, mesh, width)
+        x = x.to(self.compute_dtype)
+        c1 = F.relu(conv(self.conv1, x, width, width + 3, w1))
+        c2 = F.relu(conv(self.conv2, c1, w1, w1, w2))
+        c3 = F.relu(conv(self.conv3, c2, w2, w2, w3))
+        outs4 = column_blocks(w2, k)
+        d4 = F.relu(self.deconv4.forward_window(fetch(self.deconv4, c3, w3, outs4), outs4[s]))
+        outs5 = [slice(o.start + crop5, o.stop + crop5) for o in column_blocks(w1, k)]
+        cat4 = fetch(self.deconv5a, torch.cat([c2, d4], dim=1), w2, outs5)
+        outs6 = column_blocks(width, k)
+
+        def head(up5, up6):
+            d5 = F.relu(up5.forward_window(cat4, outs5[s]))
+            return up6.forward_window(fetch(up6, torch.cat([c1, d5], dim=1), w1, outs6), outs6[s])
+
+        d6a = head(self.deconv5a, self.deconv6a)
+        return d6a, head(self.deconv5b, self.deconv6b) if cfg.use_regression else None
+
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None, width: int | None = None) -> torch.Tensor:
         """(B, H, W, C) float32 -> (B, H, W, 2 [+ reg]) float32. With
         train=True the input norm uses the batch's statistics and moves
         its running ones; on a data-parallel `mesh` (this rank's rows) the
-        global batch's statistics."""
+        global batch's statistics. On a spatial mesh x and the output hold
+        this rank's columns (`parallel.mesh.constrain_spatial`) of a global
+        `width`, which the caller passes."""
         cfg = self.cfg
-        d6a, (c1, cat4, crop5, w) = self._trunk(x, train, mesh)
+        if mesh is not None and mesh.n_spatial > 1:
+            d6a, d6b = self._sharded(x, train, mesh, width)
+        else:
+            d6a, (c1, cat4, crop5, w) = self._trunk(x, train, mesh)
+            if cfg.use_regression:
+                d5b = F.relu(self.deconv5b(cat4))[:, :, :, crop5:]
+                d6b = self.deconv6b(torch.cat([c1, d5b], dim=1))[:, :, :, :w]
         probs = torch.softmax(d6a.float(), dim=1).clamp(_KERAS_EPSILON, 1.0)
         if not cfg.use_regression:
             return probs.permute(0, 2, 3, 1).contiguous()
-
-        d5b = F.relu(self.deconv5b(cat4))[:, :, :, crop5:]
-        d6b = self.deconv6b(torch.cat([c1, d5b], dim=1))[:, :, :, :w]
         if cfg.head == "corner" and cfg.reg_output_activation == "relu":
             d6b = F.relu(d6b)  # reference-compat; direct targets are signed
         return torch.cat([probs, d6b.float()], dim=1).permute(0, 2, 3, 1).contiguous()

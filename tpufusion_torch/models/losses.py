@@ -10,8 +10,12 @@ W2-weighted L2 term scaled by weight_bb. The norm is per pixel by default;
 Inputs are (B, H, W, 2 + R) or (B, P, 2 + R); the loss is the mean over
 all batch x pixel elements.
 
-On a data-parallel mesh each rank passes its rows: the per-pixel terms
-make the global loss the mean of the ranks' losses (equal shards), and
+On a mesh each rank passes its rows (and on a spatial mesh its columns
+of a global `width`). Each rank returns its share of its data row's loss:
+its per-pixel terms summed over the row's global pixel count (on a
+data-only mesh, their mean), so the global loss is the sum of the shares
+over the mesh divided by the number of data rows. A frame's foreground
+area, behind W2, is summed over the spatial axis first, and
 `reference_compat`'s one batch-wide norm sums diff^2 over every rank
 through a differentiable all-reduce before the root.
 """
@@ -38,19 +42,29 @@ def weighted_pose_loss(
     cfg: LossConfig = LossConfig(),
     use_regression: bool = True,
     mesh=None,
+    width: int | None = None,
 ) -> torch.Tensor:
+    """The loss of (B, H, W, C) or (B, P, C) predictions; on a spatial
+    `mesh`, (B, H, w, C) columns of a global `width`."""
+    spatial = mesh is not None and mesh.n_spatial > 1
+    if spatial and (y_pred.ndim != 4 or width is None):
+        raise ValueError("on a spatial mesh the loss takes (B, H, w, C) columns and their global width")
+    max_pixels = y_true.shape[1] * width if spatial else None
     if y_pred.ndim == 4:
         b = y_pred.shape[0]
         y_pred = y_pred.reshape(b, -1, y_pred.shape[-1])
         y_true = y_true.reshape(b, -1, y_true.shape[-1])
-    max_pixels = y_true.shape[1]
+    max_pixels = max_pixels or y_true.shape[1]
 
     obj_t = y_true[..., :2]
     nll = obj_t * (-torch.log(y_pred[..., :2]))  # (B, P, 2)
 
     bkg_t = obj_t[..., 0:1]
     frg_t = obj_t[..., 1:2]
-    frg_area = frg_t.sum(dim=1, keepdim=True).clamp(cfg.epsilon, float(max_pixels))  # (B, 1, 1)
+    frg_area = frg_t.sum(dim=1, keepdim=True)
+    if spatial:  # the frame's area, over its columns on every rank of the row
+        frg_area = all_reduce_sum(frg_area, mesh, axis="spatial")
+    frg_area = frg_area.clamp(cfg.epsilon, float(max_pixels))  # (B, 1, 1)
 
     w1 = cfg.obj_to_bkg_ratio * bkg_t if cfg.use_w1 else bkg_t
     w2 = frg_t * (cfg.avg_obj_size / frg_area) if cfg.use_w2 else frg_t
@@ -84,4 +98,6 @@ def weighted_pose_loss(
             norm = _safe_norm((diff * diff).sum(dim=-1, keepdim=True))
         loss = loss + cfg.weight_bb * (w2r * norm).sum(dim=-1)
 
+    if spatial:  # this rank's share of its row's mean
+        return loss.sum() / (loss.shape[0] * max_pixels)
     return loss.mean()

@@ -1,6 +1,7 @@
-"""Data parallelism over the batch on torch.distributed (counterpart of
-`tpufusion/parallel/`): `mesh` holds the mesh and its collectives,
-`dryrun` the multi-rank run held against one process."""
+"""Data x spatial meshes on torch.distributed (counterpart of
+`tpufusion/parallel/`): `mesh` holds the mesh and its collectives, `halo`
+the halo exchanges of a width-sharded convolution, `dryrun` the
+multi-rank run held against one process."""
 
 from tpufusion_torch.parallel.mesh import (  # noqa: F401
     Mesh,

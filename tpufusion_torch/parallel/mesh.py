@@ -1,34 +1,48 @@
-"""Data parallelism over the batch (counterpart of `tpufusion/parallel/mesh.py`).
+"""Data x spatial meshes (counterpart of `tpufusion/parallel/mesh.py`).
 
 The reference picks a `jax.sharding.Mesh`, shards the batch over its
-`data` axis, replicates the parameters, and lets XLA's SPMD partitioner
-insert the collectives. Here the mesh is a `torch.distributed` process
-group, one rank a device, and the same names do the same jobs:
+`data` axis and, with `n_spatial > 1`, the range image's width over a
+`spatial` axis, replicates the parameters, and lets XLA's SPMD
+partitioner insert the collectives. Here the mesh is a
+`torch.distributed` process group, one rank a device, laid out as the
+reference lays its devices out: rank d has data coordinate d // n_spatial
+and spatial coordinate d % n_spatial. The same names do the same jobs:
 
   make_mesh            the group (an initialized one, one from the
                        torchrun environment, or a group of one), the
-                       rank's device, axis_names ("data",)
-  batch_sharding       each rank takes rows [r B/n, (r+1) B/n) of a global
-  shard_batch          batch of B rows, as P("data") lays them out
+                       rank's device, axis_names ("data",) or ("data",
+                       "spatial"), and on a spatial mesh a process group
+                       for each data row (the ranks that share a data
+                       coordinate) and each spatial column
+  batch_sharding       each data row takes rows [d B/n, (d+1) B/n) of a
+  shard_batch          global batch of B rows, as P("data") lays them out;
+                       the ranks of a row hold the same frames
+  image_sharding,      the width cut into contiguous column blocks over
+  constrain_spatial    the spatial axis (GSPMD's layout, `column_blocks`);
+                       the identity on a data-only mesh
+  all_gather_columns   the width put back together
   replicate            parameters and buffers broadcast from rank 0
-  image_sharding,      the identity on a data-only mesh
-  constrain_spatial
 
-Under SPMD a mean over a batch-sharded array is the global batch's mean,
-so the port's collectives keep the reference's model, not DDP's:
-`all_reduce_mean` / `all_reduce_sum` are differentiable (their backward
-all-reduces the gradient, so the other ranks' rows reach every rank's
-gradient), BatchNorm takes flax's own terms E[x] and E[x^2] over the
-global batch through them (`models/fcn.py`), and `average_gradients`
-averages the gradients in one flat all-reduce. Shards are equal, so an
-average of per-rank means is the global mean; on a mesh of one every
-collective returns its input's values, bit for bit.
+Under SPMD a mean over a sharded array is the global array's mean, so the
+port's collectives keep the reference's model, not DDP's. Every reduction
+names its axis: `all_reduce_sum` sums over "data", "spatial" or the whole
+mesh; `all_reduce_mean` divides a sum over the data axis, or over the
+whole mesh, by the number of data rows. The data shards are equal, so
+that is the global mean of per-rank means over rows; the spatial shards
+are not (1801 columns split 901 / 900), so a mean over pixels on a spatial
+mesh is each rank's sum divided by its data row's global count, then
+summed over the spatial axis: never a mean of per-rank means. Both are
+differentiable (their backward all-reduces the gradient, so the other
+ranks' pixels reach every rank's gradient). BatchNorm takes flax's own
+terms E[x] and E[x^2] over the global batch through them
+(`models/fcn.py`), and `average_gradients` sums each rank's share of the
+gradient over the spatial axis and averages over the data axis in one
+flat all-reduce. On a mesh of one every collective returns its input's
+values, bit for bit, and a data-only mesh runs the ops it ran before the
+spatial axis existed.
 
-Not in this slice: the `spatial` axis (width partitioning of the FCN with
-halo exchanges for the 5 x 5 convolutions, the pools and the transposed
-convolutions, BatchNorm statistics across the width shards too). A
-MeshConfig with n_spatial > 1 raises (ROADMAP Queue 1, "The spatial mesh
-axis").
+The halo exchanges that let a width-sharded convolution see its
+neighbours' edge columns are `parallel/halo.py`.
 """
 
 from __future__ import annotations
@@ -40,18 +54,39 @@ import socket
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from tpufusion_torch.config import MeshConfig
 
-SPATIAL_NOT_PORTED = (
-    "the spatial mesh axis (width partitioning of the FCN with halo exchanges) is not "
-    "ported: ROADMAP Queue 1, \"The spatial mesh axis\"; use n_spatial=1"
-)
+
+@dataclasses.dataclass
+class HaloStats:
+    """What the halo exchanges (`parallel/halo.py`) of one mesh moved, on
+    this rank: forward exchanges `calls`, the columns they received
+    (`columns`, each a (B, C, H) slab, every strip of the spatial
+    all-gather counted) and the gradient columns their backwards received
+    (`grad_columns`). With `keep` on, `records` also gets one entry a
+    forward exchange: its input shape, dtype, global width, every spatial
+    rank's window and the columns received."""
+
+    calls: int = 0
+    columns: int = 0
+    grad_columns: int = 0
+    keep: bool = False
+    records: list = dataclasses.field(default_factory=list)
+
+    def reset(self) -> None:
+        self.calls = self.columns = self.grad_columns = 0
+        self.records.clear()
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of a data-parallel mesh."""
+    """One rank's view of a data (x spatial) mesh. `group` spans every
+    rank; on a spatial mesh `data_group` spans this rank's spatial column
+    (the ranks of its spatial coordinate, one a data row) and
+    `spatial_group` its data row. On a data-only mesh `data_group` is
+    `group` and `spatial_group` is None."""
 
     group: dist.ProcessGroup
     rank: int
@@ -59,10 +94,39 @@ class Mesh:
     device: torch.device
     backend: str
     axis_names: tuple[str, ...] = ("data",)
+    n_spatial: int = 1
+    data_group: dist.ProcessGroup | None = None
+    spatial_group: dist.ProcessGroup | None = None
+    halo: HaloStats = dataclasses.field(default_factory=HaloStats, compare=False)
+
+    @property
+    def n_data(self) -> int:
+        return self.world_size // self.n_spatial
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.n_spatial
 
     @property
     def shape(self) -> dict[str, int]:
-        return {self.axis_names[0]: self.world_size}
+        return dict(zip(self.axis_names, (self.n_data, self.n_spatial)))
+
+    def axis_group(self, axis: str | None):
+        """The process group of `axis`: "data" (this rank's spatial
+        column), "spatial" (its data row) or None (every rank)."""
+        if axis is None:
+            return self.group
+        if axis == "data":
+            return self.data_group if self.data_group is not None else self.group
+        if axis == "spatial":
+            if self.spatial_group is None:
+                raise ValueError("a data-only mesh has no spatial axis")
+            return self.spatial_group
+        raise ValueError(f"unknown mesh axis {axis!r}")
 
 
 def free_port() -> int:
@@ -86,18 +150,26 @@ def make_mesh(
     device: torch.device | str = "cuda",
     backend: str | None = None,
 ) -> Mesh:
-    """The data-parallel mesh of this process.
+    """The data (x spatial) mesh of this process.
 
     It uses the process group already initialized, or initializes one from
     the torchrun environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT),
     or, with neither and cfg.n_devices of 0 or 1, a group of one on a free
     localhost port. cfg.n_devices (0: the group's size) must equal the
-    world size. `device` "cuda" gives each rank its card, cuda:<LOCAL_RANK>;
-    "cuda:<i>" puts every rank on card i (ranks sharing a card need
-    backend="gloo": NCCL refuses two ranks on one device); "cpu" runs on
-    the CPU. `backend` defaults to NCCL on the card and gloo on the CPU."""
-    if cfg.n_spatial > 1:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
+    world size. cfg.n_spatial > 1 lays the ranks out as a (world /
+    n_spatial) x n_spatial grid, row-major as the reference reshapes its
+    devices, and raises when n_spatial does not divide the world size; it
+    creates the groups of every data row and every spatial column, so every
+    rank must call it, in the same order. A second call on the same world
+    makes another layout. `device` "cuda" gives each rank its card,
+    cuda:<LOCAL_RANK>; "cuda:<i>" puts every rank on card i (ranks sharing
+    a card need backend="gloo": NCCL refuses two ranks on one device);
+    "cpu" runs on the CPU. `backend` defaults to NCCL on the card and gloo
+    on the CPU."""
+    if cfg.n_spatial < 1:
+        raise ValueError(f"MeshConfig(n_spatial={cfg.n_spatial}) must be at least 1")
+    if cfg.n_devices % cfg.n_spatial:
+        raise ValueError(f"{cfg.n_devices} ranks are not divisible by n_spatial={cfg.n_spatial}")
     device = torch.device(device)
     if not dist.is_initialized():
         backend = backend or ("nccl" if device.type == "cuda" else "gloo")
@@ -105,19 +177,32 @@ def make_mesh(
             torch.empty(0, device=device)  # without a card, raise before any group exists
         if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
             dist.init_process_group(backend, init_method="env://")
-        elif cfg.n_devices in (0, 1):
+        elif cfg.n_devices in (0, 1) and cfg.n_spatial == 1:
             dist.init_process_group(
                 backend, init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
         else:
             raise RuntimeError(
-                f"a mesh of {cfg.n_devices} ranks needs a process group: launch with "
-                "torchrun, or call torch.distributed.init_process_group first")
+                f"a mesh of {cfg.n_devices or cfg.n_spatial} ranks needs a process group: launch "
+                "with torchrun, or call torch.distributed.init_process_group first")
     world, rank = dist.get_world_size(), dist.get_rank()
     if cfg.n_devices and cfg.n_devices != world:
         raise ValueError(f"MeshConfig(n_devices={cfg.n_devices}) on a group of {world} ranks")
-    return Mesh(group=dist.group.WORLD, rank=rank, world_size=world,
-                device=_rank_device(device, rank), backend=dist.get_backend(),
-                axis_names=(cfg.data_axis,))
+    if world % cfg.n_spatial:
+        raise ValueError(f"{world} ranks are not divisible by n_spatial={cfg.n_spatial}")
+    mesh = dict(group=dist.group.WORLD, rank=rank, world_size=world,
+                device=_rank_device(device, rank), backend=dist.get_backend())
+    k = cfg.n_spatial
+    if k == 1:
+        return Mesh(**mesh, axis_names=(cfg.data_axis,))
+    groups = {}
+    for axis, members in (("spatial", [list(range(d * k, (d + 1) * k)) for d in range(world // k)]),
+                          ("data", [list(range(s, world, k)) for s in range(k)])):
+        for ranks in members:  # every rank creates every group, in one order
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = g
+    return Mesh(**mesh, axis_names=(cfg.data_axis, cfg.spatial_axis), n_spatial=k,
+                data_group=groups["data"], spatial_group=groups["spatial"])
 
 
 def _check(mesh) -> None:
@@ -125,19 +210,38 @@ def _check(mesh) -> None:
         raise TypeError(f"expected a parallel.mesh.Mesh (make_mesh), got {type(mesh).__name__}")
 
 
+def column_blocks(width: int, n: int) -> list[slice]:
+    """The width cut into n contiguous blocks as GSPMD cuts it: every block
+    holds ceil(width / n) columns except the last, which holds the rest
+    (1801 over 2: 901 / 900). Raises when a block would be empty."""
+    per = -(-width // n)
+    if per * (n - 1) >= width:
+        raise ValueError(f"a width of {width} columns leaves a block empty over {n} spatial ranks")
+    return [slice(s * per, min((s + 1) * per, width)) for s in range(n)]
+
+
 @dataclasses.dataclass(frozen=True)
 class BatchSharding:
-    """The leading (batch) axis split over the data axis: this rank's
-    contiguous block of rows."""
+    """The leading (batch) axis split over the data axis: this rank's data
+    row's contiguous block of rows. The width stays whole."""
 
     mesh: Mesh
 
     def rows(self, global_batch: int) -> slice:
-        n = self.mesh.world_size
+        n = self.mesh.n_data
         if global_batch % n:
-            raise ValueError(f"a batch of {global_batch} rows does not split over {n} ranks")
+            raise ValueError(f"a batch of {global_batch} rows does not split over {n} data rows")
         per = global_batch // n
-        return slice(self.mesh.rank * per, (self.mesh.rank + 1) * per)
+        return slice(self.mesh.data_index * per, (self.mesh.data_index + 1) * per)
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageSharding(BatchSharding):
+    """(B, H, W, ...) images on a spatial mesh: rows over data, the width
+    over spatial in `column_blocks`."""
+
+    def columns(self, width: int) -> slice:
+        return column_blocks(width, self.mesh.n_spatial)[self.mesh.spatial_index]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,18 +257,42 @@ def batch_sharding(mesh: Mesh) -> BatchSharding:
 
 
 def image_sharding(mesh: Mesh, ndim: int = 4) -> BatchSharding:
-    """(B, H, W, ...) images: batch over data. On a data-only mesh the
-    width is not split, so this is batch_sharding for any ndim >= 3."""
+    """(B, H, W, ...) images: batch over data, width over spatial if the
+    mesh has the axis (ndim 3 covers (B, H, W) masks). On a data-only mesh
+    this is batch_sharding for any ndim >= 3."""
     if ndim < 3:
         raise ValueError(f"an image has at least 3 axes, got {ndim}")
-    return batch_sharding(mesh)
+    _check(mesh)
+    return ImageSharding(mesh) if mesh.n_spatial > 1 else BatchSharding(mesh)
 
 
 def constrain_spatial(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Pin an image-like tensor to the data x spatial layout: the identity
+    """This rank's columns (`column_blocks` of x.shape[2]) of an image-like
+    tensor (B, H, W[, C]) whose width is whole on every rank: the identity
     on a data-only mesh."""
     _check(mesh)
-    return x
+    if mesh.n_spatial == 1:
+        return x
+    return x[:, :, image_sharding(mesh, x.ndim).columns(x.shape[2])]
+
+
+def all_gather_columns(x: torch.Tensor, mesh: Mesh, width: int) -> torch.Tensor:
+    """The whole width of a tensor (B, H, W[, C]) sharded on its width in
+    `column_blocks` over this rank's data row (bool goes as uint8, which
+    every backend carries): the inverse of `constrain_spatial`, not
+    differentiable. The identity on a data-only mesh."""
+    _check(mesh)
+    if mesh.n_spatial == 1:
+        return x
+    blocks = column_blocks(width, mesh.n_spatial)
+    per = blocks[0].stop
+    send = x.to(torch.uint8) if x.dtype == torch.bool else x
+    send = send.movedim(2, -1)
+    send = F.pad(send, (0, per - send.shape[-1])).contiguous()
+    parts = [torch.empty_like(send) for _ in blocks]
+    dist.all_gather(parts, send, group=mesh.spatial_group)
+    out = torch.cat([p[..., : b.stop - b.start] for p, b in zip(parts, blocks)], dim=-1).movedim(-1, 2)
+    return out.to(torch.bool) if x.dtype == torch.bool else out
 
 
 def replicated_sharding(mesh: Mesh) -> Replicated:
@@ -173,8 +301,8 @@ def replicated_sharding(mesh: Mesh) -> Replicated:
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict[str, torch.Tensor]:
-    """This rank's rows of a global batch (numpy arrays or tensors), as
-    tensors on the mesh's device."""
+    """This rank's data row's rows of a global batch (numpy arrays or
+    tensors), as tensors on the mesh's device."""
     out = {}
     for k, v in batch.items():
         rows = batch_sharding(mesh).rows(len(v))
@@ -206,8 +334,9 @@ def replicate(tree, mesh: Mesh):
 
 
 class _AllReduce(torch.autograd.Function):
-    """Sum (or mean) over the ranks; the backward all-reduces the gradient
-    the same way, so every rank's rows reach every rank's gradient."""
+    """Sum (then a division) over a group; the backward all-reduces the
+    gradient the same way, so every rank's pixels reach every rank's
+    gradient."""
 
     @staticmethod
     def forward(ctx, x, group, divisor):
@@ -223,37 +352,48 @@ class _AllReduce(torch.autograd.Function):
         return (g.div_(ctx.divisor) if ctx.divisor != 1 else g), None, None
 
 
-def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Σ over the ranks of x, differentiable."""
-    return _AllReduce.apply(x, mesh.group, 1)
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str | None = None) -> torch.Tensor:
+    """Σ of x over the ranks of `axis` ("data", "spatial", or None for the
+    whole mesh), differentiable."""
+    return _AllReduce.apply(x, mesh.axis_group(axis), 1)
 
 
-def all_reduce_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The mean over the ranks of x, differentiable: the global batch's
-    mean of a per-rank mean, the shards being equal."""
-    return _AllReduce.apply(x, mesh.group, mesh.world_size)
+def all_reduce_mean(x: torch.Tensor, mesh: Mesh, axis: str | None = None) -> torch.Tensor:
+    """Σ of x over `axis` ("data" or None, the whole mesh) divided by the
+    number of data rows, differentiable. Each rank's x is its data row's
+    value, or on the whole mesh of a spatial mesh its share of that value
+    (a sum over its columns divided by the row's global count), so this
+    is the global batch's mean over equal row shards. There is no mean
+    over the spatial axis alone: its shards are unequal."""
+    if axis not in (None, "data"):
+        raise ValueError("a mean over unequal spatial shards is not a mean: sum the shares "
+                         "(all_reduce_sum) and divide by the global count")
+    return _AllReduce.apply(x, mesh.axis_group(axis), mesh.n_data)
 
 
 def average_gradients(params, mesh: Mesh) -> None:
-    """Every parameter's gradient replaced by its mean over the ranks, in
-    one flat all-reduce (a missing gradient counts as zeros). Each
-    `.grad` becomes a view of the one reduced buffer."""
+    """Every parameter's gradient replaced by its global value in one flat
+    all-reduce (a missing gradient counts as zeros): each rank's gradient
+    is its share of its data row's gradient, so the sum over the mesh is
+    divided by the number of data rows (summed over spatial, averaged over
+    data). Each `.grad` becomes a view of the one reduced buffer."""
     params = [p for p in params if p.requires_grad]
     grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, group=mesh.group)
-    flat.div_(mesh.world_size)
+    flat.div_(mesh.n_data)
     for p, g in zip(params, flat.split([g.numel() for g in grads])):
         p.grad = g.view_as(p)
 
 
 def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Every rank's x concatenated along the batch axis in rank order: the
-    global batch of a sharded result (bool goes as uint8, which every
-    backend carries)."""
+    """Every data row's x concatenated along the batch axis in data order,
+    gathered over this rank's spatial column: the global batch of a
+    sharded result (bool goes as uint8, which every backend carries)."""
     _check(mesh)
+    group = mesh.axis_group("data")
     send = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
-    parts = [torch.empty_like(send) for _ in range(mesh.world_size)]
-    dist.all_gather(parts, send, group=mesh.group)
+    parts = [torch.empty_like(send) for _ in range(mesh.n_data)]
+    dist.all_gather(parts, send, group=group)
     out = torch.cat(parts)
     return out.to(torch.bool) if x.dtype == torch.bool else out

@@ -20,6 +20,7 @@ from tpufusion_torch.decode.decode import (
     decode_batch_multi,
 )
 from tpufusion_torch.geometry.range_view import range_view_project_batch
+from tpufusion_torch.parallel.mesh import all_gather_columns, constrain_spatial
 
 _HEADS = ("direct", "corner")
 
@@ -47,6 +48,7 @@ def make_e2e_step(
     max_obstacles: int = 1,
     head: str = "direct",
     device: torch.device | str = "cuda",
+    mesh=None,
 ):
     """Returns step(points (B, N, 4), valid (B, N) | None) -> (poses,
     found) on `device`: (B, 7) and (B,) for max_obstacles = 1,
@@ -55,12 +57,18 @@ def make_e2e_step(
     vote (the reference's default is "corner"; the port's is the shipped
     asset's "direct"). The model is moved to `device` (the card unless
     the caller asks for "cpu"; without a card that raises) and the
-    inputs, numpy arrays or tensors, follow it."""
+    inputs, numpy arrays or tensors, follow it.
+
+    With a `mesh` (`parallel/mesh.py`; `device` is then the mesh's) each
+    rank passes its data row's frames and projects them at full width;
+    on a spatial mesh the image is cut to this rank's columns, the FCN
+    runs width-sharded, its maps are gathered back to the whole width and
+    every rank of the row decodes the same poses."""
     if head not in _HEADS:
         raise ValueError(f"unknown head {head!r}")
     if max_obstacles < 1:
         raise ValueError(f"max_obstacles must be >= 1, got {max_obstacles}")
-    device = torch.device(device)
+    device = mesh.device if mesh is not None else torch.device(device)
     model.to(device).eval()
 
     def as_tensor(x, dtype):
@@ -73,7 +81,12 @@ def make_e2e_step(
         pts = as_tensor(points, torch.float32)
         ok = None if valid is None else as_tensor(valid, torch.bool)
         images = range_view_project_batch(pts, spec, ok, method)
-        preds = model(images)
+        if mesh is None or mesh.n_spatial == 1:
+            preds = model(images)
+        else:
+            width = images.shape[2]
+            preds = model(constrain_spatial(images, mesh), mesh=mesh, width=width)
+            preds = all_gather_columns(preds, mesh, width)
         return _decode(preds, images, spec, decode_cfg, head, max_obstacles)
 
     return step

@@ -15,14 +15,20 @@ range-view `images` (B, H, W, 3) or raw `points` (B, N, 4) (+ `valid`
 the batch follows, which costs nothing when both already lie there, as a
 `BatchPipeline`'s batches and a `Trainer`'s model do.
 
-With a data-parallel `mesh` (`parallel/mesh.py`) each rank passes its rows
+With a `mesh` (`parallel/mesh.py`) each rank passes its data row's rows
 of the global batch (`BatchPipeline(sharding=batch_sharding(mesh))` or
 `shard_batch`) and a model whose weights equal every other rank's
 (`replicate`): the step takes BatchNorm's statistics over the global
-batch, draws the roll for the global batch, averages the gradients over
-the ranks in one flat all-reduce before the optimizer, and returns the
-global loss and metrics, which the optimizer's plateau rule reads too.
-The collectives are enqueued on the stream; nothing waits for the card.
+batch, draws the roll for the global batch, and returns the global loss
+and metrics, which the optimizer's plateau rule reads too. On a spatial
+mesh the labels and the roll are made at full width first (the roll
+moves the image along the width), then images and labels are cut to this
+rank's columns (`constrain_spatial`, as the reference pins them to the
+data x spatial layout) and the FCN runs width-sharded. Each rank's
+gradient is its share of its data row's; one flat all-reduce sums them
+over the mesh and divides by the number of data rows before the
+optimizer. The collectives are enqueued on the stream; nothing waits for
+the card.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from tpufusion_torch.geometry.encoding import encode_direct_label_batch, encode_
 from tpufusion_torch.geometry.range_view import range_view_project_batch
 from tpufusion_torch.models.losses import weighted_pose_loss
 from tpufusion_torch.models.metrics import batch_metrics
-from tpufusion_torch.parallel.mesh import Mesh, all_reduce_mean, average_gradients
+from tpufusion_torch.parallel.mesh import Mesh, all_reduce_mean, average_gradients, constrain_spatial
 
 
 def _on_device(model: torch.nn.Module, batch: dict, device: torch.device):
@@ -108,9 +114,12 @@ def make_train_step(
                     generator, images, labels, batch["center"], batch["size"],
                     batch["yaw"], spec, shifts=batch.get("shifts"), mesh=mesh,
                 )
+        width = images.shape[2]
+        if mesh is not None:
+            images, labels = constrain_spatial(images, mesh), constrain_spatial(labels, mesh)
         optimizer.zero_grad(set_to_none=True)
-        preds = model(images, train=True, mesh=mesh)
-        loss = weighted_pose_loss(preds, labels, loss_cfg, use_regression, mesh=mesh)
+        preds = model(images, train=True, mesh=mesh, width=width)
+        loss = weighted_pose_loss(preds, labels, loss_cfg, use_regression, mesh=mesh, width=width)
         loss.backward()
         loss = loss.detach()
         if mesh is not None:
@@ -118,7 +127,7 @@ def make_train_step(
             loss = all_reduce_mean(loss, mesh)
         optimizer.step(value=loss)
         with torch.no_grad():
-            metrics = batch_metrics(preds.detach(), labels, use_regression, mesh)
+            metrics = batch_metrics(preds.detach(), labels, use_regression, mesh, width)
         metrics["loss"] = loss
         return loss, metrics
 
