@@ -85,6 +85,20 @@ to 0 before it and read after it, and then the training paths:
                frame); both kernels held on its clouds first
   phase 21     host-sync calls in 8 profiled steps of the direct f32 step,
                configs 1, 3 and 5 (the serving paths' host scalars)
+  phase 22     the offline drive: (a) a 64-frame lz4 bag at the rehearsal's
+               defaults (`tools.rehearse_bag_pipeline.synthesize_bag`:
+               32,768-point beam scans, a 1096 x 1368 mono8 camera, radar
+               tracks, a GT tracklet); (b) `data.etl.extract_bag_dataset`
+               in RAM and streaming with the BEV: the two layouts equal,
+               the z-buffer kernel bit-identical to plain on each batch of
+               the bag's own NaN-padded clouds, the BEVs against the CPU's,
+               the native codec (`tpufusion_torch/native/`) against its
+               plain versions on the bag's payloads, with their MB/s;
+               (c) `rehearse_bag_pipeline.main` through the port's CLI
+               (extract -> train 40 epochs -> predict -> submit -> score):
+               64 of 64 submission poses, `cli predict`'s CSV equal to
+               `predict_images` of the restored checkpoint, the CC kernel
+               against the plain sweeps on that model's heat masks
 
 The z-buffer kernel runs on every path; configs 1 and 3 and the train
 steps decode nothing, so the CC kernel is not on theirs. Phases 12 and 13 hold the z-buffer
@@ -169,6 +183,14 @@ C4_COMPANIONS = 4  # companion protocols: wide yaw, then circle, ellipse, box
 DP_RANKS = 2  # phase 19 (b): ranks sharing the one card over gloo
 SPATIAL_RANKS = 2  # phase 19 (c): a 1 x 2 spatial mesh on the one card over gloo
 SYNC_STEPS = 8  # phase 21: profiled steps a path
+# phase 22, the offline drive at the rehearsal's defaults (64 frames of
+# N_POINTS, 40 epochs at batch 16); extract_bag_dataset's batch is its own
+# default, 32, as in the CLI
+DRIVE_FRAMES = 64
+DRIVE_EPOCHS = 40
+DRIVE_TRAIN_BATCH = 16
+DRIVE_BATCH = 32
+DRIVE_PLAIN_CHUNKS = 4  # lz4 chunks decoded by the pure-Python decoder too
 FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
 C3_BATCH = 8  # config 3: frames per batch
 REPLAY_FRAMES = 270  # the replay server: 4 chunks of 64 and a partial one
@@ -1368,6 +1390,175 @@ def phase_host_syncs(dev, spec, card) -> dict:
     return counts
 
 
+def _native_against_plain(bag: str) -> dict:
+    """The bag's payloads through the native codec and its plain versions:
+    every cloud unpacked both ways (equal arrays), every lz4 chunk decoded
+    natively and the first DRIVE_PLAIN_CHUNKS by the pure-Python decoder
+    (equal bytes), every chunk re-encoded natively to its bytes in the bag.
+    Returns the MB/s of each, host clock."""
+    from tpufusion_torch.data import lz4
+    from tpufusion_torch.data.rosbag_reader import (
+        BagReader,
+        _iter_file_records,
+        parse_pointcloud2,
+    )
+
+    raws = [m.raw for m in BagReader(bag).read_messages(topics=["/velodyne_points"])]
+    t = time.perf_counter()
+    native = [parse_pointcloud2(r) for r in raws]
+    t_native = time.perf_counter() - t
+    t = time.perf_counter()
+    plain = [parse_pointcloud2(r, use_native=False) for r in raws]
+    t_plain = time.perf_counter() - t
+    assert all(np.array_equal(a, b) for a, b in zip(native, plain)), "native unpack differs from numpy's"
+
+    with open(bag, "rb") as f:
+        f.readline()
+        chunks = [(h, d) for h, d in _iter_file_records(f) if h.get("op", b"\x00")[0] == 0x05]
+    assert all(h["compression"] == b"lz4" for h, _ in chunks)
+    t = time.perf_counter()
+    raw_chunks = [lz4.lz4_frame_decompress(d, int.from_bytes(h["size"], "little")) for h, d in chunks]
+    t_lz4 = time.perf_counter() - t
+    sample = chunks[:DRIVE_PLAIN_CHUNKS]
+    t = time.perf_counter()
+    plain_chunks = [lz4.lz4_frame_decompress_reference(d, int.from_bytes(h["size"], "little"))
+                    for h, d in sample]
+    t_lz4_plain = time.perf_counter() - t
+    assert plain_chunks == raw_chunks[: len(sample)], "native lz4 decode differs from the plain one"
+    assert all(lz4.lz4_frame_compress(r) == d for r, (_, d) in zip(raw_chunks, chunks)), (
+        "native lz4 re-encode differs from the bag's bytes")
+    cloud_mb = sum(len(r) for r in raws) / 1e6
+    lz4_mb = sum(len(r) for r in raw_chunks) / 1e6
+    sample_mb = sum(len(r) for r in plain_chunks) / 1e6
+    return {"clouds": len(raws), "cloud_mb": cloud_mb, "unpack_native_mb_s": cloud_mb / t_native,
+            "unpack_plain_mb_s": cloud_mb / t_plain, "chunks": len(chunks), "chunk_mb": lz4_mb,
+            "lz4_native_mb_s": lz4_mb / t_lz4, "plain_chunks": len(sample),
+            "lz4_plain_mb_s": sample_mb / t_lz4_plain}
+
+
+def phase_offline_drive(dev, spec, card, totals):
+    """Phase 22: the offline drive. (a) a bag at the rehearsal's defaults;
+    (b) extract_bag_dataset in RAM and streaming with the BEV, the layouts
+    equal, the z-buffer on each batch of the bag's own NaN-padded clouds,
+    the BEV against the CPU's, the native codec against its plain versions
+    on the bag's payloads; (c) the rehearsal through the CLI, its predict
+    CSV against predict_images of the restored checkpoint and the CC on
+    that model's heat masks."""
+    import filecmp
+    import math
+    import tempfile
+
+    from tpufusion_torch.config import DEFAULT, BevSpec
+    from tpufusion_torch.data.etl import (
+        extract_bag_dataset,
+        load_camera_extracted,
+        load_extracted,
+    )
+    from tpufusion_torch.data.rosbag_reader import extract_bag_points
+    from tpufusion_torch.decode.decode import heat_mask
+    from tpufusion_torch.eval.submission import write_predictions_csv
+    from tpufusion_torch.geometry.bev import bev_rasterize_batch
+    from tpufusion_torch.models.fcn import FCN
+    from tpufusion_torch.predict import predict_images
+    from tpufusion_torch.tools import rehearse_bag_pipeline as rehearse
+    from tpufusion_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    log(f"phase 22 the offline drive: a {DRIVE_FRAMES}-frame lz4 bag of {N_POINTS}-point beam "
+        "scans, a 1096 x 1368 mono8 camera and radar tracks -> extract (in RAM, streaming) -> "
+        "the CLI's extract, train, predict, submit, score")
+    with tempfile.TemporaryDirectory(prefix="offline_drive_") as work:
+        bag = os.path.join(work, "scene.bag")
+        t = time.perf_counter()
+        meta = rehearse.synthesize_bag(bag, DRIVE_FRAMES, N_POINTS, seed=11)
+        log(f"  (a) synthesize_bag: {meta['bag_bytes'] / 1e6} MB ({meta['cloud_bytes'] / 1e6} MB "
+            f"of clouds) written in {time.perf_counter() - t:.3f} s (host clock)")
+
+        bev = BevSpec()
+        dirs = {"in RAM": os.path.join(work, "inram"), "streaming": os.path.join(work, "stream")}
+        launches = math.ceil(DRIVE_FRAMES / DRIVE_BATCH)
+        reports = {}
+        for mode, out in dirs.items():
+            t = time.perf_counter()
+            reports[mode], counts = drive(
+                f"(b) extract_bag_dataset {mode}, with BevSpec(), batch {DRIVE_BATCH}",
+                lambda: extract_bag_dataset(bag, out, tracklet_xml=meta["gt_xml"], bev=bev,
+                                            streaming=mode == "streaming", batch=DRIVE_BATCH,
+                                            device=dev),
+                totals, expect=BOTH_KERNELS[:1])
+            s = time.perf_counter() - t
+            log(f"    {s:.3f} s, {DRIVE_FRAMES / s:.3f} frames/s (host clock) [{card}]")
+            assert counts["nearest_wins_image"] == launches, "one z-buffer launch a batch"
+        assert reports["streaming"].pop("streaming") is True and reports["in RAM"] == reports["streaming"]
+        a, b = (load_extracted(d) for d in dirs.values())
+        ca, cb = (load_camera_extracted(d) for d in dirs.values())
+        bev_a = np.load(os.path.join(dirs["in RAM"], "bev_frames.npz"))["images"]
+        bev_b = np.load(os.path.join(dirs["streaming"], "bev_frames.npy"))
+        csvs = ("lidar_timestamps.csv", "camera_timestamps.csv", "obs_poses_interp_transform.csv",
+                "obs_poses_camera.csv", os.path.join("radar", "radar_tracks.csv"))
+        same = {
+            "lidar_frames": np.array_equal(a["images"], b["images"]),
+            "timestamps": np.array_equal(a["timestamps"], b["timestamps"]),
+            "bev_frames": np.array_equal(bev_a, bev_b),
+            "camera_frames": np.array_equal(ca["images"], cb["images"]),
+            "csvs": all(filecmp.cmp(*(os.path.join(d, c) for d in dirs.values()), shallow=False)
+                        for c in csvs),
+        }
+        log(f"    in RAM vs streaming equal: {same}; {a['images'].shape} range views, "
+            f"{bev_a.shape} BEVs, {ca['images'].shape} camera frames")
+        assert all(same.values()), f"the streaming layout differs from the in-RAM one: {same}"
+        assert a["images"].shape == (DRIVE_FRAMES, 32, 1801, 3) and np.isfinite(a["images"]).all()
+
+        clouds, _ = extract_bag_points(bag)  # (F, Nmax, 4), NaN past each cloud's end
+        for lo in range(0, DRIVE_FRAMES, DRIVE_BATCH):
+            check_zbuffer(f"the bag's NaN-padded clouds {lo}:{lo + DRIVE_BATCH}",
+                          torch.from_numpy(clouds[lo:lo + DRIVE_BATCH]).to(dev), None, spec)
+        with torch.inference_mode():
+            want = bev_rasterize_batch(torch.from_numpy(clouds), bev).numpy()
+        bev_check("(b) the extracted BEVs (card) vs the CPU's", bev_a, want)
+        codec = _native_against_plain(bag)
+        log(f"    native codec vs plain on the bag's payloads (host clock): {json.dumps(codec)}")
+
+        workdir = os.path.join(work, "rehearse")
+        args = ["--device", str(dev), "--workdir", workdir, "--frames", str(DRIVE_FRAMES),
+                "--n_points", str(N_POINTS), "--epochs", str(DRIVE_EPOCHS),
+                "--batch", str(DRIVE_TRAIN_BATCH)]
+        summary, counts = drive(
+            f"(c) rehearse_bag_pipeline.main({args[:2]} + the rehearsal's defaults): the CLI's "
+            f"extract, train ({DRIVE_EPOCHS} epochs, batch {DRIVE_TRAIN_BATCH}, direct head), "
+            "predict, submit, score", lambda: rehearse.main(args), totals)
+        assert counts == {"nearest_wins_image": launches,
+                          "connected_components_with_bbox": math.ceil(DRIVE_FRAMES / DRIVE_TRAIN_BATCH)}, (
+            "the CLI: a z-buffer launch an extract batch, a CC launch a predict batch")
+        log(f"    stages (s, host clock): {json.dumps(summary['timings_s'])}; total "
+            f"{summary['total_s']:.3f} s [{card}]")
+        log(f"    host RSS (MiB) a stage, start / peak: {json.dumps(summary['rss_mib'])}")
+        log(f"    score: {json.dumps(summary['score'])}; submission poses "
+            f"{summary['submission_poses']}/{DRIVE_FRAMES}")
+        assert summary["submission_poses"] == DRIVE_FRAMES
+
+        cfg = DEFAULT.replace(model=dataclasses.replace(
+            DEFAULT.model, head="direct", reg_output_activation="linear"))
+        model = FCN(cfg.model, 3)
+        CheckpointManager(os.path.join(workdir, "run", "ckpt")).restore(model, device=dev)
+        ds = os.path.join(workdir, "ds")
+        data = load_extracted(ds)
+        poses, found = predict_images(model, data["images"], cfg, DRIVE_TRAIN_BATCH, dev)
+        mine = os.path.join(work, "predict_images.csv")
+        write_predictions_csv([tuple(p) for p in poses], list(map(int, data["timestamps"])), mine)
+        cli_csv = os.path.join(workdir, "pred", "objects_obs1_lidar_predictions.csv")
+        same_csv = filecmp.cmp(mine, cli_csv, shallow=False)
+        log(f"    cli predict's CSV equals predict_images of the restored checkpoint: {same_csv} "
+            f"(found {int(found.sum())}/{DRIVE_FRAMES})")
+        assert same_csv, "cli predict differs from predict_images"
+        with torch.inference_mode():
+            images = torch.from_numpy(np.array(data["images"])).to(dev)
+            heat = heat_mask(model.eval()(images)[..., 1], cfg.decode)
+        check_cc("the CLI-trained model's heat masks", heat)
+    log(f"  phase 22 took {time.perf_counter() - t_phase:.3f} s (host clock) [{card}]")
+    return summary
+
+
 def training_phases(dev, spec, gm, gf, card, totals) -> None:
     """Phases 15-18: the train step against the reference, the trainer,
     fusion training, config 4."""
@@ -1637,6 +1828,9 @@ def main(argv=()) -> int:
     phase_config5_bench(dev, spec, card, totals)
     syncs = phase_host_syncs(dev, spec, card)
     assert not any(syncs.values()), f"a serving path synchronizes with the host: {syncs}"
+
+    # -- phase 22: the offline drive (bag -> extract -> the CLI) ------------
+    phase_offline_drive(dev, spec, card, totals)
 
     z, c = kt["z"], kt["cc"]
     kernels = [

@@ -522,3 +522,47 @@ def test_halo_exchanged_fcn_on_two_ranks_of_the_card(cuda_device):
         r = got[name]
         assert r["prob_abs"] <= BF16_PROB_ATOL and r["reg_abs"] <= BF16_REG_ATOL, (name, r)
         assert r["reg_differ_share"] <= BF16_REG_DIFFER_SHARE, (name, r)
+
+
+@pytest.mark.parametrize("streaming", [False, True], ids=["in_ram", "streaming"])
+def test_bag_extraction_on_the_card_equals_the_cpus(cuda_device, tmp_path, streaming):
+    """`extract_bag_dataset` of one lz4 bag (6 beam scans of varying size,
+    NaN-padded into batches of 4, a camera stream) with the BEV, on the card
+    and on the CPU: the range views bit for bit (the z-buffer kernel launched
+    once a batch), the BEV's cells and max channels bit for bit and its
+    density within 1e-4, the camera frames and every CSV equal."""
+    import filecmp
+
+    from tpufusion_torch.config import BevSpec
+    from tpufusion_torch.data.etl import extract_bag_dataset, load_camera_extracted, load_extracted
+    from tpufusion_torch.data.rosbag_reader import BagWriter, serialize_image, serialize_pointcloud2
+
+    rng = np.random.default_rng(12)
+    pts, _, valid = synthesize_beam_scan_batch(rng, 6)
+    bag = str(tmp_path / "drive.bag")
+    w = BagWriter(compression="lz4")
+    w.add_connection(0, "/velodyne_points", "sensor_msgs/PointCloud2")
+    w.add_connection(1, "/image_raw", "sensor_msgs/Image")
+    for i in range(6):
+        w.add_message(0, 10**9 * (i + 1), serialize_pointcloud2(pts[i][valid[i]]))
+        w.add_message(1, 10**9 * (i + 1) + 7, serialize_image(rng.integers(0, 255, (40, 50), np.uint8)))
+    w.write(bag)
+    outs = {}
+    for tag, dev in (("card", cuda_device), ("cpu", "cpu")):
+        out = str(tmp_path / tag)
+        z = projection.LAUNCHES
+        extract_bag_dataset(bag, out, crop=(5, 35), bev=BevSpec(), streaming=streaming, batch=4,
+                            device=dev)
+        assert projection.LAUNCHES - z == (2 if tag == "card" else 0)
+        layout = "npy" if streaming else "npz"
+        bev = np.load(os.path.join(out, f"bev_frames.{layout}"))
+        outs[tag] = (out, load_extracted(out), bev if streaming else bev["images"])
+    (card_dir, card, card_bev), (cpu_dir, cpu, cpu_bev) = outs.values()
+    np.testing.assert_array_equal(np.asarray(card["images"]), np.asarray(cpu["images"]))
+    np.testing.assert_array_equal(card_bev[..., 1:], cpu_bev[..., 1:])
+    np.testing.assert_array_equal(card_bev[..., 0] > 0, cpu_bev[..., 0] > 0)
+    assert np.abs(card_bev[..., 0] - cpu_bev[..., 0]).max() <= 1e-4
+    np.testing.assert_array_equal(np.asarray(load_camera_extracted(card_dir)["images"]),
+                                  np.asarray(load_camera_extracted(cpu_dir)["images"]))
+    for name in ("lidar_timestamps.csv", "camera_timestamps.csv"):
+        assert filecmp.cmp(os.path.join(card_dir, name), os.path.join(cpu_dir, name), shallow=False)

@@ -65,7 +65,10 @@ def test_importing_every_port_module_loads_no_jax_package():
         for name in ("train.trainer", "train.fusion_trainer", "train.optim", "train.checkpoint",
                      "train.train_step", "train.stats", "train.pr_curves", "data.pipeline",
                      "data.augment", "models.losses", "models.metrics", "parallel.mesh",
-                     "parallel.dryrun", "parallel.halo", "tools.detector_envelope", "tools.import_keras"):
+                     "parallel.dryrun", "parallel.halo", "tools.detector_envelope", "tools.import_keras",
+                     "native", "data.lz4", "data.rosmsg", "data.rosbag_reader", "data.registry",
+                     "data.reference_reader", "data.etl", "utils.logging", "cli",
+                     "tools.rehearse_bag_pipeline"):
             assert "tpufusion_torch." + name in names, name
         print("IMPORTED", len(names))
         """
@@ -75,7 +78,7 @@ def test_importing_every_port_module_loads_no_jax_package():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split("IMPORTED")[1]) >= 38
+    assert int(out.stdout.split("IMPORTED")[1]) >= 48
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -407,3 +410,77 @@ def test_device_constants_are_made_once():
     b = device_constant([0.03, 0.97], torch.float32, torch.device("cpu"))
     assert a is b and not a.is_inference()  # usable outside inference mode too
     assert torch.equal(a, torch.tensor([0.03, 0.97], dtype=torch.float32))
+
+
+# -- the dataset on disk: the registry, the reference-layout reader, logging -----------------
+
+from tpufusion.data import reference_reader as jax_reference_reader  # noqa: E402
+from tpufusion.data import registry as jax_registry  # noqa: E402
+from tpufusion.utils import logging as jax_logging  # noqa: E402
+from tpufusion_torch.data import reference_reader as port_reference_reader  # noqa: E402
+from tpufusion_torch.data import registry as port_registry  # noqa: E402
+from tpufusion_torch.utils import logging as port_logging  # noqa: E402
+
+
+def _reference_layout_dir(root, seed=5, frames=4, hw=(32, 201)):
+    """A dataset dir in the reference's extracted layout: py2-style pickles a
+    channel, the timestamp, pose and radar CSVs; and a registry naming it."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    d = root / "bag1"
+    (d / "lidar_360").mkdir(parents=True)
+    (d / "radar").mkdir()
+    stamps = [1490000000000 + 100_000 * i for i in range(frames)]
+    for ts in stamps:
+        for ch in ("distance", "height", "intensity"):
+            with open(d / "lidar_360" / f"{ts}_{ch}_float.lidar.p", "wb") as f:
+                pickle.dump(rng.uniform(-2, 60, hw).astype(np.float64).tolist(), f, protocol=2)
+    (d / "lidar_timestamps.csv").write_text("timestamp\n" + "\n".join(map(str, stamps)) + "\n")
+    rows = ["timestamp,tx,ty,tz,rx,ry,rz"] + [
+        f"{ts},{rng.uniform(5, 30):.6f},{rng.uniform(-9, 9):.6f},-0.7,0,0,{rng.uniform(-1, 1):.6f}"
+        for ts in stamps]
+    (d / "obs_poses_interp_transform.csv").write_text("\n".join(rows) + "\n")
+    (d / "radar" / "radar_tracks.csv").write_text("timestamp,range,angle\n5,20.5,-3.25\n9,31,4\n")
+    (root / "meta.csv").write_text("l,w,h\n4.2,1.6,1.5\n")
+    (root / "registry.csv").write_text("# a comment\nbag1,meta.csv\n\nbag1,meta.csv\n")
+    return d, stamps
+
+
+def test_registry_and_reference_reader_copies_match(tmp_path):
+    d, stamps = _reference_layout_dir(tmp_path)
+    got = list(port_registry.read_registry(str(tmp_path / "registry.csv"), str(tmp_path)))
+    want = list(jax_registry.read_registry(str(tmp_path / "registry.csv"), str(tmp_path)))
+    assert [dataclasses.asdict(g) for g in got] == [dataclasses.asdict(w) for w in want]
+    assert len(got) == 2 and got[0].obstacle_size == want[0].obstacle_size == (4.2, 1.6, 1.5)
+    poses = str(d / "obs_poses_interp_transform.csv")
+    assert port_registry.load_pose_csv(poses) == jax_registry.load_pose_csv(poses)
+    for mod in ("load_timestamps", "load_radar_tracks"):
+        assert getattr(port_reference_reader, mod)(str(d)) == getattr(jax_reference_reader, mod)(str(d))
+    np.testing.assert_array_equal(port_reference_reader.load_lidar_frame(str(d), stamps[1]),
+                                  jax_reference_reader.load_lidar_frame(str(d), stamps[1]))
+    port_arrays = port_reference_reader.ReferenceDirDataset(got[0]).to_arrays()
+    jax_arrays = jax_reference_reader.ReferenceDirDataset(want[0]).to_arrays()
+    assert sorted(port_arrays) == sorted(jax_arrays)
+    for k in jax_arrays:
+        assert port_arrays[k].dtype == jax_arrays[k].dtype, k
+        np.testing.assert_array_equal(port_arrays[k], jax_arrays[k], err_msg=k)
+    assert port_arrays["image"].shape == (4, 32, 201, 3)
+    from tpufusion_torch.data import DirSet, read_registry
+
+    assert DirSet is port_registry.DirSet and read_registry is port_registry.read_registry
+
+
+def test_logging_copy_matches():
+    import logging
+
+    port, ref = port_logging.get_logger("etl"), jax_logging.get_logger("etl")
+    assert port.name == "tpufusion_torch.etl" and ref.name == "tpufusion.etl"
+    (ph,), (rh,) = logging.getLogger("tpufusion_torch").handlers, logging.getLogger("tpufusion").handlers
+    record = logging.LogRecord("x", logging.INFO, __file__, 1, "extracted %s", ("dir",), None)
+    assert ph.formatter.format(record) == rh.formatter.format(record)
+    for name in ("tpufusion_torch", "tpufusion"):
+        root = logging.getLogger(name)
+        assert root.level == logging.INFO and root.propagate is False
+    assert port_logging.get_logger("etl") is port  # configured once
+    assert len(logging.getLogger("tpufusion_torch").handlers) == 1

@@ -28,8 +28,9 @@ from tests.torch_golden import (
     port_asset_model,
     wrapped_pose_diff,
 )
-from tpufusion_torch import benchmarks
+from tpufusion_torch import benchmarks, cli
 from tpufusion_torch.config import DEFAULT, LossConfig, MeshConfig, RangeViewSpec, TrainConfig
+from tpufusion_torch.data.etl import extract_bag_dataset, extract_dataset, load_extracted
 from tpufusion_torch.data.pipeline import BatchPipeline
 from tpufusion_torch.data.synthetic import build_fusion_dataset, synthesize_beam_scan_batch
 from tpufusion_torch.geometry import encoding
@@ -37,7 +38,7 @@ from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.models.io import fcn_from_arrays, fusion_from_asset
 from tpufusion_torch.parallel import dryrun
 from tpufusion_torch.parallel.mesh import make_mesh, shard_batch
-from tpufusion_torch.predict import make_e2e_step, predict_images
+from tpufusion_torch.predict import make_e2e_step, predict_dataset_dir, predict_images
 from tpufusion_torch.serve.fusion import predict_fusion
 from tpufusion_torch.serve.pipeline import LidarPipeline
 from tpufusion_torch.serve.replay import LatencyStats, ReplayHarness
@@ -224,7 +225,41 @@ ENTRY_POINTS = {
         1, n_points=64, full_points=256, timeout=120, **kw),
     "spawn": lambda tmp, **kw: _call_spawn(tmp, **kw),
     "load_reference_fcn": lambda tmp, **kw: _call_load_reference_fcn(tmp, **kw),
+    "extract_dataset": lambda tmp, **kw: extract_dataset(
+        str(tmp / "ds"), _scene()["points"], np.array([1, 2]), **kw),
+    "extract_bag_dataset": lambda tmp, **kw: extract_bag_dataset(
+        _small_bag(tmp), str(tmp / "bag_ds"), **kw),
+    "predict_dataset_dir": lambda tmp, **kw: _call_predict_dataset_dir(tmp, **kw),
+    "cli.main": lambda tmp, **kw: _call_cli(tmp, **kw),
 }
+
+
+def _small_bag(tmp) -> str:
+    from tpufusion_torch.data.rosbag_reader import BagWriter, serialize_pointcloud2
+
+    path = str(tmp / "small.bag")
+    w = BagWriter(compression="lz4")
+    w.add_connection(0, "/velodyne_points", "sensor_msgs/PointCloud2")
+    for i in range(2):
+        w.add_message(0, 1_000 + i, serialize_pointcloud2(_scene()["points"][i, : 500 + 100 * i]))
+    w.write(path)
+    return path
+
+
+def _call_predict_dataset_dir(tmp, **kw):
+    ds = tmp / "stored"
+    ds.mkdir(exist_ok=True)
+    np.savez(ds / "lidar_frames.npz", images=np.zeros((2, 32, 1801, 3), np.float32),
+             timestamps=np.array([5, 6]))
+    return predict_dataset_dir(port_asset_model(), str(ds), str(tmp / "pred"), _asset_cfg(), 1, **kw)
+
+
+def _call_cli(tmp, **kw):
+    """`extract` of a points NPZ; the card unless `--device cpu` is given."""
+    np.savez(tmp / "raw.npz", points=_scene()["points"], timestamps=np.array([1, 2]))
+    device = ["--device", kw["device"]] if kw else []
+    cli.main(["extract", str(tmp / "raw.npz"), str(tmp / "cli_ds"), *device])
+    return load_extracted(str(tmp / "cli_ds"))["images"]
 
 
 def _call_load_reference_fcn(tmp, **kw):

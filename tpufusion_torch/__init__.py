@@ -27,9 +27,13 @@ the detector trainer (`train.trainer.Trainer`, `train.train_step`,
 optax's semantics (`train.optim`); data x spatial meshes
 (`parallel.mesh`: torch.distributed, BatchNorm over the global batch, the
 FCN's width sharded with `parallel.halo`'s exchanges;
-`parallel.dryrun.dryrun_multichip`); and the Keras importer
-(`tools.import_keras`). The dataset ETL, the CLI and most tools are not
-ported yet.
+`parallel.dryrun.dryrun_multichip`); the Keras importer
+(`tools.import_keras`); and the offline drive: bags read and written
+(`data.rosbag_reader`, with the native codec of `native`), the dataset
+ETL (`data.etl`), `predict.predict_dataset_dir`, the CLI's extract,
+train, predict, submit and score (`cli`) and their rehearsal
+(`tools.rehearse_bag_pipeline`). The other CLI subcommands, the viewer
+and most tools are not ported yet.
 
 Every entry point takes `device` and defaults to "cuda": it moves its
 model to the card and its inputs follow; without a card it raises. The
@@ -53,17 +57,22 @@ data       numpy synthetic scenes (uniform clouds, beam-structured scans
            with circle, ellipse or box vehicles) and fusion frames,
            the join of the three sensor streams into fusion samples,
            timestamp alignment, radar tracks, the roll augmentation, the
-           batch pipeline
+           batch pipeline; ROS bags, LZ4, the dataset ETL, the registry
+native     the bag reader's host codec (PointCloud2 unpack, LZ4) in C,
+           built with cc at first use, loaded with ctypes
+utils      logging
 parallel   data x spatial meshes, their collectives and halo exchanges, the
            multi-rank dry run
 tools      base_condition_from_meta (the benchmarks' scene settings), the
-           Keras importer
+           Keras importer, the bag -> submission rehearsal
 benchmarks configs 1-5
+cli        extract, train, predict, submit, score
 
 The package imports nothing of the JAX package: it keeps its own copy of
 the configuration dataclasses (`config.py`) and of the numpy modules it
 needs (the tracker, the scoring, the camera model, the alignment, the
-radar tracks, the submission writers), and `tests/test_torch_imports.py`
+radar tracks, the submission writers, the bag reader, the registry, the
+logging), and `tests/test_torch_imports.py`
 holds it to that.
 """
 

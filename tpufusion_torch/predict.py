@@ -4,11 +4,13 @@
                    the path every server and benchmark of the lidar
                    detector runs, for each head and obstacle count
   predict_images   offline batches of stored range-view images -> poses
-
-`predict_dataset_dir` waits for the dataset ETL (ROADMAP Queue 1).
+  predict_dataset_dir  an extracted dataset dir -> the prediction and
+                   metadata CSVs
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -122,3 +124,37 @@ def predict_images(
         poses[lo : lo + batch - pad] = p.cpu().numpy()[: batch - pad]
         found[lo : lo + batch - pad] = fd.cpu().numpy()[: batch - pad]
     return poses, found
+
+
+def predict_dataset_dir(
+    model: torch.nn.Module,
+    dataset_dir: str,
+    output_dir: str,
+    cfg: PipelineConfig = DEFAULT,
+    batch: int = 32,
+    device: torch.device | str = "cuda",
+) -> dict:
+    """Extracted-dataset dir (either layout of `data.etl.load_extracted`)
+    -> `objects_obs1_lidar_predictions.csv` and `objects_obs1_metadata.csv`
+    in `output_dir`, the model run on `device` (the card unless the caller
+    asks for "cpu")."""
+    from tpufusion_torch.data.etl import load_extracted
+    from tpufusion_torch.eval.submission import write_metadata_csv, write_predictions_csv
+
+    data = load_extracted(dataset_dir)
+    poses, found = predict_images(model, data["images"], cfg, batch, device)
+    os.makedirs(output_dir, exist_ok=True)
+    pred_csv = os.path.join(output_dir, "objects_obs1_lidar_predictions.csv")
+    meta_csv = os.path.join(output_dir, "objects_obs1_metadata.csv")
+    write_predictions_csv(
+        [(p[0], p[1], p[2], p[3], p[4], p[5], p[6]) for p in poses],
+        list(map(int, data["timestamps"])),
+        pred_csv,
+    )
+    write_metadata_csv(poses, meta_csv)
+    return {
+        "frames": len(poses),
+        "detections": int(found.sum()),
+        "predictions_csv": pred_csv,
+        "metadata_csv": meta_csv,
+    }
