@@ -99,6 +99,23 @@ to 0 before it and read after it, and then the training paths:
                64 of 64 submission poses, `cli predict`'s CSV equal to
                `predict_images` of the restored checkpoint, the CC kernel
                against the plain sweeps on that model's heat masks
+  phase 23     the training and tuning tools (`tpufusion_torch/tools/`), each
+               through its main at full width: (a) the operating-point
+               tuner on a copy of the shipped asset (32 frames, 4 x 4 x 7
+               points, the confirmation, the 16,384-point pass), its row
+               at the asset's operating point against `make_e2e_step` on
+               the same frames, the CC kernel on its heat masks at every
+               min_prob it sweeps, both kernels timed at the tools' shapes
+               (32 x 32,768 points, 32 x 32 x 1801 masks); (b) the trainer
+               warm-started from the asset, 4 steps at 16,384 / 32,768
+               points, 2 evals, the asset it writes loaded back; (c) the
+               envelope (14 conditions of 8 frames and the distance
+               quartiles) and the oracle's four arms on the mixed asset,
+               the z-buffer on the envelope's ellipse, box, 16,384- and
+               65,536-point clouds; (d) the fusion tool at the 512 x 1368
+               camera (16 + 8 frames, 1 epoch, both variants), its asset
+               loaded by `fusion_from_asset`; (e) the camera bench at
+               batch 8 with its five longest device kernels
 
 The z-buffer kernel runs on every path; configs 1 and 3 and the train
 steps decode nothing, so the CC kernel is not on theirs. Phases 12 and 13 hold the z-buffer
@@ -109,7 +126,8 @@ Every answer is held against the committed JAX goldens
 (tests/data/torch_port_golden.npz, torch_port_golden_multi.npz,
 torch_port_golden_fusion.npz, torch_port_golden_train.npz);
 times are CUDA events over distinct inputs, and for the kernels also
-device time (the kernels' own durations, torch.profiler).
+device time (the calls queued behind a `torch.cuda._sleep`, then timed
+between CUDA events, `kernel_bench.queued_ms`).
 
 With --training-only it builds the kernels and runs phases 15-18 alone
 (about a minute; their times then stand without the earlier phases'
@@ -122,7 +140,8 @@ the final line is never printed. Without a CUDA device it exits non-zero
 at once. The last three lines are a JSON object with the per-kernel
 results (launches on the driven paths, largest difference from the plain
 version, and at 64 x 32,768 the kernel's, the plain version's and the
-library yardstick's device time in turns, and the kernel's time a call,
+library yardstick's device time in turns (the plain CC's time a call: it
+reads a flag back each sweep), and the kernel's time a call,
 beside the kernel's bound: its bytes at 3.35 TB/s,
 `tpufusion_torch/kernel_bench.py`), the card's
 `name, power.limit` as nvidia-smi reports them, and
@@ -145,6 +164,7 @@ from tpufusion_torch.benchmarks import card_line
 from tpufusion_torch.kernel_bench import (
     cc_bound_ms,
     device_ms,
+    queued_ms,
     scatter_amin_yardstick,
     time_ms,
     time_turns,
@@ -192,6 +212,11 @@ DRIVE_TRAIN_BATCH = 16
 DRIVE_BATCH = 32
 DRIVE_PLAIN_CHUNKS = 4  # lz4 chunks decoded by the pure-Python decoder too
 FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
+# phase 23, the tools: their default batch, the tuner's per-resolution pass
+# and the trainer's second sweep resolution, the envelope's batch
+TOOL_BATCH = 32
+TOOL_SPARSE = 16384
+ENVELOPE_BATCH = 8
 C3_BATCH = 8  # config 3: frames per batch
 REPLAY_FRAMES = 270  # the replay server: 4 chunks of 64 and a partial one
 REPLAY_CHUNK = 64
@@ -489,10 +514,12 @@ def phase_assets(dev, spec, gm):
 def kernel_turns(spec, zargs, masks, dcfg) -> dict:
     """Both kernels timed in turns with their plain versions (and the
     z-buffer with its library yardstick, `scatter_reduce_` "amin" into a
-    filled grid) on distinct inputs, as device time (the kernels' own
-    durations) and as time a call (CUDA events, the host's launch work
-    included), beside their bounds from the same inputs:
-    {"z": {...}, "cc": {...}}, times in ms, "<fn>_call" for a call's."""
+    filled grid) on distinct inputs, as device time (`queued_ms`: the
+    calls queued behind a sleep, between CUDA events) and as time a call
+    (`time_ms`, the host's launch work included), beside their bounds
+    from the same inputs: {"z": {...}, "cc": {...}}, times in ms,
+    "<fn>_call" for a call's. The plain CC reads a flag back after each
+    sweep, so its calls cannot be queued: its "plain" is a call's time."""
     from tpufusion_torch.ops import cc, components, projection
 
     p = spec.height * spec.width
@@ -506,13 +533,16 @@ def kernel_turns(spec, zargs, masks, dcfg) -> dict:
         "kernel": lambda m: cc.connected_components_with_bbox(m, dcfg.max_cc_iters),
         "plain": lambda m: components.connected_components_with_bbox(m, dcfg.max_cc_iters),
     }
-    out = {}
-    for name, fns, inputs in (("z", zfns, list(range(len(zargs)))), ("cc", cfns, masks)):
-        out[name] = time_turns(fns, inputs, device_ms)
-        out[name].update({f"{k}_call": v for k, v in time_turns(fns, inputs).items()})
-    out["z"]["bound"] = float(np.mean([zbuffer_bound_ms(*a[:3], p) for a in zargs]))
-    out["cc"]["bound"] = float(np.mean([cc_bound_ms(m) for m in masks]))
-    return out
+    idx = list(range(len(zargs)))
+    z = time_turns(zfns, idx, queued_ms)
+    z.update({f"{k}_call": v for k, v in time_turns(zfns, idx).items()})
+    calls = time_turns(cfns, masks)
+    c = {"kernel": queued_ms(cfns["kernel"], masks), "kernel_call": calls["kernel"],
+         "plain": calls["plain"]}
+    z["bound"] = float(np.mean([zbuffer_bound_ms(*a[:3], p) for a in zargs]))
+    c["bound"] = float(np.mean([cc_bound_ms(m) for m in masks]))
+    assert all(v > 0 for t in (z, c) for v in t.values()), f"a time not measured: {z} {c}"
+    return {"z": z, "cc": c}
 
 
 def turns_line(t: dict) -> str:
@@ -521,8 +551,8 @@ def turns_line(t: dict) -> str:
             f"ms, plain {z['plain']:.4f} ({z['plain_call']:.4f}) ms, library scatter_reduce_ "
             f"{z['library']:.4f} ({z['library_call']:.4f}) ms, bound {z['bound']:.4f} ms, "
             f"kernel at {z['bound'] / z['kernel']:.1%} of it; CC kernel {c['kernel']:.4f} "
-            f"({c['kernel_call']:.4f}) ms, plain {c['plain']:.4f} ({c['plain_call']:.4f}) ms, "
-            f"bound {c['bound']:.4f} ms, kernel at {c['bound'] / c['kernel']:.1%} of it")
+            f"({c['kernel_call']:.4f}) ms, plain ({c['plain']:.4f}: a call, a readback a sweep) "
+            f"ms, bound {c['bound']:.4f} ms, kernel at {c['bound'] / c['kernel']:.1%} of it")
 
 
 def phase_times(dev, spec, models, dcfg, c5_step, cstep, cmodel, seq, batches,
@@ -1559,6 +1589,191 @@ def phase_offline_drive(dev, spec, card, totals):
     return summary
 
 
+def phase_tools(dev, spec, card, totals):
+    """Phase 23: the training and tuning tools at full width, each through
+    its `main` as a user runs it, outputs in a temporary directory. (a) the
+    tuner on a copy of the shipped asset, its row at the asset's operating
+    point against make_e2e_step on the same frames, the CC kernel on its
+    heat masks at every min_prob it sweeps, both kernels timed at the
+    tools' shapes; (b) the trainer warm-started from the asset; (c) the
+    envelope and the oracle arms, the z-buffer on the envelope's surfaces
+    and resolutions; (d) the fusion tool at the full camera; (e) the camera
+    bench with its five longest kernels."""
+    import shutil
+    import tempfile
+
+    from tpufusion_torch import benchmarks
+    from tpufusion_torch._golden import wrapped_pose_diff
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.decode.decode import heat_mask
+    from tpufusion_torch.geometry.range_view import _frame_pixels_keys
+    from tpufusion_torch.models.io import fusion_from_asset
+    from tpufusion_torch.predict import make_e2e_step
+    from tpufusion_torch.tools import bench_camera_full as camera_bench
+    from tpufusion_torch.tools import detector_envelope as envelope
+    from tpufusion_torch.tools import fit_oracle_sensitivity as oracle
+    from tpufusion_torch.tools import train_fusion_synthetic as fusion_tool
+    from tpufusion_torch.tools import train_synthetic_detector as trainer
+    from tpufusion_torch.tools import tune_detector_asset as tuner
+
+    t_phase = time.perf_counter()
+    dev_arg = ["--device", str(dev)]
+    log(f"phase 23 the training and tuning tools at full width (32 x 1801, {TOOL_BATCH} x "
+        f"{N_POINTS}-point frames, the width-2 direct head), each through its main")
+    with tempfile.TemporaryDirectory(prefix="tools_") as work:
+        # -- (a) the tuner on a copy of the shipped asset --------------------------
+        asset = os.path.join(work, "tuned", os.path.basename(ASSET))
+        os.makedirs(os.path.dirname(asset))
+        for ext in ("", ".json"):
+            shutil.copyfile(ASSET + ext, asset + ext)
+        with open(ASSET + ".json") as f:
+            before = json.load(f)
+        args = ["--asset", asset, "--eval_batches", "1", "--per_resolution", str(TOOL_SPARSE)]
+        t = time.perf_counter()
+        sweep_points = len(tuner.PROBS) * len(tuner.AREAS) * len(tuner.CENTERS)
+        res_points = len(tuner.RESOLUTION_PROBS) * len(tuner.RESOLUTION_AREAS)
+        out, counts = drive(
+            f"(a) tune_detector_asset.main({' '.join(args[2:])}): {sweep_points} operating points "
+            f"on {TOOL_BATCH} frames, the confirmation, {res_points} at {TOOL_SPARSE} points",
+            lambda: tuner.main(args + dev_arg), totals)
+        log(f"    {time.perf_counter() - t:.3f} s (host clock) [{card}]")
+        assert counts == {"nearest_wins_image": 4,
+                          "connected_components_with_bbox": sweep_points + res_points + 2}, (
+            "the tuner: a z-buffer launch a prepared batch, a CC launch a decode")
+        best = {k: out["best"][k] for k in ("min_prob", "min_bbox_area", "center", "det",
+                                             "mean_iou", "recall_iou25", "xy_err", "score")}
+        log(f"    winner {json.dumps(best)}; confirmation (seeds 5999) "
+            f"{json.dumps(out['confirmation'])}; per resolution {json.dumps(out['per_resolution'])}")
+        with open(asset + ".json") as f:
+            after = json.load(f)
+        kept = set(before) - {"decode", "best", "confirmation", "decode_per_resolution"}
+        assert kept and all(after[k] == before[k] for k in kept), "the rewrite lost a key"
+        log(f"    the rewritten json keeps {sorted(kept)}")
+
+        model, dcfg, _ = benchmarks.asset_model(ASSET)
+        op = (dcfg.min_prob, dcfg.min_bbox_area, dcfg.direct_center)
+        row = next(r for r in out["rows"] if (r["min_prob"], r["min_bbox_area"], r["center"]) == op)
+        pts, gt, valid = trainer._synth("beam", np.random.default_rng(999), TOOL_BATCH, N_POINTS,
+                                        0.05)
+        poses, found = make_e2e_step(model, spec, dcfg, head="direct", max_obstacles=1,
+                                     device=dev)(pts, valid)
+        poses, found = poses.cpu().numpy(), found.cpu().numpy()
+        protocol = out["prepared"]["beam"]
+        sweep_poses, sweep_found, sweep_gt = trainer.decode_prepared(
+            protocol, spec, dcfg, "direct", dcfg.direct_center)
+        diff = float(wrapped_pose_diff(poses, sweep_poses).max())
+        want = trainer.detection_scores(poses, found, gt)
+        score_diff = max(abs(row[k] - want[k]) for k in want if not np.isnan(want[k]))
+        log(f"    the sweep's row at the asset's operating point {op} against make_e2e_step("
+            f"head='direct', max_obstacles=1) on the same {TOOL_BATCH} frames: found equal = "
+            f"{np.array_equal(found, sweep_found)} ({int(found.sum())}/{TOOL_BATCH}), largest "
+            f"pose difference {diff:.3e} (tolerance 1e-4), scores within {score_diff:.3e}")
+        assert np.array_equal(sweep_gt["center"], gt["center"]) and np.array_equal(found, sweep_found)
+        assert diff <= 1e-4 and score_diff <= 1e-4 and row["det"] == want["det"]
+
+        prob = protocol[0][0][..., 1]
+        sparse = out["prepared_per_resolution"][TOOL_SPARSE]["beam"][0][0][..., 1]
+        with torch.inference_mode():
+            masks = {p: heat_mask(prob, dataclasses.replace(dcfg, min_prob=p)) for p in tuner.PROBS}
+            for p in tuner.RESOLUTION_PROBS:
+                check_cc(f"the tuner's heat masks at {TOOL_SPARSE} points, min_prob {p}",
+                         heat_mask(sparse, dataclasses.replace(dcfg, min_prob=p)))
+        for p, mask in masks.items():
+            check_cc(f"the tuner's heat masks at {N_POINTS} points, min_prob {p}", mask)
+
+        # both kernels at the tools' shapes: the protocol, confirmation and a
+        # trainer step's frames; the tuner's masks at its four thresholds
+        sets = [(pts, valid)]
+        for seed in (5999, 100_001):
+            p, _, v = trainer._synth("beam", np.random.default_rng(seed), TOOL_BATCH, N_POINTS, 0.05)
+            sets.append((p, v))
+        with torch.inference_mode():
+            zargs = [_frame_pixels_keys(torch.from_numpy(p).to(dev), spec, torch.from_numpy(v).to(dev))
+                     for p, v in sets]
+            kt = kernel_turns(spec, zargs, list(masks.values()), dcfg)
+        log(f"  kernels at the tools' shapes ({TOOL_BATCH} x {N_POINTS} points, {len(zargs)} "
+            f"batches; {TOOL_BATCH} x 32 x 1801 heat masks at min_prob {list(masks)}): "
+            f"{turns_line(kt)} [{card}]")
+
+        # -- (b) the trainer, warm-started from the shipped asset --------------------
+        out_asset = os.path.join(work, "trained", "synthetic_detector.npz")
+        args = ["--init_from", ASSET, "--steps", "4", "--eval_every", "2", "--eval_batches", "1",
+                "--points_mix", f"{TOOL_SPARSE},{N_POINTS}", "--out", out_asset]
+        t = time.perf_counter()
+        trained, counts = drive(
+            f"(b) train_synthetic_detector.main({' '.join(args[2:-2])}), batch and width at their "
+            "defaults", lambda: trainer.main(args + dev_arg), totals)
+        log(f"    {time.perf_counter() - t:.3f} s (host clock) [{card}]; best "
+            f"{json.dumps({k: trained[k] for k in ('step', 'center', 'det', 'mean_iou', 'score')})}")
+        modes = len(trainer.CENTER_MODES)
+        assert counts == {"nearest_wins_image": 4 + 2, "connected_components_with_bbox": 2 * modes}, (
+            "the trainer: a z-buffer launch a step and an eval, a CC launch a center mode an eval")
+        assert os.path.exists(out_asset) and os.path.exists(out_asset + ".json")
+        benchmarks.asset_model(out_asset)  # raises on any fault
+        with np.load(ASSET) as shipped, np.load(out_asset) as written:
+            same = sorted(shipped.files) == sorted(written.files) and all(
+                written[k].shape == shipped[k].shape and written[k].dtype == shipped[k].dtype
+                for k in shipped.files)
+        log(f"    the written asset loads (benchmarks.asset_model) and has the shipped asset's "
+            f"keys, shapes and dtypes: {same}")
+        assert same, "the trained asset's layout differs from the shipped one"
+        p, _, v = trainer._synth("beam", np.random.default_rng(100_002), TOOL_BATCH, TOOL_SPARSE,
+                                 0.05, vary_size=True)
+        check_zbuffer(f"the trainer's {TOOL_SPARSE}-point batch (step 2)",
+                      torch.from_numpy(p).to(dev), torch.from_numpy(v).to(dev), spec)
+
+        # -- (c) the envelope and the oracle arms ------------------------------------
+        args = ["--batch", str(ENVELOPE_BATCH), "--eval_batches", "1"]
+        t = time.perf_counter()
+        rows, counts = drive(f"(c) detector_envelope.main({' '.join(args)})",
+                             lambda: envelope.main(args + dev_arg), totals)
+        log(f"    {time.perf_counter() - t:.3f} s (host clock) [{card}]; {json.dumps(rows)}")
+        assert counts == {"nearest_wins_image": 14, "connected_components_with_bbox": 14}
+        assert len(rows) == 18 and rows["trained distribution"]["det"] >= 0.75
+        kw = dict(envelope.conditions(envelope.base_condition_from_meta(before)))
+        for name in ("sparse sweep (16k pts)", "dense sweep (65k pts)", "ellipse yaw +-0.2",
+                     "box yaw +-0.4"):
+            p, _, v = synthesize_beam_scan_batch(np.random.default_rng(999), ENVELOPE_BATCH,
+                                                 **kw[name])
+            check_zbuffer(f"the envelope's {name!r}", torch.from_numpy(p).to(dev),
+                          torch.from_numpy(v).to(dev), spec)
+        args = ["--asset", os.path.join(ASSETS, "synthetic_detector_mixed.npz"), "--batch",
+                str(ENVELOPE_BATCH), "--eval_batches", "1"]
+        arms, counts = drive(f"(c) fit_oracle_sensitivity.main(the mixed asset, {' '.join(args[2:])})",
+                             lambda: oracle.main(args + dev_arg), totals)
+        log(f"    {json.dumps(arms)}")
+        assert counts == {"nearest_wins_image": 1, "connected_components_with_bbox": 4}
+        assert all(a["det"] >= 0.75 for a in arms.values()), "an oracle arm misses"
+
+        # -- (d) the fusion tool at the full 512 x 1368 camera -----------------------
+        fout = os.path.join(work, "fusion", "fusion_net.npz")
+        args = ["--train_frames", "16", "--eval_frames", "8", "--epochs", "1", "--batch", "8",
+                "--out", fout, "--cache_dir", os.path.join(work, "fusion_cache")]
+        t = time.perf_counter()
+        results, counts = drive(f"(d) train_fusion_synthetic.main({' '.join(args[:8])}), both "
+                                "variants", lambda: fusion_tool.main(args + dev_arg), totals,
+                                expect=BOTH_KERNELS[:1])
+        log(f"    {time.perf_counter() - t:.3f} s (host clock) [{card}]; {json.dumps(results)}")
+        assert counts == {"nearest_wins_image": 2, "connected_components_with_bbox": 0}, (
+            "the fusion tool: a z-buffer launch a dataset")
+        assert sorted(results) == ["fused", "lidar_only", "radar_range_noise"]
+        fusion_from_asset(fout, dev)  # raises on any fault
+        log("    models.io.fusion_from_asset loads the written float16 asset")
+
+        # -- (e) the camera bench -----------------------------------------------------
+        args = ["--batch", "8", "--steps", "4", "--frames", "16", "--timing_batches", "2"]
+        cam, counts = drive(f"(e) bench_camera_full.main({' '.join(args)})",
+                            lambda: camera_bench.main(args + dev_arg), totals, expect=())
+        assert not any(counts.values()), "the camera bench runs neither kernel"
+        log(f"    camera-FCN train step at batch 8, 512 x 1368: {cam['ms_per_step']} ms "
+            f"({cam['frames_per_sec']} frames/s; device {cam['device_ms_per_call']} ms a step, "
+            f"busy {cam['device_busy']}; peak {cam['peak_device_mib']} MiB) [{card}]")
+        for k in cam["top_kernels"]:
+            log(f"      {k['share']:.1%} {k['ms']:.4f} ms  {k['name'][:140]}")
+        assert np.isfinite(cam["loss_last"])
+    log(f"  phase 23 took {time.perf_counter() - t_phase:.3f} s (host clock) [{card}]")
+
+
 def training_phases(dev, spec, gm, gf, card, totals) -> None:
     """Phases 15-18: the train step against the reference, the trainer,
     fusion training, config 4."""
@@ -1831,6 +2046,9 @@ def main(argv=()) -> int:
 
     # -- phase 22: the offline drive (bag -> extract -> the CLI) ------------
     phase_offline_drive(dev, spec, card, totals)
+
+    # -- phase 23: the training and tuning tools ---------------------------
+    phase_tools(dev, spec, card, totals)
 
     z, c = kt["z"], kt["cc"]
     kernels = [

@@ -566,3 +566,66 @@ def test_bag_extraction_on_the_card_equals_the_cpus(cuda_device, tmp_path, strea
                                   np.asarray(load_camera_extracted(cpu_dir)["images"]))
     for name in ("lidar_timestamps.csv", "camera_timestamps.csv"):
         assert filecmp.cmp(os.path.join(card_dir, name), os.path.join(cpu_dir, name), shallow=False)
+
+
+@pytest.mark.parametrize("min_prob", [0.05, 0.5, 0.9])
+def test_cc_kernel_on_the_tuners_heat_masks(cuda_device, min_prob):
+    """The heat masks the operating-point tuner decodes
+    (`tools/tune_detector_asset.py`): the shipped asset's FCN (bf16, as
+    `benchmarks.asset_model` builds it) on 8 beam scans at the sparse
+    sweep of its per-resolution pass, 16,384 points, thresholded down to
+    min_prob 0.05, which gives the largest components any path gives the
+    kernel; against the plain sweeps run to convergence."""
+    from tpufusion_torch.benchmarks import asset_model
+
+    model, dcfg, _ = asset_model(ASSET)
+    model.to(cuda_device).eval()
+    pts, _, valid = synthesize_beam_scan_batch(np.random.default_rng(999), 8, 16384)
+    with torch.inference_mode():
+        images = range_view_project_batch(torch.from_numpy(pts).to(cuda_device), SPEC,
+                                          torch.from_numpy(valid).to(cuda_device))
+        mask = decode.heat_mask(model(images)[..., 1], dataclasses.replace(dcfg, min_prob=min_prob))
+        got = cc.connected_components_with_bbox(mask)
+        _, sweeps = components.propagate(components.init_state(mask), mask, 16384)
+        want = components.connected_components_with_bbox(mask, 16384)
+    torch.cuda.synchronize()
+    assert int(sweeps.max()) < 16384 and mask.any()
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g[mask], w[mask])
+
+
+@pytest.mark.parametrize("n_points", [16384, 65536])
+@pytest.mark.parametrize("surface", ["ellipse", "box"])
+def test_projection_kernel_on_the_envelopes_surfaces(cuda_device, surface, n_points):
+    """Clouds of the envelope's surface and resolution conditions
+    (`tools/detector_envelope.py`): 8 beam scans with ellipse or box
+    vehicles at yaw +-0.4, the sparse and the dense sweep."""
+    pts, _, valid = synthesize_beam_scan_batch(
+        np.random.default_rng(999), 8, n_points, max_yaw=0.4, vehicle_surface=surface)
+    args = _frame_pixels_keys(torch.from_numpy(pts).to(cuda_device), SPEC,
+                              torch.from_numpy(valid).to(cuda_device))
+    before = projection.LAUNCHES
+    got = projection.nearest_wins_image(*args, SPEC)
+    want = projection.nearest_wins_image_reference(*args, SPEC)
+    torch.cuda.synchronize()
+    assert projection.LAUNCHES == before + 1
+    assert torch.equal(got, want)
+
+
+def test_queued_timer_measures_the_card_and_refuses_a_readback(cuda_device):
+    """`kernel_bench.queued_ms` times the z-buffer kernel's calls queued
+    behind a sleep: a positive time no longer than a call's between
+    events (which adds the host's launch work); a function that reads
+    back from the card cannot be queued, and the timer raises."""
+    from tpufusion_torch.kernel_bench import queued_ms, time_ms
+
+    sets = [_proj_inputs(cuda_device, seed=s) for s in range(4)]
+
+    def run(a):
+        return projection.nearest_wins_image(*a, SPEC)
+
+    queued, call = queued_ms(run, sets), time_ms(run, sets)
+    assert 0 < queued <= call
+    with pytest.raises(RuntimeError, match="did not queue"):
+        queued_ms(lambda a: int(run(a)[0, 0, 0, 0].item()), sets, tries=2)

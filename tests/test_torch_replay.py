@@ -47,6 +47,12 @@ from tpufusion_torch.train.fusion_trainer import train_fusion
 from tpufusion_torch.train.optim import Adam
 from tpufusion_torch.train.stats import population_weights
 from tpufusion_torch.train.train_step import make_eval_step, make_train_step
+from tpufusion_torch.tools import bench_camera_full as tools_camera
+from tpufusion_torch.tools import detector_envelope as tools_envelope
+from tpufusion_torch.tools import fit_oracle_sensitivity as tools_oracle
+from tpufusion_torch.tools import train_fusion_synthetic as tools_fusion
+from tpufusion_torch.tools import train_synthetic_detector as tools_trainer
+from tpufusion_torch.tools import tune_detector_asset as tools_tuner
 from tpufusion_torch.tools.import_keras import load_reference_fcn
 from tpufusion_torch.train.trainer import Trainer
 
@@ -175,6 +181,23 @@ def _call_codec(fn):
     return call
 
 
+def _tool(main, *argv):
+    """A tool's `main(argv)`, with `--device` where the caller gives one."""
+    def call(tmp, **kw):
+        device = ["--device", kw["device"]] if kw else []
+        return main([a.format(tmp=tmp) for a in argv] + device)
+    return call
+
+
+def _call_tuner(tmp, **kw):
+    import shutil
+
+    for ext in ("", ".json"):
+        shutil.copyfile(ASSET + ext, str(tmp / "det.npz") + ext)
+    return _tool(tools_tuner.main, "--asset", "{tmp}/det.npz", "--batch", "1", "--n_points",
+                 "1024", "--eval_batches", "1")(tmp, **kw)
+
+
 _QUICK = dict(n_batches=1, steps_per_batch=1, batch=2)
 
 ENTRY_POINTS = {
@@ -231,6 +254,18 @@ ENTRY_POINTS = {
         _small_bag(tmp), str(tmp / "bag_ds"), **kw),
     "predict_dataset_dir": lambda tmp, **kw: _call_predict_dataset_dir(tmp, **kw),
     "cli.main": lambda tmp, **kw: _call_cli(tmp, **kw),
+    "tools.train_synthetic_detector": _tool(
+        tools_trainer.main, "--steps", "2", "--batch", "1", "--n_points", "1024",
+        "--eval_batches", "1", "--out", "{tmp}/det.npz"),
+    "tools.tune_detector_asset": _call_tuner,
+    "tools.detector_envelope": _tool(tools_envelope.main, "--batch", "4", "--eval_batches", "1"),
+    "tools.fit_oracle_sensitivity": _tool(tools_oracle.main, "--batch", "2", "--eval_batches", "1"),
+    "tools.train_fusion_synthetic": _tool(
+        tools_fusion.main, "--train_frames", "2", "--eval_frames", "2", "--epochs", "1",
+        "--batch", "2", "--out", "{tmp}/fusion.npz", "--cache_dir", "{tmp}/cache"),
+    "tools.bench_camera_full": _tool(
+        tools_camera.main, "--frames", "2", "--batch", "1", "--steps", "1",
+        "--timing_batches", "1"),
 }
 
 

@@ -271,3 +271,43 @@ def range_view_inputs(seed: int, batch: int, width: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return np.stack([rng.uniform(0, 90, (batch, 32, width)), rng.uniform(-2, 2, (batch, 32, width)),
                      rng.uniform(0, 100, (batch, 32, width))], axis=-1).astype(np.float32)
+
+
+def label_prepared(seed: int, n_batches: int, batch: int, spec, head: str = "direct",
+                   yaw_frame: str = "global", scenes: str = "beam", max_yaw: float = 0.05,
+                   n_points: int = 8192):
+    """Prepared eval batches as the detector tools make them, [(predictions,
+    images, gt)] with port tensors on the CPU, whose predictions are the
+    labels of each frame's own ground truth (the head's codec) with seeded
+    noise: foreground probability ~0.95 on the label's footprint, ~0.02
+    off it, regression targets within 0.05. Every decode finds clusters
+    on them, which a random FCN's maps would not give. Scenes from numpy
+    seeds seed, seed + 1, ..."""
+    from tpufusion_torch.geometry.encoding import encode_direct_label_batch, encode_label_batch
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.tools.train_synthetic_detector import _synth
+
+    noise = np.random.default_rng(seed + 10_000)
+    prepared = []
+    for b in range(n_batches):
+        pts, gt, valid = _synth(scenes, np.random.default_rng(seed + b), batch, n_points, max_yaw)
+        images = range_view_project_batch(torch.from_numpy(pts), spec, torch.from_numpy(valid))
+        args = [torch.from_numpy(gt[k]) for k in ("center", "size", "yaw")] + [images, spec]
+        if head == "direct":
+            labels = encode_direct_label_batch(*args, yaw_frame=yaw_frame)
+        else:
+            labels = encode_label_batch(*args)
+        labels = labels.numpy()
+        fg = labels[..., 1] > 0.5
+        prob = np.where(fg, 0.95, 0.02) + noise.uniform(-0.02, 0.02, fg.shape)
+        reg = labels[..., 2:] + noise.uniform(-0.05, 0.05, labels[..., 2:].shape) * fg[..., None]
+        preds = np.concatenate([(1 - prob)[..., None], prob[..., None], reg], -1).astype(np.float32)
+        prepared.append((torch.from_numpy(preds), images, gt))
+    return prepared
+
+
+def jax_prepared(prepared):
+    """`label_prepared`'s batches as the JAX tools take them (jax arrays)."""
+    import jax.numpy as jnp
+
+    return [(jnp.asarray(p.numpy()), jnp.asarray(i.numpy()), gt) for p, i, gt in prepared]

@@ -63,8 +63,11 @@ native     the bag reader's host codec (PointCloud2 unpack, LZ4) in C,
 utils      logging
 parallel   data x spatial meshes, their collectives and halo exchanges, the
            multi-rank dry run
-tools      base_condition_from_meta (the benchmarks' scene settings), the
-           Keras importer, the bag -> submission rehearsal
+tools      the detector trainer and its held-out eval, the operating-point
+           tuner, the envelope and oracle sweeps, the fusion trainer, the
+           full-size camera bench (their assets go to
+           tpufusion_torch/assets/), the Keras importer, the bag ->
+           submission rehearsal
 benchmarks configs 1-5
 cli        extract, train, predict, submit, score
 

@@ -20,7 +20,7 @@ the bf16 asset's. Every pair of kernels is checked equal on every input
 before it is timed. Each function is timed in turns (old, new,
 yardstick, yardstick, new, old), once between CUDA events per call (what
 a caller waits, the host's launch work included) and once as device time
-(the kernels' own durations, `device_ms`). With `--out FILE` the rows
+(the calls queued behind a sleep, `queued_ms`). With `--out FILE` the rows
 are also written there as JSON.
 
     python -m tpufusion_torch.kernel_bench --dsmem-probe
@@ -37,6 +37,7 @@ import glob
 import json
 import os
 import subprocess
+import time
 
 import torch
 
@@ -60,12 +61,62 @@ def time_ms(fn, inputs, warmup: int = 2) -> float:
     return start.elapsed_time(end) / len(inputs)
 
 
-def device_ms(fn, inputs) -> float:
-    """Mean device time per call over distinct inputs: the summed
-    durations of the kernels and memsets the calls ran on the card
-    (torch.profiler's CUPTI records), without the host's time between
-    them. A small kernel's call is host-bound, so its time between CUDA
-    events measures the host; this measures the kernel."""
+_SLEEP_CYCLES_PER_MS: list[float] = []  # the card's clock under torch.cuda._sleep, once
+
+
+def _sleep_cycles(ms: float) -> int:
+    """Cycles of `torch.cuda._sleep` that hold the stream about `ms`."""
+    if not _SLEEP_CYCLES_PER_MS:
+        cycles = 10_000_000
+        torch.cuda._sleep(cycles)  # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    return int(ms * _SLEEP_CYCLES_PER_MS[0])
+
+
+def queued_ms(fn, inputs, warmup: int = 2, tries: int = 4) -> float:
+    """Mean device ms per call over distinct inputs: every call is queued
+    behind a `torch.cuda._sleep` and timed between CUDA events recorded
+    after the sleep and after the last call, so the host's launch work
+    overlaps the sleep and the events see the card's work alone, back to
+    back. The sleep lasts twice a first pass's time (doubled on a retry);
+    if the start event has fired before the last call is queued, the
+    queue did not hold. Raises after `tries` such passes: a `fn` that
+    waits on the card (a readback) cannot be queued; time it with
+    `time_ms`."""
+    for x in inputs[:warmup]:
+        fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in inputs:
+        fn(x)
+    torch.cuda.synchronize()
+    cycles = _sleep_cycles(2 * (time.perf_counter() - t0) * 1e3 + 1.0)
+    for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for x in inputs:
+            fn(x)
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / len(inputs)
+        cycles *= 2
+    raise RuntimeError(f"{tries} passes: the calls did not queue behind the sleep")
+
+
+def _device_kernel_us(fn, inputs) -> dict[str, float]:
+    """{kernel or memset name: summed device µs} over one call of `fn` per
+    input after a warm-up call (torch.profiler's CUPTI records). Raises
+    if the profile holds no device record."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(inputs[0])  # warm-up
@@ -74,9 +125,30 @@ def device_ms(fn, inputs) -> float:
         for x in inputs:
             fn(x)
         torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total_us / 1e3 / len(inputs)
+    rows = {e.key: e.device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+    if not any(rows.values()):
+        raise RuntimeError("torch.profiler returned no device record of the calls")
+    return rows
+
+
+def device_ms(fn, inputs) -> float:
+    """Mean device time per call over distinct inputs: the summed
+    durations of the kernels and memsets the calls ran on the card,
+    without the host's time between them. A small kernel's call is
+    host-bound, so its time between CUDA events measures the host; this
+    measures the kernel."""
+    return sum(_device_kernel_us(fn, inputs).values()) / 1e3 / len(inputs)
+
+
+def top_device_kernels(fn, inputs, k: int = 5) -> list[dict]:
+    """The `k` kernels with the longest summed device time over one call
+    of `fn` per input, each as {"name", "ms" (a call), "share" (of the
+    calls' whole device time)}, longest first."""
+    rows = _device_kernel_us(fn, inputs)
+    total = sum(rows.values())
+    top = sorted(rows.items(), key=lambda r: r[1], reverse=True)[:k]
+    return [{"name": name, "ms": t / 1e3 / len(inputs), "share": t / total} for name, t in top]
 
 
 def time_turns(fns: dict, inputs, timer=time_ms) -> dict[str, float]:
@@ -234,8 +306,8 @@ def ab(old_csrc: str, sets: int = 12) -> list[dict]:
                 "library": lambda i: yard[i](),
             }
             cfns = {"old": old_cc, "new": cc.connected_components_with_bbox}
-            z_call, z_dev = (time_turns(zfns, list(range(sets)), t) for t in (time_ms, device_ms))
-            c_call, c_dev = (time_turns(cfns, masks, t) for t in (time_ms, device_ms))
+            z_call, z_dev = (time_turns(zfns, list(range(sets)), t) for t in (time_ms, queued_ms))
+            c_call, c_dev = (time_turns(cfns, masks, t) for t in (time_ms, queued_ms))
         zb = sum(zbuffer_bound_ms(*a[:3], p) for a in zargs) / sets
         cb = sum(cc_bound_ms(m) for m in masks) / sets
         for name, call, dev_t, bound in (("nearest_wins_image", z_call, z_dev, zb),

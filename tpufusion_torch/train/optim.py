@@ -11,6 +11,10 @@ reference builds them from optax; this module stands in for it):
                          stays at alpha * init after decay_steps (torch's
                          `CosineAnnealingLR` rises again), counted in
                          updates, not micro-steps
+  warmup_cosine_decay_schedule
+                         `optax.warmup_cosine_decay_schedule`: a linear
+                         warmup, then a cosine over the remaining steps
+                         down to an absolute end value, in float32
   ReduceOnPlateau        `optax.contrib.reduce_on_plateau`, which is not
                          `torch.optim.lr_scheduler.ReduceLROnPlateau`: a
                          running mean over `accumulation_size` values; an
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch.optim.lr_scheduler import LambdaLR
 
@@ -197,4 +202,45 @@ def cosine_decay_schedule(optimizer: Adam, decay_steps: int, alpha: float = 0.0)
         return (1.0 - alpha) * cosine + alpha
 
     optimizer.scheduler = LambdaLR(optimizer, factor)
+    return optimizer.scheduler
+
+
+def warmup_cosine_value(n: int, peak_value: float, warmup_steps: int, decay_steps: int,
+                        end_value: float = 0.0, init_value: float = 0.0) -> float:
+    """`optax.warmup_cosine_decay_schedule(init_value, peak_value,
+    warmup_steps, decay_steps, end_value)(n)`, computed in float32 in
+    optax's order: a line from init to peak over the first warmup_steps
+    counts, then init = peak, alpha = end / peak cosine-decayed over
+    decay_steps - warmup_steps counts (not decay_steps) and held at
+    peak * alpha after. The cosine is the float64 one rounded to float32,
+    where XLA's own float32 cosine may differ from it by an ulp."""
+    f32 = np.float32
+    if n < warmup_steps:
+        frac = f32(1.0) - f32(max(n, 0)) / f32(warmup_steps)
+        return float(f32(f32(init_value - peak_value) * frac) + f32(peak_value))
+    span = decay_steps - warmup_steps
+    count = f32(min(n - warmup_steps, span))
+    angle = f32(f32(math.pi) * count) / f32(span)
+    cosine = f32(0.5) * (f32(1.0) + f32(math.cos(float(angle))))
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    return float(f32(peak_value) * (f32(1.0 - alpha) * cosine + f32(alpha)))
+
+
+def warmup_cosine_decay_schedule(optimizer: Adam, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0,
+                                 init_value: float = 0.0) -> LambdaLR:
+    """The optimizer's lr follows `warmup_cosine_value`: update k (from 1)
+    runs at its value for k - 1, so the first update runs at init_value
+    (0 in the detector tool: the first step moves nothing). The schedule's
+    values are the rates themselves; the optimizer's own lr is replaced.
+    The optimizer advances it after each update it applies."""
+    if decay_steps - warmup_steps <= 0:
+        raise ValueError(f"decay_steps ({decay_steps}) must exceed warmup_steps ({warmup_steps})")
+    for group in optimizer.param_groups:
+        group["lr"] = 1.0  # LambdaLR multiplies its base lr by the schedule's value
+
+    def value(n: int) -> float:
+        return warmup_cosine_value(n, peak_value, warmup_steps, decay_steps, end_value, init_value)
+
+    optimizer.scheduler = LambdaLR(optimizer, value)
     return optimizer.scheduler
