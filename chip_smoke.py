@@ -116,6 +116,22 @@ to 0 before it and read after it, and then the training paths:
                camera (16 + 8 frames, 1 epoch, both variants), its asset
                loaded by `fusion_from_asset`; (e) the camera bench at
                batch 8 with its five longest device kernels
+  phase 24     the last modules, run with none of cv2, matplotlib or yaml:
+               (a) the single-frame entry points on one 32,768-point frame
+               (`range_view_project` against its batch row and the CPU,
+               `decode_frame_direct` with the shipped asset against
+               `decode_batch_direct`'s row, `decode_frame` and
+               `decode_frame_multi` on a seeded default-width corner FCN,
+               `connected_components` on the asset's heat mask against the
+               plain sweeps, a 64-row mask refused); (b) `view_dataset` on a
+               raw points npz of 4 frames with a `.pt` checkpoint, the pushed
+               windows captured, one z-buffer launch a frame; (c) the
+               LiveViewer over HTTP on 127.0.0.1; (d) the port's JPEG
+               encoder byte-equal to the viewer golden's cv2 bytes, its ms
+               an encode; (e) calibrate, datadiff on phase 22's dir, the
+               invariant mask, the polar histogram, the crop box, `cli diff`
+               and `cli view` in subprocesses, and the subcommands that
+               need cv2, matplotlib or yaml raising ImportError
 
 The z-buffer kernel runs on every path; configs 1 and 3 and the train
 steps decode nothing, so the CC kernel is not on theirs. Phases 12 and 13 hold the z-buffer
@@ -124,7 +140,8 @@ kernel against its plain version on their own points (1 x 32,768 and the
 
 Every answer is held against the committed JAX goldens
 (tests/data/torch_port_golden.npz, torch_port_golden_multi.npz,
-torch_port_golden_fusion.npz, torch_port_golden_train.npz);
+torch_port_golden_fusion.npz, torch_port_golden_train.npz), and the
+viewer's JPEG bytes against torch_port_golden_viewer.npz (cv2's);
 times are CUDA events over distinct inputs, and for the kernels also
 device time (the calls queued behind a `torch.cuda._sleep`, then timed
 between CUDA events, `kernel_bench.queued_ms`).
@@ -154,7 +171,9 @@ import dataclasses
 import hashlib
 import json
 import os
+import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -192,6 +211,7 @@ GOLDEN = os.path.join(HERE, "tests", "data", "torch_port_golden.npz")
 GOLDEN_MULTI = os.path.join(HERE, "tests", "data", "torch_port_golden_multi.npz")
 GOLDEN_FUSION = os.path.join(HERE, "tests", "data", "torch_port_golden_fusion.npz")
 GOLDEN_TRAIN = os.path.join(HERE, "tests", "data", "torch_port_golden_train.npz")
+GOLDEN_VIEWER = os.path.join(HERE, "tests", "data", "torch_port_golden_viewer.npz")
 TRAIN_BATCH = 32  # frames per train batch (phases 16 and 18)
 TRAIN_SCENE_BATCHES = 4  # phase 16: distinct scene batches in the dataset
 FUSION_TRAIN_FRAMES = 32  # phase 17
@@ -217,6 +237,11 @@ FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
 TOOL_BATCH = 32
 TOOL_SPARSE = 16384
 ENVELOPE_BATCH = 8
+VIEW_FRAMES = 4  # phase 24: frames of the raw points npz view_dataset replays
+JPEG_REPS = 10  # phase 24: encodes a frame for the JPEG encoder's time
+# phase 24: datadiff's tolerance; one timestamp of phase 22's 64 is 1.6 %,
+# under the default 5 %
+DIFF_REL_TOL = 0.01
 C3_BATCH = 8  # config 3: frames per batch
 REPLAY_FRAMES = 270  # the replay server: 4 chunks of 64 and a partial one
 REPLAY_CHUNK = 64
@@ -1466,8 +1491,9 @@ def _native_against_plain(bag: str) -> dict:
             "lz4_plain_mb_s": sample_mb / t_lz4_plain}
 
 
-def phase_offline_drive(dev, spec, card, totals):
-    """Phase 22: the offline drive. (a) a bag at the rehearsal's defaults;
+def phase_offline_drive(dev, spec, card, totals, work):
+    """Phase 22: the offline drive, its files under `work` (phase 24 reads
+    the extracted dir `work/inram`). (a) a bag at the rehearsal's defaults;
     (b) extract_bag_dataset in RAM and streaming with the BEV, the layouts
     equal, the z-buffer on each batch of the bag's own NaN-padded clouds,
     the BEV against the CPU's, the native codec against its plain versions
@@ -1476,7 +1502,6 @@ def phase_offline_drive(dev, spec, card, totals):
     that model's heat masks."""
     import filecmp
     import math
-    import tempfile
 
     from tpufusion_torch.config import DEFAULT, BevSpec
     from tpufusion_torch.data.etl import (
@@ -1497,94 +1522,93 @@ def phase_offline_drive(dev, spec, card, totals):
     log(f"phase 22 the offline drive: a {DRIVE_FRAMES}-frame lz4 bag of {N_POINTS}-point beam "
         "scans, a 1096 x 1368 mono8 camera and radar tracks -> extract (in RAM, streaming) -> "
         "the CLI's extract, train, predict, submit, score")
-    with tempfile.TemporaryDirectory(prefix="offline_drive_") as work:
-        bag = os.path.join(work, "scene.bag")
+    bag = os.path.join(work, "scene.bag")
+    t = time.perf_counter()
+    meta = rehearse.synthesize_bag(bag, DRIVE_FRAMES, N_POINTS, seed=11)
+    log(f"  (a) synthesize_bag: {meta['bag_bytes'] / 1e6} MB ({meta['cloud_bytes'] / 1e6} MB "
+        f"of clouds) written in {time.perf_counter() - t:.3f} s (host clock)")
+
+    bev = BevSpec()
+    dirs = {"in RAM": os.path.join(work, "inram"), "streaming": os.path.join(work, "stream")}
+    launches = math.ceil(DRIVE_FRAMES / DRIVE_BATCH)
+    reports = {}
+    for mode, out in dirs.items():
         t = time.perf_counter()
-        meta = rehearse.synthesize_bag(bag, DRIVE_FRAMES, N_POINTS, seed=11)
-        log(f"  (a) synthesize_bag: {meta['bag_bytes'] / 1e6} MB ({meta['cloud_bytes'] / 1e6} MB "
-            f"of clouds) written in {time.perf_counter() - t:.3f} s (host clock)")
+        reports[mode], counts = drive(
+            f"(b) extract_bag_dataset {mode}, with BevSpec(), batch {DRIVE_BATCH}",
+            lambda: extract_bag_dataset(bag, out, tracklet_xml=meta["gt_xml"], bev=bev,
+                                        streaming=mode == "streaming", batch=DRIVE_BATCH,
+                                        device=dev),
+            totals, expect=BOTH_KERNELS[:1])
+        s = time.perf_counter() - t
+        log(f"    {s:.3f} s, {DRIVE_FRAMES / s:.3f} frames/s (host clock) [{card}]")
+        assert counts["nearest_wins_image"] == launches, "one z-buffer launch a batch"
+    assert reports["streaming"].pop("streaming") is True and reports["in RAM"] == reports["streaming"]
+    a, b = (load_extracted(d) for d in dirs.values())
+    ca, cb = (load_camera_extracted(d) for d in dirs.values())
+    bev_a = np.load(os.path.join(dirs["in RAM"], "bev_frames.npz"))["images"]
+    bev_b = np.load(os.path.join(dirs["streaming"], "bev_frames.npy"))
+    csvs = ("lidar_timestamps.csv", "camera_timestamps.csv", "obs_poses_interp_transform.csv",
+            "obs_poses_camera.csv", os.path.join("radar", "radar_tracks.csv"))
+    same = {
+        "lidar_frames": np.array_equal(a["images"], b["images"]),
+        "timestamps": np.array_equal(a["timestamps"], b["timestamps"]),
+        "bev_frames": np.array_equal(bev_a, bev_b),
+        "camera_frames": np.array_equal(ca["images"], cb["images"]),
+        "csvs": all(filecmp.cmp(*(os.path.join(d, c) for d in dirs.values()), shallow=False)
+                    for c in csvs),
+    }
+    log(f"    in RAM vs streaming equal: {same}; {a['images'].shape} range views, "
+        f"{bev_a.shape} BEVs, {ca['images'].shape} camera frames")
+    assert all(same.values()), f"the streaming layout differs from the in-RAM one: {same}"
+    assert a["images"].shape == (DRIVE_FRAMES, 32, 1801, 3) and np.isfinite(a["images"]).all()
 
-        bev = BevSpec()
-        dirs = {"in RAM": os.path.join(work, "inram"), "streaming": os.path.join(work, "stream")}
-        launches = math.ceil(DRIVE_FRAMES / DRIVE_BATCH)
-        reports = {}
-        for mode, out in dirs.items():
-            t = time.perf_counter()
-            reports[mode], counts = drive(
-                f"(b) extract_bag_dataset {mode}, with BevSpec(), batch {DRIVE_BATCH}",
-                lambda: extract_bag_dataset(bag, out, tracklet_xml=meta["gt_xml"], bev=bev,
-                                            streaming=mode == "streaming", batch=DRIVE_BATCH,
-                                            device=dev),
-                totals, expect=BOTH_KERNELS[:1])
-            s = time.perf_counter() - t
-            log(f"    {s:.3f} s, {DRIVE_FRAMES / s:.3f} frames/s (host clock) [{card}]")
-            assert counts["nearest_wins_image"] == launches, "one z-buffer launch a batch"
-        assert reports["streaming"].pop("streaming") is True and reports["in RAM"] == reports["streaming"]
-        a, b = (load_extracted(d) for d in dirs.values())
-        ca, cb = (load_camera_extracted(d) for d in dirs.values())
-        bev_a = np.load(os.path.join(dirs["in RAM"], "bev_frames.npz"))["images"]
-        bev_b = np.load(os.path.join(dirs["streaming"], "bev_frames.npy"))
-        csvs = ("lidar_timestamps.csv", "camera_timestamps.csv", "obs_poses_interp_transform.csv",
-                "obs_poses_camera.csv", os.path.join("radar", "radar_tracks.csv"))
-        same = {
-            "lidar_frames": np.array_equal(a["images"], b["images"]),
-            "timestamps": np.array_equal(a["timestamps"], b["timestamps"]),
-            "bev_frames": np.array_equal(bev_a, bev_b),
-            "camera_frames": np.array_equal(ca["images"], cb["images"]),
-            "csvs": all(filecmp.cmp(*(os.path.join(d, c) for d in dirs.values()), shallow=False)
-                        for c in csvs),
-        }
-        log(f"    in RAM vs streaming equal: {same}; {a['images'].shape} range views, "
-            f"{bev_a.shape} BEVs, {ca['images'].shape} camera frames")
-        assert all(same.values()), f"the streaming layout differs from the in-RAM one: {same}"
-        assert a["images"].shape == (DRIVE_FRAMES, 32, 1801, 3) and np.isfinite(a["images"]).all()
+    clouds, _ = extract_bag_points(bag)  # (F, Nmax, 4), NaN past each cloud's end
+    for lo in range(0, DRIVE_FRAMES, DRIVE_BATCH):
+        check_zbuffer(f"the bag's NaN-padded clouds {lo}:{lo + DRIVE_BATCH}",
+                      torch.from_numpy(clouds[lo:lo + DRIVE_BATCH]).to(dev), None, spec)
+    with torch.inference_mode():
+        want = bev_rasterize_batch(torch.from_numpy(clouds), bev).numpy()
+    bev_check("(b) the extracted BEVs (card) vs the CPU's", bev_a, want)
+    codec = _native_against_plain(bag)
+    log(f"    native codec vs plain on the bag's payloads (host clock): {json.dumps(codec)}")
 
-        clouds, _ = extract_bag_points(bag)  # (F, Nmax, 4), NaN past each cloud's end
-        for lo in range(0, DRIVE_FRAMES, DRIVE_BATCH):
-            check_zbuffer(f"the bag's NaN-padded clouds {lo}:{lo + DRIVE_BATCH}",
-                          torch.from_numpy(clouds[lo:lo + DRIVE_BATCH]).to(dev), None, spec)
-        with torch.inference_mode():
-            want = bev_rasterize_batch(torch.from_numpy(clouds), bev).numpy()
-        bev_check("(b) the extracted BEVs (card) vs the CPU's", bev_a, want)
-        codec = _native_against_plain(bag)
-        log(f"    native codec vs plain on the bag's payloads (host clock): {json.dumps(codec)}")
+    workdir = os.path.join(work, "rehearse")
+    args = ["--device", str(dev), "--workdir", workdir, "--frames", str(DRIVE_FRAMES),
+            "--n_points", str(N_POINTS), "--epochs", str(DRIVE_EPOCHS),
+            "--batch", str(DRIVE_TRAIN_BATCH)]
+    summary, counts = drive(
+        f"(c) rehearse_bag_pipeline.main({args[:2]} + the rehearsal's defaults): the CLI's "
+        f"extract, train ({DRIVE_EPOCHS} epochs, batch {DRIVE_TRAIN_BATCH}, direct head), "
+        "predict, submit, score", lambda: rehearse.main(args), totals)
+    assert counts == {"nearest_wins_image": launches,
+                      "connected_components_with_bbox": math.ceil(DRIVE_FRAMES / DRIVE_TRAIN_BATCH)}, (
+        "the CLI: a z-buffer launch an extract batch, a CC launch a predict batch")
+    log(f"    stages (s, host clock): {json.dumps(summary['timings_s'])}; total "
+        f"{summary['total_s']:.3f} s [{card}]")
+    log(f"    host RSS (MiB) a stage, start / peak: {json.dumps(summary['rss_mib'])}")
+    log(f"    score: {json.dumps(summary['score'])}; submission poses "
+        f"{summary['submission_poses']}/{DRIVE_FRAMES}")
+    assert summary["submission_poses"] == DRIVE_FRAMES
 
-        workdir = os.path.join(work, "rehearse")
-        args = ["--device", str(dev), "--workdir", workdir, "--frames", str(DRIVE_FRAMES),
-                "--n_points", str(N_POINTS), "--epochs", str(DRIVE_EPOCHS),
-                "--batch", str(DRIVE_TRAIN_BATCH)]
-        summary, counts = drive(
-            f"(c) rehearse_bag_pipeline.main({args[:2]} + the rehearsal's defaults): the CLI's "
-            f"extract, train ({DRIVE_EPOCHS} epochs, batch {DRIVE_TRAIN_BATCH}, direct head), "
-            "predict, submit, score", lambda: rehearse.main(args), totals)
-        assert counts == {"nearest_wins_image": launches,
-                          "connected_components_with_bbox": math.ceil(DRIVE_FRAMES / DRIVE_TRAIN_BATCH)}, (
-            "the CLI: a z-buffer launch an extract batch, a CC launch a predict batch")
-        log(f"    stages (s, host clock): {json.dumps(summary['timings_s'])}; total "
-            f"{summary['total_s']:.3f} s [{card}]")
-        log(f"    host RSS (MiB) a stage, start / peak: {json.dumps(summary['rss_mib'])}")
-        log(f"    score: {json.dumps(summary['score'])}; submission poses "
-            f"{summary['submission_poses']}/{DRIVE_FRAMES}")
-        assert summary["submission_poses"] == DRIVE_FRAMES
-
-        cfg = DEFAULT.replace(model=dataclasses.replace(
-            DEFAULT.model, head="direct", reg_output_activation="linear"))
-        model = FCN(cfg.model, 3)
-        CheckpointManager(os.path.join(workdir, "run", "ckpt")).restore(model, device=dev)
-        ds = os.path.join(workdir, "ds")
-        data = load_extracted(ds)
-        poses, found = predict_images(model, data["images"], cfg, DRIVE_TRAIN_BATCH, dev)
-        mine = os.path.join(work, "predict_images.csv")
-        write_predictions_csv([tuple(p) for p in poses], list(map(int, data["timestamps"])), mine)
-        cli_csv = os.path.join(workdir, "pred", "objects_obs1_lidar_predictions.csv")
-        same_csv = filecmp.cmp(mine, cli_csv, shallow=False)
-        log(f"    cli predict's CSV equals predict_images of the restored checkpoint: {same_csv} "
-            f"(found {int(found.sum())}/{DRIVE_FRAMES})")
-        assert same_csv, "cli predict differs from predict_images"
-        with torch.inference_mode():
-            images = torch.from_numpy(np.array(data["images"])).to(dev)
-            heat = heat_mask(model.eval()(images)[..., 1], cfg.decode)
-        check_cc("the CLI-trained model's heat masks", heat)
+    cfg = DEFAULT.replace(model=dataclasses.replace(
+        DEFAULT.model, head="direct", reg_output_activation="linear"))
+    model = FCN(cfg.model, 3)
+    CheckpointManager(os.path.join(workdir, "run", "ckpt")).restore(model, device=dev)
+    ds = os.path.join(workdir, "ds")
+    data = load_extracted(ds)
+    poses, found = predict_images(model, data["images"], cfg, DRIVE_TRAIN_BATCH, dev)
+    mine = os.path.join(work, "predict_images.csv")
+    write_predictions_csv([tuple(p) for p in poses], list(map(int, data["timestamps"])), mine)
+    cli_csv = os.path.join(workdir, "pred", "objects_obs1_lidar_predictions.csv")
+    same_csv = filecmp.cmp(mine, cli_csv, shallow=False)
+    log(f"    cli predict's CSV equals predict_images of the restored checkpoint: {same_csv} "
+        f"(found {int(found.sum())}/{DRIVE_FRAMES})")
+    assert same_csv, "cli predict differs from predict_images"
+    with torch.inference_mode():
+        images = torch.from_numpy(np.array(data["images"])).to(dev)
+        heat = heat_mask(model.eval()(images)[..., 1], cfg.decode)
+    check_cc("the CLI-trained model's heat masks", heat)
     log(f"  phase 22 took {time.perf_counter() - t_phase:.3f} s (host clock) [{card}]")
     return summary
 
@@ -1772,6 +1796,322 @@ def phase_tools(dev, spec, card, totals):
             log(f"      {k['share']:.1%} {k['ms']:.4f} ms  {k['name'][:140]}")
         assert np.isfinite(cam["loss_last"])
     log(f"  phase 23 took {time.perf_counter() - t_phase:.3f} s (host clock) [{card}]")
+
+
+def _sof0_size(jpeg_bytes: bytes) -> tuple[int, int]:
+    """(height, width) of a baseline JPEG's SOF0 segment."""
+    i = jpeg_bytes.index(b"\xff\xc0")
+    return (int.from_bytes(jpeg_bytes[i + 5:i + 7], "big"),
+            int.from_bytes(jpeg_bytes[i + 7:i + 9], "big"))
+
+
+def _cli(*args, timeout=300) -> subprocess.CompletedProcess:
+    """`python -m tpufusion_torch.cli <args>` in a subprocess from the repo root."""
+    return subprocess.run([sys.executable, "-m", "tpufusion_torch.cli", *args], cwd=HERE,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def phase_viewer(dev, spec, card, totals, extracted):
+    """Phase 24: the last modules of the port, run with none of cv2,
+    matplotlib or yaml. (a) the single-frame entry points (range view,
+    connected components, the three frame decodes) against their batch
+    rows and the plain versions, a 64-row mask refused; (b) view_dataset
+    on a raw points npz with a checkpoint, the pushed frames captured;
+    (c) the LiveViewer over HTTP; (d) the JPEG encoder against the viewer
+    golden's bytes; (e) the host tools that need no cv2 and the CLI's diff
+    and view in subprocesses, the subcommands that need a missing package
+    raising ImportError; (f) both kernels against their plain versions on
+    the phase's inputs. `extracted` is phase 22's in-RAM dataset dir."""
+    import pkgutil
+    import shutil
+    import urllib.error
+    import urllib.request
+
+    from tpufusion_torch import cli
+    from tpufusion_torch._golden import load_npz, viewer_golden_frames
+    from tpufusion_torch.config import DEFAULT
+    from tpufusion_torch.data.etl import load_camera_extracted, load_extracted
+    from tpufusion_torch.data.registry import load_pose_csv
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.decode.decode import (
+        decode_batch,
+        decode_batch_direct,
+        decode_batch_multi,
+        decode_frame,
+        decode_frame_direct,
+        decode_frame_multi,
+        heat_mask,
+    )
+    from tpufusion_torch.geometry.camera import synthetic_camera
+    from tpufusion_torch.geometry.range_view import range_view_project, range_view_project_batch
+    from tpufusion_torch.models.fcn import FCN
+    from tpufusion_torch.ops import components
+    from tpufusion_torch.ops.components import connected_components
+    from tpufusion_torch.serve import viewer
+    from tpufusion_torch.serve.jpeg import encode_jpeg
+    from tpufusion_torch.tools import analyze, calibrate, crops, datadiff, invariant_mask
+    from tpufusion_torch.tools.visualize import render_range_view
+    from tpufusion_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    installed = {m.name for m in pkgutil.iter_modules()}
+    log("phase 24 the viewer, the host tools and the single-frame entry points "
+        f"(on this host: {', '.join(f'{p} {p in installed}' for p in ('cv2', 'matplotlib', 'yaml'))})")
+    zbuffer_only = {"nearest_wins_image": 1, "connected_components_with_bbox": 0}
+    cc_only = {"nearest_wins_image": 0, "connected_components_with_bbox": 1}
+
+    # -- (a) the single-frame entry points ---------------------------------------------
+    pts, _, valid = synthesize_beam_scan_batch(np.random.default_rng(24), 1, N_POINTS)
+    p0, v0 = torch.from_numpy(pts[0]).to(dev), torch.from_numpy(valid[0]).to(dev)
+    with torch.inference_mode():
+        img, counts = drive(f"(a) range_view_project, one {N_POINTS}-point frame",
+                            lambda: range_view_project(p0, spec, v0), totals, expect=BOTH_KERNELS[:1])
+        assert counts == zbuffer_only, counts
+        row = range_view_project_batch(p0[None], spec, v0[None])[0]
+        plain = range_view_project(torch.from_numpy(pts[0]), spec, torch.from_numpy(valid[0]))
+    same = (torch.equal(img, row), torch.equal(img.cpu(), plain))
+    log(f"    {tuple(img.shape)}: bit-equal to range_view_project_batch's row {same[0]}, to the "
+        f"plain version of the frame on the CPU {same[1]}")
+    assert all(same), "range_view_project differs from its batch row or the CPU"
+    check_zbuffer("phase 24's single frame", p0[None], v0[None], spec)
+
+    model, dcfg = asset_fcn(ASSET, "float32", dev)
+    with torch.inference_mode():
+        preds = model(img[None])
+        frame_out, counts = drive("(a) decode_frame_direct, the shipped asset at its operating point",
+                                  lambda: decode_frame_direct(preds[0], img, spec, dcfg), totals,
+                                  expect=BOTH_KERNELS[1:])
+        assert counts == cc_only, counts
+        batch_out = decode_batch_direct(preds, img[None], spec, dcfg)
+        mask = heat_mask(preds[..., 1], dcfg)[0]
+        labels, counts = drive("(a) connected_components, the asset's heat mask",
+                               lambda: connected_components(mask), totals, expect=BOTH_KERNELS[1:])
+        assert counts == cc_only, counts
+        want_labels = components.connected_components_reference(mask.cpu(), SWEEP_CAP)
+    same = [torch.equal(frame_out[k], batch_out[k][0]) for k in ("poses", "found")]
+    log(f"    decode_frame_direct: found {frame_out['found'].tolist()}, pose "
+        f"{[round(float(v), 3) for v in frame_out['poses'][0]]}; poses and found equal "
+        f"decode_batch_direct's row {all(same)}; connected_components equal to the plain sweeps "
+        f"{torch.equal(labels.cpu(), want_labels)} ({int(mask.sum())} heat pixels)")
+    assert all(same) and bool(frame_out["found"][0]), "decode_frame_direct differs from its batch row"
+    assert torch.equal(labels.cpu(), want_labels), "connected_components differs from the plain sweeps"
+    check_cc("the asset's heat mask of phase 24's frame", mask[None])
+
+    corner = FCN(DEFAULT.model, in_channels=3, seed=24).to(dev).eval()
+    with torch.inference_mode():
+        cpred = corner(img[None])
+        one, counts = drive("(a) decode_frame, a seeded default-width corner FCN",
+                            lambda: decode_frame(cpred[0], img, spec, DEFAULT.decode), totals,
+                            expect=BOTH_KERNELS[1:])
+        assert counts == cc_only, counts
+        multi, counts = drive("(a) decode_frame_multi(k=4), the same FCN",
+                              lambda: decode_frame_multi(cpred[0], img, spec, DEFAULT.decode, 4),
+                              totals, expect=BOTH_KERNELS[1:])
+        assert counts == cc_only, counts
+        rows = decode_batch(cpred, img[None], spec, DEFAULT.decode)
+        mrows = decode_batch_multi(cpred, img[None], spec, DEFAULT.decode, 4)
+        cmask = heat_mask(cpred[..., 1], DEFAULT.decode)
+    same = all(torch.equal(one[k], rows[k][0]) for k in rows) and all(
+        torch.equal(multi[k], mrows[k][0]) for k in mrows)
+    log(f"    decode_frame found {bool(one['found'])}, decode_frame_multi found "
+        f"{multi['found'].tolist()}; every entry equal to the batch decodes' rows {same}")
+    assert same and sorted(one) == sorted(rows) and multi["poses"].shape == (4, 7)
+    check_cc("the corner FCN's heat mask", cmask)
+    try:
+        connected_components(torch.ones((64, 100), dtype=torch.bool, device=dev))
+        raise AssertionError("a 64-row mask went through connected_components")
+    except ValueError as e:
+        log(f"    a 64-row mask on the card raises ValueError: {e}")
+
+    with tempfile.TemporaryDirectory(prefix="viewer_") as work:
+        # -- (b) view_dataset on a raw points npz with a checkpoint ----------------------
+        vpts, _, vvalid = synthesize_beam_scan_batch(np.random.default_rng(240), VIEW_FRAMES,
+                                                     N_POINTS)
+        vpts = np.where(vvalid[..., None], vpts, np.nan).astype(np.float32)
+        raw = os.path.join(work, "raw.npz")
+        np.savez(raw, points=vpts)
+        ckpt = os.path.join(work, "ckpt")
+        CheckpointManager(ckpt).save(0, FCN(DEFAULT.model, in_channels=3, seed=240))
+        pushed, grabbed = [], {}
+        orig_push, orig_stop = viewer.LiveViewer.push, viewer.LiveViewer.stop
+
+        def push(self, name, frame):
+            orig_push(self, name, frame)
+            pushed.append((name, np.array(frame), time.perf_counter()))
+
+        def stop(self):
+            grabbed["viewer"] = self  # the windows' last JPEGs stay in _frames
+            orig_stop(self)
+
+        viewer.LiveViewer.push, viewer.LiveViewer.stop = push, stop
+        try:
+            t = time.perf_counter()
+            _, counts = drive(f"(b) view_dataset(a raw points npz of {VIEW_FRAMES} x {N_POINTS}, "
+                              "a .pt checkpoint of FCN(DEFAULT.model), port 0, rate_hz 1000)",
+                              lambda: viewer.view_dataset(raw, ckpt, port=0, rate_hz=1000.0,
+                                                          device=dev),
+                              totals, expect=BOTH_KERNELS[:1])
+            wall = time.perf_counter() - t
+        finally:
+            viewer.LiveViewer.push, viewer.LiveViewer.stop = orig_push, orig_stop
+        assert counts == {"nearest_wins_image": VIEW_FRAMES, "connected_components_with_bbox": 0}, (
+            "view_dataset: one z-buffer launch a frame")
+        names = [n for n, _, _ in pushed]
+        assert names == ["bev", "range_view", "class_mask"] * VIEW_FRAMES, names
+        views = [f for n, f, _ in pushed if n == "range_view"]
+        with torch.inference_mode():
+            want = [render_range_view(range_view_project(torch.from_numpy(p), spec).numpy(), spec=spec)
+                    for p in vpts]
+        same = all(np.array_equal(g, w) for g, w in zip(views, want))
+        firsts = [ts for n, _, ts in pushed if n == "bev"]
+        steady = (VIEW_FRAMES - 1) / (firsts[-1] - firsts[0])
+        log(f"    windows {sorted(set(names))}, each pushed once a frame; the pushed range views "
+            f"equal render_range_view of the plain projection: {same}; {VIEW_FRAMES} frames in "
+            f"{wall:.3f} s with the restore and the server's start, {steady:.3f} frames/s between "
+            f"the first and the last frame (host clock, JPEG encoding included) [{card}]")
+        assert same, "view_dataset's range view differs from the plain projection's render"
+        check_zbuffer("view_dataset's frames", torch.from_numpy(vpts).to(dev), None, spec)
+
+        # -- (c) the LiveViewer over HTTP ------------------------------------------------
+        frames = {n: f for n, f, _ in pushed}
+        with viewer.LiveViewer(port=0, host="127.0.0.1") as v:
+            for name, frame in frames.items():
+                v.push(name, frame)
+            base = f"http://127.0.0.1:{v.port}"
+            index = urllib.request.urlopen(f"{base}/", timeout=10).read().decode()
+            sizes = {}
+            for name, frame in frames.items():
+                data = urllib.request.urlopen(f"{base}/frame/{name}", timeout=10).read()
+                assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9", name
+                sizes[name] = _sof0_size(data)
+                assert sizes[name] == frame.shape[:2], (name, sizes[name], frame.shape)
+                assert name in index, name
+            r = urllib.request.urlopen(f"{base}/stream/range_view", timeout=10)
+            head = r.read(200)
+            r.close()
+            assert b"--frame" in head and b"image/jpeg" in head
+            try:
+                urllib.request.urlopen(f"{base}/frame/nope", timeout=10)
+                raise AssertionError("an unknown window answered")
+            except urllib.error.HTTPError as e:
+                assert e.code == 404, e.code
+        log(f"  (c) LiveViewer on 127.0.0.1: / lists {sorted(frames)}; /frame/<w> JPEGs whose SOF0 "
+            f"(height, width) are the pushed frames' {sizes}; /stream/range_view yields a --frame "
+            "part; an unknown window 404s")
+
+        # -- (d) the JPEG encoder against the golden's bytes ----------------------------
+        golden = load_npz(GOLDEN_VIEWER)
+        for i, frame in enumerate(viewer_golden_frames()):
+            ours = encode_jpeg(frame)
+            times = []
+            for _ in range(JPEG_REPS):
+                t = time.perf_counter()
+                encode_jpeg(frame)
+                times.append((time.perf_counter() - t) * 1e3)
+            same = ours == golden[f"jpeg_{i}"].tobytes()
+            log(f"  (d) encode_jpeg {frame.shape}: byte-equal to the golden's cv2 bytes {same} "
+                f"({len(ours)} bytes); median {np.median(times):.3f} ms, min {min(times):.3f} ms "
+                f"over {JPEG_REPS} encodes (host clock) [{card}]")
+            assert same, f"encode_jpeg differs from the golden's bytes for {frame.shape}"
+        for name, frame in frames.items():
+            times = []
+            for _ in range(JPEG_REPS):
+                t = time.perf_counter()
+                viewer._encode_jpeg(frame)
+                times.append((time.perf_counter() - t) * 1e3)
+            log(f"      the viewer's {name} render {frame.shape}: median {np.median(times):.3f} ms "
+                f"an encode (host clock) [{card}]")
+        if "cv2" in installed:  # this host's OpenCV, where it has one
+            import cv2
+
+            encoded = list(viewer_golden_frames()) + [f for f in frames.values()]
+            same = [encode_jpeg(f) == bytes(cv2.imencode(".jpg", f, [cv2.IMWRITE_JPEG_QUALITY, 88])[1])
+                    for f in encoded]
+            log(f"      this host's cv2 {cv2.__version__}: its imencode bytes equal encode_jpeg's for "
+                f"{sum(same)} of {len(same)} frames (the golden's and the viewer's renders)")
+
+        # -- (e) the host tools that need no cv2, the CLI in subprocesses ----------------
+        true = np.array([0.2, -0.1, 0.3, 0.4, -0.2, 0.1])
+        crng = np.random.default_rng(241)
+        cpts = np.stack([crng.uniform(-3, 3, 12), crng.uniform(-2, 2, 12), crng.uniform(4, 12, 12)], 1)
+        truth = synthetic_camera()
+        truth.set_extrinsic_from_euler(true[:3], true[3:])
+        result = calibrate.calibrate(synthetic_camera(), cpts, truth.project_lidar_to_pixels(cpts),
+                                     bounds=[(-1, 1)] * 6, accept_px=0.5, max_restarts=30, seed=1)
+        log(f"  (e) calibrate on 12 correspondences of synthetic_camera(): {json.dumps(result)}")
+        assert result["accepted"] and result["error_px"] < 0.5
+
+        dropped = os.path.join(work, "dropped")
+        shutil.copytree(extracted, dropped)
+        with open(os.path.join(dropped, "lidar_timestamps.csv")) as f:
+            ts_lines = f.read().splitlines()
+        with open(os.path.join(dropped, "lidar_timestamps.csv"), "w") as f:
+            f.write("\n".join(ts_lines[:-1]) + "\n")
+        n_ts = len(ts_lines) - 1  # the header
+        same_diff = datadiff.diff_dirs(extracted, extracted, DIFF_REL_TOL)
+        drop_diff = datadiff.diff_dirs(extracted, dropped, DIFF_REL_TOL)
+        log(f"      datadiff (rel_tol {DIFF_REL_TOL}): phase 22's dir against itself {same_diff}, "
+            f"against a copy with one of its {n_ts} lidar timestamps dropped {drop_diff}")
+        assert same_diff == [] and ("lidar", "count", n_ts, n_ts - 1) in drop_diff
+
+        images = load_extracted(extracted)["images"]
+        mask = invariant_mask.build_invariant_mask(images)
+        assert mask.shape == images.shape[1:] and np.array_equal(
+            mask, (images == images[0]).all(axis=0))
+        rows = load_pose_csv(os.path.join(extracted, "obs_poses_interp_transform.csv"))
+        centers = np.asarray([[r["tx"], r["ty"]] for r in rows])
+        hist, _, _ = analyze.polar_histogram(centers)
+        cam = synthetic_camera()
+        cframes = load_camera_extracted(extracted)["images"]
+        box = crops.box_from_pose([15.0, 1.0, -0.7, 0.0, 4.2, 1.6, 1.5], cam, crop_top=430)
+        crop = crops.crop_box(cframes[0], box)
+        log(f"      build_invariant_mask over {len(images)} range views: {int(mask.sum())} invariant "
+            f"values; polar_histogram of {len(rows)} GT centers: {int(hist.sum())} binned; "
+            f"box_from_pose {tuple(round(float(v), 2) for v in box)} -> crop_box "
+            f"{None if crop is None else crop.shape} of a {cframes.shape[1:]} camera frame")
+        assert hist.sum() == np.sum(np.hypot(centers[:, 0], centers[:, 1]) <= 60.0)
+        assert crop is not None and crop.size > 0
+
+        codes = [_cli("diff", extracted, extracted, "--rel_tol", str(DIFF_REL_TOL)).returncode,
+                 _cli("diff", extracted, dropped, "--rel_tol", str(DIFF_REL_TOL)).returncode]
+        log(f"      python -m tpufusion_torch.cli diff: exit {codes[0]} (same dir), {codes[1]} "
+            "(a timestamp dropped)")
+        assert codes == [0, 1], codes
+        t = time.perf_counter()
+        proc = _cli("view", raw, "--checkpoint", ckpt, "--device", str(dev), "--port", "0",
+                    "--rate", "1000")
+        log(f"      python -m tpufusion_torch.cli view <raw npz> --checkpoint --device {dev} "
+            f"--port 0 --rate 1000: exit {proc.returncode} in {time.perf_counter() - t:.3f} s "
+            f"(host clock); {proc.stdout.strip()}")
+        assert proc.returncode == 0, proc.stderr[-2000:]
+
+        needs = {"edges": ("cv2", ["edges", raw, os.path.join(work, "e.png")]),
+                 "overlay_radar": ("cv2", ["overlay_radar", os.path.join(extracted, "camera_frames.npz"),
+                                           os.path.join(extracted, "radar", "radar_tracks.csv"),
+                                           os.path.join(work, "ov")]),
+                 "crops": ("cv2", ["crops", os.path.join(extracted, "camera_frames.npz"),
+                                   os.path.join(extracted, "obs_poses_camera.csv"),
+                                   os.path.join(work, "cr")]),
+                 "analyze": ("matplotlib", ["analyze", os.path.join(extracted,
+                                                                    "obs_poses_interp_transform.csv"),
+                                            "--output", os.path.join(work, "gt.png")]),
+                 "calibrate": ("yaml", ["calibrate", os.path.join(work, "s.json"),
+                                        os.path.join(work, "cam.yaml")])}
+        with open(os.path.join(work, "s.json"), "w") as f:
+            json.dump({"points": cpts.tolist(), "uvs": cpts[:, :2].tolist()}, f)
+        with open(os.path.join(work, "cam.yaml"), "w") as f:
+            f.write("image_width: 1368\n")
+        for sub, (package, argv) in needs.items():
+            if package in installed:
+                log(f"      cli {sub}: {package} is installed here; the ImportError is not checked")
+                continue
+            try:
+                cli.main(argv)
+                raise AssertionError(f"cli {sub} ran without {package}")
+            except ImportError as e:
+                assert package in str(e), (sub, str(e))
+                log(f"      cli {sub} without {package}: ImportError({str(e)!r})")
+    log(f"  phase 24 took {time.perf_counter() - t_phase:.3f} s (host clock) [{card}]")
 
 
 def training_phases(dev, spec, gm, gf, card, totals) -> None:
@@ -2044,11 +2384,13 @@ def main(argv=()) -> int:
     syncs = phase_host_syncs(dev, spec, card)
     assert not any(syncs.values()), f"a serving path synchronizes with the host: {syncs}"
 
-    # -- phase 22: the offline drive (bag -> extract -> the CLI) ------------
-    phase_offline_drive(dev, spec, card, totals)
-
-    # -- phase 23: the training and tuning tools ---------------------------
-    phase_tools(dev, spec, card, totals)
+    # -- phases 22-24: the offline drive (bag -> extract -> the CLI), the
+    # training and tuning tools, the viewer and the host tools (on phase
+    # 22's extracted dir) --------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="offline_drive_") as drive_work:
+        phase_offline_drive(dev, spec, card, totals, drive_work)
+        phase_tools(dev, spec, card, totals)
+        phase_viewer(dev, spec, card, totals, os.path.join(drive_work, "inram"))
 
     z, c = kt["z"], kt["cc"]
     kernels = [

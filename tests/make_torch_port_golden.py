@@ -66,14 +66,22 @@ tests/data/torch_port_golden_train.npz: one train step of the reference
                 frames: the loss, each gradient tensor's largest entry and
                 a sample of its entries, the BatchNorm statistics after
 
+tests/data/torch_port_golden_viewer.npz: the JPEG bytes the live viewer's
+encoder must write (tpufusion_torch/_golden.py names the seed and sizes).
+  jpeg_<i>      cv2.imencode(".jpg", frame_i, [IMWRITE_JPEG_QUALITY, 88])
+                of the i-th frame of `viewer_golden_frames` (32 x 1801 x 3
+                and 1199 x 180 x 3 BGR), as uint8
+  frame_sha256  the frames' digests; the frames are made again from the seed
+
 tests/test_torch_e2e.py, tests/test_torch_multi.py,
-tests/test_torch_fusion.py and tests/test_torch_train.py recompute them
-(the train golden's fusion steps excepted: 8 full-size camera frames
-backward) and fail when a file is stale.
+tests/test_torch_fusion.py, tests/test_torch_train.py and
+tests/test_torch_viewer.py recompute them (the train golden's fusion steps
+excepted: 8 full-size camera frames backward) and fail when a file is
+stale.
 
-    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer]
 
-With `train` only the train golden is rewritten.
+With `train` (`viewer`) only the train (viewer) golden is rewritten.
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 """
@@ -539,6 +547,29 @@ def write_train_golden() -> None:
             print(f"  {key}: {float(train[key]):.6f}")
 
 
+def golden_viewer_arrays() -> dict[str, np.ndarray]:
+    """cv2's JPEG bytes of the viewer golden's frames (OpenCV with its
+    libjpeg-turbo, imported here only)."""
+    import cv2
+
+    from tpufusion_torch._golden import VIEWER_QUALITY, viewer_frame_digest, viewer_golden_frames
+
+    frames = viewer_golden_frames()
+    out = {"frame_sha256": np.array([viewer_frame_digest(f) for f in frames])}
+    for i, frame in enumerate(frames):
+        ok, buf = cv2.imencode(".jpg", frame, [cv2.IMWRITE_JPEG_QUALITY, VIEWER_QUALITY])
+        assert ok
+        out[f"jpeg_{i}"] = np.frombuffer(bytes(buf), np.uint8)
+    return out
+
+
+def write_viewer_golden() -> None:
+    from tests.torch_golden import GOLDEN_VIEWER
+
+    np.savez_compressed(GOLDEN_VIEWER, **golden_viewer_arrays())
+    print(f"wrote {GOLDEN_VIEWER} ({os.path.getsize(GOLDEN_VIEWER)} bytes)")
+
+
 def main() -> None:
     import jax
 
@@ -547,6 +578,9 @@ def main() -> None:
 
     if sys.argv[1:] == ["train"]:
         write_train_golden()
+        return
+    if sys.argv[1:] == ["viewer"]:
+        write_viewer_golden()
         return
 
     arrays = golden_arrays()
@@ -568,6 +602,7 @@ def main() -> None:
         gap = np.abs(fusion[f"fusion_f32_{tag}"] - fusion[f"fusion_bf16_{tag}"]).max()
         print(f"  JAX float32 vs bf16 {tag}: {gap:.4e}")
     write_train_golden()
+    write_viewer_golden()
 
 
 if __name__ == "__main__":

@@ -629,3 +629,85 @@ def test_queued_timer_measures_the_card_and_refuses_a_readback(cuda_device):
     assert 0 < queued <= call
     with pytest.raises(RuntimeError, match="did not queue"):
         queued_ms(lambda a: int(run(a)[0, 0, 0, 0].item()), sets, tries=2)
+
+
+def test_single_frame_entry_points_launch_the_kernels(cuda_device):
+    """range_view_project: one z-buffer launch, bit-equal to the batch row
+    and to the CPU; connected_components: one CC launch, the plain sweeps'
+    labels; decode_frame_direct: one CC launch, the batch decode's row."""
+    from tpufusion_torch.decode.decode import decode_frame_direct, heat_mask
+    from tpufusion_torch.geometry.range_view import range_view_project
+    from tpufusion_torch.ops.components import connected_components
+
+    pts, _, valid = synthesize_beam_scan_batch(np.random.default_rng(12), 2, 32768)
+    before = projection.LAUNCHES
+    img = range_view_project(torch.from_numpy(pts[0]).to(cuda_device), SPEC,
+                             torch.from_numpy(valid[0]).to(cuda_device))
+    assert projection.LAUNCHES == before + 1
+    batch = range_view_project_batch(torch.from_numpy(pts).to(cuda_device), SPEC,
+                                     torch.from_numpy(valid).to(cuda_device))
+    assert torch.equal(img, batch[0])
+    cpu = range_view_project(torch.from_numpy(pts[0]), SPEC, torch.from_numpy(valid[0]))
+    assert torch.equal(img.cpu(), cpu)
+
+    mcfg, dcfg = asset_configs(ASSET)
+    model = FCN(mcfg)
+    load_state_npz(ASSET, model)
+    model = model.to(cuda_device).eval()
+    with torch.inference_mode():
+        preds = model(batch)
+        mask = heat_mask(preds[..., 1], dcfg)[0]
+        before = cc.LAUNCHES
+        labels = connected_components(mask)
+        assert cc.LAUNCHES == before + 1
+        assert torch.equal(labels.cpu(), components.connected_components_reference(mask.cpu(), 16384))
+        one = decode_frame_direct(preds[0], batch[0], SPEC, dcfg)
+        assert cc.LAUNCHES == before + 2
+        row = decode.decode_batch_direct(preds[:1], batch[:1], SPEC, dcfg)
+        rows = decode.decode_batch_direct(preds, batch, SPEC, dcfg)
+    for key in ("poses", "found", "areas"):
+        assert torch.equal(one[key], row[key][0]), key
+    # a batch of two sums in other kernels on the card: the last bits may move
+    assert torch.equal(one["found"], rows["found"][0]) and bool(one["found"][0])
+    assert _pose_diff(one["poses"], rows["poses"][0].cpu().numpy()) < POSE_TOL
+
+
+def test_connected_components_refuses_a_mask_taller_than_the_kernel(cuda_device):
+    """The kernel holds at most 32 rows: a taller CUDA mask raises, and
+    never quietly takes the plain sweeps."""
+    from tpufusion_torch.ops.components import connected_components
+
+    before = cc.LAUNCHES
+    with pytest.raises(ValueError, match="H <= 32"):
+        connected_components(torch.ones((64, 100), dtype=torch.bool, device=cuda_device))
+    assert cc.LAUNCHES == before
+
+
+def test_view_dataset_on_the_card(cuda_device, tmp_path):
+    """view_dataset on a raw points npz with a checkpoint, on the card: one
+    z-buffer launch a frame, the pushed range view the render of the CPU's
+    projection, every window pushed once a frame."""
+    from tpufusion_torch.config import DEFAULT
+    from tpufusion_torch.geometry.range_view import range_view_project
+    from tpufusion_torch.serve import viewer
+    from tpufusion_torch.tools.visualize import render_range_view
+    from tpufusion_torch.train.checkpoint import CheckpointManager
+
+    pts, _, valid = synthesize_beam_scan_batch(np.random.default_rng(13), 3, 32768)
+    pts = np.where(valid[..., None], pts, np.nan).astype(np.float32)
+    np.savez(tmp_path / "raw.npz", points=pts)
+    CheckpointManager(str(tmp_path / "ckpt")).save(0, FCN(DEFAULT.model, in_channels=3, seed=0))
+    pushed = []
+    orig = viewer.LiveViewer.push
+    viewer.LiveViewer.push = lambda self, name, frame: pushed.append((name, np.array(frame)))
+    try:
+        before = projection.LAUNCHES
+        viewer.view_dataset(str(tmp_path / "raw.npz"), str(tmp_path / "ckpt"), port=0,
+                            rate_hz=1000.0, device=cuda_device)
+        assert projection.LAUNCHES == before + 3
+    finally:
+        viewer.LiveViewer.push = orig
+    assert [n for n, _ in pushed] == ["bev", "range_view", "class_mask"] * 3
+    for i, (_, frame) in enumerate(p for p in pushed if p[0] == "range_view"):
+        want = render_range_view(range_view_project(torch.from_numpy(pts[i]), SPEC).numpy(), spec=SPEC)
+        np.testing.assert_array_equal(frame, want)

@@ -70,7 +70,9 @@ def test_importing_every_port_module_loads_no_jax_package():
                      "data.reference_reader", "data.etl", "utils.logging", "cli",
                      "tools.rehearse_bag_pipeline", "tools.train_synthetic_detector",
                      "tools.tune_detector_asset", "tools.fit_oracle_sensitivity",
-                     "tools.train_fusion_synthetic", "tools.bench_camera_full"):
+                     "tools.train_fusion_synthetic", "tools.bench_camera_full", "serve.jpeg",
+                     "serve.viewer", "tools.analyze", "tools.calibrate", "tools.crops",
+                     "tools.datadiff", "tools.invariant_mask", "tools.visualize"):
             assert "tpufusion_torch." + name in names, name
         print("IMPORTED", len(names))
         """
@@ -80,7 +82,25 @@ def test_importing_every_port_module_loads_no_jax_package():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split("IMPORTED")[1]) >= 76
+    assert int(out.stdout.split("IMPORTED")[1]) >= 84
+
+
+def test_numpy_host_tools_import_without_torch():
+    """The numpy host tools and the JPEG encoder load without torch (the
+    subpackages' torch-backed exports load on first use)."""
+    code = textwrap.dedent(
+        """
+        import sys
+        import tpufusion_torch.data.registry, tpufusion_torch.serve.jpeg
+        import tpufusion_torch.tools.datadiff, tpufusion_torch.tools.invariant_mask
+        import tpufusion_torch.tools.analyze, tpufusion_torch.cli
+        assert "torch" not in sys.modules, sorted(m for m in sys.modules if m.startswith("torch"))
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -486,3 +506,123 @@ def test_logging_copy_matches():
         assert root.level == logging.INFO and root.propagate is False
     assert port_logging.get_logger("etl") is port  # configured once
     assert len(logging.getLogger("tpufusion_torch").handlers) == 1
+
+
+# -- completeness: the port has a counterpart of every public name of the JAX package ---------
+
+JAX_DIR = os.path.join(REPO, "tpufusion")
+NOT_CARRIED_OVER = {  # a JAX name or module -> its item in ROADMAP's "Do not carry over" list
+    "ops/scatter.py::nearest_wins_scatter": "`ops/scatter.py` `scatter`",
+    "ops/scatter.py::nearest_wins_sort16": "`sort16`",
+    "ops/scatter.py::nearest_wins_scatter_packed": "`nearest_wins_scatter_packed`",
+    "utils/profiling.py": "`utils/profiling.py`",
+    "tools/probe_h2d_leak.py": "`tools/probe_h2d_leak.py`",
+    "tools/bench_projection_ab.py": "`tools/bench_projection_ab.py`",
+}
+RENAMED = {  # a JAX name -> its counterpart in the port, under another name or module
+    # the "exact" z-buffer and its Pallas kernel are one wrapper (kernel / plain version)
+    "ops/scatter.py::nearest_wins_sort": "ops/projection.py::nearest_wins_image_reference",
+    "ops/pallas_projection.py::nearest_wins_pallas_batch": "ops/projection.py::nearest_wins_image",
+    "ops/pallas_cc.py::propagate_pallas": "ops/cc.py::connected_components_with_bbox",
+    # the bag codec's loader: a ctypes library built by cc, not a CPython extension
+    "native/__init__.py::get_fastpoints": "native/__init__.py::load",
+    # an nnx parameter filter -> the parameters torch's optimizer takes
+    "models/fusion.py::trainable_filter": "models/fusion.py::trainable_parameters",
+    # jax.nn.softmax inside the imported network -> the softmax of its forward
+    "tools/import_keras.py::jax_softmax": "tools/import_keras.py::ShippedLidarFCN",
+    # numpy generators and the inference loop, kept where the port's callers import them
+    "tools/train_fusion_synthetic.py::render_camera_frames": "data/synthetic.py::render_camera_frames",
+    "train/fusion_trainer.py::build_fusion_batches": "data/fusion.py::build_fusion_batches",
+    "train/fusion_trainer.py::predict_fusion": "serve/fusion.py::predict_fusion",
+}
+
+
+def _jax_modules():
+    out = []
+    for root, _, names in os.walk(JAX_DIR):
+        out += [os.path.relpath(os.path.join(root, n), JAX_DIR) for n in names if n.endswith(".py")]
+    return sorted(out)
+
+
+def _public_defs(path: str) -> list[str]:
+    tree = ast.parse(open(path).read(), path)
+    return [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")]
+
+
+def _top_level_names(path: str) -> set[str]:
+    names = set()
+    for node in ast.parse(open(path).read(), path).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return names
+
+
+def _do_not_carry_over_section() -> str:
+    text = open(os.path.join(REPO, "ROADMAP.md")).read()
+    return text.split("**Do not carry over.**", 1)[1].split("###", 1)[0]
+
+
+@pytest.mark.parametrize("rel", _jax_modules())
+def test_every_public_name_of_the_jax_package_has_a_counterpart(rel):
+    """Each public top-level function and class of a JAX module has one of
+    the same name in the port's module of the same path, or is a named
+    rename (whose target exists) or an item of ROADMAP's "Do not carry
+    over" list."""
+    section = _do_not_carry_over_section()
+    if rel in NOT_CARRIED_OVER:
+        assert NOT_CARRIED_OVER[rel] in section, rel
+        return
+    port = os.path.join(PORT_DIR, rel)
+    have = _top_level_names(port) if os.path.exists(port) else set()
+    for name in _public_defs(os.path.join(JAX_DIR, rel)):
+        key = f"{rel}::{name}"
+        if key in NOT_CARRIED_OVER:
+            assert " ".join(NOT_CARRIED_OVER[key].split()) in " ".join(section.split()), key
+        elif key in RENAMED:
+            target_rel, target = RENAMED[key].split("::")
+            assert target in _top_level_names(os.path.join(PORT_DIR, target_rel)), RENAMED[key]
+        else:
+            assert name in have, f"tpufusion_torch/{rel} lacks {name}"
+
+
+def test_the_exceptions_are_still_needed():
+    """Every exception names a JAX name that exists and that the port's
+    module of the same path does not define."""
+    for key in list(NOT_CARRIED_OVER) + list(RENAMED):
+        rel, _, name = key.partition("::")
+        assert os.path.exists(os.path.join(JAX_DIR, rel)), key
+        if name:
+            assert name in _public_defs(os.path.join(JAX_DIR, rel)), key
+            port = os.path.join(PORT_DIR, rel)
+            assert not os.path.exists(port) or name not in _top_level_names(port), key
+        else:
+            assert not os.path.exists(os.path.join(PORT_DIR, rel)), key
+
+
+def _jax_subpackages():
+    return sorted(rel[: -len("/__init__.py")] for rel in _jax_modules() if rel.endswith("/__init__.py"))
+
+
+@pytest.mark.parametrize("package", _jax_subpackages())
+def test_every_subpackage_exports_the_jax_packages_names(package):
+    """What a JAX subpackage's __init__ exports (`__all__`), the port's
+    exports too (in its `__all__`, importable), but the names not carried
+    over."""
+    import importlib
+
+    tree = ast.parse(open(os.path.join(JAX_DIR, package, "__init__.py")).read())
+    exported = []
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__" for t in node.targets):
+            exported = ast.literal_eval(node.value)
+    mod = importlib.import_module(f"tpufusion_torch.{package}")
+    for name in exported:
+        if any(key.endswith(f"::{name}") for key in NOT_CARRIED_OVER):
+            assert name not in getattr(mod, "__all__", ()), name
+            continue
+        assert name in mod.__all__ and getattr(mod, name) is not None, (package, name)

@@ -254,6 +254,8 @@ ENTRY_POINTS = {
         _small_bag(tmp), str(tmp / "bag_ds"), **kw),
     "predict_dataset_dir": lambda tmp, **kw: _call_predict_dataset_dir(tmp, **kw),
     "cli.main": lambda tmp, **kw: _call_cli(tmp, **kw),
+    "cli.main(view)": lambda tmp, **kw: _call_view_dataset(tmp, cli_view=True, **kw),
+    "view_dataset": lambda tmp, **kw: _call_view_dataset(tmp, **kw),
     "tools.train_synthetic_detector": _tool(
         tools_trainer.main, "--steps", "2", "--batch", "1", "--n_points", "1024",
         "--eval_batches", "1", "--out", "{tmp}/det.npz"),
@@ -295,6 +297,21 @@ def _call_cli(tmp, **kw):
     device = ["--device", kw["device"]] if kw else []
     cli.main(["extract", str(tmp / "raw.npz"), str(tmp / "cli_ds"), *device])
     return load_extracted(str(tmp / "cli_ds"))["images"]
+
+
+def _call_view_dataset(tmp, cli_view=False, **kw):
+    """`view_dataset` (or `cli view`) of a points NPZ, one pass at a fast
+    rate on an ephemeral port; returns the path it replayed."""
+    from tpufusion_torch.serve.viewer import view_dataset
+
+    path = str(tmp / "view.npz")
+    np.savez(path, points=_scene()["points"])
+    if cli_view:
+        device = ["--device", kw["device"]] if kw else []
+        cli.main(["view", path, "--port", "0", "--rate", "1000", *device])
+    else:
+        view_dataset(path, port=0, rate_hz=1000.0, **kw)
+    return path
 
 
 def _call_load_reference_fcn(tmp, **kw):

@@ -34,6 +34,7 @@ GOLDEN = os.path.join(REPO, "tests", "data", "torch_port_golden.npz")
 GOLDEN_MULTI = os.path.join(REPO, "tests", "data", "torch_port_golden_multi.npz")
 GOLDEN_FUSION = os.path.join(REPO, "tests", "data", "torch_port_golden_fusion.npz")
 GOLDEN_TRAIN = os.path.join(REPO, "tests", "data", "torch_port_golden_train.npz")
+GOLDEN_VIEWER = os.path.join(REPO, "tests", "data", "torch_port_golden_viewer.npz")
 FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
 GOLDEN_SEED = 11  # JAX PRNGKey of the golden frames
 

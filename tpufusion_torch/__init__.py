@@ -8,7 +8,10 @@ under `csrc/`, built for sm_90a at first use (`_build.py`) and launched
 through a wrapper that takes the plain PyTorch version only for tensors
 that lie on the CPU.
 
-Ported so far: everything that serves and everything that trains. The
+The port does everything the JAX package does: every public function
+and class of `tpufusion/` has its counterpart here
+(`tests/test_torch_imports.py` holds it to that; the exceptions are
+named: the TPU-only scatter variants and probes, and renames). The
 lidar detector's path, raw
 points -> range view -> FCN (float32 or bf16) -> direct, top-K or corner
 decode -> poses (`predict.make_e2e_step`, `serve.pipeline.LidarPipeline`),
@@ -32,8 +35,15 @@ FCN's width sharded with `parallel.halo`'s exchanges;
 (`data.rosbag_reader`, with the native codec of `native`), the dataset
 ETL (`data.etl`), `predict.predict_dataset_dir`, the CLI's extract,
 train, predict, submit and score (`cli`) and their rehearsal
-(`tools.rehearse_bag_pipeline`). The other CLI subcommands, the viewer
-and most tools are not ported yet.
+(`tools.rehearse_bag_pipeline`); the live viewer and its numpy JPEG
+encoder (`serve.viewer`, `serve.jpeg`), the host tools (`tools.visualize`,
+`tools.crops`, `tools.calibrate`, `tools.analyze`, `tools.datadiff`,
+`tools.invariant_mask`) and the CLI's other seven subcommands (calibrate,
+diff, analyze, overlay_radar, crops, edges, view); and the single-frame
+entry points (`geometry.range_view_project`, `ops.connected_components`,
+`decode.decode_frame`, `decode_frame_multi`, `decode_frame_direct`). cv2,
+matplotlib and yaml are imported where a host tool uses them, and raise
+ImportError on a host without them.
 
 Every entry point takes `device` and defaults to "cuda": it moves its
 model to the card and its inputs follow; without a card it raises. The
@@ -51,7 +61,8 @@ train      optimizer pieces, train / eval steps, trainers, checkpoints,
            population statistics, PR curves
 decode     direct-pose decode, corner vote, top-K
 serve      single-frame server facade, replay server, fusion inference
-           loop, multi-frame tracker
+           loop, multi-frame tracker, the live viewer (`serve.viewer`) and
+           its baseline JPEG encoder (`serve.jpeg`, integer numpy)
 eval       pose scoring, prediction CSV, tracklet XML, interpolation
 data       numpy synthetic scenes (uniform clouds, beam-structured scans
            with circle, ellipse or box vehicles) and fusion frames,
@@ -67,15 +78,18 @@ tools      the detector trainer and its held-out eval, the operating-point
            tuner, the envelope and oracle sweeps, the fusion trainer, the
            full-size camera bench (their assets go to
            tpufusion_torch/assets/), the Keras importer, the bag ->
-           submission rehearsal
+           submission rehearsal; the renders and overlays (`visualize`),
+           crops, the extrinsic calibration, the GT analyzer, the dataset
+           diff, the invariant mask
 benchmarks configs 1-5
-cli        extract, train, predict, submit, score
+cli        extract, train, predict, submit, score, view; calibrate, diff,
+           analyze, overlay_radar, crops, edges
 
 The package imports nothing of the JAX package: it keeps its own copy of
 the configuration dataclasses (`config.py`) and of the numpy modules it
 needs (the tracker, the scoring, the camera model, the alignment, the
 radar tracks, the submission writers, the bag reader, the registry, the
-logging), and `tests/test_torch_imports.py`
+logging, the host tools), and `tests/test_torch_imports.py`
 holds it to that.
 """
 

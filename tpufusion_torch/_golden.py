@@ -443,3 +443,30 @@ def fusion_step_readings(got: dict, golden: dict, tag: str) -> dict:
         "over": sorted(k for name, group in groups.items() for k, v in group.items()
                        if v > limits[name]),
     }
+
+
+# The viewer golden (torch_port_golden_viewer.npz): what cv2.imencode(".jpg",
+# frame, [IMWRITE_JPEG_QUALITY, 88]) writes for two seeded BGR frames at
+# the sizes the live viewer pushes (a range view, a BEV). The frames are
+# made again from VIEWER_SEED (integer draws: the same on every machine)
+# and held to the stored digests.
+VIEWER_SEED = 61
+VIEWER_SHAPES = ((32, 1801, 3), (1199, 180, 3))
+VIEWER_QUALITY = 88
+
+
+def viewer_golden_frames() -> list[np.ndarray]:
+    """The viewer golden's uint8 frames: per channel an integer ramp
+    wrapped at 256 (sharp edges and smooth runs) plus seeded noise."""
+    rng = np.random.default_rng(VIEWER_SEED)
+    frames = []
+    for h, w, c in VIEWER_SHAPES:
+        rows, cols = np.mgrid[:h, :w]
+        ramp = (rows * 5 + cols * 3)[..., None] * np.arange(1, c + 1) % 256
+        noise = rng.integers(-20, 21, (h, w, c))
+        frames.append(np.clip(ramp + noise, 0, 255).astype(np.uint8))
+    return frames
+
+
+def viewer_frame_digest(frame: np.ndarray) -> str:
+    return _sha256(frame)

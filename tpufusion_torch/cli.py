@@ -1,8 +1,12 @@
-"""tpufusion_torch command-line interface (counterpart of `tpufusion/cli.py`):
-the offline drive's five subcommands, extract -> train -> predict -> submit
--> score, with the reference's flags and defaults and `--device` (the card
-unless "cpu" is asked for). Checkpoints are the port's
-(`train/checkpoint.py`, `ckpt_<step>.pt`), not orbax. Run:
+"""tpufusion_torch command-line interface (counterpart of `tpufusion/cli.py`),
+every subcommand of the reference with its flags and defaults: the offline
+drive, extract -> train -> predict -> submit -> score, and view with
+`--device` (the card unless "cpu" is asked for); the host tools calibrate,
+diff, analyze, overlay_radar, crops and edges. Checkpoints are the port's
+(`train/checkpoint.py`, `ckpt_<step>.pt`), not orbax. cv2, matplotlib and
+yaml are imported where used: overlay_radar, crops and edges need cv2,
+analyze matplotlib, calibrate yaml (its camera file), and each raises
+ImportError naming the package on a host without it. Run:
 
     python -m tpufusion_torch.cli <command> --help
 """
@@ -206,6 +210,129 @@ def _cmd_extract(args):
     print(json.dumps(report))
 
 
+def _cmd_calibrate(args):
+    from tpufusion_torch.tools.calibrate import calibrate_from_settings
+
+    print(json.dumps(calibrate_from_settings(args.settings, args.camera)))
+
+
+def _cmd_diff(args):
+    from tpufusion_torch.tools.datadiff import diff_dirs
+
+    diffs = diff_dirs(args.dir_a, args.dir_b, args.rel_tol)
+    for d in diffs:
+        print(*d)
+    sys.exit(1 if diffs else 0)
+
+
+def _cmd_analyze(args):
+    from tpufusion_torch.data.registry import load_pose_csv
+    from tpufusion_torch.tools.analyze import save_polar_plot
+
+    rows = load_pose_csv(args.poses)
+    centers = np.asarray([[r["tx"], r["ty"]] for r in rows])
+    save_polar_plot(centers, args.output)
+    print(json.dumps({"frames": len(rows), "plot": args.output}))
+
+
+def _load_camera(args):
+    """CameraModel from YAMLs, or the synthetic forward-facing pinhole
+    when the dataset carries no calibration (synthetic extracts)."""
+    from tpufusion_torch.geometry.camera import CameraModel, synthetic_camera
+
+    if getattr(args, "camera_yaml", None):
+        return CameraModel().load_camera_calibration(
+            args.camera_yaml, getattr(args, "extrinsic_yaml", None)
+        )
+    return synthetic_camera()
+
+
+def _cmd_overlay_radar(args):
+    import csv as _csv
+    import os
+
+    import cv2
+
+    from tpufusion_torch.tools.visualize import render_radar_boxes_on_camera
+
+    camera = _load_camera(args)
+    with open(args.radar_csv) as f:
+        rows = [
+            {k: float(v) for k, v in r.items()}
+            for r in _csv.DictReader(f)
+        ]
+    by_ts = {}
+    for r in rows:
+        by_ts.setdefault(int(r.get("timestamp", 0)), []).append(r)
+    os.makedirs(args.out_dir, exist_ok=True)
+    npz = np.load(args.camera_frames)
+    images, ts = npz["images"], npz["timestamps"]
+    written = 0
+    keys = np.asarray(sorted(by_ts))
+    for img, t in zip(images, ts):
+        # nearest radar burst to this frame (process_radar_data.py:103)
+        near = int(keys[np.abs(keys - int(t)).argmin()]) if len(keys) else None
+        if near is None:
+            continue
+        if img.ndim == 2:
+            img = cv2.cvtColor(img, cv2.COLOR_GRAY2BGR)
+        canvas = render_radar_boxes_on_camera(
+            img, by_ts[near], camera, crop_top=args.crop_top
+        )
+        cv2.imwrite(os.path.join(args.out_dir, f"image_{int(t)}.png"), canvas)
+        written += 1
+    print(json.dumps({"frames": written, "out_dir": args.out_dir}))
+
+
+def _cmd_crops(args):
+    from tpufusion_torch.data.registry import load_pose_csv
+    from tpufusion_torch.tools.crops import extract_crops
+
+    camera = _load_camera(args)
+    npz = np.load(args.camera_frames)
+    images, ts = npz["images"], npz["timestamps"]
+    rows = load_pose_csv(args.poses)
+    by_ts = {int(r["timestamp"]): r for r in rows}
+    poses = []
+    for t in ts:
+        r = by_ts.get(int(t))
+        poses.append(
+            [r["tx"], r["ty"], r["tz"], r.get("rz", 0.0),
+             r.get("l", args.l), r.get("w", args.w), r.get("h", args.h)]
+            if r else [0.0] * 7
+        )
+    written = extract_crops(
+        images, np.asarray(poses, float), camera, args.out_dir,
+        label=args.label, tag=args.tag, crop_top=args.crop_top,
+    )
+    print(json.dumps({"crops": len(written), "out_dir": args.out_dir}))
+
+
+def _cmd_edges(args):
+    import cv2
+
+    from tpufusion_torch.tools.visualize import detect_edges
+
+    img = cv2.imread(args.input, cv2.IMREAD_GRAYSCALE)
+    if img is None:
+        raise SystemExit(f"cannot read {args.input}")
+    cv2.imwrite(args.output, detect_edges(img, args.t1, args.t2))
+    print(json.dumps({"output": args.output}))
+
+
+def _cmd_view(args):
+    from tpufusion_torch.serve.viewer import view_dataset
+
+    view_dataset(
+        args.path,
+        checkpoint=args.checkpoint,
+        port=args.port,
+        rate_hz=args.rate,
+        loop=args.loop,
+        device=args.device,
+    )
+
+
 def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device the tensors run on (default: the card; "
@@ -296,6 +423,77 @@ def main(argv=None):
                     help="also save per-frame camera PNGs")
     _add_device(ex)
     ex.set_defaults(fn=_cmd_extract)
+
+    ca = sub.add_parser("calibrate", help="SLSQP lidar->camera extrinsics")
+    ca.add_argument("settings")
+    ca.add_argument("camera")
+    ca.set_defaults(fn=_cmd_calibrate)
+
+    df = sub.add_parser("diff", help="compare two extracted dataset dirs")
+    df.add_argument("dir_a")
+    df.add_argument("dir_b")
+    df.add_argument("--rel_tol", type=float, default=0.05)
+    df.set_defaults(fn=_cmd_diff)
+
+    an = sub.add_parser("analyze", help="GT distribution polar histogram")
+    an.add_argument("poses")
+    an.add_argument("--output", default="gt_distribution.png")
+    an.set_defaults(fn=_cmd_analyze)
+
+    ov = sub.add_parser(
+        "overlay_radar",
+        help="draw radar-derived 3D boxes on camera frames "
+             "(process_radar_data.py:122-141)",
+    )
+    ov.add_argument("camera_frames", help="camera_frames.npz from extract")
+    ov.add_argument("radar_csv", help="radar/radar_tracks.csv")
+    ov.add_argument("out_dir")
+    ov.add_argument("--camera_yaml", default=None)
+    ov.add_argument("--extrinsic_yaml", default=None)
+    ov.add_argument("--crop_top", type=int, default=0)
+    ov.set_defaults(fn=_cmd_overlay_radar)
+
+    cr = sub.add_parser(
+        "crops",
+        help="crop detected/GT boxes to JPEGs for a downstream classifier "
+             "(video/extract_image.py:15-33, YOLO-free)",
+    )
+    cr.add_argument("camera_frames", help="camera_frames.npz from extract")
+    cr.add_argument("poses", help="predictions or GT pose CSV")
+    cr.add_argument("out_dir")
+    cr.add_argument("--camera_yaml", default=None)
+    cr.add_argument("--extrinsic_yaml", default=None)
+    cr.add_argument("--crop_top", type=int, default=0)
+    cr.add_argument("--label", default="Car")
+    cr.add_argument("--tag", default="dataset")
+    cr.add_argument("--l", type=float, default=4.2)
+    cr.add_argument("--w", type=float, default=1.6)
+    cr.add_argument("--h", type=float, default=1.5)
+    cr.set_defaults(fn=_cmd_crops)
+
+    ed = sub.add_parser(
+        "edges", help="Canny edge demo (video/edge_detection.py:14-17)"
+    )
+    ed.add_argument("input")
+    ed.add_argument("output")
+    ed.add_argument("--t1", type=float, default=100.0)
+    ed.add_argument("--t2", type=float, default=200.0)
+    ed.set_defaults(fn=_cmd_edges)
+
+    vw = sub.add_parser(
+        "view",
+        help="live browser viewer: replay a dataset's renders over HTTP "
+        "(the headless stand-in for the pyglet bag viewers)",
+    )
+    vw.add_argument("path", help="extracted dataset dir or raw points .npz")
+    vw.add_argument("--checkpoint", default=None,
+                    help="a checkpoint directory of `train` (<outdir>/ckpt): "
+                         "stream the class-mask window too")
+    vw.add_argument("--port", type=int, default=8642)
+    vw.add_argument("--rate", type=float, default=10.0)
+    vw.add_argument("--loop", action="store_true")
+    _add_device(vw)
+    vw.set_defaults(fn=_cmd_view)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -29,6 +29,9 @@ the reference:
   decode_batch_direct         center estimators backproject, geometric,
                      surface, head, silhouette, consensus and fit
                      (circle, ellipse, box or the dual "auto" boundary)
+  decode_frame / decode_frame_multi / decode_frame_direct   one frame:
+                     the batch function on a batch of one, the batch axis
+                     dropped from every entry
 
 Every float32 sqrt goes through `sqrt_f32` (exact ties in the fallback
 argmin must stay ties; see geometry/range_view.py).
@@ -450,6 +453,34 @@ def decode_batch_multi(
     }
 
 
+def _first(out: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k: v[0] for k, v in out.items()}
+
+
+def decode_frame(
+    y_pred: torch.Tensor,  # (H, W, 2 + 24)
+    image: torch.Tensor,  # (H, W, >=2)
+    spec: RangeViewSpec = RangeViewSpec(),
+    cfg: DecodeConfig = DecodeConfig(),
+) -> dict[str, torch.Tensor]:
+    """One frame's corner decode: `decode_batch` on a batch of one, the
+    batch axis dropped from every entry (pose (7,), found, centroid_2d,
+    bbox_2d, centroid_3d, corners_3d, area, vote_overflow)."""
+    return _first(decode_batch(y_pred[None], image[None], spec, cfg))
+
+
+def decode_frame_multi(
+    y_pred: torch.Tensor,
+    image: torch.Tensor,
+    spec: RangeViewSpec = RangeViewSpec(),
+    cfg: DecodeConfig = DecodeConfig(),
+    k: int = 4,
+) -> dict[str, torch.Tensor]:
+    """One frame's top-k corner decode: poses (k, 7), found, areas,
+    vote_overflow (k,) (`decode_batch_multi` on a batch of one)."""
+    return _first(decode_batch_multi(y_pred[None], image[None], spec, cfg, k))
+
+
 @_full_f32_matmuls()
 def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center):
     """Weighted yaw and lwh over each cluster's valid pixels; y_pred and
@@ -790,3 +821,16 @@ def decode_batch_direct(
         "found": good,
         "areas": torch.where(found, areas.to(torch.float32), 0.0),
     }
+
+
+def decode_frame_direct(
+    y_pred: torch.Tensor,  # (H, W, 2 + 8 [+ 2])
+    image: torch.Tensor,  # (H, W, >=2)
+    spec: RangeViewSpec = RangeViewSpec(),
+    cfg: DecodeConfig = DecodeConfig(),
+    k: int = 1,
+    center: str | None = None,
+) -> dict[str, torch.Tensor]:
+    """One frame's direct-head decode: poses (k, 7), found (k,), areas
+    (k,) (`decode_batch_direct` on a batch of one)."""
+    return _first(decode_batch_direct(y_pred[None], image[None], spec, cfg, k, center))

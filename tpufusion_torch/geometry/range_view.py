@@ -88,3 +88,16 @@ def range_view_project_batch(
     pix, key, ok, payload = _frame_pixels_keys(points, spec, valid)
     return nearest_wins_image(pix, key, ok, payload, spec)
 
+
+def range_view_project(
+    points: torch.Tensor,  # (N, >=3)
+    spec: RangeViewSpec = RangeViewSpec(),
+    valid: torch.Tensor | None = None,  # (N,) bool
+    method: str = "exact",
+) -> torch.Tensor:
+    """One padded point cloud (N, 4) [+ (N,) valid] -> (H, W, 3) float32
+    image: `range_view_project_batch` on a batch of one (one z-buffer
+    launch for a CUDA tensor). `valid` masks padding; non-finite points
+    are dropped whatever it says."""
+    return range_view_project_batch(
+        points[None], spec, None if valid is None else valid[None], method)[0]

@@ -64,3 +64,16 @@ def connected_components_with_bbox(
     _build.check(lib, err, "connected_components_with_bbox")
     LAUNCHES += 1
     return out[0], out[1], out[2], out[3], out[4]
+
+
+def connected_components(mask: torch.Tensor, max_iters: int = 128, impl: str = "auto"):
+    """One (H, W) bool mask -> (H, W) int32 labels, -1 on background. A
+    CUDA mask is one kernel launch on a batch of one (H <= MAX_ROWS, or
+    ValueError); a CPU mask runs the plain labels-only sweeps."""
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown cc impl {impl!r}")
+    if mask.dim() != 2:
+        raise ValueError(f"mask must be (H, W), got {tuple(mask.shape)}")
+    if mask.device.type == "cpu":
+        return components.connected_components_reference(mask, max_iters)
+    return connected_components_with_bbox(mask[None].contiguous(), max_iters, impl)[0][0]

@@ -101,6 +101,29 @@ def init_state(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask[:, None], chans, -_BIG).to(torch.int32)
 
 
+def connected_components_reference(mask: torch.Tensor, max_iters: int = 128) -> torch.Tensor:
+    """The plain labels of one (H, W) bool mask: the reference's
+    labels-only sweeps (one channel, -flat_id), stopping when the labels
+    stop changing or at `max_iters`. -1 on background."""
+    h, w = mask.shape
+    flat = torch.arange(h * w, dtype=torch.int32, device=mask.device).reshape(h, w)
+    st0 = torch.where(mask, -flat, -_BIG)[None, None]
+    st, _ = propagate(st0, mask[None], max_iters)
+    return torch.where(mask, -st[0, 0], -1)
+
+
+def connected_components(mask: torch.Tensor, max_iters: int = 128, impl: str = "xla") -> torch.Tensor:
+    """Labels of the 4-connected components of one (H, W) bool mask
+    (reference `connected_components`): -1 on background, each component's
+    smallest flat index elsewhere. A CUDA mask goes through the CC kernel
+    (`ops/cc.py::connected_components`), which takes at most 32 rows and
+    raises ValueError for a taller mask; it never falls back to the plain
+    sweeps. A CPU mask runs the plain sweeps at any size."""
+    from tpufusion_torch.ops import cc  # cc imports this module
+
+    return cc.connected_components(mask, max_iters, impl)
+
+
 def connected_components_with_bbox(mask: torch.Tensor, max_iters: int = 128):
     """(B, H, W) bool -> (labels, min_x, max_x, min_y, max_y), each
     (B, H, W) int32. Background: label -1, extents (BIG, -BIG, BIG, -BIG)."""
