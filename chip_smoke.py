@@ -6,7 +6,9 @@
 It builds both CUDA kernels from the checkout's sources, holds each
 against its plain PyTorch version on the card (phases 2-3: real inputs
 and the adversarial ones of `tpufusion_torch/ops/parity_inputs.py`, which
-aim at the CC's strip borders and the z-buffer's cluster), and drives the
+aim at the CC's tile borders at 32, 33, 63, 64 and 128 rows (batches 1
+and 16; 64 too at 32 rows) and at 24,001 columns, and at the z-buffer's
+cluster at 32 x 1801 and 63 x 1801), and drives the
 lidar detector's serving paths at full geometry (32 x 1801 range view) through
 the entry points a user calls, each with the kernels' launch counts set
 to 0 before it and read after it, and then the training paths:
@@ -123,7 +125,8 @@ to 0 before it and read after it, and then the training paths:
                `decode_batch_direct`'s row, `decode_frame` and
                `decode_frame_multi` on a seeded default-width corner FCN,
                `connected_components` on the asset's heat mask against the
-               plain sweeps, a 64-row mask refused); (b) `view_dataset` on a
+               plain sweeps, a 64-row mask labelled equal to the plain
+               sweeps, one CC launch); (b) `view_dataset` on a
                raw points npz of 4 frames with a `.pt` checkpoint, the pushed
                windows captured, one z-buffer launch a frame; (c) the
                LiveViewer over HTTP on 127.0.0.1; (d) the port's JPEG
@@ -132,6 +135,16 @@ to 0 before it and read after it, and then the training paths:
                invariant mask, the polar histogram, the crop box, `cli diff`
                and `cli view` in subprocesses, and the subcommands that
                need cv2, matplotlib or yaml raising ImportError
+  phase 25     a 64-beam sensor's 63 x 1801 range view
+               (`RangeViewSpec(res_v_deg=0.665)`, two row tiles of the CC
+               kernel): (a) the shipped asset's float32 direct step at
+               64 x 32,768 points against the port on the CPU and the
+               JAX golden tests/data/torch_port_golden_tall.npz, its
+               found rate, xy error and times beside phase 5's; (b) config
+               5's bf16 top-4 step at 16 x 131,072 points against the CPU;
+               (c) the CC kernel on 64 x 63 x 1801 heat masks and on them
+               with their rows doubled (64 x 128 x 1801), and the z-buffer
+               into 63 x 1801, each beside its bound
 
 The z-buffer kernel runs on every path; configs 1 and 3 and the train
 steps decode nothing, so the CC kernel is not on theirs. Phases 12 and 13 hold the z-buffer
@@ -140,7 +153,8 @@ kernel against its plain version on their own points (1 x 32,768 and the
 
 Every answer is held against the committed JAX goldens
 (tests/data/torch_port_golden.npz, torch_port_golden_multi.npz,
-torch_port_golden_fusion.npz, torch_port_golden_train.npz), and the
+torch_port_golden_fusion.npz, torch_port_golden_train.npz,
+torch_port_golden_tall.npz), and the
 viewer's JPEG bytes against torch_port_golden_viewer.npz (cv2's);
 times are CUDA events over distinct inputs, and for the kernels also
 device time (the calls queued behind a `torch.cuda._sleep`, then timed
@@ -160,7 +174,8 @@ version, and at 64 x 32,768 the kernel's, the plain version's and the
 library yardstick's device time in turns (the plain CC's time a call: it
 reads a flag back each sweep), and the kernel's time a call,
 beside the kernel's bound: its bytes at 3.35 TB/s,
-`tpufusion_torch/kernel_bench.py`), the card's
+`tpufusion_torch/kernel_bench.py`; and phase 25's device times and
+bounds at 63 and 128 rows), the card's
 `name, power.limit` as nvidia-smi reports them, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -200,6 +215,8 @@ C5_BEAMS = 64
 C5_TIMED = 6  # config 5: distinct batches per timing
 TRACK_FRAMES = 16  # config 5's tracking sequence (two vehicles, 32,768 points)
 SWEEP_CAP = 16384  # plain CC sweeps: the serpentines need ~9,000 to converge
+# phase 3: a 32-row mask of 376 column tiles, 12,000 border pairs to merge
+WIDE_COLUMNS = 24001
 # card vs JAX-on-CPU golden (CUDA atan2f/sinf/cosf ulps), poses from the
 # bf16 FCN included: they read 3.8e-6 on an H100, and rounding each bf16
 # convolution once instead of twice (a fault) moves them 3.7e-3
@@ -212,6 +229,7 @@ GOLDEN_MULTI = os.path.join(HERE, "tests", "data", "torch_port_golden_multi.npz"
 GOLDEN_FUSION = os.path.join(HERE, "tests", "data", "torch_port_golden_fusion.npz")
 GOLDEN_TRAIN = os.path.join(HERE, "tests", "data", "torch_port_golden_train.npz")
 GOLDEN_VIEWER = os.path.join(HERE, "tests", "data", "torch_port_golden_viewer.npz")
+GOLDEN_TALL = os.path.join(HERE, "tests", "data", "torch_port_golden_tall.npz")
 TRAIN_BATCH = 32  # frames per train batch (phases 16 and 18)
 TRAIN_SCENE_BATCHES = 4  # phase 16: distinct scene batches in the dataset
 FUSION_TRAIN_FRAMES = 32  # phase 17
@@ -243,6 +261,7 @@ JPEG_REPS = 10  # phase 24: encodes a frame for the JPEG encoder's time
 # under the default 5 %
 DIFF_REL_TOL = 0.01
 C3_BATCH = 8  # config 3: frames per batch
+TALL_TIMED = 6  # phase 25: distinct 63-row batches per timing
 REPLAY_FRAMES = 270  # the replay server: 4 chunks of 64 and a partial one
 REPLAY_CHUNK = 64
 # benchmarks.measure at its defaults: a warm-up and 6 inputs x 3 between the
@@ -1815,7 +1834,8 @@ def phase_viewer(dev, spec, card, totals, extracted):
     """Phase 24: the last modules of the port, run with none of cv2,
     matplotlib or yaml. (a) the single-frame entry points (range view,
     connected components, the three frame decodes) against their batch
-    rows and the plain versions, a 64-row mask refused; (b) view_dataset
+    rows and the plain versions, a 64-row mask labelled equal to the plain
+    sweeps in one CC launch; (b) view_dataset
     on a raw points npz with a checkpoint, the pushed frames captured;
     (c) the LiveViewer over HTTP; (d) the JPEG encoder against the viewer
     golden's bytes; (e) the host tools that need no cv2 and the CLI's diff
@@ -1845,7 +1865,7 @@ def phase_viewer(dev, spec, card, totals, extracted):
     from tpufusion_torch.geometry.camera import synthetic_camera
     from tpufusion_torch.geometry.range_view import range_view_project, range_view_project_batch
     from tpufusion_torch.models.fcn import FCN
-    from tpufusion_torch.ops import components
+    from tpufusion_torch.ops import components, parity_inputs
     from tpufusion_torch.ops.components import connected_components
     from tpufusion_torch.serve import viewer
     from tpufusion_torch.serve.jpeg import encode_jpeg
@@ -1917,11 +1937,13 @@ def phase_viewer(dev, spec, card, totals, extracted):
         f"{multi['found'].tolist()}; every entry equal to the batch decodes' rows {same}")
     assert same and sorted(one) == sorted(rows) and multi["poses"].shape == (4, 7)
     check_cc("the corner FCN's heat mask", cmask)
-    try:
-        connected_components(torch.ones((64, 100), dtype=torch.bool, device=dev))
-        raise AssertionError("a 64-row mask went through connected_components")
-    except ValueError as e:
-        log(f"    a 64-row mask on the card raises ValueError: {e}")
+    tall = torch.from_numpy(parity_inputs.cc_frames(height=64, width=100)["serpentine"]).to(dev)
+    labels, counts = drive("(a) connected_components, a 64-row serpentine (2 row tiles)",
+                           lambda: connected_components(tall), totals, expect=BOTH_KERNELS[1:])
+    assert counts == cc_only, counts
+    same = torch.equal(labels.cpu(), components.connected_components_reference(tall.cpu(), SWEEP_CAP))
+    log(f"    the 64 x 100 mask's labels equal to the plain sweeps {same}")
+    assert same, "connected_components differs from the plain sweeps on a 64-row mask"
 
     with tempfile.TemporaryDirectory(prefix="viewer_") as work:
         # -- (b) view_dataset on a raw points npz with a checkpoint ----------------------
@@ -2114,6 +2136,133 @@ def phase_viewer(dev, spec, card, totals, extracted):
     log(f"  phase 24 took {time.perf_counter() - t_phase:.3f} s (host clock) [{card}]")
 
 
+def phase_tall(dev, card, totals, p5) -> dict:
+    """Phase 25: a 64-beam sensor's 63 x 1801 range view
+    (`RangeViewSpec(res_v_deg=0.665)`) through the entry points. (a) the
+    shipped asset's float32 direct step at BATCH x N_POINTS against the
+    port on the CPU and the tall JAX golden, its found rate and xy error,
+    its times beside phase 5's 32-row ones (`p5`); (b) config 5's bf16
+    top-4 step at C5_BATCH x C5_POINTS (64 beams) against the CPU; (c) the
+    kernels at 63 rows in turns with their plain versions and the
+    z-buffer's library yardstick, and the CC alone on the heat masks with
+    their rows doubled (64 x 128 x 1801), each beside its bound. Both kernels are held
+    bit-identical to plain on the phase's range views and heat masks.
+    Returns (c)'s {"cc 63" | "cc 128" | "z 63": (device ms, bound ms)}."""
+    from tpufusion_torch import RangeViewSpec
+    from tpufusion_torch._golden import TALL_BEAMS, TALL_RES_V_DEG, load_npz, wrapped_pose_diff
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.decode.decode import decode_batch_direct, heat_mask
+    from tpufusion_torch.geometry.range_view import _frame_pixels_keys, range_view_project_batch
+    from tpufusion_torch.ops import cc, components
+    from tpufusion_torch.predict import make_e2e_step
+
+    t_phase = time.perf_counter()
+    spec = RangeViewSpec(res_v_deg=TALL_RES_V_DEG)
+    assert (spec.height, spec.width) == (63, 1801), (spec.height, spec.width)
+    log(f"phase 25 a {TALL_BEAMS}-beam sensor's {spec.height} x {spec.width} range view "
+        f"(res_v_deg {TALL_RES_V_DEG}): 2 row tiles of the CC kernel, the 32-row phases' "
+        "entry points")
+
+    # -- (a) the direct path ---------------------------------------------------------------
+    model, dcfg = asset_fcn(ASSET, "float32", dev)
+    cpu_model, _ = asset_fcn(ASSET, "float32", "cpu")
+    step = make_e2e_step(model, spec, dcfg, head="direct", device=dev)
+    pts, gt, valid = synthesize_beam_scan_batch(
+        np.random.default_rng(2500), BATCH, N_POINTS, n_beams=TALL_BEAMS)
+    tp, tv = torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev)
+    check_both(f"{BATCH} x {N_POINTS} {TALL_BEAMS}-beam scans at 63 rows", model, dcfg, tp, tv, spec)
+    (poses, found), _ = drive(f"(a) make_e2e_step(head='direct') at 63 x 1801, {BATCH} x "
+                              f"{N_POINTS} points", lambda: step(pts, valid), totals)
+    poses, found = poses.cpu().numpy(), found.cpu().numpy()
+    assert poses.shape == (BATCH, 7) and found.shape == (BATCH,) and np.isfinite(poses).all()
+    cpu_poses, cpu_found = make_e2e_step(cpu_model, spec, dcfg, head="direct", device="cpu")(pts, valid)
+    diff = float(wrapped_pose_diff(poses, cpu_poses.numpy()).max())
+    log(f"    against the port on the CPU: found equal {np.array_equal(found, cpu_found.numpy())}, "
+        f"largest pose difference {diff:.3e} (tolerance {POSE_TOL:.3e})")
+    assert np.array_equal(found, cpu_found.numpy()), "63 rows: found differs from the CPU"
+    assert diff < POSE_TOL, "63 rows: poses differ from the CPU"
+    xy = np.linalg.norm(poses[:, :2] - gt["center"][:, :2], axis=1)[found]
+    log(f"    batch: found {int(found.sum())}/{BATCH}, xy error median {np.median(xy):.3f} m, "
+        f"max {xy.max():.3f} m")
+    assert found.mean() >= 0.9 and np.median(xy) < 1.0, "63 rows: the detector misses"
+    g = load_npz(GOLDEN_TALL)
+    gp, gf = step(g["points"], g["valid"])
+    check_poses(f"JAX tall golden ({len(g['found'])} frames)", gp, gf, g["poses"], g["found"])
+    check_both("the tall golden's frames", model, dcfg, torch.from_numpy(g["points"]).to(dev),
+               torch.from_numpy(g["valid"]).to(dev), spec)
+
+    batches = []
+    for i in range(TALL_TIMED):
+        p, _, v = synthesize_beam_scan_batch(np.random.default_rng(2600 + i), BATCH, N_POINTS,
+                                             n_beams=TALL_BEAMS)
+        batches.append((torch.from_numpy(p).to(dev), torch.from_numpy(v).to(dev)))
+    torch.cuda.reset_peak_memory_stats()
+    e2e_ms = time_ms(lambda pv: step(*pv), batches)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    with torch.inference_mode():
+        images = [range_view_project_batch(p, spec, v) for p, v in batches]
+        preds = [model(im) for im in images]
+        masks = [heat_mask(pr[..., 1], dcfg) for pr in preds]
+        zargs = [_frame_pixels_keys(p, spec, v) for p, v in batches]
+        proj_ms = time_ms(lambda pv: range_view_project_batch(pv[0], spec, pv[1]), batches)
+        fcn_ms = time_ms(model, images)
+        dec_ms = time_ms(lambda ip: decode_batch_direct(ip[1], ip[0], spec, dcfg),
+                         list(zip(images, preds)))
+        cc_call = time_ms(lambda m: cc.connected_components_with_bbox(m, dcfg.max_cc_iters), masks)
+    where = f"[{card}]"
+    log(f"  (a) times, CUDA events, mean over {TALL_TIMED} distinct batches of "
+        f"{BATCH} x {N_POINTS} after warm-up {where}")
+    log(f"    e2e at 63 x 1801: {e2e_ms:.3f} ms/batch = {BATCH * 1e3 / e2e_ms:.1f} frames/s, "
+        f"peak device memory {peak_mb:.0f} MiB; at 32 x 1801 (phase 5): {p5['e2e']:.3f} ms, "
+        f"{p5['peak_mb']:.0f} MiB {where}")
+    log(f"    stages at 63 rows: projection {proj_ms:.3f} ms, FCN {fcn_ms:.3f} ms, decode "
+        f"{dec_ms:.3f} ms, CC {cc_call:.4f} ms a call; at 32 rows: {p5['proj']:.3f}, "
+        f"{p5['fcn']:.3f}, {p5['dec']:.3f}, {p5['cc_call']:.4f} {where}")
+
+    # -- (b) the top-K path ----------------------------------------------------------------
+    bf16, _ = asset_fcn(ASSET, "bfloat16", dev)
+    cpu_bf16, _ = asset_fcn(ASSET, "bfloat16", "cpu")
+    kstep = make_e2e_step(bf16, spec, dcfg, max_obstacles=4, device=dev)
+    kpts, _, kvalid = synthesize_beam_scan_batch(
+        np.random.default_rng(2501), C5_BATCH, C5_POINTS, n_beams=TALL_BEAMS)
+    check_both(f"config 5's {C5_BATCH} x {C5_POINTS} points at 63 rows (bf16 FCN)", bf16, dcfg,
+               torch.from_numpy(kpts).to(dev), torch.from_numpy(kvalid).to(dev), spec)
+    (kposes, kfound), _ = drive(f"(b) config 5's bf16 top-4 step at 63 x 1801, {C5_BATCH} x "
+                                f"{C5_POINTS} points", lambda: kstep(kpts, kvalid), totals)
+    cpu_kposes, cpu_kfound = make_e2e_step(cpu_bf16, spec, dcfg, max_obstacles=4,
+                                           device="cpu")(kpts, kvalid)
+    kfound, cpu_kfound = kfound.cpu().numpy(), cpu_kfound.numpy()
+    kdiff = float(wrapped_pose_diff(kposes, cpu_kposes.numpy())[kfound].max()) if kfound.any() else 0.0
+    log(f"    detections per frame {kfound.sum(axis=1).tolist()}; against the port on the CPU: "
+        f"found equal {np.array_equal(kfound, cpu_kfound)}, largest pose difference "
+        f"{kdiff:.3e} (tolerance {POSE_TOL:.3e})")
+    assert kposes.shape == (C5_BATCH, 4, 7) and kfound[:, 0].mean() >= 0.75, "top-4 misses"
+    assert np.array_equal(kfound, cpu_kfound), "63 rows, top-4: found differs from the CPU"
+    assert kdiff < POSE_TOL, "63 rows, top-4: poses differ from the CPU"
+
+    # -- (c) the kernels alone -------------------------------------------------------------
+    # 128 rows: the heat masks with every row twice and two empty rows, as a
+    # 128-beam sensor's blobs would span rows
+    masks128 = [torch.cat([m.repeat_interleave(2, dim=1), m.new_zeros((BATCH, 2, spec.width))], 1)
+                for m in masks]
+    check_cc("the 63-row heat masks with their rows doubled (128 rows)", masks128[0])
+    with torch.inference_mode():
+        kt = kernel_turns(spec, zargs, masks, dcfg)
+        t128 = queued_ms(cc.connected_components_with_bbox, masks128)
+        plain128 = time_ms(
+            lambda m: components.connected_components_with_bbox(m, dcfg.max_cc_iters), masks128)
+    bound128 = float(np.mean([cc_bound_ms(m) for m in masks128]))
+    log(f"  (c) {BATCH} x {N_POINTS} points into 63 x 1801 and their heat masks, "
+        f"{TALL_TIMED} batches: {turns_line(kt)} {where}")
+    log(f"    CC at {BATCH} x 128 x 1801 (the heat masks with their rows doubled): kernel "
+        f"{t128:.4f} ms device time, plain ({plain128:.4f}: a call, a readback a sweep) ms, "
+        f"bound {bound128:.4f} ms, kernel at {bound128 / t128:.1%} of it; the kernel at 128 "
+        f"rows {t128 / kt['cc']['kernel']:.2f}x its 63-row time {where}")
+    log(f"  phase 25 took {time.perf_counter() - t_phase:.3f} s (host clock) [{card}]")
+    return {"z 63": (kt["z"]["kernel"], kt["z"]["bound"]),
+            "cc 63": (kt["cc"]["kernel"], kt["cc"]["bound"]), "cc 128": (t128, bound128)}
+
+
 def training_phases(dev, spec, gm, gf, card, totals) -> None:
     """Phases 15-18: the train step against the reference, the trainer,
     fusion training, config 4."""
@@ -2137,7 +2286,7 @@ def main(argv=()) -> int:
         return 1
 
     from tpufusion_torch import RangeViewSpec, _build
-    from tpufusion_torch._golden import load_npz, wrapped_pose_diff
+    from tpufusion_torch._golden import TALL_RES_V_DEG, load_npz, wrapped_pose_diff
     from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
     from tpufusion_torch.decode.decode import decode_batch_direct, heat_mask
     from tpufusion_torch.geometry.range_view import (
@@ -2228,6 +2377,18 @@ def main(argv=()) -> int:
             f"bit-identical to plain = {same}")
         assert same, f"z-buffer kernel differs from its plain version ({b}x{n} {kinds})"
 
+    tall = RangeViewSpec(res_v_deg=TALL_RES_V_DEG)  # 63 x 1801
+    args = [torch.from_numpy(a).to(dev) for a in parity_inputs.zbuffer_args(
+        BATCH, N_POINTS, tall.height * tall.width)]
+    got = projection.nearest_wins_image(*args, tall)
+    want = projection.nearest_wins_image_reference(*args, tall)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    proj_err = max(proj_err, float((got - want).abs().max()))
+    log(f"phase 2 z-buffer adversarial {BATCH}x{N_POINTS} into {tall.height} x {tall.width} "
+        f"({', '.join(parity_inputs.ZBUFFER_KINDS)}): bit-identical to plain = {same}")
+    assert same, "z-buffer kernel differs from its plain version (63 x 1801)"
+
     # -- phase 3: CC kernel vs the plain sweeps ----------------------------
     pipe = LidarPipeline.from_asset(ASSET, dev)
     model, dcfg = pipe.model, pipe.cfg.decode
@@ -2249,7 +2410,16 @@ def main(argv=()) -> int:
              (f"asset heat masks x{BATCH}", heat)] + [
         (f"adversarial x{b} ({', '.join(parity_inputs.cc_frames()) if b > 1 else 'serpentine'})",
          torch.from_numpy(parity_inputs.cc_batch(b)).to(dev))
-        for b in parity_inputs.CC_BATCHES]
+        for b in parity_inputs.CC_BATCHES] + [
+        (f"adversarial x{b} at {h} x {spec.width}", torch.from_numpy(
+            parity_inputs.cc_batch(b, height=h)).to(dev))
+        for h in parity_inputs.CC_HEIGHTS if h != spec.height
+        for b in parity_inputs.CC_BATCHES[:2]]  # batch 64 at these heights: the cuda tests
+    wide = np.zeros((2, spec.height, WIDE_COLUMNS), bool)
+    wide[0, ::2] = True  # 16 rows across 375 column borders: 6,000 links
+    wide[1] = crng.random(wide.shape[1:]) < 0.4
+    cases.append((f"{spec.height} x {WIDE_COLUMNS}: every other row, and noise of 0.4",
+                  torch.from_numpy(wide).to(dev)))
     for label, mask in cases:
         before = cc.LAUNCHES
         got = cc.connected_components_with_bbox(mask, dcfg.max_cc_iters, dcfg.cc_impl)
@@ -2392,6 +2562,11 @@ def main(argv=()) -> int:
         phase_tools(dev, spec, card, totals)
         phase_viewer(dev, spec, card, totals, os.path.join(drive_work, "inram"))
 
+    # -- phase 25: a 64-beam sensor's 63 x 1801 range view ------------------
+    p5 = {"e2e": e2e_ms, "peak_mb": peak_mb, "proj": proj_ms, "fcn": fcn_ms, "dec": dec_ms,
+          "cc_call": kt["cc"]["kernel_call"]}
+    tall_times = phase_tall(dev, card, totals, p5)
+
     z, c = kt["z"], kt["cc"]
     kernels = [
         {"name": "nearest_wins_image", "route": "cuda",
@@ -2399,14 +2574,17 @@ def main(argv=()) -> int:
          "replaces": "tpufusion/ops/pallas_projection.py:146",
          "launches": totals["nearest_wins_image"], "max_abs_err": proj_err,
          "ms": z["kernel"], "plain_ms": z["plain"], "bound_ms": z["bound"],
-         "bound_by": "bytes", "library_ms": z["library"], "call_ms": z["kernel_call"]},
+         "bound_by": "bytes", "library_ms": z["library"], "call_ms": z["kernel_call"],
+         "ms_63_rows": tall_times["z 63"][0], "bound_ms_63_rows": tall_times["z 63"][1]},
         {"name": "connected_components_with_bbox", "route": "cuda",
          "source": "tpufusion_torch/csrc/components.cu",
          "replaces": "tpufusion/ops/pallas_cc.py:102",
          "launches": totals["connected_components_with_bbox"],
          "max_abs_err": cc_err, "ms": c["kernel"], "plain_ms": c["plain"],
          "bound_ms": c["bound"], "bound_by": "bytes", "library_ms": None,
-         "call_ms": c["kernel_call"]},
+         "call_ms": c["kernel_call"],
+         "ms_63_rows": tall_times["cc 63"][0], "bound_ms_63_rows": tall_times["cc 63"][1],
+         "ms_128_rows": tall_times["cc 128"][0], "bound_ms_128_rows": tall_times["cc 128"][1]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -73,15 +73,22 @@ encoder must write (tpufusion_torch/_golden.py names the seed and sizes).
                 and 1199 x 180 x 3 BGR), as uint8
   frame_sha256  the frames' digests; the frames are made again from the seed
 
+tests/data/torch_port_golden_tall.npz: a 64-beam sensor's 63 x 1801 range
+view (tpufusion_torch/_golden.py names the spec, seed and sizes).
+  points, valid 4 frames of the port's numpy beam scans at 64 beams
+  found, poses  JAX make_e2e_step(head="direct") with the shipped asset in
+                float32 at RangeViewSpec(res_v_deg=0.665)
+
 tests/test_torch_e2e.py, tests/test_torch_multi.py,
-tests/test_torch_fusion.py, tests/test_torch_train.py and
-tests/test_torch_viewer.py recompute them (the train golden's fusion steps
-excepted: 8 full-size camera frames backward) and fail when a file is
-stale.
+tests/test_torch_fusion.py, tests/test_torch_train.py,
+tests/test_torch_viewer.py and tests/test_torch_tall_views.py recompute
+them (the train golden's fusion steps excepted: 8 full-size camera frames
+backward) and fail when a file is stale.
 
-    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer | tall]
 
-With `train` (`viewer`) only the train (viewer) golden is rewritten.
+With `train` (`viewer`, `tall`) only the train (viewer, tall) golden is
+rewritten.
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 """
@@ -570,6 +577,47 @@ def write_viewer_golden() -> None:
     print(f"wrote {GOLDEN_VIEWER} ({os.path.getsize(GOLDEN_VIEWER)} bytes)")
 
 
+def jax_tall_step(points: np.ndarray, valid: np.ndarray, k: int = 1):
+    """JAX make_e2e_step(head="direct", max_obstacles=k) with the shipped
+    asset in float32 at the tall golden's 63 x 1801 spec -> (poses, found)
+    as numpy."""
+    import jax.numpy as jnp
+    from flax import nnx
+
+    from tests.torch_golden import asset_configs, jax_asset_model, to_jax_config
+    from tpufusion.config import RangeViewSpec
+    from tpufusion.predict import make_e2e_step
+    from tpufusion_torch._golden import TALL_RES_V_DEG
+
+    _, dcfg = asset_configs()
+    graphdef, state = nnx.split(jax_asset_model())
+    step = make_e2e_step(graphdef, RangeViewSpec(res_v_deg=TALL_RES_V_DEG),
+                         to_jax_config(dcfg), max_obstacles=k, head="direct")
+    poses, found = step(state, jnp.asarray(points), jnp.asarray(valid))
+    return np.asarray(poses), np.asarray(found)
+
+
+def golden_tall_arrays() -> dict[str, np.ndarray]:
+    """The tall golden: the 64-beam frames and JAX's answer on them."""
+    from tpufusion_torch._golden import TALL_BEAMS, TALL_FRAMES, TALL_POINTS, TALL_SEED
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+
+    points, _, valid = synthesize_beam_scan_batch(
+        np.random.default_rng(TALL_SEED), TALL_FRAMES, TALL_POINTS, n_beams=TALL_BEAMS)
+    poses, found = jax_tall_step(points, valid)
+    return {"points": points, "valid": valid, "found": found.astype(bool),
+            "poses": poses.astype(np.float32)}
+
+
+def write_tall_golden() -> None:
+    from tests.torch_golden import REPO
+
+    path = os.path.join(REPO, "tests", "data", "torch_port_golden_tall.npz")
+    tall = golden_tall_arrays()
+    np.savez_compressed(path, **tall)
+    print(f"wrote {path} ({os.path.getsize(path)} bytes): found {tall['found'].astype(int).tolist()}")
+
+
 def main() -> None:
     import jax
 
@@ -581,6 +629,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["viewer"]:
         write_viewer_golden()
+        return
+    if sys.argv[1:] == ["tall"]:
+        write_tall_golden()
         return
 
     arrays = golden_arrays()
@@ -603,6 +654,7 @@ def main() -> None:
         print(f"  JAX float32 vs bf16 {tag}: {gap:.4e}")
     write_train_golden()
     write_viewer_golden()
+    write_tall_golden()
 
 
 if __name__ == "__main__":

@@ -48,6 +48,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSET = os.path.join(_REPO, "tpufusion", "assets", "synthetic_detector.npz")
 GOLDEN = os.path.join(_REPO, "tests", "data", "torch_port_golden.npz")
 GOLDEN_MULTI = os.path.join(_REPO, "tests", "data", "torch_port_golden_multi.npz")
+GOLDEN_TALL = os.path.join(_REPO, "tests", "data", "torch_port_golden_tall.npz")
 POSE_TOL = 1e-3
 
 
@@ -135,17 +136,16 @@ def test_cc_kernel_matches_twin(cuda_device):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("batch", parity_inputs.CC_BATCHES)
-def test_cc_kernel_adversarial_masks(cuda_device, batch):
-    """Full foreground, serpentines across every strip border, a comb and
-    stripes on the border columns, a checkerboard, blobs at columns 0 and
-    1800, the ragged last strip, frame b's last strip beside frame b+1's
-    first; the plain sweeps run to convergence."""
-    mask = torch.from_numpy(parity_inputs.cc_batch(batch)).to(cuda_device)
+def _assert_cc_kernel_equals_converged_sweeps(mask):
+    """One kernel launch on a (B, H, W) CUDA mask: labels equal to the
+    plain sweeps run to convergence, extents equal on foreground, the
+    background constants."""
+    before = cc.LAUNCHES
     got = cc.connected_components_with_bbox(mask)
     _, sweeps = components.propagate(components.init_state(mask), mask, 16384)
     want = components.connected_components_with_bbox(mask, 16384)
     torch.cuda.synchronize()
+    assert cc.LAUNCHES == before + 1
     assert int(sweeps.max()) < 16384  # the plain sweeps converged
     assert torch.equal(got[0], want[0])
     for g, w in zip(got[1:], want[1:]):
@@ -156,6 +156,29 @@ def test_cc_kernel_adversarial_masks(cuda_device, batch):
     assert (got[3][bg] == big).all() and (got[4][bg] == -big).all()
 
 
+@pytest.mark.parametrize("height", parity_inputs.CC_HEIGHTS)
+@pytest.mark.parametrize("batch", parity_inputs.CC_BATCHES)
+def test_cc_kernel_adversarial_masks(cuda_device, batch, height):
+    """Full foreground, serpentines across every column and row border, a
+    comb and stripes on the border columns and rows, a comb whose teeth
+    meet only through its spine, a checkerboard, blobs at columns 0 and
+    1800, dense noise on the ragged last column and row tiles, frame b's
+    last tile beside frame b+1's first; at 32 to 128 rows (one to four row
+    tiles, 33 and 63 ragged); the plain sweeps run to convergence."""
+    mask = parity_inputs.cc_batch(batch, height=height)
+    _assert_cc_kernel_equals_converged_sweeps(torch.from_numpy(mask).to(cuda_device))
+
+
+def test_cc_kernel_merges_a_mask_of_12000_border_pairs(cuda_device):
+    """32 x 24,001 (376 column tiles): every other row full, 16 rows across
+    375 column borders, and noise of 0.4."""
+    rng = np.random.default_rng(11)
+    mask = np.zeros((2, 32, 24001), bool)
+    mask[0, ::2] = True
+    mask[1] = rng.random((32, 24001)) < 0.4
+    _assert_cc_kernel_equals_converged_sweeps(torch.from_numpy(mask).to(cuda_device))
+
+
 def test_cc_kernel_rejects_bad_inputs(cuda_device):
     mask = torch.zeros((2, 32, 181), dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError, match="bool"):
@@ -164,9 +187,6 @@ def test_cc_kernel_rejects_bad_inputs(cuda_device):
         cc.connected_components_with_bbox(mask.transpose(1, 2))
     with pytest.raises(ValueError, match="impl"):
         cc.connected_components_with_bbox(mask, 128, "scan")
-    with pytest.raises(ValueError, match="H <= 32"):  # a strip holds 32 rows
-        cc.connected_components_with_bbox(torch.zeros((1, 33, 64), dtype=torch.bool,
-                                                      device=cuda_device))
 
 
 def test_main_path_runs_both_kernels_and_matches_golden(cuda_device):
@@ -673,14 +693,47 @@ def test_single_frame_entry_points_launch_the_kernels(cuda_device):
 
 
 def test_connected_components_refuses_a_mask_taller_than_the_kernel(cuda_device):
-    """The kernel holds at most 32 rows: a taller CUDA mask raises, and
-    never quietly takes the plain sweeps."""
+    """The reference labels a mask of any height, and so does the kernel: a
+    64-row CUDA mask (two row tiles) takes one kernel launch, never the
+    plain sweeps, and gets the plain sweeps' labels."""
     from tpufusion_torch.ops.components import connected_components
 
-    before = cc.LAUNCHES
-    with pytest.raises(ValueError, match="H <= 32"):
-        connected_components(torch.ones((64, 100), dtype=torch.bool, device=cuda_device))
-    assert cc.LAUNCHES == before
+    for name in ("full", "serpentine", "comb_rows", "row_stripes"):
+        mask = torch.from_numpy(parity_inputs.cc_frames(height=64, width=100)[name])
+        before = cc.LAUNCHES
+        labels = connected_components(mask.to(cuda_device))
+        assert cc.LAUNCHES == before + 1
+        assert labels.is_cuda
+        want = components.connected_components_reference(mask, 16384)
+        assert torch.equal(labels.cpu(), want), name
+
+
+def test_e2e_step_at_63_rows_matches_the_cpu_and_golden(cuda_device):
+    """A 64-beam sensor's 63 x 1801 range view, the shipped asset's direct
+    step: the card against the port on the CPU (8 x 32,768 points) and
+    against the tall JAX golden; both kernels launched."""
+    from tpufusion_torch._golden import TALL_BEAMS, TALL_RES_V_DEG
+
+    spec = RangeViewSpec(res_v_deg=TALL_RES_V_DEG)
+    mcfg, dcfg = asset_configs(ASSET)
+    model = FCN(mcfg)
+    load_state_npz(ASSET, model)
+    model = model.eval()
+    points, _, valid = synthesize_beam_scan_batch(np.random.default_rng(63), 8, 32768,
+                                                  n_beams=TALL_BEAMS)
+    cpu_poses, cpu_found = make_e2e_step(model, spec, dcfg, device="cpu")(points, valid)
+    step = make_e2e_step(model.to(cuda_device), spec, dcfg)
+    p0, c0 = projection.LAUNCHES, cc.LAUNCHES
+    poses, found = step(points, valid)
+    torch.cuda.synchronize()
+    assert projection.LAUNCHES == p0 + 1 and cc.LAUNCHES == c0 + 1
+    np.testing.assert_array_equal(found.cpu().numpy(), cpu_found.numpy())
+    assert found.sum() >= 6
+    assert _pose_diff(poses, cpu_poses.numpy()) < POSE_TOL
+    g = load_npz(GOLDEN_TALL)
+    poses, found = step(g["points"], g["valid"])
+    np.testing.assert_array_equal(found.cpu().numpy(), g["found"])
+    assert _pose_diff(poses, g["poses"]) < POSE_TOL
 
 
 def test_view_dataset_on_the_card(cuda_device, tmp_path):

@@ -97,9 +97,9 @@ _jax_labels = jax.jit(jcomponents.connected_components, static_argnums=(1, 2))
 @pytest.mark.parametrize("name", sorted(_masks()))
 @pytest.mark.parametrize("max_iters", [128, 3])
 def test_connected_components_matches_jax(name, max_iters):
-    """Equal labels, masks taller than the kernel's 32 rows included (the
-    CPU runs the plain sweeps at any size); with max_iters 3 both stop
-    at the same unconverged sweep."""
+    """Equal labels, masks of more than one row of the kernel's 32-row
+    tiles included (the CPU runs the plain sweeps at any size); with
+    max_iters 3 both stop at the same unconverged sweep."""
     mask = _masks()[name]
     got = components.connected_components(torch.from_numpy(mask), max_iters).numpy()
     want = np.asarray(_jax_labels(jnp.asarray(mask), max_iters, "xla"))

@@ -54,6 +54,15 @@ BF16_FUSION_ATOL = 1e-3
 # rz, either dtype: reads 4.5e-8 on the CPU and 3.0e-8 on an H100. A
 # tenth of JAX's float32-vs-bf16 gap in rz.
 FUSION_RZ_ATOL = 1e-5
+# The tall golden (torch_port_golden_tall.npz): a 64-beam sensor's range
+# view. RangeViewSpec(res_v_deg=TALL_RES_V_DEG) is 63 x 1801; the frames
+# are the port's numpy beam scans from TALL_SEED at TALL_BEAMS beams, and
+# are stored (numpy's trigonometry may differ by ulps between CPUs).
+TALL_RES_V_DEG = 0.665
+TALL_BEAMS = 64
+TALL_SEED = 3
+TALL_FRAMES = 4
+TALL_POINTS = 32768
 # the multi golden keeps JAX's bf16 foreground probability at every pixel
 # and its regression outputs at every FCN_REG_STRIDE-th pixel of a frame
 FCN_REG_STRIDE = 17

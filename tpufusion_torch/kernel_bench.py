@@ -7,13 +7,17 @@ against the previous design's sources in turns, in one process:
 
     python -m tpufusion_torch.kernel_bench --old-csrc DIR
 
-DIR holds the earlier `components.cu` and `nearest_wins.cu` with their C
-interface (the four-launch global-memory union-find, and the fill /
-scatter / gather z-buffer):
+DIR holds an earlier `components.cu` and `nearest_wins.cu` with their
+eight- and eleven-argument C interfaces:
 `tf_components_with_bbox(mask, scratch (5, B*H*W) int32, labels, ext, B, H,
 W, stream)` and `tf_nearest_wins_image(pix, key, valid, payload, grid
 (B, P) int64 filled with INT64_MAX, img, B, N, P, min_height, stream)`;
-the earlier wrapper's fill of the grid counts as part of its call. The
+the earlier wrapper's fill of the grid counts as part of its call. Both
+the first design (the four-launch global-memory union-find, and the fill
+/ scatter / gather z-buffer) and the 32-row strip union-find with the
+cluster z-buffer take them (the strips' frame counters fit in the
+scratch, the cluster kernel fills the grid itself), so either can be
+held against the current 32 x 64 tiles. The
 inputs are chip_smoke's: beam scans at 64 x 32,768 points with the
 float32 asset's heat masks, and config 5's 16 x 131,072 (64 beams) with
 the bf16 asset's. Every pair of kernels is checked equal on every input

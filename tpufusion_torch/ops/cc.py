@@ -4,9 +4,9 @@ Counterpart of `tpufusion/ops/pallas_cc.py::propagate_pallas` as the
 decode reaches it through `components.connected_components_with_bbox(
 mask, max_iters, cc_impl)`. For a mask on the CPU every `cc_impl` runs the
 plain sweeps (`ops/components.py`); for a CUDA mask every `cc_impl` runs
-the strip-tiled union-find kernel, or raises. The kernel always converges,
-so `max_iters` bounds only the plain version. It holds a frame's full
-height in one CTA's strip, so it takes at most `MAX_ROWS` rows.
+the tiled union-find kernel (32 x 64 tiles, one launch a call at any
+height and width with B * H * W < 2^31), or raises. The kernel always
+converges, so `max_iters` bounds only the plain version.
 """
 
 from __future__ import annotations
@@ -17,9 +17,6 @@ from tpufusion_torch import _build
 from tpufusion_torch.ops import components
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
-MAX_ROWS = 32  # csrc/components.cu kMaxRows
-_STRIP = 64  # columns a strip CTA owns (kStrip)
-_MERGE_CAPACITY = 5 * _STRIP * MAX_ROWS  # border pairs one CTA merges
 
 _IMPLS = ("auto", "pallas", "xla")
 
@@ -48,9 +45,6 @@ def connected_components_with_bbox(
     b, h, w = mask.shape
     if b * h * w >= 2**31:
         raise ValueError(f"B*H*W must fit int32, got {b * h * w}")
-    if h > MAX_ROWS or (-(-w // _STRIP) - 1) * h > _MERGE_CAPACITY:
-        raise ValueError(f"the kernel takes H <= {MAX_ROWS} and W up to "
-                         f"{_MERGE_CAPACITY // h + 1} strips, got {(h, w)}")
     lib = _build.load()
     dev = mask.device
     frame_done = torch.empty(b, dtype=torch.int32, device=dev)
@@ -68,8 +62,8 @@ def connected_components_with_bbox(
 
 def connected_components(mask: torch.Tensor, max_iters: int = 128, impl: str = "auto"):
     """One (H, W) bool mask -> (H, W) int32 labels, -1 on background. A
-    CUDA mask is one kernel launch on a batch of one (H <= MAX_ROWS, or
-    ValueError); a CPU mask runs the plain labels-only sweeps."""
+    CUDA mask is one kernel launch on a batch of one, at any height; a CPU
+    mask runs the plain labels-only sweeps."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown cc impl {impl!r}")
     if mask.dim() != 2:

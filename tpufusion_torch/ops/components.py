@@ -116,9 +116,8 @@ def connected_components(mask: torch.Tensor, max_iters: int = 128, impl: str = "
     """Labels of the 4-connected components of one (H, W) bool mask
     (reference `connected_components`): -1 on background, each component's
     smallest flat index elsewhere. A CUDA mask goes through the CC kernel
-    (`ops/cc.py::connected_components`), which takes at most 32 rows and
-    raises ValueError for a taller mask; it never falls back to the plain
-    sweeps. A CPU mask runs the plain sweeps at any size."""
+    (`ops/cc.py::connected_components`) at any size, and never falls back
+    to the plain sweeps. A CPU mask runs the plain sweeps."""
     from tpufusion_torch.ops import cc  # cc imports this module
 
     return cc.connected_components(mask, max_iters, impl)
