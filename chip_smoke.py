@@ -145,6 +145,16 @@ to 0 before it and read after it, and then the training paths:
                (c) the CC kernel on 64 x 63 x 1801 heat masks and on them
                with their rows doubled (64 x 128 x 1801), and the z-buffer
                into 63 x 1801, each beside its bound
+  phase 26     the repo's headline (`tpufusion_torch/bench.py`, the
+               counterpart of the root `bench.py`, and `entry.py`, of
+               `__graft_entry__.py`): (a) `bench.run` at its defaults
+               (the bf16 seed-0 flagship at 64 x 32,768 over 24 sets, the
+               live asset, the corner row, the single-frame p50) with the
+               headline's split and both kernels on its first batch; (b)
+               the flagship step with bench.py's JAX weights against
+               tests/data/torch_port_golden_bench.npz in bf16 and float32;
+               (c) `entry()`'s fn with JAX's entry state against JAX's
+               answer; (d) `python -m tpufusion_torch.bench --sets 2`
 
 The z-buffer kernel runs on every path; configs 1 and 3 and the train
 steps decode nothing, so the CC kernel is not on theirs. Phases 12 and 13 hold the z-buffer
@@ -154,7 +164,7 @@ kernel against its plain version on their own points (1 x 32,768 and the
 Every answer is held against the committed JAX goldens
 (tests/data/torch_port_golden.npz, torch_port_golden_multi.npz,
 torch_port_golden_fusion.npz, torch_port_golden_train.npz,
-torch_port_golden_tall.npz), and the
+torch_port_golden_tall.npz, torch_port_golden_bench.npz), and the
 viewer's JPEG bytes against torch_port_golden_viewer.npz (cv2's);
 times are CUDA events over distinct inputs, and for the kernels also
 device time (the calls queued behind a `torch.cuda._sleep`, then timed
@@ -230,6 +240,7 @@ GOLDEN_FUSION = os.path.join(HERE, "tests", "data", "torch_port_golden_fusion.np
 GOLDEN_TRAIN = os.path.join(HERE, "tests", "data", "torch_port_golden_train.npz")
 GOLDEN_VIEWER = os.path.join(HERE, "tests", "data", "torch_port_golden_viewer.npz")
 GOLDEN_TALL = os.path.join(HERE, "tests", "data", "torch_port_golden_tall.npz")
+GOLDEN_BENCH = os.path.join(HERE, "tests", "data", "torch_port_golden_bench.npz")
 TRAIN_BATCH = 32  # frames per train batch (phases 16 and 18)
 TRAIN_SCENE_BATCHES = 4  # phase 16: distinct scene batches in the dataset
 FUSION_TRAIN_FRAMES = 32  # phase 17
@@ -262,6 +273,7 @@ JPEG_REPS = 10  # phase 24: encodes a frame for the JPEG encoder's time
 DIFF_REL_TOL = 0.01
 C3_BATCH = 8  # config 3: frames per batch
 TALL_TIMED = 6  # phase 25: distinct 63-row batches per timing
+HEADLINE_SPLIT = 6  # phase 26: the headline's first batches, timed stage by stage
 REPLAY_FRAMES = 270  # the replay server: 4 chunks of 64 and a partial one
 REPLAY_CHUNK = 64
 # benchmarks.measure at its defaults: a warm-up and 6 inputs x 3 between the
@@ -2263,6 +2275,155 @@ def phase_tall(dev, card, totals, p5) -> dict:
             "cc 63": (kt["cc"]["kernel"], kt["cc"]["bound"]), "cc 128": (t128, bound128)}
 
 
+def phase_headline(dev, spec, card, totals) -> dict:
+    """Phase 26: the repo's headline, `tpufusion_torch/bench.py` and
+    `tpufusion_torch/entry.py`. (a) `bench.run` at its defaults (BATCH x
+    N_POINTS, 24 sets) under `drive`, every row finite and positive, and
+    the headline step's split on its first batches, both kernels
+    bit-identical to plain on its first batch (the flagship's and the live
+    asset's heat masks); (b) the flagship step with the bench golden's
+    weights against JAX's poses and found on its 4 frames in bf16 and
+    float32, the card's range views of them within BENCH_VIEW_MOVED_MAX
+    pixels of JAX's and the FCN's sampled probability on JAX's; (c)
+    `entry()`'s fn with the golden's entry state against JAX's answer on
+    its example, at most ENTRY_VIEW_MOVED_MAX pixels of a frame's range
+    view unlike JAX's and the poses held on the (at least
+    ENTRY_POSE_FRAMES_MIN) frames with none; both kernels on (b)'s and
+    (c)'s frames; (d) `python -m tpufusion_torch.bench --sets 2` in a
+    subprocess. Returns (a)'s row."""
+    from tpufusion_torch import bench, entry
+    from tpufusion_torch._golden import (
+        BENCH_VIEW_MOVED_MAX,
+        BF16_FLAGSHIP_DIFFER_SHARE,
+        BF16_PROB_ATOL,
+        ENTRY_POSE_FRAMES_MIN,
+        ENTRY_VIEW_MOVED_MAX,
+        FCN_PROB_ATOL,
+        flagship_prob_sample,
+        load_npz,
+        wrapped_pose_diff,
+    )
+    from tpufusion_torch.benchmarks import asset_model, detector_asset_path, point_sets, seeded_fcn
+    from tpufusion_torch.config import DEFAULT
+    from tpufusion_torch.decode.decode import decode_batch_direct
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.models.io import fcn_from_arrays, load_arrays
+    from tpufusion_torch.predict import make_e2e_step
+
+    t_phase = time.perf_counter()
+    dcfg = DEFAULT.decode
+    log(f"phase 26 the headline: tpufusion_torch.bench (bf16 flagship, seed 0, at "
+        f"min_prob {dcfg.min_prob} / min_bbox_area {dcfg.min_bbox_area}) and entry()")
+
+    # -- (a) bench.run at its defaults -----------------------------------------------------
+    row, _ = drive(f"(a) bench.run: {bench.N_SETS} sets of {bench.BATCH} x {bench.N_POINTS} points, "
+                   "headline + live + corner + p50", lambda: bench.run(dev), totals)
+    for k in ("value", "p50_latency_ms", "fps_with_live_detections", "fps_corner_parity_decode",
+              "device_ms", "busy", "peak_device_mib"):
+        assert np.isfinite(row[k]) and row[k] > 0, f"bench row {k} = {row[k]}"
+    where = f"[{card}]"
+    log(f"    headline {row['value']} frames/s ({bench.BATCH * 1e3 / row['value']:.3f} ms a batch), "
+        f"device {row['device_ms']} ms a call, busy {row['busy']}, peak {row['peak_device_mib']} "
+        f"MiB; live {row['fps_with_live_detections']}, corner {row['fps_corner_parity_decode']} "
+        f"frames/s; p50 {row['p50_latency_ms']} ms {where}")
+    model = seeded_fcn(dataclasses.replace(DEFAULT.model, **entry.FLAGSHIP), 0, dev)
+    sets = point_sets(HEADLINE_SPLIT, BATCH, N_POINTS, dev)  # the headline's first batches
+    check_both("the headline's first batch, the bf16 flagship's heat", model, dcfg, *sets[0], spec)
+    amodel, adcfg, _ = asset_model(detector_asset_path())  # the live row's net, as bench.run builds it
+    check_both("the headline's first batch, the live asset's heat", amodel.to(dev).eval(), adcfg,
+               *sets[0], spec)
+    share, near = bench.heat_readings(model, *sets[0], dcfg, spec)
+    with torch.inference_mode():
+        images = [range_view_project_batch(p, spec, v) for p, v in sets]
+        preds = [model(im) for im in images]
+        proj_ms = time_ms(lambda pv: range_view_project_batch(pv[0], spec, pv[1]), sets)
+        fcn_ms = time_ms(model, images)
+        dec_ms = time_ms(lambda ip: decode_batch_direct(ip[1], ip[0], spec, dcfg),
+                         list(zip(images, preds)))
+    log(f"    split on {len(sets)} of its batches: projection {proj_ms:.3f} ms, bf16 FCN "
+        f"{fcn_ms:.3f} ms, direct decode {dec_ms:.3f} ms; first batch: heat pixels "
+        f"{share:.4%}, probabilities within 1e-4 of min_prob {near} {where}")
+
+    # -- (b) the flagship against the JAX golden -------------------------------------------
+    g = load_npz(GOLDEN_BENCH)
+    arrays = {k.split("/", 1)[1]: v for k, v in g.items() if k.startswith("flagship/")}
+    pts, valid = torch.from_numpy(g["points"]).to(dev), torch.from_numpy(g["valid"]).to(dev)
+    # the FCN is held on JAX's range views: the CPU's, eager JAX's bit for bit
+    with torch.inference_mode():
+        cpu_images = range_view_project_batch(torch.from_numpy(g["points"]), spec,
+                                              torch.from_numpy(g["valid"]))
+        moved = int((range_view_project_batch(pts, spec, valid).cpu() != cpu_images).any(-1).sum())
+    images = cpu_images.to(dev)
+    log(f"  (b) the card's range views of the bench golden's frames: {moved} pixels unlike the "
+        f"CPU's (at most {BENCH_VIEW_MOVED_MAX})")
+    assert moved <= BENCH_VIEW_MOVED_MAX, "the card's range views of the bench golden differ from JAX's"
+    for tag, dtype, prob_atol, differ in (("bf16", "bfloat16", BF16_PROB_ATOL, BF16_FLAGSHIP_DIFFER_SHARE),
+                                          ("f32", "float32", FCN_PROB_ATOL, 1.0)):
+        fmodel = fcn_from_arrays(arrays, dataclasses.replace(DEFAULT.model, dtype=dtype, **entry.FLAGSHIP),
+                                 device=dev)
+        step = make_e2e_step(fmodel, spec, dcfg, head="direct", device=dev)
+        (poses, found), _ = drive(f"(b) the flagship step in {dtype} on the bench golden's "
+                                  f"{len(g['points'])} frames", lambda: step(pts, valid), totals)
+        check_poses(f"JAX bench golden, {dtype}", poses, found, g[f"flagship_{tag}_poses"],
+                    g[f"flagship_{tag}_found"])
+        with torch.inference_mode():
+            out = fmodel(images).cpu().numpy()
+        prob, prob_max = flagship_prob_sample(out)
+        d = np.abs(prob - g[f"flagship_{tag}_prob"])
+        dm = float(np.abs(prob_max - g[f"flagship_{tag}_prob_max"]).max())
+        share, near = bench.heat_readings(fmodel, pts, valid, dcfg, spec)
+        log(f"    FCN's sampled foreground probability vs JAX's: {d.max():.3e}, {(d > 1e-6).mean():.2%} "
+            f"of {d.size} differ (at most {differ:.0%}); largest a frame "
+            f"{prob_max.round(4).tolist()} vs {g[f'flagship_{tag}_prob_max'].round(4).tolist()} "
+            f"(tolerance {prob_atol:.3e}); heat pixels {share:.4%}, within 1e-4 of min_prob {near}")
+        assert max(float(d.max()), dm) <= prob_atol, f"the {dtype} flagship FCN differs from JAX's"
+        assert (d > 1e-6).mean() <= differ, f"the {dtype} flagship FCN rounds unlike JAX's"
+        check_both(f"the bench golden's frames, {dtype} flagship", fmodel, dcfg, pts, valid, spec)
+
+    # -- (c) entry() against JAX's entry() -------------------------------------------------
+    fn, (emodel, _) = entry.entry(dev)
+    load_arrays(emodel, {k.split("/", 1)[1]: v for k, v in g.items() if k.startswith("entry/")})
+    epts = torch.from_numpy(g["entry_points"]).to(dev)
+    (ep, ef), _ = drive(f"(c) entry()'s fn with JAX's entry state on its example "
+                        f"({epts.shape[0]} x {epts.shape[1]} points, no validity mask)",
+                        lambda: fn(emodel, epts), totals)
+    share, near = bench.heat_readings(emodel, epts, None, dcfg, spec)
+    # the card's FCN and decode on JAX's range views (the CPU's), and the
+    # frames whose range view on the card is JAX's
+    with torch.inference_mode():
+        cpu_views = range_view_project_batch(torch.from_numpy(g["entry_points"]), spec)
+        moved = (range_view_project_batch(epts, spec).cpu() != cpu_views).any(-1).sum(dim=(1, 2))
+        jviews = cpu_views.to(dev)
+        jout = decode_batch_direct(emodel(jviews), jviews, spec, dcfg, 1)
+    frame_diff = wrapped_pose_diff(ep, g["entry_poses"]).max(axis=1)
+    log(f"    heat pixels {share:.4%}, probabilities within 1e-4 of min_prob {near}; the card's "
+        f"range views: pixels unlike the CPU's a frame {moved.tolist()} (at most "
+        f"{ENTRY_VIEW_MOVED_MAX}); found "
+        f"{ef.cpu().numpy().astype(int).tolist()} (JAX {g['entry_found'].astype(int).tolist()}), "
+        f"pose difference a frame {[f'{d:.3e}' for d in frame_diff]}; poses "
+        f"{ep.cpu().numpy().round(5).tolist()}")
+    check_poses("JAX entry() on JAX's range views (the card's FCN and decode)",
+                jout["poses"][:, 0], jout["found"][:, 0], g["entry_poses"], g["entry_found"])
+    assert np.array_equal(ef.cpu().numpy(), g["entry_found"]), "entry(): found differs from JAX"
+    assert int(moved.max()) <= ENTRY_VIEW_MOVED_MAX, "entry(): the card's range views differ from JAX's"
+    held = moved.numpy() == 0
+    assert held.sum() >= ENTRY_POSE_FRAMES_MIN, f"entry(): poses held on {held.sum()} frames only"
+    assert (frame_diff[held] < POSE_TOL).all(), "entry(): poses differ from JAX"
+    check_both("entry()'s example", emodel, dcfg, epts, None, spec)
+
+    # -- (d) the module's command line -----------------------------------------------------
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "tpufusion_torch.bench", "--sets", "2"], cwd=HERE,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, f"python -m tpufusion_torch.bench failed: {out.stderr[-2000:]}"
+    sub = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"  (d) python -m tpufusion_torch.bench --sets 2: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s, {sub['value']} frames/s, metric {sub['metric']!r}")
+    assert "vs_baseline" not in sub and sub["device"] == card
+    log(f"  phase 26 took {time.perf_counter() - t_phase:.3f} s (host clock) [{card}]")
+    return row
+
+
 def training_phases(dev, spec, gm, gf, card, totals) -> None:
     """Phases 15-18: the train step against the reference, the trainer,
     fusion training, config 4."""
@@ -2566,6 +2727,9 @@ def main(argv=()) -> int:
     p5 = {"e2e": e2e_ms, "peak_mb": peak_mb, "proj": proj_ms, "fcn": fcn_ms, "dec": dec_ms,
           "cc_call": kt["cc"]["kernel_call"]}
     tall_times = phase_tall(dev, card, totals, p5)
+
+    # -- phase 26: the repo's headline, bench.py and entry() ---------------
+    phase_headline(dev, spec, card, totals)
 
     z, c = kt["z"], kt["cc"]
     kernels = [

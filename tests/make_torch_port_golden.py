@@ -79,16 +79,32 @@ view (tpufusion_torch/_golden.py names the spec, seed and sizes).
   found, poses  JAX make_e2e_step(head="direct") with the shipped asset in
                 float32 at RangeViewSpec(res_v_deg=0.665)
 
+tests/data/torch_port_golden_bench.npz: the repo's headline, bench.py and
+__graft_entry__.entry() (tpufusion_torch/_golden.py names the seed and
+sizes).
+  points, valid 4 frames of JAX's beam scans (32,768 points, PRNGKey 0)
+  flagship/*    bench.py's headline net: the flagship geometry in bf16,
+                seeded JAX init nnx.Rngs(0), deconv6a bias [2, -2]
+  flagship_{bf16,f32}_*  JAX make_e2e_step(head="direct") with those
+                weights at DEFAULT.decode in bf16 and float32 (poses,
+                found), and the FCN's foreground probability at every
+                FCN_REG_STRIDE-th pixel (prob) and its largest value a
+                frame (prob_max)
+  entry/*       the state of JAX's entry() (the float32 flagship, nnx.Rngs(0))
+  entry_*       its example points (4 x 8,192, PRNGKey 0) and its fn's
+                poses and found on them, run eagerly
+
 tests/test_torch_e2e.py, tests/test_torch_multi.py,
 tests/test_torch_fusion.py, tests/test_torch_train.py,
-tests/test_torch_viewer.py and tests/test_torch_tall_views.py recompute
+tests/test_torch_viewer.py, tests/test_torch_tall_views.py and
+tests/test_torch_bench.py recompute
 them (the train golden's fusion steps excepted: 8 full-size camera frames
 backward) and fail when a file is stale.
 
-    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer | tall]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer | tall | bench]
 
-With `train` (`viewer`, `tall`) only the train (viewer, tall) golden is
-rewritten.
+With `train` (`viewer`, `tall`, `bench`) only the train (viewer, tall,
+bench) golden is rewritten.
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 """
@@ -178,17 +194,13 @@ def hybrid_corner_arrays() -> tuple:
     return mcfg, arrays
 
 
-def bench_corner_arrays() -> tuple:
-    """(ModelConfig, arrays) of bench.py's corner row: default
-    ModelConfig in bf16, seeded init (nnx.Rngs(0)), deconv6a bias
-    [2, -2] (a background-leaning softmax, as a trained detector's)."""
-    import jax
-    from flax import nnx
-
+def bench_net_arrays(**model_kw) -> tuple:
+    """(ModelConfig, arrays) of a bench.py net: ModelConfig(**model_kw)
+    in bf16, seeded init (nnx.Rngs(0)), deconv6a bias [2, -2] (a
+    background-leaning softmax, as a trained detector's)."""
     from tpufusion.config import ModelConfig
-    from tpufusion.models.fcn import FCN
 
-    mcfg = dataclasses.replace(ModelConfig(), dtype="bfloat16")
+    mcfg = dataclasses.replace(ModelConfig(), dtype="bfloat16", **model_kw)
     arrays = seeded_fcn_arrays(mcfg, 0)
     arrays["deconv6a/bias"] = np.array([2.0, -2.0], np.float32)
     return mcfg, arrays
@@ -284,7 +296,7 @@ def golden_multi_arrays() -> dict[str, np.ndarray]:
     for key in ("deconv5b/kernel", "deconv6b/kernel"):
         out[f"hybrid/{key}"] = harrays[key]
 
-    bcfg, barrays = bench_corner_arrays()
+    bcfg, barrays = bench_net_arrays()  # the corner row: the default ModelConfig
     put("bench_corner", *jax_step(
         jax_model_from_arrays(bcfg, barrays), DecodeConfig(), out["multi_points"],
         out["multi_valid"], head="corner",
@@ -618,6 +630,65 @@ def write_tall_golden() -> None:
     print(f"wrote {path} ({os.path.getsize(path)} bytes): found {tall['found'].astype(int).tolist()}")
 
 
+def golden_flagship_arrays() -> dict[str, np.ndarray]:
+    """The bench golden's bench.py part: the headline net and JAX's
+    answers on BENCH_FRAMES beam scans."""
+    import jax.numpy as jnp
+
+    from bench import FLAGSHIP
+    from tests.torch_golden import jax_beam_scans, jax_forward, jax_model_from_arrays, jax_step
+    from tpufusion.config import DEFAULT
+    from tpufusion.geometry.range_view import range_view_project_batch
+    from tpufusion_torch._golden import BENCH_FRAMES, BENCH_SEED, flagship_prob_sample
+
+    points, valid = jax_beam_scans(BENCH_SEED, BENCH_FRAMES)
+    out = {"points": points, "valid": valid}
+    mcfg, arrays = bench_net_arrays(**FLAGSHIP)
+    out.update({f"flagship/{k}": v for k, v in arrays.items()})
+    images = np.asarray(range_view_project_batch(
+        jnp.asarray(points), DEFAULT.range_view, jnp.asarray(valid)))
+    for tag, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
+        model = jax_model_from_arrays(dataclasses.replace(mcfg, dtype=dtype), arrays)
+        poses, found = jax_step(model, DEFAULT.decode, points, valid)
+        out[f"flagship_{tag}_poses"] = poses.astype(np.float32)
+        out[f"flagship_{tag}_found"] = found.astype(bool)
+        out[f"flagship_{tag}_prob"], out[f"flagship_{tag}_prob_max"] = flagship_prob_sample(
+            jax_forward(model, images))
+    return out
+
+
+def golden_entry_arrays() -> dict[str, np.ndarray]:
+    """The bench golden's `__graft_entry__.entry()` part: its state, its
+    example points and its fn's answer on them."""
+    from flax import nnx
+
+    import __graft_entry__
+
+    # entry()'s fn eagerly, whose arithmetic the port's is: under jax.jit
+    # XLA contracts the projection's x*x + y*y into an FMA (ROADMAP Queue
+    # 3), which moves 1,568 distances of the example an ulp and changes
+    # two pixels' winners, and frame 3's pose 0.078 m
+    fn, (state, entry_points) = __graft_entry__.entry()
+    poses, found = fn(state, entry_points)
+    out = {f"entry/{layer}/{leaf}": np.asarray(v, np.float32)
+           for layer, leaves in nnx.to_pure_dict(state).items() for leaf, v in leaves.items()}
+    out["entry_points"] = np.array(entry_points, np.float32)
+    out["entry_poses"] = np.asarray(poses, np.float32)
+    out["entry_found"] = np.asarray(found, bool)
+    return out
+
+
+def write_bench_golden() -> None:
+    from tests.torch_golden import GOLDEN_BENCH
+
+    bench = {**golden_flagship_arrays(), **golden_entry_arrays()}
+    np.savez_compressed(GOLDEN_BENCH, **bench)
+    print(f"wrote {GOLDEN_BENCH} ({os.path.getsize(GOLDEN_BENCH)} bytes)")
+    for key in sorted(bench):
+        if key.endswith(("found", "prob_max")):
+            print(f"  {key}: {bench[key].tolist()}")
+
+
 def main() -> None:
     import jax
 
@@ -632,6 +703,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["tall"]:
         write_tall_golden()
+        return
+    if sys.argv[1:] == ["bench"]:
+        write_bench_golden()
         return
 
     arrays = golden_arrays()
@@ -655,6 +729,7 @@ def main() -> None:
     write_train_golden()
     write_viewer_golden()
     write_tall_golden()
+    write_bench_golden()
 
 
 if __name__ == "__main__":

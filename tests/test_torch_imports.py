@@ -72,7 +72,7 @@ def test_importing_every_port_module_loads_no_jax_package():
                      "tools.tune_detector_asset", "tools.fit_oracle_sensitivity",
                      "tools.train_fusion_synthetic", "tools.bench_camera_full", "serve.jpeg",
                      "serve.viewer", "tools.analyze", "tools.calibrate", "tools.crops",
-                     "tools.datadiff", "tools.invariant_mask", "tools.visualize"):
+                     "tools.datadiff", "tools.invariant_mask", "tools.visualize", "bench", "entry"):
             assert "tpufusion_torch." + name in names, name
         print("IMPORTED", len(names))
         """
@@ -82,7 +82,7 @@ def test_importing_every_port_module_loads_no_jax_package():
         capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split("IMPORTED")[1]) >= 84
+    assert int(out.stdout.split("IMPORTED")[1]) >= 86
 
 
 def test_numpy_host_tools_import_without_torch():
@@ -536,6 +536,16 @@ RENAMED = {  # a JAX name -> its counterpart in the port, under another name or 
     "train/fusion_trainer.py::predict_fusion": "serve/fusion.py::predict_fusion",
 }
 
+# The repo-root files of the JAX package's headline, which the walk of
+# `tpufusion/` does not see: each public name -> its counterpart in the port
+ROOT_COUNTERPARTS = {
+    "bench.py::main": "bench.py::main",
+    "bench.py::log": "bench.py::log",
+    "__graft_entry__.py::entry": "entry.py::entry",
+    "__graft_entry__.py::dryrun_multichip": "entry.py::dryrun_multichip",
+}
+ROOT_NOT_CARRIED_OVER = {"bench.py::force": "`bench.py`'s `force`"}
+
 
 def _jax_modules():
     out = []
@@ -590,9 +600,30 @@ def test_every_public_name_of_the_jax_package_has_a_counterpart(rel):
             assert name in have, f"tpufusion_torch/{rel} lacks {name}"
 
 
+@pytest.mark.parametrize("rel", sorted({k.split("::")[0] for k in ROOT_COUNTERPARTS}))
+def test_every_public_name_of_the_repo_root_files_has_a_counterpart(rel):
+    """Each public top-level function and class of the repo-root
+    `bench.py` and `__graft_entry__.py` has its counterpart in the port
+    (ROOT_COUNTERPARTS, whose target exists) or is an item of ROADMAP's
+    "Do not carry over" list."""
+    section = " ".join(_do_not_carry_over_section().split())
+    for name in _public_defs(os.path.join(REPO, rel)):
+        key = f"{rel}::{name}"
+        if key in ROOT_NOT_CARRIED_OVER:
+            assert ROOT_NOT_CARRIED_OVER[key] in section, key
+            continue
+        assert key in ROOT_COUNTERPARTS, f"{key} has no counterpart in the port"
+        target_rel, target = ROOT_COUNTERPARTS[key].split("::")
+        assert target in _top_level_names(os.path.join(PORT_DIR, target_rel)), ROOT_COUNTERPARTS[key]
+
+
 def test_the_exceptions_are_still_needed():
     """Every exception names a JAX name that exists and that the port's
-    module of the same path does not define."""
+    module of the same path does not define; every repo-root entry names
+    a public name its file still defines."""
+    for key in list(ROOT_COUNTERPARTS) + list(ROOT_NOT_CARRIED_OVER):
+        rel, _, name = key.partition("::")
+        assert name in _public_defs(os.path.join(REPO, rel)), key
     for key in list(NOT_CARRIED_OVER) + list(RENAMED):
         rel, _, name = key.partition("::")
         assert os.path.exists(os.path.join(JAX_DIR, rel)), key

@@ -19,6 +19,7 @@ import torch
 from tpufusion_torch._golden import (  # noqa: F401  (re-exported)
     BF16_PROB_ATOL,
     BF16_REG_ATOL,
+    FCN_PROB_ATOL,
     load_npz,
     wrapped_pose_diff,
 )
@@ -35,15 +36,16 @@ GOLDEN_MULTI = os.path.join(REPO, "tests", "data", "torch_port_golden_multi.npz"
 GOLDEN_FUSION = os.path.join(REPO, "tests", "data", "torch_port_golden_fusion.npz")
 GOLDEN_TRAIN = os.path.join(REPO, "tests", "data", "torch_port_golden_train.npz")
 GOLDEN_VIEWER = os.path.join(REPO, "tests", "data", "torch_port_golden_viewer.npz")
+GOLDEN_BENCH = os.path.join(REPO, "tests", "data", "torch_port_golden_bench.npz")
 FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
 GOLDEN_SEED = 11  # JAX PRNGKey of the golden frames
 
 # tolerances (stated once, used by every golden test)
-FCN_PROB_ATOL = 1e-5  # the two softmax probabilities
 FCN_REG_ATOL = 1e-4  # metre-scale regression channels (|x| up to ~7)
 POSE_ATOL = 1e-4  # decoded poses (the tolerance __graft_entry__.py uses)
-# bf16 FCN against JAX's bf16 FCN: BF16_PROB_ATOL (2**-8) and
-# BF16_REG_ATOL (2**-4), stated in tpufusion_torch/_golden.py
+# the float32 FCN's probabilities: FCN_PROB_ATOL (1e-5); bf16 FCN against
+# JAX's bf16 FCN: BF16_PROB_ATOL (2**-8) and BF16_REG_ATOL (2**-4); all
+# stated in tpufusion_torch/_golden.py
 # poses decoded from the bf16 FCN's output: they read 3.8e-6 against
 # JAX's bf16 answers on the CPU and on an H100; rounding each bf16
 # convolution once instead of twice (a fault) moves them 3.7e-3

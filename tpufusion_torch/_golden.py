@@ -16,6 +16,8 @@ import numpy as np
 # is 2**-5: two steps, 2**-4.
 BF16_PROB_ATOL = 2.0**-8
 BF16_REG_ATOL = 2.0**-4
+# the float32 FCN's two softmax probabilities against JAX's float32 FCN
+FCN_PROB_ATOL = 1e-5
 # Such steps are rare: at most this share of the regression outputs may
 # differ at all. Measured on the golden frames: 0.06 % on the CPU, 0.58 %
 # on an H100 (cuDNN sums in another order than XLA); rounding each
@@ -66,6 +68,29 @@ TALL_POINTS = 32768
 # the multi golden keeps JAX's bf16 foreground probability at every pixel
 # and its regression outputs at every FCN_REG_STRIDE-th pixel of a frame
 FCN_REG_STRIDE = 17
+# The bench golden (torch_port_golden_bench.npz): bench.py's headline net
+# on BENCH_FRAMES of JAX's beam scans from PRNGKey(BENCH_SEED), 32,768
+# points a frame, and JAX's __graft_entry__.entry() on its own example.
+BENCH_SEED = 0
+BENCH_FRAMES = 4
+# The headline's seeded flagship against JAX's on JAX's range views: the
+# sampled probabilities within FCN_PROB_ATOL in float32 and BF16_PROB_ATOL
+# in bf16. JAX's own float32 net is within 1.7e-3 of its bf16 net, inside
+# BF16_PROB_ATOL, but differs at 99 % of the samples, so in bf16 at most
+# BF16_FLAGSHIP_DIFFER_SHARE of them may differ by more than float32 noise
+# (1e-6). An H100 reads 1.5e-8 and 0 % in bf16, 2.8e-7 in float32.
+BF16_FLAGSHIP_DIFFER_SHARE = 0.05
+# The card's range view of the same points may differ from the CPU's (eager
+# JAX's) in a few pixels: the z-buffer kernel is bit-identical to its plain
+# version, so in the pixel arithmetic before it. An H100 reads 42 pixels
+# over the bench golden's 4 frames and 1 on frame 0 of entry()'s example
+# (0 on its others). At most BENCH_VIEW_MOVED_MAX pixels may differ over the
+# golden's frames and ENTRY_VIEW_MOVED_MAX on a frame of the example, and
+# entry()'s poses are held on at least ENTRY_POSE_FRAMES_MIN of its 4
+# frames, those whose range view on the card is the CPU's.
+BENCH_VIEW_MOVED_MAX = 64
+ENTRY_VIEW_MOVED_MAX = 2
+ENTRY_POSE_FRAMES_MIN = 3
 
 
 def load_npz(path: str) -> dict[str, np.ndarray]:
@@ -91,6 +116,14 @@ def fcn_golden_sample(out: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     b = out.shape[0]
     reg = out[..., 2:].reshape(b, -1, out.shape[-1] - 2)
     return out[..., 1], reg[:, ::FCN_REG_STRIDE]
+
+
+def flagship_prob_sample(out: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """An FCN output (B, H, W, 2 + reg) -> what the bench golden keeps of
+    it: (the foreground probability at every FCN_REG_STRIDE-th pixel of a
+    frame (B, n), its largest value a frame (B,))."""
+    prob = out[..., 1].reshape(out.shape[0], -1)
+    return prob[:, ::FCN_REG_STRIDE], prob.max(axis=1)
 
 
 def bf16_fcn_readings(out: np.ndarray, want_prob: np.ndarray, want_reg: np.ndarray):
