@@ -3,16 +3,22 @@
 
     python3 chip_smoke.py [--training-only]
 
-It builds both CUDA kernels from the checkout's sources, holds each
-against its plain PyTorch version on the card (phases 2-3: real inputs
+It builds the CUDA kernels from the checkout's sources, holds each
+against its plain PyTorch version on the card (phases 1b-3: real inputs
 and the adversarial ones of `tpufusion_torch/ops/parity_inputs.py`, which
-aim at the CC's tile borders at 32, 33, 63, 64 and 128 rows (batches 1
+aim at fdlibm's branches and the pixel borders (the pixel kernel, bit for
+bit, the plain version run on the CPU and on the card), at the CC's tile
+borders at 32, 33, 63, 64 and 128 rows (batches 1
 and 16; 64 too at 32 rows) and at 24,001 columns, and at the z-buffer's
 cluster at 32 x 1801 and 63 x 1801), and drives the
 lidar detector's serving paths at full geometry (32 x 1801 range view) through
 the entry points a user calls, each with the kernels' launch counts set
 to 0 before it and read after it, and then the training paths:
 
+  phase 1b     the pixel kernel (`csrc/pixels.cu`: the range view's
+               pixel ids, keys and payload, and project_2d) bit for bit
+               its plain version on the main path's beam scans, config
+               5's, the 63-row view's, and adversarial points
   phases 4-5   the float32 direct path with the shipped detector asset
                (`LidarPipeline.predict_position`, `make_e2e_step`,
                batch 64 x 32,768-point beam scans)
@@ -152,12 +158,17 @@ to 0 before it and read after it, and then the training paths:
                live asset, the corner row, the single-frame p50) with the
                headline's split and both kernels on its first batch; (b)
                the flagship step with bench.py's JAX weights against
-               tests/data/torch_port_golden_bench.npz in bf16 and float32;
+               tests/data/torch_port_golden_bench.npz in bf16 and float32,
+               the card's range views of its frames equal to JAX's;
                (c) `entry()`'s fn with JAX's entry state against JAX's
-               answer; (d) `python -m tpufusion_torch.bench --sets 2`
+               answer on all 4 frames; (d) `python -m
+               tpufusion_torch.bench --sets 2`
 
-The z-buffer kernel runs on every path; configs 1 and 3 and the train
-steps decode nothing, so the CC kernel is not on theirs. Phases 12 and 13 hold the z-buffer
+The pixel and z-buffer kernels run on every path that projects points
+(one pixel launch a z-buffer launch, which `drive` asserts); configs 1
+and 3 and the train steps decode nothing, so the CC kernel is not on
+theirs; the label encode of a corner head's train step launches
+project_2d. Phases 12 and 13 hold the z-buffer
 kernel against its plain version on their own points (1 x 32,768 and the
 8 x 32,768 camera-wedge scans) before they drive the path.
 
@@ -185,7 +196,9 @@ library yardstick's device time in turns (the plain CC's time a call: it
 reads a flag back each sweep), and the kernel's time a call,
 beside the kernel's bound: its bytes at 3.35 TB/s,
 `tpufusion_torch/kernel_bench.py`; and phase 25's device times and
-bounds at 63 and 128 rows), the card's
+bounds at 63 and 128 rows; for the pixel kernel also the torch
+composition it replaced and the whole projection with each, and
+project_2d at a train batch's label points), the card's
 `name, power.limit` as nvidia-smi reports them, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -279,7 +292,13 @@ REPLAY_CHUNK = 64
 # benchmarks.measure at its defaults: a warm-up and 6 inputs x 3 between the
 # events, then a warm-up and the 6 inputs once more for the device time
 MEASURE_CALLS = 1 + 6 * 3 + 1 + 6
-BOTH_KERNELS = ("nearest_wins_image", "connected_components_with_bbox")
+# the port's kernels, by the names of the kernels line; a driven path's
+# `expect` names those it must launch
+KERNELS = ("project_points", "project_2d", "nearest_wins_image", "connected_components_with_bbox")
+SERVING = ("project_points", "nearest_wins_image", "connected_components_with_bbox")
+RANGE_VIEW = SERVING[:2]  # a path that projects points and decodes nothing
+CC_ONLY = SERVING[2:]  # a decode of a view or a mask it is given
+PIXEL_SETS = 4  # phase 5: distinct batches for the pixel kernel's times
 
 
 _T0 = time.perf_counter()
@@ -293,24 +312,203 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def drive(label: str, fn, totals: dict[str, int], expect=BOTH_KERNELS):
-    """Runs one serving path with both kernels' launch counts set to 0,
-    asserts that it launched each kernel of `expect` (the kernels on that
-    path), and adds its counts to `totals`. Returns (fn's result, the
-    counts)."""
-    from tpufusion_torch.ops import cc, projection
+def _reset_launches() -> None:
+    from tpufusion_torch.ops import cc, pixels, projection
 
-    projection.LAUNCHES = 0
-    cc.LAUNCHES = 0
+    pixels.LAUNCHES = pixels.LAUNCHES_2D = projection.LAUNCHES = cc.LAUNCHES = 0
+
+
+def _launches() -> dict[str, int]:
+    from tpufusion_torch.ops import cc, pixels, projection
+
+    return {"project_points": pixels.LAUNCHES, "project_2d": pixels.LAUNCHES_2D,
+            "nearest_wins_image": projection.LAUNCHES,
+            "connected_components_with_bbox": cc.LAUNCHES}
+
+
+def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
+    """Runs one path with every kernel's launch count set to 0, asserts
+    that it launched each kernel of `expect` (the kernels on that path)
+    and that each range view went through the pixel kernel (as many pixel
+    launches as z-buffer launches), and adds its counts to `totals`.
+    Returns (fn's result, the z-buffer's and the CC's counts)."""
+    _reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    counts = {"nearest_wins_image": projection.LAUNCHES,
-              "connected_components_with_bbox": cc.LAUNCHES}
+    counts = _launches()
     log(f"  {label}: kernel launches {counts}")
     for k, n in counts.items():
         assert n > 0 or k not in expect, f"{label} never launched {k}"
         totals[k] += n
-    return out, counts
+    assert counts["project_points"] == counts["nearest_wins_image"], (
+        f"{label}: a range view without the pixel kernel")
+    return out, {k: counts[k] for k in KERNELS[2:]}
+
+
+def _same_bits(got, want) -> bool:
+    """Bit-identical tensors (a float's bits, so -0.0 is not 0.0)."""
+    got, want = got.cpu(), want.cpu()
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return got.shape == want.shape and torch.equal(got, want)
+
+
+def check_pixels(label: str, points, valid, spec) -> int:
+    """Holds the pixel kernel against its plain version on the same (B, N,
+    C) points, run on the CPU and on the card: every output bit-identical,
+    one launch. Returns the largest integer difference (0)."""
+    from tpufusion_torch.ops import pixels
+
+    with torch.inference_mode():
+        before = pixels.LAUNCHES
+        got = pixels.project_points(points, valid, spec)
+        torch.cuda.synchronize()
+        assert pixels.LAUNCHES == before + 1, "pixel kernel not launched"
+        want = pixels.project_points_reference(points.cpu(), None if valid is None else valid.cpu(),
+                                               spec)
+        card = pixels.project_points_reference(points, valid, spec)
+    same = all(_same_bits(g, w) for g, w in zip(got, want))
+    card_same = all(_same_bits(c, w) for c, w in zip(card, want))
+    err = max(int((g.cpu().to(torch.int64) - w.to(torch.int64)).abs().max())
+              for g, w in zip(got[:3], want[:3]))
+    log(f"  pixel kernel on {label} ({' x '.join(map(str, points.shape))}, "
+        f"{'no mask' if valid is None else 'masked'}, {spec.height} rows): bit-identical to "
+        f"plain = {same}, plain on the card = plain on the CPU: {card_same}; ok "
+        f"{int(got[2].sum())} of {got[2].numel()}")
+    assert same, f"pixel kernel differs from its plain version ({label})"
+    assert card_same, f"the plain version on the card differs from the CPU's ({label})"
+    return err
+
+
+def check_project_2d(label: str, xyz, spec) -> int:
+    """Holds project_2d's kernel against its plain version on (n, 3)
+    coordinates on the card, run on the CPU and on the card. Returns the
+    largest difference (0)."""
+    from tpufusion_torch.ops import pixels
+
+    x, y, z = (xyz[:, i].contiguous() for i in range(3))
+    before = pixels.LAUNCHES_2D
+    got = pixels.project_2d(x, y, z, spec)
+    torch.cuda.synchronize()
+    assert pixels.LAUNCHES_2D == before + 1, "project_2d kernel not launched"
+    want = pixels.project_2d_reference(x.cpu(), y.cpu(), z.cpu(), spec)
+    card = pixels.project_2d_reference(x, y, z, spec)
+    same = all(_same_bits(g, w) for g, w in zip(got, want))
+    card_same = all(_same_bits(c, w) for c, w in zip(card, want))
+    log(f"  project_2d kernel on {label} ({len(xyz)} points, {spec.height} rows): "
+        f"bit-identical to plain = {same}, plain on the card = plain on the CPU: {card_same}")
+    assert same, f"project_2d kernel differs from its plain version ({label})"
+    assert card_same, f"project_2d's plain version on the card differs from the CPU's ({label})"
+    return max(int((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+
+
+def phase_pixels(dev, spec, scans) -> tuple[int, int]:
+    """Phase 1b: the pixel kernel (`csrc/pixels.cu`) against its plain
+    versions: `tf_project_points` on the main path's beam scans (BATCH x
+    N_POINTS), config 5's C5_BATCH x C5_POINTS (64 beams), the 63-row
+    spec, and the adversarial points of `parity_inputs.pixel_points` (C =
+    3 and 4, masked and not); `tf_project_2d` on seeded box corners and
+    the adversarial coordinates. Returns the largest difference of each."""
+    from tpufusion_torch import RangeViewSpec
+    from tpufusion_torch._golden import TALL_BEAMS, TALL_RES_V_DEG
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.geometry.boxes import box_corners_3d
+    from tpufusion_torch.ops import parity_inputs
+
+    t0 = time.perf_counter()
+    tall = RangeViewSpec(res_v_deg=TALL_RES_V_DEG)
+    log("phase 1b pixel kernel (tf_project_points, tf_project_2d) against its plain "
+        "version, bit for bit")
+    on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    c5, _, c5v = synthesize_beam_scan_batch(np.random.default_rng(600), C5_BATCH, C5_POINTS,
+                                            n_beams=C5_BEAMS)
+    t63, _, t63v = synthesize_beam_scan_batch(np.random.default_rng(3), BATCH, N_POINTS,
+                                              n_beams=TALL_BEAMS)
+    cases = [("the main path's beam scans", on(scans[0]), on(scans[1]), spec),
+             ("config 5's beam scans", on(c5), on(c5v), spec),
+             (f"{TALL_BEAMS}-beam scans", on(t63), on(t63v), tall)]
+    for s_ in (spec, tall):
+        for channels in (4, 3):
+            p, v = parity_inputs.pixel_points(s_, batch=4, n=N_POINTS, channels=channels)
+            cases.append((f"adversarial points, C = {channels}", on(p), on(v), s_))
+        cases.append(("adversarial points", on(p), None, s_))
+    err = max(check_pixels(label, p, v, s_) for label, p, v, s_ in cases)
+    rng = np.random.default_rng(5)
+    n = 4096
+    center = np.stack([rng.uniform(-60, 60, n), rng.uniform(-60, 60, n),
+                       rng.uniform(-2.5, 0.5, n)], -1).astype(np.float32)
+    size = np.stack([rng.uniform(3, 6, n), rng.uniform(1.5, 2.5, n),
+                     rng.uniform(1.2, 2.0, n)], -1).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    corners = box_corners_3d(on(center)[:, None], on(size)[:, None], on(yaw)[:, None])
+    err_2d = max(max(check_project_2d("seeded box corners", corners.reshape(-1, 3), s_),
+                     check_project_2d("adversarial coordinates",
+                                      on(parity_inputs.pixel_fixed_points()), s_))
+                 for s_ in (spec, tall))
+    log(f"  phase 1b took {time.perf_counter() - t0:.1f} s")
+    return err, err_2d
+
+
+def queued_each(fn, inputs) -> float:
+    """`queued_ms` of one call at a time, the mean over the inputs: the
+    plain pixel versions launch some 400 kernels a call, and the card's
+    launch queue does not hold several calls' worth behind the sleep."""
+    return float(np.mean([queued_ms(fn, [x]) for x in inputs]))
+
+
+def pixel_turns(spec, sets) -> dict:
+    """The pixel kernel's device time (`queued_ms`) and time a call on
+    distinct (points, valid) batches, in turns with the torch composition
+    it replaced, and its plain version's on the card, beside its bound;
+    and the whole projection (pixels + z-buffer) with the kernel and with
+    that composition. project_2d at a train batch's labels (TRAIN_BATCH
+    boxes: 8 corners and a center each). Times in ms."""
+    from tpufusion_torch.kernel_bench import (
+        pixels_bound_ms,
+        project_2d_bound_ms,
+        torch_pixels_composition,
+    )
+    from tpufusion_torch.ops import pixels, projection
+
+    idx = list(range(len(sets)))
+    fns = {
+        "kernel": lambda i: pixels.project_points(*sets[i], spec),
+        "composition": lambda i: torch_pixels_composition(*sets[i], spec),
+    }
+    plain = {"plain": lambda i: pixels.project_points_reference(*sets[i], spec)}
+    t = time_turns(fns, idx, queued_ms)
+    t.update(time_turns(plain, idx, queued_each))
+    t.update({f"{k}_call": v for k, v in time_turns({**fns, **plain}, idx).items()})
+    views = {
+        "view": lambda i: projection.nearest_wins_image(*pixels.project_points(*sets[i], spec), spec),
+        "view_before": lambda i: projection.nearest_wins_image(
+            *torch_pixels_composition(*sets[i], spec), spec),
+    }
+    t.update(time_turns(views, idx, queued_ms))
+    t["bound"] = float(np.mean([pixels_bound_ms(*a) for a in sets]))
+    dev = sets[0][0].device
+    labels = [torch.randn((TRAIN_BATCH * 9, 3), generator=torch.Generator().manual_seed(i)).mul(
+        20).to(dev) for i in idx]
+    xyz = [tuple(c[:, j].contiguous() for j in range(3)) for c in labels]
+    fns2 = {"kernel": lambda i: pixels.project_2d(*xyz[i], spec),
+            "plain": lambda i: pixels.project_2d_reference(*xyz[i], spec)}
+    t2 = time_turns(fns2, idx, queued_each)
+    t2.update({f"{k}_call": v for k, v in time_turns(fns2, idx).items()})
+    t2["bound"] = project_2d_bound_ms(TRAIN_BATCH * 9)
+    assert all(v > 0 for d in (t, t2) for v in d.values()), f"a time not measured: {t} {t2}"
+    return {"points": t, "2d": t2}
+
+
+def pixel_line(t: dict) -> str:
+    p, q = t["points"], t["2d"]
+    return (f"pixel kernel device time (a call): {p['kernel']:.4f} ({p['kernel_call']:.4f}) ms, "
+            f"bound {p['bound']:.4f} ms, kernel at {p['bound'] / p['kernel']:.1%} of it; plain "
+            f"on the card {p['plain']:.4f} ({p['plain_call']:.4f}) ms; the torch composition it "
+            f"replaced {p['composition']:.4f} ({p['composition_call']:.4f}) ms; the projection "
+            f"(pixels + z-buffer) {p['view']:.4f} ms, with the composition {p['view_before']:.4f} "
+            f"ms; project_2d at {TRAIN_BATCH * 9} label points {q['kernel']:.4f} "
+            f"({q['kernel_call']:.4f}) ms, plain {q['plain']:.4f} ({q['plain_call']:.4f}) ms, "
+            f"bound {q['bound']:.6f} ms")
 
 
 def check_zbuffer(label: str, points, valid, spec) -> None:
@@ -760,7 +958,7 @@ def phase_config1(dev, gm, card, totals):
     (p, v), = benchmarks.point_sets(1, 1, N_POINTS, dev)
     check_zbuffer("config 1's frame", p, v, benchmarks.SPEC)
     (preds, bev), counts = drive("one step", lambda: benchmarks.make_config1_step(model, dev)(p, v),
-                                 totals, expect=BOTH_KERNELS[:1])
+                                 totals, expect=RANGE_VIEW)
     assert counts == {"nearest_wins_image": 1, "connected_components_with_bbox": 0}
     assert preds.shape == (1, 32, 1801, 26) and bev.shape == (1, 1199, 180, 3)
     assert torch.isfinite(preds).all() and preds.dtype == torch.float32
@@ -770,7 +968,7 @@ def phase_config1(dev, gm, card, totals):
     row, counts = drive("config1_single_frame (warm-up + 6 distinct frames x 3 timed, "
                         "then warm-up + 6 for the device time)",
                         lambda: benchmarks.config1_single_frame(dev, model), totals,
-                        expect=BOTH_KERNELS[:1])
+                        expect=RANGE_VIEW)
     assert counts["nearest_wins_image"] == MEASURE_CALLS, "config 1: one z-buffer launch a step"
     log(f"  {json.dumps(row)} [{card}]")
     return row
@@ -837,7 +1035,7 @@ def phase_config3(dev, gf, card, totals):
     check_zbuffer("config 3's camera-wedge scans", args[0], args[1], benchmarks.SPEC)
     (seg, centroid, rz), counts = drive(
         f"one step, batch {C3_BATCH} x {N_POINTS}", lambda: step(*args), totals,
-        expect=BOTH_KERNELS[:1])
+        expect=RANGE_VIEW)
     assert counts == {"nearest_wins_image": 1, "connected_components_with_bbox": 0}
     assert seg.shape == (C3_BATCH, 180, 1197, 26) and centroid.shape == (C3_BATCH, 3)
     assert rz.shape == (C3_BATCH, 1)
@@ -867,7 +1065,7 @@ def phase_config3(dev, gf, card, totals):
     row, counts = drive("config3_fused (warm-up + 6 distinct batches x 3 timed, then "
                         "warm-up + 6 for the device time)",
                         lambda: benchmarks.config3_fused(dev, bev_fcn, nets["bf16"]), totals,
-                        expect=BOTH_KERNELS[:1])
+                        expect=RANGE_VIEW)
     assert counts["nearest_wins_image"] == MEASURE_CALLS, "config 3: one z-buffer launch a step"
     log(f"  {json.dumps(row)} [{card}]")
 
@@ -987,7 +1185,7 @@ def phase_train_golden(dev, spec, gm, gt, totals):
             f"train step {case} (head {what['head']}, {what['dtype']}"
             + (f", rolled by {shifts.tolist()}" if shifts is not None else "") + ")",
             lambda: _golden.port_train_case(case, ASSET, gm, batch, dev, shifts),
-            totals, expect=BOTH_KERNELS[:1])
+            totals, expect=RANGE_VIEW + (("project_2d",) if what["head"] == "corner" else ()))
         assert counts == {"nearest_wins_image": 1, "connected_components_with_bbox": 0}, (
             "a train step launches the z-buffer once and never the CC")
         r = _golden.train_case_readings(got, gt, case)
@@ -1063,7 +1261,7 @@ def phase_trainer(dev, spec, card, totals):
             pipe = BatchPipeline(data, TRAIN_BATCH, seed=0, device=dev)
             assert pipe._dev is not None, "the dataset should be device-resident"
             hist, counts = drive(f"fit, {tag}", lambda: trainer.fit(pipe), totals,
-                                 expect=BOTH_KERNELS[:1])
+                                 expect=RANGE_VIEW)
             steps = 2 * TRAIN_SCENE_BATCHES
             assert counts == {"nearest_wins_image": steps, "connected_components_with_bbox": 0}
             losses = hist.batch["loss"]
@@ -1091,7 +1289,7 @@ def phase_trainer(dev, spec, card, totals):
                 f"loss {float(la):.6f} (uninterrupted) vs {float(lb):.6f} (resumed)")
             assert moments and same_rng and float(la) == float(lb), "resume is not exact"
             hist2, _ = drive("one more epoch after resume",
-                             lambda: resumed.fit(pipe, epochs=1), totals, expect=BOTH_KERNELS[:1])
+                             lambda: resumed.fit(pipe, epochs=1), totals, expect=RANGE_VIEW)
             assert np.isfinite(hist2.batch["loss"]).all() and resumed.step == steps + TRAIN_SCENE_BATCHES
 
             # no host sync in the step loop: 8 steps, the pipeline's gathers included
@@ -1160,7 +1358,7 @@ def phase_fusion_train(dev, gf, gt, card, totals):
         f"{FUSION_TRAIN_FRAMES} frames x {N_POINTS} points, batch {C3_BATCH}")
     data, counts = drive(
         "build_fusion_dataset", lambda: build_fusion_dataset(FUSION_TRAIN_FRAMES, 700, device=dev),
-        totals, expect=BOTH_KERNELS[:1])
+        totals, expect=RANGE_VIEW)
     net = FusionNet(
         lidar_model=ModelConfig(dtype="bfloat16"),
         camera_model=ModelConfig(vertical_stride=2, use_regression=False, dtype="bfloat16"),
@@ -1272,7 +1470,7 @@ def phase_config4(dev, spec, card, totals):
     (model, dcfg, head), counts = drive(
         f"quick_trained_model at a reduced depth ({depth}; the default is 8 x 15)",
         lambda: benchmarks.quick_trained_model(dev, N_POINTS, **depth), totals,
-        expect=BOTH_KERNELS[:1])
+        expect=RANGE_VIEW)
     assert counts["nearest_wins_image"] == 10, "one z-buffer launch a train step"
     finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
     (p, v), = benchmarks.point_sets(1, TRAIN_BATCH, N_POINTS, dev)
@@ -1386,10 +1584,12 @@ def phase_data_parallel(dev, spec, card, totals):
             holds = {ph: rank[ph]["kernels"] for ph in rank}
             log(f"  rank {r}: launches {json.dumps({ph: rank[ph]['launches'] for ph in rank})}; "
                 f"kernels against plain on its own points {json.dumps(holds)}")
-            assert rank["train"]["launches"] == {"nearest_wins_image": 1, "connected_components_with_bbox": 0}
+            assert rank["train"]["launches"] == {
+                "project_points": 1, "nearest_wins_image": 1, "connected_components_with_bbox": 0}
             for ph in ("corner", "flagship", "full_width"):
-                assert rank[ph]["launches"] == {"nearest_wins_image": 1, "connected_components_with_bbox": 1}
-                assert rank[ph]["kernels"]["zbuffer_equal"] and rank[ph]["kernels"]["cc_equal"]
+                assert rank[ph]["launches"] == {
+                    "project_points": 1, "nearest_wins_image": 1, "connected_components_with_bbox": 1}
+                assert all(rank[ph]["kernels"][k] for k in ("pixels_equal", "zbuffer_equal", "cc_equal"))
         tr = train[label] = out["ranks"][0]["train"]
         if cfg.n_spatial > 1:
             halo = tr["halo"]
@@ -1570,7 +1770,7 @@ def phase_offline_drive(dev, spec, card, totals, work):
             lambda: extract_bag_dataset(bag, out, tracklet_xml=meta["gt_xml"], bev=bev,
                                         streaming=mode == "streaming", batch=DRIVE_BATCH,
                                         device=dev),
-            totals, expect=BOTH_KERNELS[:1])
+            totals, expect=RANGE_VIEW)
         s = time.perf_counter() - t
         log(f"    {s:.3f} s, {DRIVE_FRAMES / s:.3f} frames/s (host clock) [{card}]")
         assert counts["nearest_wins_image"] == launches, "one z-buffer launch a batch"
@@ -1807,7 +2007,7 @@ def phase_tools(dev, spec, card, totals):
         t = time.perf_counter()
         results, counts = drive(f"(d) train_fusion_synthetic.main({' '.join(args[:8])}), both "
                                 "variants", lambda: fusion_tool.main(args + dev_arg), totals,
-                                expect=BOTH_KERNELS[:1])
+                                expect=RANGE_VIEW)
         log(f"    {time.perf_counter() - t:.3f} s (host clock) [{card}]; {json.dumps(results)}")
         assert counts == {"nearest_wins_image": 2, "connected_components_with_bbox": 0}, (
             "the fusion tool: a z-buffer launch a dataset")
@@ -1897,7 +2097,7 @@ def phase_viewer(dev, spec, card, totals, extracted):
     p0, v0 = torch.from_numpy(pts[0]).to(dev), torch.from_numpy(valid[0]).to(dev)
     with torch.inference_mode():
         img, counts = drive(f"(a) range_view_project, one {N_POINTS}-point frame",
-                            lambda: range_view_project(p0, spec, v0), totals, expect=BOTH_KERNELS[:1])
+                            lambda: range_view_project(p0, spec, v0), totals, expect=RANGE_VIEW)
         assert counts == zbuffer_only, counts
         row = range_view_project_batch(p0[None], spec, v0[None])[0]
         plain = range_view_project(torch.from_numpy(pts[0]), spec, torch.from_numpy(valid[0]))
@@ -1912,12 +2112,12 @@ def phase_viewer(dev, spec, card, totals, extracted):
         preds = model(img[None])
         frame_out, counts = drive("(a) decode_frame_direct, the shipped asset at its operating point",
                                   lambda: decode_frame_direct(preds[0], img, spec, dcfg), totals,
-                                  expect=BOTH_KERNELS[1:])
+                                  expect=CC_ONLY)
         assert counts == cc_only, counts
         batch_out = decode_batch_direct(preds, img[None], spec, dcfg)
         mask = heat_mask(preds[..., 1], dcfg)[0]
         labels, counts = drive("(a) connected_components, the asset's heat mask",
-                               lambda: connected_components(mask), totals, expect=BOTH_KERNELS[1:])
+                               lambda: connected_components(mask), totals, expect=CC_ONLY)
         assert counts == cc_only, counts
         want_labels = components.connected_components_reference(mask.cpu(), SWEEP_CAP)
     same = [torch.equal(frame_out[k], batch_out[k][0]) for k in ("poses", "found")]
@@ -1934,11 +2134,11 @@ def phase_viewer(dev, spec, card, totals, extracted):
         cpred = corner(img[None])
         one, counts = drive("(a) decode_frame, a seeded default-width corner FCN",
                             lambda: decode_frame(cpred[0], img, spec, DEFAULT.decode), totals,
-                            expect=BOTH_KERNELS[1:])
+                            expect=CC_ONLY)
         assert counts == cc_only, counts
         multi, counts = drive("(a) decode_frame_multi(k=4), the same FCN",
                               lambda: decode_frame_multi(cpred[0], img, spec, DEFAULT.decode, 4),
-                              totals, expect=BOTH_KERNELS[1:])
+                              totals, expect=CC_ONLY)
         assert counts == cc_only, counts
         rows = decode_batch(cpred, img[None], spec, DEFAULT.decode)
         mrows = decode_batch_multi(cpred, img[None], spec, DEFAULT.decode, 4)
@@ -1951,7 +2151,7 @@ def phase_viewer(dev, spec, card, totals, extracted):
     check_cc("the corner FCN's heat mask", cmask)
     tall = torch.from_numpy(parity_inputs.cc_frames(height=64, width=100)["serpentine"]).to(dev)
     labels, counts = drive("(a) connected_components, a 64-row serpentine (2 row tiles)",
-                           lambda: connected_components(tall), totals, expect=BOTH_KERNELS[1:])
+                           lambda: connected_components(tall), totals, expect=CC_ONLY)
     assert counts == cc_only, counts
     same = torch.equal(labels.cpu(), components.connected_components_reference(tall.cpu(), SWEEP_CAP))
     log(f"    the 64 x 100 mask's labels equal to the plain sweeps {same}")
@@ -1984,7 +2184,7 @@ def phase_viewer(dev, spec, card, totals, extracted):
                               "a .pt checkpoint of FCN(DEFAULT.model), port 0, rate_hz 1000)",
                               lambda: viewer.view_dataset(raw, ckpt, port=0, rate_hz=1000.0,
                                                           device=dev),
-                              totals, expect=BOTH_KERNELS[:1])
+                              totals, expect=RANGE_VIEW)
             wall = time.perf_counter() - t
         finally:
             viewer.LiveViewer.push, viewer.LiveViewer.stop = orig_push, orig_stop
@@ -2493,7 +2693,7 @@ def main(argv=()) -> int:
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
     if "--training-only" in argv:
-        totals = dict.fromkeys(BOTH_KERNELS, 0)
+        totals = dict.fromkeys(KERNELS, 0)
         training_phases(dev, spec, load_npz(GOLDEN_MULTI), load_npz(GOLDEN_FUSION), card, totals)
         log(f"kernel launches over phases 15-18: {totals}")
         print(card)
@@ -2510,6 +2710,7 @@ def main(argv=()) -> int:
     scan_pts, scan_gt, scan_valid = synthesize_beam_scan_batch(
         np.random.default_rng(0), BATCH, N_POINTS
     )
+    pix_err, pix2d_err = phase_pixels(dev, spec, (scan_pts, scan_valid))  # phase 1b
     proj_err = 0.0
     for label, p, v in (("proj_check 4x8192", pts, valid),
                         (f"beam scans {BATCH}x{N_POINTS}", scan_pts, scan_valid)):
@@ -2610,17 +2811,17 @@ def main(argv=()) -> int:
         np.random.default_rng(1), REQUESTS, N_POINTS
     )
     requests = [req_pts[i][req_valid[i]] for i in range(REQUESTS)]
-    projection.LAUNCHES = 0
-    cc.LAUNCHES = 0
+    _reset_launches()
     answers = [pipe.predict_position(r) for r in requests]
     poses, found = step(scan_pts, scan_valid)
     torch.cuda.synchronize()
-    launches = {"nearest_wins_image": projection.LAUNCHES,
-                "connected_components_with_bbox": cc.LAUNCHES}
+    launches = _launches()
     log(f"phase 4 main path: {REQUESTS} server requests + one batch of "
         f"{BATCH}x{N_POINTS}; kernel launches {launches}")
-    for k, n in launches.items():
-        assert n > 0, f"the main path never launched {k}"
+    for k in SERVING:
+        assert launches[k] > 0, f"the main path never launched {k}"
+    assert launches["project_points"] == launches["nearest_wins_image"], (
+        "the main path: a range view without the pixel kernel")
     poses_np, found_np = poses.cpu().numpy(), found.cpu().numpy()
     req_poses = np.stack([a[0] for a in answers])
     req_found = np.array([a[1] for a in answers])
@@ -2652,6 +2853,7 @@ def main(argv=()) -> int:
         f"(tolerance {POSE_TOL}), images with JAX's sha256: {same_img}/{len(g_sha)}")
     assert np.array_equal(gf.cpu().numpy(), g_found), "found differs from JAX"
     assert diff.max() < POSE_TOL, "poses differ from JAX"
+    assert same_img == len(g_sha), "the card's range views of the golden frames are not JAX's"
 
     # -- phase 5: times on the card ----------------------------------------
     batches = []
@@ -2671,6 +2873,7 @@ def main(argv=()) -> int:
         dec_ms = time_ms(lambda ip: decode_batch_direct(ip[1], ip[0], spec, dcfg),
                          list(zip(images, preds)))
         kt = kernel_turns(spec, zargs, masks, dcfg)
+        pt = pixel_turns(spec, batches[:PIXEL_SETS])
     for r in requests[:3]:
         pipe.predict_position(r)  # warm-up
     lat = []
@@ -2686,6 +2889,7 @@ def main(argv=()) -> int:
     log(f"  stages: projection {proj_ms:.3f} ms, FCN {fcn_ms:.3f} ms, decode "
         f"{dec_ms:.3f} ms (CC inside the decode {kt['cc']['kernel_call']:.3f} ms a call) {where}")
     log(f"  {turns_line(kt)} {where}")
+    log(f"  {pixel_line(pt)} {where}")
     log(f"  single-frame request (host clock, {len(lat)} requests): p50 "
         f"{np.percentile(lat, 50):.3f} ms, p90 {np.percentile(lat, 90):.3f} ms {where}")
 
@@ -2731,8 +2935,25 @@ def main(argv=()) -> int:
     # -- phase 26: the repo's headline, bench.py and entry() ---------------
     phase_headline(dev, spec, card, totals)
 
-    z, c = kt["z"], kt["cc"]
+    assert totals["project_2d"] > 0, "no path launched the project_2d kernel"
+    assert totals["project_points"] == totals["nearest_wins_image"], (
+        "a driven range view without the pixel kernel")
+    z, c, px, p2 = kt["z"], kt["cc"], pt["points"], pt["2d"]
     kernels = [
+        {"name": "project_points", "route": "cuda",
+         "source": "tpufusion_torch/csrc/pixels.cu",
+         "replaces": "tpufusion/geometry/range_view.py:115",
+         "launches": totals["project_points"], "max_abs_err": pix_err,
+         "ms": px["kernel"], "plain_ms": px["plain"], "bound_ms": px["bound"],
+         "bound_by": "bytes", "library_ms": None, "call_ms": px["kernel_call"],
+         "replaced_composition_ms": px["composition"], "view_ms": px["view"],
+         "view_ms_before": px["view_before"]},
+        {"name": "project_2d", "route": "cuda",
+         "source": "tpufusion_torch/csrc/pixels.cu",
+         "replaces": "tpufusion/geometry/boxes.py:86",
+         "launches": totals["project_2d"], "max_abs_err": pix2d_err,
+         "ms": p2["kernel"], "plain_ms": p2["plain"], "bound_ms": p2["bound"],
+         "bound_by": "bytes", "library_ms": None, "call_ms": p2["kernel_call"]},
         {"name": "nearest_wins_image", "route": "cuda",
          "source": "tpufusion_torch/csrc/nearest_wins.cu",
          "replaces": "tpufusion/ops/pallas_projection.py:146",

@@ -10,7 +10,8 @@ it runs on a machine with the card but without JAX:
 from the tests directory either, whose name another installed package may
 shadow.) The adversarial kernel inputs are
 `tpufusion_torch/ops/parity_inputs.py`'s, which chip_smoke.py phases 2-3
-run too. Tolerance: none — both kernels compute exact integer answers;
+run too. Tolerance: none — the kernels compute exact integer answers,
+and the pixel kernel's floats are its plain version's bit for bit;
 1e-3 on float32 poses against the JAX goldens (CUDA's atan2f / sinf /
 cosf differ by ulps from the CPU's), poses from the bf16 FCN included
 (they read 3.8e-6 on an H100); the bf16 FCN's own output within
@@ -38,7 +39,7 @@ from tpufusion_torch.decode import decode
 from tpufusion_torch.geometry.range_view import _frame_pixels_keys, range_view_project_batch
 from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.models.io import asset_configs, load_state_npz
-from tpufusion_torch.ops import cc, components, parity_inputs, projection
+from tpufusion_torch.ops import cc, components, parity_inputs, pixels, projection
 from tpufusion_torch.predict import make_e2e_step
 from tpufusion_torch.serve.pipeline import LidarPipeline
 
@@ -187,6 +188,109 @@ def test_cc_kernel_rejects_bad_inputs(cuda_device):
         cc.connected_components_with_bbox(mask.transpose(1, 2))
     with pytest.raises(ValueError, match="impl"):
         cc.connected_components_with_bbox(mask, 128, "scan")
+
+
+def _same_bits(got, want) -> bool:
+    got, want = got.cpu(), want.cpu()
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return got.shape == want.shape and torch.equal(got, want)
+
+
+def _pixel_cases():
+    """(label, points, valid, spec): the main path's beam scans, config 5's,
+    the 63-row view's, and the adversarial points (C = 4 and 3, masked and
+    not) at both heights; numpy."""
+    from tpufusion_torch._golden import TALL_BEAMS, TALL_RES_V_DEG
+
+    tall = RangeViewSpec(res_v_deg=TALL_RES_V_DEG)
+    p, _, v = synthesize_beam_scan_batch(np.random.default_rng(0), 64, 32768)
+    yield "beam scans 64 x 32,768", p, v, SPEC
+    p, _, v = synthesize_beam_scan_batch(np.random.default_rng(600), 16, 131072, n_beams=64)
+    yield "config 5, 16 x 131,072", p, v, SPEC
+    p, _, v = synthesize_beam_scan_batch(np.random.default_rng(3), 64, 32768, n_beams=TALL_BEAMS)
+    yield "63 rows", p, v, tall
+    for spec in (SPEC, tall):
+        for channels in (4, 3):
+            p, v = parity_inputs.pixel_points(spec, batch=4, n=32768, channels=channels)
+            yield f"adversarial C={channels} at {spec.height} rows", p, v, spec
+        yield f"adversarial, no mask, at {spec.height} rows", p, None, spec
+
+
+def test_pixel_kernel_is_bit_identical(cuda_device):
+    """tf_project_points against its plain version run on the CPU and on
+    the card: pixel ids, keys, validity and payload, bit for bit."""
+    for label, p, v, spec in _pixel_cases():
+        pts = torch.from_numpy(p).to(cuda_device)
+        valid = None if v is None else torch.from_numpy(v).to(cuda_device)
+        before = pixels.LAUNCHES
+        got = pixels.project_points(pts, valid, spec)
+        torch.cuda.synchronize()
+        assert pixels.LAUNCHES == before + 1
+        want = pixels.project_points_reference(torch.from_numpy(p), None if v is None else
+                                               torch.from_numpy(v), spec)
+        card = pixels.project_points_reference(pts, valid, spec)
+        for g, w, c in zip(got, want, card):
+            assert _same_bits(g, w), label
+            assert _same_bits(c, w), label
+
+
+def test_project_2d_kernel_is_bit_identical(cuda_device):
+    """tf_project_2d against its plain version on seeded box corners and
+    the adversarial coordinates, at 32 and 63 rows."""
+    from tpufusion_torch._golden import TALL_RES_V_DEG
+    from tpufusion_torch.geometry.boxes import box_corners_3d
+
+    rng = np.random.default_rng(5)
+    n = 4096
+    center = np.stack([rng.uniform(-60, 60, n), rng.uniform(-60, 60, n),
+                       rng.uniform(-2.5, 0.5, n)], -1).astype(np.float32)
+    size = np.float32([4.2, 1.6, 1.5]) * rng.uniform(0.7, 1.4, (n, 3)).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    corners = box_corners_3d(torch.from_numpy(center)[:, None], torch.from_numpy(size)[:, None],
+                             torch.from_numpy(yaw)[:, None]).reshape(-1, 3)
+    xyz = torch.cat([corners, torch.from_numpy(parity_inputs.pixel_fixed_points())])
+    for spec in (SPEC, RangeViewSpec(res_v_deg=TALL_RES_V_DEG)):
+        cols = [xyz[:, i].contiguous() for i in range(3)]
+        want = pixels.project_2d_reference(*cols, spec)
+        before = pixels.LAUNCHES_2D
+        got = pixels.project_2d(*(c.to(cuda_device) for c in cols), spec)
+        card = pixels.project_2d_reference(*(c.to(cuda_device) for c in cols), spec)
+        torch.cuda.synchronize()
+        assert pixels.LAUNCHES_2D == before + 1
+        for g, w, c in zip(got, want, card):
+            assert _same_bits(g, w) and _same_bits(c, w)
+
+
+def test_pixel_kernel_rejects_bad_inputs(cuda_device):
+    pts = torch.zeros((2, 64, 4), device=cuda_device)
+    valid = torch.ones((2, 64), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        pixels.project_points(pts.double(), valid, SPEC)
+    with pytest.raises(ValueError, match="contiguous"):
+        pixels.project_points(pts.transpose(0, 1).contiguous().transpose(0, 1), valid, SPEC)
+    with pytest.raises(ValueError, match="CUDA"):
+        pixels.project_points(pts, valid.cpu(), SPEC)
+    with pytest.raises(ValueError, match="bool"):
+        pixels.project_points(pts, valid.to(torch.uint8), SPEC)
+    with pytest.raises(ValueError, match="C >= 3"):
+        pixels.project_points(pts[..., :2].contiguous(), valid, SPEC)
+    with pytest.raises(ValueError, match="shape"):
+        pixels.project_2d(pts[0, :, 0].contiguous(), pts[0, :32, 1].contiguous(),
+                          pts[0, :, 2].contiguous(), SPEC)
+
+
+def test_the_cards_range_views_of_the_bench_golden_are_the_cpus(cuda_device):
+    """The headline's frames (tests/data/torch_port_golden_bench.npz): the
+    card's range views equal the CPU's, which are eager JAX's."""
+    g = load_npz(os.path.join(_REPO, "tests", "data", "torch_port_golden_bench.npz"))
+    for key, vkey in (("points", "valid"), ("entry_points", None)):
+        pts = torch.from_numpy(g[key])
+        valid = None if vkey is None else torch.from_numpy(g[vkey])
+        want = range_view_project_batch(pts, SPEC, valid)
+        got = range_view_project_batch(pts.to(cuda_device), SPEC,
+                                       None if valid is None else valid.to(cuda_device))
+        assert _same_bits(got, want), key
 
 
 def test_main_path_runs_both_kernels_and_matches_golden(cuda_device):

@@ -1,6 +1,7 @@
 """Builds the port's CUDA kernels and loads them with ctypes.
 
-At first use, nvcc compiles every `csrc/*.cu` for sm_90a into one shared
+At first use, nvcc compiles every `csrc/*.cu` for sm_90a, one process a
+source, all started together, and links the objects into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds, not minutes) under `tpufusion_torch/_build/`. The library's name
 carries a hash of the sources and flags, so an edited source rebuilds and
@@ -23,7 +24,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # per-kernel registers / shared memory / spills in the log
 )
 
@@ -64,13 +65,27 @@ def _compile(out: str) -> None:
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
-        )
+    sources = _sources()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for obj, src in zip(objs, sources)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+    if all(p.returncode == 0 for p in procs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        procs.append(proc)
+        cmds.append(link)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    build_log = "".join(logs)
+    for cmd, proc in zip(cmds, procs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
+            )
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 
@@ -92,6 +107,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tf_nearest_wins_image.restype = i
     lib.tf_components_with_bbox.argtypes = [p, p, p, p, i, i, i, p]
     lib.tf_components_with_bbox.restype = i
+    ll = ctypes.c_longlong
+    spec = [f, f, f, f, i, i, i]  # res_h, x_min, res_v, y_min, width, height, y_max
+    lib.tf_project_points.argtypes = [p, p, p, p, p, p, ll, i, *spec, p]
+    lib.tf_project_points.restype = i
+    lib.tf_project_2d.argtypes = [p, p, p, p, p, ll, *spec, p]
+    lib.tf_project_2d.restype = i
     lib.tf_error_string.argtypes = [i]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,6 +6,7 @@ would wait for the card every call. Only the first call copies."""
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -20,3 +21,17 @@ def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
     """The 1-D tensor of `values` on `device`, shared by every caller:
     read it, never write it."""
     return _cached(tuple(float(v) for v in values), dtype, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_scalar(bits: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.full((), bits[0], dtype=dtype, device=device)
+
+
+def device_scalar(value: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """The 0-d tensor of `value` on `device`, made by a fill (no host
+    copy) and shared by every caller: read it, never write it. -0.0 and
+    0.0 are two constants."""
+    value = float(value)
+    return _cached_scalar((value, math.copysign(1.0, value)), dtype, torch.device(device))

@@ -54,7 +54,7 @@ from tpufusion_torch.geometry.encoding import (
     pixel_points,
     pixel_rotations,
 )
-from tpufusion_torch.geometry.range_view import sqrt_f32
+from tpufusion_torch.ops.libm_f32 import sqrt_f32
 from tpufusion_torch.ops.cc import connected_components_with_bbox
 
 _SENTINEL = 1e8  # reference uses 10e7 for "no valid pixel"

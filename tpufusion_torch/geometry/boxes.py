@@ -15,9 +15,9 @@ of `tpufusion/geometry/boxes.py`):
 Every function takes leading batch axes where the reference uses `vmap`.
 The rect edges are integers cut from float trigonometry, so the order of
 the float operations is the reference's: the rotation is written out
-term by term (no matmul, no fused multiply-add), the norm goes through
-`sqrt_f32`, and the divisors are tensors (a Python-number divisor becomes
-a multiplication by its reciprocal on the card).
+term by term (no matmul, no fused multiply-add), the norms go through
+`sqrt_f32`, and the projection is the pixel kernel's (`ops/pixels.py`:
+the reference's atan2 and asin, IEEE division).
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from tpufusion_torch.config import RangeViewSpec
-from tpufusion_torch.geometry.range_view import sqrt_f32
+from tpufusion_torch.ops.libm_f32 import sqrt_f32
+from tpufusion_torch.ops import pixels
 
 # corner template signs in (l, w, h) halves, in the reference's order
 _CORNER_SIGNS = np.array(
@@ -77,12 +78,6 @@ def _f32(x, like: torch.Tensor | None = None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
-    """A 0-d float32 tensor on like's device, made by a fill: a copy of a
-    host number to the card would make the host wait for the card."""
-    return torch.full((), value, dtype=torch.float32, device=like.device)
-
-
 def _corner_signs(device) -> torch.Tensor:
     """_CORNER_SIGNS on `device`, computed there (no host copy)."""
     k = torch.arange(8, device=device)
@@ -108,16 +103,13 @@ def box_corners_3d(center, size, yaw) -> torch.Tensor:
 
 def project_2d(tx, ty, tz, spec: RangeViewSpec) -> tuple[torch.Tensor, torch.Tensor]:
     """Elementwise 3D -> (col, row) int32: truncation toward zero, the row
-    clamped to [0, y_max] and flipped, the column left as it falls."""
+    clamped to [0, y_max] and flipped, the column left as it falls; eager
+    JAX's bit for bit (the pixel kernel on the card, its plain version on
+    the CPU: `ops/pixels.py`)."""
     tx = _f32(tx)
     ty, tz = _f32(ty, tx), _f32(tz, tx)
-    l2 = sqrt_f32(tx * tx + ty * ty + tz * tz)
-    res_h, res_v = _scalar(spec.res_h_rad, tx), _scalar(spec.res_v_rad, tx)
-    col = torch.trunc(torch.atan2(-ty, tx) / res_h - spec.x_min).to(torch.int32)
-    ratio = torch.where(l2 > 0, tz / torch.clamp(l2, min=1e-12), 0.0)
-    row = torch.trunc(torch.asin(ratio) / res_v - spec.y_min).to(torch.int32)
-    row = spec.y_max - torch.clamp(row, 0, spec.y_max)
-    return col, row
+    tx, ty, tz = (t.contiguous() for t in torch.broadcast_tensors(tx, ty, tz))
+    return pixels.project_2d(tx, ty, tz, spec)
 
 
 def sorted_projected_corners(center, size, yaw, spec: RangeViewSpec) -> torch.Tensor:

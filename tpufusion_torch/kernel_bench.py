@@ -182,6 +182,41 @@ def cc_bound_ms(mask) -> float:
     return 21 * mask.numel() / HBM_BYTES_PER_S * 1e3
 
 
+def pixels_bound_ms(points, valid) -> float:
+    """Least time for the pixel kernel's bytes at 3.35 TB/s: the (B, N, C)
+    float32 points and the validity bytes read once; the pixel id, key,
+    ok byte and (3,) float32 payload written once (21 B a point)."""
+    b, n, c = points.shape
+    nbytes = b * n * (4 * c + (0 if valid is None else 1) + 21)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def project_2d_bound_ms(n: int) -> float:
+    """Least time for `project_2d`'s bytes at 3.35 TB/s: three float32
+    coordinates read and two int32 written an element (20 B)."""
+    return 20 * n / HBM_BYTES_PER_S * 1e3
+
+
+def torch_pixels_composition(points, valid, spec):
+    """The torch composition the pixel kernel replaced (the range view's
+    pixel, key and payload math before the kernel: torch.atan2,
+    torch.asin, division by Python numbers), kept as the kernel's
+    yardstick and used nowhere in the port. It is not the reference's
+    arithmetic on the card: only its time is read."""
+    x, y, z = points[..., 0], points[..., 1], points[..., 2]
+    l2 = torch.sqrt((x * x + y * y + z * z).double()).float()
+    az = torch.atan2(-y, x) / spec.res_h_rad - spec.x_min
+    ratio = torch.where(l2 > 0, z / torch.clamp(l2, min=1e-12), 0.0)
+    el = torch.asin(ratio) / spec.res_v_rad - spec.y_min
+    col = torch.remainder(torch.trunc(az).to(torch.int32), spec.width)
+    row = spec.y_max - torch.remainder(torch.trunc(el).to(torch.int32), spec.height)
+    ok = torch.isfinite(points).all(dim=-1) & valid
+    pix = torch.where(ok, row * spec.width + col, 0).to(torch.int32)
+    intensity = points[..., 3] if points.shape[-1] > 3 else torch.zeros_like(x)
+    payload = torch.stack([torch.sqrt((x * x + y * y).double()).float(), z, intensity], dim=-1)
+    return pix, l2.view(torch.int32), ok, payload
+
+
 def scatter_amin_yardstick(pix, key_bits, valid, num_pixels: int):
     """The library call that computes the z-buffer's scatter half:
     `Tensor.scatter_reduce_(..., "amin")` of the packed key into a grid
@@ -205,7 +240,7 @@ def _build_old(csrc: str) -> ctypes.CDLL:
 
     out = os.path.join(_build.BUILD_DIR, "libtpufusion_kernels_old.so")
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", out,
            *sorted(glob.glob(os.path.join(csrc, "*.cu")))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

@@ -1,7 +1,16 @@
-"""Adversarial inputs that hold the two CUDA kernels against their plain
-versions (`tests/test_torch_cuda.py` and `chip_smoke.py` phases 2-3 run
+"""Adversarial inputs that hold the CUDA kernels against their plain
+versions (`tests/test_torch_cuda.py` and `chip_smoke.py` phases 1b-3 run
 the same ones), and the BEV rasterizer's edge-case cloud. Numpy only,
 made from a seed.
+
+The pixel kernel's points (`csrc/pixels.cu`) aim at fdlibm's branches
+and the pixel borders: every combination of coordinates from a set of
+edge values (+-0, subnormals, the smallest normal, +-1, fdlibm's |y/x|
+breakpoints and their neighbours, 2^+-60, huge values, +-inf, NaN), so
+x < 0 with y = +-0, points on the z axis and a non-finite value in each
+channel; quotients y/x one ulp either side of each breakpoint; points
+whose azimuth or elevation falls within a few ulps of a column or row
+border; random points, duplicates and invalid ones.
 
 The CC masks aim at the tiling of `csrc/components.cu` (32-row x
 64-column tiles: at 32 x 1801 one row of 28 full tiles and a ragged
@@ -239,6 +248,81 @@ def zbuffer_args(batch: int, n: int, num_pixels: int, seed: int = 0, kinds=ZBUFF
         a[:, n // 2 : n // 2 + k] = a[:, :k]
     payload = rng.standard_normal((batch, n, 3)).astype(np.float32)
     return pix, dist.view(np.int32), valid, payload
+
+
+def pixel_edge_values() -> np.ndarray:
+    """float32 coordinates at fdlibm's edges, both signs."""
+    f = np.float32
+    base = [0.0, 1e-45, 1e-40, 1.1754942e-38, 1.1754944e-38, 1e-30, 0.5, 1.0, 2.0, 3.0,
+            1e10, 3.4e38, np.inf, np.nan]
+    for b in (0.4375, 0.6875, 1.1875, 2.4375, 2.0**25, 2.0**60, 2.0**-60):
+        base += [np.nextafter(f(b), f(0)), b, np.nextafter(f(b), f(np.inf))]
+    v = np.array(base, np.float32)
+    return np.concatenate([v, -v])
+
+
+def _border_points(rng, spec, n: int) -> np.ndarray:
+    """(n, 3) points whose azimuth (first half) or elevation (second half)
+    lies within a few ulps of a column or row border of `spec`."""
+    half = n // 2
+    r = rng.uniform(2.0, 80.0, n)
+    col = rng.integers(0, spec.width, half)
+    az = (col + spec.x_min) * spec.res_h_rad  # atan2(-y, x) at the border
+    el = np.radians(rng.uniform(-26.0, 3.0, n))
+    row = rng.integers(0, spec.height, n - half)
+    el[half:] = (row + spec.y_min) * spec.res_v_rad
+    az = np.concatenate([az, rng.uniform(-np.pi, np.pi, n - half)])
+    pts = np.stack([r * np.cos(el) * np.cos(az), -r * np.cos(el) * np.sin(az),
+                    r * np.sin(el)], axis=-1).astype(np.float32)
+    nudge = rng.integers(-3, 4, (n, 3))  # a few ulps either way
+    for _ in range(3):
+        pts = np.where(nudge > 0, np.nextafter(pts, np.float32(np.inf)), pts)
+        pts = np.where(nudge < 0, np.nextafter(pts, np.float32(-np.inf)), pts)
+        nudge = nudge - np.sign(nudge)
+    return pts
+
+
+def pixel_fixed_points() -> np.ndarray:
+    """(M, 3): every (x, y, z) of a small edge set, every (x, y) of
+    `pixel_edge_values` at z = 1.5 and every (x, z) at y = 0, and
+    quotients y/x one ulp either side of each fdlibm breakpoint."""
+    f = np.float32
+    v = pixel_edge_values()
+    small = np.array([0.0, 1e-40, 1.1754944e-38, 0.4375, 1.0, 2.0, 3.4e38, np.inf, np.nan], f)
+    small = np.concatenate([small, -small])
+    cube = np.stack(np.meshgrid(small, small, small, indexing="ij"), -1).reshape(-1, 3)
+    xx, yy = (a.ravel() for a in np.meshgrid(v, v, indexing="ij"))
+    xy = np.stack([xx, yy, np.full_like(xx, 1.5)], -1)
+    xz = np.stack([xx, np.zeros_like(xx), yy], -1)
+    xs = np.array([2.0, -3.0, 0.75, 1e-20, -1e20], f)
+    qs = np.concatenate([[np.nextafter(f(b), f(0)), f(b), np.nextafter(f(b), f(np.inf))]
+                         for b in (2.0**-29, 0.4375, 0.6875, 1.1875, 2.4375, 2.0**25)])
+    qx, qy = (a.ravel() for a in np.meshgrid(xs, qs, indexing="ij"))
+    quot = np.stack([qx, (qy * qx).astype(f), np.full_like(qx, 1.5)], -1)
+    quot = np.concatenate([quot, quot * f([1, -1, -1])])
+    return np.concatenate([cube, xy, xz, quot]).astype(f)
+
+
+def pixel_points(spec, batch: int = 2, n: int = 32768, channels: int = 4, seed: int = 0):
+    """(points (B, N, C) float32, valid (B, N) bool) for the pixel kernel:
+    each frame starts with `pixel_fixed_points` (as many as fit in half
+    the frame), then border points of `spec`; a tenth invalid, the last
+    512 copies of the first, and the intensity (C > 3) NaN, inf or
+    subnormal at random points."""
+    rng = np.random.default_rng(seed)
+    fixed = pixel_fixed_points()[: n // 2]
+    pts = np.empty((batch, n, channels), np.float32)
+    valid = rng.random((batch, n)) > 0.1
+    for b in range(batch):
+        pts[b, :, :3] = np.concatenate([fixed, _border_points(rng, spec, n - len(fixed))])
+        if channels > 3:
+            pts[b, :, 3:] = rng.uniform(0, 1, (n, channels - 3))
+            odd = rng.integers(0, n, 64)
+            pts[b, odd, 3] = rng.choice(np.float32([np.nan, np.inf, -np.inf, 1e-40]), 64)
+    k = min(512, n // 4)
+    pts[:, n - k:] = pts[:, :k]  # duplicates: key and pixel ties
+    valid[:, n - k:] = valid[:, :k]
+    return pts, valid
 
 
 def bev_edge_cloud(spec, seed: int = 5, n: int = 4096):

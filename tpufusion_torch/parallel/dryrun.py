@@ -86,7 +86,7 @@ ADAM_FLOOR = 1e-6
 # entry (absolute below 1): the range channel's variance reaches ~10
 STATS_RTOL = 1e-6
 SWEEP_CAP = 16384  # plain CC sweeps when a rank holds the kernel against them
-KERNELS = ("nearest_wins_image", "connected_components_with_bbox")
+KERNELS = ("project_points", "nearest_wins_image", "connected_components_with_bbox")
 
 
 def _entry(rank: int, fn, n: int, port: int, device: str, backend: str | None, args: tuple,
@@ -128,30 +128,36 @@ def spawn(fn, n: int, device: torch.device | str = "cuda", backend: str | None =
 
 
 def _reset_launches() -> None:
-    from tpufusion_torch.ops import cc, projection
+    from tpufusion_torch.ops import cc, pixels, projection
 
-    projection.LAUNCHES = 0
-    cc.LAUNCHES = 0
+    pixels.LAUNCHES = projection.LAUNCHES = cc.LAUNCHES = 0
 
 
 def _launches() -> dict[str, int]:
-    from tpufusion_torch.ops import cc, projection
+    from tpufusion_torch.ops import cc, pixels, projection
 
-    return {"nearest_wins_image": projection.LAUNCHES, "connected_components_with_bbox": cc.LAUNCHES}
+    return {"project_points": pixels.LAUNCHES, "nearest_wins_image": projection.LAUNCHES,
+            "connected_components_with_bbox": cc.LAUNCHES}
 
 
 def _hold_kernels(points, spec, heat=None) -> dict:
-    """Both kernels against their plain versions on this rank's own points
-    (and heat masks): {"zbuffer_equal", "cc_equal", "cc_sweeps"}. On the
-    CPU the wrappers are the plain versions: nothing to hold."""
+    """The kernels against their plain versions on this rank's own points
+    (and heat masks): {"pixels_equal" (bit for bit the plain version on
+    the CPU), "zbuffer_equal", "cc_equal", "cc_sweeps"}. On the CPU the
+    wrappers are the plain versions: nothing to hold."""
     from tpufusion_torch.geometry.range_view import _frame_pixels_keys
-    from tpufusion_torch.ops import cc, components, projection
+    from tpufusion_torch.ops import cc, components, pixels, projection
 
     if points.device.type != "cuda":
         return {}
     with torch.inference_mode():
         args = _frame_pixels_keys(points, spec, None)
-        out = {"zbuffer_equal": bool(torch.equal(projection.nearest_wins_image(*args, spec),
+        want = pixels.project_points_reference(points.float().cpu(), None, spec)
+        same = [torch.equal(a.cpu().view(torch.int32) if a.dtype == torch.float32 else a.cpu(),
+                            w.view(torch.int32) if w.dtype == torch.float32 else w)
+                for a, w in zip(args, want)]
+        out = {"pixels_equal": all(same),
+               "zbuffer_equal": bool(torch.equal(projection.nearest_wins_image(*args, spec),
                                                  projection.nearest_wins_image_reference(*args, spec)))}
         if heat is not None:
             heat = heat.contiguous()
