@@ -170,7 +170,10 @@ to 0 before it and read after it, and then the training paths:
                scans, the near-tie frames, NaN / inf clouds with padding at
                32,768 and 32,769 points and the adversarial z-buffer inputs
                with near ties at 32,768, 32,769 and 131,072 points and into
-               63 x 1801; (b) every method's range views of the near-tie
+               63 x 1801, and the edges of its grid in the cluster's shared
+               memory (points on the CTAs' slice boundaries, every pixel
+               occupied, the ragged last slice at 63 rows, a 690 x 1801
+               image in two bands); (b) every method's range views of the near-tie
                frames against tests/data/torch_port_golden_packed.npz
                (sha256, the pixels "packed" moves off "exact"; "scatter",
                "sort16" and "pallas" equal "exact"; "sort16" refusing
@@ -179,7 +182,8 @@ to 0 before it and read after it, and then the training paths:
                projection against the CPU and the golden; (d) the packed
                kernel, the exact one, `scatter_reduce_` of the int32 packs
                + the gather, and the plain version in turns at 64 x 32,768
-               and 16 x 131,072, beside their bound; the A/B tool
+               and 16 x 131,072 and at 64 x 32,768 into 63 x 1801, beside
+               their bound; the A/B tool
                (`tools.bench_projection_ab --methods exact,packed --e2e`)
                and phase 26's packed row
 
@@ -499,9 +503,11 @@ def pixel_turns(spec, sets) -> dict:
     that composition. project_2d at a train batch's labels (TRAIN_BATCH
     boxes: 8 corners and a center each). Times in ms."""
     from tpufusion_torch.kernel_bench import (
+        empty_kernel,
         pixels_bound_ms,
         project_2d_bound_ms,
         torch_pixels_composition,
+        torch_project_2d_composition,
     )
     from tpufusion_torch.ops import pixels, projection
 
@@ -529,6 +535,11 @@ def pixel_turns(spec, sets) -> dict:
             "plain": lambda i: pixels.project_2d_reference(*xyz[i], spec)}
     t2 = time_turns(fns2, idx, queued_each)
     t2.update({f"{k}_call": v for k, v in time_turns(fns2, idx).items()})
+    floor = {"kernel_q": fns2["kernel"],
+             "composition": lambda i: torch_project_2d_composition(*xyz[i], spec),
+             "empty": empty_kernel}
+    t2.update(time_turns(floor, idx, queued_ms))
+    t2["composition_call"] = time_turns({"c": floor["composition"]}, idx)["c"]
     t2["bound"] = project_2d_bound_ms(TRAIN_BATCH * 9)
     assert all(v > 0 for d in (t, t2) for v in d.values()), f"a time not measured: {t} {t2}"
     return {"points": t, "2d": t2}
@@ -543,7 +554,10 @@ def pixel_line(t: dict) -> str:
             f"(pixels + z-buffer) {p['view']:.4f} ms, with the composition {p['view_before']:.4f} "
             f"ms; project_2d at {TRAIN_BATCH * 9} label points {q['kernel']:.4f} "
             f"({q['kernel_call']:.4f}) ms, plain {q['plain']:.4f} ({q['plain_call']:.4f}) ms, "
-            f"bound {q['bound']:.6f} ms")
+            f"bound {q['bound']:.6f} ms; in turns queued together: project_2d {q['kernel_q']:.4f} "
+            f"ms, the torch composition it replaced {q['composition']:.4f} "
+            f"({q['composition_call']:.4f}) ms, an empty kernel {q['empty']:.4f} ms (the launch "
+            f"floor)")
 
 
 def check_zbuffer(label: str, points, valid, spec) -> None:
@@ -2726,15 +2740,18 @@ def phase_packed(dev, spec, card, totals, headline: dict) -> dict:
     """Phase 27: the reference's other projection methods. (a) the packed
     z-buffer kernel against its plain version on the bench golden's beam
     scans, both near-tie sets, NaN / inf clouds with padding at 32,768 and
-    32,769 points, `parity_inputs.PACKED_SHAPES` and the adversarial
-    inputs into 63 x 1801; (b) every method's range views of the near-tie
+    32,769 points, `parity_inputs.PACKED_SHAPES`, the adversarial
+    inputs into 63 x 1801 and `PACKED_EDGE_SETS` (the slice edges of the
+    grid in the cluster's shared memory, every pixel occupied, the ragged
+    last slice at 63 rows, 690 rows in two bands); (b) every method's range views of the near-tie
     sets on the card against the packed golden's sha256 (JAX's), the
     pixels "packed" moves off "exact" as JAX's, "pallas", "scatter" and
     "sort16" equal to "exact", "sort16" refusing 33,792 points as JAX
     does; (c) the asset's step, `LidarPipeline` and `ReplayHarness` with
     the packed projection on the near-tie frames under `drive`, against
     the CPU and the golden; (d) `packed_turns` at 64 x 32,768 and 16 x
-    131,072, the A/B tool under `drive`, and phase 26's packed row.
+    131,072 into 32 x 1801 and at 64 x 32,768 of 64 beams into 63 x 1801,
+    the A/B tool under `drive`, and phase 26's packed row.
     Returns the kernels line's numbers."""
     from tpufusion_torch import RangeViewSpec
     from tpufusion_torch._golden import (
@@ -2776,6 +2793,9 @@ def phase_packed(dev, spec, card, totals, headline: dict) -> dict:
     tall = RangeViewSpec(res_v_deg=TALL_RES_V_DEG)
     shapes = [(b, n, k, spec) for b, n, k in parity_inputs.PACKED_SHAPES]
     shapes.append((BATCH, N_POINTS, parity_inputs.PACKED_KINDS, tall))
+    # the grid in the cluster's shared memory: slice edges, every pixel, the
+    # ragged last slice at 63 rows, 690 rows past one cluster's memory (bands)
+    shapes += [(b, n, k, RangeViewSpec(res_v_deg=r)) for b, n, k, r in parity_inputs.PACKED_EDGE_SETS]
     for b, n, kinds, s in shapes:
         args = [torch.from_numpy(a).to(dev) for a in parity_inputs.zbuffer_args(
             b, n, s.height * s.width, kinds=kinds)]
@@ -2839,11 +2859,11 @@ def phase_packed(dev, spec, card, totals, headline: dict) -> dict:
     held("make_e2e_step(method='packed')", poses.cpu(), found.cpu(), *cpu)
 
     requests = [f[v] for f, v in zip(points, valid)]
-    pipe = LidarPipeline(model, cfg, n, device=dev)
+    pipe = LidarPipeline(cfg=cfg, model=model, max_points=n, device=dev)
     answers, _ = drive(f"(c) LidarPipeline(projection_method='packed', max_points {n}), "
                        f"{len(requests)} requests", lambda: [pipe.predict_position(r) for r in requests],
                        totals, expect=PACKED)
-    cpu_pipe = LidarPipeline(cpu_model, cfg, n, device="cpu")
+    cpu_pipe = LidarPipeline(cfg=cfg, model=cpu_model, max_points=n, device="cpu")
     cpu_answers = [cpu_pipe.predict_position(r) for r in requests]
     held("LidarPipeline", np.stack([a[0] for a in answers]), np.array([a[1] for a in answers]),
          np.stack([a[0] for a in cpu_answers]), np.array([a[1] for a in cpu_answers]))
@@ -2859,21 +2879,24 @@ def phase_packed(dev, spec, card, totals, headline: dict) -> dict:
     # -- (d) times: the kernels in turns, the A/B tool, the bench's row ---------------------
     where = f"[{card}]"
     times = {}
-    for tag, (b, npts, beams) in (("64", (BATCH, N_POINTS, 32)), ("16", (C5_BATCH, C5_POINTS, C5_BEAMS))):
+    timed = (("64", (BATCH, N_POINTS, 32, spec)), ("16", (C5_BATCH, C5_POINTS, C5_BEAMS, spec)),
+             ("63", (BATCH, N_POINTS, C5_BEAMS, tall)))
+    for tag, (b, npts, beams, s) in timed:
         zargs = []
         for i in range(PACKED_TIMED):
             p, _, v = synthesize_beam_scan_batch(np.random.default_rng(2700 + i), b, npts, n_beams=beams)
-            zargs.append(pixel_args(p, v))
+            zargs.append(pixel_args(p, v, s))
         with torch.inference_mode():
-            exact = projection.nearest_wins_image_reference(*zargs[0], spec)
-            moved = int((projection.nearest_wins_packed_image_reference(*zargs[0], spec)
+            exact = projection.nearest_wins_image_reference(*zargs[0], s)
+            moved = int((projection.nearest_wins_packed_image_reference(*zargs[0], s)
                          != exact).any(-1).sum())
-        fill = torch.tensor([0.0, spec.min_height, 0.0], device=dev)
-        log(f"  (d) {b} x {npts} beam scans ({beams} beams), idx_bits "
+        fill = torch.tensor([0.0, s.min_height, 0.0], device=dev)
+        log(f"  (d) {b} x {npts} beam scans ({beams} beams) into {s.height} x {s.width}, idx_bits "
             f"{max((npts - 1).bit_length(), 1)}: pixels where the packed rule leaves the exact "
             f"one {moved} of {int((exact != fill).any(-1).sum())} occupied (the first set)")
-        t = times[tag] = packed_turns(spec, zargs)
-        log(f"  (d) {b} x {npts}, device time (a call), in turns over {PACKED_TIMED} sets: packed "
+        t = times[tag] = packed_turns(s, zargs)
+        log(f"  (d) {b} x {npts} into {s.height} rows, device time (a call), in turns over "
+            f"{PACKED_TIMED} sets: packed "
             f"kernel {t['kernel']:.4f} ({t['kernel_call']:.4f}) ms, exact kernel {t['exact']:.4f} "
             f"({t['exact_call']:.4f}) ms, scatter_reduce_ of the int32 packs + gather "
             f"{t['library']:.4f} ({t['library_call']:.4f}) ms, plain {t['plain']:.4f} "
@@ -2893,11 +2916,13 @@ def phase_packed(dev, spec, card, totals, headline: dict) -> dict:
         f"e2e exact {ab['e2e_exact']} / packed {ab['e2e_packed']} ms; phase 26's bench.run: "
         f"headline {headline['value']}, packed row {headline['packed_fps']} frames/s {where}")
     log(f"  phase 27 took {time.perf_counter() - t_phase:.3f} s (host clock) [{card}]")
-    t64, t16 = times["64"], times["16"]
+    t64, t16, t63 = times["64"], times["16"], times["63"]
     return {"err": err, "kernel": t64["kernel"], "plain": t64["plain"], "bound": t64["bound"],
             "library": t64["library"], "kernel_call": t64["kernel_call"], "exact": t64["exact"],
             "kernel_131072": t16["kernel"], "bound_131072": t16["bound"],
-            "library_131072": t16["library"], "exact_131072": t16["exact"]}
+            "library_131072": t16["library"], "exact_131072": t16["exact"],
+            "kernel_63": t63["kernel"], "bound_63": t63["bound"], "library_63": t63["library"],
+            "exact_63": t63["exact"]}
 
 
 def training_phases(dev, spec, gm, gf, card, totals) -> None:
@@ -3234,7 +3259,8 @@ def main(argv=()) -> int:
          "replaces": "tpufusion/geometry/boxes.py:86",
          "launches": totals["project_2d"], "max_abs_err": pix2d_err,
          "ms": p2["kernel"], "plain_ms": p2["plain"], "bound_ms": p2["bound"],
-         "bound_by": "bytes", "library_ms": None, "call_ms": p2["kernel_call"]},
+         "bound_by": "bytes", "library_ms": None, "call_ms": p2["kernel_call"],
+         "replaced_composition_ms": p2["composition"], "launch_floor_ms": p2["empty"]},
         {"name": "nearest_wins_image", "route": "cuda",
          "source": "tpufusion_torch/csrc/nearest_wins.cu",
          "replaces": "tpufusion/ops/pallas_projection.py:146",
@@ -3259,7 +3285,9 @@ def main(argv=()) -> int:
          "bound_by": "bytes", "library_ms": pk["library"], "call_ms": pk["kernel_call"],
          "exact_kernel_ms": pk["exact"], "ms_131072": pk["kernel_131072"],
          "bound_ms_131072": pk["bound_131072"], "library_ms_131072": pk["library_131072"],
-         "exact_kernel_ms_131072": pk["exact_131072"]},
+         "exact_kernel_ms_131072": pk["exact_131072"], "ms_63_rows": pk["kernel_63"],
+         "bound_ms_63_rows": pk["bound_63"], "library_ms_63_rows": pk["library_63"],
+         "exact_kernel_ms_63_rows": pk["exact_63"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

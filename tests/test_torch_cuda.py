@@ -262,6 +262,40 @@ def test_project_2d_kernel_is_bit_identical(cuda_device):
             assert _same_bits(g, w) and _same_bits(c, w)
 
 
+def test_sorted_projected_corners_is_one_launch(cuda_device):
+    """The label encode's corners and center share one project_2d launch a
+    box batch; the result is the two-call form's and the CPU's bit for
+    bit, at 32 and 63 rows."""
+    from tpufusion_torch._golden import TALL_RES_V_DEG
+    from tpufusion_torch.geometry import boxes
+    from tpufusion_torch.ops.libm_f32 import sqrt_f32
+
+    def two_calls(center, size, yaw, spec):
+        corners = boxes.box_corners_3d(center, size, yaw)
+        ccol, crow = boxes.project_2d(corners[..., 0], corners[..., 1], corners[..., 2], spec)
+        pcol, prow = boxes.project_2d(center[..., 0], center[..., 1], center[..., 2], spec)
+        d = sqrt_f32((ccol - pcol[..., None]).to(torch.float32) ** 2
+                     + (crow - prow[..., None]).to(torch.float32) ** 2)
+        both = torch.stack([ccol, crow], dim=-1)
+        order = torch.argsort(d, dim=-1, stable=True)
+        return torch.gather(both, -2, order[..., None].expand(both.shape))
+
+    rng = np.random.default_rng(11)
+    center = np.stack([rng.uniform(-60, 60, (32, 4)), rng.uniform(-60, 60, (32, 4)),
+                       rng.uniform(-2.5, 0.5, (32, 4))], -1).astype(np.float32)
+    size = (np.float32([4.2, 1.6, 1.5]) * rng.uniform(0.7, 1.4, (32, 4, 3))).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, (32, 4)).astype(np.float32)
+    for spec in (SPEC, RangeViewSpec(res_v_deg=TALL_RES_V_DEG)):
+        cpu = [torch.from_numpy(a) for a in (center, size, yaw)]
+        card = [a.to(cuda_device) for a in cpu]
+        before = pixels.LAUNCHES_2D
+        got = boxes.sorted_projected_corners(*card, spec)
+        torch.cuda.synchronize()
+        assert pixels.LAUNCHES_2D == before + 1
+        assert torch.equal(got, two_calls(*card, spec))
+        assert torch.equal(got.cpu(), boxes.sorted_projected_corners(*cpu, spec))
+
+
 def test_pixel_kernel_rejects_bad_inputs(cuda_device):
     pts = torch.zeros((2, 64, 4), device=cuda_device)
     valid = torch.ones((2, 64), dtype=torch.bool, device=cuda_device)
@@ -384,10 +418,14 @@ def test_topk_order_with_ties_matches_the_cpu(cuda_device):
     prob[1, 12:18, 100:110] = 1.0
     cfg = DecodeConfig(min_bbox_area=8.0)
     for k in (1, 3, 6):
-        got = decode.find_obstacles_topk(torch.from_numpy(prob).to(cuda_device), cfg, k)
-        want = decode.find_obstacles_topk(torch.from_numpy(prob), cfg, k)
+        got = decode._find_obstacles_topk_batch(torch.from_numpy(prob).to(cuda_device), cfg, k)
+        want = decode._find_obstacles_topk_batch(torch.from_numpy(prob), cfg, k)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+        for f in range(len(prob)):  # the public form: one frame
+            got = decode.find_obstacles_topk(torch.from_numpy(prob[f]).to(cuda_device), cfg, k)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b[f].to(a.dtype))
 
 
 # -- BEV, the fusion net and the replay server's pinned ring -----------------
@@ -919,6 +957,55 @@ def test_packed_kernel_is_bit_identical(cuda_device, name):
     assert _same_bits(got, want)
     cpu = projection.nearest_wins_packed_image_reference(*(a.cpu() for a in args), spec)
     assert _same_bits(got, cpu)
+
+
+_PACKED_EDGES = {
+    f"{b}x{n}-{'+'.join(k)}-{RangeViewSpec(res_v_deg=r).height}rows": (b, n, k, r)
+    for b, n, k, r in parity_inputs.PACKED_EDGE_SETS}
+
+
+@pytest.mark.parametrize("name", list(_PACKED_EDGES))
+def test_packed_kernel_on_its_shared_memory_edges(cuda_device, name):
+    """The packed kernel's grid in the cluster's shared memory: pixels on
+    the CTAs' slice boundaries, every pixel occupied, the ragged last
+    slice at 63 rows, and a 690-row image past one cluster's shared
+    memory (the band path): bit for bit its plain version on the card and
+    on the CPU, one launch a call."""
+    b, n, kinds, res_v = _PACKED_EDGES[name]
+    spec = RangeViewSpec(res_v_deg=res_v)
+    args = [torch.from_numpy(a) for a in parity_inputs.zbuffer_args(
+        b, n, spec.height * spec.width, kinds=kinds)]
+    before = projection.PACKED_LAUNCHES
+    got = projection.nearest_wins_packed_image(*(a.to(cuda_device) for a in args), spec)
+    card = projection.nearest_wins_packed_image_reference(*(a.to(cuda_device) for a in args), spec)
+    torch.cuda.synchronize()
+    assert projection.PACKED_LAUNCHES == before + 1
+    assert _same_bits(got, card)
+    assert _same_bits(got.cpu(), projection.nearest_wins_packed_image_reference(*args, spec))
+
+
+def test_packed_kernel_slices_and_bands(cuda_device):
+    """The kernel's own plan: 3,602 slots a CTA at 32 x 1801 and 7,092 at
+    63 x 1801 in one band; 690 x 1801 does not fit one cluster's shared
+    memory and takes two bands; the card holds clusters of every shape."""
+    import ctypes
+
+    from tpufusion_torch import _build
+
+    lib = _build.load()
+    got = {}
+    for rows, res_v in ((32, 1.33), (63, 0.665), (690, 0.06)):
+        spec = RangeViewSpec(res_v_deg=res_v)
+        assert spec.height == rows
+        out = [ctypes.c_int() for _ in range(4)]
+        err = lib.tf_nearest_wins_packed_shape(spec.height * spec.width,
+                                               *(ctypes.byref(o) for o in out))
+        assert err == 0, err
+        got[rows] = [o.value for o in out]  # slots, shared bytes, bands, clusters
+    assert got[32][0] == 3602 and got[32][2] == 1
+    assert got[63][0] == 7092 and got[63][2] == 1
+    assert got[690][2] == 2 and got[690][0] * 16 < 1801 * 690 <= 2 * got[690][0] * 16
+    assert all(v[3] > 0 for v in got.values()), got
 
 
 def test_packed_step_matches_the_cpu_and_golden(cuda_device):

@@ -17,6 +17,7 @@ import ctypes
 import ctypes.util
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -183,6 +184,42 @@ def test_project_2d_matches_jax_on_seeded_corners():
         np.testing.assert_array_equal(row.numpy(), np.asarray(jrow))
     got = tboxes.project_2d(torch.tensor(3.0), torch.tensor(-0.0), torch.tensor(0.5), SPECS["32 rows"])
     assert got[0].shape == () and got[1].shape == ()
+
+
+def _two_call_sorted_corners(center, size, yaw, spec):
+    """`sorted_projected_corners` as it was written before the corners and
+    the center shared one project_2d call: two calls."""
+    corners = tboxes.box_corners_3d(center, size, yaw)
+    ccol, crow = tboxes.project_2d(corners[..., 0], corners[..., 1], corners[..., 2], spec)
+    pcol, prow = tboxes.project_2d(center[..., 0], center[..., 1], center[..., 2], spec)
+    d = sqrt_f32((ccol - pcol[..., None]).to(torch.float32) ** 2
+                 + (crow - prow[..., None]).to(torch.float32) ** 2)
+    order = torch.argsort(d, dim=-1, stable=True)
+    both = torch.stack([ccol, crow], dim=-1)
+    return torch.gather(both, -2, order[..., None].expand(both.shape))
+
+
+@pytest.mark.parametrize("spec_name", sorted(SPECS))
+def test_sorted_projected_corners_in_one_call_is_the_two_call_form(spec_name):
+    """The corners and the center go through project_2d in one call (one
+    kernel launch on the card): bit for bit the two calls' result and
+    JAX's, on 4,096 seeded boxes and on a (4, 8) batch of them."""
+    spec = SPECS[spec_name]
+    rng = np.random.default_rng(7)
+    n = 4096
+    center = np.stack([rng.uniform(-60, 60, n), rng.uniform(-60, 60, n),
+                       rng.uniform(-2.5, 0.5, n)], -1).astype(np.float32)
+    size = np.stack([rng.uniform(3, 6, n), rng.uniform(1.5, 2.5, n),
+                     rng.uniform(1.2, 2.0, n)], -1).astype(np.float32)
+    yaw = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    jspec = to_jax_config(spec)
+    want = jax.jit(jax.vmap(lambda c, s, y: jboxes.sorted_projected_corners(c, s, y, jspec)))(
+        center, size, yaw)
+    for shape in ((n,), (4, n // 4)):
+        args = [torch.from_numpy(a.reshape(*shape, *a.shape[1:])) for a in (center, size, yaw)]
+        got = tboxes.sorted_projected_corners(*args, spec)
+        assert torch.equal(got, _two_call_sorted_corners(*args, spec))
+        np.testing.assert_array_equal(got.reshape(n, 8, 2).numpy(), np.asarray(want))
 
 
 def test_pixel_wrappers_never_run_plain_on_a_device_tensor():

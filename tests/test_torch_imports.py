@@ -12,6 +12,7 @@ other copies are held exactly (same arrays, same bytes written).
 
 import ast
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -653,3 +654,155 @@ def test_every_subpackage_exports_the_jax_packages_names(package):
             assert name not in getattr(mod, "__all__", ()), name
             continue
         assert name in mod.__all__ and getattr(mod, name) is not None, (package, name)
+
+
+# -- signatures: each counterpart takes the JAX package's calls ---------------------------------
+
+_KEYS = "a `jax.random` key -> a generator (numpy's or torch's): the two draw different numbers"
+_RNGS = "an `nnx.Rngs` -> nothing: the port's modules are filled by weights or `uniform_init_`"
+_SPLIT = "nnx's graphdef / state pair -> the torch module, which holds both"
+SIGNATURE_EXCEPTIONS = {
+    # a JAX name -> (its parameters the port does not take, the port's parameters in their
+    # place, why); (None, None, why): a counterpart of another contract, not compared
+    "predict.py::make_e2e_step": ({"graphdef"}, {"model"}, _SPLIT),
+    "tools/detector_envelope.py::run_condition": ({"graphdef", "state"}, {"model"}, _SPLIT),
+    "tools/train_synthetic_detector.py::prepare_eval_batches": (
+        {"graphdef", "state"}, {"model"}, _SPLIT),
+    "tools/train_synthetic_detector.py::evaluate": ({"graphdef", "state"}, {"model"}, _SPLIT),
+    "ops/components.py::connected_components_with_bbox": (
+        {"impl"}, set(), "one wrapper: the kernel on CUDA tensors, the plain sweeps on the CPU"),
+    "parallel/mesh.py::make_mesh": (
+        {"devices"}, {"device", "backend"}, "torch.distributed ranks, not a list of JAX devices"),
+    "data/augment.py::sample_roll": ({"key"}, {"generator"}, _KEYS),
+    "data/augment.py::transform_point_cloud": ({"key"}, {"generator"}, _KEYS),
+    "data/augment.py::augment_batch": ({"key"}, {"generator"}, _KEYS),
+    "data/synthetic.py::synthesize_points_batch": ({"key"}, {"rng"}, _KEYS),
+    "data/synthetic.py::synthesize_multi_vehicle_batch": ({"key"}, {"rng"}, _KEYS),
+    "data/synthetic.py::synthesize_tracking_sequence": ({"key"}, {"rng"}, _KEYS),
+    "data/synthetic.py::synthesize_beam_scan_batch": ({"key"}, {"rng"}, _KEYS),
+    "data/synthetic.py::synthesize_beam_multi_vehicle_batch": ({"key"}, {"rng"}, _KEYS),
+    "data/synthetic.py::synthesize_beam_tracking_sequence": ({"key"}, {"rng"}, _KEYS),
+    "models/fcn.py::FCN": ({"rngs"}, {"seed"}, "an `nnx.Rngs` -> the seed of `uniform_init_`"),
+    "models/fusion.py::FusionNet": ({"rngs"}, set(), _RNGS),
+    "tools/import_keras.py::ShippedLidarFCN": ({"rngs"}, set(), _RNGS),
+    "models/fusion.py::trainable_filter": (
+        set(), {"net"}, "an nnx filter -> the net's parameters that torch's optimizer takes"),
+    "train/fusion_trainer.py::make_fusion_tx": (
+        set(), {"params"}, "optax builds a transformation alone; torch's optimizer needs its "
+        "parameters"),
+    "ops/scatter.py::nearest_wins_sort": (None, None, "RENAMED: the z-buffer's plain version"),
+    "ops/pallas_projection.py::nearest_wins_pallas_batch": (
+        None, None, "RENAMED: the z-buffer kernel's wrapper"),
+    "ops/pallas_cc.py::propagate_pallas": (None, None, "RENAMED: the CC kernel's wrapper"),
+    "tools/import_keras.py::jax_softmax": (None, None, "RENAMED: the network's forward"),
+}
+
+
+def _module(rel: str, package: str):
+    import importlib
+
+    name = rel[: -len(".py")].replace("/", ".")
+    name = name[: -len("__init__")].rstrip(".") if name.endswith("__init__") else name
+    return importlib.import_module(f"{package}.{name}" if name else package)
+
+
+def _parameters(obj) -> list:
+    """A function's parameters, or a class's `__init__`'s without self."""
+    params = list(inspect.signature(obj.__init__ if inspect.isclass(obj) else obj).parameters.values())
+    return params[1:] if inspect.isclass(obj) else params
+
+
+def _same_default(a, b) -> bool:
+    if dataclasses.is_dataclass(a) or dataclasses.is_dataclass(b):
+        return repr(a) == repr(b)
+    try:
+        return bool(a == b)
+    except Exception:
+        return repr(a) == repr(b)
+
+
+def _signature_faults(jax_params, port_params) -> list[str]:
+    """What a call of the JAX signature would not find in the port's: the
+    JAX positional parameters first, by name and in order; its keyword-only
+    and variadic ones anywhere; equal defaults; any further parameter of
+    the port with a default."""
+    P = inspect.Parameter
+    positional = (P.POSITIONAL_ONLY, P.POSITIONAL_OR_KEYWORD)
+    jpos = [p for p in jax_params if p.kind in positional]
+    ppos = [p for p in port_params if p.kind in positional]
+    by_name = {p.name: p for p in port_params}
+    faults = []
+    for i, jp in enumerate(jpos):
+        got = ppos[i].name if i < len(ppos) else None
+        if got != jp.name:
+            faults.append(f"positional parameter {i}: {jp.name} in JAX, {got} in the port")
+    for jp in jax_params:
+        pp = by_name.get(jp.name)
+        if pp is None:
+            faults.append(f"{jp.name} missing")
+        elif jp.kind in (P.VAR_POSITIONAL, P.VAR_KEYWORD) and pp.kind != jp.kind:
+            faults.append(f"{jp.name}: {jp.kind} in JAX, {pp.kind} in the port")
+        elif jp.kind == P.KEYWORD_ONLY and pp.kind not in (P.KEYWORD_ONLY, P.POSITIONAL_OR_KEYWORD):
+            faults.append(f"{jp.name} cannot be passed by keyword")
+        elif (jp.default is P.empty) != (pp.default is P.empty) or not _same_default(
+                jp.default, pp.default):
+            faults.append(f"{jp.name}: default {jp.default!r} in JAX, {pp.default!r} in the port")
+    names = {p.name for p in jax_params}
+    for pp in port_params:
+        if pp.name not in names and pp.default is P.empty and pp.kind in (*positional, P.KEYWORD_ONLY):
+            faults.append(f"the port's {pp.name} has no default")
+    return faults
+
+
+def _counterparts(rel: str):
+    """(key, JAX object, port object) for each public name of a JAX module
+    with a counterpart in the port."""
+    if rel in NOT_CARRIED_OVER:
+        return []
+    names = _public_defs(os.path.join(JAX_DIR, rel))
+    if not names:
+        return []
+    jax_mod = _module(rel, "tpufusion")
+    out = []
+    for name in names:
+        key = f"{rel}::{name}"
+        if key in NOT_CARRIED_OVER:
+            continue
+        target_rel, target = RENAMED.get(key, key).split("::")
+        out.append((key, getattr(jax_mod, name), getattr(_module(target_rel, "tpufusion_torch"), target)))
+    return out
+
+
+def _faults_with(key, jax_obj, port_obj, exceptions) -> list[str]:
+    removed, added, _ = exceptions.get(key, (set(), set(), ""))
+    if removed is None:
+        return []
+    return _signature_faults([p for p in _parameters(jax_obj) if p.name not in removed],
+                             [p for p in _parameters(port_obj) if p.name not in added])
+
+
+@pytest.mark.parametrize("rel", _jax_modules())
+def test_every_counterpart_takes_the_jax_packages_parameters(rel):
+    """For every public function and class of a JAX module with a
+    counterpart, the JAX parameters appear in the port in the same order
+    with equal defaults (dataclass defaults compared by repr), so a call
+    written for the JAX package calls the port alike; the port may add
+    parameters after them (`device`, `mesh`, ...). Exceptions:
+    SIGNATURE_EXCEPTIONS, each with its reason."""
+    for key, jax_obj, port_obj in _counterparts(rel):
+        assert not _faults_with(key, jax_obj, port_obj, SIGNATURE_EXCEPTIONS), (
+            key, _faults_with(key, jax_obj, port_obj, SIGNATURE_EXCEPTIONS))
+
+
+def test_the_signature_exceptions_are_still_needed():
+    """Every entry of SIGNATURE_EXCEPTIONS names a counterpart whose
+    signature the guard would refuse without it."""
+    found = {}
+    for rel in {key.split("::")[0] for key in SIGNATURE_EXCEPTIONS}:
+        found.update({key: (j, p) for key, j, p in _counterparts(rel)})
+    for key, (removed, added, why) in SIGNATURE_EXCEPTIONS.items():
+        assert key in found and why, key
+        if removed is not None:
+            assert _faults_with(key, *found[key], {}), f"{key}: the exception is not needed"
+        else:
+            assert key in RENAMED, key

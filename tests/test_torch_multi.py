@@ -233,7 +233,7 @@ def test_corner_vote_overflow_keeps_the_scan_order(jax_golden):
     column-major order: the same slots as JAX's rank inversion, hence the
     same winners and box, and overflow where more were there."""
     y, images = _corner_inputs(jax_golden)
-    centroid, bbox, _, found = td.find_obstacle(y[..., 1], DecodeConfig())
+    centroid, bbox, _, found = td._find_obstacle_batch(y[..., 1], DecodeConfig())
     xyz, _, _ = td.back_project_2d_to_3d(
         centroid, bbox, images[..., 0], images[..., 1], SPEC, DecodeConfig()
     )
@@ -361,10 +361,13 @@ def test_topk_order_with_ties_matches_lax_top_k(k):
     and the padding entries (score -1) when k exceeds the clusters too."""
     prob = _blob_frames()
     cfg = DecodeConfig(min_bbox_area=8.0)
-    got = td.find_obstacles_topk(torch.from_numpy(prob), cfg, k)
+    got = td._find_obstacles_topk_batch(torch.from_numpy(prob), cfg, k)
     want = _jax_topk(prob, cfg, k)
     for g, w, name in zip(got, want, ("centroids", "bboxes", "areas", "found")):
         np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    for f in range(len(prob)):  # the public form takes one frame, as the reference's
+        for g, w in zip(td.find_obstacles_topk(torch.from_numpy(prob[f]), cfg, k), want):
+            np.testing.assert_array_equal(g.numpy(), w[f])
     comps = td._heat_components(torch.from_numpy(prob), cfg)
     idx = td._topk_roots(*comps, cfg, k)[0].numpy()
     jcfg = to_jax_config(cfg)
@@ -381,11 +384,57 @@ def test_find_obstacle_ties_match_jax():
     root label."""
     prob = _blob_frames()
     cfg = DecodeConfig(min_bbox_area=8.0)
-    got = td.find_obstacle(torch.from_numpy(prob), cfg)
+    got = td._find_obstacle_batch(torch.from_numpy(prob), cfg)
     jcfg = to_jax_config(cfg)
     want = jax.jit(jax.vmap(lambda p: jd.find_obstacle(p, jcfg)))(jnp.asarray(prob))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for f in range(len(prob)):  # the public form takes one frame, as the reference's
+        for g, w in zip(td.find_obstacle(torch.from_numpy(prob[f]), cfg), want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w)[f])
+
+
+def _one_frame_map(seed: int, h: int, w: int) -> np.ndarray:
+    """One seeded (H, W) probability map: sub-threshold noise, a few
+    blobs at random places and sizes, and the two of the reference's
+    example (rows 10-17 x columns 100-127, rows 20-23 x columns 20-27)."""
+    rng = np.random.default_rng(seed)
+    prob = rng.uniform(0.0, 0.45, (h, w)).astype(np.float32)
+    prob[10:18, 100:128] = 0.9
+    prob[20:24, 20:28] = 0.8
+    for _ in range(rng.integers(1, 5)):
+        r0, c0 = rng.integers(0, h - 6), rng.integers(0, w - 40)
+        prob[r0 : r0 + rng.integers(3, 7), c0 : c0 + rng.integers(4, 40)] = rng.uniform(0.5, 1.0)
+    return prob
+
+
+@pytest.mark.parametrize("seed,h,w", [(0, 32, 1801), (1, 32, 1801), (2, 63, 1801), (3, 32, 181)])
+def test_find_obstacle_takes_one_frame_as_jax(seed, h, w):
+    """The reference's per-frame call: an (H, W) map in, (centroid (2,),
+    bbox (4,), area, found) out; integers exact, the area exact in
+    float32."""
+    prob = _one_frame_map(seed, h, w)
+    cfg = DecodeConfig()
+    got = td.find_obstacle(torch.from_numpy(prob), cfg)
+    want = jax.jit(lambda p: jd.find_obstacle(p, to_jax_config(cfg)))(jnp.asarray(prob))
+    for g, wnt, shape, dtype in zip(got, want, ((2,), (4,), (), ()),
+                                    (torch.int32, torch.int32, torch.float32, torch.bool)):
+        assert tuple(g.shape) == shape and g.dtype == dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
+    assert bool(got[3])
+
+
+@pytest.mark.parametrize("seed,h,w", [(0, 32, 1801), (2, 63, 1801), (3, 32, 181)])
+@pytest.mark.parametrize("k", [1, 4])
+def test_find_obstacles_topk_takes_one_frame_as_jax(seed, h, w, k):
+    prob = _one_frame_map(seed, h, w)
+    cfg = DecodeConfig()
+    got = td.find_obstacles_topk(torch.from_numpy(prob), cfg, k)
+    want = jax.jit(lambda p: jd.find_obstacles_topk(p, to_jax_config(cfg), k))(jnp.asarray(prob))
+    for g, wnt, shape in zip(got, want, ((k, 2), (k, 4), (k,), (k,))):
+        assert tuple(g.shape) == shape and g.numpy().dtype == np.asarray(wnt).dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
+    assert bool(got[3][0])
 
 
 def _detections(seed=0, frames=20):

@@ -281,7 +281,7 @@ def test_server_and_replay_with_packed_projection_match_jax(path):
     clouds = _packed_near_tie_clouds(2)
     n = clouds.shape[1]
     if path == "LidarPipeline":
-        port, ref = (LidarPipeline(model, cfg, n, device="cpu"),
+        port, ref = (LidarPipeline(cfg=cfg, model=model, max_points=n, device="cpu"),
                      JaxLidarPipeline(to_jax_config(cfg), jmodel, max_points=n))
         got = [port.predict_position(c[np.isfinite(c).all(-1)]) for c in clouds]
         want = [ref.predict_position(c[np.isfinite(c).all(-1)]) for c in clouds]

@@ -105,6 +105,91 @@ def test_replay_harness_single_chunk_and_profile(frames, tmp_path):
     assert os.path.getsize(tmp_path / "trace" / "replay_trace.json") > 0
 
 
+def _corner_pair():
+    """The config and a corner-head model (the asset's trunk) in both
+    frameworks: both servers then decode through the corner vote (the
+    reference's facade builds its step with the default head)."""
+    from tests.make_torch_port_golden import hybrid_corner_arrays
+    from tests.torch_golden import jax_model_from_arrays, to_jax_config
+
+    mcfg, arrays = hybrid_corner_arrays()
+    cfg = DEFAULT.replace(model=mcfg, decode=asset_configs()[1])
+    return (cfg, fcn_from_arrays(arrays, mcfg, device="cpu"), to_jax_config(cfg),
+            jax_model_from_arrays(mcfg, arrays))
+
+
+def test_lidar_pipeline_takes_the_references_positional_call(frames):
+    """`LidarPipeline(cfg, model, checkpoint_dir, max_points)` by position,
+    as the reference's: the config lands as the config, the model as the
+    model, and the answers are JAX's."""
+    from tpufusion.serve.pipeline import LidarPipeline as JaxLidarPipeline
+
+    cfg, model, jcfg, jmodel = _corner_pair()
+    points = frames[0][:3]
+    n = points.shape[1]
+    port = LidarPipeline(cfg, model, None, n, device="cpu")
+    ref = JaxLidarPipeline(jcfg, jmodel, None, n)
+    assert port.cfg is cfg and port.model is model and port.max_points == n
+    got = [port.predict_position(p) for p in points]
+    want = [ref.predict_position(p) for p in points]
+    np.testing.assert_array_equal([g[1] for g in got], [w[1] for w in want])
+    assert any(w[1] for w in want)
+    assert wrapped_pose_diff(np.stack([g[0] for g in got]),
+                             np.stack([w[0] for w in want])).max() <= POSE_ATOL
+
+
+def test_lidar_pipeline_without_a_model_is_a_fresh_seeded_fcn():
+    """`LidarPipeline()` as the reference's: the default config and a
+    fresh FCN of it drawn from seed 0 (the reference's initialiser's
+    distribution, not its values), answering a request."""
+    from tpufusion.serve.pipeline import LidarPipeline as JaxLidarPipeline
+
+    port = LidarPipeline(device="cpu")
+    assert port.cfg is DEFAULT and port.max_points == DEFAULT.max_points
+    want = FCN(DEFAULT.model, in_channels=3, seed=0).state_dict()
+    got = port.model.state_dict()
+    assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert float(port.model.conv1.kernel.detach().abs().sum()) > 0  # drawn, not zero
+    pose, found = port.predict_position(np.zeros((16, 4), np.float32))
+    assert pose.shape == (7,) and isinstance(found, bool)
+    JaxLidarPipeline()  # the same call builds the reference's
+
+
+def test_lidar_pipeline_restores_the_newest_checkpoint(frames, tmp_path):
+    """`checkpoint_dir=` restores the newest `ckpt_<step>.pt` into the
+    model: the server then answers as one built on those weights."""
+    cfg = _asset_cfg()
+    older = FCN(cfg.model, in_channels=3, seed=3)
+    manager = CheckpointManager(str(tmp_path))
+    manager.save(4, older)
+    manager.save(9, port_asset_model())
+    n = frames[0].shape[1]
+    port = LidarPipeline(cfg, checkpoint_dir=str(tmp_path), max_points=n, device="cpu")
+    want = port_asset_model().state_dict()
+    assert all(torch.equal(port.model.state_dict()[k], want[k]) for k in want)
+    plain = LidarPipeline(cfg=cfg, model=port_asset_model(), max_points=n, device="cpu")
+    for p in frames[0][:2]:
+        got, wnt = port.predict_position(p), plain.predict_position(p)
+        assert got[1] == wnt[1] and np.array_equal(got[0], wnt[0])
+    with pytest.raises(FileNotFoundError):
+        LidarPipeline(cfg, checkpoint_dir=str(tmp_path / "empty"), device="cpu")
+
+
+def test_replay_harness_takes_the_references_defaults():
+    """`ReplayHarness()` as the reference's: the default config and a
+    fresh FCN of it drawn from seed 0."""
+    from tpufusion.serve.replay import ReplayHarness as JaxReplayHarness
+
+    harness = ReplayHarness(chunk=1, device="cpu")
+    assert harness.cfg is DEFAULT and harness.chunk == 1
+    want = FCN(DEFAULT.model, in_channels=3, seed=0).state_dict()
+    assert all(torch.equal(harness.model.state_dict()[k], want[k]) for k in want)
+    poses, founds, stats = harness.run(np.zeros((1, 64, 4), np.float32))
+    assert poses.shape == (1, 7) and founds.shape == (1,) and stats.frames == 1
+    assert JaxReplayHarness().chunk == ReplayHarness(device="cpu").chunk == 64
+
+
 def test_replay_harness_rejects_bad_arguments():
     with pytest.raises(ValueError, match="host_ring"):
         ReplayHarness(_asset_cfg(), port_asset_model(), host_ring=1, device="cpu")
@@ -226,7 +311,7 @@ ENTRY_POINTS = {
     "predict_images": lambda tmp, **kw: predict_images(
         port_asset_model(), np.zeros((1, 32, 1801, 3), np.float32), _asset_cfg(), 1, **kw),
     "LidarPipeline": lambda tmp, **kw: LidarPipeline(
-        port_asset_model(), _asset_cfg(), 2048, **kw).predict_position(_POINTS[0]),
+        cfg=_asset_cfg(), model=port_asset_model(), max_points=2048, **kw).predict_position(_POINTS[0]),
     "LidarPipeline.from_asset": lambda tmp, **kw: LidarPipeline.from_asset(
         ASSET, max_points=2048, **kw).predict_position(_POINTS[0]),
     "fcn_from_arrays": lambda tmp, **kw: fcn_from_arrays(

@@ -105,8 +105,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tf_nearest_wins_image.argtypes = [p, p, p, p, p, p, i, i, i, f, p]
     lib.tf_nearest_wins_image.restype = i
-    lib.tf_nearest_wins_packed_image.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.tf_nearest_wins_packed_image.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
     lib.tf_nearest_wins_packed_image.restype = i
+    lib.tf_nearest_wins_packed_shape.argtypes = [i, p, p, p, p]
+    lib.tf_nearest_wins_packed_shape.restype = i
     lib.tf_components_with_bbox.argtypes = [p, p, p, p, i, i, i, p]
     lib.tf_components_with_bbox.restype = i
     ll = ctypes.c_longlong

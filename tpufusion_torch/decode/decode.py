@@ -2,7 +2,8 @@
 `tpufusion/decode/decode.py`).
 
 The reference decodes one frame and vmaps it, and vmaps again over the
-k clusters of a frame. Here every function takes the batch as its first
+k clusters of a frame. Here every function but the two public cluster
+finders (one frame, as the reference's) takes the batch as its first
 dimension, and the k clusters of each frame are a second "lane"
 dimension: per-cluster tensors are (B, k, ...), per-frame inputs are
 broadcast over the lanes, so k > 1 costs no Python loop. Stages, as in
@@ -14,8 +15,9 @@ the reference:
                      kernel on CUDA tensors, the plain sweeps on the CPU)
   _topk_roots        the k largest-area cluster roots, in lax.top_k's
                      stable order (ties to the smaller flat index);
-                     find_obstacle, the corner path's largest cluster,
-                     is its first lane
+                     the corner path's largest cluster is its first lane
+  find_obstacle / find_obstacles_topk   one frame's (H, W) map, as the
+                     reference's (the batch forms are private helpers)
   back_project_2d_to_3d       bbox-center pixel (nearest valid fallback)
                      -> 3D point
   corner_vote        candidates in column-major scan order up to
@@ -168,11 +170,9 @@ def _topk_roots(mask, labels, min_x, max_x, min_y, max_y, cfg, k: int):
     return idx, found, bboxes, centroids, areas
 
 
-def find_obstacles_topk(
-    prob: torch.Tensor, cfg: DecodeConfig = DecodeConfig(), k: int = 4
-):
-    """Top-k clusters by bbox area, largest first. (B, H, W) ->
-    (centroids (B, k, 2), bboxes (B, k, 4), areas (B, k) float32,
+def _find_obstacles_topk_batch(prob: torch.Tensor, cfg: DecodeConfig, k: int):
+    """Top-k clusters by bbox area, largest first, for a batch. (B, H, W)
+    -> (centroids (B, k, 2), bboxes (B, k, 4), areas (B, k) float32,
     found (B, k)); zeros where not found."""
     mask, labels, min_x, max_x, min_y, max_y = _heat_components(prob, cfg)
     _, found, bboxes, centroids, areas = _topk_roots(
@@ -187,13 +187,32 @@ def find_obstacles_topk(
     )
 
 
-def find_obstacle(prob: torch.Tensor, cfg: DecodeConfig = DecodeConfig()):
+def _find_obstacle_batch(prob: torch.Tensor, cfg: DecodeConfig):
     """The largest cluster per frame (the corner path): lane 0 of the
     top-k. (B, H, W) -> (centroid (B, 2), bbox (B, 4), area (B,), found
     (B,)). The reference takes the smallest root label among the largest
     areas; a cluster's root is its smallest flat index, so that is
     lax.top_k's stable order at k = 1."""
-    return tuple(t[:, 0] for t in find_obstacles_topk(prob, cfg, 1))
+    return tuple(t[:, 0] for t in _find_obstacles_topk_batch(prob, cfg, 1))
+
+
+def find_obstacles_topk(
+    prob_map: torch.Tensor,  # (H, W) foreground probability
+    cfg: DecodeConfig = DecodeConfig(),
+    k: int = 4,
+):
+    """Top-k clusters of one frame by bbox area, largest first: (H, W) ->
+    (centroids (k, 2) int32 [x, y], bboxes (k, 4) int32 [l, t, r, b],
+    areas (k,) float32, found (k,)); zeros where not found."""
+    c, b, a, f = _find_obstacles_topk_batch(prob_map[None], cfg, k)
+    return c[0].to(torch.int32), b[0].to(torch.int32), a[0], f[0]
+
+
+def find_obstacle(prob_map: torch.Tensor, cfg: DecodeConfig = DecodeConfig()):
+    """The largest cluster of one frame: (H, W) -> (centroid (2,) int32
+    [x, y], bbox (4,) int32 [l, t, r, b], area float32, found bool)."""
+    c, b, a, f = _find_obstacle_batch(prob_map[None], cfg)
+    return c[0].to(torch.int32), b[0].to(torch.int32), a[0], f[0]
 
 
 def back_project_2d_to_3d(
@@ -413,7 +432,7 @@ def decode_batch(
     """The corner decode of the largest cluster per frame: pose (B, 7) =
     (tx, ty, tz, rz, l, w, h), zeros where no obstacle survives every
     stage, plus the intermediate products (reference decode_frame)."""
-    centroid, bbox, area, found = find_obstacle(y_pred[..., 1], cfg)
+    centroid, bbox, area, found = _find_obstacle_batch(y_pred[..., 1], cfg)
     stage1, stage2, xyz, pose, box, ok, overflow = _corner_lanes(
         y_pred, images, centroid[:, None], bbox[:, None], found[:, None], spec, cfg
     )
@@ -441,7 +460,7 @@ def decode_batch_multi(
 ) -> dict[str, torch.Tensor]:
     """The corner decode of the top-k clusters: poses (B, k, 7) ordered by
     cluster area, found (B, k), areas (B, k), vote_overflow (B, k)."""
-    centroids, bboxes, areas, founds = find_obstacles_topk(y_pred[..., 1], cfg, k)
+    centroids, bboxes, areas, founds = _find_obstacles_topk_batch(y_pred[..., 1], cfg, k)
     _, stage2, _, pose, _, ok, overflow = _corner_lanes(
         y_pred, images, centroids, bboxes, founds, spec, cfg
     )

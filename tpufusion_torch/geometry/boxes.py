@@ -117,8 +117,10 @@ def sorted_projected_corners(center, size, yaw, spec: RangeViewSpec) -> torch.Te
     centroid (stable, as numpy sorts): (..., 8, 2) int32 [col, row]."""
     center = _f32(center)
     corners = box_corners_3d(center, size, yaw)
-    ccol, crow = project_2d(corners[..., 0], corners[..., 1], corners[..., 2], spec)
-    pcol, prow = project_2d(center[..., 0], center[..., 1], center[..., 2], spec)
+    # the 8 corners and the center in one launch: (..., 9, 3)
+    pts = torch.cat([corners, center.expand(*corners.shape[:-2], 3)[..., None, :]], dim=-2)
+    col, row = project_2d(pts[..., 0], pts[..., 1], pts[..., 2], spec)
+    ccol, crow, pcol, prow = col[..., :8], row[..., :8], col[..., 8], row[..., 8]
     d = sqrt_f32(
         (ccol - pcol[..., None]).to(torch.float32) ** 2
         + (crow - prow[..., None]).to(torch.float32) ** 2

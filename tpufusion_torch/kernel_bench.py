@@ -12,7 +12,11 @@ eight- and eleven-argument C interfaces:
 `tf_components_with_bbox(mask, scratch (5, B*H*W) int32, labels, ext, B, H,
 W, stream)` and `tf_nearest_wins_image(pix, key, valid, payload, grid
 (B, P) int64 filled with INT64_MAX, img, B, N, P, min_height, stream)`;
-the earlier wrapper's fill of the grid counts as part of its call. Both
+the earlier wrapper's fill of the grid counts as part of its call; where
+DIR also holds the packed z-buffer of its twelve-argument interface,
+`tf_nearest_wins_packed_image(pix, key, valid, payload, grid (B, P) int32,
+img, B, N, P, idx_bits, min_height, stream)` (its grid in L2, the kernel
+fills it), the packed kernels are held against each other too. Both
 the first design (the four-launch global-memory union-find, and the fill
 / scatter / gather z-buffer) and the 32-row strip union-find with the
 cluster z-buffer take them (the strips' frame counters fit in the
@@ -24,8 +28,14 @@ the bf16 asset's. Every pair of kernels is checked equal on every input
 before it is timed. Each function is timed in turns (old, new,
 yardstick, yardstick, new, old), once between CUDA events per call (what
 a caller waits, the host's launch work included) and once as device time
-(the calls queued behind a sleep, `queued_ms`). With `--out FILE` the rows
-are also written there as JSON.
+(the calls queued behind a sleep, `queued_ms`). The packed rows time, in
+turns at 64 x 32,768 and 16 x 131,072 into 32 x 1801 and at 64 x 32,768
+of 64 beams into 63 x 1801: the earlier packed kernel, the current one,
+the current one built with 8-CTA clusters (`-DTF_PACKED_CLUSTER=8`), the
+exact kernel and the yardstick (`packed_amin_yardstick`), and the current
+kernel on the same inputs with every point invalid (its fill, decode and
+image stores alone). `--kernels` picks among exact, cc and packed. With
+`--out FILE` the rows are also written there as JSON.
 
     python -m tpufusion_torch.kernel_bench --dsmem-probe
 
@@ -217,6 +227,24 @@ def torch_pixels_composition(points, valid, spec):
     return pix, l2.view(torch.int32), ok, payload
 
 
+def torch_project_2d_composition(x, y, z, spec):
+    """The torch composition `project_2d`'s kernel replaced (the reference's
+    formula in torch ops: torch.atan2, torch.asin, division by Python
+    numbers), kept as the kernel's yardstick and used nowhere in the port.
+    Only its time is read."""
+    l2 = torch.sqrt(x * x + y * y + z * z)
+    col = torch.trunc(torch.atan2(-y, x) / spec.res_h_rad - spec.x_min).to(torch.int32)
+    ratio = torch.where(l2 > 0, z / torch.clamp(l2, min=1e-12), 0.0)
+    row = torch.trunc(torch.asin(ratio) / spec.res_v_rad - spec.y_min).to(torch.int32)
+    return col, spec.y_max - torch.clamp(row, 0, spec.y_max)
+
+
+def empty_kernel(_=None) -> None:
+    """One launch of a kernel that does nothing (`torch.cuda._sleep(0)`):
+    timed by `queued_ms`, the card's floor for any one launch."""
+    torch.cuda._sleep(0)
+
+
 def scatter_amin_yardstick(pix, key_bits, valid, num_pixels: int):
     """The library call that computes the z-buffer's scatter half:
     `Tensor.scatter_reduce_(..., "amin")` of the packed key into a grid
@@ -277,7 +305,63 @@ def _build_old(csrc: str) -> ctypes.CDLL:
     lib.tf_nearest_wins_image.argtypes = [p, p, p, p, p, p, i, i, i, f, p]
     lib.tf_components_with_bbox.argtypes = [p, p, p, p, i, i, i, p]
     lib.tf_nearest_wins_image.restype = lib.tf_components_with_bbox.restype = i
+    if hasattr(lib, "tf_nearest_wins_packed_image"):
+        lib.tf_nearest_wins_packed_image.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+        lib.tf_nearest_wins_packed_image.restype = i
     return lib
+
+
+def _build_packed_variant(cluster: int) -> ctypes.CDLL:
+    """The current packed kernel built with `cluster` CTAs a frame."""
+    from tpufusion_torch import _build
+
+    out = os.path.join(_build.BUILD_DIR, f"libtpufusion_packed_{cluster}.so")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DTF_PACKED_CLUSTER={cluster}", "-shared",
+           "-o", out, os.path.join(_build.CSRC, "nearest_wins_packed.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the {cluster}-CTA packed kernel:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(out)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tf_nearest_wins_packed_image.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+    lib.tf_nearest_wins_packed_shape.argtypes = [i, p, p, p, p]
+    lib.tf_nearest_wins_packed_image.restype = lib.tf_nearest_wins_packed_shape.restype = i
+    return lib
+
+
+def packed_shape(lib, num_pixels: int) -> dict[str, int]:
+    """The packed kernel's plan for an image of num_pixels: slots a CTA, its
+    dynamic shared memory, the bands, and the clusters the card holds at
+    once (`cudaOccupancyMaxActiveClusters`)."""
+    out = [ctypes.c_int() for _ in range(4)]
+    err = lib.tf_nearest_wins_packed_shape(num_pixels, *(ctypes.byref(o) for o in out))
+    if err != 0:
+        raise RuntimeError(f"tf_nearest_wins_packed_shape: CUDA error {err}")
+    return dict(zip(("slots", "smem_bytes", "bands", "clusters"), (o.value for o in out)))
+
+
+def _packed_call(lib, spec, old: bool):
+    """One call of a packed kernel library as its wrapper makes it: the
+    image (and for the earlier design its grid scratch) allocated, then
+    the launch."""
+    def run(args):
+        pix, key, valid, payload = args
+        b, n = pix.shape
+        p = spec.height * spec.width
+        idx_bits = max((n - 1).bit_length(), 1)
+        img = torch.empty((b, spec.height, spec.width, 3), dtype=torch.float32,
+                          device=pix.device)
+        ptrs = [pix.data_ptr(), key.data_ptr(), valid.data_ptr(), payload.data_ptr()]
+        if old:
+            grid = torch.empty((b, p), dtype=torch.int32, device=pix.device)
+            ptrs.append(grid.data_ptr())
+        err = lib.tf_nearest_wins_packed_image(
+            *ptrs, img.data_ptr(), b, n, p, idx_bits, float(spec.min_height),
+            torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"packed z-buffer: CUDA error {err}"
+        return img
+    return run
 
 
 def _old_zbuffer(lib, spec):
@@ -344,13 +428,74 @@ def _inputs(dev, batch: int, n_points: int, beams: int, dtype: str, sets: int):
     return spec, zargs, masks
 
 
-def ab(old_csrc: str, sets: int = 12) -> list[dict]:
+PACKED_SHAPES = (  # label, batch, points a frame, beams, the range view's res_v_deg
+    ("64 x 32,768", 64, 32768, 32, 1.33),
+    ("16 x 131,072", 16, 131072, 64, 1.33),
+    ("64 x 32,768 into 63 x 1801", 64, 32768, 64, 0.665),
+)
+
+
+def packed_ab(lib, sets: int = 12) -> list[dict]:
+    """The packed z-buffer's rows: the earlier kernel (`lib`, or None), the
+    current one, its 8-CTA build, the exact kernel, the yardstick, and
+    the current one with every point invalid, in turns on beam scans;
+    each checked bit for bit against the plain version first."""
+    import numpy as np
+
+    from tpufusion_torch import RangeViewSpec, _build
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.geometry.range_view import _frame_pixels_keys
+    from tpufusion_torch.ops import projection
+
+    dev = torch.device("cuda", 0)
+    lib8 = _build_packed_variant(8)
+    rows = []
+    for label, batch, n, beams, res_v in PACKED_SHAPES:
+        spec = RangeViewSpec(res_v_deg=res_v)
+        p = spec.height * spec.width
+        zargs = []
+        with torch.inference_mode():
+            for i in range(sets):
+                pts, _, v = synthesize_beam_scan_batch(np.random.default_rng(2700 + i), batch, n,
+                                                       n_beams=beams)
+                zargs.append(_frame_pixels_keys(torch.from_numpy(pts).to(dev), spec,
+                                                torch.from_numpy(v).to(dev)))
+            none = [(a[0], a[1], torch.zeros_like(a[2]), a[3]) for a in zargs]
+            fns = {"new": lambda a: projection.nearest_wins_packed_image(*a, spec),
+                   "new8": _packed_call(lib8, spec, old=False)}
+            if lib is not None:
+                fns["old"] = _packed_call(lib, spec, old=True)
+            for a in zargs[:2] + none[:1]:
+                want = projection.nearest_wins_packed_image_reference(*a, spec)
+                for name, fn in fns.items():
+                    assert torch.equal(fn(a), want), f"packed {name} differs from plain ({label})"
+            yard = {id(a): packed_amin_yardstick(*a, spec) for a in zargs}
+            fns["exact"] = lambda a: projection.nearest_wins_image(*a, spec)
+            fns["library"] = lambda a: yard[id(a)]()
+            call, dev_t = (time_turns(fns, zargs, t) for t in (time_ms, queued_ms))
+            empty = {"new_no_valid": fns["new"]}
+            call.update(time_turns(empty, none, time_ms))
+            dev_t.update(time_turns(empty, none, queued_ms))
+        bound = sum(zbuffer_bound_ms(*a[:3], p) for a in zargs) / sets
+        rows.append({"shape": label, "kernel": "nearest_wins_packed_image", "bound_ms": bound,
+                     "plan_16": packed_shape(_build.load(), p), "plan_8": packed_shape(lib8, p),
+                     **{f"{k}_call_ms": v for k, v in call.items()},
+                     **{f"{k}_device_ms": v for k, v in dev_t.items()}})
+    return rows
+
+
+def ab(old_csrc: str | None, sets: int = 12, kernels=("exact", "cc", "packed")) -> list[dict]:
     from tpufusion_torch.ops import cc, components, projection
 
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    lib = _build_old(old_csrc)
+    lib = _build_old(old_csrc) if old_csrc else None
     rows = []
+    if "packed" in kernels:
+        old = lib if lib is not None and hasattr(lib, "tf_nearest_wins_packed_image") else None
+        rows += packed_ab(old, sets)
+    if lib is None or not {"exact", "cc"} & set(kernels):
+        return rows
     for label, batch, n, beams, dtype in (("64 x 32,768", 64, 32768, 32, "float32"),
                                           ("16 x 131,072", 16, 131072, 64, "bfloat16")):
         spec, zargs, masks = _inputs(dev, batch, n, beams, dtype, sets)
@@ -400,6 +545,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", help="directory with the earlier design's .cu sources")
     ap.add_argument("--sets", type=int, default=12, help="distinct batches per timing")
+    ap.add_argument("--kernels", default="exact,cc,packed",
+                    help="which kernels' rows: exact and cc need --old-csrc")
     ap.add_argument("--dsmem-probe", action="store_true",
                     help="also build and run probes/dsmem_min64.cu")
     ap.add_argument("--out", help="write the card and the rows here as JSON")
@@ -412,13 +559,16 @@ def main() -> int:
     print(f"[{card}]")
     if args.dsmem_probe:
         print(dsmem_probe(), end="")
-    rows = ab(args.old_csrc, args.sets) if args.old_csrc else []
+    kernels = tuple(args.kernels.split(","))
+    rows = ab(args.old_csrc, args.sets, kernels) if args.old_csrc or "packed" in kernels else []
     for r in rows:
+        names = [k[: -len("_device_ms")] for k in r if k.endswith("_device_ms")]
         times = ", ".join(
             f"{k} {r[f'{k}_device_ms'] * 1e3:.2f} us device / {r[f'{k}_call_ms'] * 1e3:.2f} us a call"
-            for k in ("old", "new", "library") if f"{k}_device_ms" in r)
+            for k in names)
+        plans = "".join(f"; {k} {r[k]}" for k in ("plan_16", "plan_8") if k in r)
         print(f"{r['kernel']} {r['shape']}: {times}; bound {r['bound_ms'] * 1e3:.2f} us, "
-              f"new at {r['bound_ms'] / r['new_device_ms']:.1%} of it [{card}]")
+              f"new at {r['bound_ms'] / r['new_device_ms']:.1%} of it{plans} [{card}]")
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "rows": rows}, f, indent=1)

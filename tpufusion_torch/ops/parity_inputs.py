@@ -225,6 +225,19 @@ PACKED_SHAPES = [(1, 32768, (k,)) for k in PACKED_KINDS] + [
     (len(PACKED_KINDS), 32769, PACKED_KINDS), (64, 32768, PACKED_KINDS),
     (16, 131072, PACKED_KINDS)]
 NEAR_TIE_ULPS = 1 << 17  # key offsets below this: equal after the packed shift at N <= 131,072
+# the packed kernel's grid in the cluster's shared memory: pixels on the
+# CTAs' slice boundaries, every pixel occupied, the ragged last slice at 63
+# rows (113,463 pixels: slices of 7,092, the last 7,083) and images past one
+# cluster's shared memory (690 x 1801: bands); (batch, points per frame,
+# kinds, the range view's res_v_deg)
+PACKED_EDGE_SETS = [
+    (2, 65536, ("slice_edges", "every_pixel"), 1.33),
+    (2, 131072, ("slice_edges", "every_pixel"), 0.665),
+    (4, 32768, ("slice_edges", "one_cta", "near_ties", "uniform"), 0.665),
+    (2, 65536, ("slice_edges", "uniform"), 0.06),
+    (1, 1310720, ("every_pixel",), 0.06),
+]
+BAND_SLOTS = 51964  # an H100 CTA's slots in the band path: (232,448 - 24,592 B) / 4
 
 
 def zbuffer_args(batch: int, n: int, num_pixels: int, seed: int = 0, kinds=ZBUFFER_KINDS):
@@ -254,6 +267,13 @@ def zbuffer_args(batch: int, n: int, num_pixels: int, seed: int = 0, kinds=ZBUFF
         elif kind == "one_cta":
             lo = (CLUSTER - 1) * slice_
             pix[f] = rng.integers(lo, num_pixels, n)
+        elif kind == "slice_edges":  # each side of every CTA's (and band CTA's) first pixel
+            starts = np.concatenate([np.arange(0, num_pixels, slice_),
+                                     np.arange(0, num_pixels, BAND_SLOTS), [num_pixels]])
+            edges = np.unique(np.clip(starts[:, None] + np.arange(-2, 2), 0, num_pixels - 1))
+            pix[f] = rng.choice(edges, n)
+            bits = rng.choice(np.float32([1.0, 2.0, 9.0]), n).view(np.int32)
+            dist[f] = (bits + rng.integers(0, NEAR_TIE_ULPS, n).astype(np.int32)).view(np.float32)
         else:
             pix[f] = rng.integers(0, num_pixels, n)
         if kind == "garbage_ids":
@@ -265,6 +285,12 @@ def zbuffer_args(batch: int, n: int, num_pixels: int, seed: int = 0, kinds=ZBUFF
     k = min(512, n // 4)  # exact copies of the first k points: key and id ties
     for a in (pix, dist, valid):
         a[:, n // 2 : n // 2 + k] = a[:, :k]
+    for f in range(batch):
+        if kinds[f % len(kinds)] == "every_pixel":  # the last P points cover the image
+            if n < num_pixels:
+                raise ValueError(f"every_pixel needs N >= P, got N={n}, P={num_pixels}")
+            pix[f, n - num_pixels :] = rng.permutation(num_pixels)
+            valid[f, n - num_pixels :] = True
     payload = rng.standard_normal((batch, n, 3)).astype(np.float32)
     return pix, dist.view(np.int32), valid, payload
 

@@ -12,7 +12,9 @@
 Each takes what the pixel kernel computed once — pixel ids, sortable L2
 keys, validity, payload — and returns the (B, H, W, 3) image. For tensors
 on the CPU it runs its plain version (`*_reference`); for CUDA tensors it
-launches its kernel (one launch, one 16-CTA cluster a frame), or raises.
+launches its kernel (one launch, one 16-CTA cluster a frame; the exact
+kernel's grid in device memory, the packed kernel's in the cluster's
+shared memory), or raises.
 """
 
 from __future__ import annotations
@@ -135,14 +137,13 @@ def nearest_wins_packed_image(
     if idx_bits > 30:
         raise ValueError(f"the packed rule needs N <= 2**30 points, got N={n}")
     lib = _build.load()
-    grids = torch.empty((b, p), dtype=torch.int32, device=pix.device)  # the kernel fills it
     img = torch.empty((b, spec.height, spec.width, 3), dtype=torch.float32,
-                      device=pix.device)
+                      device=pix.device)  # the grid lives in the kernel's shared memory
     with torch.cuda.device(pix.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tf_nearest_wins_packed_image(
             pix.data_ptr(), key_bits.data_ptr(), valid.data_ptr(),
-            payload.data_ptr(), grids.data_ptr(), img.data_ptr(),
+            payload.data_ptr(), img.data_ptr(),
             b, n, p, idx_bits, float(spec.min_height), stream,
         )
     _build.check(lib, err, "nearest_wins_packed_image")

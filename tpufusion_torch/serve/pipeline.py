@@ -17,21 +17,30 @@ from tpufusion_torch.config import DEFAULT, PipelineConfig
 from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.models.io import asset_configs, load_state_npz
 from tpufusion_torch.predict import make_e2e_step
+from tpufusion_torch.train.checkpoint import CheckpointManager
 
 
 class LidarPipeline:
     def __init__(
         self,
-        model: FCN,
         cfg: PipelineConfig = DEFAULT,
+        model: FCN | None = None,
+        checkpoint_dir: str | None = None,
         max_points: int | None = None,
         device: torch.device | str = "cuda",
     ):
-        """The model is moved to `device`: the card unless the caller
-        asks for "cpu" (without a card, "cuda" raises)."""
+        """The reference's parameters, in its order, then `device`. A
+        missing model is a fresh FCN drawn from seed 0 (the reference's
+        initialiser's distribution, not its values); `checkpoint_dir`
+        restores the newest `ckpt_<step>.pt` there into it. The model is
+        moved to `device`: the card unless the caller asks for "cpu"
+        (without a card, "cuda" raises)."""
         self.cfg = cfg
-        self.model = model.to(device).eval()
         self.max_points = max_points or cfg.max_points
+        model = model if model is not None else FCN(cfg.model, in_channels=3, seed=0)
+        if checkpoint_dir is not None:
+            CheckpointManager(checkpoint_dir).restore(model, device=device)
+        self.model = model.to(device).eval()
         self._step = make_e2e_step(
             self.model, cfg.range_view, cfg.decode, cfg.projection_method,
             head=cfg.model.head, device=device,
@@ -51,7 +60,7 @@ class LidarPipeline:
         cfg = DEFAULT.replace(model=mcfg, decode=dcfg)
         model = FCN(mcfg, in_channels=3)
         load_state_npz(path, model)
-        return cls(model, cfg, max_points, device)
+        return cls(cfg=cfg, model=model, max_points=max_points, device=device)
 
     def _pad(self, points: np.ndarray):
         n = self.max_points

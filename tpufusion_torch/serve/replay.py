@@ -32,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from tpufusion_torch.config import PipelineConfig
+from tpufusion_torch.config import DEFAULT, PipelineConfig
 from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.predict import make_e2e_step
 
@@ -66,14 +66,16 @@ class LatencyStats:
 class ReplayHarness:
     def __init__(
         self,
-        cfg: PipelineConfig,
-        model: FCN,
+        cfg: PipelineConfig = DEFAULT,
+        model: FCN | None = None,
         chunk: int = 64,
         host_ring: int = 0,
         device: torch.device | str = "cuda",
     ):
-        """The model is moved to `device`: the card unless the caller asks
-        for "cpu" (without a card, "cuda" raises). host_ring is 0 (no
+        """A missing model is a fresh FCN drawn from seed 0 (the
+        reference's initialiser's distribution, not its values). The model
+        is moved to `device`: the card unless the caller asks for "cpu"
+        (without a card, "cuda" raises). host_ring is 0 (no
         staging ring) or the number of staging slots, at least 2: with
         one slot the next chunk would overwrite a buffer whose transfer
         may still be in flight."""
@@ -82,11 +84,11 @@ class ReplayHarness:
         self.cfg = cfg
         self.chunk = chunk
         self.device = torch.device(device)
-        self.model = model
+        self.model = model if model is not None else FCN(cfg.model, in_channels=3, seed=0)
         self._host_ring = host_ring
         self._ring: list | None = None
         self._step = make_e2e_step(
-            model, cfg.range_view, cfg.decode, cfg.projection_method,
+            self.model, cfg.range_view, cfg.decode, cfg.projection_method,
             head=cfg.model.head, device=self.device,
         )
         self._on_card = self.device.type == "cuda"
