@@ -19,6 +19,13 @@ to 0 before it and read after it, and then the training paths:
                pixel ids, keys and payload, and project_2d) bit for bit
                its plain version on the main path's beam scans, config
                5's, the 63-row view's, and adversarial points
+  phase 1c     the fused label encode (`csrc/label_encode.cu`) bit for
+               bit its plain version at a train batch of 32 frames, 32
+               and 63 rows, every footprint method: beam scans with their
+               boxes, seam boxes, boxes all round, an image with no
+               return, degenerate boxes; its device time in turns with
+               the plain version (the composition it replaced), beside
+               its bound
   phases 4-5   the float32 direct path with the shipped detector asset
                (`LidarPipeline.predict_position`, `make_e2e_step`,
                batch 64 x 32,768-point beam scans)
@@ -192,8 +199,9 @@ The pixel and z-buffer kernels run on every path that projects points
 asserts; the packed one only where a path asks for method "packed",
 bench.py's packed row and phase 27); configs 1
 and 3 and the train steps decode nothing, so the CC kernel is not on
-theirs; the label encode of a corner head's train step launches
-project_2d. Phases 12 and 13 hold the z-buffer
+theirs; the label encode of a corner head's train step launches the
+fused label-encode kernel once (the roll's rect still launches
+project_2d). Phases 12 and 13 hold the z-buffer
 kernel against its plain version on their own points (1 x 32,768 and the
 8 x 32,768 camera-wedge scans) before they drive the path.
 
@@ -223,7 +231,8 @@ beside the kernel's bound: its bytes at 3.35 TB/s,
 `tpufusion_torch/kernel_bench.py`; and phase 25's device times and
 bounds at 63 and 128 rows; for the pixel kernel also the torch
 composition it replaced and the whole projection with each, and
-project_2d at a train batch's label points), the card's
+project_2d at a train batch's label points; for the label encode its
+plain version's at 32 and 63 rows), the card's
 `name, power.limit` as nvidia-smi reports them, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -249,6 +258,7 @@ from tpufusion_torch.kernel_bench import (
     cc_bound_ms,
     device_ms,
     packed_amin_yardstick,
+    queued_each,
     queued_ms,
     scatter_amin_yardstick,
     time_ms,
@@ -324,7 +334,7 @@ MEASURE_CALLS = 1 + 6 * 3 + 1 + 6
 # the port's kernels, by the names of the kernels line; a driven path's
 # `expect` names those it must launch
 KERNELS = ("project_points", "project_2d", "nearest_wins_image", "connected_components_with_bbox",
-           "nearest_wins_packed_image")
+           "nearest_wins_packed_image", "encode_label")
 SERVING = ("project_points", "nearest_wins_image", "connected_components_with_bbox")
 RANGE_VIEW = SERVING[:2]  # a path that projects points and decodes nothing
 CC_ONLY = SERVING[2:]  # a decode of a view or a mask it is given
@@ -346,19 +356,20 @@ def log(msg: str) -> None:
 
 
 def _reset_launches() -> None:
-    from tpufusion_torch.ops import cc, pixels, projection
+    from tpufusion_torch.ops import cc, label_encode, pixels, projection
 
     pixels.LAUNCHES = pixels.LAUNCHES_2D = projection.LAUNCHES = cc.LAUNCHES = 0
-    projection.PACKED_LAUNCHES = 0
+    projection.PACKED_LAUNCHES = label_encode.LAUNCHES = 0
 
 
 def _launches() -> dict[str, int]:
-    from tpufusion_torch.ops import cc, pixels, projection
+    from tpufusion_torch.ops import cc, label_encode, pixels, projection
 
     return {"project_points": pixels.LAUNCHES, "project_2d": pixels.LAUNCHES_2D,
             "nearest_wins_image": projection.LAUNCHES,
             "connected_components_with_bbox": cc.LAUNCHES,
-            "nearest_wins_packed_image": projection.PACKED_LAUNCHES}
+            "nearest_wins_packed_image": projection.PACKED_LAUNCHES,
+            "encode_label": label_encode.LAUNCHES}
 
 
 def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
@@ -488,13 +499,6 @@ def phase_pixels(dev, spec, scans) -> tuple[int, int]:
     return err, err_2d
 
 
-def queued_each(fn, inputs) -> float:
-    """`queued_ms` of one call at a time, the mean over the inputs: the
-    plain pixel versions launch some 400 kernels a call, and the card's
-    launch queue does not hold several calls' worth behind the sleep."""
-    return float(np.mean([queued_ms(fn, [x]) for x in inputs]))
-
-
 def pixel_turns(spec, sets) -> dict:
     """The pixel kernel's device time (`queued_ms`) and time a call on
     distinct (points, valid) batches, in turns with the torch composition
@@ -558,6 +562,88 @@ def pixel_line(t: dict) -> str:
             f"ms, the torch composition it replaced {q['composition']:.4f} "
             f"({q['composition_call']:.4f}) ms, an empty kernel {q['empty']:.4f} ms (the launch "
             f"floor)")
+
+
+def check_label_encode(label: str, args, spec) -> float:
+    """Holds the fused label-encode kernel against its plain version on the
+    card, every footprint method, on (center, size, yaw, image): bit for
+    bit, one launch a call and no project_2d launch. Returns the largest
+    difference (0)."""
+    from tpufusion_torch.geometry.encoding import encode_label_reference
+    from tpufusion_torch.ops import label_encode, pixels
+
+    err, fg = 0.0, {}
+    for method in label_encode.METHODS:
+        before = (label_encode.LAUNCHES, pixels.LAUNCHES_2D)
+        got = label_encode.encode_label(*args, spec, method)
+        torch.cuda.synchronize()
+        assert (label_encode.LAUNCHES, pixels.LAUNCHES_2D) == (before[0] + 1, before[1]), (
+            "encode_label: not one kernel launch")
+        want = encode_label_reference(*args, spec, method)
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))  # on the card: 192 MB
+        err = max(err, float((got - want).abs().nan_to_num(0.0).max()))
+        fg[method] = int(want[..., 1].sum())
+        assert same, f"encode_label kernel differs from its plain version ({label}, {method})"
+    log(f"  encode_label on {label} ({' x '.join(map(str, args[3].shape))}): bit-identical to "
+        f"plain for {', '.join(label_encode.METHODS)}; footprint pixels {fg}")
+    return err
+
+
+def phase_label_encode(dev, scans) -> tuple[float, dict]:
+    """Phase 1c: the fused label-encode kernel (`csrc/label_encode.cu`)
+    against its plain version at a train batch (TRAIN_BATCH frames) at 32
+    and 63 rows: the main path's beam scans with their boxes, then
+    `parity_inputs.label_inputs`' seam boxes, boxes all round, an image
+    with no return and degenerate boxes; then its device time in turns
+    with the plain version (the composition it replaced) beside its bound.
+    Returns (largest difference, times at each height)."""
+    from tpufusion_torch import RangeViewSpec
+    from tpufusion_torch._golden import TALL_BEAMS, TALL_RES_V_DEG
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.geometry.encoding import encode_label_reference
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.kernel_bench import label_encode_bound_ms
+    from tpufusion_torch.ops import label_encode, parity_inputs
+
+    t0 = time.perf_counter()
+    log(f"phase 1c fused label encode (tf_encode_label) against its plain version, bit for "
+        f"bit, at {TRAIN_BATCH} frames")
+    on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    err, times = 0.0, {}
+    for spec, beams, rows in ((RangeViewSpec(), 32, 32),
+                              (RangeViewSpec(res_v_deg=TALL_RES_V_DEG), TALL_BEAMS, 63)):
+        if rows == 32:
+            pts, gt, valid = scans
+            pts, valid = pts[:TRAIN_BATCH], valid[:TRAIN_BATCH]
+            gt = {k: v[:TRAIN_BATCH] for k, v in gt.items()}
+        else:
+            pts, gt, valid = synthesize_beam_scan_batch(np.random.default_rng(16), TRAIN_BATCH,
+                                                        N_POINTS, n_beams=beams)
+        with torch.inference_mode():
+            images = range_view_project_batch(on(pts), spec, on(valid))
+        boxes = [on(gt[k]) for k in ("center", "size", "yaw")]
+        err = max(err, check_label_encode(f"{beams}-beam scans, {rows} rows", boxes + [images],
+                                          spec))
+        for kind in parity_inputs.LABEL_KINDS:
+            args = [on(a) for a in parity_inputs.label_inputs(spec, TRAIN_BATCH, kind, seed=rows)]
+            err = max(err, check_label_encode(f"{kind} boxes, {rows} rows", args, spec))
+        sets = [[on(a) for a in parity_inputs.label_inputs(spec, TRAIN_BATCH, seed=1600 + i)]
+                for i in range(PIXEL_SETS)]
+        fns = {"kernel": lambda a: label_encode.encode_label(*a, spec),
+               "plain": lambda a: encode_label_reference(*a, spec)}
+        with torch.inference_mode():
+            t = time_turns(fns, sets, lambda fn, xs: (
+                queued_ms if fn is fns["kernel"] else queued_each)(fn, xs))
+            t.update({f"{k}_call": v for k, v in time_turns(fns, sets).items()})
+        t["bound"] = float(np.mean([label_encode_bound_ms(*a) for a in sets]))
+        assert all(v > 0 for v in t.values()), f"a time not measured: {t}"
+        times[rows] = t
+        log(f"  encode_label at {TRAIN_BATCH} x {rows} x {spec.width}: kernel {t['kernel']:.4f} "
+            f"({t['kernel_call']:.4f}) ms, bound {t['bound']:.4f} ms, kernel at "
+            f"{t['bound'] / t['kernel']:.1%} of it; plain (the composition it replaced) "
+            f"{t['plain']:.4f} ({t['plain_call']:.4f}) ms")
+    log(f"  phase 1c took {time.perf_counter() - t0:.1f} s")
+    return err, times
 
 
 def check_zbuffer(label: str, points, valid, spec) -> None:
@@ -1236,9 +1322,11 @@ def phase_train_golden(dev, spec, gm, gt, totals):
             f"train step {case} (head {what['head']}, {what['dtype']}"
             + (f", rolled by {shifts.tolist()}" if shifts is not None else "") + ")",
             lambda: _golden.port_train_case(case, ASSET, gm, batch, dev, shifts),
-            totals, expect=RANGE_VIEW + (("project_2d",) if what["head"] == "corner" else ()))
+            totals, expect=RANGE_VIEW + (("encode_label",) if what["head"] == "corner" else ()))
         assert counts == {"nearest_wins_image": 1, "connected_components_with_bbox": 0}, (
             "a train step launches the z-buffer once and never the CC")
+        assert _launches()["encode_label"] == (what["head"] == "corner"), (
+            "a corner head's step encodes its labels in one kernel launch")
         r = _golden.train_case_readings(got, gt, case)
         lim = _golden.train_case_limits(case)
         readings[case] = r
@@ -1278,6 +1366,7 @@ def phase_trainer(dev, spec, card, totals):
     from tpufusion_torch.config import DEFAULT, LossConfig, ModelConfig, TrainConfig
     from tpufusion_torch.data.pipeline import BatchPipeline
     from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.geometry.encoding import encode_label_reference
     from tpufusion_torch.geometry.range_view import range_view_project_batch
     from tpufusion_torch.models.io import asset_configs
     from tpufusion_torch.models.losses import weighted_pose_loss
@@ -1311,8 +1400,8 @@ def phase_trainer(dev, spec, card, totals):
             trainer = Trainer(cfg, outdir=outdir, device=dev)
             pipe = BatchPipeline(data, TRAIN_BATCH, seed=0, device=dev)
             assert pipe._dev is not None, "the dataset should be device-resident"
-            hist, counts = drive(f"fit, {tag}", lambda: trainer.fit(pipe), totals,
-                                 expect=RANGE_VIEW)
+            expect = RANGE_VIEW + (("encode_label",) if mcfg.head == "corner" else ())
+            hist, counts = drive(f"fit, {tag}", lambda: trainer.fit(pipe), totals, expect=expect)
             steps = 2 * TRAIN_SCENE_BATCHES
             assert counts == {"nearest_wins_image": steps, "connected_components_with_bbox": 0}
             losses = hist.batch["loss"]
@@ -1340,7 +1429,7 @@ def phase_trainer(dev, spec, card, totals):
                 f"loss {float(la):.6f} (uninterrupted) vs {float(lb):.6f} (resumed)")
             assert moments and same_rng and float(la) == float(lb), "resume is not exact"
             hist2, _ = drive("one more epoch after resume",
-                             lambda: resumed.fit(pipe, epochs=1), totals, expect=RANGE_VIEW)
+                             lambda: resumed.fit(pipe, epochs=1), totals, expect=expect)
             assert np.isfinite(hist2.batch["loss"]).all() and resumed.step == steps + TRAIN_SCENE_BATCHES
 
             # no host sync in the step loop: 8 steps, the pipeline's gathers included
@@ -1371,6 +1460,11 @@ def phase_trainer(dev, spec, card, totals):
                 proj_ms = time_ms(
                     lambda b: range_view_project_batch(b["points"], spec, b["valid"]), batches)
                 enc_ms = time_ms(lambda b: encode_batch(b, spec, head, yaw_frame), with_images)
+                enc_plain = {}
+                if head == "corner":  # the composition the fused kernel replaced
+                    enc_plain["label_encode_plain_ms"] = round(time_ms(
+                        lambda b: encode_label_reference(b["center"], b["size"], b["yaw"],
+                                                         b["images"], spec), with_images), 3)
             pairs = list(zip(images, labels))
 
             def forward(il):
@@ -1388,6 +1482,7 @@ def phase_trainer(dev, spec, card, totals):
                          "device_ms_per_step": round(busy_ms, 3),
                          "device_busy": round(busy_ms / step_ms, 3),
                          "projection_ms": round(proj_ms, 3), "label_encode_ms": round(enc_ms, 3),
+                         **enc_plain,
                          "forward_ms": round(fwd_ms, 3), "backward_ms": round(fb_ms - fwd_ms, 3),
                          "optimizer_ms": round(opt_ms, 3), "peak_device_mib": round(peak, 1),
                          "resident_before_mib": round(resident, 1)}
@@ -3012,6 +3107,7 @@ def main(argv=()) -> int:
         np.random.default_rng(0), BATCH, N_POINTS
     )
     pix_err, pix2d_err = phase_pixels(dev, spec, (scan_pts, scan_valid))  # phase 1b
+    enc_err, enc_times = phase_label_encode(dev, (scan_pts, scan_gt, scan_valid))  # phase 1c
     proj_err = 0.0
     for label, p, v in (("proj_check 4x8192", pts, valid),
                         (f"beam scans {BATCH}x{N_POINTS}", scan_pts, scan_valid)):
@@ -3241,10 +3337,12 @@ def main(argv=()) -> int:
 
     assert totals["project_2d"] > 0, "no path launched the project_2d kernel"
     assert totals["nearest_wins_packed_image"] > 0, "no path launched the packed z-buffer"
+    assert totals["encode_label"] > 0, "no path launched the label-encode kernel"
     assert totals["project_points"] == (
         totals["nearest_wins_image"] + totals["nearest_wins_packed_image"]), (
         "a driven range view without the pixel kernel")
     z, c, px, p2 = kt["z"], kt["cc"], pt["points"], pt["2d"]
+    e32, e63 = enc_times[32], enc_times[63]
     kernels = [
         {"name": "project_points", "route": "cuda",
          "source": "tpufusion_torch/csrc/pixels.cu",
@@ -3277,6 +3375,14 @@ def main(argv=()) -> int:
          "call_ms": c["kernel_call"],
          "ms_63_rows": tall_times["cc 63"][0], "bound_ms_63_rows": tall_times["cc 63"][1],
          "ms_128_rows": tall_times["cc 128"][0], "bound_ms_128_rows": tall_times["cc 128"][1]},
+        {"name": "encode_label", "route": "cuda",
+         "source": "tpufusion_torch/csrc/label_encode.cu",
+         "replaces": "tpufusion/geometry/encoding.py:120",
+         "launches": totals["encode_label"], "max_abs_err": enc_err,
+         "ms": e32["kernel"], "plain_ms": e32["plain"], "bound_ms": e32["bound"],
+         "bound_by": "bytes", "library_ms": None, "call_ms": e32["kernel_call"],
+         "plain_call_ms": e32["plain_call"], "ms_63_rows": e63["kernel"],
+         "plain_ms_63_rows": e63["plain"], "bound_ms_63_rows": e63["bound"]},
         {"name": "nearest_wins_packed_image", "route": "cuda",
          "source": "tpufusion_torch/csrc/nearest_wins_packed.cu",
          "replaces": "tpufusion/ops/scatter.py:107",

@@ -1053,3 +1053,88 @@ def test_packed_kernel_rejects_bad_inputs(cuda_device):
         projection.nearest_wins_packed_image(pix.long(), key, ok, payload, SPEC)
     with pytest.raises(ValueError, match="CUDA"):
         projection.nearest_wins_packed_image(pix, key.cpu(), ok, payload, SPEC)
+
+
+# -- the fused label encode ------------------------------------------------------------
+
+
+def _label_spec(rows: int) -> RangeViewSpec:
+    from tpufusion_torch._golden import TALL_RES_V_DEG
+
+    return SPEC if rows == 32 else RangeViewSpec(res_v_deg=TALL_RES_V_DEG)
+
+
+@pytest.mark.parametrize("rows", [32, 63])
+@pytest.mark.parametrize("kind", parity_inputs.LABEL_KINDS)
+def test_label_encode_kernel_is_bit_identical(cuda_device, kind, rows):
+    """The fused label-encode kernel against its plain version on the card,
+    every footprint method, at 32 and 63 rows: seam boxes, boxes all
+    round, an image with no return (an all-background view of the box),
+    and degenerate boxes (size 0, zero length or width, yaw +-pi, centers
+    on the axis and at the origin); one launch a call, no project_2d."""
+    from tpufusion_torch.geometry.encoding import encode_label_reference
+    from tpufusion_torch.ops import label_encode
+
+    spec = _label_spec(rows)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in parity_inputs.label_inputs(spec, 16, kind, seed=rows)]
+    for method in label_encode.METHODS:
+        before = (label_encode.LAUNCHES, pixels.LAUNCHES_2D)
+        got = label_encode.encode_label(*args, spec, method)
+        torch.cuda.synchronize()
+        assert (label_encode.LAUNCHES, pixels.LAUNCHES_2D) == (before[0] + 1, before[1])
+        want = encode_label_reference(*args, spec, method)
+        assert _same_bits(got, want), (kind, rows, method)
+
+
+@pytest.mark.parametrize("rows", [32, 63])
+def test_label_encode_kernel_on_beam_scans_at_any_leading_shape(cuda_device, rows):
+    """The corner encode of projected beam scans with their boxes, through
+    `encode_label` and `encode_label_batch` at leading shapes (), (B,) and
+    (2, B / 2), with 2, 3 and 4 image channels: the plain version's bits,
+    one kernel launch a call."""
+    from tpufusion_torch.geometry import encoding
+    from tpufusion_torch.ops import label_encode
+
+    spec = _label_spec(rows)
+    pts, gt, valid = synthesize_beam_scan_batch(np.random.default_rng(rows), 8, 32768,
+                                                n_beams=64 if rows == 63 else 32)
+    images = range_view_project_batch(torch.from_numpy(pts).to(cuda_device), spec,
+                                      torch.from_numpy(valid).to(cuda_device))
+    box = [torch.from_numpy(gt[k]).to(cuda_device) for k in ("center", "size", "yaw")]
+    want = encoding.encode_label_reference(*box, images, spec)
+    assert float(want[..., 1].sum()) > 0
+    before = label_encode.LAUNCHES
+    assert _same_bits(encoding.encode_label_batch(*box, images, spec), want)
+    assert _same_bits(encoding.encode_label(*(a[3] for a in box), images[3], spec), want[3])
+    halves = [a.reshape(2, 4, *a.shape[1:]) for a in box + [images]]
+    assert _same_bits(encoding.encode_label(*halves, spec), want.reshape(2, 4, *want.shape[1:]))
+    for channels in (2, 4):
+        img = torch.cat([images, images[..., :1]], -1)[..., :channels].contiguous()
+        assert _same_bits(encoding.encode_label(*box, img, spec),
+                          encoding.encode_label_reference(*box, img, spec))
+    torch.cuda.synchronize()
+    assert label_encode.LAUNCHES == before + 5
+
+
+def test_label_encode_kernel_rejects_bad_inputs(cuda_device):
+    from tpufusion_torch.ops import label_encode
+
+    center, size, yaw, image = (torch.from_numpy(a).to(cuda_device)
+                                for a in parity_inputs.label_inputs(SPEC, 2))
+    with pytest.raises(ValueError, match="float32"):
+        label_encode.encode_label(center, size, yaw, image.double(), SPEC)
+    with pytest.raises(ValueError, match="float32"):
+        label_encode.encode_label(center, size, yaw, image.bfloat16(), SPEC)
+    with pytest.raises(ValueError, match="C >= 2"):
+        label_encode.encode_label(center, size, yaw, image[..., :1].contiguous(), SPEC)
+    with pytest.raises(ValueError, match="C >= 2"):
+        label_encode.encode_label(center, size, yaw, image, RangeViewSpec(res_h_deg=1.8))
+    with pytest.raises(ValueError, match="contiguous"):
+        label_encode.encode_label(center, size, yaw, image[..., :2], SPEC)
+    with pytest.raises(ValueError, match="center must have shape"):
+        label_encode.encode_label(center[0], size, yaw, image, SPEC)
+    with pytest.raises(ValueError, match="yaw must have shape"):
+        label_encode.encode_label(center, size, yaw[:1], image, SPEC)
+    with pytest.raises(ValueError, match="unknown footprint method"):
+        label_encode.encode_label(center, size, yaw, image, SPEC, "square")

@@ -695,6 +695,10 @@ SIGNATURE_EXCEPTIONS = {
         None, None, "RENAMED: the z-buffer kernel's wrapper"),
     "ops/pallas_cc.py::propagate_pallas": (None, None, "RENAMED: the CC kernel's wrapper"),
     "tools/import_keras.py::jax_softmax": (None, None, "RENAMED: the network's forward"),
+    "models/fcn.py::SampleWiseBN.__call__": (
+        {"use_running_average"}, {"train"},
+        "flax's BatchNorm keyword -> the port's modules' `train` flag, which FCN.forward passes "
+        "down (train = not use_running_average)"),
 }
 
 
@@ -773,12 +777,45 @@ def _counterparts(rel: str):
     return out
 
 
-def _faults_with(key, jax_obj, port_obj, exceptions) -> list[str]:
+def _method_parameters(cls, name: str) -> list:
+    """A method's parameters as a caller passes them: without self (or
+    cls); a staticmethod's all."""
+    raw = inspect.getattr_static(cls, name)
+    if isinstance(raw, staticmethod):
+        return list(inspect.signature(raw.__func__).parameters.values())
+    fn = raw.__func__ if isinstance(raw, classmethod) else raw
+    return list(inspect.signature(fn).parameters.values())[1:]
+
+
+def _method_counterparts(rel: str):
+    """(key `rel::Class.method`, JAX parameters, the port's parameters) for
+    each public method a JAX class of the module defines in its own body,
+    `__call__` included: the port's `forward` where the port's class is a
+    torch module. A method the port lacks raises AttributeError."""
+    import torch
+
+    out = []
+    for key, jax_cls, port_cls in _counterparts(rel):
+        if not inspect.isclass(jax_cls):
+            continue
+        for name, raw in vars(jax_cls).items():
+            if name.startswith("_") and name != "__call__":
+                continue
+            if not (inspect.isfunction(raw) or isinstance(raw, (staticmethod, classmethod))):
+                continue
+            port_name = ("forward" if name == "__call__" and issubclass(port_cls, torch.nn.Module)
+                         else name)
+            out.append((f"{key}.{name}", _method_parameters(jax_cls, name),
+                        _method_parameters(port_cls, port_name)))
+    return out
+
+
+def _faults_with(key, jax_params, port_params, exceptions) -> list[str]:
     removed, added, _ = exceptions.get(key, (set(), set(), ""))
     if removed is None:
         return []
-    return _signature_faults([p for p in _parameters(jax_obj) if p.name not in removed],
-                             [p for p in _parameters(port_obj) if p.name not in added])
+    return _signature_faults([p for p in jax_params if p.name not in removed],
+                             [p for p in port_params if p.name not in added])
 
 
 @pytest.mark.parametrize("rel", _jax_modules())
@@ -790,19 +827,133 @@ def test_every_counterpart_takes_the_jax_packages_parameters(rel):
     parameters after them (`device`, `mesh`, ...). Exceptions:
     SIGNATURE_EXCEPTIONS, each with its reason."""
     for key, jax_obj, port_obj in _counterparts(rel):
-        assert not _faults_with(key, jax_obj, port_obj, SIGNATURE_EXCEPTIONS), (
-            key, _faults_with(key, jax_obj, port_obj, SIGNATURE_EXCEPTIONS))
+        faults = _faults_with(key, _parameters(jax_obj), _parameters(port_obj),
+                              SIGNATURE_EXCEPTIONS)
+        assert not faults, (key, faults)
+
+
+@pytest.mark.parametrize("rel", _jax_modules())
+def test_every_counterpart_class_takes_the_jax_packages_method_calls(rel):
+    """For every public method of a JAX class with a counterpart (flax's
+    `__call__` against the torch module's `forward`), the port's method
+    exists and takes the JAX parameters as the guard above asks of
+    functions. Exceptions: SIGNATURE_EXCEPTIONS, each with its reason."""
+    for key, jax_params, port_params in _method_counterparts(rel):
+        faults = _faults_with(key, jax_params, port_params, SIGNATURE_EXCEPTIONS)
+        assert not faults, (key, faults)
 
 
 def test_the_signature_exceptions_are_still_needed():
-    """Every entry of SIGNATURE_EXCEPTIONS names a counterpart whose
-    signature the guard would refuse without it."""
+    """Every entry of SIGNATURE_EXCEPTIONS names a counterpart or a method
+    whose signature the guard would refuse without it."""
     found = {}
     for rel in {key.split("::")[0] for key in SIGNATURE_EXCEPTIONS}:
-        found.update({key: (j, p) for key, j, p in _counterparts(rel)})
+        found.update({key: (_parameters(j), _parameters(p)) for key, j, p in _counterparts(rel)})
+        found.update({key: (j, p) for key, j, p in _method_counterparts(rel)})
     for key, (removed, added, why) in SIGNATURE_EXCEPTIONS.items():
         assert key in found and why, key
         if removed is not None:
             assert _faults_with(key, *found[key], {}), f"{key}: the exception is not needed"
         else:
             assert key in RENAMED, key
+
+
+# -- command lines: each `main` has the JAX package's flags and defaults ------------------------
+
+PORT_ONLY_FLAGS = {
+    "device": "every entry point of the port runs on the card unless the caller asks for the CPU",
+    "streaming": "the rehearsal's streaming extraction, which the port's ETL adds",
+}
+_TO_PORT_ASSETS = "the port's outputs and caches go under tpufusion_torch/, never into the JAX package"
+FLAG_EXCEPTIONS = {
+    # `rel::subcommand dest` (no subcommand: `rel::dest`) -> why its default differs
+    "tools/train_synthetic_detector.py::out": _TO_PORT_ASSETS,
+    "tools/tune_detector_asset.py::asset": _TO_PORT_ASSETS,
+    "tools/train_fusion_synthetic.py::out": _TO_PORT_ASSETS,
+    "tools/train_fusion_synthetic.py::cache_dir": (
+        "the port's fusion dataset cache (key ending in torch-v1) lives under "
+        "tpufusion_torch/assets/, not the reference's /tmp one"),
+}
+
+
+class _Parsed(Exception):
+    def __init__(self, parser):
+        super().__init__("parsed")
+        self.parser = parser
+
+
+def _flag_defaults(parser, prefix: str = "") -> dict:
+    """{`subcommand dest`: default} of an argparse parser, its subparsers'
+    flags under their command's name."""
+    import argparse
+
+    out = {}
+    for action in parser._actions:
+        if isinstance(action, argparse._SubParsersAction):
+            for name, sub in action.choices.items():
+                out.update(_flag_defaults(sub, f"{prefix}{name} "))
+        elif not isinstance(action, argparse._HelpAction):
+            out[prefix + action.dest] = action.default
+    return out
+
+
+def _main_flags(module, monkeypatch) -> dict:
+    """The flag defaults of `module.main`'s parser: main runs until it
+    parses its (empty) command line, where it stops."""
+    import argparse
+
+    def parse(self, *args, **kwargs):
+        raise _Parsed(self)
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", parse)
+        with pytest.raises(_Parsed) as parsed:
+            module.main([])
+    return _flag_defaults(parsed.value.parser)
+
+
+def _jax_mains() -> list[str]:
+    return [rel for rel in _jax_modules()
+            if rel not in NOT_CARRIED_OVER and "main" in _public_defs(os.path.join(JAX_DIR, rel))]
+
+
+def _flag_faults(rel: str, monkeypatch) -> dict[str, str]:
+    want = _main_flags(_module(rel, "tpufusion"), monkeypatch)
+    got = _main_flags(_module(rel, "tpufusion_torch"), monkeypatch)
+    faults = {}
+    for dest, default in want.items():
+        if dest not in got:
+            faults[dest] = "missing"
+        elif not _same_default(default, got[dest]):
+            faults[dest] = f"default {default!r} in JAX, {got[dest]!r} in the port"
+    for dest in set(got) - set(want):
+        if dest.split(" ")[-1] not in PORT_ONLY_FLAGS:
+            faults[dest] = "only in the port"
+    return faults
+
+
+@pytest.mark.parametrize("rel", _jax_mains())
+def test_every_main_takes_the_jax_packages_flags_and_defaults(rel, monkeypatch):
+    """Each `main` of the JAX package (the CLI's subcommands included)
+    and the port's of the same path parse the same flags with equal
+    defaults, so the same command line runs the same work. The port may
+    add PORT_ONLY_FLAGS; FLAG_EXCEPTIONS names the defaults that differ,
+    each with its reason."""
+    faults = {dest: why for dest, why in _flag_faults(rel, monkeypatch).items()
+              if f"{rel}::{dest}" not in FLAG_EXCEPTIONS}
+    assert not faults, (rel, faults)
+
+
+def test_the_flag_exceptions_are_still_needed(monkeypatch):
+    """Every FLAG_EXCEPTIONS entry names a flag whose default differs, and
+    every PORT_ONLY_FLAGS entry is a flag some port's main adds."""
+    added = set()
+    for rel in _jax_mains():
+        faults = _flag_faults(rel, monkeypatch)
+        added |= {dest.split(" ")[-1] for dest in _main_flags(_module(rel, "tpufusion_torch"),
+                                                              monkeypatch)}
+        for key in FLAG_EXCEPTIONS:
+            if key.startswith(f"{rel}::"):
+                assert key.split("::")[1] in faults, f"{key}: the exception is not needed"
+    assert {key.split("::")[0] for key in FLAG_EXCEPTIONS} <= set(_jax_mains())
+    assert set(PORT_ONLY_FLAGS) <= added

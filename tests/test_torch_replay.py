@@ -105,6 +105,24 @@ def test_replay_harness_single_chunk_and_profile(frames, tmp_path):
     assert os.path.getsize(tmp_path / "trace" / "replay_trace.json") > 0
 
 
+def test_replay_harness_takes_the_references_positional_timestamps(frames):
+    """`run(points, timestamps)` by position, as the reference's: the
+    timestamps are taken and unused, and the answers are JAX's on three
+    stored frames at chunk 2. (At 1,024 points a frame neither package
+    finds a vehicle, so the frames are the fixture's.)"""
+    from tpufusion.serve.replay import ReplayHarness as JaxReplayHarness
+
+    cfg, model, jcfg, jmodel = _corner_pair()
+    points = frames[0][:3]
+    timestamps = np.arange(3, dtype=np.int64) * 100_000_000
+    poses, found, stats = ReplayHarness(cfg, model, chunk=2, device="cpu").run(points, timestamps)
+    want_poses, want_found, _ = JaxReplayHarness(jcfg, jmodel, chunk=2).run(points, timestamps)
+    assert poses.shape == (3, 7) and stats.frames == 4
+    np.testing.assert_array_equal(found, want_found)
+    assert want_found.any()
+    assert wrapped_pose_diff(poses[found], want_poses[found]).max() <= POSE_ATOL
+
+
 def _corner_pair():
     """The config and a corner-head model (the asset's trunk) in both
     frameworks: both servers then decode through the corner vote (the

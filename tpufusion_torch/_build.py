@@ -1,11 +1,12 @@
 """Builds the port's CUDA kernels and loads them with ctypes.
 
-At first use, nvcc compiles every `csrc/*.cu` for sm_90a, one process a
-source, all started together, and links the objects into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds, not minutes) under `tpufusion_torch/_build/`. The library's name
-carries a hash of the sources and flags, so an edited source rebuilds and
-a stale library is never loaded. There is no fallback: without nvcc, or
+At first use, nvcc compiles every `csrc/*.cu` (with the `csrc/*.cuh`
+headers they include) for sm_90a, one process a source, all started
+together, and links the objects into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds, not minutes)
+under `tpufusion_torch/_build/`. The library's name carries a hash of
+the sources, headers and flags, so an edited source rebuilds and a stale
+library is never loaded. There is no fallback: without nvcc, or
 when the compiler fails, `load()` raises RuntimeError with its output.
 """
 
@@ -37,6 +38,10 @@ def _sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -53,7 +58,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -117,6 +122,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tf_project_points.restype = i
     lib.tf_project_2d.argtypes = [p, p, p, p, p, ll, *spec, p]
     lib.tf_project_2d.restype = i
+    lib.tf_encode_label.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, *spec, p]
+    lib.tf_encode_label.restype = i
     lib.tf_error_string.argtypes = [i]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib

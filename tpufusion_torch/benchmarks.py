@@ -632,7 +632,7 @@ CONFIGS = {1: config1_single_frame, 2: config2_replay, 3: config3_fused, 4: conf
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--configs", default="1,2,3")  # 4 and 5 on request
+    ap.add_argument("--configs", default="1,2,3,4,5")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda":

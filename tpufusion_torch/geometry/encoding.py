@@ -8,7 +8,8 @@
   encode:  c' = R^T (c - p)      decode:  c = R c' + p
 
 `encode_label` writes the corner head's target over the whole range-view
-image (one-hot footprint + 24 local-frame corner offsets),
+image (one-hot footprint + 24 local-frame corner offsets; on the card in
+one fused kernel, `ops/label_encode.py`),
 `decode_corners` inverts it, and `encode_direct_label` writes the
 direct-pose head's (center offset, size, sin/cos yaw). Every codec takes
 leading batch axes where the reference uses `vmap`, works on the device
@@ -31,6 +32,7 @@ from tpufusion_torch.geometry.boxes import (
     rot_y,
     rot_z,
 )
+from tpufusion_torch.ops import label_encode
 
 DIRECT_CHANNELS = 8  # dc (3 local-frame), l w h (3), sin yaw, cos yaw
 DIRECT_CHANNELS_DUAL = 10  # + global sin/cos pair (yaw_frame="both")
@@ -156,7 +158,20 @@ def encode_label(
     """The corner head's target, (..., H, W, 2 + 24) float32 on the image's
     device: channels 0..1 the one-hot (background, foreground) of the
     `method` footprint, 2..25 the local-frame corner offsets, zero outside
-    the footprint."""
+    the footprint. A CUDA image goes through the fused kernel
+    (`ops/label_encode.py`: one launch, the box arrays sharing the image's
+    leading shape), a CPU one through `encode_label_reference`."""
+    return label_encode.encode_label(center, size, yaw, image, spec, method)
+
+
+def encode_label_reference(
+    center, size, yaw, image: torch.Tensor,
+    spec: RangeViewSpec = RangeViewSpec(),
+    method: str = "outer_rect",
+) -> torch.Tensor:
+    """Plain PyTorch version of the label-encode kernel: the composition
+    of footprint_mask, box_corners_3d, pixel_points and pixel_rotations
+    (one project_2d launch on the card)."""
     center, size, yaw = _gt(center, size, yaw, image)
     mask = footprint_mask(center, size, yaw, spec, method)  # (..., H, W)
     corners = box_corners_3d(center, size, yaw)  # (..., 8, 3)

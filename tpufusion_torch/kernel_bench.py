@@ -34,8 +34,11 @@ of 64 beams into 63 x 1801: the earlier packed kernel, the current one,
 the current one built with 8-CTA clusters (`-DTF_PACKED_CLUSTER=8`), the
 exact kernel and the yardstick (`packed_amin_yardstick`), and the current
 kernel on the same inputs with every point invalid (its fill, decode and
-image stores alone). `--kernels` picks among exact, cc and packed. With
-`--out FILE` the rows are also written there as JSON.
+image stores alone). The encode rows time the fused label-encode kernel
+and its plain version (the torch composition it replaced) in turns at 32
+x 32 x 1801 and 32 x 63 x 1801, beside a fill of the label's size.
+`--kernels` picks among exact, cc, packed and encode. With `--out FILE`
+the rows are also written there as JSON.
 
     python -m tpufusion_torch.kernel_bench --dsmem-probe
 
@@ -165,6 +168,13 @@ def top_device_kernels(fn, inputs, k: int = 5) -> list[dict]:
     return [{"name": name, "ms": t / 1e3 / len(inputs), "share": t / total} for name, t in top]
 
 
+def queued_each(fn, inputs) -> float:
+    """`queued_ms` of one call at a time, the mean over the inputs: a
+    plain version that launches hundreds of kernels a call fills the
+    card's launch queue behind the sleep with a few calls."""
+    return sum(queued_ms(fn, [x]) for x in inputs) / len(inputs)
+
+
 def time_turns(fns: dict, inputs, timer=time_ms) -> dict[str, float]:
     """Each function timed twice with `timer`, in turns (a, b, c, c, b,
     a), on the same inputs; the mean of each function's two times."""
@@ -205,6 +215,15 @@ def project_2d_bound_ms(n: int) -> float:
     """Least time for `project_2d`'s bytes at 3.35 TB/s: three float32
     coordinates read and two int32 written an element (20 B)."""
     return 20 * n / HBM_BYTES_PER_S * 1e3
+
+
+def label_encode_bound_ms(center, size, yaw, image) -> float:
+    """Least time for the label encode's bytes at 3.35 TB/s: the image
+    (12 B a pixel at 3 channels) and the boxes read once, the (..., H, W,
+    26) float32 label written once (104 B a pixel)."""
+    pixels = image.numel() // image.shape[-1]
+    nbytes = 4 * (image.numel() + center.numel() + size.numel() + yaw.numel()) + 104 * pixels
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def torch_pixels_composition(points, valid, spec):
@@ -529,6 +548,49 @@ def ab(old_csrc: str | None, sets: int = 12, kernels=("exact", "cc", "packed")) 
     return rows
 
 
+ENCODE_SHAPES = (  # label, frames, the range view's res_v_deg
+    ("32 x 32 x 1801", 32, 1.33),
+    ("32 x 63 x 1801", 32, 0.665),
+)
+
+
+def encode_rows(sets: int = 12) -> list[dict]:
+    """The fused label encode's rows: the kernel, its plain version (the
+    torch composition the kernel replaced, unchanged, with its one
+    project_2d launch) and a fill of a label-sized tensor (the card's
+    rate for the label's stores alone, no image read) in turns at a train
+    batch of 32 frames, 32 and 63 rows, on `parity_inputs.label_inputs`
+    boxes all round (outer_rect, the train step's method); each set
+    checked bit for bit first."""
+    from tpufusion_torch import RangeViewSpec
+    from tpufusion_torch.geometry.encoding import encode_label_reference
+    from tpufusion_torch.ops import label_encode, parity_inputs
+
+    dev = torch.device("cuda", 0)
+    rows = []
+    for label, frames, res_v in ENCODE_SHAPES:
+        spec = RangeViewSpec(res_v_deg=res_v)
+        args = [[torch.from_numpy(a).to(dev) for a in parity_inputs.label_inputs(
+            spec, frames, seed=1600 + i)] for i in range(sets)]
+        with torch.inference_mode():
+            for a in args[:2]:
+                got, want = label_encode.encode_label(*a, spec), encode_label_reference(*a, spec)
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32)), label
+            labels = {id(a): torch.empty(a[3].shape[:-1] + (label_encode.CHANNELS,),
+                                         dtype=torch.float32, device=dev) for a in args}
+            fns = {"new": lambda a: label_encode.encode_label(*a, spec),
+                   "plain": lambda a: encode_label_reference(*a, spec),
+                   "fill": lambda a: labels[id(a)].fill_(0.0)}
+            call = time_turns(fns, args, time_ms)
+            dev_t = time_turns(fns, args, lambda fn, xs: (
+                queued_each if fn is fns["plain"] else queued_ms)(fn, xs))
+        rows.append({"shape": label, "kernel": "encode_label",
+                     "bound_ms": sum(label_encode_bound_ms(*a) for a in args) / sets,
+                     **{f"{k}_call_ms": v for k, v in call.items()},
+                     **{f"{k}_device_ms": v for k, v in dev_t.items()}})
+    return rows
+
+
 def dsmem_probe() -> str:
     """Builds and runs probes/dsmem_min64.cu; returns what it prints."""
     from tpufusion_torch import _build
@@ -545,7 +607,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", help="directory with the earlier design's .cu sources")
     ap.add_argument("--sets", type=int, default=12, help="distinct batches per timing")
-    ap.add_argument("--kernels", default="exact,cc,packed",
+    ap.add_argument("--kernels", default="exact,cc,packed,encode",
                     help="which kernels' rows: exact and cc need --old-csrc")
     ap.add_argument("--dsmem-probe", action="store_true",
                     help="also build and run probes/dsmem_min64.cu")
@@ -561,6 +623,8 @@ def main() -> int:
         print(dsmem_probe(), end="")
     kernels = tuple(args.kernels.split(","))
     rows = ab(args.old_csrc, args.sets, kernels) if args.old_csrc or "packed" in kernels else []
+    if "encode" in kernels:
+        rows += encode_rows(args.sets)
     for r in rows:
         names = [k[: -len("_device_ms")] for k in r if k.endswith("_device_ms")]
         times = ", ".join(

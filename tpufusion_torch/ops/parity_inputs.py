@@ -410,3 +410,46 @@ def bev_edge_cloud(spec, seed: int = 5, n: int = 4096):
     valid = rng.random(n) > 0.2
     valid[900:908] = True
     return pts, valid
+
+
+LABEL_KINDS = ("seam", "all_round", "no_returns", "degenerate")
+
+
+def label_inputs(spec, batch: int = 32, kind: str = "all_round", seed: int = 0, channels: int = 3):
+    """(center (B, 3), size (B, 3), yaw (B,), image (B, H, W, C)) float32
+    for the label encode: "seam" boxes on the 360-degree seam (their
+    corners project to both ends of the image), "all_round" boxes 1-80 m
+    away at any azimuth, a third nearly axis-aligned, "no_returns" those
+    boxes over an image with no return (distance 0, the empty pixels'
+    min_height), "degenerate" boxes of size 0, of zero length or width,
+    at yaw 0 and +-pi, centers on the sensor's axis and at its origin.
+    The image holds distances 0-40 m (a third empty), heights and
+    intensities."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    dist, ang = rng.uniform(3, 40, batch), rng.uniform(-np.pi, np.pi, batch)
+    dist[::7] = rng.uniform(1, 3, len(dist[::7]))
+    dist[3::7] = rng.uniform(40, 80, len(dist[3::7]))
+    yaw = rng.uniform(-np.pi, np.pi, batch)
+    yaw[::3] = rng.uniform(-0.05, 0.05, len(yaw[::3]))
+    if kind == "seam":
+        ang = np.pi - rng.uniform(-0.05, 0.05, batch)
+        yaw = rng.uniform(-0.03, 0.03, batch)  # the box orbits the origin by yaw: stay on it
+    center = np.stack([dist * np.cos(ang), dist * np.sin(ang), rng.uniform(-1.5, 0.5, batch)], 1)
+    size = np.array([4.2, 1.6, 1.5]) + rng.uniform(-0.5, 0.5, (batch, 3))
+    if kind == "degenerate":
+        size[0::4] = 0.0
+        size[1::4, 0] = 0.0
+        size[2::4, 1] = 0.0
+        yaw[0::3] = rng.choice([0.0, np.pi, -np.pi], len(yaw[0::3]))
+        center[5::8, :2] = 0.0  # on the axis
+        center[7::8] = 0.0  # at the origin
+    shape = (batch, spec.height, spec.width)
+    image = np.zeros(shape + (channels,), f)
+    if kind == "no_returns":
+        image[..., 1] = spec.min_height
+    else:
+        image[..., 0] = rng.uniform(0, 40, shape) * (rng.random(shape) > 0.3)
+        image[..., 1] = rng.uniform(-2, 2, shape)
+        image[..., 2:] = rng.uniform(0, 1, shape + (channels - 2,))
+    return center.astype(f), size.astype(f), yaw.astype(f), image

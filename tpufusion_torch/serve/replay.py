@@ -134,11 +134,13 @@ class ReplayHarness:
     def run(
         self,
         points: np.ndarray,  # (F, N, 4) stored frames
+        timestamps: np.ndarray | None = None,
         profile_dir: str | None = None,
     ) -> tuple[np.ndarray, np.ndarray, LatencyStats]:
         """Returns (poses (F, 7), found (F,), LatencyStats): every frame
         is answered; the trailing partial chunk is padded by repeating the
-        last frame and the padding is dropped from the result."""
+        last frame and the padding is dropped from the result.
+        `timestamps` (F,) is taken and unused, as the reference's is."""
         f = len(points)
         if f == 0:
             raise ValueError("need at least one frame")
