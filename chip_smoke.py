@@ -26,6 +26,13 @@ to 0 before it and read after it, and then the training paths:
                return, degenerate boxes; its device time in turns with
                the plain version (the composition it replaced), beside
                its bound
+  phase 1d     the direct head's fused label encode (`csrc/label_encode.cu`,
+               `tf_encode_direct_label`) bit for bit its plain version at
+               32 frames, 32 and 63 rows, both footprints and all three
+               yaw frames, on the same sets and on returns exactly on and
+               one step outside the dilated box faces; its device time in
+               turns with the plain version, 10 and 12 channels, beside
+               its bound
   phases 4-5   the float32 direct path with the shipped detector asset
                (`LidarPipeline.predict_position`, `make_e2e_step`,
                batch 64 x 32,768-point beam scans)
@@ -199,9 +206,9 @@ The pixel and z-buffer kernels run on every path that projects points
 asserts; the packed one only where a path asks for method "packed",
 bench.py's packed row and phase 27); configs 1
 and 3 and the train steps decode nothing, so the CC kernel is not on
-theirs; the label encode of a corner head's train step launches the
-fused label-encode kernel once (the roll's rect still launches
-project_2d). Phases 12 and 13 hold the z-buffer
+theirs; the label encode of a corner head's train or eval step launches
+the fused label-encode kernel once (the roll's rect still launches
+project_2d), a direct head's the direct label-encode kernel once. Phases 12 and 13 hold the z-buffer
 kernel against its plain version on their own points (1 x 32,768 and the
 8 x 32,768 camera-wedge scans) before they drive the path.
 
@@ -231,8 +238,8 @@ beside the kernel's bound: its bytes at 3.35 TB/s,
 `tpufusion_torch/kernel_bench.py`; and phase 25's device times and
 bounds at 63 and 128 rows; for the pixel kernel also the torch
 composition it replaced and the whole projection with each, and
-project_2d at a train batch's label points; for the label encode its
-plain version's at 32 and 63 rows), the card's
+project_2d at a train batch's label points; for the label encodes their
+plain versions' at 32 and 63 rows), the card's
 `name, power.limit` as nvidia-smi reports them, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -241,6 +248,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import io
 import json
@@ -334,12 +342,13 @@ MEASURE_CALLS = 1 + 6 * 3 + 1 + 6
 # the port's kernels, by the names of the kernels line; a driven path's
 # `expect` names those it must launch
 KERNELS = ("project_points", "project_2d", "nearest_wins_image", "connected_components_with_bbox",
-           "nearest_wins_packed_image", "encode_label")
+           "nearest_wins_packed_image", "encode_label", "encode_direct_label")
 SERVING = ("project_points", "nearest_wins_image", "connected_components_with_bbox")
 RANGE_VIEW = SERVING[:2]  # a path that projects points and decodes nothing
 CC_ONLY = SERVING[2:]  # a decode of a view or a mask it is given
 PACKED = ("project_points", "nearest_wins_packed_image", "connected_components_with_bbox")
 DRIVE_COUNTS = KERNELS[2:4]  # the counts `drive` returns: the exact z-buffer's and the CC's
+DIRECT_TRAIN = SERVING + ("encode_direct_label",)  # a direct head's training with its evals
 PACKED_TIMED = 4  # phase 27: distinct input sets a shape for the packed kernel's times
 PIXEL_SETS = 4  # phase 5: distinct batches for the pixel kernel's times
 
@@ -359,7 +368,7 @@ def _reset_launches() -> None:
     from tpufusion_torch.ops import cc, label_encode, pixels, projection
 
     pixels.LAUNCHES = pixels.LAUNCHES_2D = projection.LAUNCHES = cc.LAUNCHES = 0
-    projection.PACKED_LAUNCHES = label_encode.LAUNCHES = 0
+    projection.PACKED_LAUNCHES = label_encode.LAUNCHES = label_encode.LAUNCHES_DIRECT = 0
 
 
 def _launches() -> dict[str, int]:
@@ -369,7 +378,8 @@ def _launches() -> dict[str, int]:
             "nearest_wins_image": projection.LAUNCHES,
             "connected_components_with_bbox": cc.LAUNCHES,
             "nearest_wins_packed_image": projection.PACKED_LAUNCHES,
-            "encode_label": label_encode.LAUNCHES}
+            "encode_label": label_encode.LAUNCHES,
+            "encode_direct_label": label_encode.LAUNCHES_DIRECT}
 
 
 def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
@@ -643,6 +653,100 @@ def phase_label_encode(dev, scans) -> tuple[float, dict]:
             f"{t['bound'] / t['kernel']:.1%} of it; plain (the composition it replaced) "
             f"{t['plain']:.4f} ({t['plain_call']:.4f}) ms")
     log(f"  phase 1c took {time.perf_counter() - t0:.1f} s")
+    return err, times
+
+
+def check_direct_encode(label: str, args, spec) -> float:
+    """Holds the direct head's label-encode kernel against its plain
+    version on the card, each footprint and yaw frame, on (center, size,
+    yaw, image): bit for bit, one launch a call and no project_2d or
+    corner launch. Returns the largest difference (0)."""
+    from tpufusion_torch.geometry.encoding import encode_direct_label_reference
+    from tpufusion_torch.ops import label_encode, pixels
+
+    def count():
+        return label_encode.LAUNCHES_DIRECT, pixels.LAUNCHES_2D, label_encode.LAUNCHES
+
+    err, fg = 0.0, {}
+    for footprint in label_encode.FOOTPRINTS:
+        for yaw_frame in label_encode.YAW_FRAMES:
+            before = count()
+            got = label_encode.encode_direct_label(*args, spec, footprint, yaw_frame)
+            torch.cuda.synchronize()
+            assert count() == (before[0] + 1, before[1], before[2]), (
+                "encode_direct_label: not one kernel launch")
+            want = encode_direct_label_reference(*args, spec, footprint, yaw_frame)
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            err = max(err, float((got - want).abs().nan_to_num(0.0).max()))
+            fg[f"{footprint}/{yaw_frame}"] = int(want[..., 1].sum())
+            assert same, (f"encode_direct_label kernel differs from its plain version ({label}, "
+                          f"{footprint}, {yaw_frame})")
+    log(f"  encode_direct_label on {label} ({' x '.join(map(str, args[3].shape))}): "
+        f"bit-identical to plain for every footprint and yaw frame; footprint pixels {fg}")
+    return err
+
+
+def phase_direct_encode(dev, scans) -> tuple[float, dict]:
+    """Phase 1d: the direct head's label-encode kernel
+    (`csrc/label_encode.cu::tf_encode_direct_label`) against its plain
+    version at a train batch (TRAIN_BATCH frames) at 32 and 63 rows, both
+    footprints and all three yaw frames: the main path's beam scans with
+    their boxes, then every `parity_inputs.label_inputs` kind (seam, all
+    round, no return, degenerate, and returns on and one step outside the
+    dilated box faces); then its device time in turns with the plain
+    version (the composition it replaced) at 10 and 12 channels beside
+    its bound. Returns (largest difference, times by (rows, yaw frame))."""
+    from tpufusion_torch import RangeViewSpec
+    from tpufusion_torch._golden import TALL_BEAMS, TALL_RES_V_DEG
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.geometry.encoding import encode_direct_label_reference
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.kernel_bench import DIRECT_TIMED, direct_encode_bound_ms
+    from tpufusion_torch.ops import label_encode, parity_inputs
+
+    t0 = time.perf_counter()
+    log(f"phase 1d direct label encode (tf_encode_direct_label) against its plain version, bit "
+        f"for bit, at {TRAIN_BATCH} frames")
+    on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    err, times = 0.0, {}
+    for spec, beams, rows in ((RangeViewSpec(), 32, 32),
+                              (RangeViewSpec(res_v_deg=TALL_RES_V_DEG), TALL_BEAMS, 63)):
+        if rows == 32:
+            pts, gt, valid = scans
+            pts, valid = pts[:TRAIN_BATCH], valid[:TRAIN_BATCH]
+            gt = {k: v[:TRAIN_BATCH] for k, v in gt.items()}
+        else:
+            pts, gt, valid = synthesize_beam_scan_batch(np.random.default_rng(16), TRAIN_BATCH,
+                                                        N_POINTS, n_beams=beams)
+        with torch.inference_mode():
+            images = range_view_project_batch(on(pts), spec, on(valid))
+        boxes = [on(gt[k]) for k in ("center", "size", "yaw")]
+        err = max(err, check_direct_encode(f"{beams}-beam scans, {rows} rows", boxes + [images],
+                                           spec))
+        for kind in parity_inputs.LABEL_KINDS:
+            args = [on(a) for a in parity_inputs.label_inputs(spec, TRAIN_BATCH, kind, seed=rows)]
+            err = max(err, check_direct_encode(f"{kind} boxes, {rows} rows", args, spec))
+        sets = [[on(a) for a in parity_inputs.label_inputs(spec, TRAIN_BATCH, seed=1700 + i)]
+                for i in range(PIXEL_SETS)]
+        for footprint, yaw_frame in DIRECT_TIMED:
+            fns = {"kernel": lambda a: label_encode.encode_direct_label(*a, spec, footprint,
+                                                                         yaw_frame),
+                   "plain": lambda a: encode_direct_label_reference(*a, spec, footprint,
+                                                                    yaw_frame)}
+            with torch.inference_mode():
+                t = time_turns(fns, sets, lambda fn, xs: (
+                    queued_ms if fn is fns["kernel"] else queued_each)(fn, xs))
+                t.update({f"{k}_call": v for k, v in time_turns(fns, sets).items()})
+            channels = label_encode.direct_channels(yaw_frame)
+            t["bound"] = float(np.mean([direct_encode_bound_ms(*a, channels) for a in sets]))
+            assert all(v > 0 for v in t.values()), f"a time not measured: {t}"
+            times[rows, yaw_frame] = t
+            log(f"  encode_direct_label ({footprint}, {yaw_frame}: {channels} channels) at "
+                f"{TRAIN_BATCH} x {rows} x {spec.width}: kernel {t['kernel']:.4f} "
+                f"({t['kernel_call']:.4f}) ms, bound {t['bound']:.4f} ms, kernel at "
+                f"{t['bound'] / t['kernel']:.1%} of it; plain (the composition it replaced) "
+                f"{t['plain']:.4f} ({t['plain_call']:.4f}) ms")
+    log(f"  phase 1d took {time.perf_counter() - t0:.1f} s")
     return err, times
 
 
@@ -1322,11 +1426,14 @@ def phase_train_golden(dev, spec, gm, gt, totals):
             f"train step {case} (head {what['head']}, {what['dtype']}"
             + (f", rolled by {shifts.tolist()}" if shifts is not None else "") + ")",
             lambda: _golden.port_train_case(case, ASSET, gm, batch, dev, shifts),
-            totals, expect=RANGE_VIEW + (("encode_label",) if what["head"] == "corner" else ()))
+            totals, expect=RANGE_VIEW + (("encode_label",) if what["head"] == "corner"
+                                         else ("encode_direct_label",)))
         assert counts == {"nearest_wins_image": 1, "connected_components_with_bbox": 0}, (
             "a train step launches the z-buffer once and never the CC")
         assert _launches()["encode_label"] == (what["head"] == "corner"), (
             "a corner head's step encodes its labels in one kernel launch")
+        assert _launches()["encode_direct_label"] == (what["head"] == "direct"), (
+            "a direct head's step encodes its labels in one kernel launch")
         r = _golden.train_case_readings(got, gt, case)
         lim = _golden.train_case_limits(case)
         readings[case] = r
@@ -1366,7 +1473,10 @@ def phase_trainer(dev, spec, card, totals):
     from tpufusion_torch.config import DEFAULT, LossConfig, ModelConfig, TrainConfig
     from tpufusion_torch.data.pipeline import BatchPipeline
     from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
-    from tpufusion_torch.geometry.encoding import encode_label_reference
+    from tpufusion_torch.geometry.encoding import (
+        encode_direct_label_reference,
+        encode_label_reference,
+    )
     from tpufusion_torch.geometry.range_view import range_view_project_batch
     from tpufusion_torch.models.io import asset_configs
     from tpufusion_torch.models.losses import weighted_pose_loss
@@ -1400,7 +1510,8 @@ def phase_trainer(dev, spec, card, totals):
             trainer = Trainer(cfg, outdir=outdir, device=dev)
             pipe = BatchPipeline(data, TRAIN_BATCH, seed=0, device=dev)
             assert pipe._dev is not None, "the dataset should be device-resident"
-            expect = RANGE_VIEW + (("encode_label",) if mcfg.head == "corner" else ())
+            expect = RANGE_VIEW + (("encode_label",) if mcfg.head == "corner"
+                                   else ("encode_direct_label",))
             hist, counts = drive(f"fit, {tag}", lambda: trainer.fit(pipe), totals, expect=expect)
             steps = 2 * TRAIN_SCENE_BATCHES
             assert counts == {"nearest_wins_image": steps, "connected_components_with_bbox": 0}
@@ -1460,11 +1571,12 @@ def phase_trainer(dev, spec, card, totals):
                 proj_ms = time_ms(
                     lambda b: range_view_project_batch(b["points"], spec, b["valid"]), batches)
                 enc_ms = time_ms(lambda b: encode_batch(b, spec, head, yaw_frame), with_images)
-                enc_plain = {}
-                if head == "corner":  # the composition the fused kernel replaced
-                    enc_plain["label_encode_plain_ms"] = round(time_ms(
-                        lambda b: encode_label_reference(b["center"], b["size"], b["yaw"],
-                                                         b["images"], spec), with_images), 3)
+                # the composition the fused kernel replaced
+                plain = (encode_label_reference if head == "corner" else functools.partial(
+                    encode_direct_label_reference, yaw_frame=yaw_frame))
+                enc_plain = {"label_encode_plain_ms": round(time_ms(
+                    lambda b: plain(b["center"], b["size"], b["yaw"], b["images"], spec),
+                    with_images), 3)}
             pairs = list(zip(images, labels))
 
             def forward(il):
@@ -1958,7 +2070,7 @@ def phase_offline_drive(dev, spec, card, totals, work):
     summary, counts = drive(
         f"(c) rehearse_bag_pipeline.main({args[:2]} + the rehearsal's defaults): the CLI's "
         f"extract, train ({DRIVE_EPOCHS} epochs, batch {DRIVE_TRAIN_BATCH}, direct head), "
-        "predict, submit, score", lambda: rehearse.main(args), totals)
+        "predict, submit, score", lambda: rehearse.main(args), totals, expect=DIRECT_TRAIN)
     assert counts == {"nearest_wins_image": launches,
                       "connected_components_with_bbox": math.ceil(DRIVE_FRAMES / DRIVE_TRAIN_BATCH)}, (
         "the CLI: a z-buffer launch an extract batch, a CC launch a predict batch")
@@ -2104,7 +2216,7 @@ def phase_tools(dev, spec, card, totals):
         t = time.perf_counter()
         trained, counts = drive(
             f"(b) train_synthetic_detector.main({' '.join(args[2:-2])}), batch and width at their "
-            "defaults", lambda: trainer.main(args + dev_arg), totals)
+            "defaults", lambda: trainer.main(args + dev_arg), totals, expect=DIRECT_TRAIN)
         log(f"    {time.perf_counter() - t:.3f} s (host clock) [{card}]; best "
             f"{json.dumps({k: trained[k] for k in ('step', 'center', 'det', 'mean_iou', 'score')})}")
         modes = len(trainer.CENTER_MODES)
@@ -3108,6 +3220,7 @@ def main(argv=()) -> int:
     )
     pix_err, pix2d_err = phase_pixels(dev, spec, (scan_pts, scan_valid))  # phase 1b
     enc_err, enc_times = phase_label_encode(dev, (scan_pts, scan_gt, scan_valid))  # phase 1c
+    dir_err, dir_times = phase_direct_encode(dev, (scan_pts, scan_gt, scan_valid))  # phase 1d
     proj_err = 0.0
     for label, p, v in (("proj_check 4x8192", pts, valid),
                         (f"beam scans {BATCH}x{N_POINTS}", scan_pts, scan_valid)):
@@ -3338,11 +3451,14 @@ def main(argv=()) -> int:
     assert totals["project_2d"] > 0, "no path launched the project_2d kernel"
     assert totals["nearest_wins_packed_image"] > 0, "no path launched the packed z-buffer"
     assert totals["encode_label"] > 0, "no path launched the label-encode kernel"
+    assert totals["encode_direct_label"] > 0, "no path launched the direct label-encode kernel"
     assert totals["project_points"] == (
         totals["nearest_wins_image"] + totals["nearest_wins_packed_image"]), (
         "a driven range view without the pixel kernel")
     z, c, px, p2 = kt["z"], kt["cc"], pt["points"], pt["2d"]
     e32, e63 = enc_times[32], enc_times[63]
+    d32, d63 = dir_times[32, "local"], dir_times[63, "local"]
+    d32b, d63b = dir_times[32, "both"], dir_times[63, "both"]
     kernels = [
         {"name": "project_points", "route": "cuda",
          "source": "tpufusion_torch/csrc/pixels.cu",
@@ -3377,12 +3493,24 @@ def main(argv=()) -> int:
          "ms_128_rows": tall_times["cc 128"][0], "bound_ms_128_rows": tall_times["cc 128"][1]},
         {"name": "encode_label", "route": "cuda",
          "source": "tpufusion_torch/csrc/label_encode.cu",
-         "replaces": "tpufusion/geometry/encoding.py:120",
+         "replaces": "tpufusion/geometry/encoding.py:121",
          "launches": totals["encode_label"], "max_abs_err": enc_err,
          "ms": e32["kernel"], "plain_ms": e32["plain"], "bound_ms": e32["bound"],
          "bound_by": "bytes", "library_ms": None, "call_ms": e32["kernel_call"],
          "plain_call_ms": e32["plain_call"], "ms_63_rows": e63["kernel"],
          "plain_ms_63_rows": e63["plain"], "bound_ms_63_rows": e63["bound"]},
+        {"name": "encode_direct_label", "route": "cuda",
+         "source": "tpufusion_torch/csrc/label_encode.cu",
+         "replaces": "tpufusion/geometry/encoding.py:237",
+         "launches": totals["encode_direct_label"], "max_abs_err": dir_err,
+         "ms": d32["kernel"], "plain_ms": d32["plain"], "bound_ms": d32["bound"],
+         "bound_by": "bytes", "library_ms": None, "call_ms": d32["kernel_call"],
+         "plain_call_ms": d32["plain_call"], "ms_63_rows": d63["kernel"],
+         "plain_ms_63_rows": d63["plain"], "bound_ms_63_rows": d63["bound"],
+         "ms_12_channels": d32b["kernel"], "plain_ms_12_channels": d32b["plain"],
+         "bound_ms_12_channels": d32b["bound"], "ms_63_rows_12_channels": d63b["kernel"],
+         "plain_ms_63_rows_12_channels": d63b["plain"],
+         "bound_ms_63_rows_12_channels": d63b["bound"]},
         {"name": "nearest_wins_packed_image", "route": "cuda",
          "source": "tpufusion_torch/csrc/nearest_wins_packed.cu",
          "replaces": "tpufusion/ops/scatter.py:107",

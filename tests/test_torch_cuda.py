@@ -39,7 +39,7 @@ from tpufusion_torch.decode import decode
 from tpufusion_torch.geometry.range_view import _frame_pixels_keys, range_view_project_batch
 from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.models.io import asset_configs, load_state_npz
-from tpufusion_torch.ops import cc, components, parity_inputs, pixels, projection
+from tpufusion_torch.ops import cc, components, label_encode, parity_inputs, pixels, projection
 from tpufusion_torch.predict import make_e2e_step
 from tpufusion_torch.serve.pipeline import LidarPipeline
 
@@ -1138,3 +1138,158 @@ def test_label_encode_kernel_rejects_bad_inputs(cuda_device):
         label_encode.encode_label(center, size, yaw[:1], image, SPEC)
     with pytest.raises(ValueError, match="unknown footprint method"):
         label_encode.encode_label(center, size, yaw, image, SPEC, "square")
+
+
+# -- the direct head's fused label encode ---------------------------------------------
+
+DIRECT_CODECS = [(fp, yf) for fp in label_encode.FOOTPRINTS for yf in label_encode.YAW_FRAMES]
+
+
+def _direct_bits(args, spec, footprint, yaw_frame):
+    """The direct kernel's label against its plain version on the card:
+    (bit-identical, the kernel's launches, project_2d's and the corner
+    kernel's launches during the kernel's call, the plain label)."""
+    from tpufusion_torch.geometry.encoding import encode_direct_label_reference
+
+    before = (label_encode.LAUNCHES_DIRECT, pixels.LAUNCHES_2D, label_encode.LAUNCHES)
+    got = label_encode.encode_direct_label(*args, spec, footprint, yaw_frame)
+    torch.cuda.synchronize()
+    after = (label_encode.LAUNCHES_DIRECT, pixels.LAUNCHES_2D, label_encode.LAUNCHES)
+    want = encode_direct_label_reference(*args, spec, footprint, yaw_frame)
+    return _same_bits(got, want), tuple(a - b for a, b in zip(after, before)), want
+
+
+@pytest.mark.parametrize("rows", [32, 63])
+@pytest.mark.parametrize("kind", parity_inputs.LABEL_KINDS)
+def test_direct_encode_kernel_is_bit_identical(cuda_device, kind, rows):
+    """The direct head's label-encode kernel against its plain version on
+    the card, both footprints and all three yaw frames, at 32 and 63 rows:
+    seam boxes, boxes all round, an image with no return, degenerate
+    boxes, and returns on and one step outside the dilated box faces (at
+    yaw 0 and +-pi); one launch a call, no project_2d or corner launch."""
+    spec = _label_spec(rows)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in parity_inputs.label_inputs(spec, 16, kind, seed=rows)]
+    for footprint, yaw_frame in DIRECT_CODECS:
+        same, launches, _ = _direct_bits(args, spec, footprint, yaw_frame)
+        assert launches == (1, 0, 0), (footprint, yaw_frame, launches)
+        assert same, (kind, rows, footprint, yaw_frame)
+
+
+@pytest.mark.parametrize("rows", [32, 63])
+def test_direct_encode_kernel_on_the_faces(cuda_device, rows):
+    """`parity_inputs.face_inputs` on the card, and the kernel gives the
+    plain version's bits. The returns were placed with torch's cos and sin
+    on the CPU; on the columns where the card's equal them (the frames'
+    yaws' do), the plain version's surface mask is 0 on every return one
+    step outside a dilated face and 1 on nearly every return on one (on
+    the top and bottom faces, where the height alone moves, all of
+    them)."""
+    spec = _label_spec(rows)
+    *arrays, case = parity_inputs.face_inputs(spec, 12, seed=rows + 1)
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    for yaw_frame in ("local", "both"):
+        same, launches, want = _direct_bits(args, spec, "surface", yaw_frame)
+        assert same and launches == (1, 0, 0), (rows, yaw_frame)
+    yaw = args[2]
+    assert torch.equal(torch.cos(yaw).cpu(), torch.cos(yaw.cpu()))
+    assert torch.equal(torch.sin(yaw).cpu(), torch.sin(yaw.cpu()))
+    card, cpu = label_encode.pixel_trig(spec, cuda_device), label_encode.pixel_trig(spec, "cpu")
+    same_cols = ((card[0].cpu() == cpu[0]) & (card[1].cpu() == cpu[1])).numpy()
+    assert same_cols.mean() > 0.5
+    mask = want[..., 1].cpu().numpy()[..., same_cols]
+    case = case[..., same_cols]
+    out = (case >= 0) & (case < 8) & (case % 2 == 1)
+    on = (case >= 0) & (case < 8) & (case % 2 == 0)
+    top_bottom_on = (case == 4) | (case == 6)
+    assert out.sum() > 1000 and not mask[out].any()
+    assert mask[on].mean() > 0.9 and mask[top_bottom_on].all()
+
+
+@pytest.mark.parametrize("rows", [32, 63])
+def test_direct_encode_kernel_on_beam_scans_at_any_leading_shape(cuda_device, rows):
+    """The direct encode of projected beam scans with their boxes, through
+    `encode_direct_label` and `encode_direct_label_batch` at leading
+    shapes (), (B,) and (2, B / 2), with 2, 3 and 4 image channels, each
+    footprint and yaw frame: the plain version's bits, one kernel launch a
+    call."""
+    from tpufusion_torch.geometry import encoding
+
+    spec = _label_spec(rows)
+    pts, gt, valid = synthesize_beam_scan_batch(np.random.default_rng(rows + 17), 8, 32768,
+                                                n_beams=64 if rows == 63 else 32)
+    images = range_view_project_batch(torch.from_numpy(pts).to(cuda_device), spec,
+                                      torch.from_numpy(valid).to(cuda_device))
+    box = [torch.from_numpy(gt[k]).to(cuda_device) for k in ("center", "size", "yaw")]
+    halves = [a.reshape(2, 4, *a.shape[1:]) for a in box + [images]]
+    before = label_encode.LAUNCHES_DIRECT
+    for footprint, yaw_frame in DIRECT_CODECS:
+        kw = {"footprint": footprint, "yaw_frame": yaw_frame}
+        want = encoding.encode_direct_label_reference(*box, images, spec, **kw)
+        assert float(want[..., 1].sum()) > 0, (footprint, yaw_frame)
+        assert _same_bits(encoding.encode_direct_label_batch(*box, images, spec, **kw), want)
+        assert _same_bits(encoding.encode_direct_label(*(a[3] for a in box), images[3], spec, **kw),
+                          want[3])
+        assert _same_bits(encoding.encode_direct_label(*halves, spec, **kw),
+                          want.reshape(2, 4, *want.shape[1:]))
+    for channels in (2, 4):
+        img = torch.cat([images, images[..., :1]], -1)[..., :channels].contiguous()
+        assert _same_bits(encoding.encode_direct_label(*box, img, spec),
+                          encoding.encode_direct_label_reference(*box, img, spec))
+    torch.cuda.synchronize()
+    assert label_encode.LAUNCHES_DIRECT == before + 3 * len(DIRECT_CODECS) + 2
+
+
+def test_direct_encode_kernel_rejects_bad_inputs(cuda_device):
+    center, size, yaw, image = (torch.from_numpy(a).to(cuda_device)
+                                for a in parity_inputs.label_inputs(SPEC, 2))
+    before = label_encode.LAUNCHES_DIRECT
+    with pytest.raises(ValueError, match="float32"):
+        label_encode.encode_direct_label(center, size, yaw, image.double(), SPEC)
+    with pytest.raises(ValueError, match="C >= 2"):
+        label_encode.encode_direct_label(center, size, yaw, image[..., :1].contiguous(), SPEC)
+    with pytest.raises(ValueError, match="C >= 2"):
+        label_encode.encode_direct_label(center, size, yaw, image, RangeViewSpec(res_h_deg=1.8))
+    with pytest.raises(ValueError, match="contiguous"):
+        label_encode.encode_direct_label(center, size, yaw, image[..., :2], SPEC)
+    with pytest.raises(ValueError, match="center must have shape"):
+        label_encode.encode_direct_label(center[0], size, yaw, image, SPEC)
+    with pytest.raises(ValueError, match="yaw must have shape"):
+        label_encode.encode_direct_label(center, size, yaw[:1], image, SPEC)
+    with pytest.raises(ValueError, match="unknown footprint"):
+        label_encode.encode_direct_label(center, size, yaw, image, SPEC, "outer_rect")
+    with pytest.raises(ValueError, match="unknown yaw_frame"):
+        label_encode.encode_direct_label(center, size, yaw, image, SPEC, "surface", "polar")
+    assert label_encode.LAUNCHES_DIRECT == before
+
+
+@pytest.mark.parametrize("yaw_frame", ["local", "global", "both"])
+def test_direct_train_and_eval_steps_launch_the_direct_kernel(cuda_device, yaw_frame):
+    """A direct-head train step and eval step on a points batch each encode
+    their labels in one launch of the direct kernel, none of the corner
+    kernel, and train on the plain version's label."""
+    from tpufusion_torch.config import LossConfig, ModelConfig, TrainConfig
+    from tpufusion_torch.geometry.encoding import encode_direct_label_reference
+    from tpufusion_torch.train.optim import Adam
+    from tpufusion_torch.train.train_step import encode_batch, make_eval_step, make_train_step
+
+    pts, gt, valid = synthesize_beam_scan_batch(np.random.default_rng(7), 4, 8192)
+    batch = {"points": pts, "valid": valid, **{k: gt[k] for k in ("center", "size", "yaw")}}
+    tensors = {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()}
+    images, labels = encode_batch(tensors, SPEC, "direct", yaw_frame)
+    want = encode_direct_label_reference(*(tensors[k] for k in ("center", "size", "yaw")),
+                                         images, SPEC, yaw_frame=yaw_frame)
+    assert _same_bits(labels, want)
+    model = FCN(ModelConfig(head="direct", yaw_codec="dual" if yaw_frame == "both" else "single"),
+                3).to(cuda_device)
+    steps = (make_train_step(SPEC, LossConfig(), TrainConfig(batch_size=4, augment=False),
+                             head="direct", yaw_frame=yaw_frame, device=cuda_device),
+             make_eval_step(SPEC, LossConfig(), head="direct", yaw_frame=yaw_frame,
+                            device=cuda_device))
+    opt = Adam(model.parameters(), 1e-3)
+    for step, args in zip(steps, ((model, opt, tensors), (model, tensors))):
+        before = (label_encode.LAUNCHES_DIRECT, label_encode.LAUNCHES)
+        loss, _ = step(*args)
+        torch.cuda.synchronize()
+        assert (label_encode.LAUNCHES_DIRECT, label_encode.LAUNCHES) == (before[0] + 1, before[1])
+        assert torch.isfinite(loss)

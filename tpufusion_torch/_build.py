@@ -124,6 +124,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tf_project_2d.restype = i
     lib.tf_encode_label.argtypes = [p, p, p, p, i, p, p, p, p, p, i, i, *spec, p]
     lib.tf_encode_label.restype = i
+    lib.tf_encode_direct_label.argtypes = [p, p, p, p, i, p, p, p, p, p, p, i, i, i, *spec, p]
+    lib.tf_encode_direct_label.restype = i
     lib.tf_error_string.argtypes = [i]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib

@@ -11,7 +11,8 @@
 image (one-hot footprint + 24 local-frame corner offsets; on the card in
 one fused kernel, `ops/label_encode.py`),
 `decode_corners` inverts it, and `encode_direct_label` writes the
-direct-pose head's (center offset, size, sin/cos yaw). Every codec takes
+direct-pose head's (center offset, size, sin/cos yaw; on the card in one
+fused kernel too). Every codec takes
 leading batch axes where the reference uses `vmap`, works on the device
 of the image it is given, and applies the per-pixel rotation term by term
 in float32 (no matmul: nothing here depends on the process's matmul
@@ -240,7 +241,24 @@ def encode_direct_label(
     relative to the pixel's ray (the image's column axis mirrors world
     azimuth, so the ray's azimuth is -theta); "global" the raw
     sin/cos(yaw). footprint="surface" paints the foreground on the box's
-    surface returns (box_surface_mask), "rect" on the outer rect."""
+    surface returns (box_surface_mask), "rect" on the outer rect. A CUDA
+    image goes through the fused kernel (`ops/label_encode.py`: one
+    launch, the box arrays sharing the image's leading shape), a CPU one
+    through `encode_direct_label_reference`; an unknown footprint or
+    yaw_frame raises ValueError."""
+    return label_encode.encode_direct_label(center, size, yaw, image, spec, footprint, yaw_frame)
+
+
+def encode_direct_label_reference(
+    center, size, yaw, image: torch.Tensor,
+    spec: RangeViewSpec = RangeViewSpec(),
+    footprint: str = "surface",
+    yaw_frame: str = "local",
+) -> torch.Tensor:
+    """Plain PyTorch version of the direct label-encode kernel: the
+    composition of box_surface_mask (or footprint_mask's outer rect, for
+    any footprint other than "surface"), pixel_points, pixel_rotations and
+    pixel_angles (one project_2d launch on the card for the rect)."""
     if yaw_frame not in ("local", "global", "both"):
         raise ValueError(f"unknown yaw_frame {yaw_frame!r}")
     center, size, yaw = _gt(center, size, yaw, image)

@@ -36,8 +36,10 @@ exact kernel and the yardstick (`packed_amin_yardstick`), and the current
 kernel on the same inputs with every point invalid (its fill, decode and
 image stores alone). The encode rows time the fused label-encode kernel
 and its plain version (the torch composition it replaced) in turns at 32
-x 32 x 1801 and 32 x 63 x 1801, beside a fill of the label's size.
-`--kernels` picks among exact, cc, packed and encode. With `--out FILE`
+x 32 x 1801 and 32 x 63 x 1801, beside a fill of the label's size; the
+encode_direct rows the direct head's kernel likewise, at 10 and 12
+channels. `--kernels` picks among exact, cc, packed, encode and
+encode_direct. With `--out FILE`
 the rows are also written there as JSON.
 
     python -m tpufusion_torch.kernel_bench --dsmem-probe
@@ -223,6 +225,17 @@ def label_encode_bound_ms(center, size, yaw, image) -> float:
     26) float32 label written once (104 B a pixel)."""
     pixels = image.numel() // image.shape[-1]
     nbytes = 4 * (image.numel() + center.numel() + size.numel() + yaw.numel()) + 104 * pixels
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def direct_encode_bound_ms(center, size, yaw, image, channels: int) -> float:
+    """Least time for the direct label encode's bytes at 3.35 TB/s: the
+    image (12 B a pixel at 3 channels) and the boxes read once, the (...,
+    H, W, `channels`) float32 label written once (40 B a pixel at 10
+    channels, 48 at 12)."""
+    pixels = image.numel() // image.shape[-1]
+    nbytes = (4 * (image.numel() + center.numel() + size.numel() + yaw.numel())
+              + 4 * channels * pixels)
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -591,6 +604,48 @@ def encode_rows(sets: int = 12) -> list[dict]:
     return rows
 
 
+DIRECT_TIMED = (("surface", "local"), ("surface", "both"))  # 10 and 12 channels
+
+
+def encode_direct_rows(sets: int = 12) -> list[dict]:
+    """The direct head's fused label encode's rows, as `encode_rows`: the
+    kernel, its plain version (the torch composition the kernel replaced,
+    unchanged) and a fill of a label-sized tensor in turns at 32 frames,
+    32 and 63 rows, the surface footprint with the local yaw frame (10
+    channels) and with both (12); each set checked bit for bit first."""
+    from tpufusion_torch import RangeViewSpec
+    from tpufusion_torch.geometry.encoding import encode_direct_label_reference
+    from tpufusion_torch.ops import label_encode, parity_inputs
+
+    dev = torch.device("cuda", 0)
+    rows = []
+    for label, frames, res_v in ENCODE_SHAPES:
+        spec = RangeViewSpec(res_v_deg=res_v)
+        args = [[torch.from_numpy(a).to(dev) for a in parity_inputs.label_inputs(
+            spec, frames, seed=1700 + i)] for i in range(sets)]
+        for footprint, yaw_frame in DIRECT_TIMED:
+            channels = label_encode.direct_channels(yaw_frame)
+            with torch.inference_mode():
+                new = lambda a: label_encode.encode_direct_label(  # noqa: E731
+                    *a, spec, footprint, yaw_frame)
+                plain = lambda a: encode_direct_label_reference(  # noqa: E731
+                    *a, spec, footprint, yaw_frame)
+                for a in args[:2]:
+                    assert torch.equal(new(a).view(torch.int32), plain(a).view(torch.int32)), label
+                labels = {id(a): torch.empty(a[3].shape[:-1] + (channels,), dtype=torch.float32,
+                                             device=dev) for a in args}
+                fns = {"new": new, "plain": plain, "fill": lambda a: labels[id(a)].fill_(0.0)}
+                call = time_turns(fns, args, time_ms)
+                dev_t = time_turns(fns, args, lambda fn, xs: (
+                    queued_each if fn is fns["plain"] else queued_ms)(fn, xs))
+            rows.append({"shape": f"{label}, {channels} channels",
+                         "kernel": "encode_direct_label",
+                         "bound_ms": sum(direct_encode_bound_ms(*a, channels) for a in args) / sets,
+                         **{f"{k}_call_ms": v for k, v in call.items()},
+                         **{f"{k}_device_ms": v for k, v in dev_t.items()}})
+    return rows
+
+
 def dsmem_probe() -> str:
     """Builds and runs probes/dsmem_min64.cu; returns what it prints."""
     from tpufusion_torch import _build
@@ -607,7 +662,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", help="directory with the earlier design's .cu sources")
     ap.add_argument("--sets", type=int, default=12, help="distinct batches per timing")
-    ap.add_argument("--kernels", default="exact,cc,packed,encode",
+    ap.add_argument("--kernels", default="exact,cc,packed,encode,encode_direct",
                     help="which kernels' rows: exact and cc need --old-csrc")
     ap.add_argument("--dsmem-probe", action="store_true",
                     help="also build and run probes/dsmem_min64.cu")
@@ -625,6 +680,8 @@ def main() -> int:
     rows = ab(args.old_csrc, args.sets, kernels) if args.old_csrc or "packed" in kernels else []
     if "encode" in kernels:
         rows += encode_rows(args.sets)
+    if "encode_direct" in kernels:
+        rows += encode_direct_rows(args.sets)
     for r in rows:
         names = [k[: -len("_device_ms")] for k in r if k.endswith("_device_ms")]
         times = ", ".join(

@@ -29,6 +29,15 @@ that all land in one CTA's slice of the frame; the packed z-buffer's
 the bits its quantized key drops, at the point counts where idx_bits
 steps (32,768 and 32,769) and at 131,072, and clouds with NaN and inf
 coordinates and padding that go through the pixel kernel first.
+
+The label encodes' boxes (`csrc/label_encode.cu`) sit on the
+360-degree seam, all round, over an image with no return, degenerate,
+and ("faces") behind returns placed exactly on, and one step outside,
+the direct head's dilated box faces: each such return's distance or
+height is searched ulp by ulp in float32 through the plain version's
+own operations (torch's float32 cos and sin of the column and the yaw,
+read on the CPU) until its box-frame coordinate equals the half size,
+or is the least value above it.
 """
 
 from __future__ import annotations
@@ -412,7 +421,12 @@ def bev_edge_cloud(spec, seed: int = 5, n: int = 4096):
     return pts, valid
 
 
-LABEL_KINDS = ("seam", "all_round", "no_returns", "degenerate")
+LABEL_KINDS = ("seam", "all_round", "no_returns", "degenerate", "faces")
+# face_inputs' pixel cases, by code: a return on / one step outside the
+# face where its ray enters or leaves the dilated box, or the top or
+# bottom face, then a return inside the box
+FACE_CASES = ("entry on", "entry out", "exit on", "exit out", "top on", "top out",
+              "bottom on", "bottom out", "inside")
 
 
 def label_inputs(spec, batch: int = 32, kind: str = "all_round", seed: int = 0, channels: int = 3):
@@ -422,9 +436,11 @@ def label_inputs(spec, batch: int = 32, kind: str = "all_round", seed: int = 0, 
     away at any azimuth, a third nearly axis-aligned, "no_returns" those
     boxes over an image with no return (distance 0, the empty pixels'
     min_height), "degenerate" boxes of size 0, of zero length or width,
-    at yaw 0 and +-pi, centers on the sensor's axis and at its origin.
-    The image holds distances 0-40 m (a third empty), heights and
-    intensities."""
+    at yaw 0 and +-pi, centers on the sensor's axis and at its origin,
+    "faces" `face_inputs`' boxes and returns. The image holds distances
+    0-40 m (a third empty), heights and intensities."""
+    if kind == "faces":
+        return face_inputs(spec, batch, seed, channels)[:4]
     rng = np.random.default_rng(seed)
     f = np.float32
     dist, ang = rng.uniform(3, 40, batch), rng.uniform(-np.pi, np.pi, batch)
@@ -453,3 +469,124 @@ def label_inputs(spec, batch: int = 32, kind: str = "all_round", seed: int = 0, 
         image[..., 1] = rng.uniform(-2, 2, shape)
         image[..., 2:] = rng.uniform(0, 1, shape + (channels - 2,))
     return center.astype(f), size.astype(f), yaw.astype(f), image
+
+
+def _box_frame(d, h, ct, st, c, s, cphys):
+    """The box-frame coordinates (qx, qy, qz) of returns at distance d and
+    height h on columns with cos / sin ct, st, in float32 op by op as
+    `geometry/encoding.py::box_surface_mask` computes them."""
+    f = np.float32
+    p0, p1 = d * ct, (-d) * st
+    rel0, rel1, rel2 = p0 - cphys[0], p1 - cphys[1], h - cphys[2]
+    return f(c) * rel0 + f(s) * rel1, f(-s) * rel0 + f(c) * rel1, rel2
+
+
+def _ulp_steps(v: np.ndarray, k: int) -> np.ndarray:
+    """(n,) float32 -> (n, 2k + 1): each value and its k float32 neighbours
+    either side, in order."""
+    f = np.float32
+    out = [v]
+    lo = hi = v
+    for _ in range(k):
+        lo, hi = np.nextafter(lo, f(-np.inf)), np.nextafter(hi, f(np.inf))
+        out = [lo] + out + [hi]
+    return np.stack(out, 1)
+
+
+def _pick(q: np.ndarray, target: np.ndarray, out: np.ndarray) -> np.ndarray:
+    """The candidate (column of q, (n, m), ordered by ulp step) whose q is
+    the target, nearest the middle, else the largest below it ("on"); or
+    the least above it ("out", a row of `out`). -1 where none is."""
+    m = q.shape[1]
+    order = np.argsort(np.abs(np.arange(m) - m // 2), kind="stable")  # nearest the middle first
+    q, big = q[:, order].astype(np.float64), np.inf
+    t = target[:, None]
+    on = np.where(q == t, -big, np.where(q < t, t - q, big))  # 0-ranked: exact, then nearest below
+    above = np.where(q > t, q - t, big)
+    key = np.where(out[:, None], above, on)
+    best = key.argmin(1)
+    return np.where(np.isfinite(key[np.arange(len(best)), best]), order[best], -1)
+
+
+def face_inputs(spec, batch: int = 32, seed: int = 0, channels: int = 3, steps: int = 16):
+    """(center, size, yaw, image, case (B, H, W) int8): boxes 5-25 m away at
+    yaw 0, pi and -pi (a quarter of them on the 360-degree seam), and on
+    every column whose ray crosses a box, returns cycling through
+    FACE_CASES by row and column (its code in `case`, -1 elsewhere): on
+    the face where the ray enters or leaves the box dilated by 0.25 m,
+    or on its top or bottom face, at the float32 distance or height
+    (within `steps` ulps of the exact one) whose box-frame coordinate,
+    computed as the plain version computes it, equals the half size
+    ("on") or is the least value above it ("out"), the other coordinates
+    inside; or inside the box. Centers and sizes are multiples of 1/256,
+    so the half sizes and the faces' positions are exact. The other
+    pixels are label_inputs' background."""
+    import torch
+
+    from tpufusion_torch.ops.label_encode import pixel_trig
+
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    ct, st = (t.numpy() for t in pixel_trig(spec, "cpu")[:2])
+    yaw = np.array([0.0, np.pi, -np.pi], f)[np.arange(batch) % 3]
+    with torch.inference_mode():
+        cy, sy = (fn(torch.from_numpy(yaw)).numpy() for fn in (torch.cos, torch.sin))
+    dist = rng.uniform(5, 25, batch)
+    ang = rng.uniform(-np.pi, np.pi, batch)
+    seam = np.arange(batch) % 4 == 1
+    ang[seam] = np.pi - yaw[seam].astype(np.float64)  # Rz(yaw) @ center at azimuth pi
+    center = np.stack([dist * np.cos(ang), dist * np.sin(ang), rng.uniform(-1.5, 0.5, batch)], 1)
+    size = np.array([4.2, 1.6, 1.5]) + rng.uniform(-0.5, 0.5, (batch, 3))
+    center, size = (np.round(a * 256).astype(f) / f(256) for a in (center, size))
+    shape = (batch, spec.height, spec.width)
+    image = np.zeros(shape + (channels,), f)
+    image[..., 0] = rng.uniform(0, 40, shape) * (rng.random(shape) > 0.3)
+    image[..., 1] = rng.uniform(-2, 2, shape)
+    image[..., 2:] = rng.uniform(0, 1, shape + (channels - 2,))
+    case = np.full(shape, -1, np.int8)
+    u = np.stack([ct, -st]).astype(np.float64)  # each column's ray direction in x, y
+    for b in range(batch):
+        c, s = cy[b], sy[b]
+        cphys = np.array([c * center[b, 0] - s * center[b, 1], s * center[b, 0] + c * center[b, 1],
+                          center[b, 2]], f)
+        half = size[b] * f(0.5) + f(0.25)
+        # q = a t + o in the box frame along each column's ray; the x and y slabs
+        rot = np.array([[c, s], [-s, c]], np.float64)
+        a, o = rot @ u, -(rot @ cphys[:2].astype(np.float64))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t1, t2 = (-half[:2, None] - o[:, None]) / a, (half[:2, None] - o[:, None]) / a
+        lo, hi = np.minimum(t1, t2), np.maximum(t1, t2)
+        t_in, t_out = lo.max(0), hi.min(0)
+        cols = np.nonzero((t_in > 0.5) & (t_out - t_in > 1e-3))[0]
+        if not len(cols):
+            continue
+        rr, k = np.meshgrid(np.arange(spec.height), np.arange(len(cols)), indexing="ij")
+        rr, k = rr.ravel(), k.ravel()
+        col, code = cols[k], (rr + k) % len(FACE_CASES)
+        ti, to = t_in[col], t_out[col]
+        entry, exit_ = code < 2, (code >= 2) & (code < 4)
+        d = np.where(entry, ti, np.where(exit_, to, (ti + to) / 2)).astype(f)
+        h = center[b, 2] + (rng.uniform(-0.7, 0.7, len(rr)) * half[2]).astype(f)
+        h = np.where((code == 4) | (code == 5), center[b, 2] + half[2], h)
+        h = np.where((code == 6) | (code == 7), center[b, 2] - half[2], h).astype(f)
+        axis = np.where(entry, lo[:, col].argmax(0), np.where(exit_, hi[:, col].argmin(0), 2))
+        xy = axis.clip(0, 1)
+        q_face = a[xy, col] * np.where(entry, ti, to) + o[xy]
+        sign = np.where(axis == 2, np.where(code < 6, 1.0, -1.0), np.sign(q_face)).astype(f)
+        # the search: the distance on an x or y face; on the top or bottom the
+        # height center z +- each of the half size's float32 neighbours
+        s_ = code < 8
+        on_d = axis[s_] < 2
+        dd = np.where(on_d[:, None], _ulp_steps(d[s_], steps), d[s_][:, None])
+        hz = center[b, 2] + sign[s_][:, None] * _ulp_steps(np.full(len(dd), half[2]), steps)
+        hh = np.where(on_d[:, None], h[s_][:, None], hz)
+        q = np.stack(_box_frame(dd, hh, ct[col[s_]][:, None], st[col[s_]][:, None], c, s, cphys))
+        q = q[axis[s_], np.arange(len(dd))] * sign[s_][:, None]  # the face's coordinate, outward
+        pick = _pick(q, half[axis[s_]], code[s_] % 2 == 1)
+        n = np.arange(len(dd))
+        d[s_] = np.where(pick >= 0, dd[n, pick], d[s_])
+        h[s_] = np.where(pick >= 0, hh[n, pick], h[s_])
+        image[b, rr, col, 0] = d
+        image[b, rr, col, 1] = h
+        case[b, rr, col] = code
+    return center, size, yaw, image, case
