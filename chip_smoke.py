@@ -33,6 +33,19 @@ to 0 before it and read after it, and then the training paths:
                one step outside the dilated box faces; its device time in
                turns with the plain version, 10 and 12 channels, beside
                its bound
+  phase 1e     the direct head's per-cluster decode (`csrc/decode_direct.cu`,
+               `tf_decode_direct`) against its plain version (found equal,
+               poses within 1e-4, `_golden.direct_kernel_readings`) on the
+               driven direct paths' inputs (the headline's flagship, whose
+               random weights find no lane, the three assets, config 5's
+               top-4, phase 25's 63 rows; no lane near a threshold, some
+               lane found but the flagship's) and, with 1e-3 on bbox
+               windows over 4,096 pixels, on every
+               `parity_inputs.cluster_inputs` kind
+               with every center, boundary and yaw frame at 32 and 63 rows,
+               10 and 12 channels; its device time in turns with the plain
+               version at 64 x 32 x 1801 (k 1), config 5's 16 frames (k 4)
+               and 64 x 63 x 1801, beside its bound and an empty kernel
   phases 4-5   the float32 direct path with the shipped detector asset
                (`LidarPipeline.predict_position`, `make_e2e_step`,
                batch 64 x 32,768-point beam scans)
@@ -208,7 +221,11 @@ bench.py's packed row and phase 27); configs 1
 and 3 and the train steps decode nothing, so the CC kernel is not on
 theirs; the label encode of a corner head's train or eval step launches
 the fused label-encode kernel once (the roll's rect still launches
-project_2d), a direct head's the direct label-encode kernel once. Phases 12 and 13 hold the z-buffer
+project_2d), a direct head's the direct label-encode kernel once. Every
+call of `decode_batch_direct` at a center other than "silhouette"
+launches the direct decode kernel once: the direct paths name it in
+`drive`'s `expect`, and a corner path or one that decodes nothing must
+not launch it. Phases 12 and 13 hold the z-buffer
 kernel against its plain version on their own points (1 x 32,768 and the
 8 x 32,768 camera-wedge scans) before they drive the path.
 
@@ -263,6 +280,7 @@ import torch
 
 from tpufusion_torch.benchmarks import card_line
 from tpufusion_torch.kernel_bench import (
+    DECODE_SHAPES,
     cc_bound_ms,
     device_ms,
     packed_amin_yardstick,
@@ -342,15 +360,17 @@ MEASURE_CALLS = 1 + 6 * 3 + 1 + 6
 # the port's kernels, by the names of the kernels line; a driven path's
 # `expect` names those it must launch
 KERNELS = ("project_points", "project_2d", "nearest_wins_image", "connected_components_with_bbox",
-           "nearest_wins_packed_image", "encode_label", "encode_direct_label")
+           "nearest_wins_packed_image", "encode_label", "encode_direct_label", "decode_direct")
 SERVING = ("project_points", "nearest_wins_image", "connected_components_with_bbox")
 RANGE_VIEW = SERVING[:2]  # a path that projects points and decodes nothing
 CC_ONLY = SERVING[2:]  # a decode of a view or a mask it is given
 PACKED = ("project_points", "nearest_wins_packed_image", "connected_components_with_bbox")
 DRIVE_COUNTS = KERNELS[2:4]  # the counts `drive` returns: the exact z-buffer's and the CC's
-DIRECT_TRAIN = SERVING + ("encode_direct_label",)  # a direct head's training with its evals
+DIRECT = SERVING + ("decode_direct",)  # a path that decodes with the direct head
+DIRECT_TRAIN = DIRECT + ("encode_direct_label",)  # a direct head's training with its evals
 PACKED_TIMED = 4  # phase 27: distinct input sets a shape for the packed kernel's times
 PIXEL_SETS = 4  # phase 5: distinct batches for the pixel kernel's times
+DECODE_SETS = 4  # phase 1e: distinct batches a shape for the direct decode's times
 
 
 _T0 = time.perf_counter()
@@ -365,27 +385,31 @@ def log(msg: str) -> None:
 
 
 def _reset_launches() -> None:
-    from tpufusion_torch.ops import cc, label_encode, pixels, projection
+    from tpufusion_torch.ops import cc, decode_direct, label_encode, pixels, projection
 
     pixels.LAUNCHES = pixels.LAUNCHES_2D = projection.LAUNCHES = cc.LAUNCHES = 0
     projection.PACKED_LAUNCHES = label_encode.LAUNCHES = label_encode.LAUNCHES_DIRECT = 0
+    decode_direct.LAUNCHES = 0
 
 
 def _launches() -> dict[str, int]:
-    from tpufusion_torch.ops import cc, label_encode, pixels, projection
+    from tpufusion_torch.ops import cc, decode_direct, label_encode, pixels, projection
 
     return {"project_points": pixels.LAUNCHES, "project_2d": pixels.LAUNCHES_2D,
             "nearest_wins_image": projection.LAUNCHES,
             "connected_components_with_bbox": cc.LAUNCHES,
             "nearest_wins_packed_image": projection.PACKED_LAUNCHES,
             "encode_label": label_encode.LAUNCHES,
-            "encode_direct_label": label_encode.LAUNCHES_DIRECT}
+            "encode_direct_label": label_encode.LAUNCHES_DIRECT,
+            "decode_direct": decode_direct.LAUNCHES}
 
 
 def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
     """Runs one path with every kernel's launch count set to 0, asserts
     that it launched each kernel of `expect` (the kernels on that path),
-    the packed z-buffer only if `expect` names it, and that each range
+    the packed z-buffer and the direct decode kernel only if `expect`
+    names them (a corner path, or one that decodes nothing, launches no
+    direct decode), and that each range
     view went through the pixel kernel (as many pixel launches as z-buffer
     launches, exact and packed), and adds its counts to `totals`.
     Returns (fn's result, the exact z-buffer's and the CC's counts)."""
@@ -399,6 +423,8 @@ def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
         totals[k] += n
     assert counts["nearest_wins_packed_image"] == 0 or "nearest_wins_packed_image" in expect, (
         f"{label} launched the packed z-buffer")
+    assert counts["decode_direct"] == 0 or "decode_direct" in expect, (
+        f"{label} launched the direct decode kernel")
     assert counts["project_points"] == (
         counts["nearest_wins_image"] + counts["nearest_wins_packed_image"]), (
         f"{label}: a range view without the pixel kernel")
@@ -750,6 +776,129 @@ def phase_direct_encode(dev, scans) -> tuple[float, dict]:
     return err, times
 
 
+def phase_decode_direct(dev) -> tuple[float, dict, int]:
+    """Phase 1e: the direct decode kernel (`csrc/decode_direct.cu`)
+    against its plain version (`decode_direct_clusters_reference`) on the
+    inputs of the driven direct paths (the headline's flagship and
+    DecodeConfig's default, the three shipped assets in bf16 at their
+    operating points at k 1 and 4 (the two ellipse-fit assets' top-4 at 16
+    frames only), on 64 x 32,768 beam scans, config 5's 16 x 131,072
+    points, and both at phase 25's 63 rows), each held to the contract
+    with no lane near a threshold, then on every `parity_inputs.
+    cluster_inputs` kind at 32 and 63 rows, 10 and 12 channels, with every
+    center, boundary and yaw frame (a lane near a threshold counted and
+    exempt); then its device time in turns with the plain version at
+    `kernel_bench.DECODE_SHAPES` beside its bound and an empty kernel.
+    Returns (largest pose difference, times by shape, near lanes)."""
+    from tpufusion_torch import DecodeConfig, RangeViewSpec
+    from tpufusion_torch._golden import TALL_BEAMS, TALL_RES_V_DEG
+    from tpufusion_torch.benchmarks import CFG, asset_model, point_sets, seeded_fcn
+    from tpufusion_torch.decode import decode as td
+    from tpufusion_torch.entry import FLAGSHIP
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.kernel_bench import decode_direct_rows
+    from tpufusion_torch.ops import decode_direct, parity_inputs
+
+    t0 = time.perf_counter()
+    log("phase 1e direct decode (tf_decode_direct) against its plain version")
+    err, near = 0.0, 0
+
+    def held(label, y_pred, images, spec, cfg, k, strict=True, empty=False):
+        """strict: a driven path's inputs, every lane within the 1e-4 limit
+        and none near a threshold, and some lane found unless `empty`;
+        else the adversarial clusters (wide windows at 1e-3, near lanes
+        counted and exempt)."""
+        nonlocal err, near
+        r = decode_direct.against_plain(y_pred, images, spec, cfg, k, adversarial=not strict)
+        err = max(err, r["diff"], r["diff_wide"])
+        near += r["near"]
+        if strict or not r["ok"] or r["near"]:
+            log(f"  {label} ({cfg.direct_center}, {cfg.fit_boundary}, {cfg.direct_yaw_frame}, "
+                f"k {k}): {r}")
+        assert r["ok"], f"decode_direct differs from its plain version ({label})"
+        assert not strict or r["near"] == 0, f"{label}: a lane near a threshold"
+        assert not strict or empty or r["found"] > 0, f"{label}: no lane found"
+
+    assets = {n: asset_model(os.path.join(ASSETS, n)) for n in (
+        "synthetic_detector.npz", "synthetic_detector_yaw.npz", "synthetic_detector_mixed.npz")}
+    tall = RangeViewSpec(res_v_deg=TALL_RES_V_DEG)
+    for spec, beams, frames, n_points in ((RangeViewSpec(), 32, BATCH, N_POINTS),
+                                          (RangeViewSpec(), C5_BEAMS, C5_BATCH, C5_POINTS),
+                                          (tall, TALL_BEAMS, BATCH, N_POINTS),
+                                          (tall, TALL_BEAMS, C5_BATCH, C5_POINTS)):
+        (p, v), = point_sets(1, frames, n_points, dev, n_beams=beams, seed0=1900 + beams)
+        with torch.inference_mode():
+            images = range_view_project_batch(p, spec, v)
+            shape = f"{frames} x {spec.height} x {spec.width}"
+            if beams == 32:  # the headline's flagship at DecodeConfig's default
+                # its random weights find no lane: this checks only an empty decode
+                flagship = seeded_fcn(dataclasses.replace(CFG.model, **FLAGSHIP), 0, dev)
+                held(f"the headline's flagship (finds no lane: an empty decode), {shape}",
+                     flagship(images), images, spec, CFG.decode, 1, empty=True)
+            for name, (model, dcfg, _) in assets.items():
+                y_pred = model.to(dev).eval()(images)
+                # the plain 37-heading fits hold (B, k, 37, H, W) tensors:
+                # top-4 of the ellipse assets at config 5's 16 frames only
+                oriented = name != "synthetic_detector.npz"
+                for k in (1,) if oriented and frames > C5_BATCH else (1, 4):
+                    held(f"{name}, {shape}", y_pred, images, spec, dcfg, k)
+                if name == "synthetic_detector.npz":
+                    held(f"{name}, {shape}", y_pred, images, spec, DecodeConfig(), 4)
+    n_cases = 0
+    for spec in (RangeViewSpec(), RangeViewSpec(res_v_deg=TALL_RES_V_DEG)):
+        for channels in (10, 12):
+            options = parity_inputs.cluster_decode_options(channels)
+            for kind in parity_inputs.CLUSTER_KINDS:
+                y_pred, images = (torch.from_numpy(a).to(dev) for a in parity_inputs.cluster_inputs(
+                    spec, kind, batch=4, seed=spec.height + channels, channels=channels))
+                for name, fields in options.items():
+                    held(f"clusters {kind}, {spec.height} rows, {channels} channels, {name}",
+                         y_pred, images, spec, DecodeConfig(**fields), 4, strict=False)
+                    n_cases += 1
+    log(f"  the adversarial clusters: {n_cases} cases held, lanes near a threshold (exempt) "
+        f"{near}; largest pose difference over every input {err:.3e}")
+    # the aten ops a call dispatches after the CC, kernel against plain, on
+    # the live asset's first 64-frame batch (a dispatch mode counts them:
+    # torch.profiler is kept out of this process's early phases)
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    model, dcfg, _ = assets["synthetic_detector.npz"]
+    (p, v), = point_sets(1, BATCH, N_POINTS, dev, seed0=1932)
+    with torch.inference_mode():
+        images = range_view_project_batch(p, RangeViewSpec(), v)
+        y_pred = model(images)
+        comps = td._heat_components(y_pred[..., 1], dcfg)
+        root, found, *_ = td._topk_roots(*comps, dcfg, 1)
+        ops = {}
+        for label, fn in (("kernel", decode_direct.decode_direct_clusters),
+                          ("plain", td.decode_direct_clusters_reference)):
+            with OpCount() as count:
+                fn(y_pred, images, *comps, root, found, RangeViewSpec(), dcfg, dcfg.direct_center)
+            ops[label] = count.n
+    log(f"  aten ops dispatched a call after the CC (the live asset, fit circle global, {BATCH} frames, "
+        f"k 1): kernel path {ops['kernel']}, plain version {ops['plain']}")
+    times = {}
+    for row in decode_direct_rows(DECODE_SETS):
+        times[row["shape"]] = row
+        log(f"  decode_direct at {row['shape']}: kernel {row['new_device_ms']:.4f} "
+            f"({row['new_call_ms']:.4f}) ms, plain (the composition it replaced) "
+            f"{row['plain_device_ms']:.4f} ({row['plain_call_ms']:.4f}) ms, empty kernel "
+            f"{row['empty_device_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_bytes']:.0f} B needed, {row['window_pixels']:.0f} window pixels, "
+            f"{row['found_lanes']:.1f} found lanes "
+            f"a set), kernel at {row['bound_ms'] / row['new_device_ms']:.1%} of it")
+    assert set(times) == {s[0] for s in DECODE_SHAPES}
+    log(f"  phase 1e took {time.perf_counter() - t0:.1f} s")
+    return err, times, near
+
+
 def check_zbuffer(label: str, points, valid, spec) -> None:
     """Holds the z-buffer kernel against its plain version on a path's
     own (B, N) points: bit-identical, or the run fails."""
@@ -899,7 +1048,7 @@ def phase_config5(dev, spec, gm, models, dcfg, totals):
     log(f"phase 7 config 5: bf16 FCN, top-4, {C5_BATCH} x {C5_POINTS} points "
         f"({C5_BEAMS} beams), then {TRACK_FRAMES} frames x {N_POINTS} points "
         "of two vehicles through PoseTracker.run_multi")
-    (poses, found, sp, sf, trails), _ = drive("config 5", path, totals)
+    (poses, found, sp, sf, trails), _ = drive("config 5", path, totals, expect=DIRECT)
     poses, found = poses.cpu().numpy(), found.cpu().numpy()
     assert poses.shape == (C5_BATCH, 4, 7) and found.shape == (C5_BATCH, 4)
     assert np.isfinite(poses).all() and np.isfinite(sp).all()
@@ -1360,7 +1509,8 @@ def phase_replay(dev, card, totals):
     harness = ReplayHarness(cfg, model, chunk=REPLAY_CHUNK, host_ring=2, device=dev)
     log(f"phase 14 replay server: {REPLAY_FRAMES} stored frames x {N_POINTS} points, chunk "
         f"{REPLAY_CHUNK}, host_ring 2, head {mcfg.head!r}")
-    (poses, founds, stats), counts = drive("ReplayHarness.run", lambda: harness.run(points), totals)
+    (poses, founds, stats), counts = drive("ReplayHarness.run", lambda: harness.run(points), totals,
+                                           expect=DIRECT)
     n_chunks = -(-REPLAY_FRAMES // REPLAY_CHUNK)
     assert counts["nearest_wins_image"] == n_chunks + 1, "one z-buffer launch a chunk + warm-up"
     assert all(host.is_pinned() for host, _, _ in harness._ring), "the ring is not pinned"
@@ -1714,7 +1864,8 @@ def phase_config4(dev, spec, card, totals):
         f"timed, warm-up + {batches} for the device time, {batches} drained, {companion} in the "
         "companion rows)",
         lambda: benchmarks.config4_full_eval(dev, frames=C4_FRAMES, batch=TRAIN_BATCH,
-                                             companion_frames=C4_COMPANION_FRAMES), totals)
+                                             companion_frames=C4_COMPANION_FRAMES), totals,
+        expect=DIRECT)
     assert counts == {"nearest_wins_image": calls, "connected_components_with_bbox": calls}, (
         "config 4: both kernels once a step")
     log(f"  {json.dumps(row)} [{card}]")
@@ -1883,7 +2034,7 @@ def phase_config5_bench(dev, spec, card, totals):
                torch.from_numpy(sv).to(dev), spec)
     calls = 1 + 4 * 3 + 1 + 4 + 2  # measure's warm-up, 4 sets x 3, device pass; two sequences
     row, counts = drive(f"config5_waymo_scale ({calls} e2e steps)",
-                        lambda: benchmarks.config5_waymo_scale(dev), totals)
+                        lambda: benchmarks.config5_waymo_scale(dev), totals, expect=DIRECT)
     assert counts == {"nearest_wins_image": calls, "connected_components_with_bbox": calls}
     log(f"  {json.dumps(row)} [{card}]")
     assert row["detections"] >= TRACK_FRAMES and row["tracks"] >= 1, "config 5 tracks nothing"
@@ -2149,7 +2300,7 @@ def phase_tools(dev, spec, card, totals):
         out, counts = drive(
             f"(a) tune_detector_asset.main({' '.join(args[2:])}): {sweep_points} operating points "
             f"on {TOOL_BATCH} frames, the confirmation, {res_points} at {TOOL_SPARSE} points",
-            lambda: tuner.main(args + dev_arg), totals)
+            lambda: tuner.main(args + dev_arg), totals, expect=DIRECT)
         log(f"    {time.perf_counter() - t:.3f} s (host clock) [{card}]")
         assert counts == {"nearest_wins_image": 4,
                           "connected_components_with_bbox": sweep_points + res_points + 2}, (
@@ -2240,7 +2391,7 @@ def phase_tools(dev, spec, card, totals):
         args = ["--batch", str(ENVELOPE_BATCH), "--eval_batches", "1"]
         t = time.perf_counter()
         rows, counts = drive(f"(c) detector_envelope.main({' '.join(args)})",
-                             lambda: envelope.main(args + dev_arg), totals)
+                             lambda: envelope.main(args + dev_arg), totals, expect=DIRECT)
         log(f"    {time.perf_counter() - t:.3f} s (host clock) [{card}]; {json.dumps(rows)}")
         assert counts == {"nearest_wins_image": 14, "connected_components_with_bbox": 14}
         assert len(rows) == 18 and rows["trained distribution"]["det"] >= 0.75
@@ -2254,7 +2405,7 @@ def phase_tools(dev, spec, card, totals):
         args = ["--asset", os.path.join(ASSETS, "synthetic_detector_mixed.npz"), "--batch",
                 str(ENVELOPE_BATCH), "--eval_batches", "1"]
         arms, counts = drive(f"(c) fit_oracle_sensitivity.main(the mixed asset, {' '.join(args[2:])})",
-                             lambda: oracle.main(args + dev_arg), totals)
+                             lambda: oracle.main(args + dev_arg), totals, expect=DIRECT)
         log(f"    {json.dumps(arms)}")
         assert counts == {"nearest_wins_image": 1, "connected_components_with_bbox": 4}
         assert all(a["det"] >= 0.75 for a in arms.values()), "an oracle arm misses"
@@ -2371,7 +2522,7 @@ def phase_viewer(dev, spec, card, totals, extracted):
         preds = model(img[None])
         frame_out, counts = drive("(a) decode_frame_direct, the shipped asset at its operating point",
                                   lambda: decode_frame_direct(preds[0], img, spec, dcfg), totals,
-                                  expect=CC_ONLY)
+                                  expect=CC_ONLY + ("decode_direct",))
         assert counts == cc_only, counts
         batch_out = decode_batch_direct(preds, img[None], spec, dcfg)
         mask = heat_mask(preds[..., 1], dcfg)[0]
@@ -2643,7 +2794,8 @@ def phase_tall(dev, card, totals, p5) -> dict:
     tp, tv = torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev)
     check_both(f"{BATCH} x {N_POINTS} {TALL_BEAMS}-beam scans at 63 rows", model, dcfg, tp, tv, spec)
     (poses, found), _ = drive(f"(a) make_e2e_step(head='direct') at 63 x 1801, {BATCH} x "
-                              f"{N_POINTS} points", lambda: step(pts, valid), totals)
+                              f"{N_POINTS} points", lambda: step(pts, valid), totals,
+                              expect=DIRECT)
     poses, found = poses.cpu().numpy(), found.cpu().numpy()
     assert poses.shape == (BATCH, 7) and found.shape == (BATCH,) and np.isfinite(poses).all()
     cpu_poses, cpu_found = make_e2e_step(cpu_model, spec, dcfg, head="direct", device="cpu")(pts, valid)
@@ -2699,7 +2851,8 @@ def phase_tall(dev, card, totals, p5) -> dict:
     check_both(f"config 5's {C5_BATCH} x {C5_POINTS} points at 63 rows (bf16 FCN)", bf16, dcfg,
                torch.from_numpy(kpts).to(dev), torch.from_numpy(kvalid).to(dev), spec)
     (kposes, kfound), _ = drive(f"(b) config 5's bf16 top-4 step at 63 x 1801, {C5_BATCH} x "
-                                f"{C5_POINTS} points", lambda: kstep(kpts, kvalid), totals)
+                                f"{C5_POINTS} points", lambda: kstep(kpts, kvalid), totals,
+                                expect=DIRECT)
     cpu_kposes, cpu_kfound = make_e2e_step(cpu_bf16, spec, dcfg, max_obstacles=4,
                                            head="direct", device="cpu")(kpts, kvalid)
     kfound, cpu_kfound = kfound.cpu().numpy(), cpu_kfound.numpy()
@@ -2781,7 +2934,7 @@ def phase_headline(dev, spec, card, totals) -> dict:
         with contextlib.redirect_stderr(err):
             row, _ = drive(f"(a) bench.run: {bench.N_SETS} sets of {bench.BATCH} x {bench.N_POINTS} "
                            "points, headline + live + corner + packed + p50", lambda: bench.run(dev),
-                           totals, expect=SERVING + ("nearest_wins_packed_image",))
+                           totals, expect=DIRECT + ("nearest_wins_packed_image",))
     finally:
         for line in err.getvalue().splitlines():
             log(f"    bench.run: {line}")
@@ -2833,7 +2986,8 @@ def phase_headline(dev, spec, card, totals) -> dict:
                                  device=dev)
         step = make_e2e_step(fmodel, spec, dcfg, head="direct", device=dev)
         (poses, found), _ = drive(f"(b) the flagship step in {dtype} on the bench golden's "
-                                  f"{len(g['points'])} frames", lambda: step(pts, valid), totals)
+                                  f"{len(g['points'])} frames", lambda: step(pts, valid), totals,
+                                  expect=DIRECT)
         check_poses(f"JAX bench golden, {dtype}", poses, found, g[f"flagship_{tag}_poses"],
                     g[f"flagship_{tag}_found"])
         with torch.inference_mode():
@@ -2856,7 +3010,7 @@ def phase_headline(dev, spec, card, totals) -> dict:
     epts = torch.from_numpy(g["entry_points"]).to(dev)
     (ep, ef), _ = drive(f"(c) entry()'s fn with JAX's entry state on its example "
                         f"({epts.shape[0]} x {epts.shape[1]} points, no validity mask)",
-                        lambda: fn(emodel, epts), totals)
+                        lambda: fn(emodel, epts), totals, expect=DIRECT)
     share, near = bench.heat_readings(emodel, epts, None, dcfg, spec)
     # the card's FCN and decode on JAX's range views (the CPU's), and the
     # frames whose range view on the card is JAX's
@@ -3061,7 +3215,7 @@ def phase_packed(dev, spec, card, totals, headline: dict) -> dict:
     step = make_e2e_step(model, spec, dcfg, "packed", head="direct", device=dev)
     (poses, found), _ = drive(f"(c) the asset's make_e2e_step(method='packed') on the near-tie "
                               f"frames ({len(points)} x {n})", lambda: step(points, valid), totals,
-                              expect=PACKED)
+                              expect=PACKED + ("decode_direct",))
     cpu = make_e2e_step(cpu_model, spec, dcfg, "packed", head="direct", device="cpu")(points, valid)
     held("make_e2e_step(method='packed')", poses.cpu(), found.cpu(), *cpu)
 
@@ -3069,7 +3223,7 @@ def phase_packed(dev, spec, card, totals, headline: dict) -> dict:
     pipe = LidarPipeline(cfg=cfg, model=model, max_points=n, device=dev)
     answers, _ = drive(f"(c) LidarPipeline(projection_method='packed', max_points {n}), "
                        f"{len(requests)} requests", lambda: [pipe.predict_position(r) for r in requests],
-                       totals, expect=PACKED)
+                       totals, expect=PACKED + ("decode_direct",))
     cpu_pipe = LidarPipeline(cfg=cfg, model=cpu_model, max_points=n, device="cpu")
     cpu_answers = [cpu_pipe.predict_position(r) for r in requests]
     held("LidarPipeline", np.stack([a[0] for a in answers]), np.array([a[1] for a in answers]),
@@ -3079,7 +3233,8 @@ def phase_packed(dev, spec, card, totals, headline: dict) -> dict:
     harness = ReplayHarness(cfg, model, chunk=2, host_ring=2, device=dev)
     (rposes, rfound, _), _ = drive(f"(c) ReplayHarness(projection_method='packed', chunk 2, a "
                                    f"pinned ring of 2), {len(stored)} frames",
-                                   lambda: harness.run(stored), totals, expect=PACKED)
+                                   lambda: harness.run(stored), totals,
+                                   expect=PACKED + ("decode_direct",))
     cpu_r = ReplayHarness(cfg, cpu_model, chunk=2, device="cpu").run(stored)
     held("ReplayHarness", rposes, rfound, cpu_r[0], cpu_r[1])
 
@@ -3115,7 +3270,7 @@ def phase_packed(dev, spec, card, totals, headline: dict) -> dict:
         with contextlib.redirect_stdout(out):
             ab, _ = drive(f"(d) tools.bench_projection_ab {' '.join(args)}",
                           lambda: bench_projection_ab.main(args), totals,
-                          expect=PACKED + ("nearest_wins_image",))
+                          expect=PACKED + ("nearest_wins_image", "decode_direct"))
     finally:
         for line in out.getvalue().splitlines():
             log(f"    {line}")
@@ -3221,6 +3376,7 @@ def main(argv=()) -> int:
     pix_err, pix2d_err = phase_pixels(dev, spec, (scan_pts, scan_valid))  # phase 1b
     enc_err, enc_times = phase_label_encode(dev, (scan_pts, scan_gt, scan_valid))  # phase 1c
     dir_err, dir_times = phase_direct_encode(dev, (scan_pts, scan_gt, scan_valid))  # phase 1d
+    dec_err, dec_times, dec_near = phase_decode_direct(dev)  # phase 1e
     proj_err = 0.0
     for label, p, v in (("proj_check 4x8192", pts, valid),
                         (f"beam scans {BATCH}x{N_POINTS}", scan_pts, scan_valid)):
@@ -3328,7 +3484,7 @@ def main(argv=()) -> int:
     launches = _launches()
     log(f"phase 4 main path: {REQUESTS} server requests + one batch of "
         f"{BATCH}x{N_POINTS}; kernel launches {launches}")
-    for k in SERVING:
+    for k in DIRECT:
         assert launches[k] > 0, f"the main path never launched {k}"
     assert launches["project_points"] == launches["nearest_wins_image"], (
         "the main path: a range view without the pixel kernel")
@@ -3452,6 +3608,7 @@ def main(argv=()) -> int:
     assert totals["nearest_wins_packed_image"] > 0, "no path launched the packed z-buffer"
     assert totals["encode_label"] > 0, "no path launched the label-encode kernel"
     assert totals["encode_direct_label"] > 0, "no path launched the direct label-encode kernel"
+    assert totals["decode_direct"] > 0, "no path launched the direct decode kernel"
     assert totals["project_points"] == (
         totals["nearest_wins_image"] + totals["nearest_wins_packed_image"]), (
         "a driven range view without the pixel kernel")
@@ -3459,6 +3616,7 @@ def main(argv=()) -> int:
     e32, e63 = enc_times[32], enc_times[63]
     d32, d63 = dir_times[32, "local"], dir_times[63, "local"]
     d32b, d63b = dir_times[32, "both"], dir_times[63, "both"]
+    dl, dc5, d63r = (dec_times[shape[0]] for shape in DECODE_SHAPES)
     kernels = [
         {"name": "project_points", "route": "cuda",
          "source": "tpufusion_torch/csrc/pixels.cu",
@@ -3522,6 +3680,17 @@ def main(argv=()) -> int:
          "exact_kernel_ms_131072": pk["exact_131072"], "ms_63_rows": pk["kernel_63"],
          "bound_ms_63_rows": pk["bound_63"], "library_ms_63_rows": pk["library_63"],
          "exact_kernel_ms_63_rows": pk["exact_63"]},
+        {"name": "decode_direct", "route": "cuda",
+         "source": "tpufusion_torch/csrc/decode_direct.cu",
+         "replaces": "tpufusion/decode/decode.py:1033",
+         "launches": totals["decode_direct"], "max_abs_err": dec_err,
+         "ms": dl["new_device_ms"], "plain_ms": dl["plain_device_ms"], "bound_ms": dl["bound_ms"],
+         "bound_by": "bytes", "library_ms": None, "call_ms": dl["new_call_ms"],
+         "plain_call_ms": dl["plain_call_ms"], "launch_floor_ms": dl["empty_device_ms"],
+         "ms_config5": dc5["new_device_ms"], "plain_ms_config5": dc5["plain_device_ms"],
+         "bound_ms_config5": dc5["bound_ms"], "ms_63_rows": d63r["new_device_ms"],
+         "plain_ms_63_rows": d63r["plain_device_ms"], "bound_ms_63_rows": d63r["bound_ms"],
+         "near_threshold_lanes_exempt": dec_near},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

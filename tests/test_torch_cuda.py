@@ -1293,3 +1293,130 @@ def test_direct_train_and_eval_steps_launch_the_direct_kernel(cuda_device, yaw_f
         torch.cuda.synchronize()
         assert (label_encode.LAUNCHES_DIRECT, label_encode.LAUNCHES) == (before[0] + 1, before[1])
         assert torch.isfinite(loss)
+
+
+# the direct decode kernel (csrc/decode_direct.cu) against its plain
+# version: tpufusion_torch/_golden.py's DIRECT_KERNEL_* contract
+
+
+def _tall_spec():
+    from tpufusion_torch._golden import TALL_RES_V_DEG
+
+    return RangeViewSpec(res_v_deg=TALL_RES_V_DEG)
+
+
+@pytest.mark.parametrize("rows", [32, 63])
+@pytest.mark.parametrize("channels", [10, 12])
+@pytest.mark.parametrize("kind", parity_inputs.CLUSTER_KINDS)
+def test_decode_direct_kernel_on_the_adversarial_clusters(cuda_device, kind, channels, rows):
+    """Every covered center, boundary and yaw frame at k = 4 on
+    `parity_inputs.cluster_inputs`: one launch a call, found equal, poses
+    within the contract (a lane within DIRECT_KERNEL_NEAR of a threshold
+    counted and exempt)."""
+    from tpufusion_torch.ops import decode_direct
+
+    spec = SPEC if rows == 32 else _tall_spec()
+    y_pred, images = (torch.from_numpy(a).to(cuda_device) for a in parity_inputs.cluster_inputs(
+        spec, kind, batch=4, seed=rows + channels, channels=channels))
+    near = 0
+    for name, fields in parity_inputs.cluster_decode_options(channels).items():
+        r = decode_direct.against_plain(y_pred, images, spec, DecodeConfig(**fields), 4,
+                                        adversarial=True)
+        near += r["near"]
+        print(f"{kind} {channels} ch {rows} rows {name}: {r}")
+        assert r["ok"], (name, r)
+    print(f"{kind}: lanes near a threshold {near}")
+
+
+def test_decode_direct_kernel_on_the_assets_outputs(cuda_device):
+    """The shipped assets' FCNs on beam scans at 32 and 63 rows, at their
+    operating points and DecodeConfig's default, k = 1 and 4: the
+    contract, and no lane near a threshold."""
+    from tpufusion_torch.data.synthetic import synthesize_beam_multi_vehicle_batch
+    from tpufusion_torch.ops import decode_direct
+
+    for spec, beams in ((SPEC, 32), (_tall_spec(), 64)):
+        pts, _, valid = synthesize_beam_multi_vehicle_batch(
+            np.random.default_rng(8), 16, 32768, n_vehicles=2, n_beams=beams)
+        with torch.inference_mode():
+            images = range_view_project_batch(torch.from_numpy(pts).to(cuda_device), spec,
+                                              torch.from_numpy(valid).to(cuda_device))
+        for name in ("synthetic_detector.npz", "synthetic_detector_yaw.npz",
+                     "synthetic_detector_mixed.npz"):
+            path = os.path.join(os.path.dirname(ASSET), name)
+            mcfg, dcfg = asset_configs(path)
+            model = FCN(mcfg)
+            load_state_npz(path, model)
+            with torch.inference_mode():
+                y_pred = model.to(cuda_device).eval()(images)
+            cfgs = [dcfg] + ([DecodeConfig()] if name == "synthetic_detector.npz" else [])
+            for cfg in cfgs:
+                for k in (1, 4):
+                    r = decode_direct.against_plain(y_pred, images, spec, cfg, k)
+                    print(f"{name} {spec.height} rows {cfg.direct_center} k {k}: {r}")
+                    assert r["ok"] and r["near"] == 0 and r["found"] > 0, r
+
+
+def test_decode_batch_direct_launches_the_kernel_once(cuda_device):
+    """Every covered center: one decode_direct launch and one CC launch a
+    call; "silhouette" none of the decode kernel."""
+    from tpufusion_torch.ops import decode_direct
+
+    y_pred, images = (torch.from_numpy(a).to(cuda_device)
+                      for a in parity_inputs.cluster_inputs(SPEC, "cars", batch=2, channels=10))
+    for center in decode._CENTERS:
+        before = (decode_direct.LAUNCHES, cc.LAUNCHES)
+        out = decode.decode_batch_direct(y_pred, images, SPEC, DecodeConfig(min_prob=0.8), 4,
+                                         center)
+        torch.cuda.synchronize()
+        want = (before[0] + (center != "silhouette"), before[1] + 1)
+        assert (decode_direct.LAUNCHES, cc.LAUNCHES) == want, center
+        assert out["poses"].shape == (2, 4, 7) and bool(out["found"].any())
+
+
+def test_decode_direct_kernel_raises_when_the_build_fails(cuda_device, monkeypatch, tmp_path):
+    """No fallback: a library that cannot be built makes the wrapper raise."""
+    from tpufusion_torch import _build
+    from tpufusion_torch.ops import decode_direct
+
+    def fail(_out):
+        raise RuntimeError("nvcc failed (test)")
+
+    y_pred, images = (torch.from_numpy(a).to(cuda_device)
+                      for a in parity_inputs.cluster_inputs(SPEC, "cars", batch=1, channels=10))
+    cfg = DecodeConfig(min_prob=0.8)
+    comps = decode._heat_components(y_pred[..., 1], cfg)  # the CC kernel, built
+    root, found, *_ = decode._topk_roots(*comps, cfg, 2)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "library_path", lambda: str(tmp_path / "missing.so"))
+    monkeypatch.setattr(_build, "_compile", fail)
+    before = decode_direct.LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        decode_direct.decode_direct_clusters(y_pred, images, *comps, root, found, SPEC, cfg,
+                                             "backproject")
+    assert decode_direct.LAUNCHES == before
+
+
+def test_decode_direct_kernel_rejects_bad_inputs(cuda_device):
+    from tpufusion_torch.ops import decode_direct
+
+    y_pred, images = (torch.from_numpy(a).to(cuda_device)
+                      for a in parity_inputs.cluster_inputs(SPEC, "cars", batch=1, channels=10))
+    cfg = DecodeConfig(min_prob=0.8)
+    comps = decode._heat_components(y_pred[..., 1], cfg)
+    root, found, *_ = decode._topk_roots(*comps, cfg, 2)
+    before = decode_direct.LAUNCHES
+    run = decode_direct.decode_direct_clusters
+    with pytest.raises(ValueError, match="dual-codec"):
+        run(y_pred, images, *comps, root, found, SPEC, dataclasses.replace(
+            cfg, direct_yaw_frame="auto"), "backproject")
+    with pytest.raises(ValueError, match="unknown fit_boundary"):
+        run(y_pred, images, *comps, root, found, SPEC, dataclasses.replace(
+            cfg, fit_boundary="polygon"), "fit")
+    with pytest.raises(ValueError, match="root must be"):
+        run(y_pred, images, *comps, root.int(), found, SPEC, cfg, "backproject")
+    with pytest.raises(ValueError, match="y_pred must be"):
+        run(y_pred.half(), images, *comps, root, found, SPEC, cfg, "backproject")
+    with pytest.raises(ValueError, match="silhouette"):
+        run(y_pred, images, *comps, root, found, SPEC, cfg, "silhouette")
+    assert decode_direct.LAUNCHES == before

@@ -126,6 +126,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tf_encode_label.restype = i
     lib.tf_encode_direct_label.argtypes = [p, p, p, p, i, p, p, p, p, p, p, i, i, i, *spec, p]
     lib.tf_encode_direct_label.restype = i
+    lib.tf_decode_direct.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, i, i, i, i,
+                                     p, p, p, p, p, i, i, i, i, i,
+                                     ctypes.POINTER(ctypes.c_float), p, p, p]
+    lib.tf_decode_direct.restype = i
     lib.tf_error_string.argtypes = [i]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib

@@ -112,6 +112,42 @@ NEAR_TIE_JITTER = 1e-4
 NEAR_TIE_SHORT = 32768
 
 
+# The direct decode kernel (csrc/decode_direct.cu) against its plain
+# version (decode.decode_direct_clusters_reference): found equal; poses
+# within DIRECT_KERNEL_ATOL (yaw as an angle), except on the adversarial
+# inputs (parity_inputs.cluster_inputs), whose lanes with a bbox window of
+# more than DIRECT_KERNEL_WIDE_WINDOW pixels are held to
+# DIRECT_KERNEL_WIDE_ATOL (their float32 sums over tens of thousands of
+# pixels run in another order); a lane whose plain version sits within
+# DIRECT_KERNEL_NEAR (relative) of a threshold a tie could flip is
+# counted and exempt.
+DIRECT_KERNEL_ATOL = 1e-4
+DIRECT_KERNEL_WIDE_ATOL = 1e-3
+DIRECT_KERNEL_WIDE_WINDOW = 4096
+DIRECT_KERNEL_NEAR = 1e-5
+
+
+def direct_kernel_readings(got_poses, got_found, want_poses, want_found, windows,
+                           margins, adversarial: bool = False) -> dict:
+    """The contract's readings on (B, k) lanes (numpy): "found_equal" on
+    the lanes not near a threshold, "near" (such lanes), "diff" and
+    "diff_wide" (the largest pose difference on the other lanes with a
+    window up to / beyond DIRECT_KERNEL_WIDE_WINDOW pixels) and "ok": the
+    wide lanes are held to DIRECT_KERNEL_WIDE_ATOL only where
+    `adversarial`, else to DIRECT_KERNEL_ATOL like the rest."""
+    near = np.asarray(margins) < DIRECT_KERNEL_NEAR
+    wide = np.asarray(windows) > DIRECT_KERNEL_WIDE_WINDOW
+    diff = wrapped_pose_diff(got_poses, want_poses).max(axis=-1)
+    keep = ~near
+    found_equal = bool(np.array_equal(np.asarray(got_found)[keep], np.asarray(want_found)[keep]))
+    d_small = float(diff[keep & ~wide].max(initial=0.0))
+    d_wide = float(diff[keep & wide].max(initial=0.0))
+    return {"found_equal": found_equal, "near": int(near.sum()), "diff": d_small,
+            "diff_wide": d_wide,
+            "ok": found_equal and d_small <= DIRECT_KERNEL_ATOL and d_wide <= (
+                DIRECT_KERNEL_WIDE_ATOL if adversarial else DIRECT_KERNEL_ATOL)}
+
+
 def load_npz(path: str) -> dict[str, np.ndarray]:
     with np.load(path) as z:
         return {k: z[k] for k in z.files}

@@ -28,9 +28,15 @@ the reference:
   _direct_pose_from_cluster   prob-weighted lwh and yaw (local, global
                      or the dual-codec "auto" gate), the surface-point
                      mean and, for the "head" center, the head's center
-  decode_batch_direct         center estimators backproject, geometric,
-                     surface, head, silhouette, consensus and fit
-                     (circle, ellipse, box or the dual "auto" boundary)
+  decode_direct_clusters_reference   the plain version of the direct
+                     decode kernel (`ops/decode_direct.py`): per lane, from
+                     the CC's labels and extents on, center estimators
+                     backproject, geometric, surface, head, silhouette,
+                     consensus and fit (circle, ellipse, box or the dual
+                     "auto" boundary), every op over whole frames
+  decode_batch_direct         the heat mask, the CC and the top-k roots,
+                     then the kernel's wrapper (the plain version for
+                     "silhouette", and on the CPU)
   decode_frame / decode_frame_multi / decode_frame_direct   one frame:
                      the batch function on a batch of one, the batch axis
                      dropped from every entry
@@ -58,6 +64,7 @@ from tpufusion_torch.geometry.encoding import (
 )
 from tpufusion_torch.ops.libm_f32 import sqrt_f32
 from tpufusion_torch.ops.cc import connected_components_with_bbox
+from tpufusion_torch.ops.decode_direct import decode_direct_clusters
 
 _SENTINEL = 1e8  # reference uses 10e7 for "no valid pixel"
 
@@ -501,14 +508,15 @@ def decode_frame_multi(
 
 
 @_full_f32_matmuls()
-def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center):
+def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, margins=None):
     """Weighted yaw and lwh over each cluster's valid pixels; y_pred and
     image are per frame (B, H, W, C), cluster per lane (B, n, H, W).
     Returns (yaw (B, n), lwh (B, n, 3), ok (B, n), p_mean (B, n, 3),
     oriented (B, n), center (B, n, 3) or None); yaw, lwh and center are
     0 where ok is False. `oriented` says the local-frame codec gave the
     yaw; `center` (with_center) is the head's averaged center in the
-    reference's frame."""
+    reference's frame. With a dict `margins`, the auto gate's relative
+    margin goes there as "oriented"."""
     yp, im = y_pred[:, None], image[:, None]
     prob = yp[..., 1]
     valid = (im[..., 0] > 0) & (im[..., 1] > spec.min_height)
@@ -551,7 +559,10 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center):
             )
         sl, cl = local_mean()
         sg, cg = global_mean()
-        oriented = sl * sl + cl * cl >= sg * sg + cg * cg
+        len_l, len_g = sl * sl + cl * cl, sg * sg + cg * cg
+        oriented = len_l >= len_g
+        if margins is not None:
+            margins["oriented"] = _rel_margin(len_l, len_g)
         sin_m = torch.where(oriented, sl, sg)
         cos_m = torch.where(oriented, cl, cg)
     else:
@@ -633,12 +644,22 @@ def _silhouette_center(image, cluster, spec, yaw, lwh, seed):
     return torch.where((n >= 5)[..., None], p_sil, seed)
 
 
-def _fit_pose_to_surface(image, cluster, spec, cfg, yaw, lwh, seed):
+def _rel_margin(v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """|v - t| relative to the larger of |v| and |t| (0 where both are 0)."""
+    v, t = torch.as_tensor(v), torch.as_tensor(t)
+    scale = torch.maximum(v.abs(), t.abs())
+    return torch.where(scale > 0, (v - t).abs() / scale, 0.0)
+
+
+def _fit_pose_to_surface(image, cluster, spec, cfg, yaw, lwh, seed, margins=None):
     """Gauss-Newton fit of the box's known-size boundary to each
     cluster's raw surface points (reference `_fit_pose_to_surface`, which
     documents the model). Candidates: the head yaw alone for a circle, a
     36-step grid over [0, pi) plus the head yaw for an ellipse or box.
-    Per lane (B, n); returns (center (B, n, 3), phi (B, n), ok_fit)."""
+    Per lane (B, n); returns (center (B, n, 3), phi (B, n), ok_fit).
+    With a dict `margins`, also puts there each threshold's relative
+    margin per lane (`_rel_margin`; inf where it does not decide the
+    answer): "fit_dist" (ok_fit's distance), "decisive", "pi"."""
     dev = image.device
     l_, w_ = lwh[..., 0], lwh[..., 1]
     head_phi = _floor_mod(yaw, math.pi)[..., None]
@@ -649,12 +670,7 @@ def _fit_pose_to_surface(image, cluster, spec, cfg, yaw, lwh, seed):
     elif cfg.fit_boundary in ("ellipse", "box"):
         a = (cfg.fit_surface_scale * l_ / 2.0).clamp(min=1e-2)
         bb = (cfg.fit_surface_scale * w_ / 2.0).clamp(min=1e-2)
-        grid = (
-            torch.arange(_FIT_PHI_CANDIDATES, dtype=torch.float32, device=dev)
-            / _FIT_PHI_CANDIDATES
-            * math.pi
-        )
-        phis = torch.cat([grid.expand(*yaw.shape, -1), head_phi], dim=-1)
+        phis = torch.cat([fit_phi_grid(dev).expand(*yaw.shape, -1), head_phi], dim=-1)
     else:
         raise ValueError(f"unknown fit_boundary {cfg.fit_boundary!r}")
     a3, b3 = a[..., None, None], bb[..., None, None]
@@ -729,9 +745,19 @@ def _fit_pose_to_surface(image, cluster, spec, cfg, yaw, lwh, seed):
     )
     phi = cand.gather(-1, off.argmin(dim=-1, keepdim=True))[..., 0]
     dc = ctr - seed[..., :2]
-    ok_fit = (wts.sum(dim=(-2, -1)) >= _FIT_MIN_POINTS) & (
-        dc[..., 0] * dc[..., 0] + dc[..., 1] * dc[..., 1] <= _FIT_ACCEPT_DIST**2
-    )
+    n_pts = wts.sum(dim=(-2, -1))
+    dist2 = dc[..., 0] * dc[..., 0] + dc[..., 1] * dc[..., 1]
+    ok_fit = (n_pts >= _FIT_MIN_POINTS) & (dist2 <= _FIT_ACCEPT_DIST**2)
+    if margins is not None:
+        inf = torch.full_like(dist2, math.inf)
+        enough = n_pts >= _FIT_MIN_POINTS
+        margins["fit_dist"] = torch.where(enough, _rel_margin(dist2, _FIT_ACCEPT_DIST**2), inf)
+        if phis.shape[-1] > 1:  # a lone candidate is never decisive over itself
+            margins["decisive"] = torch.where(
+                ok_fit, _rel_margin(ress.gather(-1, i)[..., 0], 0.9 * ress[..., -1]), inf)
+        # phi against phi +- pi (those two differ by 2 pi: the same angle)
+        other = torch.minimum(off[..., 1], off[..., 2])
+        margins["pi"] = torch.where(ok_fit, _rel_margin(off[..., 0], other), inf)
     center = torch.cat([ctr, seed[..., 2:]], dim=-1)
     return (
         torch.where(ok_fit[..., None], center, seed),
@@ -740,31 +766,54 @@ def _fit_pose_to_surface(image, cluster, spec, cfg, yaw, lwh, seed):
     )
 
 
-def decode_batch_direct(
+_PHI_GRID: dict = {}
+
+
+def fit_phi_grid(device) -> torch.Tensor:
+    """The ellipse and box fits' 36 candidate headings over [0, pi),
+    float32 as torch computes them on `device`; made once a device and
+    shared (the kernel reads the same tensor): read it, never write it."""
+    key = torch.device(device)
+    if key not in _PHI_GRID:
+        with torch.inference_mode(False), torch.no_grad():
+            _PHI_GRID[key] = (
+                torch.arange(_FIT_PHI_CANDIDATES, dtype=torch.float32, device=key)
+                / _FIT_PHI_CANDIDATES
+                * math.pi
+            )
+    return _PHI_GRID[key]
+
+
+def decode_direct_clusters_reference(
     y_pred: torch.Tensor,  # (B, H, W, 2 + 8 [+ 2])
     images: torch.Tensor,  # (B, H, W, >=2)
-    spec: RangeViewSpec = RangeViewSpec(),
-    cfg: DecodeConfig = DecodeConfig(),
-    k: int = 1,
-    center: str | None = None,
-) -> dict[str, torch.Tensor]:
-    """Direct-head decode of the top-k clusters -> poses (B, k, 7) =
-    (x, y, z, yaw, l, w, h), found (B, k), areas (B, k). `center` (None
-    -> cfg.direct_center) picks the position estimator (see the
-    reference's decode_frame_direct)."""
-    if center is None:
-        center = cfg.direct_center
-    if center not in _CENTERS:
-        raise ValueError(f"unknown direct_center {center!r}")
-    mask, labels, min_x, max_x, min_y, max_y = _heat_components(
-        y_pred[..., 1], cfg
-    )
-    root, found, bboxes, centroids, areas = _topk_roots(
-        mask, labels, min_x, max_x, min_y, max_y, cfg, k
-    )
+    mask: torch.Tensor,  # (B, H, W) bool, the heat mask
+    labels: torch.Tensor,  # (B, H, W) int32, the CC's roots
+    min_x: torch.Tensor,  # (B, H, W) int32 extents, as the CC gives them
+    max_x: torch.Tensor,
+    min_y: torch.Tensor,
+    max_y: torch.Tensor,
+    root: torch.Tensor,  # (B, k) int64 flat root pixel of each lane
+    found: torch.Tensor,  # (B, k) bool
+    spec: RangeViewSpec,
+    cfg: DecodeConfig,
+    center: str,
+    margins: dict | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The direct decode of each lane's cluster, from the CC's output and
+    `_topk_roots`' lanes on: poses (B, k, 7) = (x, y, z, yaw, l, w, h) and
+    found (B, k), zeros where not found. The plain version of
+    `ops/decode_direct.py::decode_direct_clusters` (and the only version
+    of the "silhouette" center). Every op runs over whole (B, k, H, W)
+    frames. With a dict `margins`, also puts there, per lane, the relative
+    margin (`_rel_margin`; inf where it does not decide the answer) of
+    each threshold a tie could flip: "oriented" (the auto yaw gate),
+    "agree" (consensus and fit), and the fit's "fit_dist", "decisive"
+    and "pi"."""
+    bboxes, centroids = _shrunk_bbox(min_x, max_x, min_y, max_y, root)
     cluster = mask[:, None] & (labels[:, None] == root[..., None, None].to(labels.dtype))
     yaw, lwh, nonempty, p_mean, oriented, head_center = _direct_pose_from_cluster(
-        y_pred, images, cluster, spec, cfg, with_center=center == "head"
+        y_pred, images, cluster, spec, cfg, with_center=center == "head", margins=margins
     )
     good = found & nonempty
     if center == "head":
@@ -799,7 +848,10 @@ def decode_batch_direct(
         elif center in ("consensus", "fit"):
             geo, bp_ok = back_project()
             geo, surf = push(geo), push(p_mean)
-            agree = _norm2(surf - geo) <= 2.5**2
+            dist2 = _norm2(surf - geo)
+            agree = dist2 <= 2.5**2
+            if margins is not None:
+                margins["agree"] = _rel_margin(dist2, 2.5**2)
             xyz = torch.where(agree[..., None], surf, geo)
         else:
             xyz, bp_ok = back_project()
@@ -814,16 +866,24 @@ def decode_batch_direct(
             cfg_sym = dataclasses.replace(
                 cfg, fit_boundary="circle", fit_surface_scale=cfg.fit_symmetric_scale
             )
+            arms = [{} if margins is not None else None for _ in range(2)]
             xyz_o, yaw_o, _ = _fit_pose_to_surface(
-                images, cluster, spec, cfg_ori, yaw, lwh, xyz
+                images, cluster, spec, cfg_ori, yaw, lwh, xyz, arms[0]
             )
             xyz_s, yaw_s, _ = _fit_pose_to_surface(
-                images, cluster, spec, cfg_sym, yaw, lwh, xyz
+                images, cluster, spec, cfg_sym, yaw, lwh, xyz, arms[1]
             )
+            if margins is not None:
+                for key in arms[0].keys() | arms[1].keys():
+                    inf = torch.full_like(yaw, math.inf)
+                    margins[key] = torch.where(
+                        oriented, arms[0].get(key, inf), arms[1].get(key, inf))
             xyz = torch.where(oriented[..., None], xyz_o, xyz_s)
             yaw = torch.where(oriented, yaw_o, yaw_s)
         elif center == "fit":
-            xyz, yaw, _ = _fit_pose_to_surface(images, cluster, spec, cfg, yaw, lwh, xyz)
+            xyz, yaw, _ = _fit_pose_to_surface(
+                images, cluster, spec, cfg, yaw, lwh, xyz, margins
+            )
         c, s = torch.cos(-yaw), torch.sin(-yaw)
         ctr = torch.stack(
             [
@@ -835,8 +895,43 @@ def decode_batch_direct(
         )
         pose = torch.cat([ctr, yaw[..., None], lwh], dim=-1)
         good = good & bp_ok
+    if margins is not None:  # a lane the answer zeroes decides nothing
+        for key, v in margins.items():
+            margins[key] = torch.where(good, v, math.inf)
+    return torch.where(good[..., None], pose, 0.0), good
+
+
+def decode_batch_direct(
+    y_pred: torch.Tensor,  # (B, H, W, 2 + 8 [+ 2])
+    images: torch.Tensor,  # (B, H, W, >=2)
+    spec: RangeViewSpec = RangeViewSpec(),
+    cfg: DecodeConfig = DecodeConfig(),
+    k: int = 1,
+    center: str | None = None,
+) -> dict[str, torch.Tensor]:
+    """Direct-head decode of the top-k clusters -> poses (B, k, 7) =
+    (x, y, z, yaw, l, w, h), found (B, k), areas (B, k). `center` (None
+    -> cfg.direct_center) picks the position estimator (see the
+    reference's decode_frame_direct). After the CC and `_topk_roots`,
+    every center but "silhouette" goes to `decode_direct_clusters` (one
+    kernel launch on the card, the plain version on the CPU);
+    "silhouette" runs the plain version on every device."""
+    if center is None:
+        center = cfg.direct_center
+    if center not in _CENTERS:
+        raise ValueError(f"unknown direct_center {center!r}")
+    mask, labels, min_x, max_x, min_y, max_y = _heat_components(
+        y_pred[..., 1], cfg
+    )
+    root, found, _, _, areas = _topk_roots(
+        mask, labels, min_x, max_x, min_y, max_y, cfg, k
+    )
+    decode = (decode_direct_clusters_reference if center == "silhouette"
+              else decode_direct_clusters)
+    poses, good = decode(y_pred, images, mask, labels, min_x, max_x, min_y, max_y,
+                         root, found, spec, cfg, center)
     return {
-        "poses": torch.where(good[..., None], pose, 0.0),
+        "poses": poses,
         "found": good,
         "areas": torch.where(found, areas.to(torch.float32), 0.0),
     }

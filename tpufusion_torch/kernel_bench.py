@@ -38,8 +38,14 @@ image stores alone). The encode rows time the fused label-encode kernel
 and its plain version (the torch composition it replaced) in turns at 32
 x 32 x 1801 and 32 x 63 x 1801, beside a fill of the label's size; the
 encode_direct rows the direct head's kernel likewise, at 10 and 12
-channels. `--kernels` picks among exact, cc, packed, encode and
-encode_direct. With `--out FILE`
+channels. The decode_direct rows time the direct head's per-cluster
+decode kernel and its plain version (the torch composition it replaced)
+in turns, beside an empty kernel (the launch floor) and the kernel's
+bound (the bytes its lanes need on the run's data,
+`decode_direct_bound_bytes`), at DECODE_SHAPES: 64 x 32 x 1801 at k 1 with the live asset's
+clusters, config 5's 16 frames at k 4, and 64 x 63 x 1801 at k 1.
+`--kernels` picks among exact, cc, packed, encode, encode_direct and
+decode_direct. With `--out FILE`
 the rows are also written there as JSON.
 
     python -m tpufusion_torch.kernel_bench --dsmem-probe
@@ -646,6 +652,126 @@ def encode_direct_rows(sets: int = 12) -> list[dict]:
     return rows
 
 
+def decode_direct_bound_bytes(y_pred, images, mask, labels, min_x, max_x, min_y, max_y, root,
+                              found, spec, cfg, center: str) -> int:
+    """The bytes the direct decode must move on this run's data, each read
+    once: every pixel of the found lanes' bbox windows (a frame's union
+    of them) its mask (1 B) and, where the mask is set, its label (4 B);
+    the image's distance and height (8 B) on each lane's cluster pixels,
+    and for the centers that back-project on its centroid pixel and, where
+    that pixel is not valid, on the window shrunk by 2 the fallback
+    searches; on the cluster's valid pixels the probability (4 B), and
+    where it passes min_prob the channels the center and yaw frame read
+    (4 B each: l w h, the yaw frame's sin / cos, both frames' for "auto",
+    the head's three offsets for "head"); each lane's found flag read and
+    its pose and flag written, a found lane's root and four extents
+    read."""
+    b, h, w = mask.shape
+    k = root.shape[1]
+    dev = mask.device
+    x0, x1, y0, y1 = (t.reshape(b, -1).gather(1, root).long() for t in (min_x, max_x, min_y,
+                                                                           max_y))
+    rows = torch.arange(h, device=dev).view(1, 1, h, 1)
+    cols = torch.arange(w, device=dev).view(1, 1, 1, w)
+
+    def box(left, right, top, bottom, lanes):
+        return ((cols >= left[..., None, None]) & (cols <= right[..., None, None])
+                & (rows >= top[..., None, None]) & (rows <= bottom[..., None, None])
+                & lanes[..., None, None])
+
+    window = box(x0, x1, y0, y1, found)  # (B, k, H, W)
+    cluster = window & mask[:, None] & (labels[:, None].long() == root[..., None, None])
+    valid = (images[..., 0] > 0) & (images[..., 1] > spec.min_height)
+    image_px = cluster.any(1)
+    if center in ("backproject", "geometric", "consensus", "fit"):
+        cx, cy = (x0 + x1) // 2, (y0 + y1) // 2
+        centroid = cy * w + cx
+        centroid_ok = valid.reshape(b, -1).gather(1, centroid)
+        fallback = found & ~centroid_ok & (x0 + 2 != 0) & (x1 - 2 != 0)
+        image_px |= box(x0 + 2, x1 - 2, y0 + 2, y1 - 2, fallback).any(1)
+        at_centroid = torch.zeros(b, h * w, dtype=torch.int32, device=dev).scatter_add_(
+            1, centroid, found.int())
+        image_px |= (at_centroid > 0).view(b, h, w)
+    cover = window.any(1)
+    in_cluster = cluster & valid[:, None]
+    passes = in_cluster & (y_pred[..., 1] >= cfg.min_prob)[:, None]
+    yaw_channels = 4 if cfg.direct_yaw_frame == "auto" else 2
+    channels = 3 + yaw_channels + (3 if center == "head" else 0)
+    n_found = int(found.sum())
+    return (int(cover.sum()) + 4 * int((cover & mask).sum()) + 8 * int(image_px.sum())
+            + 4 * int(in_cluster.sum()) + 4 * channels * int(passes.sum())
+            + b * k * (1 + 7 * 4 + 1) + n_found * (8 + 4 * 4))
+
+
+DECODE_SHAPES = (  # label, frames, points a frame, beams, res_v_deg, k
+    ("64 x 32 x 1801, k 1, the live asset", 64, 32768, 32, 1.33, 1),
+    ("16 x 32 x 1801, k 4, config 5", 16, 131072, 64, 1.33, 4),
+    ("64 x 63 x 1801, k 1, 64 beams", 64, 32768, 64, 0.665, 1),
+)
+
+
+def decode_direct_inputs(dev, shape, sets: int, seed0: int = 1800):
+    """(spec, decode config, k, [(y_pred, image, mask, labels, 4 extents,
+    root, found), ...]) at one of DECODE_SHAPES: the shipped asset's bf16
+    FCN on distinct beam-scan batches, its heat mask, the CC and the
+    top-k roots, as `decode_batch_direct` hands them to the kernel."""
+    from tpufusion_torch import RangeViewSpec
+    from tpufusion_torch.benchmarks import asset_model, point_sets
+    from tpufusion_torch.decode import decode as td
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+
+    _, frames, n_points, beams, res_v, k = shape
+    model, dcfg, _ = asset_model(os.path.join(_REPO, "tpufusion", "assets",
+                                              "synthetic_detector.npz"))
+    model = model.to(dev).eval()
+    spec = RangeViewSpec(res_v_deg=res_v)
+    out = []
+    with torch.inference_mode():
+        for p, v in point_sets(sets, frames, n_points, dev, n_beams=beams, seed0=seed0):
+            image = range_view_project_batch(p, spec, v)
+            y_pred = model(image)
+            comps = td._heat_components(y_pred[..., 1], dcfg)
+            root, found, *_ = td._topk_roots(*comps, dcfg, k)
+            out.append((y_pred, image, *comps, root, found))
+    return spec, dcfg, k, out
+
+
+def decode_direct_rows(sets: int = 12, shapes=DECODE_SHAPES) -> list[dict]:
+    """The direct decode kernel's rows: the kernel and its plain version
+    (the torch composition it replaced) in turns, and an empty kernel (the
+    card's launch floor), at each of `shapes`, beside the kernel's bound
+    (`decode_direct_bound_bytes` at 3.35 TB/s) from the same inputs; the
+    contract held on the first two sets."""
+    from tpufusion_torch.decode.decode import decode_direct_clusters_reference
+    from tpufusion_torch.ops import decode_direct
+
+    dev = torch.device("cuda", 0)
+    rows = []
+    for shape in shapes:
+        spec, cfg, k, args = decode_direct_inputs(dev, shape, sets)
+        center = cfg.direct_center
+        with torch.inference_mode():
+            for a in args[:2]:
+                r = decode_direct.against_plain(a[0], a[1], spec, cfg, k)
+                assert r["ok"] and r["near"] == 0, (shape[0], r)
+            fns = {"new": lambda a: decode_direct.decode_direct_clusters(*a, spec, cfg, center),
+                   "plain": lambda a: decode_direct_clusters_reference(*a, spec, cfg, center),
+                   "empty": empty_kernel}
+            call = time_turns(fns, args, time_ms)
+            dev_t = time_turns(fns, args, lambda fn, xs: (
+                queued_each if fn is fns["plain"] else queued_ms)(fn, xs))
+        need = [decode_direct_bound_bytes(*a, spec, cfg, center) for a in args]
+        windows = [int(decode_direct.window_pixels(*a[4:]).sum()) for a in args]
+        found = [int(a[-1].sum()) for a in args]
+        rows.append({"shape": shape[0], "kernel": "decode_direct",
+                     "bound_ms": sum(need) / sets / HBM_BYTES_PER_S * 1e3,
+                     "bound_bytes": sum(need) / sets,
+                     "window_pixels": sum(windows) / sets, "found_lanes": sum(found) / sets,
+                     **{f"{k}_call_ms": v for k, v in call.items()},
+                     **{f"{k}_device_ms": v for k, v in dev_t.items()}})
+    return rows
+
+
 def dsmem_probe() -> str:
     """Builds and runs probes/dsmem_min64.cu; returns what it prints."""
     from tpufusion_torch import _build
@@ -662,7 +788,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", help="directory with the earlier design's .cu sources")
     ap.add_argument("--sets", type=int, default=12, help="distinct batches per timing")
-    ap.add_argument("--kernels", default="exact,cc,packed,encode,encode_direct",
+    ap.add_argument("--kernels", default="exact,cc,packed,encode,encode_direct,decode_direct",
                     help="which kernels' rows: exact and cc need --old-csrc")
     ap.add_argument("--dsmem-probe", action="store_true",
                     help="also build and run probes/dsmem_min64.cu")
@@ -682,6 +808,8 @@ def main() -> int:
         rows += encode_rows(args.sets)
     if "encode_direct" in kernels:
         rows += encode_direct_rows(args.sets)
+    if "decode_direct" in kernels:
+        rows += decode_direct_rows(args.sets)
     for r in rows:
         names = [k[: -len("_device_ms")] for k in r if k.endswith("_device_ms")]
         times = ", ".join(

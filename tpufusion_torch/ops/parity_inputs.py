@@ -590,3 +590,117 @@ def face_inputs(spec, batch: int = 32, seed: int = 0, channels: int = 3, steps: 
         image[b, rr, col, 1] = h
         case[b, rr, col] = code
     return center, size, yaw, image, case
+
+
+# The direct decode's clusters (`csrc/decode_direct.cu`), a frame kind a
+# call: "edges" clusters on columns 0-1 and W-2..W-1 and on rows 0 and
+# H-1; "narrow" a bbox under 5 wide (its back-projection window, shrunk
+# by 2, is empty) with the centroid empty in every other frame, beside a
+# car; "fallback" a car whose centroid has no return (the nearest valid
+# pixel, with exact-distance ties, in raster order); "no_window" a car
+# whose shrunk window has no return (the back-projection fails) and a
+# cluster with no return at all (not found); "whole" one cluster over the
+# whole frame at a near-constant distance (a window of H x W pixels and
+# more gated points than the fit holds in shared memory); "cars" 3-5 cars
+# of random sizes. Every kind but "edges" and "cars" has fewer clusters
+# than a top-4 decode has lanes, so lanes go unfound.
+CLUSTER_KINDS = ("edges", "narrow", "fallback", "no_window", "whole", "cars")
+
+
+def cluster_inputs(spec, kind: str = "cars", batch: int = 4, seed: int = 0,
+                   channels: int = 12) -> tuple[np.ndarray, np.ndarray]:
+    """(y_pred (B, H, W, channels) float32 direct-head output, image (B,
+    H, W, 3) float32) for the direct decode (`CLUSTER_KINDS`). A cluster
+    is a block of probabilities 0.85-1 (0-0.3 elsewhere); its returns lie
+    within 1.5 m of a base distance, its heads regress l w h near (4.2,
+    1.6, 1.5) and one heading (local and global sin / cos, with noise);
+    the background holds returns at 3-60 m, a fifth of them empty."""
+    if kind not in CLUSTER_KINDS:
+        raise ValueError(f"unknown cluster kind {kind!r}: one of {CLUSTER_KINDS}")
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    h, w = spec.height, spec.width
+    shape = (batch, h, w)
+    image = np.zeros(shape + (3,), f)
+    image[..., 0] = rng.uniform(3, 60, shape) * (rng.random(shape) > 0.2)
+    image[..., 1] = rng.uniform(-1.9, 1.0, shape)
+    image[..., 2] = rng.uniform(0, 1, shape)
+    y = np.zeros(shape + (channels,), f)
+    y[..., 1] = rng.uniform(0, 0.3, shape)
+    y[..., 2:5] = rng.uniform(-2, 2, shape + (3,))
+    y[..., 5:8] = np.array([4.2, 1.6, 1.5]) + rng.normal(0, 0.1, shape + (3,))
+    ang = rng.uniform(-np.pi, np.pi, shape + ((channels - 8) // 2,))
+    y[..., 8::2], y[..., 9::2] = np.sin(ang), np.cos(ang)
+
+    def car(b, r0, r1, c0, c1, dist=None):
+        """Positives on rows r0..r1 x columns c0..c1 (the heat mask grows
+        them by 2 up and left and 1 down and right), a car's returns."""
+        sl = (b, slice(r0, r1 + 1), slice(c0, c1 + 1))
+        n = (r1 - r0 + 1, c1 - c0 + 1)
+        y[sl + (1,)] = rng.uniform(0.85, 1.0, n)
+        yaw = rng.uniform(-np.pi, np.pi, (channels - 8) // 2)
+        y[sl + (slice(8, None, 2),)] = np.sin(yaw) + rng.normal(0, 0.05, n + (len(yaw),))
+        y[sl + (slice(9, None, 2),)] = np.cos(yaw) + rng.normal(0, 0.05, n + (len(yaw),))
+        base = rng.uniform(5, 40) if dist is None else dist
+        image[sl + (0,)] = base + rng.uniform(0, 1.5, n)
+        image[sl + (1,)] = rng.uniform(-1.5, 0.5, n)
+
+    for b in range(batch):
+        if kind == "edges":
+            car(b, 2, 8, 2, 10)  # mask from column 0
+            car(b, 12, h - 8, w - 9, w - 1)  # to column W - 1
+            car(b, 2, 4, w // 3, w // 3 + 20)  # from row 0
+            car(b, h - 4, h - 1, w // 2, w // 2 + 20)  # to row H - 1
+        elif kind == "narrow":
+            c = int(rng.integers(100, w - 200))
+            car(b, 8, 18, c, c)  # a mask 4 columns wide
+            if b % 2 == 0:  # its centroid empty: the mask holds rows 8-17, columns c-2..c+1
+                image[b, 12:14, c - 1:c + 1, 0] = 0.0
+            car(b, 6, 14, c + 60, c + 100)
+        elif kind == "fallback":
+            c = int(rng.integers(100, w - 200))
+            car(b, 8, 20, c, c + 40)
+            cy, cx = (6 + 21) // 2, (c - 2 + c + 41) // 2
+            rad = 1 + b % 3
+            image[b, cy - rad:cy + rad + 1, cx - rad:cx + rad + 1, 0] = 0.0
+        elif kind == "no_window":
+            c = int(rng.integers(100, w - 300))
+            car(b, 8, 20, c, c + 40)
+            image[b, 6 + 2:21 - 1, c - 2 + 2:c + 41 - 1, 0] = 0.0  # the shrunk window, empty
+            car(b, 6, 12, c + 150, c + 180)
+            image[b, 4:14, c + 148:c + 182, 0] = 0.0  # a cluster with no return
+        elif kind == "whole":
+            y[b, ..., 1] = rng.uniform(0.85, 1.0, (h, w))
+            image[b, ..., 0] = 10.0 + rng.uniform(0, 0.5, (h, w))
+            image[b, ..., 1] = rng.uniform(-1.0, 0.5, (h, w))
+        else:
+            for _ in range(int(rng.integers(3, 6))):
+                rows = int(rng.integers(3, max(4, h // 2)))
+                r0 = int(rng.integers(0, h - rows))
+                cols = int(rng.integers(5, 80))
+                c0 = int(rng.integers(0, w - cols))
+                car(b, r0, r0 + rows, c0, c0 + cols - 1)
+    y[..., 0] = 1.0 - y[..., 1]
+    return y.astype(f), image
+
+
+def cluster_decode_options(channels: int) -> dict[str, dict]:
+    """Every center, fit boundary and yaw frame the direct decode kernel
+    covers, as DecodeConfig fields ({name: fields}) on the shipped
+    assets' thresholds (min_prob 0.8, min_bbox_area 8); the auto yaw frame
+    only with a dual-codec head's 12 channels."""
+    frames = ("local", "global", "auto") if channels >= 12 else ("local", "global")
+    base = {"min_prob": 0.8, "min_bbox_area": 8.0}
+    out = {}
+    for yaw_frame in frames:
+        for center in ("backproject", "geometric", "surface", "consensus", "head"):
+            out[f"{center}_{yaw_frame}"] = dict(base, direct_center=center,
+                                                direct_yaw_frame=yaw_frame)
+        for boundary, scale in (("circle", 0.8), ("ellipse", 0.9), ("box", 1.0), ("auto", 0.9)):
+            out[f"fit_{boundary}_{yaw_frame}"] = dict(
+                base, direct_center="fit", direct_yaw_frame=yaw_frame, fit_boundary=boundary,
+                fit_surface_scale=scale)
+    out["fit_auto_box_auto" if channels >= 12 else "fit_auto_box_local"] = dict(
+        base, direct_center="fit", direct_yaw_frame=frames[-1], fit_boundary="auto",
+        fit_boundary_oriented="box", fit_surface_scale=1.0)
+    return out
