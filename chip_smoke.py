@@ -46,6 +46,18 @@ to 0 before it and read after it, and then the training paths:
                10 and 12 channels; its device time in turns with the plain
                version at 64 x 32 x 1801 (k 1), config 5's 16 frames (k 4)
                and 64 x 63 x 1801, beside its bound and an empty kernel
+  phase 1f     the corner head's vote (`csrc/corner_vote.cu`,
+               `tf_corner_vote`) against its plain version
+               (`_golden.corner_kernel_readings`: ok and overflow equal,
+               and on the decided lanes the winner sets equal and pose and
+               box within 1e-4) on the lanes the driven corner paths vote
+               (phase 8's golden frames at K 2048 and 64, the hybrid
+               corner head's k1 / k4 / bf16_k4 steps, the corner row's
+               batches, config 2's replay chunks; no undecided lane) and on
+               every `parity_inputs.corner_inputs` kind at 32 and 63 rows
+               (undecided lanes counted); its device time in turns with
+               the plain version at `kernel_bench.CORNER_SHAPES`, beside
+               its bound (the larger of its bytes and its FP32 FMAs)
   phases 4-5   the float32 direct path with the shipped detector asset
                (`LidarPipeline.predict_position`, `make_e2e_step`,
                batch 64 x 32,768-point beam scans)
@@ -280,6 +292,7 @@ import torch
 
 from tpufusion_torch.benchmarks import card_line
 from tpufusion_torch.kernel_bench import (
+    CORNER_SHAPES,
     DECODE_SHAPES,
     cc_bound_ms,
     device_ms,
@@ -360,17 +373,20 @@ MEASURE_CALLS = 1 + 6 * 3 + 1 + 6
 # the port's kernels, by the names of the kernels line; a driven path's
 # `expect` names those it must launch
 KERNELS = ("project_points", "project_2d", "nearest_wins_image", "connected_components_with_bbox",
-           "nearest_wins_packed_image", "encode_label", "encode_direct_label", "decode_direct")
+           "nearest_wins_packed_image", "encode_label", "encode_direct_label", "decode_direct",
+           "corner_vote")
 SERVING = ("project_points", "nearest_wins_image", "connected_components_with_bbox")
 RANGE_VIEW = SERVING[:2]  # a path that projects points and decodes nothing
 CC_ONLY = SERVING[2:]  # a decode of a view or a mask it is given
 PACKED = ("project_points", "nearest_wins_packed_image", "connected_components_with_bbox")
 DRIVE_COUNTS = KERNELS[2:4]  # the counts `drive` returns: the exact z-buffer's and the CC's
 DIRECT = SERVING + ("decode_direct",)  # a path that decodes with the direct head
+CORNER = SERVING + ("corner_vote",)  # a path that decodes with the corner head
 DIRECT_TRAIN = DIRECT + ("encode_direct_label",)  # a direct head's training with its evals
 PACKED_TIMED = 4  # phase 27: distinct input sets a shape for the packed kernel's times
 PIXEL_SETS = 4  # phase 5: distinct batches for the pixel kernel's times
 DECODE_SETS = 4  # phase 1e: distinct batches a shape for the direct decode's times
+CORNER_SETS = 4  # phase 1f: distinct batches a shape for the corner vote's times
 
 
 _T0 = time.perf_counter()
@@ -385,15 +401,15 @@ def log(msg: str) -> None:
 
 
 def _reset_launches() -> None:
-    from tpufusion_torch.ops import cc, decode_direct, label_encode, pixels, projection
+    from tpufusion_torch.ops import cc, corner_vote, decode_direct, label_encode, pixels, projection
 
     pixels.LAUNCHES = pixels.LAUNCHES_2D = projection.LAUNCHES = cc.LAUNCHES = 0
     projection.PACKED_LAUNCHES = label_encode.LAUNCHES = label_encode.LAUNCHES_DIRECT = 0
-    decode_direct.LAUNCHES = 0
+    decode_direct.LAUNCHES = corner_vote.LAUNCHES = 0
 
 
 def _launches() -> dict[str, int]:
-    from tpufusion_torch.ops import cc, decode_direct, label_encode, pixels, projection
+    from tpufusion_torch.ops import cc, corner_vote, decode_direct, label_encode, pixels, projection
 
     return {"project_points": pixels.LAUNCHES, "project_2d": pixels.LAUNCHES_2D,
             "nearest_wins_image": projection.LAUNCHES,
@@ -401,15 +417,16 @@ def _launches() -> dict[str, int]:
             "nearest_wins_packed_image": projection.PACKED_LAUNCHES,
             "encode_label": label_encode.LAUNCHES,
             "encode_direct_label": label_encode.LAUNCHES_DIRECT,
-            "decode_direct": decode_direct.LAUNCHES}
+            "decode_direct": decode_direct.LAUNCHES, "corner_vote": corner_vote.LAUNCHES}
 
 
 def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
     """Runs one path with every kernel's launch count set to 0, asserts
     that it launched each kernel of `expect` (the kernels on that path),
-    the packed z-buffer and the direct decode kernel only if `expect`
-    names them (a corner path, or one that decodes nothing, launches no
-    direct decode), and that each range
+    the packed z-buffer and the direct decode and corner vote kernels only
+    if `expect` names them (a corner path launches no direct decode, a
+    direct path no corner vote, a path that decodes nothing neither), and
+    that each range
     view went through the pixel kernel (as many pixel launches as z-buffer
     launches, exact and packed), and adds its counts to `totals`.
     Returns (fn's result, the exact z-buffer's and the CC's counts)."""
@@ -425,6 +442,8 @@ def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
         f"{label} launched the packed z-buffer")
     assert counts["decode_direct"] == 0 or "decode_direct" in expect, (
         f"{label} launched the direct decode kernel")
+    assert counts["corner_vote"] == 0 or "corner_vote" in expect, (
+        f"{label} launched the corner vote kernel")
     assert counts["project_points"] == (
         counts["nearest_wins_image"] + counts["nearest_wins_packed_image"]), (
         f"{label}: a range view without the pixel kernel")
@@ -899,6 +918,102 @@ def phase_decode_direct(dev) -> tuple[float, dict, int]:
     return err, times, near
 
 
+def phase_corner_vote(dev, gm) -> tuple[float, dict, dict]:
+    """Phase 1f: the corner vote kernel (`csrc/corner_vote.cu`) against its
+    plain version (`corner_vote_reference`), held to
+    `_golden.corner_kernel_readings`, on the lanes the driven corner paths
+    vote: phase 8's golden corner frames at K 2048 and 64 (k 1 and 4), the
+    hybrid corner head's k1 / k4 / bf16_k4 steps on the golden's frames,
+    the corner row's batches and config 2's replay chunks (both the seeded
+    corner FCN, which brings no lane to stage 2), none undecided; then every
+    `parity_inputs.corner_inputs` kind at 32 and 63 rows, K 64 and 2048
+    (undecided lanes counted); then its device time in turns with the plain
+    version at `kernel_bench.CORNER_SHAPES` beside its bound. Returns
+    (largest pose or box difference, times by shape, lane counts)."""
+    from tpufusion_torch import DecodeConfig, RangeViewSpec
+    from tpufusion_torch._golden import TALL_RES_V_DEG
+    from tpufusion_torch.benchmarks import CFG, point_sets, seeded_fcn
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.kernel_bench import corner_fcn, corner_vote_rows
+    from tpufusion_torch.ops import corner_vote, parity_inputs
+
+    t0 = time.perf_counter()
+    log("phase 1f corner vote (tf_corner_vote) against its plain version")
+    spec = RangeViewSpec()
+    lanes = {"voted": 0, "decided": 0, "undecided": 0, "sensitive": 0,
+             "adversarial_undecided": 0}
+    err = sensitive_err = 0.0
+
+    def held(label, y, images, cfg, k):
+        nonlocal err, sensitive_err
+        bbox, c3, stage2 = corner_vote.corner_lanes(y, images, spec, cfg, k)
+        r = corner_vote.against_plain(y, images, bbox, c3, stage2, spec, cfg)
+        log(f"  {label} (K {cfg.max_candidates}, k {k}): {r}")
+        err = max(err, r["diff"])
+        lanes["voted"] += r["lanes"]
+        lanes["decided"] += r["lanes"] - r["undecided"]
+        lanes["undecided"] += r["undecided"]
+        lanes["sensitive"] += r["sensitive"]
+        sensitive_err = max(sensitive_err, r["diff_sensitive"])
+        assert r["ok"], f"corner_vote differs from its plain version ({label})"
+        assert r["undecided"] == 0, f"{label}: an undecided lane on a driven path"
+
+    with torch.inference_mode():
+        images = range_view_project_batch(
+            torch.from_numpy(gm["multi_points"][:2]).to(dev), spec,
+            torch.from_numpy(gm["multi_valid"][:2]).to(dev))
+        y = torch.from_numpy(gm["corner_ypred"]).to(dev)
+        for cfg in (DecodeConfig(), DecodeConfig(max_candidates=64)):
+            for k in (1, 4):
+                held("phase 8's golden corner frames", y, images, cfg, k)
+        pts = torch.from_numpy(gm["multi_points"]).to(dev)
+        valid = torch.from_numpy(gm["multi_valid"]).to(dev)
+        images = range_view_project_batch(pts, spec, valid)
+        for tag, dtype, k in (("k1", "float32", 1), ("k4", "float32", 4),
+                              ("bf16_k4", "bfloat16", 4)):
+            hybrid, hcfg = corner_fcn("hybrid", dev, dtype)
+            held(f"the hybrid corner head's {tag} step, {len(pts)} golden frames",
+                 hybrid(images), images, hcfg, k)
+        row = seeded_fcn(CFG.model, 0, dev)
+        for label, seed0 in (("the corner row's batch", 100), ("config 2's replay chunk", 0)):
+            for i, (p, v) in enumerate(point_sets(2, BATCH, N_POINTS, dev, seed0=seed0)):
+                im = range_view_project_batch(p, spec, v)
+                held(f"{label} {i}, {BATCH} x {N_POINTS}", row(im), im, CFG.decode, 1)
+        n_cases = 0
+        for rows_spec in (spec, RangeViewSpec(res_v_deg=TALL_RES_V_DEG)):
+            for kind in parity_inputs.CORNER_KINDS:
+                arrays = parity_inputs.corner_inputs(rows_spec, kind, batch=4,
+                                                     seed=rows_spec.height)
+                y, im, bbox, c3, voted = (torch.from_numpy(a).to(dev) for a in arrays)
+                for k in (64, 2048):
+                    cfg = DecodeConfig(max_candidates=k)
+                    r = corner_vote.against_plain(y, im, bbox, c3, voted, rows_spec, cfg)
+                    log(f"  corner_inputs {kind}, {rows_spec.height} rows, K {k}: {r}")
+                    assert r["ok"], f"corner_vote differs from its plain version ({kind})"
+                    err = max(err, r["diff"])
+                    lanes["adversarial_undecided"] += r["undecided"]
+                    n_cases += 1
+    log(f"  driven lanes: {lanes['voted']} voted, {lanes['decided']} decided, "
+        f"{lanes['undecided']} undecided, {lanes['sensitive']} pose-sensitive (the plain pose "
+        f"formula held on the kernel's box; their pose against the plain pose "
+        f"{sensitive_err:.3e}); the adversarial inputs: {n_cases} cases, undecided "
+        f"lanes (counted, exempt) {lanes['adversarial_undecided']}; largest pose or box "
+        f"difference {err:.3e}")
+    times = {}
+    for r in corner_vote_rows(CORNER_SETS):
+        times[r["shape"]] = r
+        log(f"  corner_vote at {r['shape']}: kernel {r['new_device_ms']:.4f} "
+            f"({r['new_call_ms']:.4f}) ms, plain (the composition it replaced) "
+            f"{r['plain_device_ms']:.4f} ({r['plain_call_ms']:.4f}) ms, empty kernel "
+            f"{r['empty_device_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms by {r['bound_by']} "
+            f"({r['bound_bytes']:.0f} B, {r['bound_fmas']:.4g} FMAs, {r['voted_lanes']:.1f} voted "
+            f"lanes, {r['candidates']:.1f} candidates a set), kernel at "
+            f"{r['bound_ms'] / r['new_device_ms']:.1%} of it; undecided / pose-sensitive lanes "
+            f"in its check {r['undecided_lanes']} / {r['sensitive_lanes']}")
+    log(f"  phase 1f took {time.perf_counter() - t0:.1f} s")
+    return err, times, lanes
+
+
 def check_zbuffer(label: str, points, valid, spec) -> None:
     """Holds the z-buffer kernel against its plain version on a path's
     own (B, N) points: bit-identical, or the run fails."""
@@ -1077,9 +1192,14 @@ def phase_corner(dev, spec, gm, batches, totals):
     row's step and its FCN."""
     from tpufusion_torch import DecodeConfig, ModelConfig
     from tpufusion_torch._golden import load_npz
-    from tpufusion_torch.decode.decode import decode_batch, decode_batch_multi
+    from tpufusion_torch.decode.decode import (
+        corner_vote_reference,
+        decode_batch,
+        decode_batch_multi,
+    )
     from tpufusion_torch.geometry.range_view import range_view_project_batch
     from tpufusion_torch.models.io import asset_configs, fcn_from_arrays
+    from tpufusion_torch.ops.corner_vote import corner_lanes
     from tpufusion_torch.predict import make_e2e_step
 
     with torch.inference_mode():
@@ -1106,6 +1226,13 @@ def phase_corner(dev, spec, gm, batches, totals):
                     gm["corner_multi_poses"], gm["corner_multi_found"])
         over = out["vote_overflow"].cpu().numpy()
         assert np.array_equal(over, gm["corner_multi_overflow"]), "vote_overflow differs"
+        # the plain version's Gram product, pinned to full float32 under TF32
+        bbox, c3, stage2 = corner_lanes(y, images, spec, DecodeConfig(), 4)
+        pose, _, ok, _ = corner_vote_reference(y, images, bbox, c3, spec, DecodeConfig())
+        ok = ok & stage2
+        check_poses("corner_vote_reference (the plain version) on decode_batch_multi's lanes",
+                    torch.where(ok[..., None], pose, 0.0), ok, gm["corner_multi_poses"],
+                    gm["corner_multi_found"])
         assert torch.get_float32_matmul_precision() == "high"
         torch.set_float32_matmul_precision("highest")
 
@@ -1132,7 +1259,7 @@ def phase_corner(dev, spec, gm, batches, totals):
     check_poses("bench.py corner row FCN (bf16, seeded init), 3 golden frames",
                 bp, bf, gm["bench_corner_poses"], gm["bench_corner_found"])
     (cp, cf), _ = drive(f"corner row, batch {len(batches[0][0])} x {N_POINTS}",
-                        lambda: cstep(*batches[0]), totals)
+                        lambda: cstep(*batches[0]), totals, expect=CORNER)
     assert cp.shape == (len(batches[0][0]), 7) and torch.isfinite(cp).all()
     return cstep, cmodel
 
@@ -1892,7 +2019,7 @@ def phase_config4(dev, spec, card, totals):
         "they use the shipped assets, driven above)",
         lambda: benchmarks.config4_full_eval(
             dev, "quick_train", frames=C4_FRAMES, batch=TRAIN_BATCH, reps=1, quick_train=depth,
-            companion_frames=0), totals)
+            companion_frames=0), totals, expect=CORNER)
     log(f"  {json.dumps(qrow)} (reduced depth: 2 scene batches x 5 steps) [{card}]")
     assert qrow["weights"] == "quick_train" and qrow["head"] == "corner"
     assert "wide_yaw" not in qrow and "mixed_family" not in qrow
@@ -1994,10 +2121,12 @@ def phase_data_parallel(dev, spec, card, totals):
             log(f"  rank {r}: launches {json.dumps({ph: rank[ph]['launches'] for ph in rank})}; "
                 f"kernels against plain on its own points {json.dumps(holds)}")
             assert rank["train"]["launches"] == {
-                "project_points": 1, "nearest_wins_image": 1, "connected_components_with_bbox": 0}
+                "project_points": 1, "nearest_wins_image": 1, "connected_components_with_bbox": 0,
+                "corner_vote": 0}
             for ph in ("corner", "flagship", "full_width"):
                 assert rank[ph]["launches"] == {
-                    "project_points": 1, "nearest_wins_image": 1, "connected_components_with_bbox": 1}
+                    "project_points": 1, "nearest_wins_image": 1, "connected_components_with_bbox": 1,
+                    "corner_vote": int(ph == "corner")}
                 assert all(rank[ph]["kernels"][k] for k in ("pixels_equal", "zbuffer_equal", "cc_equal"))
         tr = train[label] = out["ranks"][0]["train"]
         if cfg.n_spatial > 1:
@@ -2544,11 +2673,11 @@ def phase_viewer(dev, spec, card, totals, extracted):
         cpred = corner(img[None])
         one, counts = drive("(a) decode_frame, a seeded default-width corner FCN",
                             lambda: decode_frame(cpred[0], img, spec, DEFAULT.decode), totals,
-                            expect=CC_ONLY)
+                            expect=CC_ONLY + ("corner_vote",))
         assert counts == cc_only, counts
         multi, counts = drive("(a) decode_frame_multi(k=4), the same FCN",
                               lambda: decode_frame_multi(cpred[0], img, spec, DEFAULT.decode, 4),
-                              totals, expect=CC_ONLY)
+                              totals, expect=CC_ONLY + ("corner_vote",))
         assert counts == cc_only, counts
         rows = decode_batch(cpred, img[None], spec, DEFAULT.decode)
         mrows = decode_batch_multi(cpred, img[None], spec, DEFAULT.decode, 4)
@@ -2934,7 +3063,7 @@ def phase_headline(dev, spec, card, totals) -> dict:
         with contextlib.redirect_stderr(err):
             row, _ = drive(f"(a) bench.run: {bench.N_SETS} sets of {bench.BATCH} x {bench.N_POINTS} "
                            "points, headline + live + corner + packed + p50", lambda: bench.run(dev),
-                           totals, expect=DIRECT + ("nearest_wins_packed_image",))
+                           totals, expect=DIRECT + ("nearest_wins_packed_image", "corner_vote"))
     finally:
         for line in err.getvalue().splitlines():
             log(f"    bench.run: {line}")
@@ -3377,6 +3506,7 @@ def main(argv=()) -> int:
     enc_err, enc_times = phase_label_encode(dev, (scan_pts, scan_gt, scan_valid))  # phase 1c
     dir_err, dir_times = phase_direct_encode(dev, (scan_pts, scan_gt, scan_valid))  # phase 1d
     dec_err, dec_times, dec_near = phase_decode_direct(dev)  # phase 1e
+    cv_err, cv_times, cv_lanes = phase_corner_vote(dev, load_npz(GOLDEN_MULTI))  # phase 1f
     proj_err = 0.0
     for label, p, v in (("proj_check 4x8192", pts, valid),
                         (f"beam scans {BATCH}x{N_POINTS}", scan_pts, scan_valid)):
@@ -3609,6 +3739,7 @@ def main(argv=()) -> int:
     assert totals["encode_label"] > 0, "no path launched the label-encode kernel"
     assert totals["encode_direct_label"] > 0, "no path launched the direct label-encode kernel"
     assert totals["decode_direct"] > 0, "no path launched the direct decode kernel"
+    assert totals["corner_vote"] > 0, "no path launched the corner vote kernel"
     assert totals["project_points"] == (
         totals["nearest_wins_image"] + totals["nearest_wins_packed_image"]), (
         "a driven range view without the pixel kernel")
@@ -3617,6 +3748,8 @@ def main(argv=()) -> int:
     d32, d63 = dir_times[32, "local"], dir_times[63, "local"]
     d32b, d63b = dir_times[32, "both"], dir_times[63, "both"]
     dl, dc5, d63r = (dec_times[shape[0]] for shape in DECODE_SHAPES)
+    cv = dict(zip(("row", "hybrid", "k4", "63_rows", "full"),
+                  (cv_times[shape[0]] for shape in CORNER_SHAPES)))
     kernels = [
         {"name": "project_points", "route": "cuda",
          "source": "tpufusion_torch/csrc/pixels.cu",
@@ -3691,6 +3824,21 @@ def main(argv=()) -> int:
          "bound_ms_config5": dc5["bound_ms"], "ms_63_rows": d63r["new_device_ms"],
          "plain_ms_63_rows": d63r["plain_device_ms"], "bound_ms_63_rows": d63r["bound_ms"],
          "near_threshold_lanes_exempt": dec_near},
+        {"name": "corner_vote", "route": "cuda",
+         "source": "tpufusion_torch/csrc/corner_vote.cu",
+         "replaces": "tpufusion/decode/decode.py:240",
+         "launches": totals["corner_vote"], "max_abs_err": cv_err,
+         "ms": cv["row"]["new_device_ms"], "plain_ms": cv["row"]["plain_device_ms"],
+         "bound_ms": cv["row"]["bound_ms"], "bound_by": cv["row"]["bound_by"],
+         "library_ms": None, "call_ms": cv["row"]["new_call_ms"],
+         "plain_call_ms": cv["row"]["plain_call_ms"],
+         "launch_floor_ms": cv["row"]["empty_device_ms"],
+         **{f"{key}_{tag}": cv[tag][f"{src}"] for tag in ("hybrid", "k4", "63_rows", "full")
+            for key, src in (("ms", "new_device_ms"), ("plain_ms", "plain_device_ms"),
+                             ("bound_ms", "bound_ms"))},
+         "driven_lanes_voted": cv_lanes["voted"], "driven_lanes_undecided": cv_lanes["undecided"],
+         "driven_lanes_pose_sensitive": cv_lanes["sensitive"],
+         "adversarial_lanes_undecided": cv_lanes["adversarial_undecided"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

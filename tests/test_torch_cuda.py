@@ -1420,3 +1420,127 @@ def test_decode_direct_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="silhouette"):
         run(y_pred, images, *comps, root, found, SPEC, cfg, "silhouette")
     assert decode_direct.LAUNCHES == before
+
+
+# the corner vote kernel (csrc/corner_vote.cu) against its plain version:
+# tpufusion_torch/_golden.py's CORNER_KERNEL_* contract
+
+
+@pytest.mark.parametrize("frames, rows", [(64, 32), (16, 32), (64, 63)])
+@pytest.mark.parametrize("kind", parity_inputs.CORNER_KINDS)
+def test_corner_vote_kernel_on_the_corner_inputs(cuda_device, kind, frames, rows):
+    """Every `parity_inputs.corner_inputs` kind at K 64 and 2048: one launch
+    a call, ok and overflow equal on the voted lanes, zeros on the others,
+    and on the decided lanes the winner sets equal and pose and box within
+    1e-4 (undecided lanes counted)."""
+    from tpufusion_torch.ops import corner_vote
+
+    spec = SPEC if rows == 32 else _tall_spec()
+    arrays = parity_inputs.corner_inputs(spec, kind, batch=frames, seed=rows + frames)
+    y, images, bbox, c3, lanes = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    for k in (64, 2048):
+        r = corner_vote.against_plain(y, images, bbox, c3, lanes, spec,
+                                      DecodeConfig(max_candidates=k))
+        print(f"{kind} {frames} x {rows} rows K {k}: {r}")
+        assert r["ok"], r
+
+
+@pytest.mark.parametrize("shape", range(5))
+def test_corner_vote_kernel_on_the_corner_paths(cuda_device, shape):
+    """The lanes the corner paths vote (`kernel_bench.CORNER_SHAPES`: the
+    corner row's seeded FCN at 64 x 32 x 1801, the corner head on the
+    asset's trunk at 64 frames k 1, 16 frames k 4 and 63 rows, every pixel
+    positive): the contract; no undecided lane but where every pixel is a
+    candidate."""
+    from tpufusion_torch.kernel_bench import CORNER_SHAPES, corner_vote_inputs
+    from tpufusion_torch.ops import corner_vote
+
+    spec, cfg, sets = corner_vote_inputs(cuda_device, CORNER_SHAPES[shape], 1)
+    r = corner_vote.against_plain(*sets[0][:4], sets[0][4], spec, cfg)
+    print(f"{CORNER_SHAPES[shape][0]}: {r}")
+    assert r["ok"], r
+    assert r["undecided"] == 0 or CORNER_SHAPES[shape][-1] == "full", r
+
+
+def test_corner_decode_launches_the_vote_once_without_a_gram_tensor(cuda_device):
+    """decode_batch, decode_batch_multi, corner_vote and a corner
+    make_e2e_step each launch the vote once, and none allocates a (B, n,
+    K, K) array: at 16 frames the vote's peak above its inputs stays under
+    one lane's K x K float32 (16 MiB), each decode's under a quarter of
+    its lanes' (B, n, K, K) float32 (the back-projection's (B, n, H, W)
+    temporaries are in it)."""
+    from tpufusion_torch.kernel_bench import corner_fcn
+    from tpufusion_torch.ops import corner_vote
+
+    model, dcfg = corner_fcn("hybrid", cuda_device)
+    pts, _, valid = synthesize_beam_scan_batch(np.random.default_rng(5), 16, 32768)
+    pts, valid = torch.from_numpy(pts).to(cuda_device), torch.from_numpy(valid).to(cuda_device)
+    with torch.inference_mode():
+        images = range_view_project_batch(pts, SPEC, valid)
+        y = model(images)
+        bbox, c3, _ = corner_vote.corner_lanes(y, images, SPEC, dcfg, 4)
+    step = make_e2e_step(model, SPEC, dcfg, max_obstacles=4, head="corner", device=cuda_device)
+    gram = 2048 * 2048 * 4
+    calls = {
+        "decode_batch": (lambda: decode.decode_batch(y, images, SPEC, dcfg), 16 * gram // 4),
+        "decode_batch_multi": (lambda: decode.decode_batch_multi(y, images, SPEC, dcfg, 4),
+                               64 * gram // 4),
+        "corner_vote": (lambda: decode.corner_vote(y, images, bbox, c3, SPEC, dcfg), gram),
+        "make_e2e_step": (lambda: step(pts, valid), None),  # its range view and maps too
+    }
+    for name, (fn, limit) in calls.items():
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = corner_vote.LAUNCHES
+            fn()
+            torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        print(f"{name}: {extra / 2**20:.1f} MiB above its inputs")
+        assert corner_vote.LAUNCHES == before + 1, name
+        assert limit is None or extra < limit, (name, extra)
+
+
+def test_corner_vote_kernel_raises_when_the_build_fails(cuda_device, monkeypatch, tmp_path):
+    """No fallback: a library that cannot be built makes the wrapper raise."""
+    from tpufusion_torch import _build
+    from tpufusion_torch.ops import corner_vote
+
+    def fail(_out):
+        raise RuntimeError("nvcc failed (test)")
+
+    arrays = parity_inputs.corner_inputs(SPEC, "ties", batch=1)
+    y, images, bbox, c3, lanes = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "library_path", lambda: str(tmp_path / "missing.so"))
+    monkeypatch.setattr(_build, "_compile", fail)
+    before = corner_vote.LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        corner_vote.corner_vote_lanes(y, images, bbox, c3, lanes, SPEC, DecodeConfig())
+    assert corner_vote.LAUNCHES == before
+
+
+def test_corner_vote_kernel_rejects_bad_inputs(cuda_device):
+    from tpufusion_torch.ops import corner_vote
+
+    arrays = parity_inputs.corner_inputs(SPEC, "ties", batch=1)
+    y, images, bbox, c3, lanes = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    run = corner_vote.corner_vote_lanes
+    before = corner_vote.LAUNCHES
+    with pytest.raises(ValueError, match="C >= 26"):
+        run(y[..., :10], images, bbox, c3, lanes, SPEC, DecodeConfig())
+    with pytest.raises(ValueError, match="float tensor"):
+        run(y.int(), images, bbox, c3, lanes, SPEC, DecodeConfig())
+    with pytest.raises(ValueError, match="integer"):
+        run(y, images, bbox.float(), c3, lanes, SPEC, DecodeConfig())
+    with pytest.raises(ValueError, match="centroid_3d must be"):
+        run(y, images, bbox, c3.double(), lanes, SPEC, DecodeConfig())
+    with pytest.raises(ValueError, match="lanes must be"):
+        run(y, images, bbox, c3, lanes.int(), SPEC, DecodeConfig())
+    with pytest.raises(ValueError, match="spec's"):
+        run(y, images, bbox, c3, lanes, _tall_spec(), DecodeConfig())
+    assert corner_vote.LAUNCHES == before
+    pose, box, ok, over = run(y.to(torch.bfloat16), images, bbox, c3, lanes, SPEC,
+                              DecodeConfig())  # converted to float32, as the plain version reads it
+    assert corner_vote.LAUNCHES == before + 1 and bool(ok.any())

@@ -148,6 +148,94 @@ def direct_kernel_readings(got_poses, got_found, want_poses, want_found, windows
                 DIRECT_KERNEL_WIDE_ATOL if adversarial else DIRECT_KERNEL_ATOL)}
 
 
+# The corner vote kernel (csrc/corner_vote.cu) against its plain version
+# (decode.corner_vote_reference). The two sum the Gram products and the
+# corners' 3-term rotations in other orders, so a pair whose d2 lies near
+# 1e-9 or max_bbox_dist^2 may count in one and not the other. A lane is
+# decided where no flip of its undecided pairs (d2 within CORNER_PAIR_REL
+# of a threshold, relative to the larger of it and sq_i + sq_j) or of a
+# near test within CORNER_NEAR_REL of a corner's size can change its
+# winner set. ok and overflow equal on every voted lane; on the decided
+# ones the winner sets equal, the box within CORNER_KERNEL_ATOL, and the
+# pose (yaw as an angle) within CORNER_KERNEL_ATOL. The two boxes, one
+# winner set summed in two orders, still differ in the last bits, and on
+# some lanes the reference's pose formula throws that far: an atan2 at its
+# branch cut, l and w divided by a cos(yaw) near 0, a box too small for a
+# yaw. A lane is pose-sensitive where its box's coordinates moved by
+# CORNER_POSE_STEP of its largest (a float32 step of it or half of one)
+# move its pose by more than half of CORNER_KERNEL_ATOL; there the pose is
+# held to the plain version's formula on the kernel's own box instead, and
+# its difference from the plain pose is reported. Undecided and
+# pose-sensitive lanes are counted.
+CORNER_KERNEL_ATOL = 1e-4
+CORNER_PAIR_REL = 1e-5
+CORNER_NEAR_REL = 1e-6
+CORNER_POSE_STEP = 2.0**-23
+
+
+def corner_decided(counts, undecided, near_undecided) -> np.ndarray:
+    """(B, n) bool: the lanes whose winner set no flip of an undecided
+    pair or near test can change (numpy of the plain version's readings:
+    counts, undecided pairs and near_undecided (B, n, K)). Each
+    candidate's count may move by its undecided pairs u: a lone winner w
+    stays where c_w - u_w exceeds every other valid c_i + u_i; tied
+    winners stay where none of them has an undecided pair and every other
+    valid c_i + u_i is below them."""
+    counts, undecided = np.asarray(counts, np.int64), np.asarray(undecided, np.int64)
+    valid = counts >= 0
+    win = valid & (counts == counts.max(axis=-1, keepdims=True))
+    lo = np.where(win, counts - undecided, np.iinfo(np.int64).max).min(axis=-1)
+    hi = np.where(valid & ~win, counts + undecided, np.iinfo(np.int64).min).max(axis=-1)
+    single = win.sum(axis=-1) == 1
+    steady = np.where(win, undecided, 0).max(axis=-1, initial=0) == 0
+    return (hi < lo) & (single | steady) & ~np.asarray(near_undecided).any(axis=-1)
+
+
+def corner_kernel_readings(got: dict, want: dict, readings: dict, lanes) -> dict:
+    """The contract's readings on (B, n) lanes, numpy: `got` and `want`
+    hold "pose", "box", "ok", "overflow" and "counts" (B, n, K; the
+    kernel's only on the real slots), `got` also "box_pose" (the plain
+    version's pose formula on the kernel's box), `readings` the plain
+    version's, `lanes` the voted lanes (the kernel writes zeros and False
+    on the others). Returns "lanes" (voted), "undecided" (voted, not
+    decided), "sensitive" (decided and pose-sensitive), "ok_equal" and
+    "overflow_equal" (every voted lane), "masked_zero" (the others all
+    zero), "winners_equal" (decided lanes), "diff" (the largest box or
+    held pose difference there), "diff_sensitive" (the largest pose
+    difference on the sensitive lanes, reported) and "ok"."""
+    lanes = np.asarray(lanes, bool)
+    real = np.asarray(readings["slots"]) >= 0
+    decided = lanes & corner_decided(readings["counts"], readings["undecided"],
+                                     readings["near_undecided"])
+    sensitive = decided & np.asarray(readings["pose_sensitive"], bool)
+
+    def winners(counts):
+        counts = np.where(real, np.asarray(counts), -1)
+        return (counts >= 0) & (counts == counts.max(axis=-1, keepdims=True))
+
+    same = (winners(got["counts"]) == winners(want["counts"])).all(axis=-1)
+    pose = wrapped_pose_diff(np.asarray(got["pose"]), np.asarray(want["pose"])).max(axis=-1)
+    own = wrapped_pose_diff(np.asarray(got["pose"]), np.asarray(got["box_pose"])).max(axis=-1)
+    box = np.abs(np.asarray(got["box"], np.float64) - want["box"]).max(axis=(-2, -1))
+    held = np.maximum(box, np.where(sensitive, own, pose))
+    out = {
+        "lanes": int(lanes.sum()), "undecided": int((lanes & ~decided).sum()),
+        "sensitive": int(sensitive.sum()),
+        "ok_equal": bool((np.asarray(got["ok"]) == want["ok"])[lanes].all()),
+        "overflow_equal": bool((np.asarray(got["overflow"]) == want["overflow"])[lanes].all()),
+        "masked_zero": bool(not np.asarray(got["ok"])[~lanes].any()
+                            and not np.asarray(got["overflow"])[~lanes].any()
+                            and not np.asarray(got["pose"])[~lanes].any()
+                            and not np.asarray(got["box"])[~lanes].any()),
+        "winners_equal": bool(same[decided].all()),
+        "diff": float(held[decided].max(initial=0.0)),
+        "diff_sensitive": float(pose[sensitive].max(initial=0.0)),
+    }
+    out["ok"] = (out["ok_equal"] and out["overflow_equal"] and out["masked_zero"]
+                 and out["winners_equal"] and out["diff"] <= CORNER_KERNEL_ATOL)
+    return out
+
+
 def load_npz(path: str) -> dict[str, np.ndarray]:
     with np.load(path) as z:
         return {k: z[k] for k in z.files}

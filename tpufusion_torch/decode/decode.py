@@ -20,11 +20,18 @@ the reference:
                      reference's (the batch forms are private helpers)
   back_project_2d_to_3d       bbox-center pixel (nearest valid fallback)
                      -> 3D point
-  corner_vote        candidates in column-major scan order up to
-                     max_candidates, corners decoded per candidate,
-                     neighbour counts in the Gram form, tied winners
-                     averaged, pose from the box's corner geometry
-  decode_batch / decode_batch_multi   the corner decode, k = 1 / top-k
+  corner_vote_reference   the plain version of the corner vote kernel
+                     (`ops/corner_vote.py`): candidates in column-major
+                     scan order up to max_candidates, corners decoded per
+                     candidate, neighbour counts in the Gram form over
+                     whole (B, n, K, K) tensors, tied winners averaged,
+                     pose from the box's corner geometry
+  corner_vote        the kernel's wrapper on every lane (the plain
+                     version on the CPU)
+  decode_batch / decode_batch_multi   the corner decode, k = 1 / top-k:
+                     the heat mask, the CC, the top-k roots and the
+                     back-projection, then the vote on the lanes that
+                     reached stage 2
   _direct_pose_from_cluster   prob-weighted lwh and yaw (local, global
                      or the dual-codec "auto" gate), the surface-point
                      mean and, for the "head" center, the head's center
@@ -64,6 +71,7 @@ from tpufusion_torch.geometry.encoding import (
 )
 from tpufusion_torch.ops.libm_f32 import sqrt_f32
 from tpufusion_torch.ops.cc import connected_components_with_bbox
+from tpufusion_torch.ops.corner_vote import corner_vote_lanes
 from tpufusion_torch.ops.decode_direct import decode_direct_clusters
 
 _SENTINEL = 1e8  # reference uses 10e7 for "no valid pixel"
@@ -285,17 +293,18 @@ def back_project_2d_to_3d(
 
 
 @_full_f32_matmuls()
-def corner_vote(
+def corner_vote_reference(
     y_pred: torch.Tensor,  # (B, H, W, 2 + 24)
     image: torch.Tensor,  # (B, H, W, >=2)
     bbox: torch.Tensor,  # (B, n, 4) [l, t, r, b]
     centroid_3d: torch.Tensor,  # (B, n, 3)
     spec: RangeViewSpec = RangeViewSpec(),
     cfg: DecodeConfig = DecodeConfig(),
+    readings: dict | None = None,
 ):
-    """The reference's corner vote, one per lane (B, n). Returns (pose
-    (B, n, 7) [xyz, yaw, l, w, h], box (B, n, 8, 3), ok (B, n),
-    overflow (B, n)).
+    """The plain version of the corner vote kernel (`ops/corner_vote.py`):
+    the reference's vote, one per lane (B, n). Returns (pose (B, n, 7)
+    [xyz, yaw, l, w, h], box (B, n, 8, 3), ok (B, n), overflow (B, n)).
 
     Candidates are the pixels in the bbox +- margins whose row and column
     hold a positive anywhere in the frame, taken in the reference's
@@ -309,7 +318,18 @@ def corner_vote(
     the reference's Gram form sq_i + sq_j - 2 <c_i, c_j>, centred on the
     centroid, so pairs at the threshold fall as in the reference. The
     Gram product is (B, n, K, K) float32, 16 MiB per lane at K = 2048.
-    Every matmul here runs in full float32 (`_full_f32_matmuls`)."""
+    Every matmul here runs in full float32 (`_full_f32_matmuls`).
+
+    With a dict `readings`, it also says how far each lane's winner set is
+    from changing (`_golden.corner_kernel_readings` reads them): "total"
+    (B, n) candidates; "slots" (B, n, K) each real slot's flat pixel (-1
+    past the candidates); "counts" (B, n, K) (-1 where not valid);
+    "undecided" (B, n, K) each candidate's valid pairs whose d2 lies near
+    a count threshold (`_undecided_pairs`); "near_undecided" (B, n, K) the
+    real candidates whose near test a step of CORNER_NEAR_REL of a
+    corner's size could flip; "pose_sensitive" (B, n) the lanes whose pose
+    a last-bit move of the box throws (`_pose_moves`); and "gap" (B, n),
+    the max count less the next one (-1 counting as the lowest)."""
     b, h, w = y_pred.shape[:3]
     n = bbox.shape[1]
     dev = y_pred.device
@@ -343,6 +363,7 @@ def corner_vote(
     sel = sel.scatter(-1, slot, ids)[..., :k]
     sel_col, sel_row = sel // h, sel % h
     sel_valid = torch.arange(k, device=dev) < total[..., None]
+    real = sel_valid
 
     pix = (sel_row * w + sel_col).reshape(b, n * k)
     reg = _at(y_pred, pix)[..., 2:26].reshape(b, n, k, 8, 3)
@@ -375,6 +396,8 @@ def corner_vote(
     d2.clamp_(min=0.0)
     d2.diagonal(dim1=-2, dim2=-1).zero_()
     pair_ok = (d2 > 1e-9) & (d2 < cfg.max_bbox_dist**2)
+    if readings is not None:
+        readings["undecided"] = _undecided_pairs(d2, sq, sel_valid, cfg)
     del d2
     pair_ok &= sel_valid[..., None, :]
     pair_ok &= sel_valid[..., :, None]
@@ -386,7 +409,30 @@ def corner_vote(
     box = box.reshape(b, n, 8, 3) / n_win[..., None, None]
     ok = sel_valid.any(dim=-1)
 
-    # pose from the corner geometry (predict.py:166-197)
+    pose = _corner_pose(box)
+    pose = torch.where(ok[..., None], pose, 0.0)
+    box = torch.where(ok[..., None, None], box, 0.0)
+    if readings is not None:
+        from tpufusion_torch._golden import CORNER_NEAR_REL
+
+        readings["total"] = total
+        readings["slots"] = torch.where(real, sel_row * w + sel_col, -1)
+        readings["counts"] = counts
+        x = (corners - c3).abs()
+        tol = CORNER_NEAR_REL * torch.maximum(corners.abs(), c3.abs())
+        maybe_in = (x <= delta + tol).all(dim=-1).all(dim=-1)
+        maybe_out = (x > delta - tol).any(dim=-1).any(dim=-1)
+        readings["near_undecided"] = real & maybe_in & maybe_out
+        readings["pose_sensitive"] = ok & _pose_moves(box, pose)
+        top = counts.amax(dim=-1, keepdim=True)
+        second = torch.where(counts < top, counts, -1).amax(dim=-1)
+        readings["gap"] = torch.where(ok, top[..., 0] - second, -1)
+    return pose, box, ok, total > k
+
+
+def _corner_pose(box: torch.Tensor) -> torch.Tensor:
+    """(..., 8, 3) box -> (..., 7) pose [xyz, yaw, l, w, h] from its corner
+    geometry (predict.py:166-197)."""
     dx = box[..., 0:4, 0] - box[..., 4:8, 0]
     dy = box[..., 0:4, 1] - box[..., 4:8, 1]
     yaw = torch.atan2(dy, dx)
@@ -398,7 +444,7 @@ def corner_vote(
     dy2 = box[..., 0:4, 1] - box[..., 2:6, 1]
     box_w = torch.where(big, dy2 / safe_cos, dx2)
     box_h = torch.abs(box[..., 0:4, 2] - box[..., 1:5, 2])
-    pose = torch.cat(
+    return torch.cat(
         [
             box.mean(dim=-2),
             torch.stack(
@@ -413,20 +459,80 @@ def corner_vote(
         ],
         dim=-1,
     )
-    pose = torch.where(ok[..., None], pose, 0.0)
-    box = torch.where(ok[..., None, None], box, 0.0)
-    return pose, box, ok, total > k
 
 
-def _corner_lanes(y_pred, images, centroid, bbox, found, spec, cfg):
-    """The corner decode's stages per lane (B, n), from the 2D cluster
-    on: (stage1, stage2, xyz, pose, box, ok, overflow)."""
+def _pose_moves(box: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """(...) bool: the lanes whose pose moves by more than half of
+    CORNER_KERNEL_ATOL (yaw as an angle) when the box's coordinates move by
+    CORNER_POSE_STEP of its largest, in 22 patterns of signs (each corner
+    bit against the others, and each corner alone, across all or
+    alternate coordinates): an atan2 at its branch cut, l and w divided
+    by a cos(yaw) near 0, or a box too small for its yaw to be defined."""
+    from tpufusion_torch._golden import CORNER_KERNEL_ATOL, CORNER_POSE_STEP
+
+    k = torch.arange(8, device=box.device)
+    coords = torch.tensor([[1.0, 1.0, 1.0], [1.0, -1.0, 1.0]], dtype=box.dtype).to(box.device)
+    corner = [torch.where(k & bit > 0, -1.0, 1.0) for bit in (4, 2, 1)]
+    corner += [(k == q).to(box.dtype) for q in range(8)]
+    signs = torch.stack([c.to(box.dtype)[:, None] * xyz for c in corner for xyz in coords])
+    step = CORNER_POSE_STEP * box.abs().amax(dim=(-2, -1))[..., None, None, None]
+    moved = _corner_pose(box[..., None, :, :] + step * signs)
+    d = moved - pose[..., None, :]
+    d[..., 3] = torch.remainder(d[..., 3] + math.pi, 2 * math.pi) - math.pi
+    return (d.abs() > CORNER_KERNEL_ATOL / 2).any(dim=-1).any(dim=-1)
+
+
+def _undecided_pairs(d2, sq, valid, cfg) -> torch.Tensor:
+    """(B, n, K) each valid candidate's valid pairs (i != j) whose d2 lies
+    within CORNER_PAIR_REL of a count threshold (1e-9, max_bbox_dist^2),
+    relative to the larger of the threshold and sq_i + sq_j (the scale of
+    the Gram form's rounding): a pair that float32 sums in another order
+    could put on the threshold's other side."""
+    from tpufusion_torch._golden import CORNER_PAIR_REL
+
+    scale = sq[..., :, None] + sq[..., None, :]
+    near = torch.zeros_like(d2, dtype=torch.bool)
+    for t in (1e-9, cfg.max_bbox_dist**2):
+        near |= (d2 - t).abs() <= CORNER_PAIR_REL * scale.clamp(min=t)
+    near &= valid[..., None, :] & valid[..., :, None]
+    near.diagonal(dim1=-2, dim2=-1).zero_()
+    return near.sum(dim=-1)
+
+
+def corner_vote(
+    y_pred: torch.Tensor,  # (B, H, W, 2 + 24)
+    image: torch.Tensor,  # (B, H, W, >=2)
+    bbox: torch.Tensor,  # (B, n, 4) [l, t, r, b]
+    centroid_3d: torch.Tensor,  # (B, n, 3)
+    spec: RangeViewSpec = RangeViewSpec(),
+    cfg: DecodeConfig = DecodeConfig(),
+):
+    """The reference's corner vote, one per lane (B, n): (pose (B, n, 7)
+    [xyz, yaw, l, w, h], box (B, n, 8, 3), ok (B, n), overflow (B, n)),
+    every lane voted. The kernel's wrapper (`ops/corner_vote.py`) runs
+    it: the kernel for CUDA tensors, `corner_vote_reference` on the CPU."""
+    return corner_vote_lanes(y_pred, image, bbox, centroid_3d, None, spec, cfg)
+
+
+def _corner_stages(images, centroid, bbox, found, spec, cfg):
+    """The corner decode's stages per lane (B, n) before the vote:
+    (stage1, stage2, xyz): a 2D cluster found off the origin pixel, then
+    its back-projection to a 3D centroid off the z axis."""
     stage1 = found & ~((centroid[..., 0] == 0) & (centroid[..., 1] == 0))
     xyz, _, bp_ok = back_project_2d_to_3d(
         centroid, bbox, images[..., 0], images[..., 1], spec, cfg
     )
     stage2 = stage1 & bp_ok & ~((xyz[..., 0] == 0.0) & (xyz[..., 1] == 0.0))
-    pose, box, cv_ok, overflow = corner_vote(y_pred, images, bbox, xyz, spec, cfg)
+    return stage1, stage2, xyz
+
+
+def _corner_lanes(y_pred, images, centroid, bbox, found, spec, cfg):
+    """The corner decode's stages per lane (B, n), from the 2D cluster
+    on: (stage1, stage2, xyz, pose, box, ok, overflow). The vote runs on
+    the lanes that reached stage 2; on the card the kernel writes zeros
+    on the others, which every caller masks."""
+    stage1, stage2, xyz = _corner_stages(images, centroid, bbox, found, spec, cfg)
+    pose, box, cv_ok, overflow = corner_vote_lanes(y_pred, images, bbox, xyz, stage2, spec, cfg)
     return stage1, stage2, xyz, pose, box, stage2 & cv_ok, overflow
 
 

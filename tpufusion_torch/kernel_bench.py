@@ -43,9 +43,15 @@ decode kernel and its plain version (the torch composition it replaced)
 in turns, beside an empty kernel (the launch floor) and the kernel's
 bound (the bytes its lanes need on the run's data,
 `decode_direct_bound_bytes`), at DECODE_SHAPES: 64 x 32 x 1801 at k 1 with the live asset's
-clusters, config 5's 16 frames at k 4, and 64 x 63 x 1801 at k 1.
-`--kernels` picks among exact, cc, packed, encode, encode_direct and
-decode_direct. With `--out FILE`
+clusters, config 5's 16 frames at k 4, and 64 x 63 x 1801 at k 1. The
+corner_vote rows time the corner head's vote kernel and its plain version
+(the torch composition it replaced) likewise, beside its bound (the
+larger of its bytes at 3.35 TB/s and its FP32 FMAs, 24 a candidate pair,
+at 67 TFLOP/s, `corner_vote_bound`), at CORNER_SHAPES: the corner row's
+64 frames (its seeded FCN votes no lane), the corner head on the asset's
+trunk at 64 frames k 1, 16 frames k 4 and 63 rows, and every lane at 2048
+candidates (at most 6 sets). `--kernels` picks among exact, cc, packed,
+encode, encode_direct, decode_direct and corner_vote. With `--out FILE`
 the rows are also written there as JSON.
 
     python -m tpufusion_torch.kernel_bench --dsmem-probe
@@ -772,6 +778,135 @@ def decode_direct_rows(sets: int = 12, shapes=DECODE_SHAPES) -> list[dict]:
     return rows
 
 
+FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, NVIDIA's data sheet
+
+
+def corner_vote_bound(y_pred, image, bbox, centroid_3d, lanes, cfg) -> dict:
+    """The corner vote's least time on this run's data: its bytes (each
+    frame's positive channel, 4 B a pixel; each voted lane's bbox,
+    centroid and flag in and its pose, box and flags out; each real
+    candidate's 24 regressions, distance and height) at 3.35 TB/s, and its
+    FP32 FMAs (24 a pair over the real candidates' n_c^2 pairs of each
+    voted lane) at 67 TFLOP/s; {"bytes", "fmas", "bound_ms", "bound_by",
+    "lanes", "candidates" (real, summed)}."""
+    b, h, w = y_pred.shape[:3]
+    k = min(cfg.max_candidates, h * w)
+    pos = y_pred[..., 1] >= cfg.min_prob
+    col, row = pos.any(dim=1), pos.any(dim=2)  # (B, W), (B, H)
+    cols = torch.arange(w, device=pos.device)
+    rows = torch.arange(h, device=pos.device)
+    lo_c, hi_c = bbox[..., 0:1] - cfg.margin_x, bbox[..., 2:3] + cfg.margin_x
+    lo_r, hi_r = bbox[..., 1:2] - cfg.margin_y, bbox[..., 3:4] + cfg.margin_y
+    n_cols = (col[:, None] & (cols >= lo_c) & (cols < hi_c)).sum(dim=-1)
+    n_rows = (row[:, None] & (rows >= lo_r) & (rows < hi_r)).sum(dim=-1)
+    voted = torch.ones(bbox.shape[:2], dtype=torch.bool, device=bbox.device) if lanes is None \
+        else lanes
+    n_c = torch.where(voted, (n_cols * n_rows).clamp(max=k), 0).double()
+    n_lanes = int(voted.sum())
+    need = b * h * w * 4 + n_lanes * (32 + 12 + 1 + 4 * (7 + 24) + 2) + 26 * 4 * float(n_c.sum())
+    fmas = 24.0 * float((n_c * n_c).sum())
+    t_bytes, t_ops = need / HBM_BYTES_PER_S, 2.0 * fmas / FP32_FLOPS
+    return {"bytes": need, "fmas": fmas, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "lanes": n_lanes,
+            "candidates": float(n_c.sum())}
+
+
+CORNER_SHAPES = (  # label, frames, points a frame, beams, res_v_deg, k, FCN
+    ("64 x 32 x 1801, k 1, the corner row's seeded FCN", 64, 32768, 32, 1.33, 1, "row"),
+    ("64 x 32 x 1801, k 1, the corner head on the asset's trunk", 64, 32768, 32, 1.33, 1,
+     "hybrid"),
+    ("16 x 32 x 1801, k 4, the corner head on the asset's trunk", 16, 32768, 32, 1.33, 4,
+     "hybrid"),
+    ("64 x 63 x 1801, k 1, 64 beams, the corner head on the asset's trunk", 64, 32768, 64, 0.665,
+     1, "hybrid"),
+    ("64 x 32 x 1801, k 1, every pixel positive (2048 candidates a lane)", 64, 32768, 32, 1.33,
+     1, "full"),
+)
+
+
+def corner_fcn(which: str, dev, dtype: str = "bfloat16"):
+    """(FCN, its decode config) of a corner path: "row" the corner row's
+    (and config 2's) seeded default-width corner head in bf16, else the
+    shipped asset's trunk with the multi golden's corner regression branch
+    in `dtype` (phase 8's hybrid steps)."""
+    import dataclasses
+
+    from tpufusion_torch._golden import hybrid_corner_arrays, load_npz
+    from tpufusion_torch.benchmarks import CFG, seeded_fcn
+    from tpufusion_torch.models.io import asset_configs, fcn_from_arrays
+
+    if which == "row":
+        return seeded_fcn(CFG.model, 0, dev), CFG.decode
+    asset = os.path.join(_REPO, "tpufusion", "assets", "synthetic_detector.npz")
+    mcfg, dcfg = asset_configs(asset)
+    arrays = hybrid_corner_arrays(load_npz(asset), load_npz(os.path.join(
+        _REPO, "tests", "data", "torch_port_golden_multi.npz")))
+    mcfg = dataclasses.replace(mcfg, head="corner", dtype=dtype)
+    return fcn_from_arrays(arrays, mcfg, device=dev).eval(), dcfg
+
+
+def corner_vote_inputs(dev, shape, sets: int, seed0: int = 1700):
+    """(spec, decode config, [(y_pred, image, bbox, centroid_3d, stage2),
+    ...]) at one of CORNER_SHAPES: the path's FCN on distinct beam-scan
+    batches and the lanes `decode_batch` / `decode_batch_multi` vote ("full":
+    the hybrid's outputs with every probability set to 0.9)."""
+    from tpufusion_torch import RangeViewSpec
+    from tpufusion_torch.benchmarks import point_sets
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.ops.corner_vote import corner_lanes
+
+    _, frames, n_points, beams, res_v, k, which = shape
+    model, dcfg = corner_fcn("row" if which == "row" else "hybrid", dev)
+    spec = RangeViewSpec(res_v_deg=res_v)
+    out = []
+    with torch.inference_mode():
+        for p, v in point_sets(sets, frames, n_points, dev, n_beams=beams, seed0=seed0):
+            image = range_view_project_batch(p, spec, v)
+            y_pred = model(image)
+            if which == "full":
+                y_pred[..., 1] = 0.9
+            out.append((y_pred, image, *corner_lanes(y_pred, image, spec, dcfg, k)))
+    return spec, dcfg, out
+
+
+def corner_vote_rows(sets: int = 6, shapes=CORNER_SHAPES) -> list[dict]:
+    """The corner vote kernel's rows: the kernel and its plain version
+    (the torch composition it replaced) in turns, and an empty kernel (the
+    launch floor), at each of `shapes`, beside the kernel's bound
+    (`corner_vote_bound`) on the same inputs; the contract held on the
+    first two sets (undecided and pose-sensitive lanes counted)."""
+    from tpufusion_torch.decode.decode import corner_vote_reference
+    from tpufusion_torch.ops import corner_vote
+
+    dev = torch.device("cuda", 0)
+    rows = []
+    for shape in shapes:
+        spec, cfg, args = corner_vote_inputs(dev, shape, sets)
+        with torch.inference_mode():
+            checks = [corner_vote.against_plain(*a[:4], a[4], spec, cfg) for a in args[:2]]
+            assert all(r["ok"] for r in checks), (shape[0], checks)
+            fns = {"new": lambda a: corner_vote.corner_vote_lanes(*a, spec, cfg),
+                   "plain": lambda a: corner_vote_reference(*a[:4], spec, cfg),
+                   "empty": empty_kernel}
+            call = time_turns(fns, args, time_ms)
+            dev_t = time_turns(fns, args, lambda fn, xs: (
+                queued_each if fn is fns["plain"] else queued_ms)(fn, xs))
+        bounds = [corner_vote_bound(*a, cfg) for a in args]
+        mean = {key: sum(b[key] for b in bounds) / sets
+                for key in ("bytes", "fmas", "bound_ms", "lanes", "candidates")}
+        rows.append({"shape": shape[0], "kernel": "corner_vote",
+                     "bound_ms": mean["bound_ms"], "bound_bytes": mean["bytes"],
+                     "bound_fmas": mean["fmas"], "bound_by": (
+                         "bytes" if mean["bytes"] / HBM_BYTES_PER_S >= 2 * mean["fmas"] / FP32_FLOPS
+                         else "operations"),
+                     "voted_lanes": mean["lanes"], "candidates": mean["candidates"],
+                     "undecided_lanes": sum(r["undecided"] for r in checks),
+                     "sensitive_lanes": sum(r["sensitive"] for r in checks),
+                     **{f"{k}_call_ms": v for k, v in call.items()},
+                     **{f"{k}_device_ms": v for k, v in dev_t.items()}})
+    return rows
+
+
 def dsmem_probe() -> str:
     """Builds and runs probes/dsmem_min64.cu; returns what it prints."""
     from tpufusion_torch import _build
@@ -788,7 +923,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", help="directory with the earlier design's .cu sources")
     ap.add_argument("--sets", type=int, default=12, help="distinct batches per timing")
-    ap.add_argument("--kernels", default="exact,cc,packed,encode,encode_direct,decode_direct",
+    ap.add_argument("--kernels",
+                    default="exact,cc,packed,encode,encode_direct,decode_direct,corner_vote",
                     help="which kernels' rows: exact and cc need --old-csrc")
     ap.add_argument("--dsmem-probe", action="store_true",
                     help="also build and run probes/dsmem_min64.cu")
@@ -810,6 +946,8 @@ def main() -> int:
         rows += encode_direct_rows(args.sets)
     if "decode_direct" in kernels:
         rows += decode_direct_rows(args.sets)
+    if "corner_vote" in kernels:
+        rows += corner_vote_rows(min(args.sets, 6))
     for r in rows:
         names = [k[: -len("_device_ms")] for k in r if k.endswith("_device_ms")]
         times = ", ".join(

@@ -704,3 +704,170 @@ def cluster_decode_options(channels: int) -> dict[str, dict]:
         base, direct_center="fit", direct_yaw_frame=frames[-1], fit_boundary="auto",
         fit_boundary_oriented="box", fit_surface_scale=1.0)
     return out
+
+
+# The corner vote kernel's inputs (`csrc/corner_vote.cu`, `ops/corner_vote.py`):
+# a corner-head output (B, H, W, 26), its image (B, H, W, 3), lanes' bboxes
+# (B, n, 4), 3D centroids (B, n, 3) and the lanes to vote (B, n; frame 1's
+# first lane left out where there are two frames). A frame's positives are
+# placed column by column on its lanes' windows and on one column no
+# window reaches, which holds a positive on every positive row, so each
+# lane's candidate set (its window's positive columns x positive rows) is
+# chosen exactly; its candidates' regressions are inverted from target
+# corners (a 4.2 x 1.6 x 1.5 box about the centroid, moved as the kind
+# says) through the plain version's rotation in float64. "edges" windows
+# clipped at column 0, column W - 1, row 0 and row H - 1, with three rows
+# and a column inside the windows without a positive; "budget" totals of
+# 0, 64, 65, 2048 and 2049 candidates (K 64 and 2048 each see one exactly
+# at K and one at K + 1); "ties" two and three equal groups 2.5 m apart
+# (tied winners) beside one clear group; "duplicates" candidates with one
+# target (d2 at rounding noise: undecided pairs) and half of them so;
+# "threshold" two groups exactly max_bbox_dist apart (undecided pairs at
+# 25); "far" candidates beyond far_delta beside valid ones, and a lane
+# with none valid; "random" uniform regressions, as a seeded FCN gives.
+CORNER_KINDS = ("edges", "budget", "ties", "duplicates", "threshold", "far", "random")
+_CORNER_BOX = (4.2, 1.6, 1.5)
+
+
+def _box_corners(yaw: float) -> np.ndarray:
+    """(8, 3) float64 corners of the 4.2 x 1.6 x 1.5 box at `yaw` about 0,
+    in the order of `geometry/boxes.py::box_corners_3d`."""
+    l, w, h = _CORNER_BOX
+    k = np.arange(8)  # geometry/boxes.py's corner order
+    x = np.where(k < 4, -1, 1) * l / 2
+    y = np.where(k % 4 < 2, 1, -1) * w / 2
+    z = np.where(k % 2 == 0, 1, -1) * h / 2
+    c, s = np.cos(yaw), np.sin(yaw)
+    return np.stack([c * x - s * y, s * x + c * y, z], axis=-1)
+
+
+def _regressions(targets, rows, cols, image, spec) -> np.ndarray:
+    """(m, 24) float32 regressions whose decoded corners are `targets`
+    (m, 8, 3) at pixels (rows, cols): c' = R^T (c - p), float64."""
+    theta = (cols + spec.x_min) * spec.res_h_rad
+    phi = (rows + spec.y_min) * spec.res_v_rad
+    ct, st, cp, sp = np.cos(theta), np.sin(theta), np.cos(phi), np.sin(phi)
+    rot = np.stack([np.stack([ct * cp, -st, ct * sp], -1),
+                    np.stack([st * cp, ct, st * sp], -1),
+                    np.stack([-sp, np.zeros_like(sp), cp], -1)], -2)  # (m, 3, 3)
+    d, h = image[rows, cols, 0].astype(np.float64), image[rows, cols, 1].astype(np.float64)
+    p3 = np.stack([d * ct, -d * st, h], -1)
+    reg = np.einsum("mji,mcj->mci", rot, targets - p3[:, None])
+    return reg.reshape(len(rows), 24).astype(np.float32)
+
+
+def _corner_lanes(kind: str, h: int, w: int, rng) -> list[tuple]:
+    """(bbox [l, t, r, b], positive columns, target style) of a frame's
+    lanes; the positive columns lie inside the lane's window (margins 100
+    and 2) and no other lane's."""
+    def cols_in(lo, hi, m):
+        return np.sort(rng.choice(np.arange(lo, hi), m, replace=False))
+
+    def spaced(j, style, top=8, bottom=16, m=60):
+        l = 150 + 350 * j
+        return ([l, top, l + 40, bottom], cols_in(l - 100, l + 140, m), style)
+
+    if kind == "edges":
+        return [([2, 6, 30, 14], np.r_[0, cols_in(1, 130, 40)], "cluster"),
+                ([w - 31, 6, w - 3, 14], np.r_[cols_in(w - 130, w - 1, 40), w - 1], "cluster"),
+                ([650, 0, 700, 5], cols_in(550, 800, 50), "cluster"),
+                ([1050, h - 6, 1100, h - 1], cols_in(950, 1200, 50), "cluster")]
+    if kind == "budget":
+        return [([1600, 8, 1600, 16], np.zeros(0, int), "cluster"),  # total 0
+                ([1100, 0, 1100, 2], cols_in(1000, 1200, 16), "cluster"),  # 4 rows x 16
+                ([1350, 0, 1350, 3], cols_in(1250, 1450, 13), "cluster"),  # 5 x 13
+                ([850, 10, 850, 22], cols_in(750, 950, 128), "cluster"),  # 16 x 128
+                ([100, 0, 600, 1], cols_in(0, 700, 683), "cluster")]  # 3 x 683
+    if kind == "ties":
+        return [spaced(0, "ties2", m=60), spaced(1, "ties3", m=60), spaced(2, "cluster")]
+    if kind == "duplicates":
+        return [spaced(0, "dup", m=30), spaced(1, "halfdup", m=40)]
+    if kind == "threshold":
+        return [spaced(0, "threshold", m=50), spaced(1, "threshold", top=4, bottom=20, m=80)]
+    if kind == "far":
+        return [spaced(0, "far"), spaced(1, "allfar")]
+    return [spaced(j, "random", top=int(rng.integers(0, h // 2)),
+                   bottom=int(rng.integers(h // 2, h)), m=int(rng.integers(20, 120)))
+            for j in range(3)]
+
+
+def _targets(style: str, m: int, cols_of, rng) -> np.ndarray:
+    """(m, 8, 3) target corners about 0 for a lane's m candidates
+    (`cols_of` (m,) each candidate's column index in the lane's list)."""
+    # a heading away from +-pi/2, where the pose's l and w divide by ~cos(yaw)
+    base = _box_corners(float(rng.uniform(-1.3, 1.3) + np.pi * rng.integers(0, 2)))
+    t = np.repeat(base[None], m, axis=0)
+    if style == "cluster":
+        t += rng.normal(0, 0.15, t.shape)
+        out = rng.random(m) < 0.2
+        t[out] += rng.normal(0, 1.2, (int(out.sum()), 8, 3))
+    elif style in ("ties2", "ties3"):
+        groups = 2 if style == "ties2" else 3
+        t += rng.normal(0, 0.05, t.shape)
+        t[..., 0] += 2.5 * (cols_of % groups)[:, None] - 2.5
+    elif style == "dup":
+        pass
+    elif style == "halfdup":
+        t[m // 2:] += rng.normal(0, 0.15, (m - m // 2, 8, 3))
+    elif style == "threshold":
+        t += rng.normal(0, 1e-4, t.shape)
+        t += (cols_of % 2)[:, None, None] * 5.0 / np.sqrt(24.0)
+    elif style == "far":
+        t += rng.normal(0, 0.15, t.shape)
+        far = rng.random(m) < 0.6
+        t[far, int(rng.integers(0, 8)), 0] += 10.0
+    elif style == "allfar":
+        t[:, :, 1] += 3.5
+    return t
+
+
+def corner_inputs(spec, kind: str = "ties", batch: int = 2, seed: int = 0):
+    """(y_pred (B, H, W, 26) float32, image (B, H, W, 3) float32, bbox (B,
+    n, 4) int64, centroid_3d (B, n, 3) float32, lanes (B, n) bool) of one
+    of CORNER_KINDS at the spec's size (margins and thresholds of
+    DecodeConfig's defaults)."""
+    if kind not in CORNER_KINDS:
+        raise ValueError(f"unknown corner kind {kind!r}: one of {CORNER_KINDS}")
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    h, w = spec.height, spec.width
+    shape = (batch, h, w)
+    image = np.zeros(shape + (3,), f)
+    image[..., 0] = rng.uniform(3, 60, shape) * (rng.random(shape) > 0.2)
+    image[..., 1] = rng.uniform(-1.9, 1.0, shape)
+    image[..., 2] = rng.uniform(0, 1, shape)
+    y = np.zeros(shape + (26,), f)
+    y[..., 1] = rng.uniform(0, 0.3, shape)
+    y[..., 2:] = rng.uniform(-3, 3, shape + (24,))
+    per_frame = [_corner_lanes(kind, h, w, rng) for _ in range(batch)]
+    n = len(per_frame[0])
+    bbox = np.zeros((batch, n, 4), np.int64)
+    centroid = np.zeros((batch, n, 3), f)
+    lanes = np.ones((batch, n), bool)
+    if batch > 1:
+        lanes[1, 0] = False
+    skip = {3, 7, h - 3} if kind == "edges" else set()
+    pos_rows = np.array([r for r in range(h) if r not in skip])
+    cover = w - 50  # no window reaches it
+    for b, frame in enumerate(per_frame):
+        y[b, pos_rows, cover, 1] = 0.9
+        for j, (box, cols, style) in enumerate(frame):
+            bbox[b, j] = box
+            if kind == "edges" and j == 0:
+                cols = cols[cols != 17]  # a window column without a positive
+            y[b, rng.choice(pos_rows, len(cols)), cols, 1] = rng.uniform(0.85, 1.0, len(cols))
+            r_lo, r_hi = max(box[1] - 2, 0), min(box[3] + 2, h)
+            rows = pos_rows[(pos_rows >= r_lo) & (pos_rows < r_hi)]
+            cc, rr = np.repeat(np.arange(len(cols)), len(rows)), np.tile(rows, len(cols))
+            pix_c = cols[cc]
+            mid_c = int(np.clip((box[0] + box[2]) // 2, 0, w - 1))
+            theta = (mid_c + spec.x_min) * spec.res_h_rad
+            dist = float(rng.uniform(8, 30))
+            centroid[b, j] = (dist * np.cos(theta), -dist * np.sin(theta),
+                              float(rng.uniform(-1.0, 0.5)))
+            if style == "random" or not len(cc):
+                continue
+            targets = _targets(style, len(cc), cc, rng) + centroid[b, j].astype(np.float64)
+            y[b, rr, pix_c, 2:] = _regressions(targets, rr, pix_c, image[b], spec)
+    y[..., 0] = 1.0 - y[..., 1]
+    return y, image, bbox, centroid, lanes

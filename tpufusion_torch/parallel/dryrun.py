@@ -86,7 +86,7 @@ ADAM_FLOOR = 1e-6
 # entry (absolute below 1): the range channel's variance reaches ~10
 STATS_RTOL = 1e-6
 SWEEP_CAP = 16384  # plain CC sweeps when a rank holds the kernel against them
-KERNELS = ("project_points", "nearest_wins_image", "connected_components_with_bbox")
+KERNELS = ("project_points", "nearest_wins_image", "connected_components_with_bbox", "corner_vote")
 
 
 def _entry(rank: int, fn, n: int, port: int, device: str, backend: str | None, args: tuple,
@@ -128,16 +128,16 @@ def spawn(fn, n: int, device: torch.device | str = "cuda", backend: str | None =
 
 
 def _reset_launches() -> None:
-    from tpufusion_torch.ops import cc, pixels, projection
+    from tpufusion_torch.ops import cc, corner_vote, pixels, projection
 
-    pixels.LAUNCHES = projection.LAUNCHES = cc.LAUNCHES = 0
+    pixels.LAUNCHES = projection.LAUNCHES = cc.LAUNCHES = corner_vote.LAUNCHES = 0
 
 
 def _launches() -> dict[str, int]:
-    from tpufusion_torch.ops import cc, pixels, projection
+    from tpufusion_torch.ops import cc, corner_vote, pixels, projection
 
     return {"project_points": pixels.LAUNCHES, "nearest_wins_image": projection.LAUNCHES,
-            "connected_components_with_bbox": cc.LAUNCHES}
+            "connected_components_with_bbox": cc.LAUNCHES, "corner_vote": corner_vote.LAUNCHES}
 
 
 def _hold_kernels(points, spec, heat=None) -> dict:
