@@ -43,9 +43,12 @@ to 0 before it and read after it, and then the training paths:
                windows over 4,096 pixels, on every
                `parity_inputs.cluster_inputs` kind
                with every center, boundary and yaw frame at 32 and 63 rows,
-               10 and 12 channels; its device time in turns with the plain
-               version at 64 x 32 x 1801 (k 1), config 5's 16 frames (k 4)
-               and 64 x 63 x 1801, beside its bound and an empty kernel
+               10 and 12 channels, and on `parity_inputs.crafted_lanes`
+               (one-pixel windows, rows straddling a lane's CTAs, windows
+               past every CTA's stage), each call twice, bit-identical;
+               its device time in turns with the plain version at 64 x 32
+               x 1801 (k 1), config 5's 16 frames (k 4) and 64 x 63 x
+               1801, beside its bound and an empty kernel
   phase 1f     the corner head's vote (`csrc/corner_vote.cu`,
                `tf_corner_vote`) against its plain version
                (`_golden.corner_kernel_readings`: ok and overflow equal,
@@ -53,9 +56,12 @@ to 0 before it and read after it, and then the training paths:
                box within 1e-4) on the lanes the driven corner paths vote
                (phase 8's golden frames at K 2048 and 64, the hybrid
                corner head's k1 / k4 / bf16_k4 steps, the corner row's
-               batches, config 2's replay chunks; no undecided lane) and on
-               every `parity_inputs.corner_inputs` kind at 32 and 63 rows
-               (undecided lanes counted); its device time in turns with
+               batches, config 2's replay chunks; no undecided lane), on
+               frames that vote no lane beside frames that do (zeros, and
+               the idle frames unread), and on every
+               `parity_inputs.corner_inputs` kind at 32 and 63 rows
+               (undecided lanes counted); each call twice, bit-identical;
+               its device time in turns with
                the plain version at `kernel_bench.CORNER_SHAPES`, beside
                its bound (the larger of its bytes and its FP32 FMAs)
   phases 4-5   the float32 direct path with the shipped detector asset
@@ -876,6 +882,28 @@ def phase_decode_direct(dev) -> tuple[float, dict, int]:
                     n_cases += 1
     log(f"  the adversarial clusters: {n_cases} cases held, lanes near a threshold (exempt) "
         f"{near}; largest pose difference over every input {err:.3e}")
+    # hand-made windows the heat mask never makes: one pixel, rows that
+    # straddle the lane's CTAs, 20 rows x the frame's width (past every
+    # CTA's stage), clusters with no m or no return; two calls bit-identical
+    n_crafted = 0
+    for spec in (RangeViewSpec(), RangeViewSpec(res_v_deg=TALL_RES_V_DEG)):
+        for channels in (10, 12):
+            y_pred, images, *comps, root, found = (
+                torch.from_numpy(a).to(dev) for a in parity_inputs.crafted_lanes(
+                    spec, batch=4, seed=spec.height, channels=channels))
+            for name, fields in parity_inputs.cluster_decode_options(channels).items():
+                r = decode_direct.lanes_against_plain(y_pred, images, comps, root, found, spec,
+                                                      DecodeConfig(**fields), adversarial=True)
+                err = max(err, r["diff"], r["diff_wide"])
+                near += r["near"]
+                if not r["ok"] or r["near"]:
+                    log(f"  crafted lanes, {spec.height} rows, {channels} channels, {name}: {r}")
+                assert r["ok"] and r["repeatable"], f"decode_direct on crafted lanes ({name})"
+                assert r["windows"] == 20 * spec.width
+                n_crafted += 1
+    log(f"  the crafted lanes: {n_crafted} cases held (one-pixel, straddling and "
+        f"{20 * RangeViewSpec().width}-pixel windows), every call repeatable bit for bit; "
+        f"largest pose difference {err:.3e}")
     # the aten ops a call dispatches after the CC, kernel against plain, on
     # the live asset's first 64-frame batch (a dispatch mode counts them:
     # torch.profiler is kept out of this process's early phases)
@@ -979,6 +1007,25 @@ def phase_corner_vote(dev, gm) -> tuple[float, dict, dict]:
             for i, (p, v) in enumerate(point_sets(2, BATCH, N_POINTS, dev, seed0=seed0)):
                 im = range_view_project_batch(p, spec, v)
                 held(f"{label} {i}, {BATCH} x {N_POINTS}", row(im), im, CFG.decode, 1)
+        # frames that vote no lane beside frames that do: zeros there, and
+        # nothing of those frames read (NaN and an all-positive map change
+        # nothing)
+        from tpufusion_torch.decode.decode import _positives
+
+        for kind in ("ties", "budget", "random"):
+            arrays = parity_inputs.corner_inputs(spec, kind, batch=8, seed=11)
+            y, im, bbox, c3, voted = (torch.from_numpy(a).to(dev) for a in arrays)
+            voted[1::2] = False
+            r = corner_vote.against_plain(y, im, bbox, c3, voted, spec, CFG.decode)
+            assert r["ok"] and r["zeros"], f"corner_vote with idle frames ({kind}): {r}"
+            pos = _positives(y[..., 1], CFG.decode)
+            want = corner_vote.corner_vote_lanes(y, im, bbox, c3, voted, spec, CFG.decode, pos)
+            y[1::2], pos[1::2] = float("nan"), True
+            got = corner_vote.corner_vote_lanes(y, im, bbox, c3, voted, spec, CFG.decode, pos)
+            assert all(torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+                       for g, w in zip(got, want)), f"an idle frame was read ({kind})"
+            log(f"  idle frames beside voting ones ({kind}, 8 frames, 4 idle): {r}; the idle "
+                f"frames' y_pred and map unread")
         n_cases = 0
         for rows_spec in (spec, RangeViewSpec(res_v_deg=TALL_RES_V_DEG)):
             for kind in parity_inputs.CORNER_KINDS:

@@ -3,11 +3,15 @@ it cannot run: its plain version (`decode.corner_vote_reference`)
 against JAX's `corner_vote` (vmapped per lane), a numpy model of the
 kernel's algorithm against the plain version on every
 `parity_inputs.corner_inputs` kind at K 64 and 2048 and 32 and 63 rows,
-the wrapper's dispatch, and the inputs themselves.
+the wrapper's dispatch, the inputs themselves, the positives map against
+y_pred's flags (and bf16's comparison against JAX's), and the corner
+decode, which makes that map once, against JAX's.
 
 The model does what the kernel does, lane by lane: a lane left out gives
-zeros; the candidates are the product of the window's positive columns
-and positive rows (the window clamped to the frame), slot s at column
+zeros (a frame with no voted lane is never read); the candidates are the
+product of the window's positive columns and positive rows (the window
+clamped to the frame; the flags from the positives map the decode hands
+the kernel, `decode._positives`), slot s at column
 C[s / |R|] and row R[s mod |R|], the first K; each candidate's corners
 are the rotation's single rounded products and a 3-term FMA chain; sq
 sums four FMA chains of 6 coordinates pairwise; each pair's Gram product
@@ -36,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_golden import GOLDEN_MULTI, load_npz, to_jax_config
+from tests.torch_golden import GOLDEN_MULTI, load_npz, to_jax_config, wrapped_pose_diff
 from tpufusion.decode import decode as jd
 from tpufusion_torch import DecodeConfig, RangeViewSpec, _build
 from tpufusion_torch._golden import (
@@ -68,10 +72,11 @@ def _window(lo, hi, size):
     return int(np.clip(lo, 0, size)), int(np.clip(hi, 0, size))
 
 
-def _lane(y, im, box, c3, tables, spec, cfg, k):
-    """One voted lane: (pose, box, ok, overflow, counts (K,), slots (K,))."""
+def _lane(y, im, pos, box, c3, tables, spec, cfg, k):
+    """One voted lane, its candidate rows and columns from the frame's
+    positives map `pos` (H, W) bool: (pose, box, ok, overflow, counts
+    (K,), slots (K,))."""
     h, w = y.shape[:2]
-    pos = y[..., 1] >= F32(cfg.min_prob)
     c0, c1 = _window(box[0] - cfg.margin_x, box[2] + cfg.margin_x, w)
     r0, r1 = _window(box[1] - cfg.margin_y, box[3] + cfg.margin_y, h)
     cols = np.flatnonzero(pos.any(axis=0)[c0:c1]) + c0
@@ -126,20 +131,25 @@ def _lane(y, im, box, c3, tables, spec, cfg, k):
     return pose, bx, True, total > k, counts, slots
 
 
-def model_vote(y, im, bbox, c3, lanes, spec, cfg) -> dict:
+def model_vote(y, im, bbox, c3, lanes, spec, cfg, positives=None) -> dict:
     """The kernel's answer on numpy inputs: pose, box, ok, overflow,
     counts and slots (-1 past the real candidates), zeros on the lanes
-    left out."""
+    left out; the frames' rows and columns from `positives` (B, H, W) bool,
+    as the decode hands the kernel its map (default: y's channel 1 against
+    min_prob in float32). A frame with no voted lane is never read."""
     b_, n = bbox.shape[:2]
     k = min(cfg.max_candidates, y.shape[1] * y.shape[2])
     tables = [t.numpy() for t in pixel_trig(spec, "cpu")]
+    if positives is None:
+        positives = y[..., 1] >= F32(cfg.min_prob)
     out = {"pose": np.zeros((b_, n, 7), F32), "box": np.zeros((b_, n, 8, 3), F32),
            "ok": np.zeros((b_, n), bool), "overflow": np.zeros((b_, n), bool),
            "counts": np.full((b_, n, k), -1), "slots": np.full((b_, n, k), -1)}
     for b in range(b_):
         for j in range(n):
             if lanes[b, j]:
-                got = _lane(y[b], im[b], bbox[b, j], c3[b, j], tables, spec, cfg, k)
+                got = _lane(y[b], im[b], positives[b], bbox[b, j], c3[b, j], tables, spec,
+                            cfg, k)
                 for key, v in zip(("pose", "box", "ok", "overflow", "counts", "slots"), got):
                     out[key][b, j] = v
     out["box_pose"] = _box_pose(out["box"])
@@ -369,6 +379,139 @@ def test_the_decode_votes_only_the_stage2_lanes(golden_frames, monkeypatch):
     td.corner_vote(y, images, bbox, c3, spec, cfg)
     assert seen[0].shape == (2, 1) and torch.equal(seen[1], stage2) and seen[2] is None
     assert bool(stage2[:, 0].all()) and not bool(stage2[:, 2:].any())
+
+
+# the positives map the decode hands the kernel
+
+
+def _frames(source, rows):
+    """(y (B, H, W, 26) float32, image) of the golden corner frames (32
+    rows) or a `corner_inputs` kind, numpy."""
+    if source == "golden":
+        gm = load_npz(GOLDEN_MULTI)
+        images = range_view_project_batch(torch.from_numpy(gm["multi_points"][:2]), SPECS[32],
+                                          torch.from_numpy(gm["multi_valid"][:2]))
+        return gm["corner_ypred"], images.numpy()
+    y, im, *_ = _inputs(source, rows)
+    return y, im
+
+
+FLAG_CASES = [("golden", 32)] + [(kind, rows) for kind in parity_inputs.CORNER_KINDS
+                                 for rows in sorted(SPECS)]
+
+
+@pytest.mark.parametrize("source, rows", FLAG_CASES)
+def test_the_positives_map_gives_the_flags_of_y_pred(source, rows):
+    """The map the corner decode makes once (`decode._positives`, the
+    comparison its heat mask stamps from) gives every frame the row and
+    column flags the plain version takes from y_pred's channel 1, and the
+    model fed the map votes what the plain version votes."""
+    y, im = _frames(source, rows)
+    cfg = DecodeConfig()
+    pos = td._positives(torch.from_numpy(y[..., 1]), cfg).numpy()
+    want = y[..., 1] >= F32(cfg.min_prob)
+    np.testing.assert_array_equal(pos, want)
+    np.testing.assert_array_equal(pos.any(axis=1), want.any(axis=1))  # columns
+    np.testing.assert_array_equal(pos.any(axis=2), want.any(axis=2))  # rows
+    if source != "golden":
+        _, _, bbox, c3, lanes = _inputs(source, rows)
+        got = model_vote(y, im, bbox, c3, lanes, SPECS[rows], cfg, pos)
+        plain, readings = _plain(y, im, bbox, c3, SPECS[rows], cfg)
+        r = corner_kernel_readings(got, plain, readings, lanes)
+        assert r["ok"], r
+
+
+@pytest.mark.parametrize("min_prob", [0.5, 0.7, 0.8])
+def test_a_bf16_map_compares_in_bf16_as_jax(golden_frames, min_prob):
+    """From a bf16 output the map compares in bf16, as JAX's vote and heat
+    mask do (0.7 rounds down in bf16, so a value at its rounding passes);
+    the plain version votes on that map and reads the regressions in
+    float32."""
+    y, images = golden_frames
+    yb = y.to(torch.bfloat16)
+    yb[0, 5, 100:110, 1] = torch.tensor(min_prob, dtype=torch.bfloat16)  # at the threshold
+    cfg = DecodeConfig(min_prob=min_prob)
+    pos = td._positives(yb[..., 1], cfg).numpy()
+    np.testing.assert_array_equal(pos, np.asarray(jnp.asarray(yb.float().numpy()).astype(
+        jnp.bfloat16)[..., 1] >= min_prob))
+    spec = SPECS[32]
+    bbox, c3, _ = corner_vote.corner_lanes(yb.float(), images, spec, cfg, 1)
+    got = td.corner_vote_reference(yb, images, bbox, c3, spec, cfg)
+    model = model_vote(yb.float().numpy(), images.numpy(), bbox.numpy(), c3.numpy(),
+                       np.ones(bbox.shape[:2], bool), spec, cfg, pos)
+    readings: dict = {}
+    td.corner_vote_reference(yb, images, bbox, c3, spec, cfg, readings)
+    want = dict(zip(("pose", "box", "ok", "overflow"), (t.numpy() for t in got)))
+    want["counts"] = readings["counts"].numpy()
+    r = corner_kernel_readings(model, want, {k: v.numpy() for k, v in readings.items()},
+                               np.ones(bbox.shape[:2], bool))
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("kind", ["ties", "edges", "random"])
+def test_a_frame_with_no_voting_lane_gives_zeros(kind):
+    """A frame none of whose lanes votes (the kernel's lists launch skips
+    it, reading nothing) comes out zeros and False; its neighbour's lanes
+    vote as the plain version does, on its own map."""
+    y, im, bbox, c3, lanes = _inputs(kind, 32)
+    lanes = lanes.copy()
+    lanes[-1] = False
+    y_bad = y.copy()
+    y_bad[-1] = np.nan  # never read
+    cfg = DecodeConfig()
+    pos = td._positives(torch.from_numpy(y[..., 1]), cfg).numpy()
+    got = model_vote(y_bad, im, bbox, c3, lanes, SPECS[32], cfg, pos)
+    assert not (got["pose"][-1].any() or got["box"][-1].any() or got["ok"][-1].any()
+                or got["overflow"][-1].any())
+    plain, readings = _plain(y, im, bbox, c3, SPECS[32], cfg)
+    r = corner_kernel_readings(got, plain, readings, lanes)
+    assert r["ok"] and r["lanes"] == int(lanes.sum()), r
+
+
+_jax_decode_batch = jax.jit(jd.decode_batch, static_argnums=(2, 3))
+_jax_decode_multi = jax.jit(jd.decode_batch_multi, static_argnums=(2, 3, 4))
+
+
+@pytest.mark.parametrize("k", BUDGETS)
+@pytest.mark.parametrize("fn", ["decode_batch", "decode_batch_multi", "corner_vote"])
+def test_the_restructured_corner_decode_matches_jax(golden_frames, fn, k):
+    """decode_batch and decode_batch_multi, which make the positives map
+    once and hand it from the heat mask to the vote, and the public
+    corner_vote, which makes it itself, against JAX's decode_batch,
+    decode_batch_multi and corner_vote on the golden corner frames, with a
+    third frame whose probabilities are all below min_prob (no cluster, no
+    voting lane)."""
+    y, images = golden_frames
+    y = torch.cat([y, y[:1]])
+    y[2, ..., 1] = 0.1
+    images = torch.cat([images, images[:1]])
+    spec, cfg = SPECS[32], DecodeConfig(max_candidates=k)
+    jy, ji = jnp.asarray(y.numpy()), jnp.asarray(images.numpy())
+    if fn == "corner_vote":
+        bbox, c3, _ = corner_vote.corner_lanes(y, images, spec, cfg, 4)
+        got = dict(zip(("pose", "box", "ok", "overflow"),
+                       (t.numpy() for t in td.corner_vote(y, images, bbox, c3, spec, cfg))))
+        want = _jax_lanes(y.numpy(), images.numpy(), bbox.numpy(), c3.numpy(), cfg, spec)
+        np.testing.assert_array_equal(got["ok"], want["ok"])
+        np.testing.assert_array_equal(got["overflow"], want["overflow"])
+        ok = got["ok"]
+        np.testing.assert_allclose(got["box"][ok], want["box"][ok], rtol=0, atol=1e-3)
+        assert float(np.abs(wrapped_pose_diff(got["pose"][ok], want["pose"][ok])).max(
+            initial=0)) <= 1e-3
+        return
+    if fn == "decode_batch":
+        got = td.decode_batch(y, images, spec, cfg)
+        want = _jax_decode_batch(jy, ji, to_jax_config(spec), to_jax_config(cfg))
+        poses, key = "pose", "pose"
+    else:
+        got = td.decode_batch_multi(y, images, spec, cfg, 4)
+        want = _jax_decode_multi(jy, ji, to_jax_config(spec), to_jax_config(cfg), 4)
+        poses, key = "poses", "poses"
+    np.testing.assert_array_equal(got["found"].numpy(), np.asarray(want["found"]))
+    np.testing.assert_array_equal(got["vote_overflow"].numpy(), np.asarray(want["vote_overflow"]))
+    assert not got["found"][2].any() and not got[poses][2].any()
+    diff = wrapped_pose_diff(got[key].numpy(), np.asarray(want[key]))
+    assert float(diff.max()) <= 1e-3, float(diff.max())
 
 
 # the inputs

@@ -1374,6 +1374,58 @@ def test_decode_batch_direct_launches_the_kernel_once(cuda_device):
         assert out["poses"].shape == (2, 4, 7) and bool(out["found"].any())
 
 
+@pytest.mark.parametrize("rows", [32, 63])
+@pytest.mark.parametrize("channels", [10, 12])
+def test_decode_direct_kernel_on_the_crafted_lanes(cuda_device, channels, rows):
+    """`parity_inputs.crafted_lanes`, windows the heat mask never makes: a
+    one-pixel window, two rows that straddle the lane's CTAs, a block of
+    20 rows x the frame's width (past every CTA's stage and the first
+    design's 4,096-point list), a car with a hole, clusters with no m or
+    no return; every covered center, boundary (all 37 headings, the auto
+    arms) and yaw frame: the contract, and two calls bit-identical."""
+    from tpufusion_torch.ops import decode_direct
+
+    spec = SPEC if rows == 32 else _tall_spec()
+    y_pred, images, *comps, root, found = (
+        torch.from_numpy(a).to(cuda_device)
+        for a in parity_inputs.crafted_lanes(spec, batch=4, seed=rows, channels=channels))
+    for name, fields in parity_inputs.cluster_decode_options(channels).items():
+        r = decode_direct.lanes_against_plain(y_pred, images, comps, root, found, spec,
+                                              DecodeConfig(**fields), adversarial=True)
+        print(f"crafted {channels} ch {rows} rows {name}: {r}")
+        assert r["ok"] and r["repeatable"] and r["found"] > 0, (name, r)
+        assert r["windows"] == 20 * spec.width, r
+
+
+def test_decode_direct_kernel_is_bit_identical_call_to_call(cuda_device):
+    """The sums run in a fixed order (a thread's terms, its warp's tree,
+    the warps, the cluster's CTAs by rank), so a call gives the same bits
+    every time: the live asset on 64 beam-scan frames and the whole-frame
+    clusters, 10 calls each."""
+    from tpufusion_torch.benchmarks import asset_model, point_sets
+    from tpufusion_torch.ops import decode_direct
+
+    model, dcfg, _ = asset_model(ASSET)
+    (p, v), = point_sets(1, 64, 32768, cuda_device, seed0=77)
+    whole = [torch.from_numpy(a).to(cuda_device)
+             for a in parity_inputs.cluster_inputs(SPEC, "whole", batch=4, channels=10)]
+    with torch.inference_mode():
+        images = range_view_project_batch(p, SPEC, v)
+        cases = [(model.to(cuda_device).eval()(images), images, dcfg),
+                 (*whole, DecodeConfig(**parity_inputs.cluster_decode_options(10)[
+                     "fit_ellipse_local"]))]
+        for y_pred, im, cfg in cases:
+            comps = decode._heat_components(y_pred[..., 1], cfg)
+            root, found, *_ = decode._topk_roots(*comps, cfg, 4)
+            outs = [decode_direct.decode_direct_clusters(y_pred, im, *comps, root, found, SPEC,
+                                                         cfg, cfg.direct_center)
+                    for _ in range(10)]
+            assert bool(outs[0][1].any())
+            for p_, f_ in outs[1:]:
+                assert torch.equal(p_.view(torch.int32), outs[0][0].view(torch.int32))
+                assert torch.equal(f_, outs[0][1])
+
+
 def test_decode_direct_kernel_raises_when_the_build_fails(cuda_device, monkeypatch, tmp_path):
     """No fallback: a library that cannot be built makes the wrapper raise."""
     from tpufusion_torch import _build
@@ -1500,6 +1552,70 @@ def test_corner_decode_launches_the_vote_once_without_a_gram_tensor(cuda_device)
         print(f"{name}: {extra / 2**20:.1f} MiB above its inputs")
         assert corner_vote.LAUNCHES == before + 1, name
         assert limit is None or extra < limit, (name, extra)
+
+
+@pytest.mark.parametrize("kind", ["ties", "budget", "random"])
+def test_corner_vote_kernel_skips_frames_that_vote_no_lane(cuda_device, kind):
+    """Frames whose lanes all stay out beside frames that vote: the
+    contract on the voted lanes, zeros and False on the others, two calls
+    bit-identical; the skipped frames' y_pred and map are never read (NaN
+    and every pixel positive there change nothing)."""
+    from tpufusion_torch.decode.decode import _positives
+    from tpufusion_torch.ops import corner_vote
+
+    arrays = parity_inputs.corner_inputs(SPEC, kind, batch=8, seed=11)
+    y, images, bbox, c3, lanes = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    lanes[1::2] = False
+    cfg = DecodeConfig()
+    r = corner_vote.against_plain(y, images, bbox, c3, lanes, SPEC, cfg)
+    print(f"{kind}: {r}")
+    assert r["ok"] and r["zeros"] and r["repeatable"], r
+    with torch.inference_mode():
+        pos = _positives(y[..., 1], cfg)
+        want = corner_vote.corner_vote_lanes(y, images, bbox, c3, lanes, SPEC, cfg, pos)
+        y_bad, pos_bad = y.clone(), pos.clone()
+        y_bad[1::2], pos_bad[1::2] = float("nan"), True
+        got = corner_vote.corner_vote_lanes(y_bad, images, bbox, c3, lanes, SPEC, cfg, pos_bad)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.uint8), w.view(torch.uint8))
+
+
+def test_corner_vote_makes_at_most_two_device_launches(cuda_device):
+    """One call of the wrapper, handed a float32 output, its positives map
+    and the lanes as the decode hands them, launches two kernels on the
+    card (the lists, and the counts with the winners; the C entry counts
+    its launches) and no torch kernel; on the corner row's inputs, where
+    no lane votes, too. (torch.profiler loses device records late in a
+    long process, so the entry's own count is read.)"""
+    from tpufusion_torch.kernel_bench import CORNER_SHAPES, corner_vote_inputs
+    from tpufusion_torch.ops import corner_vote
+
+    for shape in (CORNER_SHAPES[0], CORNER_SHAPES[1]):
+        spec, cfg, sets = corner_vote_inputs(cuda_device, shape, 1)
+        y, im, bbox, c3, lanes, pos = sets[0]
+        y = y.float().contiguous()
+        with torch.inference_mode():
+            corner_vote.corner_vote_lanes(y, im, bbox, c3, lanes, spec, cfg, pos)  # warm
+            torch.cuda.synchronize()
+            computing = []  # torch ops that made new data (an allocation or an alias makes none)
+
+            class Ops(torch.utils._python_dispatch.TorchDispatchMode):
+                def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                    out = func(*args, **(kwargs or {}))
+                    ins = {a.data_ptr() for a in args if isinstance(a, torch.Tensor)}
+                    if "empty" not in str(func) and not (
+                            isinstance(out, torch.Tensor) and out.data_ptr() in ins):
+                        computing.append(str(func))
+                    return out
+
+            before = corner_vote.kernel_launches()
+            with Ops():
+                corner_vote.corner_vote_lanes(y, im, bbox, c3, lanes, spec, cfg, pos)
+            torch.cuda.synchronize()
+            kernels = corner_vote.kernel_launches() - before
+        print(f"{shape[0]}: {kernels} kernels, torch ops that computed {computing}")
+        assert kernels == 2, kernels
+        assert not computing, computing
 
 
 def test_corner_vote_kernel_raises_when_the_build_fails(cuda_device, monkeypatch, tmp_path):

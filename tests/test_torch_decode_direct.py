@@ -480,6 +480,29 @@ def test_kernel_model_on_the_adversarial_clusters(kind):
             assert not found[:, -1].any()  # k above the cluster count
 
 
+@pytest.mark.parametrize("name", ["backproject_local", "head_global", "surface_local",
+                                  "fit_circle_global", "fit_ellipse_local", "fit_auto_auto"])
+def test_kernel_model_on_the_crafted_lanes(name):
+    """`parity_inputs.crafted_lanes`, the hand-made windows the card's
+    tests hold the kernel to (one pixel, two rows straddling the lane's
+    CTAs, 20 rows x the frame's width past every CTA's stage, a car with a
+    hole, clusters with no m or no return): the model against the plain
+    version, and the lanes found as made."""
+    spec = SPECS[32]
+    cfg = DecodeConfig(**parity_inputs.cluster_decode_options(12)[name])
+    y_pred, images, *comps, root, found = parity_inputs.crafted_lanes(spec, batch=2, seed=5,
+                                                                      channels=12)
+    want_p, want_f, margins = _reference_found_lanes(
+        y_pred, images, [torch.from_numpy(c) for c in comps], torch.from_numpy(root),
+        torch.from_numpy(found), spec, cfg, cfg.direct_center)
+    got_p, got_f, windows = model_decode(y_pred, images, comps, root, found, spec, cfg,
+                                         cfg.direct_center)
+    _compare(got_p, got_f, want_p, want_f, windows, margins, f"crafted lanes, {name}",
+             adversarial=True)
+    assert windows[0].tolist() == [1, 2 * 700, 20 * spec.width, 0]
+    assert want_f[0, :3].all() and not want_f[1, 1:3].any() and want_f[1, 3]
+
+
 @pytest.mark.parametrize("name", ["fit_circle_global", "head_local", "surface_local",
                                   "backproject_auto"])
 def test_the_bound_counts_the_bytes_the_lanes_need(inputs, name):

@@ -130,9 +130,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                      p, p, p, p, p, i, i, i, i, i,
                                      ctypes.POINTER(ctypes.c_float), p, p, p]
     lib.tf_decode_direct.restype = i
-    lib.tf_corner_vote.argtypes = [p, i, p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                   ctypes.POINTER(ctypes.c_float), p, p, p, p, p, p, p, p, p, p]
+    lib.tf_corner_vote.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                   ctypes.POINTER(ctypes.c_float), p, p, p, p, p, p, p, p, p]
     lib.tf_corner_vote.restype = i
+    lib.tf_corner_vote_kernels.argtypes = []
+    lib.tf_corner_vote_kernels.restype = ctypes.c_ulonglong
     lib.tf_error_string.argtypes = [i]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib

@@ -16,42 +16,66 @@
 // pixels, and every window the decode reads, lie inside its CC extents.
 //
 // What bounds it on the H100: the bytes the lanes need, a few hundred
-// window pixels a car: each window pixel's mask, its label where the mask
-// is set, the image's distance and height on the cluster (and on the
-// back-projection's window where it falls back), and on the cluster's
-// valid pixels the probability and the few y_pred channels the center and
-// yaw frame read; far below the launch floor, so one launch is the bound,
-// and the design keeps to one.
+// window pixels a car (each window pixel's mask, its label where the mask
+// is set, the image's distance and height, the few y_pred channels the
+// center and yaw frame read): well under a microsecond at 3.35 TB/s, so the
+// bound in use is the launch floor, and the design keeps to one launch.
+// What held the first design (one 256-thread CTA a lane) far above that
+// floor was latency: its phase split (probes/phase_split.py) put the
+// largest lane's three walks of the window from global memory and its
+// Gauss-Newton fit on one warp at about 15-25 µs each.
 //
-// Design: one CTA of 256 threads a (frame, lane); a lane that
-// _topk_roots did not find writes zeros and returns (the plain version
-// masks every output of such a lane). The CTA walks the rows min_y..max_y
-// x columns min_x..max_x read at its root pixel (the CC kernel converges,
-// so they hold every pixel labelled with the root), in raster order, a
-// thread a pixel:
-//   pass 1  over the cluster's pixels (mask, label == root): m = valid and
-//           prob >= min_prob, the sums of prob, l w h, the yaw frame's
-//           sin / cos (both frames for auto) and the head's center, each
-//           term the float32 product torch rounds, summed in float64 and
-//           rounded once; min d over m and over the cluster's valid
-//           pixels; and the back-projection's nearest valid pixel in the
-//           window shrunk by 2, as the exact integer dx^2 + dy^2 packed
-//           with the flat index into 64 bits and taken by a min (the plain
-//           version's first argmin of the correctly rounded sqrt: a sqrt
-//           keeps the order and the ties of integers below 2^22)
-//   pass 2  the surface mean over m with d <= dmin + 4
-//   thread 0 the lane's scalars: yaw, size, back-projection, push,
-//           consensus, the fit's arm, radius and gate
-//   pass 3  (fit) the gated points (cluster, valid, d <= dmin + 4, within
-//           the gate of the seed) compacted in raster order into shared
-//           memory, a ballot a chunk of 256 pixels; past kPointCap points
-//           the fit walks the window again instead
-//   fit     a warp a candidate heading (1 for a circle, 37 for an ellipse
-//           or a box; the auto boundary fits only the arm the yaw gate
-//           picked, the one the plain version keeps): 4 Gauss-Newton steps
-//           and the residual, each a warp's float64 sums; then thread 0
-//           takes the first minimum, the decisive test, the pi-resolution
-//           against the head yaw and ok_fit
+// Design: a thread-block cluster of kCluster CTAs a (frame, lane), launched
+// with cudaLaunchKernelEx; a lane that _topk_roots did not find writes
+// zeros and returns (the plain version masks every output of such a lane).
+// The lane's window (rows min_y..max_y x columns min_x..max_x read at its
+// root pixel; the CC kernel converges, so they hold every pixel labelled
+// with the root) is cut in raster order into kCluster slices, one a CTA (a
+// row may straddle two CTAs); a warp takes every eighth run of 32 pixels of
+// its CTA's slice.
+//   pass 1  each slice pixel read once from global memory: on the cluster's
+//           pixels (mask, label == root) that are valid, m = prob >=
+//           min_prob, the sums of prob, l w h, the yaw frame's sin / cos
+//           (both frames for auto) and the head's center, each term the
+//           float32 product torch rounds, summed in float64; min d over m
+//           and over the cluster's valid pixels; the back-projection's
+//           nearest valid pixel in the window shrunk by 2, as the exact
+//           integer dx^2 + dy^2 packed with the flat index into 64 bits
+//           and taken by a min (the plain version's first argmin of the
+//           correctly rounded sqrt: a sqrt keeps the order and the ties of
+//           integers below 2^22). Each cluster-valid pixel's point (x, y),
+//           height, distance and probability is staged in shared memory,
+//           compacted by ballot into its warp's region (kStageCap a CTA;
+//           past it the CTA walks its slice in global memory again, as the
+//           first design did)
+//   thread 0 of every CTA computes the lane's scalars from the cluster's
+//           totals (the same values in each): yaw, size, back-projection,
+//           push, consensus, the fit's arm, radius and gate
+//   pass 2  the surface mean over m with d <= dmin + 4, from the stage
+//   pass 3  the fit's gated points (cluster, valid, d <= dmin + 4, within
+//           the gate of the seed), compacted from the stage into a list,
+//           then gathered into every CTA of the cluster (through
+//           distributed shared memory, the CTAs by rank) in the stage's
+//           room; past kGatherCap points, or where a slice was not staged,
+//           the fit reads the window from global memory again
+//   fit     4 Gauss-Newton steps and the residual a candidate heading (1
+//           for a circle, 37 for an ellipse or a box; the auto boundary
+//           fits only the arm the yaw gate picked, the one the plain
+//           version keeps), with no exchange between rounds: a circle's
+//           one heading in rank 0 over all its threads, 37 headings split
+//           over the cluster's warps (heading h in rank h % kCluster), a
+//           warp's rounds its own; then thread 0 of rank 0 reads each
+//           heading's result, takes the first minimum, the decisive test,
+//           the pi-resolution against the head yaw and ok_fit. (Exchanging
+//           each round's sums across the cluster instead cost a cluster
+//           barrier a round, ~9 µs a lane by the phase split.)
+// Every sum is a float64 sum of float32 terms in a fixed order, rounded
+// once: each thread's terms, its warp's tree, the warps in order, and for
+// the pass sums then the cluster's CTAs by rank through distributed shared
+// memory; a call always gives the same bits. Each pass's exchange is one
+// cluster barrier; its buffers alternate, so a CTA that runs ahead never
+// overwrites a buffer another still reads. Minima go the same way (no
+// 64-bit atomic on distributed shared memory: probes/dsmem_min64.cu).
 //
 // Numbers: each elementwise op is the plain version's float32 op, round
 // to nearest, never contracted into an FMA (__fmul_rn and friends), every
@@ -63,20 +87,40 @@
 // the sums run in another order than torch's reductions (and the head's
 // 3 x 3 product, which cuBLAS computes in the plain version), so the
 // contract with the plain version is a tolerance, not bits.
+//
+// The cluster width is a compile-time constant (-DTF_DECODE_CLUSTER=N, N in
+// 1..8, builds the variants `kernel_bench.py` times beside it).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+// Phase stamps for probes/phase_stamps.cu (nothing in the shipped build).
+#ifndef TF_STAMP
+#define TF_STAMP(kernel, slot)
+#endif
+
+#ifndef TF_DECODE_CLUSTER
+#define TF_DECODE_CLUSTER 2
+#endif
+
+namespace cg = cooperative_groups;
+
 namespace {
 
+constexpr int kCluster = TF_DECODE_CLUSTER;  // CTAs a lane
+static_assert(kCluster >= 1 && kCluster <= 8, "a portable cluster holds 1 to 8 CTAs");
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGridPhis = 36;
 constexpr int kMaxCands = kGridPhis + 1;
 constexpr int kGnIters = 4;
-constexpr int kPointCap = 4096;  // gated points held in shared memory (32 KB)
+constexpr int kStageCap = 1024;  // cluster-valid pixels a CTA stages (28 KB with its list)
+constexpr int kWarpCap = kStageCap / kWarps;
+constexpr int kGatherCap = kStageCap * 5 / 2;  // the lane's gated points, in the stage's room
 constexpr int kSums = 11;
+constexpr int kFitSums = 5;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
 constexpr unsigned long long kNoKey = ~0ull;
@@ -109,18 +153,30 @@ struct Params {
   float min_prob, min_height, range_offset;
 };
 
-// The lane's scalars, computed by thread 0 and read by the CTA.
+// The lane's scalars, computed by thread 0 of each CTA from the cluster's
+// totals (the same values in every CTA) and read by its threads.
 struct Lane {
-  int go;    // after pass 1 -- 0: the lane's outputs are written, the CTA returns
-  int stage;  // after the lane's scalars -- 0: written, returns; 1: write the seed; 2: fit
+  int go;       // after pass 1 -- 0: the lane's outputs are written, the cluster returns
+  int written;  // the head's center wrote the outputs
+  int stage;    // after the lane's scalars -- 0: zeros, returns; 1: write the seed; 2: fit
   float dmin_m, dmin_c;  // min d over m, over the cluster's valid pixels
   float yaw, l, w, h;
   float seed[3];
   int oriented;
+  unsigned long long key;  // the back-projection's nearest valid pixel, packed
   // the fit
-  int boundary, ncand, n_pts;
-  float a, b, gate2, nw, lam;
+  int boundary, ncand;
+  float a, b, gate2;
   float phis[kMaxCands];
+};
+
+// One CTA's partials of an exchange, read by every CTA of the cluster.
+struct Xchg {
+  double v[kSums];
+  float dmin[2];
+  int n;     // pass 1: m's count; pass 3: the CTA's gated points
+  int held;  // pass 3: every cluster-valid pixel of the slice was staged
+  unsigned long long key;
 };
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -142,27 +198,6 @@ __device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
     v = u < v ? u : v;
   }
   return v;
-}
-
-// The CTA's sums of v[0..n) in every thread (each warp's, then the warps'
-// in order, so every thread holds the same values).
-template <int N>
-__device__ void block_sums(double (&v)[N], double (*red)[kSums]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = warp_sum(v[i]);
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) red[warp][i] = v[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    double s = 0.0;
-    for (int w = 0; w < kWarps; ++w) s += red[w][i];
-    v[i] = s;
-  }
-  __syncthreads();
 }
 
 // jnp.remainder of float32: exact fmod, shifted by y where the signs differ
@@ -199,6 +234,7 @@ __device__ void push(const float* in, float yaw, float l, float w, float* out) {
 
 struct Window {
   int x0, x1, y0, y1, ww, npx;
+  int lo, hi;    // this CTA's slice of the raster range [0, npx)
   size_t frame;  // the frame's first pixel
 };
 
@@ -210,8 +246,18 @@ __device__ __forceinline__ void window_pixel(const Window& win, int t, int width
   q = win.frame + (size_t)y * width + x;
 }
 
-// The fit's gate of a window pixel: the cluster's valid pixel within the
-// surface depth and within the gate of the seed; (px, py) its point
+// The fit's gate of a cluster-valid point: within the surface depth and
+// within the gate of the seed
+__device__ __forceinline__ bool in_gate(const Lane& L, float px, float py, float hh, float d) {
+  if (!(d <= __fadd_rn(L.dmin_c, 4.0f))) return false;
+  const float e0 = __fsub_rn(px, L.seed[0]), e1 = __fsub_rn(py, L.seed[1]);
+  const float e2 = __fsub_rn(hh, L.seed[2]);
+  const float n2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0), __fmul_rn(e1, e1)), __fmul_rn(e2, e2));
+  return n2 <= L.gate2;
+}
+
+// The same for a window pixel read from global memory: the cluster's
+// valid pixel within the gate; (px, py) its point
 __device__ __forceinline__ bool gated(const Params& p, const Window& win, const Lane& L,
                                       int root, int t, float& px, float& py) {
   int x, y;
@@ -219,13 +265,10 @@ __device__ __forceinline__ bool gated(const Params& p, const Window& win, const 
   window_pixel(win, t, p.width, x, y, q);
   if (!p.mask[q] || p.labels[q] != root) return false;
   const float d = p.image[q * p.img_channels], hh = p.image[q * p.img_channels + 1];
-  if (!(d > 0.0f && hh > p.min_height) || !(d <= __fadd_rn(L.dmin_c, 4.0f))) return false;
+  if (!(d > 0.0f && hh > p.min_height)) return false;
   px = __fmul_rn(d, p.cos_t[x]);
   py = __fmul_rn(-d, p.sin_t[x]);
-  const float e0 = __fsub_rn(px, L.seed[0]), e1 = __fsub_rn(py, L.seed[1]);
-  const float e2 = __fsub_rn(hh, L.seed[2]);
-  const float n2 = __fadd_rn(__fadd_rn(__fmul_rn(e0, e0), __fmul_rn(e1, e1)), __fmul_rn(e2, e2));
-  return n2 <= L.gate2;
+  return in_gate(L, px, py, hh, d);
 }
 
 // One point's residual r and its Jacobian (jx, jy) in the centre, as
@@ -253,22 +296,84 @@ __device__ __forceinline__ void residual(int boundary, float a, float b, float c
   jy = -__fadd_rn(__fmul_rn(s, gu), __fmul_rn(c, gv));
 }
 
-__global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p) {
-  __shared__ double red[kWarps][kSums];
-  __shared__ float redf[kWarps][2];
-  __shared__ int redi[kWarps];
-  __shared__ unsigned long long s_key;
-  __shared__ Lane L;
-  __shared__ float2 pts[kPointCap];
-  __shared__ float s_ress[kMaxCands], s_mx[kMaxCands], s_my[kMaxCands];
+// A point's terms of a Gauss-Newton round (or, on the last, of the
+// residual) added to its thread's sums
+__device__ __forceinline__ void fit_terms(int boundary, float a, float b, float c, float s,
+                                          float px, float py, float mx, float my, bool last,
+                                          double (&sum)[kFitSums]) {
+  float r, jx, jy;
+  residual(boundary, a, b, c, s, px, py, mx, my, r, jx, jy);
+  if (last) {
+    sum[0] += __fmul_rn(r, r);
+  } else {
+    sum[0] += __fmul_rn(jx, jx);
+    sum[1] += __fmul_rn(jx, jy);
+    sum[2] += __fmul_rn(jy, jy);
+    sum[3] += __fmul_rn(jx, r);
+    sum[4] += __fmul_rn(jy, r);
+  }
+}
 
+// The CTA's partials of n sums into x->v: the warps' values wsum[w][i]
+// added in warp order. Call after a CTA barrier that follows the writes
+// of wsum.
+__device__ __forceinline__ void cta_partial(const double (*wsum)[kSums], int n, Xchg* x) {
+  if ((int)threadIdx.x < n) {
+    double s = 0.0;
+    for (int w = 0; w < kWarps; ++w) s += wsum[w][threadIdx.x];
+    x->v[threadIdx.x] = s;
+  }
+}
+
+// The cluster's totals of entries [0, n) of every CTA's x, the CTAs by
+// rank, into tot: one cluster barrier, then a CTA barrier.
+__device__ __forceinline__ void cluster_totals(cg::cluster_group& cluster, Xchg* x, int n,
+                                               double* tot) {
+  cluster.sync();
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    double s = 0.0;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) s += cluster.map_shared_rank(x, r)->v[i];
+    tot[i] = s;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p) {
+  // the stage (x, y, height, distance, probability a pixel); after pass 3
+  // the lane's gathered points (kGatherCap float2) in the same room
+  __shared__ __align__(16) float s_stage[5][kStageCap];
+  float* const s_px = s_stage[0];
+  float* const s_py = s_stage[1];
+  float* const s_h = s_stage[2];
+  float* const s_d = s_stage[3];
+  float* const s_prob = s_stage[4];
+  float2* const s_all = reinterpret_cast<float2*>(&s_stage[0][0]);
+  __shared__ float2 s_pts[kStageCap];  // this CTA's gated points, read by the cluster
+  __shared__ int s_count[kWarps];
+  __shared__ double s_wsum[kWarps][kSums];
+  __shared__ double s_fit[2][kWarps][kFitSums];  // a circle's round sums, by round parity
+  __shared__ float s_surf[3];                     // the pushed surface mean
+  __shared__ float s_wmin[kWarps][2];
+  __shared__ int s_wn[kWarps];
+  __shared__ unsigned long long s_wkey[kWarps];
+  __shared__ Xchg s_x[2];  // the exchanges' buffers, alternating
+  __shared__ double s_tot[kSums];
+  __shared__ float s_mx[kMaxCands], s_my[kMaxCands], s_ress[kMaxCands];  // the fit's results
+  __shared__ Lane L;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int id = blockIdx.x;  // frame * k + lane
+  const unsigned below = (1u << lane) - 1u;
+  const int id = blockIdx.x / kCluster;  // frame * k + lane
+  TF_STAMP(0, 0);
   const int b = id / p.k;
   float* out = p.poses + (size_t)id * 7;
-  if (!p.found[id]) {
-    if (tid < 7) out[tid] = 0.0f;
-    if (tid == 0) p.found_out[id] = 0;
+  const bool writer = rank == 0 && tid == 0;
+  if (!p.found[id]) {  // no CTA of the cluster reads another's memory
+    if (rank == 0 && tid < 7) out[tid] = 0.0f;
+    if (writer) p.found_out[id] = 0;
     return;
   }
   const int W = p.width;
@@ -285,6 +390,8 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
   }
   win.ww = win.x1 - win.x0 + 1;
   win.npx = win.ww * (win.y1 - win.y0 + 1);
+  win.lo = (int)((long long)win.npx * rank / kCluster);
+  win.hi = (int)((long long)win.npx * (rank + 1) / kCluster);
   const int center = p.center;
   const bool dual = p.channels >= 12;
   const bool want_local = p.yaw_frame != kGlobal, want_global = p.yaw_frame != kLocal;
@@ -293,116 +400,189 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
   // the back-projection: the shrunk bbox [l, r] x [t, bt], its integer centroid
   const int bl = win.x0 + 2, bt = win.y0 + 2, br = win.x1 - 2, bb = win.y1 - 2;
   const int cx = (win.x0 + win.x1) / 2, cy = (win.y0 + win.y1) / 2;
+  float cen_d = 0.0f, cen_h = 0.0f;  // the centroid pixel's return, read ahead by thread 0
+  if (want_bp && tid == 0) {
+    const size_t qc = win.frame + (size_t)cy * W + cx;
+    cen_d = p.image[qc * p.img_channels];
+    cen_h = p.image[qc * p.img_channels + 1];
+  }
+  int xi = 0;  // the exchanges so far: the next one's buffer is s_x[xi & 1]
 
-  // pass 1
+  // pass 1: a warp takes every kWarps-th run of 32 pixels of the slice
   double acc[kSums];
 #pragma unroll
   for (int i = 0; i < kSums; ++i) acc[i] = 0.0;
   float dmin_m = INFINITY, dmin_c = INFINITY;
-  int n_m = 0;
+  int n_m = 0, staged = 0;
   unsigned long long key = kNoKey;
-  if (tid == 0) s_key = kNoKey;
-  for (int t = tid; t < win.npx; t += kThreads) {
-    int x, y;
-    size_t q;
-    window_pixel(win, t, W, x, y, q);
-    const float d = p.image[q * p.img_channels], hh = p.image[q * p.img_channels + 1];
-    const bool valid = d > 0.0f && hh > p.min_height;
-    if (want_bp && valid && x >= bl && x <= br && y >= bt && y <= bb) {
-      const unsigned dx = (unsigned)abs(x - cx), dy = (unsigned)abs(y - cy);
-      const unsigned long long k2 = ((unsigned long long)(dx * dx + dy * dy) << 32) |
-                                    (unsigned)(y * W + x);
-      key = k2 < key ? k2 : key;
-    }
-    if (!valid || !p.mask[q] || p.labels[q] != root) continue;
-    dmin_c = fminf(dmin_c, d);
-    const float* yp = p.y_pred + q * p.channels;
-    const float prob = yp[1];
-    if (!(prob >= p.min_prob)) continue;
-    ++n_m;
-    dmin_m = fminf(dmin_m, d);
-    acc[0] += prob;
+  for (int base = win.lo + 32 * warp; base < win.hi; base += 32 * kWarps) {
+    const int t = base + lane;
+    bool in_cl = false;
+    float d = 0.0f, hh = 0.0f, prob = 0.0f, px = 0.0f, py = 0.0f;
+    if (t < win.hi) {
+      int x, y;
+      size_t q;
+      window_pixel(win, t, W, x, y, q);
+      // every load of the pixel issued before any is used: one round trip
+      d = p.image[q * p.img_channels];
+      hh = p.image[q * p.img_channels + 1];
+      const bool marked = p.mask[q] != 0;
+      const int label = p.labels[q];
+      const bool valid = d > 0.0f && hh > p.min_height;
+      if (want_bp && valid && x >= bl && x <= br && y >= bt && y <= bb) {
+        const unsigned dx = (unsigned)abs(x - cx), dy = (unsigned)abs(y - cy);
+        const unsigned long long k2 = ((unsigned long long)(dx * dx + dy * dy) << 32) |
+                                      (unsigned)(y * W + x);
+        key = k2 < key ? k2 : key;
+      }
+      in_cl = valid && marked && label == root;
+      if (in_cl) {
+        const float* yp = p.y_pred + q * p.channels;
+        prob = yp[1];
+        float ch[10];  // l w h, the yaw frames' sin / cos, the head's offsets
 #pragma unroll
-    for (int i = 0; i < 3; ++i) acc[1 + i] += __fmul_rn(yp[5 + i], prob);
-    const float ct = p.cos_t[x], st = p.sin_t[x];
-    if (want_local) {  // sin / cos(yaw + theta): the pixel's vector rotated back
-      const float s_px = yp[8], c_px = yp[9];
-      acc[4] += __fmul_rn(__fsub_rn(__fmul_rn(s_px, ct), __fmul_rn(c_px, st)), prob);
-      acc[5] += __fmul_rn(__fadd_rn(__fmul_rn(c_px, ct), __fmul_rn(s_px, st)), prob);
-    }
-    if (want_global) {
-      const int gi = dual ? 10 : 8;
-      acc[6] += __fmul_rn(yp[gi], prob);
-      acc[7] += __fmul_rn(yp[gi + 1], prob);
-    }
-    if (center == kHead) {  // R dc + p, R = Rz(theta) Ry(phi)
-      const float cp = p.cos_p[y], sp = p.sin_p[y];
-      const float v0 = yp[2], v1 = yp[3], v2 = yp[4];
-      const float pt[3] = {__fmul_rn(d, ct), __fmul_rn(-d, st), hh};
-      const float rot[3][3] = {{__fmul_rn(ct, cp), -st, __fmul_rn(ct, sp)},
-                               {__fmul_rn(st, cp), ct, __fmul_rn(st, sp)},
-                               {-sp, 0.0f, cp}};
+        for (int i = 0; i < 7; ++i) ch[i] = (i < 5 || dual) ? yp[5 + i] : 0.0f;
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float rv = fmaf(rot[i][2], v2, fmaf(rot[i][1], v1, __fmul_rn(rot[i][0], v0)));
-        acc[8 + i] += __fmul_rn(__fadd_rn(rv, pt[i]), prob);
+        for (int i = 0; i < 3; ++i) ch[7 + i] = center == kHead ? yp[2 + i] : 0.0f;
+        const float ct = p.cos_t[x], st = p.sin_t[x];
+        px = __fmul_rn(d, ct);
+        py = __fmul_rn(-d, st);
+        dmin_c = fminf(dmin_c, d);
+        if (prob >= p.min_prob) {
+          ++n_m;
+          dmin_m = fminf(dmin_m, d);
+          acc[0] += prob;
+#pragma unroll
+          for (int i = 0; i < 3; ++i) acc[1 + i] += __fmul_rn(ch[i], prob);
+          if (want_local) {  // sin / cos(yaw + theta): the pixel's vector rotated back
+            const float s_px = ch[3], c_px = ch[4];
+            acc[4] += __fmul_rn(__fsub_rn(__fmul_rn(s_px, ct), __fmul_rn(c_px, st)), prob);
+            acc[5] += __fmul_rn(__fadd_rn(__fmul_rn(c_px, ct), __fmul_rn(s_px, st)), prob);
+          }
+          if (want_global) {
+            const int gi = dual ? 5 : 3;  // channel 10 or 8
+            acc[6] += __fmul_rn(ch[gi], prob);
+            acc[7] += __fmul_rn(ch[gi + 1], prob);
+          }
+          if (center == kHead) {  // R dc + p, R = Rz(theta) Ry(phi)
+            const float cp = p.cos_p[y], sp = p.sin_p[y];
+            const float v0 = ch[7], v1 = ch[8], v2 = ch[9];
+            const float pt[3] = {px, py, hh};
+            const float rot[3][3] = {{__fmul_rn(ct, cp), -st, __fmul_rn(ct, sp)},
+                                     {__fmul_rn(st, cp), ct, __fmul_rn(st, sp)},
+                                     {-sp, 0.0f, cp}};
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+              const float rv =
+                  fmaf(rot[i][2], v2, fmaf(rot[i][1], v1, __fmul_rn(rot[i][0], v0)));
+              acc[8 + i] += __fmul_rn(__fadd_rn(rv, pt[i]), prob);
+            }
+          }
+        }
       }
     }
+    // stage the cluster-valid pixels, in order, in the warp's region
+    const unsigned bal = __ballot_sync(0xffffffffu, in_cl);
+    const int slot = staged + __popc(bal & below);
+    if (in_cl && slot < kWarpCap) {
+      const int e = warp * kWarpCap + slot;
+      s_px[e] = px;
+      s_py[e] = py;
+      s_h[e] = hh;
+      s_d[e] = d;
+      s_prob[e] = prob;
+    }
+    staged += __popc(bal);
   }
-  block_sums(acc, red);
+  // the pass's partials: each warp's, then the CTA's in warp order
+#pragma unroll
+  for (int i = 0; i < kSums; ++i) acc[i] = warp_sum(acc[i]);
   dmin_m = warp_min(dmin_m);
   dmin_c = warp_min(dmin_c);
   key = warp_min(key);
 #pragma unroll
   for (int o = 16; o; o >>= 1) n_m += __shfl_xor_sync(0xffffffffu, n_m, o);
   if (lane == 0) {
-    redf[warp][0] = dmin_m;
-    redf[warp][1] = dmin_c;
-    redi[warp] = n_m;
-    atomicMin(&s_key, key);
+#pragma unroll
+    for (int i = 0; i < kSums; ++i) s_wsum[warp][i] = acc[i];
+    s_count[warp] = staged;
+    s_wmin[warp][0] = dmin_m;
+    s_wmin[warp][1] = dmin_c;
+    s_wn[warp] = n_m;
+    s_wkey[warp] = key;
   }
   __syncthreads();
-
-  if (tid == 0) {
-    float dm = INFINITY, dc = INFINITY;
-    int n = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      dm = fminf(dm, redf[w][0]);
-      dc = fminf(dc, redf[w][1]);
-      n += redi[w];
-    }
-    L.dmin_m = dm;
-    L.dmin_c = dc;
-    L.go = n > 0;  // nonempty; an empty lane is not found
-    if (!L.go) {
-      for (int i = 0; i < 7; ++i) out[i] = 0.0f;
-      p.found_out[id] = 0;
-    } else {
-      const float tot = fmaxf((float)acc[0], 1e-6f);
-      L.l = __fdiv_rn((float)acc[1], tot);
-      L.w = __fdiv_rn((float)acc[2], tot);
-      L.h = __fdiv_rn((float)acc[3], tot);
-      float sin_m, cos_m;
-      if (p.yaw_frame == kLocal) {
-        sin_m = __fdiv_rn((float)acc[4], tot);
-        cos_m = __fdiv_rn((float)acc[5], tot);
-        L.oriented = 1;
-      } else if (p.yaw_frame == kGlobal) {
-        sin_m = __fdiv_rn((float)acc[6], tot);
-        cos_m = __fdiv_rn((float)acc[7], tot);
-        L.oriented = 0;
-      } else {  // the codec whose mean vector is longer
-        const float sl = __fdiv_rn((float)acc[4], tot), cl = __fdiv_rn((float)acc[5], tot);
-        const float sg = __fdiv_rn((float)acc[6], tot), cg = __fdiv_rn((float)acc[7], tot);
-        L.oriented = __fadd_rn(__fmul_rn(sl, sl), __fmul_rn(cl, cl)) >=
-                     __fadd_rn(__fmul_rn(sg, sg), __fmul_rn(cg, cg));
-        sin_m = L.oriented ? sl : sg;
-        cos_m = L.oriented ? cl : cg;
+  bool held = true;  // every cluster-valid pixel of the slice is staged
+  for (int w = 0; w < kWarps; ++w) held = held && s_count[w] <= kWarpCap;
+  {
+    Xchg* x = &s_x[xi & 1];
+    cta_partial(s_wsum, kSums, x);
+    if (tid == kThreads - 1) {
+      float dm = INFINITY, dc = INFINITY;
+      int n = 0;
+      unsigned long long kk = kNoKey;
+      for (int w = 0; w < kWarps; ++w) {
+        dm = fminf(dm, s_wmin[w][0]);
+        dc = fminf(dc, s_wmin[w][1]);
+        n += s_wn[w];
+        kk = s_wkey[w] < kk ? s_wkey[w] : kk;
       }
-      L.yaw = atan2f(sin_m, cos_m);
-      if (center == kHead) {  // back to the reference's frame: Rz(-yaw) c_phys
-        const float c0 = __fdiv_rn((float)acc[8], tot), c1 = __fdiv_rn((float)acc[9], tot);
-        const float c2 = __fdiv_rn((float)acc[10], tot);
+      x->dmin[0] = dm;
+      x->dmin[1] = dc;
+      x->n = n;
+      x->key = kk;
+    }
+    TF_STAMP(0, 1);
+    cluster_totals(cluster, x, kSums, s_tot);
+    if (tid == 0) {
+      float dm = INFINITY, dc = INFINITY;
+      int n = 0;
+      unsigned long long kk = kNoKey;
+      for (int r = 0; r < kCluster; ++r) {
+        const Xchg* o = cluster.map_shared_rank(x, r);
+        dm = fminf(dm, o->dmin[0]);
+        dc = fminf(dc, o->dmin[1]);
+        n += o->n;
+        kk = o->key < kk ? o->key : kk;
+      }
+      L.dmin_m = dm;
+      L.dmin_c = dc;
+      L.go = n > 0;  // nonempty; an empty lane is not found
+      L.written = 0;
+      L.key = kk;
+    }
+    ++xi;
+  }
+  __syncthreads();
+  TF_STAMP(0, 2);
+
+  if (tid == 0 && L.go) {
+    const float tot = fmaxf((float)s_tot[0], 1e-6f);
+    L.l = __fdiv_rn((float)s_tot[1], tot);
+    L.w = __fdiv_rn((float)s_tot[2], tot);
+    L.h = __fdiv_rn((float)s_tot[3], tot);
+    float sin_m, cos_m;
+    if (p.yaw_frame == kLocal) {
+      sin_m = __fdiv_rn((float)s_tot[4], tot);
+      cos_m = __fdiv_rn((float)s_tot[5], tot);
+      L.oriented = 1;
+    } else if (p.yaw_frame == kGlobal) {
+      sin_m = __fdiv_rn((float)s_tot[6], tot);
+      cos_m = __fdiv_rn((float)s_tot[7], tot);
+      L.oriented = 0;
+    } else {  // the codec whose mean vector is longer
+      const float sl = __fdiv_rn((float)s_tot[4], tot), cl = __fdiv_rn((float)s_tot[5], tot);
+      const float sg = __fdiv_rn((float)s_tot[6], tot), cg_ = __fdiv_rn((float)s_tot[7], tot);
+      L.oriented = __fadd_rn(__fmul_rn(sl, sl), __fmul_rn(cl, cl)) >=
+                   __fadd_rn(__fmul_rn(sg, sg), __fmul_rn(cg_, cg_));
+      sin_m = L.oriented ? sl : sg;
+      cos_m = L.oriented ? cl : cg_;
+    }
+    L.yaw = atan2f(sin_m, cos_m);
+    if (center == kHead) {  // back to the reference's frame: Rz(-yaw) c_phys
+      if (rank == 0) {
+        const float c0 = __fdiv_rn((float)s_tot[8], tot), c1 = __fdiv_rn((float)s_tot[9], tot);
+        const float c2 = __fdiv_rn((float)s_tot[10], tot);
         const float c = cosf(-L.yaw), s = sinf(-L.yaw);
         out[0] = __fsub_rn(__fmul_rn(c, c0), __fmul_rn(s, c1));
         out[1] = __fadd_rn(__fmul_rn(s, c0), __fmul_rn(c, c1));
@@ -412,83 +592,113 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
         out[5] = L.w;
         out[6] = L.h;
         p.found_out[id] = 1;
-        L.go = 0;
       }
+      L.go = 0;
+      L.written = 1;
     }
   }
   __syncthreads();
-  if (!L.go) return;
+  TF_STAMP(0, 3);
+  if (!L.go) {
+    if (!L.written && rank == 0 && tid < 7) out[tid] = 0.0f;
+    if (!L.written && writer) p.found_out[id] = 0;
+    cluster.sync();  // no CTA leaves while another may read its buffers
+    return;
+  }
 
   // pass 2: the surface mean over m within a vehicle depth of its closest return
   float p_mean[3] = {0.0f, 0.0f, 0.0f};
   if (center == kSurface || center == kConsensus || center == kFit) {
     double sm[4] = {0.0, 0.0, 0.0, 0.0};
     const float dlim = __fadd_rn(L.dmin_m, 4.0f);
-    for (int t = tid; t < win.npx; t += kThreads) {
-      int x, y;
-      size_t q;
-      window_pixel(win, t, W, x, y, q);
-      if (!p.mask[q] || p.labels[q] != root) continue;
-      const float d = p.image[q * p.img_channels], hh = p.image[q * p.img_channels + 1];
-      if (!(d > 0.0f && hh > p.min_height)) continue;
-      const float prob = p.y_pred[q * p.channels + 1];
-      if (!(prob >= p.min_prob) || !(d <= dlim)) continue;
-      sm[0] += prob;
-      sm[1] += __fmul_rn(__fmul_rn(d, p.cos_t[x]), prob);
-      sm[2] += __fmul_rn(__fmul_rn(-d, p.sin_t[x]), prob);
-      sm[3] += __fmul_rn(hh, prob);
+    if (held) {
+      const int n = s_count[warp];
+      for (int i = lane; i < n; i += 32) {
+        const int e = warp * kWarpCap + i;
+        const float prob = s_prob[e];
+        if (!(prob >= p.min_prob) || !(s_d[e] <= dlim)) continue;
+        sm[0] += prob;
+        sm[1] += __fmul_rn(s_px[e], prob);
+        sm[2] += __fmul_rn(s_py[e], prob);
+        sm[3] += __fmul_rn(s_h[e], prob);
+      }
+    } else {
+      for (int t = win.lo + tid; t < win.hi; t += kThreads) {
+        int x, y;
+        size_t q;
+        window_pixel(win, t, W, x, y, q);
+        if (!p.mask[q] || p.labels[q] != root) continue;
+        const float d = p.image[q * p.img_channels], hh = p.image[q * p.img_channels + 1];
+        if (!(d > 0.0f && hh > p.min_height)) continue;
+        const float prob = p.y_pred[q * p.channels + 1];
+        if (!(prob >= p.min_prob) || !(d <= dlim)) continue;
+        sm[0] += prob;
+        sm[1] += __fmul_rn(__fmul_rn(d, p.cos_t[x]), prob);
+        sm[2] += __fmul_rn(__fmul_rn(-d, p.sin_t[x]), prob);
+        sm[3] += __fmul_rn(hh, prob);
+      }
     }
-    block_sums(sm, red);
-    const float ws = fmaxf((float)sm[0], 1e-6f);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) p_mean[i] = __fdiv_rn((float)sm[1 + i], ws);
+    for (int i = 0; i < 4; ++i) sm[i] = warp_sum(sm[i]);
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s_wsum[warp][i] = sm[i];
+    }
+    __syncthreads();
+    Xchg* x = &s_x[xi & 1];
+    cta_partial(s_wsum, 4, x);
+    cluster_totals(cluster, x, 4, s_tot);
+    ++xi;
+    const float ws = fmaxf((float)s_tot[0], 1e-6f);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) p_mean[i] = __fdiv_rn((float)s_tot[1 + i], ws);
   }
+  TF_STAMP(0, 4);
 
+  const bool want_surf = center == kSurface || center == kConsensus || center == kFit;
+  if (tid == 32 && want_surf) push(p_mean, L.yaw, L.l, L.w, s_surf);  // beside thread 0's work
   if (tid == 0) {
     float xyz[3] = {0.0f, 0.0f, 0.0f};
     bool bp_ok = true;
     if (want_bp) {
-      const size_t qc = win.frame + (size_t)cy * W + cx;
-      const bool centroid_ok =
-          p.image[qc * p.img_channels] > 0.0f && p.image[qc * p.img_channels + 1] > p.min_height;
+      const bool centroid_ok = cen_d > 0.0f && cen_h > p.min_height;
       const bool use_fallback = !centroid_ok && bl != 0 && br != 0;
       int nx = cx, ny = cy;
+      float d = cen_d, hh = cen_h;
       if (use_fallback) {
-        const bool fb_ok = s_key != kNoKey;
-        const int idx = (int)(s_key & 0xffffffffu);
+        const bool fb_ok = L.key != kNoKey;
+        const int idx = (int)(L.key & 0xffffffffu);
         nx = fb_ok ? idx % W : 0;
         ny = fb_ok ? idx / W : 0;
+        const size_t q = win.frame + (size_t)ny * W + nx;
+        d = p.image[q * p.img_channels];
+        hh = p.image[q * p.img_channels + 1];
       }
       bp_ok = !(nx == 0 && ny == 0);
       if (bp_ok) {
-        const size_t q = win.frame + (size_t)ny * W + nx;
-        const float d = __fadd_rn(p.image[q * p.img_channels], p.range_offset);
+        d = __fadd_rn(d, p.range_offset);
         xyz[0] = __fmul_rn(d, p.cos_t[nx]);
         xyz[1] = __fmul_rn(-d, p.sin_t[nx]);
-        xyz[2] = p.image[q * p.img_channels + 1];
+        xyz[2] = hh;
       }
     }
-    if (center == kSurface) {
-      push(p_mean, L.yaw, L.l, L.w, xyz);
-    } else if (center == kConsensus || center == kFit) {
-      float geo[3], surf[3];
-      push(xyz, L.yaw, L.l, L.w, geo);
-      push(p_mean, L.yaw, L.l, L.w, surf);
-      const float e0 = __fsub_rn(surf[0], geo[0]), e1 = __fsub_rn(surf[1], geo[1]);
-      const float e2 = __fsub_rn(surf[2], geo[2]);
-      const bool agree =
-          __fadd_rn(__fadd_rn(__fmul_rn(e0, e0), __fmul_rn(e1, e1)), __fmul_rn(e2, e2)) <= 6.25f;
-      for (int i = 0; i < 3; ++i) xyz[i] = agree ? surf[i] : geo[i];
-    } else if (center == kGeometric) {
+    if (center == kConsensus || center == kFit || center == kGeometric) {
       const float raw[3] = {xyz[0], xyz[1], xyz[2]};
-      push(raw, L.yaw, L.l, L.w, xyz);
+      push(raw, L.yaw, L.l, L.w, xyz);  // the geometric point
     }
     for (int i = 0; i < 3; ++i) L.seed[i] = xyz[i];
-    // a field of its own: other warps may still be reading L.go
     L.stage = bp_ok ? (center == kFit ? 2 : 1) : 0;
-    if (!bp_ok) {
-      for (int i = 0; i < 7; ++i) out[i] = 0.0f;
-      p.found_out[id] = 0;
+  }
+  __syncthreads();  // thread 32's push is done
+  if (tid == 0) {
+    if (center == kSurface) {
+      for (int i = 0; i < 3; ++i) L.seed[i] = s_surf[i];
+    } else if (center == kConsensus || center == kFit) {
+      const float e0 = __fsub_rn(s_surf[0], L.seed[0]), e1 = __fsub_rn(s_surf[1], L.seed[1]);
+      const float e2 = __fsub_rn(s_surf[2], L.seed[2]);
+      const bool agree =
+          __fadd_rn(__fadd_rn(__fmul_rn(e0, e0), __fmul_rn(e1, e1)), __fmul_rn(e2, e2)) <= 6.25f;
+      for (int i = 0; i < 3; ++i) L.seed[i] = agree ? s_surf[i] : L.seed[i];
     }
     if (L.stage == 2) {  // the fit's arm, radius, gate and candidates
       const int arm = (p.fit_auto && !L.oriented) ? 1 : 0;
@@ -511,8 +721,9 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
     }
   }
   __syncthreads();
+  TF_STAMP(0, 5);
   if (L.stage != 2) {
-    if (tid == 0 && L.stage == 1) {
+    if (writer && L.stage == 1) {
       const float c = cosf(-L.yaw), s = sinf(-L.yaw);
       out[0] = __fsub_rn(__fmul_rn(c, L.seed[0]), __fmul_rn(s, L.seed[1]));
       out[1] = __fadd_rn(__fmul_rn(s, L.seed[0]), __fmul_rn(c, L.seed[1]));
@@ -522,87 +733,186 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
       out[5] = L.w;
       out[6] = L.h;
       p.found_out[id] = 1;
+    } else if (writer) {
+      for (int i = 0; i < 7; ++i) out[i] = 0.0f;
+      p.found_out[id] = 0;
     }
+    cluster.sync();
     return;
   }
 
-  // pass 3: the gated points, compacted in raster order
-  int n_pts = 0;
-  for (int base = 0; base < win.npx; base += kThreads) {
-    float px = 0.0f, py = 0.0f;
-    const bool g = base + tid < win.npx && gated(p, win, L, root, base + tid, px, py);
-    const unsigned bal = __ballot_sync(0xffffffffu, g);
-    if (lane == 0) redi[warp] = __popc(bal);
+  // pass 3: the gated points, compacted in the stage's order (each warp's
+  // region, the warps in order)
+  int n_cta = 0;  // this CTA's gated points
+  if (held) {
+    const int n = s_count[warp];
+    int g = 0;
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      const int e = warp * kWarpCap + i0 + lane;
+      const bool in = i0 + lane < n && in_gate(L, s_px[e], s_py[e], s_h[e], s_d[e]);
+      g += __popc(__ballot_sync(0xffffffffu, in));
+    }
+    __syncthreads();  // every warp has read s_count
+    if (lane == 0) s_count[warp] = g;
     __syncthreads();
-    int before = n_pts;
-    for (int w = 0; w < warp; ++w) before += redi[w];
-    const int slot = before + __popc(bal & ((1u << lane) - 1u));
-    if (g && slot < kPointCap) pts[slot] = make_float2(px, py);
-    for (int w = 0; w < kWarps; ++w) n_pts += redi[w];
-    __syncthreads();
-  }
-  const bool held = n_pts <= kPointCap;
-  const float nw = fmaxf((float)n_pts, 1e-6f);
-  const float lam = __fmul_rn(0.08f, nw);
-  const float sx = L.seed[0], sy = L.seed[1], a = L.a, bax = L.b;
-  const int boundary = L.boundary;
-
-  // the fit: a warp a candidate heading
-  for (int c_i = warp; c_i < L.ncand; c_i += kWarps) {
-    const float phi = L.phis[c_i];
-    const float c = cosf(phi), s = sinf(phi);
-    float mx = sx, my = sy;
-    for (int it = 0; it <= kGnIters; ++it) {
-      double sum[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
-      const int n_walk = held ? n_pts : win.npx;
-      for (int i = lane; i < n_walk; i += 32) {
-        float px, py;
-        if (held) {
-          px = pts[i].x;
-          py = pts[i].y;
-        } else if (!gated(p, win, L, root, i, px, py)) {
-          continue;
-        }
-        float r, jx, jy;
-        residual(boundary, a, bax, c, s, px, py, mx, my, r, jx, jy);
-        if (it == kGnIters) {
-          sum[0] += __fmul_rn(r, r);
-        } else {
-          sum[0] += __fmul_rn(jx, jx);
-          sum[1] += __fmul_rn(jx, jy);
-          sum[2] += __fmul_rn(jy, jy);
-          sum[3] += __fmul_rn(jx, r);
-          sum[4] += __fmul_rn(jy, r);
-        }
-      }
+    int off = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      off += w < warp ? s_count[w] : 0;
+      n_cta += s_count[w];
+    }
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      const int e = warp * kWarpCap + i0 + lane;
+      const bool in = i0 + lane < n && in_gate(L, s_px[e], s_py[e], s_h[e], s_d[e]);
+      const unsigned bal = __ballot_sync(0xffffffffu, in);
+      if (in) s_pts[off + __popc(bal & below)] = make_float2(s_px[e], s_py[e]);
+      off += __popc(bal);
+    }
+  } else {
+    int g = 0;
+    for (int t = win.lo + tid; t < win.hi; t += kThreads) {
+      float px, py;
+      g += gated(p, win, L, root, t, px, py) ? 1 : 0;
+    }
 #pragma unroll
-      for (int i = 0; i < 5; ++i) sum[i] = warp_sum(sum[i]);
-      if (it == kGnIters) {
-        if (lane == 0) {
-          s_ress[c_i] = __fdiv_rn((float)sum[0], nw);
-          s_mx[c_i] = mx;
-          s_my[c_i] = my;
-        }
-        break;
-      }
-      const float jxx = __fadd_rn((float)sum[0], lam), jxy = (float)sum[1];
-      const float jyy = __fadd_rn((float)sum[2], lam);
-      const float bx = __fadd_rn((float)sum[3], __fmul_rn(lam, __fsub_rn(mx, sx)));
-      const float by = __fadd_rn((float)sum[4], __fmul_rn(lam, __fsub_rn(my, sy)));
-      const float det = __fsub_rn(__fmul_rn(jxx, jyy), __fmul_rn(jxy, jxy));
-      const float nx = __fsub_rn(mx, __fdiv_rn(__fsub_rn(__fmul_rn(jyy, bx), __fmul_rn(jxy, by)), det));
-      const float ny = __fsub_rn(my, __fdiv_rn(__fsub_rn(__fmul_rn(jxx, by), __fmul_rn(jxy, bx)), det));
-      mx = nx;
-      my = ny;
+    for (int o = 16; o; o >>= 1) g += __shfl_xor_sync(0xffffffffu, g, o);
+    __syncthreads();  // every warp has read s_count
+    if (lane == 0) s_count[warp] = g;
+    __syncthreads();
+    for (int w = 0; w < kWarps; ++w) n_cta += s_count[w];
+  }
+  // the lane's points: every CTA's count and whether it staged its slice
+  int n_pts = 0;
+  bool all_held = true;
+  Xchg* x = &s_x[xi & 1];
+  if (tid == 0) {
+    x->n = n_cta;
+    x->held = held;
+  }
+  cluster.sync();
+  for (int r = 0; r < kCluster; ++r) {
+    const Xchg* o = cluster.map_shared_rank(x, r);
+    n_pts += o->n;
+    all_held = all_held && o->held;
+  }
+  // gathered into every CTA (the stage's room, free after pass 3), the
+  // CTAs' lists by rank; past kGatherCap the fit reads the window again
+  const bool gathered = all_held && n_pts <= kGatherCap;
+  if (gathered) {
+    int off = 0;
+    for (int r = 0; r < kCluster; ++r) {
+      const int n_r = cluster.map_shared_rank(x, r)->n;
+      const float2* src = cluster.map_shared_rank(s_pts, r);
+      for (int i = tid; i < n_r; i += kThreads) s_all[off + i] = src[i];
+      off += n_r;
     }
   }
   __syncthreads();
+  const float nw = fmaxf((float)n_pts, 1e-6f);
+  const float lam = __fmul_rn(0.08f, nw);
+  const float sx = L.seed[0], sy = L.seed[1], a = L.a, bax = L.b;
+  const int boundary = L.boundary, ncand = L.ncand;
+  // fn(px, py) on the points from `start` by `stride`
+  auto each_point = [&](int start, int stride, auto&& fn) {
+    if (gathered) {
+      for (int i = start; i < n_pts; i += stride) fn(s_all[i].x, s_all[i].y);
+    } else {
+      for (int t = start; t < win.npx; t += stride) {
+        float px, py;
+        if (gated(p, win, L, root, t, px, py)) fn(px, py);
+      }
+    }
+  };
+  // one Gauss-Newton step of the centre (mx, my) from a round's sums
+  auto step = [&](const double (&sum)[kFitSums], float& mx, float& my) {
+    const float jxx = __fadd_rn((float)sum[0], lam), jxy = (float)sum[1];
+    const float jyy = __fadd_rn((float)sum[2], lam);
+    const float bx = __fadd_rn((float)sum[3], __fmul_rn(lam, __fsub_rn(mx, sx)));
+    const float by = __fadd_rn((float)sum[4], __fmul_rn(lam, __fsub_rn(my, sy)));
+    const float det = __fsub_rn(__fmul_rn(jxx, jyy), __fmul_rn(jxy, jxy));
+    const float nx = __fsub_rn(mx, __fdiv_rn(__fsub_rn(__fmul_rn(jyy, bx), __fmul_rn(jxy, by)), det));
+    const float ny = __fsub_rn(my, __fdiv_rn(__fsub_rn(__fmul_rn(jxx, by), __fmul_rn(jxy, bx)), det));
+    mx = nx;
+    my = ny;
+  };
+  TF_STAMP(0, 6);
 
-  if (tid == 0) {
-    const int last = L.ncand - 1;
-    const int i = first_argmin(s_ress, L.ncand);
-    const bool decisive = s_ress[i] < __fmul_rn(0.9f, s_ress[last]);
-    const float ctr[2] = {decisive ? s_mx[i] : s_mx[last], decisive ? s_my[i] : s_my[last]};
+  // the fit, with no exchange between rounds: a circle's one heading in
+  // rank 0 over all its threads (a round's sums: each thread's, its warp's
+  // tree, the warps in order), or the headings split over the cluster's
+  // warps (heading h in rank h % kCluster), each warp's rounds its own
+  if (ncand == 1) {
+    if (rank == 0) {
+      const float c = cosf(L.phis[0]), s = sinf(L.phis[0]);
+      float mx = sx, my = sy, ress = 0.0f;  // every thread steps alike
+      for (int it = 0; it <= kGnIters; ++it) {
+        const bool last = it == kGnIters;
+        double sum[kFitSums] = {0.0, 0.0, 0.0, 0.0, 0.0};
+        each_point(tid, kThreads, [&](float px, float py) {
+          fit_terms(boundary, a, bax, c, s, px, py, mx, my, last, sum);
+        });
+#pragma unroll
+        for (int i = 0; i < kFitSums; ++i) sum[i] = warp_sum(sum[i]);
+        double (*part)[kFitSums] = s_fit[it & 1];  // the next round writes the other
+        if (lane == 0) {
+#pragma unroll
+          for (int i = 0; i < kFitSums; ++i) part[warp][i] = sum[i];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < kFitSums; ++i) {
+          sum[i] = 0.0;
+          for (int w = 0; w < kWarps; ++w) sum[i] += part[w][i];
+        }
+        if (last)
+          ress = __fdiv_rn((float)sum[0], nw);
+        else
+          step(sum, mx, my);
+      }
+      if (tid == 0) {
+        s_ress[0] = ress;
+        s_mx[0] = mx;
+        s_my[0] = my;
+      }
+    }
+  } else {
+    for (int h = rank + kCluster * warp; h < ncand; h += kCluster * kWarps) {
+      const float c = cosf(L.phis[h]), s = sinf(L.phis[h]);
+      float mx = sx, my = sy, ress = 0.0f;  // every lane of the warp steps alike
+      for (int it = 0; it <= kGnIters; ++it) {
+        const bool last = it == kGnIters;
+        double sum[kFitSums] = {0.0, 0.0, 0.0, 0.0, 0.0};
+        each_point(lane, 32, [&](float px, float py) {
+          fit_terms(boundary, a, bax, c, s, px, py, mx, my, last, sum);
+        });
+#pragma unroll
+        for (int i = 0; i < kFitSums; ++i) sum[i] = warp_sum(sum[i]);
+        if (last)
+          ress = __fdiv_rn((float)sum[0], nw);
+        else
+          step(sum, mx, my);
+      }
+      if (lane == 0) {
+        s_ress[h] = ress;
+        s_mx[h] = mx;
+        s_my[h] = my;
+      }
+    }
+  }
+  cluster.sync();  // every heading's result is in its CTA's arrays
+  TF_STAMP(0, 7);
+
+  if (writer) {
+    float res[kMaxCands], cmx[kMaxCands], cmy[kMaxCands];
+    for (int h = 0; h < ncand; ++h) {
+      const int owner = h % kCluster;
+      res[h] = *cluster.map_shared_rank(&s_ress[h], owner);
+      cmx[h] = *cluster.map_shared_rank(&s_mx[h], owner);
+      cmy[h] = *cluster.map_shared_rank(&s_my[h], owner);
+    }
+    const int last = ncand - 1;
+    const int i = first_argmin(res, ncand);
+    const bool decisive = res[i] < __fmul_rn(0.9f, res[last]);
+    const float ctr[2] = {decisive ? cmx[i] : cmx[last], decisive ? cmy[i] : cmy[last]};
     float phi = decisive ? L.phis[i] : L.phis[last];
     // the boundary's pi-symmetry, resolved with the head yaw
     const float cand[3] = {phi, __fadd_rn(phi, kPi), __fsub_rn(phi, kPi)};
@@ -625,6 +935,8 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
     out[6] = L.h;
     p.found_out[id] = 1;
   }
+  TF_STAMP(0, 8);
+  cluster.sync();  // no CTA leaves while another may read its buffers
 }
 
 }  // namespace
@@ -642,7 +954,8 @@ extern "C" int tf_decode_direct(const void* y_pred, int channels, const void* im
   if (channels < 10 || (yaw_frame == kAuto && channels < 12) || img_channels < 2 ||
       center < kBackproject || center > kFit || yaw_frame < kLocal || yaw_frame > kAuto ||
       boundary0 < kCircle || boundary0 > kBox || boundary1 < kCircle || boundary1 > kBox ||
-      (long long)frames * k > 0x7fffffffLL || (long long)frames * height * width > 0x7fffffffLL)
+      (long long)frames * k * kCluster > 0x7fffffffLL ||
+      (long long)frames * height * width > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.y_pred = (const float*)y_pred;
@@ -677,6 +990,16 @@ extern "C" int tf_decode_direct(const void* y_pred, int channels, const void* im
   p.range_offset = consts[2];
   p.factor[0] = consts[3];
   p.factor[1] = consts[4];
-  decode_direct_kernel<<<frames * k, kThreads, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(frames * k * kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, decode_direct_kernel, p);
 }

@@ -29,9 +29,10 @@ the reference:
   corner_vote        the kernel's wrapper on every lane (the plain
                      version on the CPU)
   decode_batch / decode_batch_multi   the corner decode, k = 1 / top-k:
-                     the heat mask, the CC, the top-k roots and the
+                     the positives map (`_positives`) once, the heat mask
+                     stamped from it, the CC, the top-k roots and the
                      back-projection, then the vote on the lanes that
-                     reached stage 2
+                     reached stage 2, its rows and columns from the same map
   _direct_pose_from_cluster   prob-weighted lwh and yaw (local, global
                      or the dual-codec "auto" gate), the surface-point
                      mean and, for the "head" center, the head's center
@@ -111,14 +112,25 @@ def _at(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return flat.gather(1, idx[..., None].expand(-1, -1, flat.shape[-1]))
 
 
-def heat_mask(prob: torch.Tensor, cfg: DecodeConfig) -> torch.Tensor:
+def _positives(prob: torch.Tensor, cfg: DecodeConfig) -> torch.Tensor:
+    """(B, H, W) probabilities -> (B, H, W) bool: prob >= min_prob, in
+    prob's own type, as the reference compares (the heat mask's stamps
+    and the corner vote's candidate rows and columns)."""
+    return prob >= cfg.min_prob
+
+
+def heat_mask(prob: torch.Tensor, cfg: DecodeConfig,
+              positives: torch.Tensor | None = None) -> torch.Tensor:
     """(B, H, W) probabilities -> (B, H, W) bool mask the clusters are
-    labelled on: positives stamp a 4x4 heat count, kept above min_heat."""
+    labelled on: positives stamp a 4x4 heat count, kept above min_heat.
+    `positives`, where given, is `_positives(prob, cfg)` made already."""
     _, h, w = prob.shape
     dev = prob.device
     rows = torch.arange(h, device=dev)[:, None]
     cols = torch.arange(w, device=dev)[None, :]
-    stamp = (prob >= cfg.min_prob) & (rows >= 2) & (cols >= 2)
+    if positives is None:
+        positives = _positives(prob, cfg)
+    stamp = positives & (rows >= 2) & (cols >= 2)
     # heat[r, c] = #stamping positives in rows [r-1, r+2] x cols [c-1, c+2]
     # (an exact integer count: a box sum over the padded stamp)
     padded = F.pad(stamp.to(torch.float32)[:, None], (1, 2, 1, 2))
@@ -127,10 +139,11 @@ def heat_mask(prob: torch.Tensor, cfg: DecodeConfig) -> torch.Tensor:
     return (heat > 0).contiguous()
 
 
-def _heat_components(prob: torch.Tensor, cfg: DecodeConfig):
+def _heat_components(prob: torch.Tensor, cfg: DecodeConfig,
+                     positives: torch.Tensor | None = None):
     """(B, H, W) probabilities -> (mask, labels, min_x, max_x, min_y,
     max_y), each (B, H, W)."""
-    mask = heat_mask(prob, cfg)
+    mask = heat_mask(prob, cfg, positives)
     labels, min_x, max_x, min_y, max_y = connected_components_with_bbox(
         mask, cfg.max_cc_iters, cfg.cc_impl
     )
@@ -185,11 +198,12 @@ def _topk_roots(mask, labels, min_x, max_x, min_y, max_y, cfg, k: int):
     return idx, found, bboxes, centroids, areas
 
 
-def _find_obstacles_topk_batch(prob: torch.Tensor, cfg: DecodeConfig, k: int):
+def _find_obstacles_topk_batch(prob: torch.Tensor, cfg: DecodeConfig, k: int,
+                               positives: torch.Tensor | None = None):
     """Top-k clusters by bbox area, largest first, for a batch. (B, H, W)
     -> (centroids (B, k, 2), bboxes (B, k, 4), areas (B, k) float32,
     found (B, k)); zeros where not found."""
-    mask, labels, min_x, max_x, min_y, max_y = _heat_components(prob, cfg)
+    mask, labels, min_x, max_x, min_y, max_y = _heat_components(prob, cfg, positives)
     _, found, bboxes, centroids, areas = _topk_roots(
         mask, labels, min_x, max_x, min_y, max_y, cfg, k
     )
@@ -202,13 +216,14 @@ def _find_obstacles_topk_batch(prob: torch.Tensor, cfg: DecodeConfig, k: int):
     )
 
 
-def _find_obstacle_batch(prob: torch.Tensor, cfg: DecodeConfig):
+def _find_obstacle_batch(prob: torch.Tensor, cfg: DecodeConfig,
+                         positives: torch.Tensor | None = None):
     """The largest cluster per frame (the corner path): lane 0 of the
     top-k. (B, H, W) -> (centroid (B, 2), bbox (B, 4), area (B,), found
     (B,)). The reference takes the smallest root label among the largest
     areas; a cluster's root is its smallest flat index, so that is
     lax.top_k's stable order at k = 1."""
-    return tuple(t[:, 0] for t in _find_obstacles_topk_batch(prob, cfg, 1))
+    return tuple(t[:, 0] for t in _find_obstacles_topk_batch(prob, cfg, 1, positives))
 
 
 def find_obstacles_topk(
@@ -335,7 +350,8 @@ def corner_vote_reference(
     dev = y_pred.device
     k = min(cfg.max_candidates, h * w)
 
-    pos = y_pred[..., 1] >= cfg.min_prob
+    pos = _positives(y_pred[..., 1], cfg)  # in y_pred's own type, as the reference
+    y_pred = y_pred.to(torch.float32)  # the regressions in float32
     col_has_pos = pos.any(dim=1)  # (B, W)
     row_has_pos = pos.any(dim=2)  # (B, H)
     rows = torch.arange(h, device=dev)[:, None]
@@ -510,7 +526,8 @@ def corner_vote(
     """The reference's corner vote, one per lane (B, n): (pose (B, n, 7)
     [xyz, yaw, l, w, h], box (B, n, 8, 3), ok (B, n), overflow (B, n)),
     every lane voted. The kernel's wrapper (`ops/corner_vote.py`) runs
-    it: the kernel for CUDA tensors, `corner_vote_reference` on the CPU."""
+    it: the kernel for CUDA tensors (the positives map made here, as the
+    decode makes it), `corner_vote_reference` on the CPU."""
     return corner_vote_lanes(y_pred, image, bbox, centroid_3d, None, spec, cfg)
 
 
@@ -526,13 +543,16 @@ def _corner_stages(images, centroid, bbox, found, spec, cfg):
     return stage1, stage2, xyz
 
 
-def _corner_lanes(y_pred, images, centroid, bbox, found, spec, cfg):
+def _corner_lanes(y_pred, images, centroid, bbox, found, spec, cfg, positives):
     """The corner decode's stages per lane (B, n), from the 2D cluster
     on: (stage1, stage2, xyz, pose, box, ok, overflow). The vote runs on
-    the lanes that reached stage 2; on the card the kernel writes zeros
-    on the others, which every caller masks."""
+    the lanes that reached stage 2, from the positives map the heat mask
+    was stamped from (`_positives`); on the card the kernel writes zeros
+    on the others, which every caller masks, and reads nothing of a frame
+    with no such lane."""
     stage1, stage2, xyz = _corner_stages(images, centroid, bbox, found, spec, cfg)
-    pose, box, cv_ok, overflow = corner_vote_lanes(y_pred, images, bbox, xyz, stage2, spec, cfg)
+    pose, box, cv_ok, overflow = corner_vote_lanes(y_pred, images, bbox, xyz, stage2, spec, cfg,
+                                                   positives)
     return stage1, stage2, xyz, pose, box, stage2 & cv_ok, overflow
 
 
@@ -545,9 +565,10 @@ def decode_batch(
     """The corner decode of the largest cluster per frame: pose (B, 7) =
     (tx, ty, tz, rz, l, w, h), zeros where no obstacle survives every
     stage, plus the intermediate products (reference decode_frame)."""
-    centroid, bbox, area, found = _find_obstacle_batch(y_pred[..., 1], cfg)
+    positives = _positives(y_pred[..., 1], cfg)
+    centroid, bbox, area, found = _find_obstacle_batch(y_pred[..., 1], cfg, positives)
     stage1, stage2, xyz, pose, box, ok, overflow = _corner_lanes(
-        y_pred, images, centroid[:, None], bbox[:, None], found[:, None], spec, cfg
+        y_pred, images, centroid[:, None], bbox[:, None], found[:, None], spec, cfg, positives
     )
     stage1, stage2, ok = stage1[:, 0], stage2[:, 0], ok[:, 0]
     return {
@@ -573,9 +594,11 @@ def decode_batch_multi(
 ) -> dict[str, torch.Tensor]:
     """The corner decode of the top-k clusters: poses (B, k, 7) ordered by
     cluster area, found (B, k), areas (B, k), vote_overflow (B, k)."""
-    centroids, bboxes, areas, founds = _find_obstacles_topk_batch(y_pred[..., 1], cfg, k)
+    positives = _positives(y_pred[..., 1], cfg)
+    centroids, bboxes, areas, founds = _find_obstacles_topk_batch(y_pred[..., 1], cfg, k,
+                                                                  positives)
     _, stage2, _, pose, _, ok, overflow = _corner_lanes(
-        y_pred, images, centroids, bboxes, founds, spec, cfg
+        y_pred, images, centroids, bboxes, founds, spec, cfg, positives
     )
     return {
         "poses": torch.where(ok[..., None], pose, 0.0),

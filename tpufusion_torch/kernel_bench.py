@@ -43,16 +43,22 @@ decode kernel and its plain version (the torch composition it replaced)
 in turns, beside an empty kernel (the launch floor) and the kernel's
 bound (the bytes its lanes need on the run's data,
 `decode_direct_bound_bytes`), at DECODE_SHAPES: 64 x 32 x 1801 at k 1 with the live asset's
-clusters, config 5's 16 frames at k 4, and 64 x 63 x 1801 at k 1. The
-corner_vote rows time the corner head's vote kernel and its plain version
-(the torch composition it replaced) likewise, beside its bound (the
-larger of its bytes at 3.35 TB/s and its FP32 FMAs, 24 a candidate pair,
-at 67 TFLOP/s, `corner_vote_bound`), at CORNER_SHAPES: the corner row's
-64 frames (its seeded FCN votes no lane), the corner head on the asset's
-trunk at 64 frames k 1, 16 frames k 4 and 63 rows, and every lane at 2048
-candidates (at most 6 sets). `--kernels` picks among exact, cc, packed,
-encode, encode_direct, decode_direct and corner_vote. With `--out FILE`
-the rows are also written there as JSON.
+clusters, config 5's 16 frames at k 4, and 64 x 63 x 1801 at k 1; with
+--old-csrc, DIR's direct decode (the one-CTA-a-lane design, the same C
+interface) in the same turns ("old"), and with `--decode-clusters 4,8`
+the current kernel built with 4 and 8 CTAs a lane ("new_c4", "new_c8").
+The corner_vote rows time the corner head's vote kernel (handed the
+positives map, as the decode hands it) and its plain version (the torch
+composition it replaced) likewise, beside its bound (the larger of its
+bytes at 3.35 TB/s and its FP32 FMAs, 24 a candidate pair, at 67 TFLOP/s,
+`corner_vote_bound`), at CORNER_SHAPES: the corner row's 64 frames (its
+seeded FCN votes no lane), the corner head on the asset's trunk at 64
+frames k 1, 16 frames k 4 and 63 rows, and every lane at 2048 candidates
+(at most 6 sets); with --old-csrc, DIR's vote (the three-launch design,
+through its own C interface, reading y_pred's channel 1) in the same
+turns. `--kernels` picks among exact, cc, packed, encode, encode_direct,
+decode_direct and corner_vote. With `--out FILE` the rows are also
+written there as JSON.
 
     python -m tpufusion_torch.kernel_bench --dsmem-probe
 
@@ -63,6 +69,7 @@ distributed shared memory are exact on this card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import glob
 import json
@@ -352,7 +359,87 @@ def _build_old(csrc: str) -> ctypes.CDLL:
     if hasattr(lib, "tf_nearest_wins_packed_image"):
         lib.tf_nearest_wins_packed_image.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
         lib.tf_nearest_wins_packed_image.restype = i
+    if hasattr(lib, "tf_decode_direct"):  # the one-CTA-a-lane design: the same interface
+        lib.tf_decode_direct.argtypes = _build.load().tf_decode_direct.argtypes
+        lib.tf_decode_direct.restype = i
+    if hasattr(lib, "tf_corner_vote"):  # the three-launch design: it reads y_pred's channel 1
+        lib.tf_corner_vote.argtypes = [p, i, p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                       ctypes.POINTER(f), p, p, p, p, p, p, p, p, p, p]
+        lib.tf_corner_vote.restype = i
+    lib.tf_error_string.argtypes = [i]
+    lib.tf_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@contextlib.contextmanager
+def using_library(lib: ctypes.CDLL):
+    """The port's wrappers launch through `lib` (an earlier design's, a
+    variant's or a probe's build of the same C entry) inside the block."""
+    from tpufusion_torch import _build
+
+    saved = _build.load()
+    _build._lib = lib
+    try:
+        yield
+    finally:
+        _build._lib = saved
+
+
+def _build_decode_variant(cluster: int) -> ctypes.CDLL:
+    """The current direct decode kernel built with `cluster` CTAs a lane."""
+    from tpufusion_torch import _build
+
+    out = os.path.join(_build.BUILD_DIR, f"libtpufusion_decode_{cluster}.so")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DTF_DECODE_CLUSTER={cluster}", "-shared",
+           "-o", out, os.path.join(_build.CSRC, "decode_direct.cu"),
+           os.path.join(_build.CSRC, "nearest_wins.cu")]  # the latter: tf_error_string
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the {cluster}-CTA direct decode:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(out)
+    main = _build.load()
+    for name in ("tf_decode_direct", "tf_error_string"):
+        getattr(lib, name).argtypes = getattr(main, name).argtypes
+        getattr(lib, name).restype = getattr(main, name).restype
+    return lib
+
+
+def _old_corner_vote(lib, spec, cfg):
+    """The three-launch vote through its own C interface (has-pos
+    over y_pred's channel 1, counts, winners), on kernel_bench's corner
+    inputs; returns (pose, box, ok, overflow)."""
+    import numpy as np
+
+    from tpufusion_torch.ops.label_encode import pixel_trig
+
+    def run(a):
+        y, im, bbox, c3, lanes = a[:5]
+        y = y.to(torch.float32).contiguous()
+        b, h, w, ch = y.shape
+        n, k, dev = bbox.shape[1], min(cfg.max_candidates, h * w), y.device
+        lanes = torch.ones((b, n), dtype=torch.bool, device=dev) if lanes is None else lanes
+        f32 = np.float32
+        consts = (ctypes.c_float * 6)(f32(cfg.min_prob), *(f32(d) for d in cfg.far_delta),
+                                      f32(1e-9), f32(cfg.max_bbox_dist**2))
+        out = [torch.empty((b, n, 7), device=dev), torch.empty((b, n, 8, 3), device=dev),
+               torch.empty((b, n), dtype=torch.bool, device=dev),
+               torch.empty((b, n), dtype=torch.bool, device=dev)]
+        scratch = [torch.empty((b, w), dtype=torch.uint8, device=dev),
+                   torch.empty((b, -(-w // 256), -(-h // 32)), dtype=torch.int32, device=dev),
+                   torch.empty((b, n, k), dtype=torch.int32, device=dev),
+                   torch.empty((b, n, k, 24), device=dev),
+                   torch.empty((b, n, 2), dtype=torch.int32, device=dev)]
+        err = lib.tf_corner_vote(
+            y.data_ptr(), ch, im.data_ptr(), im.shape[-1], bbox.data_ptr(), c3.data_ptr(),
+            lanes.data_ptr(), *(t.data_ptr() for t in pixel_trig(spec, dev)), b, n, h, w, k,
+            cfg.margin_x, cfg.margin_y, consts, *(t.data_ptr() for t in scratch),
+            *(t.data_ptr() for t in out), torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"the three-launch corner vote: CUDA error {err}"
+        return out
+
+    return run
 
 
 def _build_packed_variant(cluster: int) -> ctypes.CDLL:
@@ -528,12 +615,13 @@ def packed_ab(lib, sets: int = 12) -> list[dict]:
     return rows
 
 
-def ab(old_csrc: str | None, sets: int = 12, kernels=("exact", "cc", "packed")) -> list[dict]:
+def ab(lib, sets: int = 12, kernels=("exact", "cc", "packed")) -> list[dict]:
+    """The exact z-buffer's, the CC's and the packed z-buffer's rows
+    against an earlier design's library `lib` (`_build_old`, or None)."""
     from tpufusion_torch.ops import cc, components, projection
 
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    lib = _build_old(old_csrc) if old_csrc else None
     rows = []
     if "packed" in kernels:
         old = lib if lib is not None and hasattr(lib, "tf_nearest_wins_packed_image") else None
@@ -742,16 +830,24 @@ def decode_direct_inputs(dev, shape, sets: int, seed0: int = 1800):
     return spec, dcfg, k, out
 
 
-def decode_direct_rows(sets: int = 12, shapes=DECODE_SHAPES) -> list[dict]:
+def decode_direct_rows(sets: int = 12, shapes=DECODE_SHAPES, old=None,
+                       clusters=()) -> list[dict]:
     """The direct decode kernel's rows: the kernel and its plain version
     (the torch composition it replaced) in turns, and an empty kernel (the
     card's launch floor), at each of `shapes`, beside the kernel's bound
     (`decode_direct_bound_bytes` at 3.35 TB/s) from the same inputs; the
-    contract held on the first two sets."""
+    contract held on the first two sets. With `old` (an earlier design's
+    library, `_build_old`) its kernel ("old") in the same turns, held to
+    the current one's poses within 1e-4 first; each width of `clusters`
+    a build of the current kernel with that many CTAs a lane
+    ("new_c<N>")."""
     from tpufusion_torch.decode.decode import decode_direct_clusters_reference
     from tpufusion_torch.ops import decode_direct
 
     dev = torch.device("cuda", 0)
+    libs = {f"new_c{c}": _build_decode_variant(c) for c in clusters}
+    if old is not None:
+        libs["old"] = old
     rows = []
     for shape in shapes:
         spec, cfg, k, args = decode_direct_inputs(dev, shape, sets)
@@ -760,9 +856,19 @@ def decode_direct_rows(sets: int = 12, shapes=DECODE_SHAPES) -> list[dict]:
             for a in args[:2]:
                 r = decode_direct.against_plain(a[0], a[1], spec, cfg, k)
                 assert r["ok"] and r["near"] == 0, (shape[0], r)
-            fns = {"new": lambda a: decode_direct.decode_direct_clusters(*a, spec, cfg, center),
+            new = lambda a: decode_direct.decode_direct_clusters(*a, spec, cfg, center)  # noqa: E731
+            fns = {"new": new,
                    "plain": lambda a: decode_direct_clusters_reference(*a, spec, cfg, center),
                    "empty": empty_kernel}
+            for name, lib in libs.items():
+                def on(a, lib=lib):
+                    with using_library(lib):
+                        return new(a)
+                for a in args[:2]:  # each within 1e-4 of the plain version
+                    (pa, fa), (pb, fb) = new(a), on(a)
+                    gap = float((pa - pb).abs().max()) if pa.numel() else 0.0
+                    assert torch.equal(fa, fb) and gap <= 2e-4, (name, shape[0], gap)
+                fns[name] = on
             call = time_turns(fns, args, time_ms)
             dev_t = time_turns(fns, args, lambda fn, xs: (
                 queued_each if fn is fns["plain"] else queued_ms)(fn, xs))
@@ -782,13 +888,14 @@ FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores, NVIDIA's data 
 
 
 def corner_vote_bound(y_pred, image, bbox, centroid_3d, lanes, cfg) -> dict:
-    """The corner vote's least time on this run's data: its bytes (each
-    frame's positive channel, 4 B a pixel; each voted lane's bbox,
-    centroid and flag in and its pose, box and flags out; each real
-    candidate's 24 regressions, distance and height) at 3.35 TB/s, and its
-    FP32 FMAs (24 a pair over the real candidates' n_c^2 pairs of each
-    voted lane) at 67 TFLOP/s; {"bytes", "fmas", "bound_ms", "bound_by",
-    "lanes", "candidates" (real, summed)}."""
+    """The corner vote's least time on this run's data: its bytes (the
+    positives map of each frame with a voted lane, 1 B a pixel; every
+    lane's flag in and its pose, box and flags out; each voted lane's bbox
+    and centroid; each real candidate's 24 regressions, distance and
+    height) at 3.35 TB/s, and its FP32 FMAs (24 a pair over the real
+    candidates' n_c^2 pairs of each voted lane) at 67 TFLOP/s; {"bytes",
+    "fmas", "bound_ms", "bound_by", "lanes", "candidates" (real,
+    summed)}."""
     b, h, w = y_pred.shape[:3]
     k = min(cfg.max_candidates, h * w)
     pos = y_pred[..., 1] >= cfg.min_prob
@@ -803,7 +910,9 @@ def corner_vote_bound(y_pred, image, bbox, centroid_3d, lanes, cfg) -> dict:
         else lanes
     n_c = torch.where(voted, (n_cols * n_rows).clamp(max=k), 0).double()
     n_lanes = int(voted.sum())
-    need = b * h * w * 4 + n_lanes * (32 + 12 + 1 + 4 * (7 + 24) + 2) + 26 * 4 * float(n_c.sum())
+    frames = int(voted.any(dim=1).sum())
+    need = (frames * h * w + voted.numel() * (1 + 4 * (7 + 24) + 2) + n_lanes * (32 + 12)
+            + 26 * 4 * float(n_c.sum()))
     fmas = 24.0 * float((n_c * n_c).sum())
     t_bytes, t_ops = need / HBM_BYTES_PER_S, 2.0 * fmas / FP32_FLOPS
     return {"bytes": need, "fmas": fmas, "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -846,14 +955,17 @@ def corner_fcn(which: str, dev, dtype: str = "bfloat16"):
 
 
 def corner_vote_inputs(dev, shape, sets: int, seed0: int = 1700):
-    """(spec, decode config, [(y_pred, image, bbox, centroid_3d, stage2),
-    ...]) at one of CORNER_SHAPES: the path's FCN on distinct beam-scan
-    batches and the lanes `decode_batch` / `decode_batch_multi` vote ("full":
-    the hybrid's outputs with every probability set to 0.9)."""
+    """(spec, decode config, [(y_pred, image, bbox, centroid_3d, stage2,
+    positives), ...]) at one of CORNER_SHAPES: the path's FCN on distinct
+    beam-scan batches, the lanes `decode_batch` / `decode_batch_multi`
+    vote and the positives map they hand the vote ("full": the hybrid's
+    outputs with every probability set to 0.9)."""
     from tpufusion_torch import RangeViewSpec
     from tpufusion_torch.benchmarks import point_sets
     from tpufusion_torch.geometry.range_view import range_view_project_batch
     from tpufusion_torch.ops.corner_vote import corner_lanes
+
+    from tpufusion_torch.decode.decode import _positives
 
     _, frames, n_points, beams, res_v, k, which = shape
     model, dcfg = corner_fcn("row" if which == "row" else "hybrid", dev)
@@ -865,16 +977,20 @@ def corner_vote_inputs(dev, shape, sets: int, seed0: int = 1700):
             y_pred = model(image)
             if which == "full":
                 y_pred[..., 1] = 0.9
-            out.append((y_pred, image, *corner_lanes(y_pred, image, spec, dcfg, k)))
+            out.append((y_pred, image, *corner_lanes(y_pred, image, spec, dcfg, k),
+                        _positives(y_pred[..., 1], dcfg)))
     return spec, dcfg, out
 
 
-def corner_vote_rows(sets: int = 6, shapes=CORNER_SHAPES) -> list[dict]:
-    """The corner vote kernel's rows: the kernel and its plain version
-    (the torch composition it replaced) in turns, and an empty kernel (the
-    launch floor), at each of `shapes`, beside the kernel's bound
-    (`corner_vote_bound`) on the same inputs; the contract held on the
-    first two sets (undecided and pose-sensitive lanes counted)."""
+def corner_vote_rows(sets: int = 6, shapes=CORNER_SHAPES, old=None) -> list[dict]:
+    """The corner vote kernel's rows: the kernel (handed the positives map,
+    as the decode hands it) and its plain version (the torch composition
+    it replaced) in turns, and an empty kernel (the launch floor), at each
+    of `shapes`, beside the kernel's bound (`corner_vote_bound`) on the
+    same inputs; the contract held on the first two sets (undecided and
+    pose-sensitive lanes counted). With `old` (`_build_old` of the
+    three-launch design's sources) its vote ("old") in the same turns, its
+    ok and overflow held equal to the current one's first."""
     from tpufusion_torch.decode.decode import corner_vote_reference
     from tpufusion_torch.ops import corner_vote
 
@@ -885,13 +1001,18 @@ def corner_vote_rows(sets: int = 6, shapes=CORNER_SHAPES) -> list[dict]:
         with torch.inference_mode():
             checks = [corner_vote.against_plain(*a[:4], a[4], spec, cfg) for a in args[:2]]
             assert all(r["ok"] for r in checks), (shape[0], checks)
-            fns = {"new": lambda a: corner_vote.corner_vote_lanes(*a, spec, cfg),
+            fns = {"new": lambda a: corner_vote.corner_vote_lanes(*a[:5], spec, cfg, a[5]),
                    "plain": lambda a: corner_vote_reference(*a[:4], spec, cfg),
                    "empty": empty_kernel}
+            if old is not None:
+                fns["old"] = _old_corner_vote(old, spec, cfg)
+                for a in args[:2]:
+                    got, want = fns["old"](a), fns["new"](a)
+                    assert all(torch.equal(g, w) for g, w in zip(got[2:], want[2:])), shape[0]
             call = time_turns(fns, args, time_ms)
             dev_t = time_turns(fns, args, lambda fn, xs: (
                 queued_each if fn is fns["plain"] else queued_ms)(fn, xs))
-        bounds = [corner_vote_bound(*a, cfg) for a in args]
+        bounds = [corner_vote_bound(*a[:5], cfg) for a in args]
         mean = {key: sum(b[key] for b in bounds) / sets
                 for key in ("bytes", "fmas", "bound_ms", "lanes", "candidates")}
         rows.append({"shape": shape[0], "kernel": "corner_vote",
@@ -928,6 +1049,8 @@ def main() -> int:
                     help="which kernels' rows: exact and cc need --old-csrc")
     ap.add_argument("--dsmem-probe", action="store_true",
                     help="also build and run probes/dsmem_min64.cu")
+    ap.add_argument("--decode-clusters", default="",
+                    help="comma-separated cluster widths of the direct decode to time beside it")
     ap.add_argument("--out", help="write the card and the rows here as JSON")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -939,15 +1062,17 @@ def main() -> int:
     if args.dsmem_probe:
         print(dsmem_probe(), end="")
     kernels = tuple(args.kernels.split(","))
-    rows = ab(args.old_csrc, args.sets, kernels) if args.old_csrc or "packed" in kernels else []
+    old = _build_old(args.old_csrc) if args.old_csrc else None
+    rows = ab(old, args.sets, kernels) if old is not None or "packed" in kernels else []
     if "encode" in kernels:
         rows += encode_rows(args.sets)
     if "encode_direct" in kernels:
         rows += encode_direct_rows(args.sets)
     if "decode_direct" in kernels:
-        rows += decode_direct_rows(args.sets)
+        clusters = tuple(int(c) for c in args.decode_clusters.split(",") if c)
+        rows += decode_direct_rows(args.sets, old=old, clusters=clusters)
     if "corner_vote" in kernels:
-        rows += corner_vote_rows(min(args.sets, 6))
+        rows += corner_vote_rows(min(args.sets, 6), old=old)
     for r in rows:
         names = [k[: -len("_device_ms")] for k in r if k.endswith("_device_ms")]
         times = ", ".join(

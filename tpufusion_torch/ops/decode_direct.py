@@ -13,11 +13,13 @@
 The port's own kernel: the JAX package computes this decode in XLA,
 outside Pallas (`tpufusion/decode/decode.py::_direct_pose_from_cluster`,
 `back_project_2d_to_3d`, `_fit_pose_to_surface`, vmapped by
-`decode_batch_direct`). One CTA takes one (frame, lane) and walks only its
-cluster's bbox window: the weighted sums of the yaw frame, the size and
-the head's center, the surface mean, the back-projection's nearest valid
-pixel, the push, the consensus, and the Gauss-Newton fit of its gated
-surface points. Every center but "silhouette" (which needs a quantile,
+`decode_batch_direct`). A thread-block cluster of CTAs takes one (frame,
+lane), each CTA a raster slice of the cluster's bbox window read once into
+shared memory: the weighted sums of the yaw frame, the size and the head's
+center, the surface mean, the back-projection's nearest valid pixel, the
+push, the consensus, and the Gauss-Newton fit of its gated surface points,
+every sum exchanged between the CTAs in a fixed order (the same bits call
+to call). Every center but "silhouette" (which needs a quantile,
 a sort of each lane's points, and runs the plain version on every
 device); every fit boundary and yaw frame. For tensors on the CPU the
 wrapper runs the plain version; for CUDA tensors it launches the kernel
@@ -151,22 +153,39 @@ def window_pixels(min_x, max_x, min_y, max_y, root, found) -> torch.Tensor:
 
 def against_plain(y_pred, images, spec: RangeViewSpec, cfg: DecodeConfig, k: int,
                   adversarial: bool = False) -> dict:
-    """The kernel (one launch, or AssertionError) and its plain version on
-    the same lanes of a CUDA batch: the heat mask, the CC and the top-k
-    roots once, then each. Returns `_golden.direct_kernel_readings` (wide
+    """The kernel and its plain version on the same lanes of a CUDA
+    batch: the heat mask, the CC and the top-k roots once, then
+    `lanes_against_plain`. Returns `_golden.direct_kernel_readings` (wide
     windows at its looser limit only where `adversarial`: the inputs of
     `parity_inputs.cluster_inputs`) with "found" (lanes the plain version
-    found) and "windows" (their largest window) added."""
+    found), "windows" (their largest window) and "repeatable" added."""
+    from tpufusion_torch.decode import decode as td
+
+    with torch.inference_mode():
+        comps = td._heat_components(y_pred[..., 1], cfg)
+        root, found, *_ = td._topk_roots(*comps, cfg, k)
+    return lanes_against_plain(y_pred, images, comps, root, found, spec, cfg, adversarial)
+
+
+def lanes_against_plain(y_pred, images, comps, root, found, spec: RangeViewSpec,
+                        cfg: DecodeConfig, adversarial: bool = False) -> dict:
+    """The kernel (two calls, one launch each, or AssertionError) and its
+    plain version on given lanes: the CC's (mask, labels, 4 extents) and
+    the roots and found flags, as `decode_batch_direct` hands them over,
+    or made by hand (`parity_inputs.crafted_lanes`). Returns
+    `_golden.direct_kernel_readings` with "found", "windows" and
+    "repeatable" (the two calls' outputs equal bit for bit) added."""
     from tpufusion_torch._golden import direct_kernel_readings
     from tpufusion_torch.decode import decode as td
 
     center = cfg.direct_center
     with torch.inference_mode():
-        comps = td._heat_components(y_pred[..., 1], cfg)
-        root, found, *_ = td._topk_roots(*comps, cfg, k)
         before = LAUNCHES
         got = decode_direct_clusters(y_pred, images, *comps, root, found, spec, cfg, center)
-        assert LAUNCHES == before + 1, "decode_direct_clusters: not one kernel launch"
+        again = decode_direct_clusters(y_pred, images, *comps, root, found, spec, cfg, center)
+        assert LAUNCHES == before + 2, "decode_direct_clusters: not one kernel launch a call"
+        repeatable = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                         for a, b in zip(got, again))
         margins: dict = {}
         want = td.decode_direct_clusters_reference(y_pred, images, *comps, root, found, spec,
                                                    cfg, center, margins)
@@ -175,6 +194,6 @@ def against_plain(y_pred, images, spec: RangeViewSpec, cfg: DecodeConfig, k: int
         windows = window_pixels(*comps[2:], root, found)
     out = direct_kernel_readings(*(t.cpu().numpy() for t in (*got, *want, windows, near)),
                                  adversarial)
-    out.update(found=int(want[1].sum()), windows=int(windows.max()))
+    out.update(found=int(want[1].sum()), windows=int(windows.max()), repeatable=repeatable)
+    out["ok"] = out["ok"] and repeatable
     return out
-

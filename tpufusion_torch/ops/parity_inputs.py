@@ -706,6 +706,74 @@ def cluster_decode_options(channels: int) -> dict[str, dict]:
     return out
 
 
+# The direct decode kernel's hand-made lanes (`crafted_lanes`): the CC's
+# labels and extents written by hand, so a lane's window can be one the heat
+# mask never makes, and each is checked against the plain version on the
+# same inputs. Even frames: a one-pixel window; two rows of 700 columns
+# (the kernel cuts a window into raster slices, one a CTA of the lane's
+# cluster, so these rows straddle the CTAs); a block of the frame's last 20
+# rows x its full width (36,020 pixels, more than any CTA's stage and the
+# first design's 4,096-point list); a lane not found. Odd frames: a 5 x 60
+# car with a hole; a one-pixel cluster below min_prob (no m: not found);
+# a one-pixel cluster with no return (not found); a 2 x 2 block.
+CRAFTED_MIN_PROB = 0.8  # cluster_decode_options' threshold
+
+
+def crafted_lanes(spec, batch: int = 2, seed: int = 0, channels: int = 12):
+    """(y_pred (B, H, W, channels), image (B, H, W, 3), mask (B, H, W)
+    bool, labels, min_x, max_x, min_y, max_y (B, H, W) int32, root (B, 4)
+    int64, found (B, 4) bool), numpy, for `decode_direct_clusters` and its
+    plain version: the lanes described above on `cluster_inputs`' "cars"
+    background (whose own positives no lane's mask holds)."""
+    y, image = cluster_inputs(spec, "cars", batch=batch, seed=seed, channels=channels)
+    rng = np.random.default_rng(seed + 1)
+    h, w = spec.height, spec.width
+    flat = np.arange(h * w, dtype=np.int32).reshape(h, w)
+    mask = np.zeros((batch, h, w), bool)
+    labels = np.broadcast_to(flat, (batch, h, w)).copy()
+    rows, cols = np.indices((h, w), dtype=np.int32)
+    min_x, max_x = (np.broadcast_to(cols, (batch, h, w)).copy() for _ in range(2))
+    min_y, max_y = (np.broadcast_to(rows, (batch, h, w)).copy() for _ in range(2))
+    root = np.zeros((batch, 4), np.int64)
+    found = np.zeros((batch, 4), bool)
+
+    def lane(b, j, r0, r1, c0, c1, prob=(0.85, 1.0), dist=None, hole=None):
+        members = np.zeros((h, w), bool)
+        members[r0:r1 + 1, c0:c1 + 1] = True
+        if hole is not None:
+            members[hole] = False
+        n = int(members.sum())
+        first = int(np.flatnonzero(members.reshape(-1))[0])
+        mask[b] |= members
+        labels[b][members] = first
+        ys, xs = np.nonzero(members)
+        min_x[b].reshape(-1)[first], max_x[b].reshape(-1)[first] = xs.min(), xs.max()
+        min_y[b].reshape(-1)[first], max_y[b].reshape(-1)[first] = ys.min(), ys.max()
+        y[b][members, 1] = rng.uniform(*prob, n)
+        y[b][members, 0] = 1.0 - y[b][members, 1]
+        yaw = rng.uniform(-np.pi, np.pi, (channels - 8) // 2)
+        y[b][members, 8::2] = np.sin(yaw) + rng.normal(0, 0.05, (n, len(yaw)))
+        y[b][members, 9::2] = np.cos(yaw) + rng.normal(0, 0.05, (n, len(yaw)))
+        base = rng.uniform(5, 40) if dist is None else dist
+        image[b][members, 0] = base + rng.uniform(0, 1.5, n)
+        image[b][members, 1] = rng.uniform(-1.5, 0.5, n)
+        root[b, j], found[b, j] = first, True
+
+    for b in range(batch):
+        if b % 2 == 0:
+            lane(b, 0, 6, 6, 17 + b, 17 + b)
+            lane(b, 1, 2, 3, 300, 999)
+            lane(b, 2, h - 20, h - 1, 0, w - 1, prob=(0.75, 1.0), dist=10.0)
+        else:
+            lane(b, 0, 4, 8, 1200, 1259, hole=(slice(5, 7), slice(1220, 1225)))
+            lane(b, 1, 12, 12, 400, 400, prob=(0.5, 0.6))
+            lane(b, 2, 14, 14, 500, 500)
+            image[b, 14, 500, 0] = 0.0
+            lane(b, 3, 20, 21, 700, 701)
+    return (y.astype(np.float32), image, mask, labels, min_x, max_x, min_y, max_y, root,
+            found)
+
+
 # The corner vote kernel's inputs (`csrc/corner_vote.cu`, `ops/corner_vote.py`):
 # a corner-head output (B, H, W, 26), its image (B, H, W, 3), lanes' bboxes
 # (B, n, 4), 3D centroids (B, n, 3) and the lanes to vote (B, n; frame 1's
