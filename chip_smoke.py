@@ -48,7 +48,15 @@ to 0 before it and read after it, and then the training paths:
                past every CTA's stage), each call twice, bit-identical;
                its device time in turns with the plain version at 64 x 32
                x 1801 (k 1), config 5's 16 frames (k 4) and 64 x 63 x
-               1801, beside its bound and an empty kernel
+               1801, beside its bound and an empty kernel. A bf16 head
+               output (the kernel's bf16 instance): the assets' driven
+               outputs rounded to bf16 under the same contract (no lane near
+               a threshold or a bf16 rounding midpoint), a probability of
+               exactly bf16(0.7) at min_prob 0.7 (`parity_inputs.
+               threshold_inputs`), and `decode_batch_direct` driven on the
+               live asset's bf16 output and on the bf16 golden
+               (`tests/data/torch_port_golden_bf16.npz`: found equal, poses
+               within POSE_TOL of JAX's), its launches counted
   phase 1f     the corner head's vote (`csrc/corner_vote.cu`,
                `tf_corner_vote`) against its plain version
                (`_golden.corner_kernel_readings`: ok and overflow equal,
@@ -338,6 +346,7 @@ GOLDEN_VIEWER = os.path.join(HERE, "tests", "data", "torch_port_golden_viewer.np
 GOLDEN_TALL = os.path.join(HERE, "tests", "data", "torch_port_golden_tall.npz")
 GOLDEN_BENCH = os.path.join(HERE, "tests", "data", "torch_port_golden_bench.npz")
 GOLDEN_PACKED = os.path.join(HERE, "tests", "data", "torch_port_golden_packed.npz")
+GOLDEN_BF16 = os.path.join(HERE, "tests", "data", "torch_port_golden_bf16.npz")
 TRAIN_BATCH = 32  # frames per train batch (phases 16 and 18)
 TRAIN_SCENE_BATCHES = 4  # phase 16: distinct scene batches in the dataset
 FUSION_TRAIN_FRAMES = 32  # phase 17
@@ -801,7 +810,7 @@ def phase_direct_encode(dev, scans) -> tuple[float, dict]:
     return err, times
 
 
-def phase_decode_direct(dev) -> tuple[float, dict, int]:
+def phase_decode_direct(dev) -> tuple[float, dict, int, dict]:
     """Phase 1e: the direct decode kernel (`csrc/decode_direct.cu`)
     against its plain version (`decode_direct_clusters_reference`) on the
     inputs of the driven direct paths (the headline's flagship and
@@ -812,11 +821,23 @@ def phase_decode_direct(dev) -> tuple[float, dict, int]:
     with no lane near a threshold, then on every `parity_inputs.
     cluster_inputs` kind at 32 and 63 rows, 10 and 12 channels, with every
     center, boundary and yaw frame (a lane near a threshold counted and
-    exempt); then its device time in turns with the plain version at
-    `kernel_bench.DECODE_SHAPES` beside its bound and an empty kernel.
-    Returns (largest pose difference, times by shape, near lanes)."""
+    exempt); the same driven outputs rounded to bf16, the bf16 threshold
+    pixel, and `decode_batch_direct` driven on bf16 outputs (the live
+    asset's, the bf16 golden's against JAX's answers); then its device
+    time in turns with the plain version at `kernel_bench.DECODE_SHAPES`
+    beside its bound and an empty kernel. Returns (largest pose
+    difference, times by shape, near lanes, the driven calls' launches)."""
     from tpufusion_torch import DecodeConfig, RangeViewSpec
-    from tpufusion_torch._golden import TALL_BEAMS, TALL_RES_V_DEG
+    from tpufusion_torch._golden import (
+        BF16_DECODE_CASES,
+        BF16_DECODE_K,
+        TALL_BEAMS,
+        TALL_RES_V_DEG,
+        bf16_decode_case,
+        from_bf16_bits,
+        load_npz,
+        wrapped_pose_diff,
+    )
     from tpufusion_torch.benchmarks import CFG, asset_model, point_sets, seeded_fcn
     from tpufusion_torch.decode import decode as td
     from tpufusion_torch.entry import FLAGSHIP
@@ -827,6 +848,8 @@ def phase_decode_direct(dev) -> tuple[float, dict, int]:
     t0 = time.perf_counter()
     log("phase 1e direct decode (tf_decode_direct) against its plain version")
     err, near = 0.0, 0
+    driven = dict.fromkeys(KERNELS, 0)
+    bf16 = torch.bfloat16
 
     def held(label, y_pred, images, spec, cfg, k, strict=True, empty=False):
         """strict: a driven path's inputs, every lane within the 1e-4 limit
@@ -867,8 +890,11 @@ def phase_decode_direct(dev) -> tuple[float, dict, int]:
                 oriented = name != "synthetic_detector.npz"
                 for k in (1,) if oriented and frames > C5_BATCH else (1, 4):
                     held(f"{name}, {shape}", y_pred, images, spec, dcfg, k)
+                    held(f"{name} in bf16, {shape}", y_pred.to(bf16), images, spec, dcfg, k)
                 if name == "synthetic_detector.npz":
                     held(f"{name}, {shape}", y_pred, images, spec, DecodeConfig(), 4)
+                    held(f"{name} in bf16, {shape}", y_pred.to(bf16), images, spec,
+                         DecodeConfig(), 4)
     n_cases = 0
     for spec in (RangeViewSpec(), RangeViewSpec(res_v_deg=TALL_RES_V_DEG)):
         for channels in (10, 12):
@@ -904,6 +930,49 @@ def phase_decode_direct(dev) -> tuple[float, dict, int]:
     log(f"  the crafted lanes: {n_crafted} cases held (one-pixel, straddling and "
         f"{20 * RangeViewSpec().width}-pixel windows), every call repeatable bit for bit; "
         f"largest pose difference {err:.3e}")
+    # bf16: a probability of exactly bf16(0.7) at min_prob 0.7 counts where
+    # a bf16 step below it does not, in the kernel as in its plain version
+    spec = RangeViewSpec()
+    y, images, _ = parity_inputs.threshold_inputs(spec)
+    y, images = torch.from_numpy(y).to(dev).to(bf16), torch.from_numpy(images).to(dev)
+    for name, fields in parity_inputs.cluster_decode_options(10).items():
+        cfg = DecodeConfig(**dict(fields, min_prob=parity_inputs.THRESHOLD_MIN_PROB))
+        held(f"a bf16 probability at min_prob 0.7, {name}", y, images, spec, cfg, 4)
+        with torch.inference_mode():
+            poses = td.decode_batch_direct(y, images, spec, cfg, 4)["poses"]
+        assert not torch.equal(poses[0], poses[1]), f"{name}: the pixel at bf16(0.7) was dropped"
+    log(f"  a bf16 probability of exactly bf16(0.7) at min_prob 0.7: counted in "
+        f"{len(parity_inputs.cluster_decode_options(10))} cases, kernel as plain")
+    # decode_batch_direct driven on bf16 outputs: the live asset's on a
+    # 64-frame batch, and the bf16 golden's against JAX's answers
+    model, dcfg, _ = assets["synthetic_detector.npz"]
+    (p, v), = point_sets(1, BATCH, N_POINTS, dev, seed0=1933)
+    with torch.inference_mode():
+        images = range_view_project_batch(p, spec, v)
+        y_pred = model(images).to(bf16)
+        out, _ = drive(f"decode_batch_direct on the live asset's bf16 output, {BATCH} frames",
+                       lambda: td.decode_batch_direct(y_pred, images, spec, dcfg, 1), driven,
+                       expect=CC_ONLY + ("decode_direct",))
+    assert out["poses"].dtype == torch.float32 and bool(out["found"].any())
+    gb = load_npz(GOLDEN_BF16)
+    images = torch.from_numpy(gb["images"]).to(dev)
+    golden_err = 0.0
+    for name in BF16_DECODE_CASES:
+        fcn, cfg = bf16_decode_case(name, ASSETS)
+        y_pred = torch.from_numpy(from_bf16_bits(gb[f"{fcn}_bits"])).to(dev).to(bf16)
+        expect = CC_ONLY + (() if cfg.direct_center == "silhouette" else ("decode_direct",))
+        with torch.inference_mode():
+            out, _ = drive(f"decode_batch_direct on the bf16 golden, {name}",
+                           lambda: td.decode_batch_direct(y_pred, images, spec, cfg,
+                                                          BF16_DECODE_K),
+                           driven, expect=expect)
+        d = float(wrapped_pose_diff(out["poses"].cpu().numpy(), gb[f"{name}_poses"]).max())
+        same = np.array_equal(out["found"].cpu().numpy(), gb[f"{name}_found"])
+        golden_err = max(golden_err, d)
+        log(f"  the bf16 golden, {name}: found equal {same}, poses {d:.3e} from JAX's "
+            f"(tolerance {POSE_TOL:.0e})")
+        assert same and d <= POSE_TOL, f"the bf16 golden, {name}: the card differs from JAX"
+    log(f"  bf16: the driven decodes' launches {driven}; the golden within {golden_err:.3e}")
     # the aten ops a call dispatches after the CC, kernel against plain, on
     # the live asset's first 64-frame batch (a dispatch mode counts them:
     # torch.profiler is kept out of this process's early phases)
@@ -943,7 +1012,7 @@ def phase_decode_direct(dev) -> tuple[float, dict, int]:
             f"a set), kernel at {row['bound_ms'] / row['new_device_ms']:.1%} of it")
     assert set(times) == {s[0] for s in DECODE_SHAPES}
     log(f"  phase 1e took {time.perf_counter() - t0:.1f} s")
-    return err, times, near
+    return err, times, near, driven
 
 
 def phase_corner_vote(dev, gm) -> tuple[float, dict, dict]:
@@ -3552,7 +3621,7 @@ def main(argv=()) -> int:
     pix_err, pix2d_err = phase_pixels(dev, spec, (scan_pts, scan_valid))  # phase 1b
     enc_err, enc_times = phase_label_encode(dev, (scan_pts, scan_gt, scan_valid))  # phase 1c
     dir_err, dir_times = phase_direct_encode(dev, (scan_pts, scan_gt, scan_valid))  # phase 1d
-    dec_err, dec_times, dec_near = phase_decode_direct(dev)  # phase 1e
+    dec_err, dec_times, dec_near, dec_driven = phase_decode_direct(dev)  # phase 1e
     cv_err, cv_times, cv_lanes = phase_corner_vote(dev, load_npz(GOLDEN_MULTI))  # phase 1f
     proj_err = 0.0
     for label, p, v in (("proj_check 4x8192", pts, valid),
@@ -3738,6 +3807,8 @@ def main(argv=()) -> int:
 
     # -- phases 6-10: the rest of the serving path -------------------------
     totals = dict(launches)  # launches over every path the script drives
+    for k, n in dec_driven.items():  # phase 1e's bf16 decodes
+        totals[k] += n
     g, gm = load_npz(GOLDEN), load_npz(GOLDEN_MULTI)
     models, adcfg = phase_bf16(dev, spec, g, gm)
     c5_step, seq_poses, seq_found = phase_config5(dev, spec, gm, models, adcfg, totals)

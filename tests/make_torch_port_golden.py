@@ -112,6 +112,15 @@ card and held to {,short_}frames_sha256).
                 head="direct") with the shipped asset in float32 on the
                 33,792-point frames
 
+tests/data/torch_port_golden_bf16.npz: the direct decode of a bf16 head
+output (tpufusion_torch/_golden.py names the frames and the cases).
+  images        the multi golden's first two-vehicle and first ellipse
+                frame, JAX's range views (2 x 32 x 1801 x 3)
+  {asset,mixed}_bits  the shipped and the mixed assets' JAX FCN outputs on
+                them rounded to bf16, as their upper 16 bits
+  <case>_{poses,found}  JAX decode_batch_direct on the bf16 output at
+                k = BF16_DECODE_K, for each of BF16_DECODE_CASES
+
 tests/test_torch_e2e.py, tests/test_torch_multi.py,
 tests/test_torch_fusion.py, tests/test_torch_train.py,
 tests/test_torch_viewer.py, tests/test_torch_tall_views.py,
@@ -119,10 +128,10 @@ tests/test_torch_bench.py and tests/test_torch_projection_methods.py
 recompute them (the train golden's fusion steps excepted: 8 full-size
 camera frames backward) and fail when a file is stale.
 
-    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer | tall | bench | packed]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer | tall | bench | packed | bf16]
 
-With `train` (`viewer`, `tall`, `bench`, `packed`) only the train (viewer,
-tall, bench, packed) golden is rewritten.
+With `train` (`viewer`, `tall`, `bench`, `packed`, `bf16`) only the train
+(viewer, tall, bench, packed, bf16) golden is rewritten.
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 """
@@ -783,6 +792,61 @@ def write_packed_golden() -> None:
           f"found {packed['packed_step_found'].astype(int).tolist()}")
 
 
+def golden_bf16_arrays() -> dict[str, np.ndarray]:
+    """The bf16 golden: the frames, the two assets' bf16 FCN outputs and
+    JAX's direct decode of them for every BF16_DECODE_CASES entry."""
+    import jax
+    import jax.numpy as jnp
+
+    from tests.torch_golden import (
+        ASSETS,
+        GOLDEN_MULTI,
+        jax_asset_model,
+        jax_forward,
+        to_jax_config,
+    )
+    from tpufusion.config import RangeViewSpec
+    from tpufusion.decode.decode import decode_batch_direct
+    from tpufusion.geometry.range_view import range_view_project_batch
+    from tpufusion_torch._golden import (
+        BF16_DECODE_CASES,
+        BF16_DECODE_FCNS,
+        BF16_DECODE_K,
+        bf16_bits,
+        bf16_decode_case,
+    )
+
+    with np.load(GOLDEN_MULTI) as z:
+        points = np.concatenate([z["multi_points"][:1], z["ell_points"][:1]])
+        valid = np.concatenate([z["multi_valid"][:1], z["ell_valid"][:1]])
+    images = np.asarray(range_view_project_batch(jnp.asarray(points), RangeViewSpec(),
+                                                 jnp.asarray(valid)))
+    out = {"images": images}
+    y_bf16 = {}
+    for key, name in BF16_DECODE_FCNS.items():
+        y = jnp.asarray(jax_forward(jax_asset_model(os.path.join(ASSETS, name)), images))
+        y_bf16[key] = y.astype(jnp.bfloat16)
+        out[f"{key}_bits"] = bf16_bits(np.asarray(y_bf16[key].astype(jnp.float32)))
+    decode = jax.jit(decode_batch_direct, static_argnums=(2, 3, 4))
+    for case in BF16_DECODE_CASES:
+        fcn, cfg = bf16_decode_case(case, ASSETS)
+        got = decode(y_bf16[fcn], jnp.asarray(images), RangeViewSpec(), to_jax_config(cfg),
+                     BF16_DECODE_K)
+        out[f"{case}_poses"] = np.asarray(got["poses"], np.float32)
+        out[f"{case}_found"] = np.asarray(got["found"], bool)
+    return out
+
+
+def write_bf16_golden() -> None:
+    from tests.torch_golden import GOLDEN_BF16
+
+    arrays = golden_bf16_arrays()
+    np.savez_compressed(GOLDEN_BF16, **arrays)
+    print(f"wrote {GOLDEN_BF16} ({os.path.getsize(GOLDEN_BF16)} bytes): found "
+          + ", ".join(f"{k[:-6]} {arrays[k].astype(int).tolist()}" for k in sorted(arrays)
+                      if k.endswith("_found")))
+
+
 def main() -> None:
     import jax
 
@@ -803,6 +867,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["packed"]:
         write_packed_golden()
+        return
+    if sys.argv[1:] == ["bf16"]:
+        write_bf16_golden()
         return
 
     arrays = golden_arrays()
@@ -828,6 +895,7 @@ def main() -> None:
     write_tall_golden()
     write_bench_golden()
     write_packed_golden()
+    write_bf16_golden()
 
 
 if __name__ == "__main__":

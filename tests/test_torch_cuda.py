@@ -1332,6 +1332,17 @@ def test_decode_direct_kernel_on_the_assets_outputs(cuda_device):
     """The shipped assets' FCNs on beam scans at 32 and 63 rows, at their
     operating points and DecodeConfig's default, k = 1 and 4: the
     contract, and no lane near a threshold."""
+    _assets_against_plain(cuda_device, torch.float32)
+
+
+def test_decode_direct_kernel_on_bf16_outputs(cuda_device):
+    """The same outputs rounded to bf16, read by the kernel's bf16
+    instance: the contract, and no lane near a threshold (a bf16 sum near
+    a rounding midpoint included)."""
+    _assets_against_plain(cuda_device, torch.bfloat16)
+
+
+def _assets_against_plain(cuda_device, dtype):
     from tpufusion_torch.data.synthetic import synthesize_beam_multi_vehicle_batch
     from tpufusion_torch.ops import decode_direct
 
@@ -1348,12 +1359,12 @@ def test_decode_direct_kernel_on_the_assets_outputs(cuda_device):
             model = FCN(mcfg)
             load_state_npz(path, model)
             with torch.inference_mode():
-                y_pred = model.to(cuda_device).eval()(images)
+                y_pred = model.to(cuda_device).eval()(images).to(dtype)
             cfgs = [dcfg] + ([DecodeConfig()] if name == "synthetic_detector.npz" else [])
             for cfg in cfgs:
                 for k in (1, 4):
                     r = decode_direct.against_plain(y_pred, images, spec, cfg, k)
-                    print(f"{name} {spec.height} rows {cfg.direct_center} k {k}: {r}")
+                    print(f"{name} {dtype} {spec.height} rows {cfg.direct_center} k {k}: {r}")
                     assert r["ok"] and r["near"] == 0 and r["found"] > 0, r
 
 
@@ -1472,6 +1483,57 @@ def test_decode_direct_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="silhouette"):
         run(y_pred, images, *comps, root, found, SPEC, cfg, "silhouette")
     assert decode_direct.LAUNCHES == before
+
+
+def test_decode_batch_direct_launches_the_kernel_once_on_a_bf16_output(cuda_device,
+                                                                       monkeypatch):
+    """A bf16 CUDA y_pred: every covered center one decode_direct launch a
+    call (the C entry's count), the wrapper handed the caller's bf16
+    tensor itself (no float32 copy), the plain version never called;
+    "silhouette" runs the plain version, as for float32."""
+    from tpufusion_torch.ops import decode_direct
+
+    y_pred, images = (torch.from_numpy(a).to(cuda_device)
+                      for a in parity_inputs.cluster_inputs(SPEC, "cars", batch=2, channels=10))
+    y_pred = y_pred.to(torch.bfloat16)
+    handed = []
+    wrapper, plain = decode_direct.decode_direct_clusters, decode.decode_direct_clusters_reference
+
+    def only_silhouette(*a, **kw):
+        assert a[-1] == "silhouette", f"the plain version ran for {a[-1]}"
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(decode, "decode_direct_clusters",
+                        lambda *a: handed.append((a[0].dtype, a[0].data_ptr())) or wrapper(*a))
+    monkeypatch.setattr(decode, "decode_direct_clusters_reference", only_silhouette)
+    for center in decode._CENTERS:
+        before = decode_direct.LAUNCHES
+        out = decode.decode_batch_direct(y_pred, images, SPEC, DecodeConfig(min_prob=0.8), 4,
+                                         center)
+        torch.cuda.synchronize()
+        assert decode_direct.LAUNCHES == before + (center != "silhouette"), center
+        assert out["poses"].dtype == torch.float32 and out["poses"].shape == (2, 4, 7)
+        assert bool(out["found"].any()), center
+    assert handed == [(torch.bfloat16, y_pred.data_ptr())] * (len(decode._CENTERS) - 1)
+
+
+def test_decode_direct_kernel_counts_a_bf16_probability_at_the_threshold(cuda_device):
+    """`parity_inputs.threshold_inputs`: a pixel of exactly bf16(0.7) at
+    min_prob 0.7 counts (frame 0) where one bf16 step below it does not
+    (frame 1), in the kernel as in its plain version; every covered center,
+    boundary and yaw frame of a 10-channel head."""
+    from tpufusion_torch.ops import decode_direct
+
+    y, images, _ = parity_inputs.threshold_inputs(SPEC)
+    y_pred = torch.from_numpy(y).to(cuda_device).to(torch.bfloat16)
+    images = torch.from_numpy(images).to(cuda_device)
+    for name, fields in parity_inputs.cluster_decode_options(10).items():
+        cfg = DecodeConfig(**dict(fields, min_prob=parity_inputs.THRESHOLD_MIN_PROB))
+        r = decode_direct.against_plain(y_pred, images, SPEC, cfg, 4)
+        print(f"threshold {name}: {r}")
+        assert r["ok"] and r["near"] == 0 and r["found"] > 0, (name, r)
+        poses = decode.decode_batch_direct(y_pred, images, SPEC, cfg, 4)["poses"]
+        assert not torch.equal(poses[0], poses[1]), f"{name}: the pixel at bf16(0.7) did not count"
 
 
 # the corner vote kernel (csrc/corner_vote.cu) against its plain version:

@@ -20,6 +20,15 @@ clusters' lanes whose bbox window holds more than 4,096 pixels (the plain
 version and the model sum in another order). A lane whose plain version sits within 1e-5 of a
 threshold a tie could flip (the plain version's `margins`) would be
 exempt; on these inputs there must be none.
+
+A bf16 head output (the FCN outputs rounded to bf16): the plain version
+against JAX's decode of the same bf16 array (found, output dtypes, poses
+within POSE_TOL, 1e-3, yaw as an angle), at 32 rows against the committed
+bf16 golden (`tests/data/torch_port_golden_bf16.npz`) and at 63 rows
+against JAX run here; the model, with the bf16 rounding points the kernel
+has, against the plain version under the same contract as float32 (a sum
+near a bf16 rounding midpoint would be exempt; none may be); and a
+probability of exactly bf16(0.7) at min_prob 0.7.
 """
 
 import dataclasses
@@ -31,6 +40,8 @@ import pytest
 import torch
 
 from tests.torch_golden import (
+    ASSETS,
+    GOLDEN_BF16,
     GOLDEN_MULTI,
     MIXED_ASSET,
     asset_configs,
@@ -42,7 +53,19 @@ from tests.torch_golden import (
 from tpufusion.decode import decode as jd
 from tpufusion.geometry.range_view import range_view_project_batch
 from tpufusion_torch import DecodeConfig, RangeViewSpec, _build
-from tpufusion_torch._golden import TALL_BEAMS, TALL_RES_V_DEG, direct_kernel_readings
+from tpufusion_torch._golden import (
+    BF16_DECODE_CASES,
+    BF16_DECODE_FCNS,
+    BF16_DECODE_K,
+    TALL_BEAMS,
+    TALL_RES_V_DEG,
+    bf16_decode_case,
+    direct_kernel_readings,
+    direct_margins,
+    from_bf16_bits,
+    load_npz,
+)
+from tpufusion_torch._precision import bf16_round
 from tpufusion_torch.data.synthetic import synthesize_beam_multi_vehicle_batch
 from tpufusion_torch.decode import decode as td
 from tpufusion_torch.ops import decode_direct, parity_inputs
@@ -50,16 +73,19 @@ from tpufusion_torch.ops.label_encode import pixel_trig
 from tpufusion_torch.ops.libm_f32 import sqrt_f32
 
 F32 = np.float32
+BF16 = torch.bfloat16
+POSE_TOL = 1e-3  # the port against JAX on a bf16 head output
 SPECS = {32: RangeViewSpec(), 63: RangeViewSpec(res_v_deg=TALL_RES_V_DEG)}
 _jax_decode = jax.jit(jd.decode_batch_direct, static_argnums=(2, 3, 4))
 
 
 @pytest.fixture(scope="module")
 def inputs():
-    """{rows: {"images", "asset", "mixed"}}: two frames a height (a
-    two-vehicle frame and an ellipse frame of the multi golden at 32 rows;
-    two two-vehicle 64-beam scans at 63), JAX's images and the shipped and
-    mixed assets' JAX FCN outputs."""
+    """{rows: {"images", "asset", "mixed", "asset_bf16", "mixed_bf16"}}:
+    two frames a height (a two-vehicle frame and an ellipse frame of the
+    multi golden at 32 rows, the bf16 golden's frames; two two-vehicle
+    64-beam scans at 63), JAX's images and the shipped and mixed assets'
+    JAX FCN outputs, and those rounded to bf16 (float32 arrays)."""
     with np.load(GOLDEN_MULTI) as z:
         pts32 = np.concatenate([z["multi_points"][:1], z["ell_points"][:1]])
         valid32 = np.concatenate([z["multi_valid"][:1], z["ell_valid"][:1]])
@@ -72,6 +98,8 @@ def inputs():
         out[rows] = {"images": images,
                      "asset": jax_forward(jax_asset_model(), images),
                      "mixed": jax_forward(jax_asset_model(MIXED_ASSET), images)}
+        for fcn in ("asset", "mixed"):
+            out[rows][f"{fcn}_bf16"] = bf16_round(out[rows][fcn])
     return out
 
 
@@ -195,9 +223,15 @@ def _fit(px, py, seed, yaw, l_, w_, boundary, scale, grid):
     return seed, yaw
 
 
-def _model_lane(y_pred, images, mask, labels, ext, b, r, spec, cfg, center, tables):
-    """One found lane: (pose (7,) or None when not found, window pixels)."""
+def _model_lane(y_pred, images, mask, labels, ext, b, r, spec, cfg, center, tables, low):
+    """One found lane: (pose (7,) or None when not found, window pixels).
+    `low`: y_pred holds a bf16 head output, rounded where the kernel's bf16
+    instance rounds (`keep`)."""
     cos_t, sin_t, cos_p, sin_p, grid = tables
+
+    def keep(v):
+        return bf16_round(v)[0] if low else F32(v)
+
     w_img = y_pred.shape[2]
     ry, rx = divmod(int(r), w_img)
     x0, x1, y0, y1 = (int(e[b, ry, rx]) for e in ext)
@@ -208,25 +242,28 @@ def _model_lane(y_pred, images, mask, labels, ext, b, r, spec, cfg, center, tabl
     cluster = mask[b, ys, xs] & (labels[b, ys, xs] == r)
     assert cluster.sum() == (mask[b] & (labels[b] == r)).sum(), "a cluster pixel outside its window"
     cv = cluster & valid
-    m = cv & (yp[:, 1] >= F32(cfg.min_prob))
+    m = cv & (yp[:, 1] >= keep(cfg.min_prob))
     if not m.any():
         return None, len(xs)
     wgt = yp[m, 1]
-    tot = max(_sum(wgt), F32(1e-6))
-    lwh = np.array([_sum(yp[m, 5 + i] * wgt) / tot for i in range(3)], F32)
+    tot = max(keep(_sum(wgt)), F32(1e-6))
+    lwh = np.array([keep(_sum(yp[m, 5 + i] * wgt)) / tot for i in range(3)], F32)
     ct, st = cos_t[xs[m]], sin_t[xs[m]]
     local = (_sum((yp[m, 8] * ct - yp[m, 9] * st) * wgt) / tot,
              _sum((yp[m, 9] * ct + yp[m, 8] * st) * wgt) / tot)
     gi = 10 if y_pred.shape[-1] >= 12 else 8
-    glob = (_sum(yp[m, gi] * wgt) / tot, _sum(yp[m, gi + 1] * wgt) / tot)
+    glob = (keep(_sum(yp[m, gi] * wgt)) / tot, keep(_sum(yp[m, gi + 1] * wgt)) / tot)
     if cfg.direct_yaw_frame == "local":
         oriented, (sin_m, cos_m) = True, local
-    elif cfg.direct_yaw_frame == "global":
-        oriented, (sin_m, cos_m) = False, glob
+    elif cfg.direct_yaw_frame == "global":  # the quotients enter the atan2 rounded
+        oriented, (sin_m, cos_m) = False, (keep(glob[0]), keep(glob[1]))
     else:
-        oriented = F32(local[0] ** 2 + local[1] ** 2) >= F32(glob[0] ** 2 + glob[1] ** 2)
+        len_g = F32(keep(keep(glob[0]) ** 2) + keep(keep(glob[1]) ** 2))
+        oriented = F32(local[0] ** 2 + local[1] ** 2) >= len_g
         sin_m, cos_m = local if oriented else glob
     yaw = F32(np.arctan2(sin_m, cos_m))
+    if cfg.direct_yaw_frame == "global":
+        yaw = keep(yaw)
     p = np.stack([d * cos_t[xs], -d * sin_t[xs], hh], axis=-1)
     if center == "head":
         cp, sp = cos_p[ys[m]], sin_p[ys[m]]
@@ -240,7 +277,7 @@ def _model_lane(y_pred, images, mask, labels, ext, b, r, spec, cfg, center, tabl
                         c_phys[2]], F32)
         return np.concatenate([ctr, [yaw], lwh]).astype(F32), len(xs)
     msurf = m & (d <= F32(d[m].min() + F32(4.0)))
-    ws = max(_sum(wgt[msurf[m]]), F32(1e-6))
+    ws = max(keep(_sum(wgt[msurf[m]])), F32(1e-6))
     p_mean = np.array([_sum(p[msurf, i] * yp[msurf, 1]) / ws for i in range(3)], F32)
     if center != "surface":  # the back-projection: the packed integer argmin
         cx, cy = (x0 + x1) // 2, (y0 + y1) // 2
@@ -283,9 +320,10 @@ def _model_lane(y_pred, images, mask, labels, ext, b, r, spec, cfg, center, tabl
     return np.concatenate([ctr, [yaw], lwh]).astype(F32), len(xs)
 
 
-def model_decode(y_pred, images, comps, root, found, spec, cfg, center):
+def model_decode(y_pred, images, comps, root, found, spec, cfg, center, low=False):
     """The kernel's answer: (poses (B, k, 7), found (B, k), window pixels
-    (B, k)) from numpy inputs."""
+    (B, k)) from numpy inputs; `low`: y_pred (float32) holds bf16 values,
+    read by the kernel's bf16 instance."""
     mask, labels, *ext = comps
     tables = [t.numpy() for t in pixel_trig(spec, "cpu")] + [
         td.fit_phi_grid("cpu").numpy()]
@@ -298,7 +336,7 @@ def model_decode(y_pred, images, comps, root, found, spec, cfg, center):
             if not found[b, j]:  # the early-out: zeros, not found
                 continue
             pose, windows[b, j] = _model_lane(y_pred, images, mask, labels, ext, b, root[b, j],
-                                              spec, cfg, center, tables)
+                                              spec, cfg, center, tables, low)
             if pose is not None:
                 poses[b, j], good[b, j] = pose, True
     return poses, good, windows
@@ -310,33 +348,35 @@ def model_decode(y_pred, images, comps, root, found, spec, cfg, center):
 _COMPONENTS: dict = {}
 
 
-def _lanes(y_pred, cfg, k):
-    """The CC and _topk_roots of the plain version: (comps, root, found)
-    as torch tensors, cached by what they depend on."""
+def _lanes(y_pred, cfg, k, dtype=torch.float32):
+    """The CC and _topk_roots of the plain version on y_pred in `dtype`:
+    (comps, root, found) as torch tensors, cached by what they depend on."""
     key = (y_pred.shape, float(y_pred[..., 1].sum()), cfg.min_prob, cfg.min_heat,
-           cfg.min_bbox_area, k)
+           cfg.min_bbox_area, k, dtype)
     if key not in _COMPONENTS:
-        comps = td._heat_components(torch.from_numpy(y_pred[..., 1]), cfg)
+        comps = td._heat_components(torch.from_numpy(y_pred[..., 1]).to(dtype), cfg)
         root, found, *_ = td._topk_roots(*comps, cfg, k)
         _COMPONENTS[key] = (comps, root, found)
     return _COMPONENTS[key]
 
 
-def _reference_found_lanes(y_pred, images, comps, root, found, spec, cfg, center):
+def _reference_found_lanes(y_pred, images, comps, root, found, spec, cfg, center,
+                           dtype=torch.float32):
     """The plain version on the found lanes only (each lane is decoded on
-    its own; a lane not found is zeros in both), and its margins:
-    (poses (B, k, 7), found (B, k), smallest margin (B, k))."""
+    its own; a lane not found is zeros in both) of y_pred in `dtype`, and
+    its margins: (poses (B, k, 7), found (B, k), smallest margin (B, k),
+    `_golden.direct_margins`' units)."""
     b_, k = root.shape
     n = max(1, int(found.sum(dim=1).max()))
     order = torch.argsort((~found).to(torch.int8), dim=1, stable=True)[:, :n]
     margins: dict = {}
     poses, good = td.decode_direct_clusters_reference(
-        torch.from_numpy(y_pred), torch.from_numpy(images), *comps, root.gather(1, order),
-        found.gather(1, order), spec, cfg, center, margins)
+        torch.from_numpy(y_pred).to(dtype), torch.from_numpy(images), *comps,
+        root.gather(1, order), found.gather(1, order), spec, cfg, center, margins)
     out_p = torch.zeros((b_, k, 7))
     out_g = torch.zeros((b_, k), dtype=torch.bool)
     out_m = torch.full((b_, k), np.inf)
-    near = torch.stack(list(margins.values())).amin(dim=0) if margins else torch.full_like(
+    near = torch.stack(direct_margins(margins)).amin(dim=0) if margins else torch.full_like(
         good, np.inf, dtype=torch.float32)
     out_p.scatter_(1, order[..., None].expand(-1, -1, 7), poses)
     out_g.scatter_(1, order, good)
@@ -548,3 +588,111 @@ def test_the_bound_counts_the_bytes_the_lanes_need(inputs, name):
     got = decode_direct_bound_bytes(torch.from_numpy(y_pred), torch.from_numpy(images), *comps,
                                     root, found, spec, cfg, center)
     assert got == want and bool(found.any())
+
+
+# ---------------------------------------------------------------------------
+# a bf16 head output
+
+
+@pytest.mark.parametrize("name, rows", PLAIN_CASES)
+def test_bf16_kernel_model_matches_the_plain_version(inputs, name, rows):
+    """The model with the kernel's bf16 rounding points against the plain
+    version on the same bf16 output, every covered center, boundary and
+    yaw frame at k = 4 and k = 1: the float32 contract, no lane near a
+    threshold or a bf16 rounding midpoint."""
+    make_cfg, fcn = CASES[name]
+    cfg, spec = make_cfg(), SPECS[rows]
+    images, y_pred = inputs[rows]["images"], inputs[rows][f"{fcn}_bf16"]
+    comps, root, found = _lanes(y_pred, cfg, 4, BF16)
+    want_p, want_f, margins = _reference_found_lanes(
+        y_pred, images, comps, root, found, spec, cfg, cfg.direct_center, BF16)
+    assert want_f.any()
+    np_comps = [c.numpy() for c in comps]
+    for k in (4, 1):
+        got_p, got_f, windows = model_decode(y_pred, images, np_comps, root[:, :k].numpy(),
+                                             found[:, :k].numpy(), spec, cfg, cfg.direct_center,
+                                             low=True)
+        diff = _compare(got_p, got_f, want_p[:, :k], want_f[:, :k], windows, margins[:, :k],
+                        f"bf16 {name} at {rows} rows, k {k}")
+        print(f"bf16 {name} {rows} rows k {k}: largest pose difference {diff:.3e}")
+
+
+def _bf16_against(got: dict, want_poses, want_found, what: str) -> float:
+    """The port's decode of a bf16 output against JAX's answer: the output
+    types JAX gives (float32 poses and areas), found equal, poses within
+    POSE_TOL (yaw as an angle); returns the largest pose difference."""
+    assert got["poses"].dtype == torch.float32 and got["areas"].dtype == torch.float32, what
+    np.testing.assert_array_equal(got["found"].numpy(), want_found, err_msg=what)
+    diff = float(wrapped_pose_diff(got["poses"].numpy(), want_poses).max())
+    assert diff <= POSE_TOL, (what, diff)
+    return diff
+
+
+@pytest.fixture(scope="module")
+def golden_bf16():
+    return load_npz(GOLDEN_BF16)
+
+
+def test_the_bf16_golden_holds_these_inputs(inputs, golden_bf16):
+    """The bf16 golden's frames and bf16 FCN outputs are the ones JAX
+    makes here (32 rows): its answers are JAX's on these inputs."""
+    np.testing.assert_array_equal(golden_bf16["images"], inputs[32]["images"])
+    for fcn in BF16_DECODE_FCNS:
+        np.testing.assert_array_equal(from_bf16_bits(golden_bf16[f"{fcn}_bits"]),
+                                      inputs[32][f"{fcn}_bf16"], err_msg=fcn)
+
+
+@pytest.mark.parametrize("rows", sorted(SPECS))
+@pytest.mark.parametrize("name", sorted(BF16_DECODE_CASES))
+def test_bf16_decode_matches_jax(inputs, golden_bf16, name, rows):
+    """decode_batch_direct on a bf16 output, the shipped assets' operating
+    points, DecodeConfig's default, the head center in both yaw frames and
+    silhouette, at k 2 and k 1 (JAX's first lane): against the bf16
+    golden at 32 rows, against JAX run here at 63."""
+    fcn, cfg = bf16_decode_case(name, ASSETS)
+    spec = SPECS[rows]
+    images, y_pred = inputs[rows]["images"], inputs[rows][f"{fcn}_bf16"]
+    if rows == 32:
+        want_p, want_f = golden_bf16[f"{name}_poses"], golden_bf16[f"{name}_found"]
+    else:
+        want = _jax_decode(jnp.asarray(y_pred).astype(jnp.bfloat16), jnp.asarray(images),
+                           to_jax_config(spec), to_jax_config(cfg), BF16_DECODE_K)
+        assert want["poses"].dtype == jnp.float32 and want["areas"].dtype == jnp.float32
+        want_p, want_f = np.asarray(want["poses"]), np.asarray(want["found"])
+    assert want_f.any()
+    y_t, im_t = torch.from_numpy(y_pred).to(BF16), torch.from_numpy(images)
+    diffs = []
+    for k in (BF16_DECODE_K, 1):
+        got = td.decode_batch_direct(y_t, im_t, spec, cfg, k)
+        diffs.append(_bf16_against(got, want_p[:, :k], want_f[:, :k], f"{name} {rows} k {k}"))
+    print(f"bf16 {name} at {rows} rows: largest pose difference from JAX {max(diffs):.3e}")
+
+
+@pytest.mark.parametrize("name", ["backproject_global", "head_local", "fit_circle_global",
+                                  "fit_circle_auto"])
+def test_bf16_probability_at_the_threshold_counts(name):
+    """`parity_inputs.threshold_inputs` at min_prob 0.7: the pixel of
+    exactly bf16(0.7) counts in frame 0 and the one a bf16 step below does
+    not in frame 1, in JAX, the plain version and the model alike; the
+    same values as float32 (0.7f) count in neither frame."""
+    make_cfg, _ = CASES[name]
+    cfg = dataclasses.replace(make_cfg(), min_prob=parity_inputs.THRESHOLD_MIN_PROB)
+    spec = SPECS[32]
+    channels = 12 if cfg.direct_yaw_frame == "auto" else 10
+    y, images, _ = parity_inputs.threshold_inputs(spec, channels=channels)
+    want = _jax_decode(jnp.asarray(y).astype(jnp.bfloat16), jnp.asarray(images),
+                       to_jax_config(spec), to_jax_config(cfg), 4)
+    got = td.decode_batch_direct(torch.from_numpy(y).to(BF16), torch.from_numpy(images), spec,
+                                 cfg, 4)
+    _bf16_against(got, np.asarray(want["poses"]), np.asarray(want["found"]), name)
+    poses = got["poses"].numpy()
+    assert not np.array_equal(poses[0], poses[1]), "the pixel at bf16(0.7) did not count"
+    as_f32 = td.decode_batch_direct(torch.from_numpy(y), torch.from_numpy(images), spec, cfg,
+                                    4)["poses"]
+    assert torch.equal(as_f32[0], as_f32[1]), "a float32 0.7 kept the pixel at 0.69921875"
+    comps, root, found = _lanes(y, cfg, 4, BF16)
+    want_p, want_f, margins = _reference_found_lanes(y, images, comps, root, found, spec, cfg,
+                                                     cfg.direct_center, BF16)
+    got_p, got_f, windows = model_decode(y, images, [c.numpy() for c in comps], root.numpy(),
+                                         found.numpy(), spec, cfg, cfg.direct_center, low=True)
+    _compare(got_p, got_f, want_p, want_f, windows, margins, f"threshold {name}")

@@ -128,7 +128,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tf_encode_direct_label.restype = i
     lib.tf_decode_direct.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, i, i, i, i,
                                      p, p, p, p, p, i, i, i, i, i,
-                                     ctypes.POINTER(ctypes.c_float), p, p, p]
+                                     ctypes.POINTER(ctypes.c_float), p, p, p, i]
     lib.tf_decode_direct.restype = i
     lib.tf_corner_vote.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                    ctypes.POINTER(ctypes.c_float), p, p, p, p, p, p, p, p, p]

@@ -125,6 +125,25 @@ DIRECT_KERNEL_ATOL = 1e-4
 DIRECT_KERNEL_WIDE_ATOL = 1e-3
 DIRECT_KERNEL_WIDE_WINDOW = 4096
 DIRECT_KERNEL_NEAR = 1e-5
+# A bf16 head output rounds sums of bf16 products to bf16; the plain
+# version's margins hold each such sum's distance from a bf16 rounding
+# midpoint relative to the sum of its terms' magnitudes ("bf16",
+# "bf16_surface"), inf where its float64 sum is exact in any order. Both
+# versions sum in float64 and round once to float32, so where a float64
+# sum is not exact their float32 sums differ by a float32 step at most: a
+# sum within DIRECT_KERNEL_BF16_NEAR of a midpoint may round the other
+# way, and its lane (a bf16 step of a size: 1.8e-2 m on a 4.5 m length)
+# is exempt.
+DIRECT_KERNEL_BF16_NEAR = 2.0**-22
+_DIRECT_NEAR_BY_KEY = {"bf16": DIRECT_KERNEL_BF16_NEAR, "bf16_surface": DIRECT_KERNEL_BF16_NEAR}
+
+
+def direct_margins(margins: dict) -> list:
+    """The plain version's margins ({key: (B, k)}), each in units of
+    DIRECT_KERNEL_NEAR over its own limit: a lane is near a threshold
+    where the smallest of them is below DIRECT_KERNEL_NEAR."""
+    return [m * (DIRECT_KERNEL_NEAR / _DIRECT_NEAR_BY_KEY.get(key, DIRECT_KERNEL_NEAR))
+            for key, m in margins.items()]
 
 
 def direct_kernel_readings(got_poses, got_found, want_poses, want_found, windows,
@@ -234,6 +253,42 @@ def corner_kernel_readings(got: dict, want: dict, readings: dict, lanes) -> dict
     out["ok"] = (out["ok_equal"] and out["overflow_equal"] and out["masked_zero"]
                  and out["winners_equal"] and out["diff"] <= CORNER_KERNEL_ATOL)
     return out
+
+
+# tests/data/torch_port_golden_bf16.npz: the direct decode of a bf16 head
+# output. The inputs are the multi golden's first two-vehicle frame and its
+# first ellipse frame (JAX's range views), the shipped and the mixed
+# assets' JAX FCN outputs rounded to bf16 (stored as their bits); the
+# answers JAX decode_batch_direct's at k BF16_DECODE_K for each case: (the
+# FCN, the DecodeConfig fields changed from its asset's own, or None for
+# DecodeConfig()).
+BF16_DECODE_K = 2
+BF16_DECODE_FCNS = {"asset": "synthetic_detector.npz", "mixed": "synthetic_detector_mixed.npz"}
+BF16_DECODE_CASES = {
+    "backproject_local": ("asset", None),
+    "fit_circle_global": ("asset", {}),
+    "fit_ellipse_local": ("asset", {"fit_boundary": "ellipse", "fit_surface_scale": 0.9,
+                                    "direct_yaw_frame": "local"}),
+    "fit_auto_auto": ("mixed", {}),
+    "head_global": ("asset", {"direct_center": "head"}),
+    "head_local": ("asset", {"direct_center": "head", "direct_yaw_frame": "local"}),
+    "silhouette_global": ("asset", {"direct_center": "silhouette"}),
+}
+
+
+def bf16_decode_case(name: str, assets_dir: str):
+    """(FCN key, the port's DecodeConfig) of a BF16_DECODE_CASES entry."""
+    import dataclasses
+    import os
+
+    from tpufusion_torch.config import DecodeConfig
+    from tpufusion_torch.models.io import asset_configs
+
+    fcn, fields = BF16_DECODE_CASES[name]
+    if fields is None:
+        return fcn, DecodeConfig()
+    _, dcfg = asset_configs(os.path.join(assets_dir, BF16_DECODE_FCNS[fcn]))
+    return fcn, dataclasses.replace(dcfg, **fields)
 
 
 def load_npz(path: str) -> dict[str, np.ndarray]:

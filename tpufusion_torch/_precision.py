@@ -1,11 +1,21 @@
 """The pin that keeps float32 matmuls in full precision, shared by the
-decode (corner vote, head center) and the fusion net's dense layers."""
+decode (corner vote, head center) and the fusion net's dense layers; and
+the rounding of float32 values to bf16 on the host."""
 
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
+
+
+def bf16_round(a) -> np.ndarray:
+    """float32 values rounded to the nearest bf16 (ties to even), as
+    float32 (finite inputs), in numpy: no torch op, so no device sync."""
+    bits = np.array(a, np.float32, ndmin=1).view(np.uint32)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & np.uint32(0xFFFF0000)
+    return bits.view(np.float32)
 
 
 @contextlib.contextmanager

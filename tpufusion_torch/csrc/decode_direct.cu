@@ -88,10 +88,23 @@
 // 3 x 3 product, which cuBLAS computes in the plain version), so the
 // contract with the plain version is a tolerance, not bits.
 //
+// A bf16 y_pred (the kernel's second instance, over __nv_bfloat16 loads)
+// computes what the plain version computes for it, as XLA computes the
+// reference's bf16 ops on the CPU: every op in float32 on exact values
+// (a product of two bf16 channels is exact in float32), a result rounded
+// to bf16 (`Elem<T>::keep`) only where the reference feeds it to another
+// bf16 op: the sums of the weight, the sizes, the global frame's sin /
+// cos and the surface weight (each the float64 sum rounded to float32,
+// then to bf16, as the plain version rounds its float64 sum), the global
+// frame's quotients before its atan2 and the auto gate's squares, and the
+// global frame's yaw. The wrapper rounds min_prob to bf16, the type the
+// reference compares in. The float32 instance rounds nothing more.
+//
 // The cluster width is a compile-time constant (-DTF_DECODE_CLUSTER=N, N in
 // 1..8, builds the variants `kernel_bench.py` times beside it).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -128,8 +141,27 @@ enum { kBackproject, kGeometric, kSurface, kConsensus, kHead, kFit };  // decode
 enum { kCircle, kEllipse, kBox };                                      // decode_direct.BOUNDARIES
 enum { kLocal, kGlobal, kAuto };                                       // decode_direct.YAW_FRAMES
 
+// y_pred's element type: its load as a float, and the rounding of a
+// float32 result to it where the reference rounds (nothing for float)
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float load(const float* v, size_t i) { return v[i]; }
+  static __device__ __forceinline__ float keep(float x) { return x; }
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(const __nv_bfloat16* v, size_t i) {
+    return __bfloat162float(v[i]);
+  }
+  static __device__ __forceinline__ float keep(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+};
+
 struct Params {
-  const float* y_pred;
+  const void* y_pred;  // float or __nv_bfloat16, the kernel's instance
   const float* image;
   const unsigned char* mask;
   const int* labels;
@@ -339,7 +371,10 @@ __device__ __forceinline__ void cluster_totals(cg::cluster_group& cluster, Xchg*
   __syncthreads();
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p) {
+  using E = Elem<T>;
+  const T* const y_pred = static_cast<const T*>(p.y_pred);
   // the stage (x, y, height, distance, probability a pixel); after pass 3
   // the lane's gathered points (kGatherCap float2) in the same room
   __shared__ __align__(16) float s_stage[5][kStageCap];
@@ -437,13 +472,13 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
       }
       in_cl = valid && marked && label == root;
       if (in_cl) {
-        const float* yp = p.y_pred + q * p.channels;
-        prob = yp[1];
+        const T* yp = y_pred + q * p.channels;
+        prob = E::load(yp, 1);
         float ch[10];  // l w h, the yaw frames' sin / cos, the head's offsets
 #pragma unroll
-        for (int i = 0; i < 7; ++i) ch[i] = (i < 5 || dual) ? yp[5 + i] : 0.0f;
+        for (int i = 0; i < 7; ++i) ch[i] = (i < 5 || dual) ? E::load(yp, 5 + i) : 0.0f;
 #pragma unroll
-        for (int i = 0; i < 3; ++i) ch[7 + i] = center == kHead ? yp[2 + i] : 0.0f;
+        for (int i = 0; i < 3; ++i) ch[7 + i] = center == kHead ? E::load(yp, 2 + i) : 0.0f;
         const float ct = p.cos_t[x], st = p.sin_t[x];
         px = __fmul_rn(d, ct);
         py = __fmul_rn(-d, st);
@@ -557,28 +592,32 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
   TF_STAMP(0, 2);
 
   if (tid == 0 && L.go) {
-    const float tot = fmaxf((float)s_tot[0], 1e-6f);
-    L.l = __fdiv_rn((float)s_tot[1], tot);
-    L.w = __fdiv_rn((float)s_tot[2], tot);
-    L.h = __fdiv_rn((float)s_tot[3], tot);
+    // the bf16 instance rounds the sums of bf16 products (E::keep)
+    const float tot = fmaxf(E::keep((float)s_tot[0]), 1e-6f);
+    L.l = __fdiv_rn(E::keep((float)s_tot[1]), tot);
+    L.w = __fdiv_rn(E::keep((float)s_tot[2]), tot);
+    L.h = __fdiv_rn(E::keep((float)s_tot[3]), tot);
     float sin_m, cos_m;
     if (p.yaw_frame == kLocal) {
       sin_m = __fdiv_rn((float)s_tot[4], tot);
       cos_m = __fdiv_rn((float)s_tot[5], tot);
       L.oriented = 1;
-    } else if (p.yaw_frame == kGlobal) {
-      sin_m = __fdiv_rn((float)s_tot[6], tot);
-      cos_m = __fdiv_rn((float)s_tot[7], tot);
+    } else if (p.yaw_frame == kGlobal) {  // the quotients enter the atan2 rounded
+      sin_m = E::keep(__fdiv_rn(E::keep((float)s_tot[6]), tot));
+      cos_m = E::keep(__fdiv_rn(E::keep((float)s_tot[7]), tot));
       L.oriented = 0;
     } else {  // the codec whose mean vector is longer
       const float sl = __fdiv_rn((float)s_tot[4], tot), cl = __fdiv_rn((float)s_tot[5], tot);
-      const float sg = __fdiv_rn((float)s_tot[6], tot), cg_ = __fdiv_rn((float)s_tot[7], tot);
+      const float sg = __fdiv_rn(E::keep((float)s_tot[6]), tot);
+      const float cg_ = __fdiv_rn(E::keep((float)s_tot[7]), tot);
+      const float rs = E::keep(sg), rc = E::keep(cg_);
       L.oriented = __fadd_rn(__fmul_rn(sl, sl), __fmul_rn(cl, cl)) >=
-                   __fadd_rn(__fmul_rn(sg, sg), __fmul_rn(cg_, cg_));
+                   __fadd_rn(E::keep(__fmul_rn(rs, rs)), E::keep(__fmul_rn(rc, rc)));
       sin_m = L.oriented ? sl : sg;
       cos_m = L.oriented ? cl : cg_;
     }
     L.yaw = atan2f(sin_m, cos_m);
+    if (p.yaw_frame == kGlobal) L.yaw = E::keep(L.yaw);
     if (center == kHead) {  // back to the reference's frame: Rz(-yaw) c_phys
       if (rank == 0) {
         const float c0 = __fdiv_rn((float)s_tot[8], tot), c1 = __fdiv_rn((float)s_tot[9], tot);
@@ -630,7 +669,7 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
         if (!p.mask[q] || p.labels[q] != root) continue;
         const float d = p.image[q * p.img_channels], hh = p.image[q * p.img_channels + 1];
         if (!(d > 0.0f && hh > p.min_height)) continue;
-        const float prob = p.y_pred[q * p.channels + 1];
+        const float prob = E::load(y_pred, q * p.channels + 1);
         if (!(prob >= p.min_prob) || !(d <= dlim)) continue;
         sm[0] += prob;
         sm[1] += __fmul_rn(__fmul_rn(d, p.cos_t[x]), prob);
@@ -649,7 +688,7 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
     cta_partial(s_wsum, 4, x);
     cluster_totals(cluster, x, 4, s_tot);
     ++xi;
-    const float ws = fmaxf((float)s_tot[0], 1e-6f);
+    const float ws = fmaxf(E::keep((float)s_tot[0]), 1e-6f);
 #pragma unroll
     for (int i = 0; i < 3; ++i) p_mean[i] = __fdiv_rn((float)s_tot[1 + i], ws);
   }
@@ -949,7 +988,7 @@ extern "C" int tf_decode_direct(const void* y_pred, int channels, const void* im
                                 const void* sin_t, const void* cos_p, const void* sin_p,
                                 const void* phi_grid, int center, int yaw_frame, int fit_auto,
                                 int boundary0, int boundary1, const float* consts, void* poses,
-                                void* found_out, void* stream) {
+                                void* found_out, void* stream, int bf16) {
   if (frames <= 0 || k <= 0) return (int)cudaGetLastError();
   if (channels < 10 || (yaw_frame == kAuto && channels < 12) || img_channels < 2 ||
       center < kBackproject || center > kFit || yaw_frame < kLocal || yaw_frame > kAuto ||
@@ -958,7 +997,7 @@ extern "C" int tf_decode_direct(const void* y_pred, int channels, const void* im
       (long long)frames * height * width > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.y_pred = (const float*)y_pred;
+  p.y_pred = y_pred;
   p.image = (const float*)image;
   p.mask = (const unsigned char*)mask;
   p.labels = (const int*)labels;
@@ -1001,5 +1040,6 @@ extern "C" int tf_decode_direct(const void* y_pred, int channels, const void* im
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, decode_direct_kernel, p);
+  return (int)(bf16 ? cudaLaunchKernelEx(&cfg, decode_direct_kernel<__nv_bfloat16>, p)
+                    : cudaLaunchKernelEx(&cfg, decode_direct_kernel<float>, p));
 }

@@ -574,8 +574,8 @@ def decode_batch(
     return {
         "pose": torch.where(ok[:, None], pose[:, 0], 0.0),
         "found": ok,
-        "centroid_2d": torch.where(stage1[:, None], centroid, 0),
-        "bbox_2d": torch.where(stage1[:, None], bbox, 0),
+        "centroid_2d": torch.where(stage1[:, None], centroid, 0).to(torch.int32),
+        "bbox_2d": torch.where(stage1[:, None], bbox, 0).to(torch.int32),
         "centroid_3d": torch.where(stage2[:, None], xyz[:, 0], 0.0),
         "corners_3d": torch.where(ok[:, None, None], box[:, 0], 0.0),
         "area": area,
@@ -641,22 +641,52 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, ma
     """Weighted yaw and lwh over each cluster's valid pixels; y_pred and
     image are per frame (B, H, W, C), cluster per lane (B, n, H, W).
     Returns (yaw (B, n), lwh (B, n, 3), ok (B, n), p_mean (B, n, 3),
-    oriented (B, n), center (B, n, 3) or None); yaw, lwh and center are
-    0 where ok is False. `oriented` says the local-frame codec gave the
-    yaw; `center` (with_center) is the head's averaged center in the
-    reference's frame. With a dict `margins`, the auto gate's relative
-    margin goes there as "oriented"."""
+    oriented (B, n), center (B, n, 3) or None), all float32; yaw, lwh and
+    center are 0 where ok is False. `oriented` says the local-frame codec
+    gave the yaw; `center` (with_center) is the head's averaged center in
+    the reference's frame. With a dict `margins`, the auto gate's relative
+    margin goes there as "oriented", and for a bf16 y_pred each rounded
+    sum's as "bf16" ("bf16_surface" for the surface mean's weight).
+
+    A bf16 y_pred computes as XLA computes the reference's bf16 ops on the
+    CPU: each op in float32 on its operands' exact values, its result
+    rounded to bf16 only where it feeds another bf16 op (a reshape
+    included), and kept in float32 where a float32 operand promotes it.
+    So the products of two channels are exact; the sums jnp.sum casts back
+    to bf16 (the weight, the sizes, the global frame's sin / cos, the
+    surface weight) are rounded; their quotients are not, but for the
+    global frame's atan2 and the auto gate's squares, which take them
+    rounded; the global frame's yaw is rounded (the reference reshapes it
+    into its pose). The bf16 sums run in float64 and round once to
+    float32, then to bf16."""
     yp, im = y_pred[:, None], image[:, None]
-    prob = yp[..., 1]
     valid = (im[..., 0] > 0) & (im[..., 1] > spec.min_height)
-    m = cluster & valid & (prob >= cfg.min_prob)
+    m = cluster & valid & (yp[..., 1] >= cfg.min_prob)  # in the head's own type
+    low = y_pred.dtype != torch.float32
+    yp = yp.float()
+    prob = yp[..., 1]
     wgt = torch.where(m, prob, 0.0)
-    tot = wgt.sum(dim=(-2, -1)).clamp(min=1e-6)
+    near: dict = {"bf16": [], "bf16_surface": []}
+
+    def rounded(t):
+        """t in float32 as the head's type rounds it (itself for float32)."""
+        return t.to(y_pred.dtype).float()
+
+    def bf16_sum(terms, dims, key="bf16"):
+        """A sum jnp.sum leaves in the head's type."""
+        if not low:
+            return terms.sum(dim=dims)
+        total = terms.double().sum(dim=dims)
+        if margins is not None:
+            near[key].append(_midpoint_margin(total, terms, dims))
+        return rounded(total.float())
+
+    tot = bf16_sum(wgt, (-2, -1)).clamp(min=1e-6)
 
     def wmean(ch):
         return (ch * wgt).sum(dim=(-2, -1)) / tot
 
-    lwh = (yp[..., 5:8] * wgt[..., None]).sum(dim=(-3, -2)) / tot[..., None]
+    lwh = bf16_sum(yp[..., 5:8] * wgt[..., None], (-3, -2)) / tot[..., None]
     dual = y_pred.shape[-1] >= 12  # [.., sin_l, cos_l, sin_g, cos_g]
 
     def local_mean():
@@ -668,13 +698,13 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, ma
 
     def global_mean():
         gi = 10 if dual else 8
-        return wmean(yp[..., gi]), wmean(yp[..., gi + 1])
+        return tuple(bf16_sum(yp[..., c] * wgt, (-2, -1)) / tot for c in (gi, gi + 1))
 
     if cfg.direct_yaw_frame == "local":
         sin_m, cos_m = local_mean()
         oriented = torch.ones_like(m[..., 0, 0])
     elif cfg.direct_yaw_frame == "global":
-        sin_m, cos_m = global_mean()
+        sin_m, cos_m = (rounded(q) for q in global_mean())
         oriented = torch.zeros_like(m[..., 0, 0])
     elif cfg.direct_yaw_frame == "auto":
         # dual-codec gate: the codec that cannot see this cluster's
@@ -688,7 +718,8 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, ma
             )
         sl, cl = local_mean()
         sg, cg = global_mean()
-        len_l, len_g = sl * sl + cl * cl, sg * sg + cg * cg
+        len_l = sl * sl + cl * cl
+        len_g = rounded(rounded(sg) * rounded(sg)) + rounded(rounded(cg) * rounded(cg))
         oriented = len_l >= len_g
         if margins is not None:
             margins["oriented"] = _rel_margin(len_l, len_g)
@@ -697,6 +728,8 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, ma
     else:
         raise ValueError(f"unknown direct_yaw_frame {cfg.direct_yaw_frame!r}")
     yaw = torch.atan2(sin_m, cos_m)
+    if cfg.direct_yaw_frame == "global":  # bf16 yaw[None] enters the reference's pose
+        yaw = rounded(yaw)
 
     # prob-weighted mean of the cluster's surface points within a vehicle
     # depth of its closest return
@@ -705,8 +738,8 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, ma
     dmin = torch.where(m, d, math.inf).amin(dim=(-2, -1))
     msurf = m & (d <= dmin[..., None, None] + 4.0)
     wsurf = torch.where(msurf, prob, 0.0)
-    p_mean = (p * wsurf[..., None]).sum(dim=(-3, -2)) / wsurf.sum(
-        dim=(-2, -1)
+    p_mean = (p * wsurf[..., None]).sum(dim=(-3, -2)) / bf16_sum(
+        wsurf, (-2, -1), "bf16_surface"
     ).clamp(min=1e-6)[..., None]
     ok = m.flatten(-2).any(dim=-1)
     center = None
@@ -726,6 +759,12 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, ma
             dim=-1,
         )
         center = torch.where(ok[..., None], center, 0.0)
+    if margins is not None:
+        for key, found in near.items():
+            if found:
+                margins[key] = torch.stack(
+                    [t if t.dim() == ok.dim() else t.amin(dim=-1) for t in found]
+                ).amin(dim=0)
     yaw = torch.where(ok, yaw, 0.0)
     lwh = torch.where(ok[..., None], lwh, 0.0)
     return yaw, lwh, ok, p_mean, oriented, center
@@ -778,6 +817,26 @@ def _rel_margin(v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     v, t = torch.as_tensor(v), torch.as_tensor(t)
     scale = torch.maximum(v.abs(), t.abs())
     return torch.where(scale > 0, (v - t).abs() / scale, 0.0)
+
+
+def _midpoint_margin(total: torch.Tensor, terms: torch.Tensor, dims) -> torch.Tensor:
+    """How far the float64 sums `total` of bf16 products `terms` lie from
+    the nearest bf16 rounding midpoint, relative to the sum of the terms'
+    magnitudes; inf where every float64 partial sum is exact, so that any
+    order of summation gives the same float32 and bf16: a product of two
+    bf16 values has at most 16 significant bits, so each term is a
+    multiple of 2**-15 of the smallest one's leading bit, and partial sums
+    below 2**37 of the smallest term keep within float64's 53 bits.
+    Elsewhere a sum nearer than its summation error may round the other
+    way in another order. The midpoint nearest to x is x with its low 16
+    bits (as a float32) set to 0x8000."""
+    mag = terms.abs()
+    scale = mag.sum(dim=dims)
+    smallest = torch.where(mag > 0, mag, math.inf).amin(dim=dims)
+    t32 = total.float().contiguous()
+    mid = ((t32.view(torch.int32) & -65536) | 32768).view(torch.float32)
+    near = (total - mid.double()).abs() / scale
+    return torch.where((scale > 0) & (scale >= smallest * 2.0**37), near, math.inf).float()
 
 
 def _fit_pose_to_surface(image, cluster, spec, cfg, yaw, lwh, seed, margins=None):
@@ -938,12 +997,18 @@ def decode_direct_clusters_reference(
     margin (`_rel_margin`; inf where it does not decide the answer) of
     each threshold a tie could flip: "oriented" (the auto yaw gate),
     "agree" (consensus and fit), and the fit's "fit_dist", "decisive"
-    and "pi"."""
+    and "pi"; for a bf16 y_pred also "bf16" (and "bf16_surface" for the
+    centers that take the surface mean): each rounded sum's distance from
+    a bf16 rounding midpoint (`_midpoint_margin`). y_pred may be float32
+    or bf16 (computed as `_direct_pose_from_cluster` says); the poses are
+    float32."""
     bboxes, centroids = _shrunk_bbox(min_x, max_x, min_y, max_y, root)
     cluster = mask[:, None] & (labels[:, None] == root[..., None, None].to(labels.dtype))
     yaw, lwh, nonempty, p_mean, oriented, head_center = _direct_pose_from_cluster(
         y_pred, images, cluster, spec, cfg, with_center=center == "head", margins=margins
     )
+    if margins is not None and center not in ("surface", "consensus", "fit"):
+        margins.pop("bf16_surface", None)  # the surface mean goes unused
     good = found & nonempty
     if center == "head":
         pose = torch.cat([head_center, yaw[..., None], lwh], dim=-1)

@@ -46,7 +46,10 @@ bound (the bytes its lanes need on the run's data,
 clusters, config 5's 16 frames at k 4, and 64 x 63 x 1801 at k 1; with
 --old-csrc, DIR's direct decode (the one-CTA-a-lane design, the same C
 interface) in the same turns ("old"), and with `--decode-clusters 4,8`
-the current kernel built with 4 and 8 CTAs a lane ("new_c4", "new_c8").
+the current kernel built with 4 and 8 CTAs a lane ("new_c4", "new_c8");
+with `--decode-dtypes float32,bfloat16` the kernel's bf16 instance and its
+plain version on the same outputs rounded to bf16 ("new_bf16",
+"plain_bf16") in the same turns, beside their bound at 2 B a channel.
 The corner_vote rows time the corner head's vote kernel (handed the
 positives map, as the decode hands it) and its plain version (the torch
 composition it replaced) likewise, beside its bound (the larger of its
@@ -757,9 +760,9 @@ def decode_direct_bound_bytes(y_pred, images, mask, labels, min_x, max_x, min_y,
     searches; on the cluster's valid pixels the probability (4 B), and
     where it passes min_prob the channels the center and yaw frame read
     (4 B each: l w h, the yaw frame's sin / cos, both frames' for "auto",
-    the head's three offsets for "head"); each lane's found flag read and
-    its pose and flag written, a found lane's root and four extents
-    read."""
+    the head's three offsets for "head"; 2 B each for a bf16 y_pred);
+    each lane's found flag read and its pose and flag written, a found
+    lane's root and four extents read."""
     b, h, w = mask.shape
     k = root.shape[1]
     dev = mask.device
@@ -792,8 +795,9 @@ def decode_direct_bound_bytes(y_pred, images, mask, labels, min_x, max_x, min_y,
     yaw_channels = 4 if cfg.direct_yaw_frame == "auto" else 2
     channels = 3 + yaw_channels + (3 if center == "head" else 0)
     n_found = int(found.sum())
+    e = y_pred.element_size()
     return (int(cover.sum()) + 4 * int((cover & mask).sum()) + 8 * int(image_px.sum())
-            + 4 * int(in_cluster.sum()) + 4 * channels * int(passes.sum())
+            + e * int(in_cluster.sum()) + e * channels * int(passes.sum())
             + b * k * (1 + 7 * 4 + 1) + n_found * (8 + 4 * 4))
 
 
@@ -831,16 +835,19 @@ def decode_direct_inputs(dev, shape, sets: int, seed0: int = 1800):
 
 
 def decode_direct_rows(sets: int = 12, shapes=DECODE_SHAPES, old=None,
-                       clusters=()) -> list[dict]:
+                       clusters=(), bf16: bool = False) -> list[dict]:
     """The direct decode kernel's rows: the kernel and its plain version
     (the torch composition it replaced) in turns, and an empty kernel (the
     card's launch floor), at each of `shapes`, beside the kernel's bound
     (`decode_direct_bound_bytes` at 3.35 TB/s) from the same inputs; the
     contract held on the first two sets. With `old` (an earlier design's
-    library, `_build_old`) its kernel ("old") in the same turns, held to
-    the current one's poses within 1e-4 first; each width of `clusters`
-    a build of the current kernel with that many CTAs a lane
-    ("new_c<N>")."""
+    library, `_build_old`, which reads float32 only) its kernel ("old") in
+    the same turns, held to the current one's poses within 1e-4 first;
+    each width of `clusters` a build of the current kernel with that many
+    CTAs a lane ("new_c<N>"). With `bf16`, the kernel and its plain
+    version on the same outputs rounded to bf16 ("new_bf16",
+    "plain_bf16") in the same turns, held to the contract first, and
+    their bound ("bound_ms_bf16", 2 B a channel)."""
     from tpufusion_torch.decode.decode import decode_direct_clusters_reference
     from tpufusion_torch.ops import decode_direct
 
@@ -852,14 +859,19 @@ def decode_direct_rows(sets: int = 12, shapes=DECODE_SHAPES, old=None,
     for shape in shapes:
         spec, cfg, k, args = decode_direct_inputs(dev, shape, sets)
         center = cfg.direct_center
+        # the same sets with y_pred in bf16, looked up by the float32 set
+        low = {id(a): (a[0].to(torch.bfloat16), *a[1:]) for a in args} if bf16 else {}
         with torch.inference_mode():
             for a in args[:2]:
-                r = decode_direct.against_plain(a[0], a[1], spec, cfg, k)
-                assert r["ok"] and r["near"] == 0, (shape[0], r)
+                for y in (a[0], low[id(a)][0]) if bf16 else (a[0],):
+                    r = decode_direct.against_plain(y, a[1], spec, cfg, k)
+                    assert r["ok"] and r["near"] == 0, (shape[0], y.dtype, r)
             new = lambda a: decode_direct.decode_direct_clusters(*a, spec, cfg, center)  # noqa: E731
-            fns = {"new": new,
-                   "plain": lambda a: decode_direct_clusters_reference(*a, spec, cfg, center),
-                   "empty": empty_kernel}
+            plain = lambda a: decode_direct_clusters_reference(*a, spec, cfg, center)  # noqa: E731
+            fns = {"new": new, "plain": plain, "empty": empty_kernel}
+            if bf16:
+                fns["new_bf16"] = lambda a: new(low[id(a)])
+                fns["plain_bf16"] = lambda a: plain(low[id(a)])
             for name, lib in libs.items():
                 def on(a, lib=lib):
                     with using_library(lib):
@@ -871,13 +883,17 @@ def decode_direct_rows(sets: int = 12, shapes=DECODE_SHAPES, old=None,
                 fns[name] = on
             call = time_turns(fns, args, time_ms)
             dev_t = time_turns(fns, args, lambda fn, xs: (
-                queued_each if fn is fns["plain"] else queued_ms)(fn, xs))
+                queued_each if fn in (fns["plain"], fns.get("plain_bf16")) else queued_ms)(fn, xs))
         need = [decode_direct_bound_bytes(*a, spec, cfg, center) for a in args]
+        need_bf16 = [decode_direct_bound_bytes(*low[id(a)], spec, cfg, center)
+                     for a in args] if bf16 else []
         windows = [int(decode_direct.window_pixels(*a[4:]).sum()) for a in args]
         found = [int(a[-1].sum()) for a in args]
+        bf16_bound = {"bound_ms_bf16": sum(need_bf16) / sets / HBM_BYTES_PER_S * 1e3,
+                      "bound_bytes_bf16": sum(need_bf16) / sets} if bf16 else {}
         rows.append({"shape": shape[0], "kernel": "decode_direct",
                      "bound_ms": sum(need) / sets / HBM_BYTES_PER_S * 1e3,
-                     "bound_bytes": sum(need) / sets,
+                     "bound_bytes": sum(need) / sets, **bf16_bound,
                      "window_pixels": sum(windows) / sets, "found_lanes": sum(found) / sets,
                      **{f"{k}_call_ms": v for k, v in call.items()},
                      **{f"{k}_device_ms": v for k, v in dev_t.items()}})
@@ -1051,6 +1067,9 @@ def main() -> int:
                     help="also build and run probes/dsmem_min64.cu")
     ap.add_argument("--decode-clusters", default="",
                     help="comma-separated cluster widths of the direct decode to time beside it")
+    ap.add_argument("--decode-dtypes", default="float32",
+                    help="the direct decode's head outputs: float32, or float32,bfloat16 to "
+                         "time the bf16 instance and its plain version in the same turns")
     ap.add_argument("--out", help="write the card and the rows here as JSON")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1070,7 +1089,11 @@ def main() -> int:
         rows += encode_direct_rows(args.sets)
     if "decode_direct" in kernels:
         clusters = tuple(int(c) for c in args.decode_clusters.split(",") if c)
-        rows += decode_direct_rows(args.sets, old=old, clusters=clusters)
+        dtypes = set(args.decode_dtypes.split(","))
+        if not dtypes <= {"float32", "bfloat16"} or "float32" not in dtypes:
+            raise SystemExit(f"--decode-dtypes: float32[,bfloat16], got {args.decode_dtypes}")
+        rows += decode_direct_rows(args.sets, old=old, clusters=clusters,
+                                   bf16="bfloat16" in dtypes)
     if "corner_vote" in kernels:
         rows += corner_vote_rows(min(args.sets, 6), old=old)
     for r in rows:
@@ -1079,8 +1102,10 @@ def main() -> int:
             f"{k} {r[f'{k}_device_ms'] * 1e3:.2f} us device / {r[f'{k}_call_ms'] * 1e3:.2f} us a call"
             for k in names)
         plans = "".join(f"; {k} {r[k]}" for k in ("plan_16", "plan_8") if k in r)
+        bf16 = (f"; bf16 bound {r['bound_ms_bf16'] * 1e3:.3f} us" if "bound_ms_bf16" in r
+                else "")
         print(f"{r['kernel']} {r['shape']}: {times}; bound {r['bound_ms'] * 1e3:.2f} us, "
-              f"new at {r['bound_ms'] / r['new_device_ms']:.1%} of it{plans} [{card}]")
+              f"new at {r['bound_ms'] / r['new_device_ms']:.1%} of it{plans}{bf16} [{card}]")
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "rows": rows}, f, indent=1)

@@ -3,8 +3,8 @@
 
   decode_direct_clusters  the CC's labels and extents, the heat mask and
                           `_topk_roots`' lanes (root pixel, found) of a
-                          (B, H, W, 10 or 12) float32 direct-head output
-                          and its (B, H, W, C >= 2) image -> poses
+                          (B, H, W, 10 or 12) float32 or bf16 direct-head
+                          output and its (B, H, W, C >= 2) image -> poses
                           (B, k, 7) float32 = (x, y, z, yaw, l, w, h) and
                           found (B, k) bool, zeros where not found: what
                           `decode/decode.py::decode_direct_clusters_reference`,
@@ -21,9 +21,11 @@ push, the consensus, and the Gauss-Newton fit of its gated surface points,
 every sum exchanged between the CTAs in a fixed order (the same bits call
 to call). Every center but "silhouette" (which needs a quantile,
 a sort of each lane's points, and runs the plain version on every
-device); every fit boundary and yaw frame. For tensors on the CPU the
-wrapper runs the plain version; for CUDA tensors it launches the kernel
-once, or raises.
+device); every fit boundary and yaw frame. A bf16 output is read as it
+is, by the kernel's bf16 instance, which rounds where the plain version
+rounds (`decode.py::_direct_pose_from_cluster`). For tensors on the CPU
+the wrapper runs the plain version; for CUDA tensors it launches the
+kernel once, or raises.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from tpufusion_torch import _build
+from tpufusion_torch._precision import bf16_round
 from tpufusion_torch.config import DecodeConfig, RangeViewSpec
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
@@ -41,6 +44,7 @@ CENTERS = ("backproject", "geometric", "surface", "consensus", "head", "fit")  #
 BOUNDARIES = ("circle", "ellipse", "box")  # a fit arm's boundary codes, in order
 YAW_FRAMES = ("local", "global", "auto")  # yaw-frame codes, in order
 N_CONSTANTS = 5  # the float32 constants the C entry reads from a host array
+DTYPES = (torch.float32, torch.bfloat16)  # the head outputs the kernel reads, by its code
 
 def _arms(cfg: DecodeConfig) -> tuple[tuple[int, float], tuple[int, float]]:
     """The fit's two arms as (boundary code, scale factor): the oriented
@@ -69,9 +73,9 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, dev) ->
 
 def decode_direct_clusters(y_pred, images, mask, labels, min_x, max_x, min_y, max_y, root,
                            found, spec: RangeViewSpec, cfg: DecodeConfig, center: str):
-    """Poses (B, k, 7) and found (B, k) of each lane's cluster; the kernel
-    for CUDA tensors. y_pred (B, H, W, C) float32 (C >= 12 for the auto
-    yaw frame), images (B, H, W, >= 2) float32, mask (B, H, W) bool,
+    """Poses (B, k, 7) float32 and found (B, k) of each lane's cluster;
+    the kernel for CUDA tensors. y_pred (B, H, W, C) float32 or bfloat16
+    (C >= 12 for the auto yaw frame), images (B, H, W, >= 2) float32, mask (B, H, W) bool,
     labels and the four extents (B, H, W) int32 as the CC kernel gives
     them (the extents read at each lane's root), root (B, k) int64, found
     (B, k) bool. "silhouette" is refused: it runs the plain version."""
@@ -103,7 +107,9 @@ def decode_direct_clusters(y_pred, images, mask, labels, min_x, max_x, min_y, ma
         raise ValueError(f"the frames must be the spec's {spec.height} x {spec.width}, got "
                          f"{h} x {w}")
     y_pred, images = y_pred.contiguous(), images.contiguous()
-    _check("y_pred", y_pred, torch.float32, (b, h, w, channels), dev)
+    if y_pred.dtype not in DTYPES:
+        raise ValueError(f"y_pred must be float32 or bfloat16, got {y_pred.dtype}")
+    _check("y_pred", y_pred, y_pred.dtype, (b, h, w, channels), dev)
     if images.dim() != 4 or images.shape[-1] < 2:
         raise ValueError(f"images must be (B, H, W, C >= 2), got {tuple(images.shape)}")
     _check("images", images, torch.float32, (b, h, w, images.shape[-1]), dev)
@@ -125,8 +131,13 @@ def decode_direct_clusters(y_pred, images, mask, labels, min_x, max_x, min_y, ma
 
     tables = (*pixel_trig(spec, dev), fit_phi_grid(dev))
     offset = cfg.range_offset if center == "backproject" else 0.0
+    # the reference compares the probability with min_prob in y_pred's type
+    # (rounded in numpy: a torch op here would count as a host sync)
+    min_prob = cfg.min_prob
+    if y_pred.dtype == torch.bfloat16:
+        min_prob = float(bf16_round(min_prob)[0])
     consts = (ctypes.c_float * N_CONSTANTS)(
-        cfg.min_prob, spec.min_height, offset, arms[0][1], arms[1][1])
+        min_prob, spec.min_height, offset, arms[0][1], arms[1][1])
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -137,6 +148,7 @@ def decode_direct_clusters(y_pred, images, mask, labels, min_x, max_x, min_y, ma
             *(t.data_ptr() for t in tables), CENTERS.index(center),
             YAW_FRAMES.index(cfg.direct_yaw_frame), cfg.fit_boundary == "auto", arms[0][0],
             arms[1][0], consts, poses.data_ptr(), good.data_ptr(), stream,
+            DTYPES.index(y_pred.dtype),
         )
     _build.check(lib, err, "decode_direct_clusters")
     LAUNCHES += 1
@@ -175,7 +187,7 @@ def lanes_against_plain(y_pred, images, comps, root, found, spec: RangeViewSpec,
     or made by hand (`parity_inputs.crafted_lanes`). Returns
     `_golden.direct_kernel_readings` with "found", "windows" and
     "repeatable" (the two calls' outputs equal bit for bit) added."""
-    from tpufusion_torch._golden import direct_kernel_readings
+    from tpufusion_torch._golden import direct_kernel_readings, direct_margins
     from tpufusion_torch.decode import decode as td
 
     center = cfg.direct_center
@@ -189,7 +201,7 @@ def lanes_against_plain(y_pred, images, comps, root, found, spec: RangeViewSpec,
         margins: dict = {}
         want = td.decode_direct_clusters_reference(y_pred, images, *comps, root, found, spec,
                                                    cfg, center, margins)
-        near = (torch.stack(list(margins.values())).amin(dim=0) if margins
+        near = (torch.stack(direct_margins(margins)).amin(dim=0) if margins
                 else torch.full(found.shape, float("inf"), device=found.device))
         windows = window_pixels(*comps[2:], root, found)
     out = direct_kernel_readings(*(t.cpu().numpy() for t in (*got, *want, windows, near)),

@@ -44,6 +44,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from tpufusion_torch._precision import bf16_round
+
 TILE_COLS = 64  # csrc/components.cu kTileCols
 TILE_ROWS = 32  # csrc/components.cu kTileRows
 CLUSTER = 16  # csrc/nearest_wins.cu kCluster
@@ -704,6 +706,39 @@ def cluster_decode_options(channels: int) -> dict[str, dict]:
         base, direct_center="fit", direct_yaw_frame=frames[-1], fit_boundary="auto",
         fit_boundary_oriented="box", fit_surface_scale=1.0)
     return out
+
+
+# The bf16 threshold case of the direct decode: a probability of exactly
+# bf16(THRESHOLD_MIN_PROB) = 0.69921875 passes `prob >= 0.7` where the
+# comparison runs in bf16, as the reference's and torch's do; a float32
+# threshold (0.7f) would drop it.
+THRESHOLD_MIN_PROB = 0.7
+THRESHOLD_PROB = 0.69921875  # bf16(0.7)
+THRESHOLD_BELOW = 0.6953125  # the bf16 step below it
+
+
+def threshold_inputs(spec, seed: int = 0, channels: int = 10):
+    """(y_pred (2, H, W, channels) float32 holding bf16 values, image (2,
+    H, W, 3), (row, column) of the pixel): `cluster_inputs`' cars of one
+    frame rounded to bf16, twice; an interior car pixel with a return is
+    THRESHOLD_PROB in frame 0 and THRESHOLD_BELOW in frame 1, which is
+    otherwise frame 0. At min_prob THRESHOLD_MIN_PROB the pixel counts in
+    frame 0 only."""
+    y, image = cluster_inputs(spec, "cars", batch=1, seed=seed, channels=channels)
+    y = bf16_round(y)
+    prob = y[0, ..., 1]
+    inner = np.zeros(prob.shape, bool)
+    inner[3:-3, 3:-3] = True
+    for dr in (-1, 0, 1):
+        for dc in (-1, 0, 1):
+            inner &= np.roll(prob, (dr, dc), axis=(0, 1)) >= 0.85
+    inner &= (image[0, ..., 0] > 0) & (image[0, ..., 1] > spec.min_height)
+    r, c = (int(v) for v in np.argwhere(inner)[0])
+    y = np.concatenate([y, y])
+    image = np.concatenate([image, image])
+    y[0, r, c, 1], y[1, r, c, 1] = THRESHOLD_PROB, THRESHOLD_BELOW
+    y[:, r, c, 0] = bf16_round(1.0 - y[:, r, c, 1])
+    return y, image, (r, c)
 
 
 # The direct decode kernel's hand-made lanes (`crafted_lanes`): the CC's
