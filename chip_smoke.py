@@ -56,7 +56,15 @@ to 0 before it and read after it, and then the training paths:
                threshold_inputs`), and `decode_batch_direct` driven on the
                live asset's bf16 output and on the bf16 golden
                (`tests/data/torch_port_golden_bf16.npz`: found equal, poses
-               within POSE_TOL of JAX's), its launches counted
+               within POSE_TOL of JAX's), its launches counted. A float16
+               head output (the float16 instance) likewise: the driven
+               outputs rounded to float16, a probability of exactly
+               float16(0.8) at min_prob 0.8, `decode_batch_direct` on the
+               live asset's float16 output and on the float16 golden
+               (`tests/data/torch_port_golden_f16.npz`, every kernel
+               center and silhouette at k 2 and 1: poses within 1e-4 of
+               JAX's, each held to the plain version), and
+               `make_e2e_step` with the asset's FCN in float16
   phase 1f     the corner head's vote (`csrc/corner_vote.cu`,
                `tf_corner_vote`) against its plain version
                (`_golden.corner_kernel_readings`: ok and overflow equal,
@@ -75,8 +83,9 @@ to 0 before it and read after it, and then the training paths:
   phases 4-5   the float32 direct path with the shipped detector asset
                (`LidarPipeline.predict_position`, `make_e2e_step`,
                batch 64 x 32,768-point beam scans)
-  phase 6      the asset's FCN in bf16 against JAX's bf16 FCN and
-               against float32
+  phase 6      the asset's FCN in bf16 and in float16 against JAX's FCN
+               in the same dtype (the multi and float16 goldens'
+               samples) and against float32, `found` equal
   phase 7      config 5: bf16, top-4, batch 16 x 131,072 points (64
                beams), and a 16-frame two-vehicle sequence through
                `PoseTracker.run_multi`
@@ -85,7 +94,8 @@ to 0 before it and read after it, and then the training paths:
                a corner head end to end, and bench.py's corner row (bf16,
                batch 64 x 32,768)
   phase 9      the mixed-family and wide-yaw assets, top-4
-  phase 10     times of config 5, the corner row, the bf16 FCN, both
+  phase 10     times of config 5, the corner row, the FCN in float32,
+               bf16 and float16, both
                kernels at 131,072 points per frame, the tracker
   phase 11     the BEV rasterizer on the card against the CPU and JAX's
                cells (beam scans and the edge-case cloud)
@@ -335,6 +345,7 @@ WIDE_COLUMNS = 24001
 # bf16 FCN included: they read 3.8e-6 on an H100, and rounding each bf16
 # convolution once instead of twice (a fault) moves them 3.7e-3
 POSE_TOL = 1e-3
+F16_POSE_TOL = 1e-4  # a float16 head output's decode against JAX's (the CPU reads 3.8e-6)
 HERE = os.path.dirname(os.path.abspath(__file__))
 ASSETS = os.path.join(HERE, "tpufusion", "assets")
 ASSET = os.path.join(ASSETS, "synthetic_detector.npz")
@@ -344,6 +355,7 @@ GOLDEN_FUSION = os.path.join(HERE, "tests", "data", "torch_port_golden_fusion.np
 GOLDEN_TRAIN = os.path.join(HERE, "tests", "data", "torch_port_golden_train.npz")
 GOLDEN_VIEWER = os.path.join(HERE, "tests", "data", "torch_port_golden_viewer.npz")
 GOLDEN_TALL = os.path.join(HERE, "tests", "data", "torch_port_golden_tall.npz")
+GOLDEN_F16 = os.path.join(HERE, "tests", "data", "torch_port_golden_f16.npz")
 GOLDEN_BENCH = os.path.join(HERE, "tests", "data", "torch_port_golden_bench.npz")
 GOLDEN_PACKED = os.path.join(HERE, "tests", "data", "torch_port_golden_packed.npz")
 GOLDEN_BF16 = os.path.join(HERE, "tests", "data", "torch_port_golden_bf16.npz")
@@ -821,9 +833,11 @@ def phase_decode_direct(dev) -> tuple[float, dict, int, dict]:
     with no lane near a threshold, then on every `parity_inputs.
     cluster_inputs` kind at 32 and 63 rows, 10 and 12 channels, with every
     center, boundary and yaw frame (a lane near a threshold counted and
-    exempt); the same driven outputs rounded to bf16, the bf16 threshold
-    pixel, and `decode_batch_direct` driven on bf16 outputs (the live
-    asset's, the bf16 golden's against JAX's answers); then its device
+    exempt); the same driven outputs rounded to bf16 and to float16, the
+    bf16 and float16 threshold pixels, and `decode_batch_direct` driven on
+    bf16 and float16 outputs (the live asset's, the goldens' against
+    JAX's answers) and `make_e2e_step` with the asset's FCN in float16;
+    then its device
     time in turns with the plain version at `kernel_bench.DECODE_SHAPES`
     beside its bound and an empty kernel. Returns (largest pose
     difference, times by shape, near lanes, the driven calls' launches)."""
@@ -831,10 +845,13 @@ def phase_decode_direct(dev) -> tuple[float, dict, int, dict]:
     from tpufusion_torch._golden import (
         BF16_DECODE_CASES,
         BF16_DECODE_K,
+        F16_DECODE_CASES,
+        F16_DECODE_K,
         TALL_BEAMS,
         TALL_RES_V_DEG,
         bf16_decode_case,
         from_bf16_bits,
+        from_f16_bits,
         load_npz,
         wrapped_pose_diff,
     )
@@ -849,7 +866,7 @@ def phase_decode_direct(dev) -> tuple[float, dict, int, dict]:
     log("phase 1e direct decode (tf_decode_direct) against its plain version")
     err, near = 0.0, 0
     driven = dict.fromkeys(KERNELS, 0)
-    bf16 = torch.bfloat16
+    bf16, f16 = torch.bfloat16, torch.float16
 
     def held(label, y_pred, images, spec, cfg, k, strict=True, empty=False):
         """strict: a driven path's inputs, every lane within the 1e-4 limit
@@ -891,9 +908,12 @@ def phase_decode_direct(dev) -> tuple[float, dict, int, dict]:
                 for k in (1,) if oriented and frames > C5_BATCH else (1, 4):
                     held(f"{name}, {shape}", y_pred, images, spec, dcfg, k)
                     held(f"{name} in bf16, {shape}", y_pred.to(bf16), images, spec, dcfg, k)
+                    held(f"{name} in float16, {shape}", y_pred.to(f16), images, spec, dcfg, k)
                 if name == "synthetic_detector.npz":
                     held(f"{name}, {shape}", y_pred, images, spec, DecodeConfig(), 4)
                     held(f"{name} in bf16, {shape}", y_pred.to(bf16), images, spec,
+                         DecodeConfig(), 4)
+                    held(f"{name} in float16, {shape}", y_pred.to(f16), images, spec,
                          DecodeConfig(), 4)
     n_cases = 0
     for spec in (RangeViewSpec(), RangeViewSpec(res_v_deg=TALL_RES_V_DEG)):
@@ -930,49 +950,81 @@ def phase_decode_direct(dev) -> tuple[float, dict, int, dict]:
     log(f"  the crafted lanes: {n_crafted} cases held (one-pixel, straddling and "
         f"{20 * RangeViewSpec().width}-pixel windows), every call repeatable bit for bit; "
         f"largest pose difference {err:.3e}")
-    # bf16: a probability of exactly bf16(0.7) at min_prob 0.7 counts where
-    # a bf16 step below it does not, in the kernel as in its plain version
+    # a probability of exactly bf16(0.7) at min_prob 0.7 (float16(0.8) at
+    # 0.8) counts where a step below it does not, in the kernel as in its
+    # plain version
     spec = RangeViewSpec()
-    y, images, _ = parity_inputs.threshold_inputs(spec)
-    y, images = torch.from_numpy(y).to(dev).to(bf16), torch.from_numpy(images).to(dev)
-    for name, fields in parity_inputs.cluster_decode_options(10).items():
-        cfg = DecodeConfig(**dict(fields, min_prob=parity_inputs.THRESHOLD_MIN_PROB))
-        held(f"a bf16 probability at min_prob 0.7, {name}", y, images, spec, cfg, 4)
-        with torch.inference_mode():
-            poses = td.decode_batch_direct(y, images, spec, cfg, 4)["poses"]
-        assert not torch.equal(poses[0], poses[1]), f"{name}: the pixel at bf16(0.7) was dropped"
-    log(f"  a bf16 probability of exactly bf16(0.7) at min_prob 0.7: counted in "
-        f"{len(parity_inputs.cluster_decode_options(10))} cases, kernel as plain")
-    # decode_batch_direct driven on bf16 outputs: the live asset's on a
-    # 64-frame batch, and the bf16 golden's against JAX's answers
+    for dtype in ("bfloat16", "float16"):
+        min_prob = parity_inputs.THRESHOLDS[dtype][0]
+        y, images, _ = parity_inputs.threshold_inputs(spec, dtype=dtype)
+        y = torch.from_numpy(y).to(dev).to(getattr(torch, dtype))
+        images = torch.from_numpy(images).to(dev)
+        for name, fields in parity_inputs.cluster_decode_options(10).items():
+            cfg = DecodeConfig(**dict(fields, min_prob=min_prob))
+            held(f"a {dtype} probability at min_prob {min_prob}, {name}", y, images, spec, cfg,
+                 4)
+            with torch.inference_mode():
+                poses = td.decode_batch_direct(y, images, spec, cfg, 4)["poses"]
+            assert not torch.equal(poses[0], poses[1]), (
+                f"{name}: the {dtype} pixel at the threshold was dropped")
+        log(f"  a {dtype} probability of exactly {parity_inputs.THRESHOLDS[dtype][1]} at "
+            f"min_prob {min_prob}: counted in {len(parity_inputs.cluster_decode_options(10))} "
+            "cases, kernel as plain")
+    # decode_batch_direct driven on bf16 and float16 outputs: the live
+    # asset's on a 64-frame batch, and the goldens' against JAX's answers;
+    # make_e2e_step with the asset's FCN in float16 (whose float32 output
+    # the kernel's float32 instance decodes)
     model, dcfg, _ = assets["synthetic_detector.npz"]
     (p, v), = point_sets(1, BATCH, N_POINTS, dev, seed0=1933)
     with torch.inference_mode():
         images = range_view_project_batch(p, spec, v)
-        y_pred = model(images).to(bf16)
-        out, _ = drive(f"decode_batch_direct on the live asset's bf16 output, {BATCH} frames",
-                       lambda: td.decode_batch_direct(y_pred, images, spec, dcfg, 1), driven,
-                       expect=CC_ONLY + ("decode_direct",))
-    assert out["poses"].dtype == torch.float32 and bool(out["found"].any())
-    gb = load_npz(GOLDEN_BF16)
-    images = torch.from_numpy(gb["images"]).to(dev)
+        y_live = model(images)
+    for dtype in (bf16, f16):
+        y_pred = y_live.to(dtype)
+        with torch.inference_mode():
+            out, _ = drive(f"decode_batch_direct on the live asset's {dtype} output, "
+                           f"{BATCH} frames",
+                           lambda: td.decode_batch_direct(y_pred, images, spec, dcfg, 1), driven,
+                           expect=CC_ONLY + ("decode_direct",))
+        assert out["poses"].dtype == torch.float32 and bool(out["found"].any())
+    from tpufusion_torch.predict import make_e2e_step
+
+    f16_model, _ = asset_fcn(ASSET, "float16", dev)
+    f16_step = make_e2e_step(f16_model, spec, dcfg, head="direct", device=dev)
+    (poses, found), _ = drive(f"make_e2e_step with the asset's FCN in float16, {BATCH} frames",
+                              lambda: f16_step(p, v), driven, expect=DIRECT)
+    with torch.inference_mode():
+        want = td.decode_batch_direct(f16_model(images), images, spec, dcfg, 1)
+    assert torch.equal(found, want["found"][:, 0]) and bool(found.any())
     golden_err = 0.0
+    gb, gh = load_npz(GOLDEN_BF16), load_npz(GOLDEN_F16)
+    images = torch.from_numpy(gb["images"]).to(dev)
+    runs = []  # (case, the golden's dtype, the golden, its key, k, tolerance, config, y_pred)
     for name in BF16_DECODE_CASES:
         fcn, cfg = bf16_decode_case(name, ASSETS)
         y_pred = torch.from_numpy(from_bf16_bits(gb[f"{fcn}_bits"])).to(dev).to(bf16)
+        runs.append((name, "bf16", gb, name, BF16_DECODE_K, POSE_TOL, cfg, y_pred))
+    for name in F16_DECODE_CASES:
+        fcn, cfg = bf16_decode_case(name, ASSETS, F16_DECODE_CASES)
+        y_pred = torch.from_numpy(from_f16_bits(gh[f"{fcn}_bits"])).to(dev).to(f16)
+        runs += [(name, "float16", gh, name, F16_DECODE_K, F16_POSE_TOL, cfg, y_pred),
+                 (name, "float16", gh, f"{name}_k1", 1, F16_POSE_TOL, cfg, y_pred)]
+    for name, tag, gold, key, k, tol, cfg, y_pred in runs:
         expect = CC_ONLY + (() if cfg.direct_center == "silhouette" else ("decode_direct",))
         with torch.inference_mode():
-            out, _ = drive(f"decode_batch_direct on the bf16 golden, {name}",
-                           lambda: td.decode_batch_direct(y_pred, images, spec, cfg,
-                                                          BF16_DECODE_K),
+            out, _ = drive(f"decode_batch_direct on the {tag} golden, {key}",
+                           lambda: td.decode_batch_direct(y_pred, images, spec, cfg, k),
                            driven, expect=expect)
-        d = float(wrapped_pose_diff(out["poses"].cpu().numpy(), gb[f"{name}_poses"]).max())
-        same = np.array_equal(out["found"].cpu().numpy(), gb[f"{name}_found"])
+        d = float(wrapped_pose_diff(out["poses"].cpu().numpy(), gold[f"{key}_poses"]).max())
+        same = np.array_equal(out["found"].cpu().numpy(), gold[f"{key}_found"])
         golden_err = max(golden_err, d)
-        log(f"  the bf16 golden, {name}: found equal {same}, poses {d:.3e} from JAX's "
-            f"(tolerance {POSE_TOL:.0e})")
-        assert same and d <= POSE_TOL, f"the bf16 golden, {name}: the card differs from JAX"
-    log(f"  bf16: the driven decodes' launches {driven}; the golden within {golden_err:.3e}")
+        log(f"  the {tag} golden, {key}: found equal {same}, poses {d:.3e} from JAX's "
+            f"(tolerance {tol:.0e})")
+        assert same and d <= tol, f"the {tag} golden, {key}: the card differs from JAX"
+        if tag == "float16" and k == F16_DECODE_K and cfg.direct_center != "silhouette":
+            held(f"the float16 golden, {name}", y_pred, images, spec, cfg, k)
+    log(f"  bf16 and float16: the driven decodes' launches {driven}; the goldens within "
+        f"{golden_err:.3e}")
     # the aten ops a call dispatches after the CC, kernel against plain, on
     # the live asset's first 64-frame batch (a dispatch mode counts them:
     # torch.profiler is kept out of this process's early phases)
@@ -1202,53 +1254,70 @@ def asset_fcn(path: str, dtype: str, dev):
 
 def phase_bf16(dev, spec, g, gm):
     """Phase 6: the asset's FCN in bf16 against JAX's bf16 FCN (the
-    golden's sample, on its three two-vehicle frames) and against the
-    float32 FCN on all five golden frames. Returns ({dtype: model}, the
-    asset's DecodeConfig)."""
+    golden's sample, on its three two-vehicle frames) and in float16
+    against JAX's float16 FCN (the float16 golden's sample, the same
+    frames), each against the float32 FCN on all five golden frames, its
+    convolutions in its own dtype and `found` equal to float32's. Returns
+    ({dtype: model}, the asset's DecodeConfig)."""
     from tpufusion_torch._golden import (
         BF16_PROB_ATOL,
         BF16_REG_ATOL,
         BF16_REG_DIFFER_SHARE,
-        bf16_fcn_readings,
+        F16_PROB_ATOL,
+        F16_REG_ATOL,
+        F16_REG_DIFFER_SHARE,
+        fcn_sample_readings,
+        from_f16_bits,
+        load_npz,
     )
     from tpufusion_torch.geometry.range_view import range_view_project_batch
     from tpufusion_torch.predict import make_e2e_step
 
+    gf16 = load_npz(GOLDEN_F16)
+    samples = {  # JAX's sample of its FCN in the dtype and the limits
+        "bfloat16": ("bf16", gm["bf16_fcn_prob"], gm["bf16_fcn_reg"], BF16_PROB_ATOL,
+                     BF16_REG_ATOL, BF16_REG_DIFFER_SHARE),
+        "float16": ("float16", gf16["fcn_prob"], from_f16_bits(gf16["fcn_reg_bits"]),
+                    F16_PROB_ATOL, F16_REG_ATOL, F16_REG_DIFFER_SHARE)}
     models = {}
-    for dt in ("float32", "bfloat16"):
+    for dt in ("float32", *samples):
         models[dt], dcfg = asset_fcn(ASSET, dt, dev)
     pts = np.concatenate([g["points"], gm["multi_points"]])
     valid = np.concatenate([g["valid"], gm["multi_valid"]])
-    conv_dtypes = []
-    hook = models["bfloat16"].conv1.register_forward_hook(
-        lambda m, i, o: conv_dtypes.append(o.dtype))
+    conv_dtypes = {dt: [] for dt in samples}
+    hooks = [models[dt].conv1.register_forward_hook(
+        lambda m, i, o, dt=dt: conv_dtypes[dt].append(o.dtype)) for dt in samples]
     with torch.inference_mode():
         images = range_view_project_batch(
             torch.from_numpy(pts).to(dev), spec, torch.from_numpy(valid).to(dev))
-        out32 = models["float32"](images)
-        out16 = models["bfloat16"](images)
-    hook.remove()
-    assert conv_dtypes == [torch.bfloat16], f"the bf16 FCN's conv1 returned {conv_dtypes}"
-    assert out16.dtype == torch.float32 and out16.shape == out32.shape
-    dp = float((out16[..., :2] - out32[..., :2]).abs().max())
-    dr = float((out16[..., 2:] - out32[..., 2:]).abs().max())
+        outs = {dt: m(images) for dt, m in models.items()}
+    for h in hooks:
+        h.remove()
     found = {dt: make_e2e_step(m, spec, dcfg, head="direct", device=dev)(
                  pts, valid)[1].cpu().numpy()
              for dt, m in models.items()}
-    log(f"phase 6 bf16 FCN ({len(pts)} golden frames): conv1 output dtype "
-        f"{conv_dtypes[0]}; bf16 vs float32 largest difference: probability "
-        f"{dp:.4e}, regression {dr:.4e}; found float32 "
-        f"{found['float32'].astype(int).tolist()}, bf16 {found['bfloat16'].astype(int).tolist()}")
-    assert np.isfinite(out16.cpu().numpy()).all()
-    assert np.array_equal(found["float32"], found["bfloat16"]), "bf16 flips found"
-    jp, jr, n_diff, n = bf16_fcn_readings(
-        out16[len(g["points"]):].cpu().numpy(), gm["bf16_fcn_prob"], gm["bf16_fcn_reg"])
-    log(f"  bf16 FCN vs JAX's bf16 FCN (3 two-vehicle frames): probability "
-        f"{jp:.4e} (tolerance {BF16_PROB_ATOL:.4e}), sampled regression "
-        f"{jr:.4e} (tolerance {BF16_REG_ATOL:.4e}), {n_diff} of {n} sampled "
-        f"regression outputs differ (at most {BF16_REG_DIFFER_SHARE:.0%})")
-    assert jp <= BF16_PROB_ATOL and jr <= BF16_REG_ATOL, "bf16 FCN differs from JAX's"
-    assert n_diff <= BF16_REG_DIFFER_SHARE * n, "bf16 FCN rounds unlike JAX's"
+    out32 = outs["float32"]
+    for dt, (tag, want_prob, want_reg, prob_atol, reg_atol, share) in samples.items():
+        out = outs[dt]
+        assert conv_dtypes[dt] == [getattr(torch, dt)], (
+            f"the {tag} FCN's conv1 returned {conv_dtypes[dt]}")
+        assert out.dtype == torch.float32 and out.shape == out32.shape
+        dp = float((out[..., :2] - out32[..., :2]).abs().max())
+        dr = float((out[..., 2:] - out32[..., 2:]).abs().max())
+        log(f"phase 6 {tag} FCN ({len(pts)} golden frames): conv1 output dtype "
+            f"{conv_dtypes[dt][0]}; {tag} vs float32 largest difference: probability "
+            f"{dp:.4e}, regression {dr:.4e}; found float32 "
+            f"{found['float32'].astype(int).tolist()}, {tag} {found[dt].astype(int).tolist()}")
+        assert np.isfinite(out.cpu().numpy()).all()
+        assert np.array_equal(found["float32"], found[dt]), f"{tag} flips found"
+        jp, jr, n_diff, n = fcn_sample_readings(
+            out[len(g["points"]):].cpu().numpy(), want_prob, want_reg)
+        log(f"  {tag} FCN vs JAX's {tag} FCN (3 two-vehicle frames): probability "
+            f"{jp:.4e} (tolerance {prob_atol:.4e}), sampled regression "
+            f"{jr:.4e} (tolerance {reg_atol:.4e}), {n_diff} of {n} sampled "
+            f"regression outputs differ (at most {share:.0%})")
+        assert jp <= prob_atol and jr <= reg_atol, f"{tag} FCN differs from JAX's"
+        assert n_diff <= share * n, f"{tag} FCN rounds unlike JAX's"
     return models, dcfg
 
 
@@ -1479,7 +1548,8 @@ def phase_times(dev, spec, models, dcfg, c5_step, cstep, cmodel, seq, batches,
                          list(zip(c5_images, c5_preds)))
         fcn = {}
         for label, imgs in (("c5", c5_images), ("64", images64)):
-            for dt in ("float32", "bfloat16", "bfloat16", "float32"):  # in turns
+            for dt in ("float32", "bfloat16", "float16", "float16", "bfloat16",
+                       "float32"):  # in turns
                 fcn.setdefault((label, dt), []).append(time_ms(models[dt], imgs))
         fcn = {k: sum(v) / len(v) for k, v in fcn.items()}
         # both kernels against their plain versions at config 5's shapes
@@ -1521,9 +1591,10 @@ def phase_times(dev, spec, models, dcfg, c5_step, cstep, cmodel, seq, batches,
         f"{b64 * 1e3 / corner_ms:.1f} frames/s; peak device memory "
         f"{corner_peak:.0f} MiB; decode_batch_multi k=4 at batch {b64} needs "
         f"{multi_peak:.0f} MiB above its inputs {where}")
-    log(f"  FCN float32 vs bf16: {b64} x 32 x 1801 {fcn[('64', 'float32')]:.3f} vs "
-        f"{fcn[('64', 'bfloat16')]:.3f} ms; {C5_BATCH} x 32 x 1801 (131,072-point "
-        f"frames) {fcn[('c5', 'float32')]:.3f} vs {fcn[('c5', 'bfloat16')]:.3f} ms {where}")
+    log(f"  FCN float32 vs bf16 vs float16: {b64} x 32 x 1801 {fcn[('64', 'float32')]:.3f} vs "
+        f"{fcn[('64', 'bfloat16')]:.3f} vs {fcn[('64', 'float16')]:.3f} ms; {C5_BATCH} x 32 x "
+        f"1801 (131,072-point frames) {fcn[('c5', 'float32')]:.3f} vs "
+        f"{fcn[('c5', 'bfloat16')]:.3f} vs {fcn[('c5', 'float16')]:.3f} ms {where}")
     log(f"  at {C5_POINTS} points per frame ({C5_BATCH} frames): {turns_line(zt)} {where}")
     log(f"  tracker (host, PoseTracker.run_multi, {len(seq[0])} frames x top-4, "
         f"{reps} runs): {track_ms:.4f} ms/frame")

@@ -121,6 +121,20 @@ output (tpufusion_torch/_golden.py names the frames and the cases).
   <case>_{poses,found}  JAX decode_batch_direct on the bf16 output at
                 k = BF16_DECODE_K, for each of BF16_DECODE_CASES
 
+tests/data/torch_port_golden_f16.npz: the float16 configuration
+(tpufusion_torch/_golden.py names the frames and the cases).
+  {asset,mixed}_bits  the shipped and the mixed assets' JAX FCN outputs on
+                the bf16 golden's images rounded to float16, as float16 bits
+  <case>_{poses,found}  JAX decode_batch_direct on the float16 output at
+                k = F16_DECODE_K, <case>_k1_{poses,found} at k = 1, for
+                each of F16_DECODE_CASES
+  fcn_prob, fcn_reg_bits  the asset's JAX float16 FCN on the multi
+                golden's three two-vehicle frames: the foreground
+                probability at every pixel, the regression outputs (float16
+                values) at every 17th pixel as float16 bits
+  e2e_{poses,found}  JAX make_e2e_step(head="direct", max_obstacles=
+                F16_E2E_K) with the shipped asset in float16 on those frames
+
 tests/test_torch_e2e.py, tests/test_torch_multi.py,
 tests/test_torch_fusion.py, tests/test_torch_train.py,
 tests/test_torch_viewer.py, tests/test_torch_tall_views.py,
@@ -128,10 +142,10 @@ tests/test_torch_bench.py and tests/test_torch_projection_methods.py
 recompute them (the train golden's fusion steps excepted: 8 full-size
 camera frames backward) and fail when a file is stale.
 
-    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer | tall | bench | packed | bf16]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer | tall | bench | packed | bf16 | f16]
 
-With `train` (`viewer`, `tall`, `bench`, `packed`, `bf16`) only the train
-(viewer, tall, bench, packed, bf16) golden is rewritten.
+With `train` (`viewer`, `tall`, `bench`, `packed`, `bf16`, `f16`) only the
+train (viewer, tall, bench, packed, bf16, f16) golden is rewritten.
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 """
@@ -847,6 +861,74 @@ def write_bf16_golden() -> None:
                       if k.endswith("_found")))
 
 
+def golden_f16_arrays() -> dict[str, np.ndarray]:
+    """The float16 golden: the two assets' FCN outputs rounded to float16
+    on the bf16 golden's images with JAX's direct decode of them for every
+    F16_DECODE_CASES entry, JAX's float16 FCN sample and float16 e2e step
+    on the multi golden's two-vehicle frames."""
+    import jax
+    import jax.numpy as jnp
+
+    from tests.torch_golden import (
+        ASSETS,
+        GOLDEN_BF16,
+        GOLDEN_MULTI,
+        asset_configs,
+        jax_asset_model,
+        jax_forward,
+        jax_step,
+        to_jax_config,
+    )
+    from tpufusion.config import RangeViewSpec
+    from tpufusion.decode.decode import decode_batch_direct
+    from tpufusion.geometry.range_view import range_view_project_batch
+    from tpufusion_torch._golden import (
+        BF16_DECODE_FCNS,
+        F16_DECODE_CASES,
+        F16_DECODE_K,
+        F16_E2E_K,
+        bf16_decode_case,
+        f16_bits,
+        fcn_golden_sample,
+    )
+
+    with np.load(GOLDEN_BF16) as z:
+        images = z["images"]
+    out = {}
+    y_f16 = {}
+    for key, name in BF16_DECODE_FCNS.items():
+        y = jnp.asarray(jax_forward(jax_asset_model(os.path.join(ASSETS, name)), images))
+        y_f16[key] = y.astype(jnp.float16)
+        out[f"{key}_bits"] = f16_bits(np.asarray(y_f16[key].astype(jnp.float32)))
+    decode = jax.jit(decode_batch_direct, static_argnums=(2, 3, 4))
+    for case in F16_DECODE_CASES:
+        fcn, cfg = bf16_decode_case(case, ASSETS, F16_DECODE_CASES)
+        for k, tag in ((F16_DECODE_K, case), (1, f"{case}_k1")):
+            got = decode(y_f16[fcn], jnp.asarray(images), RangeViewSpec(), to_jax_config(cfg), k)
+            out[f"{tag}_poses"] = np.asarray(got["poses"], np.float32)
+            out[f"{tag}_found"] = np.asarray(got["found"], bool)
+    with np.load(GOLDEN_MULTI) as z:
+        points, valid = z["multi_points"], z["multi_valid"]
+    multi_images = np.asarray(range_view_project_batch(jnp.asarray(points), RangeViewSpec(),
+                                                       jnp.asarray(valid)))
+    prob, reg = fcn_golden_sample(jax_forward(jax_asset_model(dtype="float16"), multi_images))
+    out["fcn_prob"], out["fcn_reg_bits"] = prob, f16_bits(reg)
+    poses, found = jax_step(jax_asset_model(dtype="float16"), asset_configs()[1], points, valid,
+                            k=F16_E2E_K)
+    out["e2e_poses"], out["e2e_found"] = np.asarray(poses, np.float32), np.asarray(found, bool)
+    return out
+
+
+def write_f16_golden() -> None:
+    from tests.torch_golden import GOLDEN_F16
+
+    arrays = golden_f16_arrays()
+    np.savez_compressed(GOLDEN_F16, **arrays)
+    print(f"wrote {GOLDEN_F16} ({os.path.getsize(GOLDEN_F16)} bytes): found "
+          + ", ".join(f"{k[:-6]} {arrays[k].astype(int).tolist()}" for k in sorted(arrays)
+                      if k.endswith("_found")))
+
+
 def main() -> None:
     import jax
 
@@ -870,6 +952,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["bf16"]:
         write_bf16_golden()
+        return
+    if sys.argv[1:] == ["f16"]:
+        write_f16_golden()
         return
 
     arrays = golden_arrays()
@@ -896,6 +981,7 @@ def main() -> None:
     write_bench_golden()
     write_packed_golden()
     write_bf16_golden()
+    write_f16_golden()
 
 
 if __name__ == "__main__":

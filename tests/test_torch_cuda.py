@@ -30,7 +30,10 @@ from tpufusion_torch._golden import (
     BF16_PROB_ATOL,
     BF16_REG_ATOL,
     BF16_REG_DIFFER_SHARE,
-    bf16_fcn_readings,
+    F16_PROB_ATOL,
+    F16_REG_ATOL,
+    F16_REG_DIFFER_SHARE,
+    fcn_sample_readings,
     load_npz,
     wrapped_pose_diff,
 )
@@ -50,6 +53,8 @@ ASSET = os.path.join(_REPO, "tpufusion", "assets", "synthetic_detector.npz")
 GOLDEN = os.path.join(_REPO, "tests", "data", "torch_port_golden.npz")
 GOLDEN_MULTI = os.path.join(_REPO, "tests", "data", "torch_port_golden_multi.npz")
 GOLDEN_TALL = os.path.join(_REPO, "tests", "data", "torch_port_golden_tall.npz")
+GOLDEN_BF16 = os.path.join(_REPO, "tests", "data", "torch_port_golden_bf16.npz")
+GOLDEN_F16 = os.path.join(_REPO, "tests", "data", "torch_port_golden_f16.npz")
 POSE_TOL = 1e-3
 
 
@@ -371,11 +376,48 @@ def test_bf16_top4_path_runs_in_bf16_and_matches_golden(cuda_device):
             torch.from_numpy(g["multi_points"]).to(cuda_device), SPEC,
             torch.from_numpy(g["multi_valid"]).to(cuda_device),
         ))
-    dp, dr, n_diff, n = bf16_fcn_readings(
+    dp, dr, n_diff, n = fcn_sample_readings(
         out.cpu().numpy(), g["bf16_fcn_prob"], g["bf16_fcn_reg"]
     )
     assert dp <= BF16_PROB_ATOL and dr <= BF16_REG_ATOL
     assert n_diff <= BF16_REG_DIFFER_SHARE * n
+
+
+def test_f16_top4_path_runs_in_float16_and_matches_golden(cuda_device):
+    """The float16 configuration on the card: the asset's FCN in float16
+    (its convs really return float16) against the float16 golden's sample
+    of JAX's float16 FCN (F16_* limits), and top-4 poses against JAX's
+    float16 answer (1e-4), found equal to the float32 path's."""
+    from tpufusion_torch._golden import F16_E2E_K, from_f16_bits
+
+    g, gf = load_npz(GOLDEN_MULTI), load_npz(GOLDEN_F16)
+    mcfg, dcfg = asset_configs(ASSET)
+    models = {}
+    for dt in ("float32", "float16"):
+        models[dt] = FCN(dataclasses.replace(mcfg, dtype=dt))
+        load_state_npz(ASSET, models[dt])
+        models[dt] = models[dt].to(cuda_device).eval()
+    dtypes = []
+    models["float16"].conv1.register_forward_hook(lambda m, i, o: dtypes.append(o.dtype))
+    found = {}
+    for dt, model in models.items():
+        poses, found[dt] = make_e2e_step(model, SPEC, dcfg, max_obstacles=F16_E2E_K,
+                                         head="direct")(g["multi_points"], g["multi_valid"])
+        if dt == "float16":
+            np.testing.assert_array_equal(found[dt].cpu().numpy(), gf["e2e_found"])
+            assert _pose_diff(poses, gf["e2e_poses"]) <= 1e-4
+    assert dtypes == [torch.float16]
+    assert torch.equal(found["float32"], found["float16"])
+    with torch.inference_mode():
+        out = models["float16"](range_view_project_batch(
+            torch.from_numpy(g["multi_points"]).to(cuda_device), SPEC,
+            torch.from_numpy(g["multi_valid"]).to(cuda_device),
+        ))
+    dp, dr, n_diff, n = fcn_sample_readings(
+        out.cpu().numpy(), gf["fcn_prob"], from_f16_bits(gf["fcn_reg_bits"]))
+    print(f"float16 FCN: probability {dp:.3e}, regression {dr:.3e}, {n_diff} of {n} differ")
+    assert dp <= F16_PROB_ATOL and dr <= F16_REG_ATOL
+    assert n_diff <= F16_REG_DIFFER_SHARE * n
 
 
 @pytest.mark.parametrize("precision", ["highest", "high"])
@@ -675,7 +717,8 @@ def test_halo_exchanged_fcn_on_two_ranks_of_the_card(cuda_device):
     asset = dataclasses.replace(ModelConfig(), head="direct", width_multiplier=2,
                                 reg_output_activation="linear")
     cases = {"asset_f32": asset, "asset_bf16": dataclasses.replace(asset, dtype="bfloat16"),
-             "corner_bf16": ModelConfig(dtype="bfloat16")}
+             "corner_bf16": ModelConfig(dtype="bfloat16"),
+             "asset_f16": dataclasses.replace(asset, dtype="float16")}
     got = dryrun.sharded_fcn_readings(2, cases, device=cuda_device, backend="gloo")
     for name, r in got.items():
         assert r["finite"] and r["ranks_halo"] == [[7, 16], [7, 16]], (name, r)
@@ -684,6 +727,9 @@ def test_halo_exchanged_fcn_on_two_ranks_of_the_card(cuda_device):
         r = got[name]
         assert r["prob_abs"] <= BF16_PROB_ATOL and r["reg_abs"] <= BF16_REG_ATOL, (name, r)
         assert r["reg_differ_share"] <= BF16_REG_DIFFER_SHARE, (name, r)
+    r = got["asset_f16"]  # float16 within the float16 FCN's limits
+    assert r["prob_abs"] <= F16_PROB_ATOL and r["reg_abs"] <= F16_REG_ATOL, r
+    assert r["reg_differ_share"] <= F16_REG_DIFFER_SHARE, r
 
 
 @pytest.mark.parametrize("streaming", [False, True], ids=["in_ram", "streaming"])
@@ -1342,6 +1388,13 @@ def test_decode_direct_kernel_on_bf16_outputs(cuda_device):
     _assets_against_plain(cuda_device, torch.bfloat16)
 
 
+def test_decode_direct_kernel_on_float16_outputs(cuda_device):
+    """The same outputs rounded to float16, read by the kernel's float16
+    instance (each op of two float16 values rounded as the plain version
+    rounds it): the contract, and no lane near a threshold."""
+    _assets_against_plain(cuda_device, torch.float16)
+
+
 def _assets_against_plain(cuda_device, dtype):
     from tpufusion_torch.data.synthetic import synthesize_beam_multi_vehicle_batch
     from tpufusion_torch.ops import decode_direct
@@ -1478,8 +1531,8 @@ def test_decode_direct_kernel_rejects_bad_inputs(cuda_device):
             cfg, fit_boundary="polygon"), "fit")
     with pytest.raises(ValueError, match="root must be"):
         run(y_pred, images, *comps, root.int(), found, SPEC, cfg, "backproject")
-    with pytest.raises(ValueError, match="y_pred must be"):
-        run(y_pred.half(), images, *comps, root, found, SPEC, cfg, "backproject")
+    with pytest.raises(ValueError, match="y_pred must be"):  # float16 is a type it reads
+        run(y_pred.double(), images, *comps, root, found, SPEC, cfg, "backproject")
     with pytest.raises(ValueError, match="silhouette"):
         run(y_pred, images, *comps, root, found, SPEC, cfg, "silhouette")
     assert decode_direct.LAUNCHES == before
@@ -1491,11 +1544,22 @@ def test_decode_batch_direct_launches_the_kernel_once_on_a_bf16_output(cuda_devi
     call (the C entry's count), the wrapper handed the caller's bf16
     tensor itself (no float32 copy), the plain version never called;
     "silhouette" runs the plain version, as for float32."""
+    _launches_once(cuda_device, monkeypatch, torch.bfloat16)
+
+
+def test_decode_batch_direct_launches_the_kernel_once_on_a_float16_output(cuda_device,
+                                                                          monkeypatch):
+    """The same for a float16 CUDA y_pred: the kernel's float16 instance,
+    never the plain version (no fallback), no float32 copy."""
+    _launches_once(cuda_device, monkeypatch, torch.float16)
+
+
+def _launches_once(cuda_device, monkeypatch, dtype):
     from tpufusion_torch.ops import decode_direct
 
     y_pred, images = (torch.from_numpy(a).to(cuda_device)
                       for a in parity_inputs.cluster_inputs(SPEC, "cars", batch=2, channels=10))
-    y_pred = y_pred.to(torch.bfloat16)
+    y_pred = y_pred.to(dtype)
     handed = []
     wrapper, plain = decode_direct.decode_direct_clusters, decode.decode_direct_clusters_reference
 
@@ -1514,7 +1578,7 @@ def test_decode_batch_direct_launches_the_kernel_once_on_a_bf16_output(cuda_devi
         assert decode_direct.LAUNCHES == before + (center != "silhouette"), center
         assert out["poses"].dtype == torch.float32 and out["poses"].shape == (2, 4, 7)
         assert bool(out["found"].any()), center
-    assert handed == [(torch.bfloat16, y_pred.data_ptr())] * (len(decode._CENTERS) - 1)
+    assert handed == [(dtype, y_pred.data_ptr())] * (len(decode._CENTERS) - 1)
 
 
 def test_decode_direct_kernel_counts_a_bf16_probability_at_the_threshold(cuda_device):
@@ -1522,18 +1586,89 @@ def test_decode_direct_kernel_counts_a_bf16_probability_at_the_threshold(cuda_de
     min_prob 0.7 counts (frame 0) where one bf16 step below it does not
     (frame 1), in the kernel as in its plain version; every covered center,
     boundary and yaw frame of a 10-channel head."""
+    _threshold_counts(cuda_device, "bfloat16")
+
+
+def test_decode_direct_kernel_counts_a_float16_probability_at_the_threshold(cuda_device):
+    """The same in float16: a pixel of exactly float16(0.8) at min_prob 0.8
+    counts where one float16 step below it does not."""
+    _threshold_counts(cuda_device, "float16")
+
+
+def _threshold_counts(cuda_device, dtype):
     from tpufusion_torch.ops import decode_direct
 
-    y, images, _ = parity_inputs.threshold_inputs(SPEC)
-    y_pred = torch.from_numpy(y).to(cuda_device).to(torch.bfloat16)
+    min_prob = parity_inputs.THRESHOLDS[dtype][0]
+    y, images, _ = parity_inputs.threshold_inputs(SPEC, dtype=dtype)
+    y_pred = torch.from_numpy(y).to(cuda_device).to(getattr(torch, dtype))
     images = torch.from_numpy(images).to(cuda_device)
     for name, fields in parity_inputs.cluster_decode_options(10).items():
-        cfg = DecodeConfig(**dict(fields, min_prob=parity_inputs.THRESHOLD_MIN_PROB))
+        cfg = DecodeConfig(**dict(fields, min_prob=min_prob))
         r = decode_direct.against_plain(y_pred, images, SPEC, cfg, 4)
-        print(f"threshold {name}: {r}")
+        print(f"{dtype} threshold {name}: {r}")
         assert r["ok"] and r["near"] == 0 and r["found"] > 0, (name, r)
         poses = decode.decode_batch_direct(y_pred, images, SPEC, cfg, 4)["poses"]
-        assert not torch.equal(poses[0], poses[1]), f"{name}: the pixel at bf16(0.7) did not count"
+        assert not torch.equal(poses[0], poses[1]), f"{name}: the pixel at the threshold did not count"
+
+
+def test_decode_direct_float16_kernel_matches_the_f16_golden(cuda_device):
+    """decode_batch_direct on the float16 golden's outputs (the two assets'
+    FCN outputs rounded to float16) at every kernel center and silhouette,
+    k 2 and k 1: found equal and poses within 1e-4 of JAX's answers; the
+    kernel against its plain version on the same lanes (the contract, no
+    lane near a threshold)."""
+    from tpufusion_torch._golden import (
+        F16_DECODE_CASES,
+        F16_DECODE_K,
+        bf16_decode_case,
+        from_f16_bits,
+    )
+    from tpufusion_torch.ops import decode_direct
+
+    gb, gf = load_npz(GOLDEN_BF16), load_npz(GOLDEN_F16)
+    images = torch.from_numpy(gb["images"]).to(cuda_device)
+    ys = {fcn: torch.from_numpy(from_f16_bits(gf[f"{fcn}_bits"])).to(cuda_device).half()
+          for fcn in ("asset", "mixed")}
+    assets = os.path.join(_REPO, "tpufusion", "assets")
+    for name in sorted(F16_DECODE_CASES):
+        fcn, cfg = bf16_decode_case(name, assets, F16_DECODE_CASES)
+        for k, tag in ((F16_DECODE_K, name), (1, f"{name}_k1")):
+            before = decode_direct.LAUNCHES
+            got = decode.decode_batch_direct(ys[fcn], images, SPEC, cfg, k)
+            torch.cuda.synchronize()
+            assert decode_direct.LAUNCHES == before + (cfg.direct_center != "silhouette")
+            np.testing.assert_array_equal(got["found"].cpu().numpy(), gf[f"{tag}_found"])
+            assert _pose_diff(got["poses"].cpu().numpy(), gf[f"{tag}_poses"]) <= 1e-4, tag
+        if cfg.direct_center != "silhouette":
+            r = decode_direct.against_plain(ys[fcn], images, SPEC, cfg, F16_DECODE_K)
+            assert r["ok"] and r["near"] == 0 and r["found"] > 0, (name, r)
+
+
+def test_corner_decode_on_a_float16_output_matches_the_cpu(cuda_device):
+    """The corner paths on a float16 head: decode_batch and
+    decode_batch_multi on the card (the positives compared in float16, the
+    vote kernel reading a float32 copy) against the plain version on the
+    CPU, on the label-encoded corner outputs rounded to float16."""
+    from tpufusion_torch.ops import corner_vote
+
+    g = load_npz(GOLDEN_MULTI)
+    images = range_view_project_batch(torch.from_numpy(g["multi_points"][:2]), SPEC,
+                                      torch.from_numpy(g["multi_valid"][:2]))
+    y = torch.from_numpy(g["corner_ypred"]).half()
+    for fn, args in ((decode.decode_batch, ()), (decode.decode_batch_multi, (4,))):
+        before = corner_vote.LAUNCHES
+        got = fn(y.to(cuda_device), images.to(cuda_device), SPEC, DecodeConfig(), *args)
+        torch.cuda.synchronize()
+        assert corner_vote.LAUNCHES > before
+        want = fn(y, images, SPEC, DecodeConfig(), *args)
+        for key, w in want.items():
+            gk = got[key].cpu()
+            assert gk.dtype == w.dtype, (key, gk.dtype, w.dtype)
+            if w.is_floating_point():
+                assert float((gk - w).abs().max()) <= 1e-4, (fn.__name__, key)
+            else:
+                assert torch.equal(gk, w), (fn.__name__, key)
+        assert bool(want["found"].any())
 
 
 # the corner vote kernel (csrc/corner_vote.cu) against its plain version:

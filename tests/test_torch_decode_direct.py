@@ -29,6 +29,13 @@ against JAX run here; the model, with the bf16 rounding points the kernel
 has, against the plain version under the same contract as float32 (a sum
 near a bf16 rounding midpoint would be exempt; none may be); and a
 probability of exactly bf16(0.7) at min_prob 0.7.
+
+A float16 head output likewise, at F16_POSE_TOL (1e-4) against JAX: at 32
+rows against the float16 golden (`tests/data/torch_port_golden_f16.npz`,
+every kernel center and silhouette, k 2 and 1), at 63 rows against JAX run
+here; the model with float16's rounding points (bf16's, and each op of two
+float16 values) against the plain version, and with bf16's points alone
+failing it; float16(0.8) at min_prob 0.8; and the float16 midpoint margin.
 """
 
 import dataclasses
@@ -42,6 +49,7 @@ import torch
 from tests.torch_golden import (
     ASSETS,
     GOLDEN_BF16,
+    GOLDEN_F16,
     GOLDEN_MULTI,
     MIXED_ASSET,
     asset_configs,
@@ -57,15 +65,18 @@ from tpufusion_torch._golden import (
     BF16_DECODE_CASES,
     BF16_DECODE_FCNS,
     BF16_DECODE_K,
+    F16_DECODE_CASES,
+    F16_DECODE_K,
     TALL_BEAMS,
     TALL_RES_V_DEG,
     bf16_decode_case,
     direct_kernel_readings,
     direct_margins,
     from_bf16_bits,
+    from_f16_bits,
     load_npz,
 )
-from tpufusion_torch._precision import bf16_round
+from tpufusion_torch._precision import bf16_round, f16_round, low_round
 from tpufusion_torch.data.synthetic import synthesize_beam_multi_vehicle_batch
 from tpufusion_torch.decode import decode as td
 from tpufusion_torch.ops import decode_direct, parity_inputs
@@ -74,18 +85,21 @@ from tpufusion_torch.ops.libm_f32 import sqrt_f32
 
 F32 = np.float32
 BF16 = torch.bfloat16
+F16 = torch.float16
 POSE_TOL = 1e-3  # the port against JAX on a bf16 head output
+F16_POSE_TOL = 1e-4  # ... on a float16 head output (reads 3e-6 at 32 rows)
 SPECS = {32: RangeViewSpec(), 63: RangeViewSpec(res_v_deg=TALL_RES_V_DEG)}
 _jax_decode = jax.jit(jd.decode_batch_direct, static_argnums=(2, 3, 4))
 
 
 @pytest.fixture(scope="module")
 def inputs():
-    """{rows: {"images", "asset", "mixed", "asset_bf16", "mixed_bf16"}}:
-    two frames a height (a two-vehicle frame and an ellipse frame of the
-    multi golden at 32 rows, the bf16 golden's frames; two two-vehicle
-    64-beam scans at 63), JAX's images and the shipped and mixed assets'
-    JAX FCN outputs, and those rounded to bf16 (float32 arrays)."""
+    """{rows: {"images", "asset", "mixed", "asset_bf16", "mixed_bf16",
+    "asset_f16", "mixed_f16"}}: two frames a height (a two-vehicle frame
+    and an ellipse frame of the multi golden at 32 rows, the bf16 golden's
+    frames; two two-vehicle 64-beam scans at 63), JAX's images and the
+    shipped and mixed assets' JAX FCN outputs, and those rounded to bf16
+    and to float16 (float32 arrays)."""
     with np.load(GOLDEN_MULTI) as z:
         pts32 = np.concatenate([z["multi_points"][:1], z["ell_points"][:1]])
         valid32 = np.concatenate([z["multi_valid"][:1], z["ell_valid"][:1]])
@@ -100,6 +114,7 @@ def inputs():
                      "mixed": jax_forward(jax_asset_model(MIXED_ASSET), images)}
         for fcn in ("asset", "mixed"):
             out[rows][f"{fcn}_bf16"] = bf16_round(out[rows][fcn])
+            out[rows][f"{fcn}_f16"] = f16_round(out[rows][fcn])
     return out
 
 
@@ -225,12 +240,21 @@ def _fit(px, py, seed, yaw, l_, w_, boundary, scale, grid):
 
 def _model_lane(y_pred, images, mask, labels, ext, b, r, spec, cfg, center, tables, low):
     """One found lane: (pose (7,) or None when not found, window pixels).
-    `low`: y_pred holds a bf16 head output, rounded where the kernel's bf16
-    instance rounds (`keep`)."""
+    `low`: y_pred holds a head output of that type (torch.bfloat16 or
+    torch.float16; None for float32), rounded where the kernel's instance
+    for it rounds (`keep`, and for float16 `op`)."""
     cos_t, sin_t, cos_p, sin_p, grid = tables
 
     def keep(v):
-        return bf16_round(v)[0] if low else F32(v)
+        if not low:
+            return F32(v)
+        r = low_round(v, low)
+        return r[0] if np.ndim(v) == 0 else r.reshape(np.shape(v))
+
+    def op(v):  # an op of two float16 values runs in float16
+        return keep(v) if low == F16 else F32(v)
+
+    tiny = keep(1e-6) if low == F16 else F32(1e-6)
 
     w_img = y_pred.shape[2]
     ry, rx = divmod(int(r), w_img)
@@ -246,19 +270,19 @@ def _model_lane(y_pred, images, mask, labels, ext, b, r, spec, cfg, center, tabl
     if not m.any():
         return None, len(xs)
     wgt = yp[m, 1]
-    tot = max(keep(_sum(wgt)), F32(1e-6))
-    lwh = np.array([keep(_sum(yp[m, 5 + i] * wgt)) / tot for i in range(3)], F32)
+    tot = max(keep(_sum(wgt)), tiny)
+    lwh = np.array([op(keep(_sum(op(yp[m, 5 + i] * wgt))) / tot) for i in range(3)], F32)
     ct, st = cos_t[xs[m]], sin_t[xs[m]]
     local = (_sum((yp[m, 8] * ct - yp[m, 9] * st) * wgt) / tot,
              _sum((yp[m, 9] * ct + yp[m, 8] * st) * wgt) / tot)
     gi = 10 if y_pred.shape[-1] >= 12 else 8
-    glob = (keep(_sum(yp[m, gi] * wgt)) / tot, keep(_sum(yp[m, gi + 1] * wgt)) / tot)
+    glob = tuple(op(keep(_sum(op(yp[m, c] * wgt))) / tot) for c in (gi, gi + 1))
     if cfg.direct_yaw_frame == "local":
         oriented, (sin_m, cos_m) = True, local
     elif cfg.direct_yaw_frame == "global":  # the quotients enter the atan2 rounded
         oriented, (sin_m, cos_m) = False, (keep(glob[0]), keep(glob[1]))
     else:
-        len_g = F32(keep(keep(glob[0]) ** 2) + keep(keep(glob[1]) ** 2))
+        len_g = op(F32(keep(keep(glob[0]) ** 2) + keep(keep(glob[1]) ** 2)))
         oriented = F32(local[0] ** 2 + local[1] ** 2) >= len_g
         sin_m, cos_m = local if oriented else glob
     yaw = F32(np.arctan2(sin_m, cos_m))
@@ -272,12 +296,14 @@ def _model_lane(y_pred, images, mask, labels, ext, b, r, spec, cfg, center, tabl
                         np.stack([-sp, np.zeros_like(sp), cp], -1)], -2)
         c_px = (rot @ yp[m, 2:5, None])[..., 0] + p[m]
         c_phys = np.array([_sum(c_px[:, i] * wgt) / tot for i in range(3)], F32)
-        c, s = np.cos(-yaw), np.sin(-yaw)
+        c, s = F32(np.cos(-yaw)), F32(np.sin(-yaw))
+        if cfg.direct_yaw_frame == "global":  # of the head-typed yaw
+            c, s = op(c), op(s)
         ctr = np.array([c * c_phys[0] - s * c_phys[1], s * c_phys[0] + c * c_phys[1],
                         c_phys[2]], F32)
         return np.concatenate([ctr, [yaw], lwh]).astype(F32), len(xs)
     msurf = m & (d <= F32(d[m].min() + F32(4.0)))
-    ws = max(keep(_sum(wgt[msurf[m]])), F32(1e-6))
+    ws = max(keep(_sum(wgt[msurf[m]])), tiny)
     p_mean = np.array([_sum(p[msurf, i] * yp[msurf, 1]) / ws for i in range(3)], F32)
     if center != "surface":  # the back-projection: the packed integer argmin
         cx, cy = (x0 + x1) // 2, (y0 + y1) // 2
@@ -320,10 +346,11 @@ def _model_lane(y_pred, images, mask, labels, ext, b, r, spec, cfg, center, tabl
     return np.concatenate([ctr, [yaw], lwh]).astype(F32), len(xs)
 
 
-def model_decode(y_pred, images, comps, root, found, spec, cfg, center, low=False):
+def model_decode(y_pred, images, comps, root, found, spec, cfg, center, low=None):
     """The kernel's answer: (poses (B, k, 7), found (B, k), window pixels
-    (B, k)) from numpy inputs; `low`: y_pred (float32) holds bf16 values,
-    read by the kernel's bf16 instance."""
+    (B, k)) from numpy inputs; `low`: y_pred (float32) holds values of that
+    type (torch.bfloat16 or torch.float16), read by the kernel's instance
+    for it."""
     mask, labels, *ext = comps
     tables = [t.numpy() for t in pixel_trig(spec, "cpu")] + [
         td.fit_phi_grid("cpu").numpy()]
@@ -611,20 +638,21 @@ def test_bf16_kernel_model_matches_the_plain_version(inputs, name, rows):
     for k in (4, 1):
         got_p, got_f, windows = model_decode(y_pred, images, np_comps, root[:, :k].numpy(),
                                              found[:, :k].numpy(), spec, cfg, cfg.direct_center,
-                                             low=True)
+                                             low=BF16)
         diff = _compare(got_p, got_f, want_p[:, :k], want_f[:, :k], windows, margins[:, :k],
                         f"bf16 {name} at {rows} rows, k {k}")
         print(f"bf16 {name} {rows} rows k {k}: largest pose difference {diff:.3e}")
 
 
-def _bf16_against(got: dict, want_poses, want_found, what: str) -> float:
-    """The port's decode of a bf16 output against JAX's answer: the output
-    types JAX gives (float32 poses and areas), found equal, poses within
-    POSE_TOL (yaw as an angle); returns the largest pose difference."""
+def _bf16_against(got: dict, want_poses, want_found, what: str, tol: float = POSE_TOL) -> float:
+    """The port's decode of a bf16 (float16) output against JAX's answer:
+    the output types JAX gives (float32 poses and areas), found equal,
+    poses within POSE_TOL (`tol`; yaw as an angle); returns the largest
+    pose difference."""
     assert got["poses"].dtype == torch.float32 and got["areas"].dtype == torch.float32, what
     np.testing.assert_array_equal(got["found"].numpy(), want_found, err_msg=what)
     diff = float(wrapped_pose_diff(got["poses"].numpy(), want_poses).max())
-    assert diff <= POSE_TOL, (what, diff)
+    assert diff <= tol, (what, diff)
     return diff
 
 
@@ -694,5 +722,157 @@ def test_bf16_probability_at_the_threshold_counts(name):
     want_p, want_f, margins = _reference_found_lanes(y, images, comps, root, found, spec, cfg,
                                                      cfg.direct_center, BF16)
     got_p, got_f, windows = model_decode(y, images, [c.numpy() for c in comps], root.numpy(),
-                                         found.numpy(), spec, cfg, cfg.direct_center, low=True)
+                                         found.numpy(), spec, cfg, cfg.direct_center, low=BF16)
     _compare(got_p, got_f, want_p, want_f, windows, margins, f"threshold {name}")
+
+
+# ---------------------------------------------------------------------------
+# a float16 head output
+
+# the cases whose rounding points differ: every sum and quotient of the
+# sizes, the global frame's quotients and yaw, the auto gate's squares,
+# the head's cos / sin of a float16 yaw, the surface weight
+F16_MODEL_CASES = ("backproject_local", "backproject_auto", "surface_local", "head_global",
+                   "head_local", "fit_circle_global", "fit_auto_auto", "consensus_global")
+
+
+@pytest.mark.parametrize("name", F16_MODEL_CASES)
+def test_f16_kernel_model_matches_the_plain_version(inputs, name):
+    """The model with the kernel's float16 rounding points (a sum rounded
+    as bf16's are, and each op of two float16 values rounded) against the
+    plain version on the same float16 output at 32 rows, k = 4 and k = 1:
+    the float32 contract, no lane near a threshold or a float16 rounding
+    midpoint."""
+    make_cfg, fcn = CASES[name]
+    cfg, spec = make_cfg(), SPECS[32]
+    images, y_pred = inputs[32]["images"], inputs[32][f"{fcn}_f16"]
+    comps, root, found = _lanes(y_pred, cfg, 4, F16)
+    want_p, want_f, margins = _reference_found_lanes(
+        y_pred, images, comps, root, found, spec, cfg, cfg.direct_center, F16)
+    assert want_f.any()
+    np_comps = [c.numpy() for c in comps]
+    for k in (4, 1):
+        got_p, got_f, windows = model_decode(y_pred, images, np_comps, root[:, :k].numpy(),
+                                             found[:, :k].numpy(), spec, cfg, cfg.direct_center,
+                                             low=F16)
+        diff = _compare(got_p, got_f, want_p[:, :k], want_f[:, :k], windows, margins[:, :k],
+                        f"float16 {name}, k {k}")
+        print(f"float16 {name} k {k}: largest pose difference {diff:.3e}")
+
+
+def test_f16_model_without_the_op_rounding_fails(inputs, monkeypatch):
+    """The float16 rounding points are not bf16's: the model with bf16's
+    points in float16 (the sums rounded, the products and quotients not)
+    misses the plain version's sizes by float16 steps."""
+    make_cfg, fcn = CASES["fit_circle_global"]
+    cfg, spec = make_cfg(), SPECS[32]
+    images, y_pred = inputs[32]["images"], inputs[32][f"{fcn}_f16"]
+    comps, root, found = _lanes(y_pred, cfg, 4, F16)
+    want_p, want_f, _ = _reference_found_lanes(
+        y_pred, images, comps, root, found, spec, cfg, cfg.direct_center, F16)
+    monkeypatch.setitem(globals(), "low_round", lambda v, dtype: f16_round(v))
+    got_p, got_f, _ = model_decode(y_pred, images, [c.numpy() for c in comps], root.numpy(),
+                                   found.numpy(), spec, cfg, cfg.direct_center, low=BF16)
+    np.testing.assert_array_equal(got_f, np.asarray(want_f))
+    assert np.abs(got_p - np.asarray(want_p))[..., 4:].max() > 1e-4
+
+
+@pytest.fixture(scope="module")
+def golden_f16():
+    return load_npz(GOLDEN_F16)
+
+
+def test_the_f16_golden_holds_these_inputs(inputs, golden_f16):
+    """The float16 golden's FCN outputs are the ones JAX makes here on the
+    bf16 golden's frames (32 rows): its answers are JAX's on these
+    inputs."""
+    for fcn in BF16_DECODE_FCNS:
+        np.testing.assert_array_equal(from_f16_bits(golden_f16[f"{fcn}_bits"]),
+                                      inputs[32][f"{fcn}_f16"], err_msg=fcn)
+
+
+@pytest.mark.parametrize("name", sorted(F16_DECODE_CASES))
+def test_f16_decode_matches_the_golden(inputs, golden_f16, name):
+    """decode_batch_direct on a float16 output at every kernel center and
+    silhouette, at k 2 and k 1, against the float16 golden's JAX answers
+    (32 rows): found, output types, poses within F16_POSE_TOL."""
+    fcn, cfg = bf16_decode_case(name, ASSETS, F16_DECODE_CASES)
+    images, y_pred = inputs[32]["images"], inputs[32][f"{fcn}_f16"]
+    y_t, im_t = torch.from_numpy(y_pred).to(F16), torch.from_numpy(images)
+    diffs = []
+    for k, tag in ((F16_DECODE_K, name), (1, f"{name}_k1")):
+        want_p, want_f = golden_f16[f"{tag}_poses"], golden_f16[f"{tag}_found"]
+        assert want_f.any()
+        got = td.decode_batch_direct(y_t, im_t, SPECS[32], cfg, k)
+        diffs.append(_bf16_against(got, want_p, want_f, f"float16 {name} k {k}", F16_POSE_TOL))
+    print(f"float16 {name}: largest pose difference from JAX {max(diffs):.3e}")
+
+
+@pytest.mark.parametrize("name", JAX_CASES)
+def test_f16_decode_matches_jax_at_63_rows(inputs, name):
+    """The same on the 64-beam scans (63 rows) against JAX run here, the
+    shipped assets' operating points and DecodeConfig's default."""
+    make_cfg, fcn = CASES[name]
+    cfg, spec = make_cfg(), SPECS[63]
+    images, y_pred = inputs[63]["images"], inputs[63][f"{fcn}_f16"]
+    want = _jax_decode(jnp.asarray(y_pred).astype(jnp.float16), jnp.asarray(images),
+                       to_jax_config(spec), to_jax_config(cfg), F16_DECODE_K)
+    assert np.asarray(want["found"]).any()
+    got = td.decode_batch_direct(torch.from_numpy(y_pred).to(F16), torch.from_numpy(images),
+                                 spec, cfg, F16_DECODE_K)
+    diff = _bf16_against(got, np.asarray(want["poses"]), np.asarray(want["found"]),
+                         f"float16 {name} at 63 rows", F16_POSE_TOL)
+    print(f"float16 {name} at 63 rows: largest pose difference from JAX {diff:.3e}")
+
+
+@pytest.mark.parametrize("name", ["backproject_global", "fit_circle_auto"])
+def test_f16_probability_at_the_threshold_counts(name):
+    """`parity_inputs.threshold_inputs` in float16 at min_prob 0.8: the
+    pixel of exactly float16(0.8) counts in frame 0 and the one a step
+    below does not in frame 1, in JAX, the plain version and the model
+    alike; the same values as float32 (0.8f) count in neither frame."""
+    make_cfg, _ = CASES[name]
+    min_prob = parity_inputs.THRESHOLDS["float16"][0]
+    cfg = dataclasses.replace(make_cfg(), min_prob=min_prob)
+    spec = SPECS[32]
+    channels = 12 if cfg.direct_yaw_frame == "auto" else 10
+    y, images, _ = parity_inputs.threshold_inputs(spec, channels=channels, dtype="float16")
+    want = _jax_decode(jnp.asarray(y).astype(jnp.float16), jnp.asarray(images),
+                       to_jax_config(spec), to_jax_config(cfg), 4)
+    got = td.decode_batch_direct(torch.from_numpy(y).to(F16), torch.from_numpy(images), spec,
+                                 cfg, 4)
+    _bf16_against(got, np.asarray(want["poses"]), np.asarray(want["found"]), name, F16_POSE_TOL)
+    poses = got["poses"].numpy()
+    assert not np.array_equal(poses[0], poses[1]), "the pixel at float16(0.8) did not count"
+    as_f32 = td.decode_batch_direct(torch.from_numpy(y), torch.from_numpy(images), spec, cfg,
+                                    4)["poses"]
+    assert torch.equal(as_f32[0], as_f32[1]), "a float32 0.8 kept the pixel at 0.7998046875"
+    comps, root, found = _lanes(y, cfg, 4, F16)
+    want_p, want_f, margins = _reference_found_lanes(y, images, comps, root, found, spec, cfg,
+                                                     cfg.direct_center, F16)
+    got_p, got_f, windows = model_decode(y, images, [c.numpy() for c in comps], root.numpy(),
+                                         found.numpy(), spec, cfg, cfg.direct_center, low=F16)
+    _compare(got_p, got_f, want_p, want_f, windows, margins, f"float16 threshold {name}")
+
+
+def test_midpoint_margin_of_float16_sums():
+    """`_midpoint_margin` in float16: a sum one float32 step from a float16
+    midpoint is near it (in the normal and the subnormal range), one a
+    quarter float16 step away is not, and a sum whose float64 partial sums
+    are exact is inf."""
+    from tpufusion_torch.decode.decode import _midpoint_margin
+
+    def margin(total, terms):
+        t = torch.tensor(terms, dtype=torch.float64)[None]
+        return float(_midpoint_margin(torch.tensor([total], dtype=torch.float64), t, (-1,),
+                                      F16)[0])
+
+    spread = [2.0**-30, 1.0]  # 2**30 apart: past the 2**42 bound only with the big one
+    assert margin(1.0 + 2.0**-30, spread) == np.inf  # exact in float64
+    big = [2.0**-40, 2.0**3]
+    mid = 8.0 + 2.0**-8  # halfway between float16 8 and 8 + 2**-7
+    assert margin(mid + 2.0**-20, big) < 2.0**-22 * 2  # a float32 step above it
+    assert margin(8.0 + 2.0**-9, big) > 2.0**-13
+    sub = [2.0**-70, 2.0**-20]  # subnormal float16: steps of 2**-24
+    assert margin(2.0**-20 + 2.0**-25, sub) == 0.0
+    assert margin(2.0**-20 + 2.0**-26, sub) > 2.0**-8

@@ -1,16 +1,19 @@
 """The dtype guard: every public decode entry point of the port on a bf16
-head output against its JAX counterpart on the same bf16 array (CPU).
+and on a float16 head output against its JAX counterpart on the same
+array (CPU).
 
 Inputs: the multi golden's label-encoded corner outputs of two
-two-vehicle frames (`corner_ypred`) rounded to bf16, with the port's range
-views of those frames; and the bf16 golden's frames with the shipped
-asset's FCN output in bf16 (`tests/data/torch_port_golden_bf16.npz`).
+two-vehicle frames (`corner_ypred`) rounded to the dtype, with the port's
+range views of those frames; and the bf16 golden's frames with the
+shipped asset's FCN output in the dtype
+(`tests/data/torch_port_golden_bf16.npz`, `torch_port_golden_f16.npz`).
 
 Each entry point must answer where JAX answers (no raise), with the
 output types JAX gives (the port's int64 / JAX's int32 counted as a
 difference), `found` equal, integer and boolean outputs equal, and
-poses, 3D centroids, corners and areas within POSE_TOL (1e-3; yaw as an
-angle). float16 is not covered.
+poses, 3D centroids, corners and areas within POSE_TOL (1e-3 in bf16,
+1e-4 in float16; yaw as an angle). The float8 dtypes are not covered:
+the port's FCN does not run them.
 """
 
 import dataclasses
@@ -23,6 +26,7 @@ import torch
 
 from tests.torch_golden import (
     GOLDEN_BF16,
+    GOLDEN_F16,
     GOLDEN_MULTI,
     asset_configs,
     load_npz,
@@ -31,25 +35,29 @@ from tests.torch_golden import (
 )
 from tpufusion.decode import decode as jd
 from tpufusion_torch import DecodeConfig, RangeViewSpec
-from tpufusion_torch._golden import from_bf16_bits
+from tpufusion_torch._golden import from_bf16_bits, from_f16_bits
 from tpufusion_torch.decode import decode as td
 from tpufusion_torch.geometry.range_view import range_view_project_batch
 
 POSE_TOL = 1e-3
+F16_POSE_TOL = 1e-4  # float16 reads 3.8e-6 (a bf16 sum is a coarser step)
 SPEC = RangeViewSpec()
 POSE_KEYS = ("pose", "poses")
 
 
 @pytest.fixture(scope="module")
 def heads():
-    """{"corner": (y_pred, images), "direct": (y_pred, images)}: float32
-    numpy arrays, the outputs holding bf16 values."""
-    gm, gb = load_npz(GOLDEN_MULTI), load_npz(GOLDEN_BF16)
+    """{dtype: {"corner": (y_pred, images), "direct": (y_pred, images)}}
+    for torch.bfloat16 and torch.float16: float32 numpy arrays, the
+    outputs holding values of the dtype."""
+    gm, gb, gf = load_npz(GOLDEN_MULTI), load_npz(GOLDEN_BF16), load_npz(GOLDEN_F16)
     images = range_view_project_batch(torch.from_numpy(gm["multi_points"][:2]), SPEC,
                                       torch.from_numpy(gm["multi_valid"][:2])).numpy()
-    corner = torch.from_numpy(gm["corner_ypred"]).to(torch.bfloat16).float().numpy()
-    return {"corner": (corner, images),
-            "direct": (from_bf16_bits(gb["asset_bits"]), gb["images"])}
+    corner = torch.from_numpy(gm["corner_ypred"])
+    return {dt: {"corner": (corner.to(dt).float().numpy(), images),
+                 "direct": (direct, gb["images"])}
+            for dt, direct in ((torch.bfloat16, from_bf16_bits(gb["asset_bits"])),
+                               (torch.float16, from_f16_bits(gf["asset_bits"])))}
 
 
 def _direct_cfg(center=None):
@@ -88,18 +96,18 @@ def _outputs(out) -> dict:
     return dict(out) if isinstance(out, dict) else dict(enumerate(out))
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_decode_entry_point_on_a_bf16_output_matches_jax(heads, name):
+def _entry_point_matches_jax(heads, name, dtype, tol):
     head, port_fn, jax_fn, static, args, frame = CASES[name]
-    y, images = heads[head]
+    y, images = heads[dtype][head]
     if frame is not None:
         y, images = y[frame], images[frame]
+    jdt = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}[dtype]
     if port_fn in (td.find_obstacle, td.find_obstacles_topk):
-        port_in = (torch.from_numpy(y[..., 1]).to(torch.bfloat16),)
-        jax_in = (jnp.asarray(y[..., 1]).astype(jnp.bfloat16),)
+        port_in = (torch.from_numpy(y[..., 1]).to(dtype),)
+        jax_in = (jnp.asarray(y[..., 1]).astype(jdt),)
     else:
-        port_in = (torch.from_numpy(y).to(torch.bfloat16), torch.from_numpy(images))
-        jax_in = (jnp.asarray(y).astype(jnp.bfloat16), jnp.asarray(images))
+        port_in = (torch.from_numpy(y).to(dtype), torch.from_numpy(images))
+        jax_in = (jnp.asarray(y).astype(jdt), jnp.asarray(images))
     want = _outputs(jax.jit(jax_fn, static_argnums=static)(*jax_in, *_jax_args(args)))
     got = _outputs(port_fn(*port_in, *args))
     assert sorted(got, key=str) == sorted(want, key=str), name
@@ -108,11 +116,21 @@ def test_decode_entry_point_on_a_bf16_output_matches_jax(heads, name):
     for key, w in want.items():
         w, g = np.asarray(w), got[key]
         assert str(g.dtype).removeprefix("torch.") == w.dtype.name, (name, key, g.dtype, w.dtype)
-        g = g.float().numpy() if g.dtype == torch.bfloat16 else g.numpy()
+        g = g.float().numpy() if g.dtype in (torch.bfloat16, torch.float16) else g.numpy()
         if w.dtype.kind in "biu":
             np.testing.assert_array_equal(g, w, err_msg=f"{name} {key}")
         elif key in POSE_KEYS:
             diff = float(wrapped_pose_diff(g, w).max())
-            assert diff <= POSE_TOL, (name, key, diff)
+            assert diff <= tol, (name, key, diff)
         else:
-            np.testing.assert_allclose(g, w, rtol=0, atol=POSE_TOL, err_msg=f"{name} {key}")
+            np.testing.assert_allclose(g, w, rtol=0, atol=tol, err_msg=f"{name} {key}")
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_decode_entry_point_on_a_bf16_output_matches_jax(heads, name):
+    _entry_point_matches_jax(heads, name, torch.bfloat16, POSE_TOL)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_decode_entry_point_on_a_float16_output_matches_jax(heads, name):
+    _entry_point_matches_jax(heads, name, torch.float16, F16_POSE_TOL)

@@ -1,4 +1,5 @@
-"""Golden tests: the port's FCN against the JAX FCN, in float32 and bf16.
+"""Golden tests: the port's FCN against the JAX FCN, in float32, bf16 and
+float16, and the dtype names either package reads.
 
 Tolerances (tests/torch_golden.py): in float32, 1e-5 absolute on the two
 softmax probabilities, 1e-4 on the regression channels, whose values
@@ -6,10 +7,14 @@ reach ~7 m: the two frameworks sum each convolution in another order.
 In bf16, 2**-8 on the probabilities and 2**-4 (two bf16 steps at
 |x| < 8) on the regression channels: each layer's output is rounded to
 bf16, and the two float32 accumulations may round to neighbouring
-values.
+values. In float16, F16_PROB_ATOL, F16_REG_ATOL and F16_REG_DIFFER_SHARE
+(tpufusion_torch/_golden.py, which says why): a float16 step of the
+regression is about JAX's own float16-vs-float32 gap, so the share of
+outputs that differ at all is what tells a float16 net from a wrong one.
 """
 
 import dataclasses
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +41,7 @@ from tpufusion.geometry.range_view import range_view_project_batch
 from tpufusion.models.fcn import FCN as JaxFCN
 from tpufusion.models.io import save_state_npz
 from tpufusion_torch import ModelConfig, RangeViewSpec
+from tpufusion_torch._golden import F16_PROB_ATOL, F16_REG_ATOL, F16_REG_DIFFER_SHARE
 from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.models.io import fcn_from_arrays, load_state_npz
 
@@ -152,4 +158,66 @@ def test_fcn_options_not_ported_raise(change):
 
 def test_fcn_rejects_an_unknown_dtype():
     with pytest.raises(ValueError, match="dtype"):
-        FCN(dataclasses.replace(ModelConfig(), dtype="float16"))
+        FCN(dataclasses.replace(ModelConfig(), dtype="int8"))
+
+
+@pytest.mark.parametrize("asset", ["synthetic_detector", "synthetic_detector_mixed"])
+def test_fcn_float16_matches_jax_float16(asset):
+    """dtype="float16": the port's float16 FCN against JAX's on the golden
+    frames. Probabilities within F16_PROB_ATOL, regression within
+    F16_REG_ATOL, and at most F16_REG_DIFFER_SHARE of the regression
+    outputs off at all (they read 5.7e-5 and 9.5e-5, one float16 step,
+    2**-8, and 1.3 % and 0.7 %); the convolutions run in float16, the
+    output is float32 and `features` float16. JAX's own float32 net
+    differs from its float16 net at nearly every output, so the share is
+    what tells the two apart."""
+    path = ASSET if asset == "synthetic_detector" else MIXED_ASSET
+    images = _golden_images()
+    port = port_asset_model(path, "float16")
+    conv_dtypes = []
+    port.conv2.register_forward_hook(lambda m, i, o: conv_dtypes.append(o.dtype))
+    want, got = _compare(
+        jax_asset_model(path, "float16"), port, images, atol=(F16_PROB_ATOL, F16_REG_ATOL)
+    )
+    assert conv_dtypes == [torch.float16]  # the convolutions ran in float16
+    differ = np.abs(got[..., 2:] - want[..., 2:]) > 0
+    assert differ.mean() <= F16_REG_DIFFER_SHARE, differ.mean()
+    with torch.inference_mode():
+        assert port.features(torch.from_numpy(images[:1])).dtype == torch.float16
+    want32 = jax_forward(jax_asset_model(path), images)
+    assert (np.abs(want32[..., 2:] - want[..., 2:]) > 0).mean() > 2 * F16_REG_DIFFER_SHARE
+
+
+def _tiny_fcn_output(dtype: str) -> np.ndarray:
+    """The shipped asset's FCN in `dtype` on a corner of the golden frames."""
+    with torch.inference_mode():
+        return port_asset_model(ASSET, dtype)(torch.from_numpy(_golden_images()[:1, :, :201])
+                                              ).numpy()
+
+
+def test_fcn_dtype_aliases_compute_as_jax_resolves_them():
+    """"half" is float16 and "float64" float32 (with a warning: JAX without
+    x64 computes it in float32 and warns too), as `jnp.dtype` reads them."""
+    assert np.array_equal(_tiny_fcn_output("half"), _tiny_fcn_output("float16"))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        f64 = _tiny_fcn_output("float64")
+    assert any("float64" in str(w.message) for w in caught)
+    assert np.array_equal(f64, _tiny_fcn_output("float32"))
+    assert not np.array_equal(_tiny_fcn_output("float16"), _tiny_fcn_output("float32"))
+
+
+@pytest.mark.parametrize("name, match", [
+    ("int8", "inexact"), ("bool", "inexact"), ("uint8", "inexact"),
+    ("float8_e4m3fn", "not ported"), ("complex64", "not ported")])
+def test_fcn_dtype_names_jax_refuses_or_the_port_does_not_run(name, match):
+    """A name that is no inexact dtype raises in both packages (JAX at its
+    first call); the float8 and complex names, which JAX runs, raise in
+    the port as not ported."""
+    with pytest.raises(ValueError, match=match):
+        FCN(dataclasses.replace(ModelConfig(), dtype=name))
+    jax_cfg = to_jax_config(dataclasses.replace(ModelConfig(), dtype=name))
+    jax_model = JaxFCN(jax_cfg, in_channels=3, rngs=nnx.Rngs(0))
+    if match == "inexact":
+        with pytest.raises(ValueError, match="inexact"):
+            jax_model(jnp.zeros((1, 8, 61, 3), jnp.float32))

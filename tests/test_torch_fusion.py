@@ -177,6 +177,31 @@ def test_fusion_net_matches_jax_through_save_state_npz(tmp_path, dtype, lidar_po
     np.testing.assert_allclose(got_r, want_r, rtol=0, atol=F32_ATOL)
 
 
+@pytest.mark.parametrize("lidar_pool,cam_pool", [((2, 8), (8, 8)), ((3, 7), (5, 3))])
+def test_float16_fusion_net_matches_jax(tmp_path, lidar_pool, cam_pool):
+    """FusionNet over float16 FCNs (float16 features through the max-pools
+    and the branches, the radar in float32), one forward step against
+    JAX's float16 net at the small size: within 2.5e-7 (reads 6e-8; JAX's
+    own float32 net lies 6.9e-7 to 1.7e-6 from its float16 net)."""
+    jnet, path = _small_asset(tmp_path, "float16", lidar_pool, cam_pool)
+    net = fusion_from_asset(path, "cpu", "float16")
+    assert net.lidar_fcn.compute_dtype == net.camera_fcn.compute_dtype == torch.float16
+    _, _, cam, lidar, radar = _fusion_inputs(8, 3)
+    want_c, want_r = _jax_forward(jnet, cam, lidar, radar)
+    got_c, got_r = _port_forward(net, cam, lidar, radar)
+    assert got_c.dtype == got_r.dtype == np.float32 and np.abs(want_c).max() > 0.05
+    np.testing.assert_allclose(got_c, want_c, rtol=0, atol=2.5e-7)
+    np.testing.assert_allclose(got_r, want_r, rtol=0, atol=2.5e-7)
+
+
+def test_fcn_features_leave_in_float16():
+    port = FCN(dataclasses.replace(CAMERA_MODEL, dtype="float16"), in_channels=1).eval()
+    uniform_init_(port, 0)
+    with torch.inference_mode():
+        feat = port.features(torch.rand(1, 64, 200, 1))
+    assert feat.dtype == torch.float16 and feat.shape == (1, 64, 200, 2)
+
+
 def test_fusion_net_without_lidar_pool_matches_jax():
     """The reference's default geometry: camera pooled (4, 1), the raw
     32 x 1801 x 2 lidar map into its dense layer."""

@@ -41,7 +41,7 @@ from tests.torch_golden import (
 from tpufusion.decode import decode as jd
 from tpufusion.geometry.range_view import range_view_project_batch as jax_project
 from tpufusion.predict import predict_images as jax_predict_images
-from tpufusion_torch._golden import BF16_REG_DIFFER_SHARE, bf16_fcn_readings
+from tpufusion_torch._golden import BF16_REG_DIFFER_SHARE, fcn_sample_readings
 from tpufusion_torch.config import DEFAULT, DecodeConfig, ModelConfig, RangeViewSpec
 from tpufusion_torch.data.synthetic import (
     synthesize_beam_multi_vehicle_batch,
@@ -152,7 +152,7 @@ def test_bf16_fcn_against_the_golden_sample(committed, monkeypatch, rounding):
     )
     with torch.inference_mode():
         out = port_asset_model(ASSET, "bfloat16")(images).numpy()
-    dp, dr, n_diff, n = bf16_fcn_readings(
+    dp, dr, n_diff, n = fcn_sample_readings(
         out, committed["bf16_fcn_prob"], committed["bf16_fcn_reg"]
     )
     passes = dp <= BF16_PROB_ATOL and dr <= BF16_REG_ATOL and n_diff <= BF16_REG_DIFFER_SHARE * n

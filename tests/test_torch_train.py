@@ -558,6 +558,38 @@ def test_train_step_gradients_match_in_bf16(case):
     np.testing.assert_allclose(gvar, wvar, rtol=1e-6, atol=STATS_ATOL)
 
 
+@pytest.mark.parametrize("case", ["corner", "direct_local"])
+def test_train_step_gradients_match_in_float16(case):
+    """float16 compute, float32 parameters and float32 gradients, no loss
+    scaling (JAX has none). The loss within 2**-11 of the reference's
+    (reads 5e-6 and 2e-7 relative); kernels and the BatchNorm within 2**-9
+    of the reference's float16 step (read 6.9e-4 at most; a step computed
+    in float32 lies 3.7e-2 from it). A conv bias's gradient is summed in
+    float16 partial sums by XLA on the CPU, as in bf16: the port's are
+    held to the nearer of the reference's float16 and float32 gradients at
+    2**-5 (read 7.3e-3). Where the reference's gradient is exactly 0 (an
+    underflow or an unused output) the port's is too, and nowhere else."""
+    base, head, yaw_frame = STEP_CASES[case]
+    mcfg = dataclasses.replace(base, dtype="float16")
+    arrays = random_arrays(FCN(mcfg), seed=3)
+    batch = _scene_batch()
+    want_loss, want, wmean, wvar = _jax_step_readings(mcfg, arrays, batch, head, yaw_frame, STEP_LOSS)
+    _, want32, *_ = _jax_step_readings(base, arrays, batch, head, yaw_frame, STEP_LOSS)
+    got_loss, got, gmean, gvar = _port_step_readings(mcfg, arrays, batch, head, yaw_frame, STEP_LOSS)
+    assert all(g.dtype == np.float32 for g in got.values())
+    assert abs(got_loss - want_loss) <= 2.0**-11 * abs(want_loss)
+    rel, rel32 = _grad_rel(got, want), _grad_rel(got, want32)
+    conv_bias = [k for k in rel if k.endswith("/bias") and not k.startswith("norm/")]
+    rest = {k: v for k, v in rel.items() if k not in conv_bias}
+    assert max(rest.values()) <= 2.0**-9, rest
+    nearer = {k: min(rel[k], rel32[k]) for k in conv_bias}
+    assert max(nearer.values()) <= 2.0**-5, nearer
+    for k, w in want.items():
+        np.testing.assert_array_equal(np.asarray(got[k]) == 0, np.asarray(w) == 0, err_msg=k)
+    np.testing.assert_allclose(gmean, wmean, rtol=0, atol=STATS_ATOL)  # the norm runs in float32
+    np.testing.assert_allclose(gvar, wvar, rtol=1e-6, atol=STATS_ATOL)
+
+
 def test_batchnorm_keeps_the_biased_variance_unlike_torchs():
     """flax moves the biased batch variance into the running one with
     momentum 0.99; torch.nn.BatchNorm2d would store the unbiased one."""

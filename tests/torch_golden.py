@@ -39,6 +39,7 @@ GOLDEN_VIEWER = os.path.join(REPO, "tests", "data", "torch_port_golden_viewer.np
 GOLDEN_BENCH = os.path.join(REPO, "tests", "data", "torch_port_golden_bench.npz")
 GOLDEN_PACKED = os.path.join(REPO, "tests", "data", "torch_port_golden_packed.npz")
 GOLDEN_BF16 = os.path.join(REPO, "tests", "data", "torch_port_golden_bf16.npz")
+GOLDEN_F16 = os.path.join(REPO, "tests", "data", "torch_port_golden_f16.npz")
 FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
 GOLDEN_SEED = 11  # JAX PRNGKey of the golden frames
 

@@ -125,17 +125,19 @@ DIRECT_KERNEL_ATOL = 1e-4
 DIRECT_KERNEL_WIDE_ATOL = 1e-3
 DIRECT_KERNEL_WIDE_WINDOW = 4096
 DIRECT_KERNEL_NEAR = 1e-5
-# A bf16 head output rounds sums of bf16 products to bf16; the plain
-# version's margins hold each such sum's distance from a bf16 rounding
-# midpoint relative to the sum of its terms' magnitudes ("bf16",
-# "bf16_surface"), inf where its float64 sum is exact in any order. Both
-# versions sum in float64 and round once to float32, so where a float64
-# sum is not exact their float32 sums differ by a float32 step at most: a
-# sum within DIRECT_KERNEL_BF16_NEAR of a midpoint may round the other
-# way, and its lane (a bf16 step of a size: 1.8e-2 m on a 4.5 m length)
+# A bf16 or float16 head output rounds sums of its products (or values)
+# to its type; the plain version's margins hold each such sum's distance
+# from a rounding midpoint of that type relative to the sum of its terms'
+# magnitudes ("rounded", "rounded_surface"), inf where its float64 sum is
+# exact in any order. Both versions sum in float64 and round once to
+# float32, so where a float64 sum is not exact their float32 sums differ
+# by a float32 step at most: a sum within DIRECT_KERNEL_ROUNDED_NEAR of a
+# midpoint may round the other way, and its lane (a step of a size in the
+# head's type: 1.8e-2 m in bf16, 3.9e-3 m in float16 on a 4.5 m length)
 # is exempt.
-DIRECT_KERNEL_BF16_NEAR = 2.0**-22
-_DIRECT_NEAR_BY_KEY = {"bf16": DIRECT_KERNEL_BF16_NEAR, "bf16_surface": DIRECT_KERNEL_BF16_NEAR}
+DIRECT_KERNEL_ROUNDED_NEAR = 2.0**-22
+_DIRECT_NEAR_BY_KEY = {"rounded": DIRECT_KERNEL_ROUNDED_NEAR,
+                       "rounded_surface": DIRECT_KERNEL_ROUNDED_NEAR}
 
 
 def direct_margins(margins: dict) -> list:
@@ -276,15 +278,69 @@ BF16_DECODE_CASES = {
 }
 
 
-def bf16_decode_case(name: str, assets_dir: str):
-    """(FCN key, the port's DecodeConfig) of a BF16_DECODE_CASES entry."""
+# tests/data/torch_port_golden_f16.npz: the float16 configuration. The
+# direct decode of a float16 head output on the bf16 golden's frames (the
+# two assets' JAX FCN outputs rounded to float16, stored as their bits):
+# JAX decode_batch_direct at k F16_DECODE_K and at k 1 for each case, the
+# bf16 cases and the kernel's other centers; JAX's float16 FCN sample on
+# the multi golden's three two-vehicle frames (`fcn_golden_sample`, the
+# regression as float16 bits); and JAX make_e2e_step(head="direct",
+# max_obstacles=F16_E2E_K) with the shipped asset in float16 on them.
+F16_DECODE_K = 2
+F16_E2E_K = 4
+F16_DECODE_CASES = {
+    **BF16_DECODE_CASES,
+    "geometric_global": ("asset", {"direct_center": "geometric"}),
+    "surface_global": ("asset", {"direct_center": "surface"}),
+    "consensus_global": ("asset", {"direct_center": "consensus"}),
+}
+# The float16 FCN against JAX's float16 FCN: both round each layer's
+# output to float16 (11 significant bits), so an output may differ by a
+# step where the two float32 accumulations straddle a rounding boundary.
+# Regression outputs reach |x| < 16 (8.4 with the mixed asset), where a
+# step is 2**-7: two steps, 2**-6. The port reads one step at [4, 8),
+# 2**-8, on the golden frames (CPU, both assets) and on the card. A
+# float16 step of the regression is about JAX's own float16-vs-float32
+# gap (4.5e-3), so what tells a float16 net from a wrong one is the share
+# of regression outputs that differ at all: at most F16_REG_DIFFER_SHARE.
+# The CPU reads 1.3 % and 0.7 % (shipped and mixed asset, the golden
+# frames) and 1.1 % on the float16 golden's sample, an H100 6.6 % there
+# (cuDNN sums in another order than XLA); rounding each convolution once
+# instead of twice (a fused bias epilogue) moves 49 % and the float32 net
+# 100 %. The probabilities come from the softmax in float32 of float16
+# logits: the port reads 5.7e-5 to 1.5e-4 on the CPU and 2.1e-4 on an
+# H100; F16_PROB_ATOL, 2**-9, is a quarter of a float16 step of a logit
+# in [8, 16), and the bf16 net (7.3e-3) fails it.
+F16_PROB_ATOL = 2.0**-9
+F16_REG_ATOL = 2.0**-6
+F16_REG_DIFFER_SHARE = 0.15
+
+
+def fcn_sample_readings(out: np.ndarray, want_prob: np.ndarray, want_reg: np.ndarray):
+    """The port's low-precision FCN output against a golden's sample of
+    JAX's in the same dtype: (largest probability difference, largest
+    regression difference, regression outputs that differ at all,
+    regression outputs)."""
+    prob, reg = fcn_golden_sample(out)
+    dr = np.abs(reg - want_reg)
+    return (
+        float(np.abs(prob - want_prob).max()),
+        float(dr.max()),
+        int((dr > 0).sum()),
+        dr.size,
+    )
+
+
+def bf16_decode_case(name: str, assets_dir: str, cases: dict = BF16_DECODE_CASES):
+    """(FCN key, the port's DecodeConfig) of a BF16_DECODE_CASES (or
+    `cases`) entry."""
     import dataclasses
     import os
 
     from tpufusion_torch.config import DecodeConfig
     from tpufusion_torch.models.io import asset_configs
 
-    fcn, fields = BF16_DECODE_CASES[name]
+    fcn, fields = cases[name]
     if fields is None:
         return fcn, DecodeConfig()
     _, dcfg = asset_configs(os.path.join(assets_dir, BF16_DECODE_FCNS[fcn]))
@@ -353,20 +409,6 @@ def flagship_prob_sample(out: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     frame (B, n), its largest value a frame (B,))."""
     prob = out[..., 1].reshape(out.shape[0], -1)
     return prob[:, ::FCN_REG_STRIDE], prob.max(axis=1)
-
-
-def bf16_fcn_readings(out: np.ndarray, want_prob: np.ndarray, want_reg: np.ndarray):
-    """The port's bf16 FCN output against the golden's JAX bf16 sample:
-    (largest probability difference, largest regression difference,
-    regression outputs that differ at all, regression outputs)."""
-    prob, reg = fcn_golden_sample(out)
-    dr = np.abs(reg - want_reg)
-    return (
-        float(np.abs(prob - want_prob).max()),
-        float(dr.max()),
-        int((dr > 0).sum()),
-        dr.size,
-    )
 
 
 def sparse_cells(raster: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -529,6 +571,17 @@ def bf16_bits(a: np.ndarray) -> np.ndarray:
 
 def from_bf16_bits(bits: np.ndarray) -> np.ndarray:
     return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def f16_bits(a: np.ndarray) -> np.ndarray:
+    """float32 values that are exact in float16 -> their float16 bits."""
+    h = np.asarray(a, np.float32).astype(np.float16)
+    assert np.array_equal(h.astype(np.float32), np.asarray(a, np.float32)), "not exact in float16"
+    return h.view(np.uint16)
+
+
+def from_f16_bits(bits: np.ndarray) -> np.ndarray:
+    return np.asarray(bits, np.uint16).view(np.float16).astype(np.float32)
 
 
 def grad_sample(g: np.ndarray) -> np.ndarray:

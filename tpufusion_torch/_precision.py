@@ -1,6 +1,6 @@
 """The pin that keeps float32 matmuls in full precision, shared by the
 decode (corner vote, head center) and the fusion net's dense layers; and
-the rounding of float32 values to bf16 on the host."""
+the rounding of float32 values to bf16 or float16 on the host."""
 
 from __future__ import annotations
 
@@ -16,6 +16,23 @@ def bf16_round(a) -> np.ndarray:
     bits = np.array(a, np.float32, ndmin=1).view(np.uint32)
     bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & np.uint32(0xFFFF0000)
     return bits.view(np.float32)
+
+
+def f16_round(a) -> np.ndarray:
+    """float32 values rounded to the nearest float16 (ties to even,
+    subnormals kept, overflow to inf), as float32, in numpy: no torch op,
+    so no device sync."""
+    return np.array(a, np.float32, ndmin=1).astype(np.float16).astype(np.float32)
+
+
+def low_round(a, dtype: torch.dtype) -> np.ndarray:
+    """float32 values rounded to `dtype` (bfloat16 or float16; float32
+    leaves them), as float32, in numpy."""
+    if dtype == torch.bfloat16:
+        return bf16_round(a)
+    if dtype == torch.float16:
+        return f16_round(a)
+    return np.array(a, np.float32, ndmin=1)
 
 
 @contextlib.contextmanager

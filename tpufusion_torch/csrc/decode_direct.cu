@@ -97,14 +97,24 @@
 // cos and the surface weight (each the float64 sum rounded to float32,
 // then to bf16, as the plain version rounds its float64 sum), the global
 // frame's quotients before its atan2 and the auto gate's squares, and the
-// global frame's yaw. The wrapper rounds min_prob to bf16, the type the
-// reference compares in. The float32 instance rounds nothing more.
+// global frame's yaw. A float16 y_pred (the third instance, over __half
+// loads) rounds at those points and, as XLA runs each op of two float16
+// values in float16, also each such op's result (`Elem<T>::op`): the
+// products of two channels before they are summed, the quotients of the
+// rounded sums by the weight, the auto gate's sum of squares, and the cos
+// / sin of the global frame's negated yaw in the head's center; the
+// clamp of the weight is float16(1e-6), a subnormal (`Elem<T>::tiny`).
+// Every conversion is round to nearest with subnormals kept (no -ftz, no
+// fast math in _build.py's flags). The wrapper rounds min_prob to the
+// head's type, the type the reference compares in. The float32 instance
+// rounds nothing more.
 //
 // The cluster width is a compile-time constant (-DTF_DECODE_CLUSTER=N, N in
 // 1..8, builds the variants `kernel_bench.py` times beside it).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -141,14 +151,18 @@ enum { kBackproject, kGeometric, kSurface, kConsensus, kHead, kFit };  // decode
 enum { kCircle, kEllipse, kBox };                                      // decode_direct.BOUNDARIES
 enum { kLocal, kGlobal, kAuto };                                       // decode_direct.YAW_FRAMES
 
-// y_pred's element type: its load as a float, and the rounding of a
-// float32 result to it where the reference rounds (nothing for float)
+// y_pred's element type: its load as a float, the rounding of a float32
+// result to it where the reference rounds a sum (`keep`) and where it runs
+// an op of two head values in the head's type (`op`), and the weight's
+// clamp in that type (`tiny`); nothing for float
 template <typename T>
 struct Elem;
 template <>
 struct Elem<float> {
   static __device__ __forceinline__ float load(const float* v, size_t i) { return v[i]; }
   static __device__ __forceinline__ float keep(float x) { return x; }
+  static __device__ __forceinline__ float op(float x) { return x; }
+  static constexpr float tiny = 1e-6f;
 };
 template <>
 struct Elem<__nv_bfloat16> {
@@ -158,10 +172,24 @@ struct Elem<__nv_bfloat16> {
   static __device__ __forceinline__ float keep(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
   }
+  static __device__ __forceinline__ float op(float x) { return x; }  // XLA keeps float32
+  static constexpr float tiny = 1e-6f;
+};
+template <>
+struct Elem<__half> {
+  static __device__ __forceinline__ float load(const __half* v, size_t i) {
+    return __half2float(v[i]);
+  }
+  static __device__ __forceinline__ float keep(float x) { return __half2float(__float2half_rn(x)); }
+  // an op of two float16 values, computed in float32 and rounded once:
+  // the correctly rounded float16 result of a product or a quotient (24
+  // bits hold 2 x 11 + 2)
+  static __device__ __forceinline__ float op(float x) { return keep(x); }
+  static constexpr float tiny = 0x1.1p-20f;  // float16(1e-6) = 17 x 2^-24, a subnormal
 };
 
 struct Params {
-  const void* y_pred;  // float or __nv_bfloat16, the kernel's instance
+  const void* y_pred;  // float, __nv_bfloat16 or __half, the kernel's instance
   const float* image;
   const unsigned char* mask;
   const int* labels;
@@ -488,7 +516,7 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
           dmin_m = fminf(dmin_m, d);
           acc[0] += prob;
 #pragma unroll
-          for (int i = 0; i < 3; ++i) acc[1 + i] += __fmul_rn(ch[i], prob);
+          for (int i = 0; i < 3; ++i) acc[1 + i] += E::op(__fmul_rn(ch[i], prob));
           if (want_local) {  // sin / cos(yaw + theta): the pixel's vector rotated back
             const float s_px = ch[3], c_px = ch[4];
             acc[4] += __fmul_rn(__fsub_rn(__fmul_rn(s_px, ct), __fmul_rn(c_px, st)), prob);
@@ -496,8 +524,8 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
           }
           if (want_global) {
             const int gi = dual ? 5 : 3;  // channel 10 or 8
-            acc[6] += __fmul_rn(ch[gi], prob);
-            acc[7] += __fmul_rn(ch[gi + 1], prob);
+            acc[6] += E::op(__fmul_rn(ch[gi], prob));
+            acc[7] += E::op(__fmul_rn(ch[gi + 1], prob));
           }
           if (center == kHead) {  // R dc + p, R = Rz(theta) Ry(phi)
             const float cp = p.cos_p[y], sp = p.sin_p[y];
@@ -592,11 +620,12 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
   TF_STAMP(0, 2);
 
   if (tid == 0 && L.go) {
-    // the bf16 instance rounds the sums of bf16 products (E::keep)
-    const float tot = fmaxf(E::keep((float)s_tot[0]), 1e-6f);
-    L.l = __fdiv_rn(E::keep((float)s_tot[1]), tot);
-    L.w = __fdiv_rn(E::keep((float)s_tot[2]), tot);
-    L.h = __fdiv_rn(E::keep((float)s_tot[3]), tot);
+    // the bf16 and float16 instances round the sums of head values
+    // (E::keep), the float16 one their quotients too (E::op)
+    const float tot = fmaxf(E::keep((float)s_tot[0]), E::tiny);
+    L.l = E::op(__fdiv_rn(E::keep((float)s_tot[1]), tot));
+    L.w = E::op(__fdiv_rn(E::keep((float)s_tot[2]), tot));
+    L.h = E::op(__fdiv_rn(E::keep((float)s_tot[3]), tot));
     float sin_m, cos_m;
     if (p.yaw_frame == kLocal) {
       sin_m = __fdiv_rn((float)s_tot[4], tot);
@@ -608,11 +637,11 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
       L.oriented = 0;
     } else {  // the codec whose mean vector is longer
       const float sl = __fdiv_rn((float)s_tot[4], tot), cl = __fdiv_rn((float)s_tot[5], tot);
-      const float sg = __fdiv_rn(E::keep((float)s_tot[6]), tot);
-      const float cg_ = __fdiv_rn(E::keep((float)s_tot[7]), tot);
+      const float sg = E::op(__fdiv_rn(E::keep((float)s_tot[6]), tot));
+      const float cg_ = E::op(__fdiv_rn(E::keep((float)s_tot[7]), tot));
       const float rs = E::keep(sg), rc = E::keep(cg_);
       L.oriented = __fadd_rn(__fmul_rn(sl, sl), __fmul_rn(cl, cl)) >=
-                   __fadd_rn(E::keep(__fmul_rn(rs, rs)), E::keep(__fmul_rn(rc, rc)));
+                   E::op(__fadd_rn(E::keep(__fmul_rn(rs, rs)), E::keep(__fmul_rn(rc, rc))));
       sin_m = L.oriented ? sl : sg;
       cos_m = L.oriented ? cl : cg_;
     }
@@ -622,7 +651,11 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
       if (rank == 0) {
         const float c0 = __fdiv_rn((float)s_tot[8], tot), c1 = __fdiv_rn((float)s_tot[9], tot);
         const float c2 = __fdiv_rn((float)s_tot[10], tot);
-        const float c = cosf(-L.yaw), s = sinf(-L.yaw);
+        float c = cosf(-L.yaw), s = sinf(-L.yaw);
+        if (p.yaw_frame == kGlobal) {  // of the head-typed yaw
+          c = E::op(c);
+          s = E::op(s);
+        }
         out[0] = __fsub_rn(__fmul_rn(c, c0), __fmul_rn(s, c1));
         out[1] = __fadd_rn(__fmul_rn(s, c0), __fmul_rn(c, c1));
         out[2] = c2;
@@ -688,7 +721,7 @@ __global__ void __launch_bounds__(kThreads) decode_direct_kernel(const Params p)
     cta_partial(s_wsum, 4, x);
     cluster_totals(cluster, x, 4, s_tot);
     ++xi;
-    const float ws = fmaxf(E::keep((float)s_tot[0]), 1e-6f);
+    const float ws = fmaxf(E::keep((float)s_tot[0]), E::tiny);
 #pragma unroll
     for (int i = 0; i < 3; ++i) p_mean[i] = __fdiv_rn((float)s_tot[1 + i], ws);
   }
@@ -988,7 +1021,7 @@ extern "C" int tf_decode_direct(const void* y_pred, int channels, const void* im
                                 const void* sin_t, const void* cos_p, const void* sin_p,
                                 const void* phi_grid, int center, int yaw_frame, int fit_auto,
                                 int boundary0, int boundary1, const float* consts, void* poses,
-                                void* found_out, void* stream, int bf16) {
+                                void* found_out, void* stream, int dtype) {
   if (frames <= 0 || k <= 0) return (int)cudaGetLastError();
   if (channels < 10 || (yaw_frame == kAuto && channels < 12) || img_channels < 2 ||
       center < kBackproject || center > kFit || yaw_frame < kLocal || yaw_frame > kAuto ||
@@ -1040,6 +1073,15 @@ extern "C" int tf_decode_direct(const void* y_pred, int channels, const void* im
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)(bf16 ? cudaLaunchKernelEx(&cfg, decode_direct_kernel<__nv_bfloat16>, p)
-                    : cudaLaunchKernelEx(&cfg, decode_direct_kernel<float>, p));
+  // y_pred's type by ops/decode_direct.py DTYPES' code: float32, bf16, float16
+  switch (dtype) {
+    case 0:
+      return (int)cudaLaunchKernelEx(&cfg, decode_direct_kernel<float>, p);
+    case 1:
+      return (int)cudaLaunchKernelEx(&cfg, decode_direct_kernel<__nv_bfloat16>, p);
+    case 2:
+      return (int)cudaLaunchKernelEx(&cfg, decode_direct_kernel<__half>, p);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -63,6 +63,7 @@ import torch.nn.functional as F
 
 from tpufusion_torch._constants import device_constant
 from tpufusion_torch._precision import full_f32_matmuls as _full_f32_matmuls
+from tpufusion_torch._precision import low_round
 from tpufusion_torch.config import DecodeConfig, RangeViewSpec
 from tpufusion_torch.geometry.boxes import rot_y, rot_z
 from tpufusion_torch.geometry.encoding import (
@@ -645,48 +646,63 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, ma
     center are 0 where ok is False. `oriented` says the local-frame codec
     gave the yaw; `center` (with_center) is the head's averaged center in
     the reference's frame. With a dict `margins`, the auto gate's relative
-    margin goes there as "oriented", and for a bf16 y_pred each rounded
-    sum's as "bf16" ("bf16_surface" for the surface mean's weight).
+    margin goes there as "oriented", and for a bf16 or float16 y_pred each
+    rounded sum's as "rounded" ("rounded_surface" for the surface mean's
+    weight).
 
-    A bf16 y_pred computes as XLA computes the reference's bf16 ops on the
-    CPU: each op in float32 on its operands' exact values, its result
-    rounded to bf16 only where it feeds another bf16 op (a reshape
-    included), and kept in float32 where a float32 operand promotes it.
-    So the products of two channels are exact; the sums jnp.sum casts back
-    to bf16 (the weight, the sizes, the global frame's sin / cos, the
-    surface weight) are rounded; their quotients are not, but for the
-    global frame's atan2 and the auto gate's squares, which take them
-    rounded; the global frame's yaw is rounded (the reference reshapes it
-    into its pose). The bf16 sums run in float64 and round once to
-    float32, then to bf16."""
+    A low-precision y_pred computes as XLA computes the reference's ops in
+    its type on the CPU. jnp.sum sums in float32 and casts back, so the
+    sums of the weight, the sizes, the global frame's sin / cos and the
+    surface weight are rounded to the head's type (here the float64 sum
+    rounded once to float32, then to that type). An op that a float32
+    operand (the theta tables, the points) promotes stays float32. The two types part on the ops of two head
+    values:
+      bf16  XLA computes them in float32 on exact operands and rounds a
+            result only where it feeds another bf16 op (a reshape
+            included): the products of two channels are exact, the
+            quotients of the sums are not rounded but for the global
+            frame's atan2 and the auto gate's squares, which take them
+            rounded; the global frame's yaw is rounded.
+      f16   XLA runs each such op in float16, rounding its result: the
+            products of two channels, the quotients of the sums by the
+            weight, the auto gate's squares and their sum, the global
+            frame's atan2, and the cos / sin of its negated yaw in the
+            head's center; the weights' clamp is float16(1e-6), a
+            subnormal."""
     yp, im = y_pred[:, None], image[:, None]
     valid = (im[..., 0] > 0) & (im[..., 1] > spec.min_height)
     m = cluster & valid & (yp[..., 1] >= cfg.min_prob)  # in the head's own type
     low = y_pred.dtype != torch.float32
+    native = y_pred.dtype == torch.float16  # XLA rounds each f16 op
     yp = yp.float()
     prob = yp[..., 1]
     wgt = torch.where(m, prob, 0.0)
-    near: dict = {"bf16": [], "bf16_surface": []}
+    near: dict = {"rounded": [], "rounded_surface": []}
 
     def rounded(t):
         """t in float32 as the head's type rounds it (itself for float32)."""
         return t.to(y_pred.dtype).float()
 
-    def bf16_sum(terms, dims, key="bf16"):
+    def op(t):
+        """The result of an op on two head values: rounded for float16."""
+        return rounded(t) if native else t
+
+    def low_sum(terms, dims, key="rounded"):
         """A sum jnp.sum leaves in the head's type."""
         if not low:
             return terms.sum(dim=dims)
         total = terms.double().sum(dim=dims)
         if margins is not None:
-            near[key].append(_midpoint_margin(total, terms, dims))
+            near[key].append(_midpoint_margin(total, terms, dims, y_pred.dtype))
         return rounded(total.float())
 
-    tot = bf16_sum(wgt, (-2, -1)).clamp(min=1e-6)
+    tiny = float(low_round(1e-6, y_pred.dtype)[0]) if native else 1e-6
+    tot = low_sum(wgt, (-2, -1)).clamp(min=tiny)
 
     def wmean(ch):
         return (ch * wgt).sum(dim=(-2, -1)) / tot
 
-    lwh = bf16_sum(yp[..., 5:8] * wgt[..., None], (-3, -2)) / tot[..., None]
+    lwh = op(low_sum(op(yp[..., 5:8] * wgt[..., None]), (-3, -2)) / tot[..., None])
     dual = y_pred.shape[-1] >= 12  # [.., sin_l, cos_l, sin_g, cos_g]
 
     def local_mean():
@@ -698,7 +714,7 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, ma
 
     def global_mean():
         gi = 10 if dual else 8
-        return tuple(bf16_sum(yp[..., c] * wgt, (-2, -1)) / tot for c in (gi, gi + 1))
+        return tuple(op(low_sum(op(yp[..., c] * wgt), (-2, -1)) / tot) for c in (gi, gi + 1))
 
     if cfg.direct_yaw_frame == "local":
         sin_m, cos_m = local_mean()
@@ -719,7 +735,7 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, ma
         sl, cl = local_mean()
         sg, cg = global_mean()
         len_l = sl * sl + cl * cl
-        len_g = rounded(rounded(sg) * rounded(sg)) + rounded(rounded(cg) * rounded(cg))
+        len_g = op(rounded(rounded(sg) * rounded(sg)) + rounded(rounded(cg) * rounded(cg)))
         oriented = len_l >= len_g
         if margins is not None:
             margins["oriented"] = _rel_margin(len_l, len_g)
@@ -728,7 +744,7 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, ma
     else:
         raise ValueError(f"unknown direct_yaw_frame {cfg.direct_yaw_frame!r}")
     yaw = torch.atan2(sin_m, cos_m)
-    if cfg.direct_yaw_frame == "global":  # bf16 yaw[None] enters the reference's pose
+    if cfg.direct_yaw_frame == "global":  # yaw[None] enters the reference's pose rounded
         yaw = rounded(yaw)
 
     # prob-weighted mean of the cluster's surface points within a vehicle
@@ -738,9 +754,9 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, ma
     dmin = torch.where(m, d, math.inf).amin(dim=(-2, -1))
     msurf = m & (d <= dmin[..., None, None] + 4.0)
     wsurf = torch.where(msurf, prob, 0.0)
-    p_mean = (p * wsurf[..., None]).sum(dim=(-3, -2)) / bf16_sum(
-        wsurf, (-2, -1), "bf16_surface"
-    ).clamp(min=1e-6)[..., None]
+    p_mean = (p * wsurf[..., None]).sum(dim=(-3, -2)) / low_sum(
+        wsurf, (-2, -1), "rounded_surface"
+    ).clamp(min=tiny)[..., None]
     ok = m.flatten(-2).any(dim=-1)
     center = None
     if with_center:
@@ -750,6 +766,8 @@ def _direct_pose_from_cluster(y_pred, image, cluster, spec, cfg, with_center, ma
         c_px = (rot @ yp[..., 2:5, None])[..., 0] + p
         c_phys = (c_px * wgt[..., None]).sum(dim=(-3, -2)) / tot[..., None]
         c, s = torch.cos(-yaw), torch.sin(-yaw)
+        if cfg.direct_yaw_frame == "global":  # cos / sin of the head-typed yaw
+            c, s = op(c), op(s)
         center = torch.stack(
             [
                 c * c_phys[..., 0] - s * c_phys[..., 1],
@@ -819,24 +837,38 @@ def _rel_margin(v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.where(scale > 0, (v - t).abs() / scale, 0.0)
 
 
-def _midpoint_margin(total: torch.Tensor, terms: torch.Tensor, dims) -> torch.Tensor:
-    """How far the float64 sums `total` of bf16 products `terms` lie from
-    the nearest bf16 rounding midpoint, relative to the sum of the terms'
-    magnitudes; inf where every float64 partial sum is exact, so that any
-    order of summation gives the same float32 and bf16: a product of two
-    bf16 values has at most 16 significant bits, so each term is a
-    multiple of 2**-15 of the smallest one's leading bit, and partial sums
-    below 2**37 of the smallest term keep within float64's 53 bits.
+# A low-precision head type: (significant bits of a sum's terms, of the
+# type itself, its smallest normal exponent). A product of two bf16 values
+# has at most 16 significant bits; a float16 product is rounded to float16.
+_LOW_BITS = {torch.bfloat16: (16, 8, -126), torch.float16: (11, 11, -14)}
+
+
+def _midpoint_margin(total: torch.Tensor, terms: torch.Tensor, dims,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """How far the float64 sums `total` of `terms` (the products or
+    values of a `dtype` head) lie from the nearest rounding midpoint of
+    `dtype`, relative to the sum of the terms' magnitudes; inf where every
+    float64 partial sum is exact, so that any order of summation gives the
+    same float32 and `dtype`: each term has at most t significant bits
+    (`_LOW_BITS`), so it is a multiple of 2**-t of the smallest one's
+    leading bit, and partial sums below 2**(53 - t) of the smallest term
+    keep within float64's 53 bits (2**37 for bf16, 2**42 for float16).
     Elsewhere a sum nearer than its summation error may round the other
-    way in another order. The midpoint nearest to x is x with its low 16
-    bits (as a float32) set to 0x8000."""
+    way in another order. The midpoint nearest to x lies half a step of
+    `dtype` above |x| truncated to that step (a step of 2**(e + 1 - p) at
+    a leading bit 2**e, e no lower than the smallest normal's: float16's
+    subnormals are steps of 2**-24)."""
+    t_bits, p_bits, e_min = _LOW_BITS[dtype]
     mag = terms.abs()
     scale = mag.sum(dim=dims)
     smallest = torch.where(mag > 0, mag, math.inf).amin(dim=dims)
-    t32 = total.float().contiguous()
-    mid = ((t32.view(torch.int32) & -65536) | 32768).view(torch.float32)
-    near = (total - mid.double()).abs() / scale
-    return torch.where((scale > 0) & (scale >= smallest * 2.0**37), near, math.inf).float()
+    a = total.abs()
+    _, exp = torch.frexp(a)  # a = f * 2**exp, f in [0.5, 1)
+    step = torch.ldexp(torch.ones_like(a), (exp - 1).clamp(min=e_min) + 1 - p_bits)
+    mid = (torch.floor(a / step) + 0.5) * step
+    near = (a - mid).abs() / scale
+    exact = scale < smallest * 2.0 ** (53 - t_bits)
+    return torch.where((scale > 0) & ~exact, near, math.inf).float()
 
 
 def _fit_pose_to_surface(image, cluster, spec, cfg, yaw, lwh, seed, margins=None):
@@ -997,10 +1029,11 @@ def decode_direct_clusters_reference(
     margin (`_rel_margin`; inf where it does not decide the answer) of
     each threshold a tie could flip: "oriented" (the auto yaw gate),
     "agree" (consensus and fit), and the fit's "fit_dist", "decisive"
-    and "pi"; for a bf16 y_pred also "bf16" (and "bf16_surface" for the
-    centers that take the surface mean): each rounded sum's distance from
-    a bf16 rounding midpoint (`_midpoint_margin`). y_pred may be float32
-    or bf16 (computed as `_direct_pose_from_cluster` says); the poses are
+    and "pi"; for a bf16 or float16 y_pred also "rounded" (and
+    "rounded_surface" for the centers that take the surface mean): each
+    rounded sum's distance from a rounding midpoint of its type
+    (`_midpoint_margin`). y_pred may be float32, bf16 or float16
+    (computed as `_direct_pose_from_cluster` says); the poses are
     float32."""
     bboxes, centroids = _shrunk_bbox(min_x, max_x, min_y, max_y, root)
     cluster = mask[:, None] & (labels[:, None] == root[..., None, None].to(labels.dtype))
@@ -1008,7 +1041,7 @@ def decode_direct_clusters_reference(
         y_pred, images, cluster, spec, cfg, with_center=center == "head", margins=margins
     )
     if margins is not None and center not in ("surface", "consensus", "fit"):
-        margins.pop("bf16_surface", None)  # the surface mean goes unused
+        margins.pop("rounded_surface", None)  # the surface mean goes unused
     good = found & nonempty
     if center == "head":
         pose = torch.cat([head_center, yaw[..., None], lwh], dim=-1)

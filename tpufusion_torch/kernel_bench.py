@@ -47,9 +47,10 @@ clusters, config 5's 16 frames at k 4, and 64 x 63 x 1801 at k 1; with
 --old-csrc, DIR's direct decode (the one-CTA-a-lane design, the same C
 interface) in the same turns ("old"), and with `--decode-clusters 4,8`
 the current kernel built with 4 and 8 CTAs a lane ("new_c4", "new_c8");
-with `--decode-dtypes float32,bfloat16` the kernel's bf16 instance and its
-plain version on the same outputs rounded to bf16 ("new_bf16",
-"plain_bf16") in the same turns, beside their bound at 2 B a channel.
+with `--decode-dtypes float32,bfloat16,float16` the kernel's bf16 and
+float16 instances and their plain versions on the same outputs rounded
+to bf16 ("new_bf16", "plain_bf16") and to float16 ("new_f16",
+"plain_f16") in the same turns, beside their bound at 2 B a channel.
 The corner_vote rows time the corner head's vote kernel (handed the
 positives map, as the decode hands it) and its plain version (the torch
 composition it replaced) likewise, beside its bound (the larger of its
@@ -760,7 +761,8 @@ def decode_direct_bound_bytes(y_pred, images, mask, labels, min_x, max_x, min_y,
     searches; on the cluster's valid pixels the probability (4 B), and
     where it passes min_prob the channels the center and yaw frame read
     (4 B each: l w h, the yaw frame's sin / cos, both frames' for "auto",
-    the head's three offsets for "head"; 2 B each for a bf16 y_pred);
+    the head's three offsets for "head"; 2 B each for a bf16 or float16
+    y_pred);
     each lane's found flag read and its pose and flag written, a found
     lane's root and four extents read."""
     b, h, w = mask.shape
@@ -834,8 +836,11 @@ def decode_direct_inputs(dev, shape, sets: int, seed0: int = 1800):
     return spec, dcfg, k, out
 
 
+LOW_TAGS = {torch.bfloat16: "bf16", torch.float16: "f16"}  # a head type's row suffix
+
+
 def decode_direct_rows(sets: int = 12, shapes=DECODE_SHAPES, old=None,
-                       clusters=(), bf16: bool = False) -> list[dict]:
+                       clusters=(), low=()) -> list[dict]:
     """The direct decode kernel's rows: the kernel and its plain version
     (the torch composition it replaced) in turns, and an empty kernel (the
     card's launch floor), at each of `shapes`, beside the kernel's bound
@@ -844,10 +849,11 @@ def decode_direct_rows(sets: int = 12, shapes=DECODE_SHAPES, old=None,
     library, `_build_old`, which reads float32 only) its kernel ("old") in
     the same turns, held to the current one's poses within 1e-4 first;
     each width of `clusters` a build of the current kernel with that many
-    CTAs a lane ("new_c<N>"). With `bf16`, the kernel and its plain
-    version on the same outputs rounded to bf16 ("new_bf16",
-    "plain_bf16") in the same turns, held to the contract first, and
-    their bound ("bound_ms_bf16", 2 B a channel)."""
+    CTAs a lane ("new_c<N>"). For each dtype of `low` (torch.bfloat16,
+    torch.float16), the kernel's instance and its plain version on the
+    same outputs rounded to it ("new_bf16", "plain_bf16"; "new_f16",
+    "plain_f16") in the same turns, held to the contract first, and their
+    bound ("bound_ms_bf16", "bound_ms_f16": 2 B a channel)."""
     from tpufusion_torch.decode.decode import decode_direct_clusters_reference
     from tpufusion_torch.ops import decode_direct
 
@@ -859,19 +865,20 @@ def decode_direct_rows(sets: int = 12, shapes=DECODE_SHAPES, old=None,
     for shape in shapes:
         spec, cfg, k, args = decode_direct_inputs(dev, shape, sets)
         center = cfg.direct_center
-        # the same sets with y_pred in bf16, looked up by the float32 set
-        low = {id(a): (a[0].to(torch.bfloat16), *a[1:]) for a in args} if bf16 else {}
+        # the same sets with y_pred in each low type, looked up by the float32 set
+        sets_in = {LOW_TAGS[dt]: {id(a): (a[0].to(dt), *a[1:]) for a in args} for dt in low}
         with torch.inference_mode():
             for a in args[:2]:
-                for y in (a[0], low[id(a)][0]) if bf16 else (a[0],):
+                for y in (a[0], *(by_set[id(a)][0] for by_set in sets_in.values())):
                     r = decode_direct.against_plain(y, a[1], spec, cfg, k)
                     assert r["ok"] and r["near"] == 0, (shape[0], y.dtype, r)
             new = lambda a: decode_direct.decode_direct_clusters(*a, spec, cfg, center)  # noqa: E731
             plain = lambda a: decode_direct_clusters_reference(*a, spec, cfg, center)  # noqa: E731
             fns = {"new": new, "plain": plain, "empty": empty_kernel}
-            if bf16:
-                fns["new_bf16"] = lambda a: new(low[id(a)])
-                fns["plain_bf16"] = lambda a: plain(low[id(a)])
+            for tag, by_set in sets_in.items():
+                fns[f"new_{tag}"] = lambda a, by_set=by_set: new(by_set[id(a)])
+                fns[f"plain_{tag}"] = lambda a, by_set=by_set: plain(by_set[id(a)])
+            plains = [fns["plain"], *(fns[f"plain_{tag}"] for tag in sets_in)]
             for name, lib in libs.items():
                 def on(a, lib=lib):
                     with using_library(lib):
@@ -883,17 +890,19 @@ def decode_direct_rows(sets: int = 12, shapes=DECODE_SHAPES, old=None,
                 fns[name] = on
             call = time_turns(fns, args, time_ms)
             dev_t = time_turns(fns, args, lambda fn, xs: (
-                queued_each if fn in (fns["plain"], fns.get("plain_bf16")) else queued_ms)(fn, xs))
+                queued_each if fn in plains else queued_ms)(fn, xs))
         need = [decode_direct_bound_bytes(*a, spec, cfg, center) for a in args]
-        need_bf16 = [decode_direct_bound_bytes(*low[id(a)], spec, cfg, center)
-                     for a in args] if bf16 else []
+        low_bounds = {}
+        for tag, by_set in sets_in.items():
+            need_low = [decode_direct_bound_bytes(*by_set[id(a)], spec, cfg, center)
+                        for a in args]
+            low_bounds[f"bound_ms_{tag}"] = sum(need_low) / sets / HBM_BYTES_PER_S * 1e3
+            low_bounds[f"bound_bytes_{tag}"] = sum(need_low) / sets
         windows = [int(decode_direct.window_pixels(*a[4:]).sum()) for a in args]
         found = [int(a[-1].sum()) for a in args]
-        bf16_bound = {"bound_ms_bf16": sum(need_bf16) / sets / HBM_BYTES_PER_S * 1e3,
-                      "bound_bytes_bf16": sum(need_bf16) / sets} if bf16 else {}
         rows.append({"shape": shape[0], "kernel": "decode_direct",
                      "bound_ms": sum(need) / sets / HBM_BYTES_PER_S * 1e3,
-                     "bound_bytes": sum(need) / sets, **bf16_bound,
+                     "bound_bytes": sum(need) / sets, **low_bounds,
                      "window_pixels": sum(windows) / sets, "found_lanes": sum(found) / sets,
                      **{f"{k}_call_ms": v for k, v in call.items()},
                      **{f"{k}_device_ms": v for k, v in dev_t.items()}})
@@ -1068,8 +1077,9 @@ def main() -> int:
     ap.add_argument("--decode-clusters", default="",
                     help="comma-separated cluster widths of the direct decode to time beside it")
     ap.add_argument("--decode-dtypes", default="float32",
-                    help="the direct decode's head outputs: float32, or float32,bfloat16 to "
-                         "time the bf16 instance and its plain version in the same turns")
+                    help="the direct decode's head outputs: float32, and bfloat16 and / or "
+                         "float16 (float32,bfloat16,float16) to time those instances and "
+                         "their plain versions in the same turns")
     ap.add_argument("--out", help="write the card and the rows here as JSON")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1089,11 +1099,12 @@ def main() -> int:
         rows += encode_direct_rows(args.sets)
     if "decode_direct" in kernels:
         clusters = tuple(int(c) for c in args.decode_clusters.split(",") if c)
-        dtypes = set(args.decode_dtypes.split(","))
-        if not dtypes <= {"float32", "bfloat16"} or "float32" not in dtypes:
-            raise SystemExit(f"--decode-dtypes: float32[,bfloat16], got {args.decode_dtypes}")
+        dtypes = args.decode_dtypes.split(",")
+        if not set(dtypes) <= {"float32", "bfloat16", "float16"} or "float32" not in dtypes:
+            raise SystemExit(f"--decode-dtypes: float32[,bfloat16][,float16], got "
+                             f"{args.decode_dtypes}")
         rows += decode_direct_rows(args.sets, old=old, clusters=clusters,
-                                   bf16="bfloat16" in dtypes)
+                                   low=tuple(getattr(torch, d) for d in dtypes if d != "float32"))
     if "corner_vote" in kernels:
         rows += corner_vote_rows(min(args.sets, 6), old=old)
     for r in rows:
@@ -1102,10 +1113,10 @@ def main() -> int:
             f"{k} {r[f'{k}_device_ms'] * 1e3:.2f} us device / {r[f'{k}_call_ms'] * 1e3:.2f} us a call"
             for k in names)
         plans = "".join(f"; {k} {r[k]}" for k in ("plan_16", "plan_8") if k in r)
-        bf16 = (f"; bf16 bound {r['bound_ms_bf16'] * 1e3:.3f} us" if "bound_ms_bf16" in r
-                else "")
+        lows = "".join(f"; {tag} bound {r[f'bound_ms_{tag}'] * 1e3:.3f} us"
+                       for tag in LOW_TAGS.values() if f"bound_ms_{tag}" in r)
         print(f"{r['kernel']} {r['shape']}: {times}; bound {r['bound_ms'] * 1e3:.2f} us, "
-              f"new at {r['bound_ms'] / r['new_device_ms']:.1%} of it{plans}{bf16} [{card}]")
+              f"new at {r['bound_ms'] / r['new_device_ms']:.1%} of it{plans}{lows} [{card}]")
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "rows": rows}, f, indent=1)

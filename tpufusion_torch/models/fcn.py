@@ -17,12 +17,16 @@
 vs = 1 for the lidar range view (32 x 1801 x 3) and the BEV (180 x 1197
 x 3), vs = 2 without the regression branch for the camera (512 x 1368 x 1).
 
-dtype "bfloat16" computes as flax does with dtype=bf16 and float32
-params: each conv casts its input, kernel and bias to bf16 and adds the
-bias after the convolution, activations stay bf16 between layers, the
-BatchNorm runs on the float32 input, the softmax on d6a cast to float32,
-and the regression output is cast to float32. Parameters stay float32,
-so the same npz loads for either dtype.
+dtype "bfloat16" (or "float16") computes as flax does with dtype=bf16
+(float16) and float32 params: each conv casts its input, kernel and bias
+to the compute dtype and adds the bias after the convolution,
+activations stay in it between layers, the BatchNorm runs on the float32
+input, the softmax on d6a cast to float32, and the regression output is
+cast to float32. Parameters stay float32, so the same npz loads for any
+dtype. Dtype names resolve as `jnp.dtype` reads them (`compute_dtype`):
+"half" is float16, "float64" computes in float32 with a warning (JAX
+without x64), a name that is not inexact raises; the float8 and complex
+names, which JAX runs, raise as not ported.
 
 Weights keep flax's layouts (kernels HWIO) in the state dict so the npz
 keys and arrays load as they are; the forward maps them to torch's:
@@ -63,7 +67,9 @@ holds this rank's columns of the global output.
 from __future__ import annotations
 
 import math
+import warnings
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -83,7 +89,38 @@ from tpufusion_torch.parallel.mesh import (
 
 _KERAS_EPSILON = 1e-7
 _K = 5
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_F8_PREFIXES = ("float8_", "float6_", "float4_")  # ml_dtypes' small floats
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype the convolutions run in for ModelConfig.dtype
+    `name`, as `jnp.dtype(name)` resolves it and flax computes with it:
+    float16 names ("float16", "half", "f2", "e") are float16, float32
+    names float32, "bfloat16" bf16; float64 names compute in float32, as
+    JAX does with x64 off, and warn. A name that is no inexact dtype
+    raises ValueError, as JAX does; the float8 and complex names, which
+    JAX runs, raise a ValueError saying they are not ported."""
+    if name == "bfloat16":
+        return torch.bfloat16
+    if name.startswith(_F8_PREFIXES):
+        raise ValueError(f"FCN dtype {name!r} is not ported yet (no float8 convolution)")
+    try:
+        dt = np.dtype(name)
+    except TypeError:
+        raise ValueError(f"unknown FCN dtype {name!r}") from None
+    if dt.kind == "c":
+        raise ValueError(f"FCN dtype {name!r} is not ported yet (no complex convolution)")
+    if dt.kind != "f":
+        raise ValueError(f"FCN dtype must be inexact, got {name!r}")
+    if dt.itemsize == 2:
+        return torch.float16
+    if dt.itemsize == 4:
+        return torch.float32
+    if dt.itemsize == 8:
+        warnings.warn(f"FCN dtype {name!r}: float64 is not enabled (JAX without x64), "
+                      "computing in float32", UserWarning, stacklevel=2)
+        return torch.float32
+    raise ValueError(f"unknown FCN dtype {name!r}")
 
 
 def _same_pad(n: int, s: int, k: int = _K) -> tuple[int, int]:
@@ -311,10 +348,8 @@ class FCN(nn.Module):
         (`uniform_init_`); without it every kernel is zero until weights
         are loaded. `image_hw` is needed for `cfg.sample_wise_bn`."""
         super().__init__()
-        if cfg.dtype not in _DTYPES:
-            raise ValueError(f"unknown FCN dtype {cfg.dtype!r}")
+        self.compute_dtype = compute_dtype(cfg.dtype)
         self.cfg = cfg
-        self.compute_dtype = _DTYPES[cfg.dtype]
         vs = cfg.vertical_stride
         wm = cfg.width_multiplier
         if cfg.sample_wise_bn:

@@ -3,7 +3,7 @@
 
   decode_direct_clusters  the CC's labels and extents, the heat mask and
                           `_topk_roots`' lanes (root pixel, found) of a
-                          (B, H, W, 10 or 12) float32 or bf16 direct-head
+                          (B, H, W, 10 or 12) float32, bf16 or float16 direct-head
                           output and its (B, H, W, C >= 2) image -> poses
                           (B, k, 7) float32 = (x, y, z, yaw, l, w, h) and
                           found (B, k) bool, zeros where not found: what
@@ -21,9 +21,9 @@ push, the consensus, and the Gauss-Newton fit of its gated surface points,
 every sum exchanged between the CTAs in a fixed order (the same bits call
 to call). Every center but "silhouette" (which needs a quantile,
 a sort of each lane's points, and runs the plain version on every
-device); every fit boundary and yaw frame. A bf16 output is read as it
-is, by the kernel's bf16 instance, which rounds where the plain version
-rounds (`decode.py::_direct_pose_from_cluster`). For tensors on the CPU
+device); every fit boundary and yaw frame. A bf16 or float16 output is
+read as it is, by the kernel's instance for its type, which rounds where
+the plain version rounds (`decode.py::_direct_pose_from_cluster`). For tensors on the CPU
 the wrapper runs the plain version; for CUDA tensors it launches the
 kernel once, or raises.
 """
@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from tpufusion_torch import _build
-from tpufusion_torch._precision import bf16_round
+from tpufusion_torch._precision import low_round
 from tpufusion_torch.config import DecodeConfig, RangeViewSpec
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
@@ -44,7 +44,8 @@ CENTERS = ("backproject", "geometric", "surface", "consensus", "head", "fit")  #
 BOUNDARIES = ("circle", "ellipse", "box")  # a fit arm's boundary codes, in order
 YAW_FRAMES = ("local", "global", "auto")  # yaw-frame codes, in order
 N_CONSTANTS = 5  # the float32 constants the C entry reads from a host array
-DTYPES = (torch.float32, torch.bfloat16)  # the head outputs the kernel reads, by its code
+# the head outputs the kernel reads, by its code
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 def _arms(cfg: DecodeConfig) -> tuple[tuple[int, float], tuple[int, float]]:
     """The fit's two arms as (boundary code, scale factor): the oriented
@@ -74,8 +75,8 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, dev) ->
 def decode_direct_clusters(y_pred, images, mask, labels, min_x, max_x, min_y, max_y, root,
                            found, spec: RangeViewSpec, cfg: DecodeConfig, center: str):
     """Poses (B, k, 7) float32 and found (B, k) of each lane's cluster;
-    the kernel for CUDA tensors. y_pred (B, H, W, C) float32 or bfloat16
-    (C >= 12 for the auto yaw frame), images (B, H, W, >= 2) float32, mask (B, H, W) bool,
+    the kernel for CUDA tensors. y_pred (B, H, W, C) float32, bfloat16 or
+    float16 (C >= 12 for the auto yaw frame), images (B, H, W, >= 2) float32, mask (B, H, W) bool,
     labels and the four extents (B, H, W) int32 as the CC kernel gives
     them (the extents read at each lane's root), root (B, k) int64, found
     (B, k) bool. "silhouette" is refused: it runs the plain version."""
@@ -108,7 +109,7 @@ def decode_direct_clusters(y_pred, images, mask, labels, min_x, max_x, min_y, ma
                          f"{h} x {w}")
     y_pred, images = y_pred.contiguous(), images.contiguous()
     if y_pred.dtype not in DTYPES:
-        raise ValueError(f"y_pred must be float32 or bfloat16, got {y_pred.dtype}")
+        raise ValueError(f"y_pred must be float32, bfloat16 or float16, got {y_pred.dtype}")
     _check("y_pred", y_pred, y_pred.dtype, (b, h, w, channels), dev)
     if images.dim() != 4 or images.shape[-1] < 2:
         raise ValueError(f"images must be (B, H, W, C >= 2), got {tuple(images.shape)}")
@@ -133,9 +134,7 @@ def decode_direct_clusters(y_pred, images, mask, labels, min_x, max_x, min_y, ma
     offset = cfg.range_offset if center == "backproject" else 0.0
     # the reference compares the probability with min_prob in y_pred's type
     # (rounded in numpy: a torch op here would count as a host sync)
-    min_prob = cfg.min_prob
-    if y_pred.dtype == torch.bfloat16:
-        min_prob = float(bf16_round(min_prob)[0])
+    min_prob = float(low_round(cfg.min_prob, y_pred.dtype)[0])
     consts = (ctypes.c_float * N_CONSTANTS)(
         min_prob, spec.min_height, offset, arms[0][1], arms[1][1])
     lib = _build.load()

@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpufusion_torch._precision import bf16_round
+from tpufusion_torch._precision import bf16_round, f16_round
 
 TILE_COLS = 64  # csrc/components.cu kTileCols
 TILE_ROWS = 32  # csrc/components.cu kTileRows
@@ -708,24 +708,31 @@ def cluster_decode_options(channels: int) -> dict[str, dict]:
     return out
 
 
-# The bf16 threshold case of the direct decode: a probability of exactly
-# bf16(THRESHOLD_MIN_PROB) = 0.69921875 passes `prob >= 0.7` where the
-# comparison runs in bf16, as the reference's and torch's do; a float32
-# threshold (0.7f) would drop it.
+# The threshold case of the direct decode on a low-precision head: a
+# probability of exactly bf16(THRESHOLD_MIN_PROB) = 0.69921875 passes
+# `prob >= 0.7` where the comparison runs in bf16, as the reference's and
+# torch's do; a float32 threshold (0.7f) would drop it. In float16 the
+# same holds of float16(0.8) = 0.7998046875 at min_prob 0.8 (float16(0.7)
+# rounds up). THRESHOLDS: the head's type -> (min_prob, the probability at
+# the threshold, the step below it).
 THRESHOLD_MIN_PROB = 0.7
 THRESHOLD_PROB = 0.69921875  # bf16(0.7)
 THRESHOLD_BELOW = 0.6953125  # the bf16 step below it
+THRESHOLDS = {"bfloat16": (THRESHOLD_MIN_PROB, THRESHOLD_PROB, THRESHOLD_BELOW),
+              "float16": (0.8, 0.7998046875, 0.79931640625)}
 
 
-def threshold_inputs(spec, seed: int = 0, channels: int = 10):
-    """(y_pred (2, H, W, channels) float32 holding bf16 values, image (2,
-    H, W, 3), (row, column) of the pixel): `cluster_inputs`' cars of one
-    frame rounded to bf16, twice; an interior car pixel with a return is
-    THRESHOLD_PROB in frame 0 and THRESHOLD_BELOW in frame 1, which is
-    otherwise frame 0. At min_prob THRESHOLD_MIN_PROB the pixel counts in
-    frame 0 only."""
+def threshold_inputs(spec, seed: int = 0, channels: int = 10, dtype: str = "bfloat16"):
+    """(y_pred (2, H, W, channels) float32 holding `dtype` values, image
+    (2, H, W, 3), (row, column) of the pixel): `cluster_inputs`' cars of
+    one frame rounded to `dtype`, twice; an interior car pixel with a
+    return is THRESHOLDS[dtype]'s probability in frame 0 and the step
+    below it in frame 1, which is otherwise frame 0. At its min_prob the
+    pixel counts in frame 0 only."""
+    _, at, below = THRESHOLDS[dtype]
+    rnd = bf16_round if dtype == "bfloat16" else f16_round
     y, image = cluster_inputs(spec, "cars", batch=1, seed=seed, channels=channels)
-    y = bf16_round(y)
+    y = rnd(y)
     prob = y[0, ..., 1]
     inner = np.zeros(prob.shape, bool)
     inner[3:-3, 3:-3] = True
@@ -736,8 +743,8 @@ def threshold_inputs(spec, seed: int = 0, channels: int = 10):
     r, c = (int(v) for v in np.argwhere(inner)[0])
     y = np.concatenate([y, y])
     image = np.concatenate([image, image])
-    y[0, r, c, 1], y[1, r, c, 1] = THRESHOLD_PROB, THRESHOLD_BELOW
-    y[:, r, c, 0] = bf16_round(1.0 - y[:, r, c, 1])
+    y[0, r, c, 1], y[1, r, c, 1] = at, below
+    y[:, r, c, 0] = rnd(1.0 - y[:, r, c, 1])
     return y, image, (r, c)
 
 
