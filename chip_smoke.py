@@ -80,6 +80,21 @@ to 0 before it and read after it, and then the training paths:
                its device time in turns with
                the plain version at `kernel_bench.CORNER_SHAPES`, beside
                its bound (the larger of its bytes and its FP32 FMAs)
+  phase 1g     the small floats (`csrc/small_float.cu`: the epilogue
+               and the direct casts of the FCN in the nine formats of
+               `ops/small_float.py`) bit for bit their plain version in
+               every format and mode on every float16 pattern and seeded
+               float32 values with the formats' edges, and at the main
+               path's shapes (float8_e4m3fn, 64 x 32 x 1801); each
+               layer's float16 convolution against its float32 one
+               rounded to float16; the asset's FCN in every format
+               against the f8 golden (tests/data/torch_port_golden_f8.npz,
+               feature codes and probabilities); `make_e2e_step` in
+               float8_e4m3fn at 64 x 32,768, `LidarPipeline` in it on
+               single frames, and the step in float8_e4m3fn and
+               float8_e5m2 on the golden's frames against JAX's; the
+               epilogue's device time in turns with its plain version and
+               torch's cast chain, beside its bound
   phases 4-5   the float32 direct path with the shipped detector asset
                (`LidarPipeline.predict_position`, `make_e2e_step`,
                batch 64 x 32,768-point beam scans)
@@ -356,6 +371,7 @@ GOLDEN_TRAIN = os.path.join(HERE, "tests", "data", "torch_port_golden_train.npz"
 GOLDEN_VIEWER = os.path.join(HERE, "tests", "data", "torch_port_golden_viewer.npz")
 GOLDEN_TALL = os.path.join(HERE, "tests", "data", "torch_port_golden_tall.npz")
 GOLDEN_F16 = os.path.join(HERE, "tests", "data", "torch_port_golden_f16.npz")
+GOLDEN_F8 = os.path.join(HERE, "tests", "data", "torch_port_golden_f8.npz")
 GOLDEN_BENCH = os.path.join(HERE, "tests", "data", "torch_port_golden_bench.npz")
 GOLDEN_PACKED = os.path.join(HERE, "tests", "data", "torch_port_golden_packed.npz")
 GOLDEN_BF16 = os.path.join(HERE, "tests", "data", "torch_port_golden_bf16.npz")
@@ -401,7 +417,7 @@ MEASURE_CALLS = 1 + 6 * 3 + 1 + 6
 # `expect` names those it must launch
 KERNELS = ("project_points", "project_2d", "nearest_wins_image", "connected_components_with_bbox",
            "nearest_wins_packed_image", "encode_label", "encode_direct_label", "decode_direct",
-           "corner_vote")
+           "corner_vote", "small_float")
 SERVING = ("project_points", "nearest_wins_image", "connected_components_with_bbox")
 RANGE_VIEW = SERVING[:2]  # a path that projects points and decodes nothing
 CC_ONLY = SERVING[2:]  # a decode of a view or a mask it is given
@@ -428,15 +444,31 @@ def log(msg: str) -> None:
 
 
 def _reset_launches() -> None:
-    from tpufusion_torch.ops import cc, corner_vote, decode_direct, label_encode, pixels, projection
+    from tpufusion_torch.ops import (
+        cc,
+        corner_vote,
+        decode_direct,
+        label_encode,
+        pixels,
+        projection,
+        small_float,
+    )
 
     pixels.LAUNCHES = pixels.LAUNCHES_2D = projection.LAUNCHES = cc.LAUNCHES = 0
     projection.PACKED_LAUNCHES = label_encode.LAUNCHES = label_encode.LAUNCHES_DIRECT = 0
-    decode_direct.LAUNCHES = corner_vote.LAUNCHES = 0
+    decode_direct.LAUNCHES = corner_vote.LAUNCHES = small_float.LAUNCHES = 0
 
 
 def _launches() -> dict[str, int]:
-    from tpufusion_torch.ops import cc, corner_vote, decode_direct, label_encode, pixels, projection
+    from tpufusion_torch.ops import (
+        cc,
+        corner_vote,
+        decode_direct,
+        label_encode,
+        pixels,
+        projection,
+        small_float,
+    )
 
     return {"project_points": pixels.LAUNCHES, "project_2d": pixels.LAUNCHES_2D,
             "nearest_wins_image": projection.LAUNCHES,
@@ -444,7 +476,8 @@ def _launches() -> dict[str, int]:
             "nearest_wins_packed_image": projection.PACKED_LAUNCHES,
             "encode_label": label_encode.LAUNCHES,
             "encode_direct_label": label_encode.LAUNCHES_DIRECT,
-            "decode_direct": decode_direct.LAUNCHES, "corner_vote": corner_vote.LAUNCHES}
+            "decode_direct": decode_direct.LAUNCHES, "corner_vote": corner_vote.LAUNCHES,
+            "small_float": small_float.LAUNCHES}
 
 
 def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
@@ -471,6 +504,8 @@ def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
         f"{label} launched the direct decode kernel")
     assert counts["corner_vote"] == 0 or "corner_vote" in expect, (
         f"{label} launched the corner vote kernel")
+    assert counts["small_float"] == 0 or "small_float" in expect, (
+        f"{label} launched the small-float kernel")
     assert counts["project_points"] == (
         counts["nearest_wins_image"] + counts["nearest_wins_packed_image"]), (
         f"{label}: a range view without the pixel kernel")
@@ -1180,6 +1215,233 @@ def phase_corner_vote(dev, gm) -> tuple[float, dict, dict]:
             f"in its check {r['undecided_lanes']} / {r['sensitive_lanes']}")
     log(f"  phase 1f took {time.perf_counter() - t0:.1f} s")
     return err, times, lanes
+
+
+def phase_small_float(dev, spec, gm, scans) -> tuple[dict, dict]:
+    """Phase 1g: the small floats (`csrc/small_float.cu`, both modes)
+    against the plain version (`ops/small_float.py`, run on the CPU) bit
+    for bit in every format: every float16 pattern and seeded float32
+    values with the formats' edges (`parity_inputs.small_float_inputs`),
+    the direct casts into each output, the epilogue with and without
+    relu, float32 and float16 in; then on
+    the card at the main path's shapes (the asset in float8_e4m3fn at 64 x
+    32 x 1801: the input cast, each kernel's cast and each layer's
+    epilogue, the plain version on the card); the float32 against the
+    float16 convolution (`fcn.SMALL_FLOAT_CONV`'s choice): each layer's
+    raw output on the same inputs, float16 against float32's rounded to
+    float16, and after the epilogue; the asset's FCN in every format
+    against the f8 golden (`tests/data/torch_port_golden_f8.npz`), at
+    least F8_FEATURES_SAME of the feature codes JAX's in each; `make_e2e_step`
+    in float8_e4m3fn at 64 x 32,768 through `drive`, `LidarPipeline` in it
+    on REQUESTS single frames against the step's answers, and the step in
+    each of F8_E2E_FORMATS on the golden's frames (found equal, poses
+    within POSE_TOL); the epilogue's device
+    time in turns with its plain version and torch's cast chain
+    (`kernel_bench.small_float_rows`). Returns (its readings, the driven
+    launches)."""
+    from tpufusion_torch._golden import (
+        F8_E2E_FORMATS,
+        F8_E2E_K,
+        F8_FEATURES_SAME,
+        F8_FRAMES,
+        load_npz,
+        small_float_readings,
+        small_float_sample,
+        wrapped_pose_diff,
+    )
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.kernel_bench import small_float_layers, small_float_rows
+    from tpufusion_torch.models import fcn
+    from tpufusion_torch.ops import parity_inputs
+    from tpufusion_torch.ops import small_float as sf
+    from tpufusion_torch.predict import make_e2e_step
+
+    t0 = time.perf_counter()
+    log("phase 1g small floats (tf_small_float_epilogue, tf_small_float_cast) against their "
+        "plain version")
+    out: dict = {"err": 0.0}
+    patterns, values = parity_inputs.small_float_inputs(seed=23)
+    f16 = torch.from_numpy(patterns.view(np.float16))
+    sets = {"every float16 pattern": f16, "every float16 pattern as float32": f16.float(),
+            "float32 values": torch.from_numpy(values)}
+    brng = np.random.default_rng(5)
+    biases = {"edge biases": torch.tensor([0.0, -0.0, float("inf"), float("nan"), 448.0, 1e-3,
+                                           -2.5, 3.4e38]),
+              "seeded biases": torch.from_numpy(brng.normal(0, 1, 8).astype(np.float32))}
+    n_checks = n_elems = 0
+
+    def held(label, got, want):
+        nonlocal n_checks, n_elems
+        got = got.cpu()
+        if not sf.same_bits(got, want):
+            ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[want.element_size()]
+            g, w = got.reshape(-1).view(ints), want.reshape(-1).view(ints)
+            bad = torch.nonzero(g != w).reshape(-1)
+            log(f"  {label}: {bad.numel()} of {w.numel()} differ, first at "
+                f"{bad[:8].tolist()}: kernel {g[bad[:8]].tolist()}, plain {w[bad[:8]].tolist()}")
+            raise AssertionError(f"small_float differs from its plain version ({label})")
+        n_checks += 1
+        n_elems += want.numel()
+
+    for fmt in sf.FORMATS.values():
+        outs = (torch.float32, torch.uint8) + ((torch.float16,) if fmt.via_f16 else ())
+        for label, x in sets.items():
+            xd = x.to(dev)
+            for o in outs:
+                held(f"{fmt.name} cast, {label}, {o}", sf.cast(xd, fmt, o),
+                     sf.cast_reference(x, fmt, o))
+            y = x[: x.numel() // 16 * 16].view(2, 8, -1, 1)
+            yd = y.to(dev)
+            for blabel, b in biases.items():
+                for relu in (False, True):
+                    for o in outs[:1] + outs[2:]:
+                        held(f"{fmt.name} epilogue, {label}, {blabel}, relu {relu}, {o}",
+                             sf.conv_epilogue(yd, b.to(dev), fmt, relu, out=o),
+                             sf.conv_epilogue_reference(y, b, fmt, relu, out=o))
+    log(f"  every format and mode against the plain version on the CPU: {n_checks} checks, "
+        f"{n_elems} elements, bit for bit")
+
+    # the main path's shapes: the asset in float8_e4m3fn at 64 frames
+    model, dcfg = asset_fcn(ASSET, "float8_e4m3fn", dev)
+    fmt = model.fmt
+    p, v = (torch.from_numpy(a).to(dev) for a in scans)
+    raw_inputs = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: raw_inputs.append((m, a[0])))
+             for m in model.modules() if isinstance(m, fcn._Layer)]
+    with torch.inference_mode():
+        images = range_view_project_batch(p, spec, v)
+    x, layers = small_float_layers(model, images)
+    for h in hooks:
+        h.remove()
+    with torch.inference_mode():
+        assert sf.same_bits(sf.cast(x, fmt, out=model.act_dtype),
+                            sf.cast_reference(x, fmt, out=model.act_dtype)), (
+            "the input cast differs from its plain version")
+        for m in model.modules():
+            if isinstance(m, fcn._Layer):
+                k = m.kernel.detach()
+                assert sf.same_bits(sf.cast(k, fmt, out=model.act_dtype),
+                                    sf.cast_reference(k, fmt, out=model.act_dtype)), (
+                    "a kernel's cast differs from its plain version")
+        elems = 0
+        for i, (y, b, relu) in enumerate(layers):
+            got = sf.conv_epilogue(y, b, fmt, relu, out=model.act_dtype)
+            want = sf.conv_epilogue_reference(y, b, fmt, relu, out=model.act_dtype)
+            assert sf.same_bits(got, want), f"the epilogue of layer {i} differs from plain"
+            elems += y.numel()
+    log(f"  at the main path's shapes ({fmt.name}, {BATCH} x 32 x 1801): the input cast "
+        f"{tuple(x.shape)}, the 8 kernels' casts and the 8 epilogues ({elems} elements) bit for "
+        f"bit the plain version on the card")
+    out["epilogue_elements"] = elems
+
+    # float32 against float16 convolutions on the same layer inputs
+    diff16 = diff_fmt = total = 0
+    per_layer = []
+    with torch.inference_mode():
+        for (m, xin), (_, b, relu) in zip(raw_inputs, layers):
+            y32 = m.raw(xin.float())
+            y16 = m.raw(xin.half())
+            d = int((y16.view(torch.int16) != y32.half().view(torch.int16)).sum())
+            e32 = sf.conv_epilogue(y32, b, fmt, relu, out=torch.float32)
+            e16 = sf.conv_epilogue(y16, b, fmt, relu, out=torch.float32)
+            df = int((e16.view(torch.int32) != e32.view(torch.int32)).sum())
+            diff16, diff_fmt, total = diff16 + d, diff_fmt + df, total + y32.numel()
+            per_layer.append(d)
+    out.update(conv16_raw_differ=diff16, conv16_fmt_differ=diff_fmt, conv_outputs=total)
+    log(f"  float16 convolutions (float32 accumulation) against float32's rounded to "
+        f"float16, the same inputs: {diff16} of {total} raw outputs differ (by layer "
+        f"{per_layer}); after the epilogue {diff_fmt} differ; SMALL_FLOAT_CONV is "
+        f"{fcn.SMALL_FLOAT_CONV}")
+
+    # the asset's FCN in every format against the f8 golden
+    g8 = load_npz(GOLDEN_F8)
+    with torch.inference_mode():
+        gimages = range_view_project_batch(
+            torch.from_numpy(gm["multi_points"][:F8_FRAMES]).to(dev), spec,
+            torch.from_numpy(gm["multi_valid"][:F8_FRAMES]).to(dev))
+    for name, f in sf.FORMATS.items():
+        m, _ = asset_fcn(ASSET, name, dev)
+        with torch.inference_mode():
+            y = m(gimages)
+            feats = m.features(gimages)
+            codes = feats.view(torch.uint8) if feats.element_size() == 1 else sf.cast(
+                feats, f, out=torch.uint8)
+        same, dp, nan_ok = small_float_readings(
+            *small_float_sample(codes.cpu().numpy(), y.cpu().numpy()),
+            g8[f"{name}_features"], g8[f"{name}_prob"])
+        log(f"  {name} FCN vs JAX's ({F8_FRAMES} golden frames, every 17th pixel): feature "
+            f"codes equal {same:.4%} (at least {F8_FEATURES_SAME:.0%}), largest probability "
+            f"difference {dp:.3e}, NaN probabilities where JAX's: {nan_ok}, features "
+            f"{feats.dtype}")
+        out[f"{name}_features_same"], out[f"{name}_prob_diff"] = same, dp
+        if same < 1.0:
+            got_c = small_float_sample(codes.cpu().numpy(), y.cpu().numpy())[0]
+            want_c = g8[f"{name}_features"]
+            pairs, counts = np.unique(np.stack([want_c[got_c != want_c],
+                                                got_c[got_c != want_c]], 1), axis=0,
+                                      return_counts=True)
+            top = np.argsort(-counts)[:4]
+            log(f"    the differing codes, JAX's -> the card's: " + ", ".join(
+                f"{pairs[i][0]:#04x} -> {pairs[i][1]:#04x} x{counts[i]}" for i in top))
+        assert same >= F8_FEATURES_SAME and nan_ok, f"the {name} FCN differs from JAX's"
+
+    # the main path in float8_e4m3fn, and the golden's steps
+    driven = dict.fromkeys(KERNELS, 0)
+    step = make_e2e_step(model, spec, dcfg, head="direct", device=dev)
+    f32, _ = asset_fcn(ASSET, "float32", dev)
+    (poses, found), _ = drive(f"make_e2e_step with the asset's FCN in {fmt.name}, "
+                              f"{BATCH} x {N_POINTS}", lambda: step(p, v), driven,
+                              expect=DIRECT + ("small_float",))
+    found32 = make_e2e_step(f32, spec, dcfg, head="direct", device=dev)(p, v)[1]
+    assert bool(torch.isfinite(poses).all()) and found.shape == (BATCH,)
+    agree = float((found == found32).float().mean())
+    log(f"  found {int(found.sum())}/{BATCH} ({fmt.name}) vs {int(found32.sum())}/{BATCH} "
+        f"(float32), the same frame by frame on {agree:.1%}")
+    assert found.float().mean() >= 0.9, f"the {fmt.name} step misses"
+    from tpufusion_torch.config import DEFAULT
+    from tpufusion_torch.serve.pipeline import LidarPipeline
+
+    pipe = LidarPipeline(cfg=DEFAULT.replace(model=model.cfg, decode=dcfg), model=model,
+                         max_points=N_POINTS, device=dev)
+    frames = [scans[0][i][scans[1][i]] for i in range(REQUESTS)]
+    answers, _ = drive(f"LidarPipeline in {fmt.name}, {REQUESTS} requests",
+                       lambda: [pipe.predict_position(f) for f in frames], driven,
+                       expect=DIRECT + ("small_float",))
+    req = np.stack([a[0] for a in answers])
+    req_found = np.array([a[1] for a in answers])
+    assert np.array_equal(req_found, found[:REQUESTS].cpu().numpy())
+    req_diff = float(wrapped_pose_diff(req, poses[:REQUESTS].cpu().numpy())[req_found].max())
+    log(f"  LidarPipeline ({fmt.name}, {REQUESTS} requests) against the step's lanes: found "
+        f"equal, largest pose difference {req_diff:.3e}")
+    assert req_diff < POSE_TOL, "the server's answers differ from the step's"
+    for name in F8_E2E_FORMATS:
+        m, _ = asset_fcn(ASSET, name, dev)
+        gstep = make_e2e_step(m, spec, dcfg, max_obstacles=F8_E2E_K, head="direct", device=dev)
+        (gp, gf), _ = drive(f"make_e2e_step in {name}, the golden's frames, k {F8_E2E_K}",
+                            lambda: gstep(gm["multi_points"], gm["multi_valid"]), driven,
+                            expect=DIRECT + ("small_float",))
+        want_found = g8[f"e2e_{name}_found"]
+        diff = float(wrapped_pose_diff(gp.cpu().numpy(), g8[f"e2e_{name}_poses"])[
+            want_found].max())
+        log(f"  {name} step vs JAX's: found {gf.cpu().numpy().astype(int).tolist()} vs "
+            f"{want_found.astype(int).tolist()}, largest pose difference {diff:.3e} "
+            f"(tolerance {POSE_TOL})")
+        assert np.array_equal(gf.cpu().numpy(), want_found), f"{name}: found differs from JAX"
+        assert diff < POSE_TOL, f"{name}: poses differ from JAX's"
+        out["pose_diff"] = max(out.get("pose_diff", 0.0), diff)
+
+    row = small_float_rows(4, BATCH)[0]
+    out["row"] = row
+    log(f"  the epilogue at {row['shape']} ({row['elements']} elements a forward): kernel "
+        f"{row['new_device_ms']:.4f} ({row['new_call_ms']:.4f}) ms, plain "
+        f"{row['plain_device_ms']:.4f} ({row['plain_call_ms']:.4f}) ms, torch's cast chain "
+        f"{row.get('yardstick_device_ms', float('nan')):.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"by bytes; kernel at {row['bound_ms'] / row['new_device_ms']:.1%} of it; the input "
+        f"cast {row['input_cast_shape']} {row['cast_device_ms']:.4f} ms (plain "
+        f"{row['cast_plain_device_ms']:.4f}), bound {row['input_cast_bound_ms']:.4f} ms; the "
+        f"wrapper's host time {row['wrapper_host_us']:.1f} us a call")
+    log(f"  phase 1g took {time.perf_counter() - t0:.1f} s")
+    return out, driven
 
 
 def check_zbuffer(label: str, points, valid, spec) -> None:
@@ -3694,6 +3956,8 @@ def main(argv=()) -> int:
     dir_err, dir_times = phase_direct_encode(dev, (scan_pts, scan_gt, scan_valid))  # phase 1d
     dec_err, dec_times, dec_near, dec_driven = phase_decode_direct(dev)  # phase 1e
     cv_err, cv_times, cv_lanes = phase_corner_vote(dev, load_npz(GOLDEN_MULTI))  # phase 1f
+    sfr, sf_driven = phase_small_float(dev, spec, load_npz(GOLDEN_MULTI),
+                                       (scan_pts, scan_valid))  # phase 1g
     proj_err = 0.0
     for label, p, v in (("proj_check 4x8192", pts, valid),
                         (f"beam scans {BATCH}x{N_POINTS}", scan_pts, scan_valid)):
@@ -3880,6 +4144,8 @@ def main(argv=()) -> int:
     totals = dict(launches)  # launches over every path the script drives
     for k, n in dec_driven.items():  # phase 1e's bf16 decodes
         totals[k] += n
+    for k, n in sf_driven.items():  # phase 1g's small-float steps
+        totals[k] += n
     g, gm = load_npz(GOLDEN), load_npz(GOLDEN_MULTI)
     models, adcfg = phase_bf16(dev, spec, g, gm)
     c5_step, seq_poses, seq_found = phase_config5(dev, spec, gm, models, adcfg, totals)
@@ -3929,6 +4195,7 @@ def main(argv=()) -> int:
     assert totals["encode_direct_label"] > 0, "no path launched the direct label-encode kernel"
     assert totals["decode_direct"] > 0, "no path launched the direct decode kernel"
     assert totals["corner_vote"] > 0, "no path launched the corner vote kernel"
+    assert totals["small_float"] > 0, "no path launched the small-float kernel"
     assert totals["project_points"] == (
         totals["nearest_wins_image"] + totals["nearest_wins_packed_image"]), (
         "a driven range view without the pixel kernel")
@@ -4028,6 +4295,23 @@ def main(argv=()) -> int:
          "driven_lanes_voted": cv_lanes["voted"], "driven_lanes_undecided": cv_lanes["undecided"],
          "driven_lanes_pose_sensitive": cv_lanes["sensitive"],
          "adversarial_lanes_undecided": cv_lanes["adversarial_undecided"]},
+        {"name": "small_float", "route": "cuda",
+         "source": "tpufusion_torch/csrc/small_float.cu",
+         "replaces": "tpufusion/models/fcn.py:100",
+         "launches": totals["small_float"], "max_abs_err": sfr["err"],
+         "ms": sfr["row"]["new_device_ms"], "plain_ms": sfr["row"]["plain_device_ms"],
+         "bound_ms": sfr["row"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "call_ms": sfr["row"]["new_call_ms"], "plain_call_ms": sfr["row"]["plain_call_ms"],
+         "yardstick_ms": sfr["row"].get("yardstick_device_ms"),
+         "input_cast_ms": sfr["row"]["cast_device_ms"],
+         "input_cast_plain_ms": sfr["row"]["cast_plain_device_ms"],
+         "input_cast_bound_ms": sfr["row"]["input_cast_bound_ms"],
+         "wrapper_host_us": sfr["row"]["wrapper_host_us"],
+         "epilogue_elements": sfr["row"]["elements"],
+         "conv16_raw_differ": sfr["conv16_raw_differ"],
+         "conv16_fmt_differ": sfr["conv16_fmt_differ"], "conv_outputs": sfr["conv_outputs"],
+         **{k: v for k, v in sfr.items() if k.endswith(("_features_same", "_prob_diff"))},
+         "golden_pose_diff": sfr["pose_diff"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

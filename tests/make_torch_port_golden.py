@@ -135,6 +135,17 @@ tests/data/torch_port_golden_f16.npz: the float16 configuration
   e2e_{poses,found}  JAX make_e2e_step(head="direct", max_obstacles=
                 F16_E2E_K) with the shipped asset in float16 on those frames
 
+tests/data/torch_port_golden_f8.npz: the small-float configurations
+(tpufusion_torch/_golden.py names the frames and the formats).
+  <format>_features  the asset's JAX FCN features in each of the nine
+                formats of ops/small_float.py on the multi golden's first
+                two two-vehicle frames, as the format's codes (uint8),
+                at every 17th pixel
+  <format>_prob the foreground probability at the same pixels
+  e2e_<format>_{poses,found}  JAX make_e2e_step(head="direct",
+                max_obstacles=F8_E2E_K) with the shipped asset in
+                float8_e4m3fn and in float8_e5m2 on the three frames
+
 tests/test_torch_e2e.py, tests/test_torch_multi.py,
 tests/test_torch_fusion.py, tests/test_torch_train.py,
 tests/test_torch_viewer.py, tests/test_torch_tall_views.py,
@@ -142,10 +153,11 @@ tests/test_torch_bench.py and tests/test_torch_projection_methods.py
 recompute them (the train golden's fusion steps excepted: 8 full-size
 camera frames backward) and fail when a file is stale.
 
-    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer | tall | bench | packed | bf16 | f16]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer | tall | bench | packed | bf16 | f16 | f8]
 
-With `train` (`viewer`, `tall`, `bench`, `packed`, `bf16`, `f16`) only the
-train (viewer, tall, bench, packed, bf16, f16) golden is rewritten.
+With `train` (`viewer`, `tall`, `bench`, `packed`, `bf16`, `f16`, `f8`)
+only the train (viewer, tall, bench, packed, bf16, f16, f8) golden is
+rewritten.
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 """
@@ -929,6 +941,53 @@ def write_f16_golden() -> None:
                       if k.endswith("_found")))
 
 
+def golden_f8_arrays() -> dict[str, np.ndarray]:
+    """The small-float golden: JAX's FCN sample in each format on the
+    multi golden's first two frames, and JAX's e2e step in
+    F8_E2E_FORMATS on its three."""
+    import jax.numpy as jnp
+
+    from tests.torch_golden import (
+        GOLDEN_MULTI,
+        asset_configs,
+        jax_apply,
+        jax_asset_model,
+        jax_forward,
+        jax_step,
+    )
+    from tpufusion.config import RangeViewSpec
+    from tpufusion.geometry.range_view import range_view_project_batch
+    from tpufusion_torch._golden import F8_E2E_FORMATS, F8_E2E_K, F8_FRAMES, small_float_sample
+    from tpufusion_torch.ops.small_float import FORMATS
+
+    with np.load(GOLDEN_MULTI) as z:
+        points, valid = z["multi_points"], z["multi_valid"]
+    images = np.asarray(range_view_project_batch(
+        jnp.asarray(points[:F8_FRAMES]), RangeViewSpec(), jnp.asarray(valid[:F8_FRAMES])))
+    out = {}
+    for name in FORMATS:
+        model = jax_asset_model(dtype=name)
+        features = np.asarray(jax_apply(model, lambda m, x: m.features(x), images))
+        codes, prob = small_float_sample(features.view(np.uint8), jax_forward(model, images))
+        out[f"{name}_features"], out[f"{name}_prob"] = codes, prob
+    for name in F8_E2E_FORMATS:
+        poses, found = jax_step(jax_asset_model(dtype=name), asset_configs()[1], points, valid,
+                                k=F8_E2E_K)
+        out[f"e2e_{name}_poses"] = np.asarray(poses, np.float32)
+        out[f"e2e_{name}_found"] = np.asarray(found, bool)
+    return out
+
+
+def write_f8_golden() -> None:
+    from tests.torch_golden import GOLDEN_F8
+
+    arrays = golden_f8_arrays()
+    np.savez_compressed(GOLDEN_F8, **arrays)
+    print(f"wrote {GOLDEN_F8} ({os.path.getsize(GOLDEN_F8)} bytes): found "
+          + ", ".join(f"{k[:-6]} {arrays[k].astype(int).tolist()}" for k in sorted(arrays)
+                      if k.endswith("_found")))
+
+
 def main() -> None:
     import jax
 
@@ -956,6 +1015,9 @@ def main() -> None:
     if sys.argv[1:] == ["f16"]:
         write_f16_golden()
         return
+    if sys.argv[1:] == ["f8"]:
+        write_f8_golden()
+        return
 
     arrays = golden_arrays()
     if not arrays["found"].all():
@@ -982,6 +1044,7 @@ def main() -> None:
     write_packed_golden()
     write_bf16_golden()
     write_f16_golden()
+    write_f8_golden()
 
 
 if __name__ == "__main__":

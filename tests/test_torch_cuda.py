@@ -1857,3 +1857,149 @@ def test_corner_vote_kernel_rejects_bad_inputs(cuda_device):
     pose, box, ok, over = run(y.to(torch.bfloat16), images, bbox, c3, lanes, SPEC,
                               DecodeConfig())  # converted to float32, as the plain version reads it
     assert corner_vote.LAUNCHES == before + 1 and bool(ok.any())
+
+
+GOLDEN_F8 = os.path.join(_REPO, "tests", "data", "torch_port_golden_f8.npz")
+
+
+def _small_float_sets():
+    from tpufusion_torch.ops import small_float as sf
+
+    patterns, values = parity_inputs.small_float_inputs(seed=23)
+    halves = torch.from_numpy(patterns.view(np.float16))
+    return sf, {"float16 patterns": halves, "float16 patterns as float32": halves.float(),
+                "float32 values": torch.from_numpy(values)}
+
+
+@pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "float8_e3m4", "float8_e4m3",
+                                  "float8_e4m3fnuz", "float8_e5m2fnuz", "float8_e4m3b11fnuz",
+                                  "float8_e8m0fnu", "float4_e2m1fn"])
+def test_small_float_kernel_matches_its_plain_version(cuda_device, name):
+    """Both modes of csrc/small_float.cu against the plain version run on
+    the CPU, bit for bit (a NaN's sign included): the direct cast into
+    float32, the carrier and the codes, and
+    the epilogue with and without relu on edge and seeded biases, on every
+    float16 pattern and on float32 values with the formats' edges; one
+    launch a call."""
+    sf, sets = _small_float_sets()
+    fmt = sf.FORMATS[name]
+    outs = (torch.float32, torch.uint8) + ((torch.float16,) if fmt.via_f16 else ())
+    biases = [torch.tensor([0.0, -0.0, float("inf"), float("nan"), 448.0, 1e-3, -2.5, 3.4e38]),
+              torch.from_numpy(np.random.default_rng(5).normal(0, 1, 8).astype(np.float32))]
+    for label, x in sets.items():
+        for out in outs:
+            before = sf.LAUNCHES
+            got = sf.cast(x.to(cuda_device), fmt, out)
+            assert sf.LAUNCHES == before + 1
+            assert sf.same_bits(got.cpu(), sf.cast_reference(x, fmt, out)), (label, out)
+        y = x[: x.numel() // 16 * 16].view(2, 8, -1, 1)
+        for b in biases:
+            for relu in (False, True):
+                for out in outs[:1] + outs[2:]:
+                    got = sf.conv_epilogue(y.to(cuda_device), b.to(cuda_device), fmt, relu,
+                                           out=out)
+                    want = sf.conv_epilogue_reference(y, b, fmt, relu, out=out)
+                    assert sf.same_bits(got.cpu(), want), (label, relu, out)
+
+
+def test_small_float_fcn_matches_the_f8_golden_and_its_float32_convolutions(cuda_device):
+    """The asset's FCN in float8_e4m3fn on the f8 golden's frames: at least
+    F8_FEATURES_SAME of the sampled feature codes JAX's and the
+    probabilities within 1e-6; every epilogue at those shapes equal to the
+    plain version on the card; float16 convolutions (fcn.SMALL_FLOAT_CONV)
+    equal to float32 ones rounded to float16, layer by layer."""
+    from tpufusion_torch._golden import (
+        F8_FEATURES_SAME,
+        F8_FRAMES,
+        small_float_readings,
+        small_float_sample,
+    )
+    from tpufusion_torch.kernel_bench import recorded_epilogues
+    from tpufusion_torch.models import fcn
+    from tpufusion_torch.ops import small_float as sf
+
+    gm, g8 = load_npz(GOLDEN_MULTI), load_npz(GOLDEN_F8)
+    mcfg, _ = asset_configs(ASSET)
+    model = FCN(dataclasses.replace(mcfg, dtype="float8_e4m3fn"))
+    load_state_npz(ASSET, model)
+    model = model.to(cuda_device).eval()
+    inputs, layers = [], []
+    hooks = [m.register_forward_pre_hook(lambda m, a: inputs.append((m, a[0])))
+             for m in model.modules() if isinstance(m, fcn._Layer)]
+    with torch.inference_mode(), recorded_epilogues(layers):
+        images = range_view_project_batch(
+            torch.from_numpy(gm["multi_points"][:F8_FRAMES]).to(cuda_device), SPEC,
+            torch.from_numpy(gm["multi_valid"][:F8_FRAMES]).to(cuda_device))
+        out = model(images)
+        codes = model.features(images).view(torch.uint8)
+    for h in hooks:
+        h.remove()
+    same, dp, nan_ok = small_float_readings(
+        *small_float_sample(codes.cpu().numpy(), out.cpu().numpy()),
+        g8["float8_e4m3fn_features"], g8["float8_e4m3fn_prob"])
+    assert same >= F8_FEATURES_SAME and dp <= 1e-6 and nan_ok, (same, dp)
+    with torch.inference_mode():
+        for (m, x), (y, b, relu) in zip(inputs, layers):
+            assert sf.same_bits(sf.conv_epilogue(y, b, model.fmt, relu, out=y.dtype),
+                                sf.conv_epilogue_reference(y, b, model.fmt, relu, out=y.dtype))
+            assert sf.same_bits(m.raw(x.half()), m.raw(x.float()).half())
+
+
+def test_small_float_e2e_step_launches_the_epilogue_a_layer(cuda_device):
+    """make_e2e_step with the asset in float8_e4m3fn: 17 small-float
+    launches its first step (the input, 8 kernels, 8 epilogues) and 9 a
+    step after it (the kernels' casts kept), found and poses as JAX's on
+    the f8 golden's frames (top-4)."""
+    from tpufusion_torch._golden import F8_E2E_K
+    from tpufusion_torch.ops import small_float as sf
+
+    gm, g8 = load_npz(GOLDEN_MULTI), load_npz(GOLDEN_F8)
+    mcfg, dcfg = asset_configs(ASSET)
+    model = FCN(dataclasses.replace(mcfg, dtype="float8_e4m3fn"))
+    load_state_npz(ASSET, model)
+    step = make_e2e_step(model, SPEC, dcfg, max_obstacles=F8_E2E_K, head="direct",
+                         device=cuda_device)
+    before = sf.LAUNCHES
+    step(gm["multi_points"], gm["multi_valid"])
+    assert sf.LAUNCHES == before + 17
+    poses, found = step(gm["multi_points"], gm["multi_valid"])
+    assert sf.LAUNCHES == before + 17 + 9
+    want = g8["e2e_float8_e4m3fn_found"]
+    np.testing.assert_array_equal(found.cpu().numpy(), want)
+    assert wrapped_pose_diff(poses.cpu().numpy(), g8["e2e_float8_e4m3fn_poses"])[want].max() \
+        < POSE_TOL
+
+
+def test_small_float_kernel_raises_when_the_build_fails(cuda_device, monkeypatch, tmp_path):
+    """No fallback: a library that cannot be built makes both wrappers raise."""
+    from tpufusion_torch import _build
+    from tpufusion_torch.ops import small_float as sf
+
+    def fail(_out):
+        raise RuntimeError("nvcc failed (test)")
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "library_path", lambda: str(tmp_path / "missing.so"))
+    monkeypatch.setattr(_build, "_compile", fail)
+    fmt = sf.FORMATS["float8_e4m3fn"]
+    y = torch.ones(1, 2, 3, 4, device=cuda_device)
+    before = sf.LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        sf.cast(y, fmt)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        sf.conv_epilogue(y, torch.zeros(2, device=cuda_device), fmt)
+    assert sf.LAUNCHES == before
+
+
+def test_small_float_kernel_rejects_bad_inputs(cuda_device):
+    from tpufusion_torch.ops import small_float as sf
+
+    fmt = sf.FORMATS["float8_e4m3fn"]
+    y = torch.ones(1, 2, 3, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or float16"):
+        sf.cast(y.double(), fmt)
+    with pytest.raises(ValueError, match="bias"):
+        sf.conv_epilogue(y, torch.zeros(3, device=cuda_device), fmt)
+    with pytest.raises(ValueError, match="cannot be written"):
+        sf.conv_epilogue(y, torch.zeros(2, device=cuda_device), sf.FORMATS["float8_e8m0fnu"],
+                         out=torch.float16)

@@ -209,15 +209,27 @@ def test_fcn_dtype_aliases_compute_as_jax_resolves_them():
 
 @pytest.mark.parametrize("name, match", [
     ("int8", "inexact"), ("bool", "inexact"), ("uint8", "inexact"),
-    ("float8_e4m3fn", "not ported"), ("complex64", "not ported")])
+    ("float6_e2m3fn", "inexact"), ("float6_e3m2fn", "inexact"),
+    ("float8_e4m3fn", None), ("float4_e2m1fn", None), ("complex64", None)])
 def test_fcn_dtype_names_jax_refuses_or_the_port_does_not_run(name, match):
     """A name that is no inexact dtype raises in both packages (JAX at its
-    first call); the float8 and complex names, which JAX runs, raise in
-    the port as not ported."""
-    with pytest.raises(ValueError, match=match):
-        FCN(dataclasses.replace(ModelConfig(), dtype=name))
+    first call), the float6 names among them; the float8, float4 and
+    complex names run in both (tests/test_torch_small_float.py holds their
+    outputs to JAX's)."""
     jax_cfg = to_jax_config(dataclasses.replace(ModelConfig(), dtype=name))
     jax_model = JaxFCN(jax_cfg, in_channels=3, rngs=nnx.Rngs(0))
+    x = np.zeros((1, 8, 61, 3), np.float32)
     if match == "inexact":
         with pytest.raises(ValueError, match="inexact"):
-            jax_model(jnp.zeros((1, 8, 61, 3), jnp.float32))
+            FCN(dataclasses.replace(ModelConfig(), dtype=name))
+        with pytest.raises(ValueError, match="inexact"):
+            jax_model(jnp.asarray(x))
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)  # complex -> float32, as JAX warns
+        port = FCN(dataclasses.replace(ModelConfig(), dtype=name), seed=0).eval()
+        with torch.inference_mode():
+            got = port(torch.from_numpy(x))
+        want = jax_model(jnp.asarray(x))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert np.isfinite(got.numpy()).all()

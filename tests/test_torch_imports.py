@@ -41,18 +41,20 @@ def _port_sources():
     return sorted(files)
 
 
-_FORBIDDEN = ("tpufusion", "jax", "jaxlib", "flax", "optax", "orbax")
+_FORBIDDEN = ("tpufusion", "jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes")
 
 
 def _is_jax_package(module: str | None) -> bool:
-    """The JAX package, or JAX and the libraries its trainers are built on."""
+    """The JAX package, or JAX and the libraries its trainers are built on,
+    or ml_dtypes (JAX's small floats: the port keeps its own table of
+    them, `ops/small_float.py`, and the card's machine has no ml_dtypes)."""
     return module is not None and module.split(".")[0] in _FORBIDDEN
 
 
 def test_importing_every_port_module_loads_no_jax_package():
     """In a fresh interpreter, import every module of tpufusion_torch (the
-    training modules among them): neither tpufusion nor jax, flax, optax
-    or orbax is loaded."""
+    training modules among them): neither tpufusion nor jax, flax, optax,
+    orbax or ml_dtypes is loaded."""
     code = textwrap.dedent(
         """
         import pkgutil, sys
@@ -61,7 +63,8 @@ def test_importing_every_port_module_loads_no_jax_package():
         for name in names:
             __import__(name)
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("tpufusion", "jax", "jaxlib", "flax", "optax", "orbax"))
+                     if m.split(".")[0] in ("tpufusion", "jax", "jaxlib", "flax", "optax", "orbax",
+                                            "ml_dtypes"))
         assert not bad, bad
         for name in ("train.trainer", "train.fusion_trainer", "train.optim", "train.checkpoint",
                      "train.train_step", "train.stats", "train.pr_curves", "data.pipeline",
@@ -107,7 +110,7 @@ def test_numpy_host_tools_import_without_torch():
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
 def test_port_source_never_imports_the_jax_package(path):
     """AST scan: no `import tpufusion...`, no `from tpufusion... import`,
-    none of jax, flax, optax or orbax either, and no importlib /
+    none of jax, flax, optax, orbax or ml_dtypes either, and no importlib /
     __import__ / exec loading of other files."""
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):

@@ -40,6 +40,7 @@ GOLDEN_BENCH = os.path.join(REPO, "tests", "data", "torch_port_golden_bench.npz"
 GOLDEN_PACKED = os.path.join(REPO, "tests", "data", "torch_port_golden_packed.npz")
 GOLDEN_BF16 = os.path.join(REPO, "tests", "data", "torch_port_golden_bf16.npz")
 GOLDEN_F16 = os.path.join(REPO, "tests", "data", "torch_port_golden_f16.npz")
+GOLDEN_F8 = os.path.join(REPO, "tests", "data", "torch_port_golden_f8.npz")
 FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
 GOLDEN_SEED = 11  # JAX PRNGKey of the golden frames
 

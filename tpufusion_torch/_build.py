@@ -135,6 +135,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tf_corner_vote.restype = i
     lib.tf_corner_vote_kernels.argtypes = []
     lib.tf_corner_vote_kernels.restype = ctypes.c_ulonglong
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.tf_small_float_epilogue.argtypes = [p, i, p, p, i, i, i, i, ip, i, i, p, i, p]
+    lib.tf_small_float_epilogue.restype = i
+    lib.tf_small_float_cast.argtypes = [p, i, p, i, ll, ip, p]
+    lib.tf_small_float_cast.restype = i
     lib.tf_error_string.argtypes = [i]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib

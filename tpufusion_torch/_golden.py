@@ -316,6 +316,48 @@ F16_REG_ATOL = 2.0**-6
 F16_REG_DIFFER_SHARE = 0.15
 
 
+# tests/data/torch_port_golden_f8.npz: the small-float configurations
+# (ops/small_float.py FORMATS, the names JAX's FCN runs in ml_dtypes'
+# formats). For each format, JAX's FCN with the shipped asset on the
+# multi golden's first F8_FRAMES two-vehicle frames, sampled at every
+# FCN_REG_STRIDE-th pixel (`small_float_sample`): its features' codes
+# ("<format>_features", uint8) and the foreground probability
+# ("<format>_prob"); and JAX make_e2e_step(head="direct", max_obstacles=
+# F8_E2E_K) with the asset in each of F8_E2E_FORMATS on the three frames
+# ("e2e_<format>_{poses,found}"). On the CPU the port equals every sample
+# code for code (a NaN's sign included) and every probability within
+# F8_PROB_ATOL (it reads 2.3e-10: the softmax's own order). On the card
+# cuDNN sums each convolution in another order than XLA, and a float32
+# sum a step apart can round to another float16 and then another code:
+# at least F8_FEATURES_SAME of the sampled codes must be JAX's there.
+F8_FRAMES = 2
+F8_E2E_K = 4
+F8_E2E_FORMATS = ("float8_e4m3fn", "float8_e5m2")
+F8_PROB_ATOL = 1e-7
+F8_FEATURES_SAME = 0.99
+
+
+def small_float_sample(features_codes: np.ndarray, out: np.ndarray):
+    """A small-float FCN's features as codes (B, H, W, 2) and its output
+    (B, H, W, 2 + reg) -> what the f8 golden keeps: (the codes at every
+    FCN_REG_STRIDE-th pixel (B, n, 2), the foreground probability there
+    (B, n))."""
+    b = out.shape[0]
+    codes = np.asarray(features_codes, np.uint8).reshape(b, -1, 2)[:, ::FCN_REG_STRIDE]
+    return codes, out[..., 1].reshape(b, -1)[:, ::FCN_REG_STRIDE]
+
+
+def small_float_readings(codes: np.ndarray, prob: np.ndarray, want_codes: np.ndarray,
+                         want_prob: np.ndarray) -> tuple[float, float, bool]:
+    """(share of the sampled feature codes equal to the golden's, largest
+    probability difference where both are finite, whether the NaN
+    probabilities sit where the golden's do)."""
+    nan, want_nan = np.isnan(prob), np.isnan(want_prob)
+    both = ~nan & ~want_nan
+    dp = float(np.abs(prob[both] - want_prob[both]).max()) if both.any() else 0.0
+    return float((codes == want_codes).mean()), dp, bool(np.array_equal(nan, want_nan))
+
+
 def fcn_sample_readings(out: np.ndarray, want_prob: np.ndarray, want_reg: np.ndarray):
     """The port's low-precision FCN output against a golden's sample of
     JAX's in the same dtype: (largest probability difference, largest

@@ -1,0 +1,408 @@
+// The small-float rounding of the FCN for Hopper (sm_90a): a
+// convolution's epilogue and the direct casts, in one pass each, bit for
+// bit their plain PyTorch versions
+// (tpufusion_torch/ops/small_float.py::conv_epilogue_reference and
+// round_small_float).
+//
+// Ports no TPU kernel. The JAX package leaves these roundings to XLA:
+// flax casts the input, kernel and bias to the format
+// (promote_dtype), and XLA's optimized HLO for a convolution in the
+// format rounds its float32 result to float16 and then to the format,
+// adds the bias in float16 and rounds the sum to the format, then applies
+// relu. Per element of y, a convolution's raw output (NCHW):
+//
+//   epilogue  r = fmt(h(y)); s = fmt(h(r + fmt(bias[c]))); relu?(s)
+//   cast      fmt(x), written as values or as the format's codes
+//
+// h is the float16 rounding where the format goes through float16
+// (every format but float8_e8m0fnu); relu(s) is max(s, fmt(0)) with NaN
+// propagating (fmt(0) is a NaN in float8_e8m0fnu, which has no zero), and
+// -0 gives +0. NaNs follow x86, whose rules XLA's CPU code (the
+// reference) computes by: a NaN of the convolution enters as the
+// default NaN (negative; cuDNN makes it positive), r + b returns r's
+// NaN, else b's, and inf - inf the default NaN; every other step keeps
+// a NaN's sign. The format's parameters arrive as a struct (`Fmt`, from
+// small_float.py's table): the kernels branch on its fields, never on a
+// name. fmt() is ml_dtypes' conversion, computed on float32's bits with
+// integer ops: round to nearest, ties to even on the significand
+// (float8_e8m0fnu's is its implicit bit alone, so its ties go up, and
+// float32 subnormals, whose implicit bit is 0, round down), subnormals
+// kept, NaN, infinity and overflow as the format says. Built without
+// -ftz or fast math, so subnormals survive.
+//
+// What bounds it on the H100: bytes. The epilogue reads y (float32 or
+// float16) and writes the values once (float32 or float16); at the
+// shipped asset's 64 x 32 x 1801 batch the eight convolutions' outputs
+// hold 92.5 M elements before the crops: float32 in and out is 740 MB,
+// 221 us at 3.35 TB/s; float16 in and out (the FCN's float16
+// convolutions), 370 MB, 110 us. The rounding is integer work, twice an
+// element: done element by element it is bound by the card's integer
+// rate (1.09 ms for those elements, 10 % of the byte bound). So a
+// float16 y, the main path's, goes through two tables instead
+// (epilogue_table_kernel): every float16 pattern's code (64 KB, built
+// once a format and device by table_kernel, staged into each CTA's shared
+// memory) and each code's output for the row's channel (computed by the
+// CTA when its row changes), eight elements a thread a step in 16-byte
+// loads and stores where a row's length allows (the FCN's 32 rows make it
+// a multiple of eight). A float32 y (float8_e8m0fnu, whose values
+// float16 cannot hold) takes the element-wise kernel: a CTA a (frame,
+// channel) row, its threads striding the row, kUnroll elements in flight.
+
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;
+constexpr int kTable = 1 << 16;  // float16 bit patterns
+constexpr int kChunk = 8192;  // elements of a row a CTA takes at a time
+constexpr int kTableSmem = kTable + 256 * 4;  // the code table and a row's values
+
+struct Fmt {
+  int ebits, mbits, bias, sign_bit, neg_zero, subnormals, max_code, has_nan,
+      nan_code, nan_signed, inf_code, overflow;  // overflow: 0 inf, 1 nan, 2 saturate
+};
+
+__device__ __forceinline__ uint32_t encode(float x, const Fmt& f) {
+  uint32_t bits = __float_as_uint(x);
+  bool neg = bits >> 31;
+  uint32_t a = bits & 0x7FFFFFFFu;
+  uint32_t sign = neg ? (uint32_t)f.sign_bit : 0u;
+  uint32_t nan_code = (uint32_t)f.nan_code ^ (f.nan_signed ? sign : 0u);
+  if (a > 0x7F800000u) return nan_code;
+  uint32_t over = f.overflow == 0 ? ((uint32_t)f.inf_code | sign)
+                  : f.overflow == 1 ? nan_code
+                                    : ((uint32_t)f.max_code | sign);
+  if (a == 0x7F800000u) return over;
+  if (f.sign_bit == 0 && (neg || a == 0)) return nan_code;  // no negatives, no zero
+  uint32_t code = 0;
+  if (a != 0 && f.subnormals) {
+    int e;
+    uint32_t m24;  // the significand in [2^23, 2^24), x = m24 2^(e - 23)
+    if (a >= 0x800000u) {
+      e = (int)(a >> 23) - 127;
+      m24 = (a & 0x7FFFFFu) | 0x800000u;
+    } else {
+      int lz = __clz(a) - 8;
+      m24 = a << lz;
+      e = -126 - lz;
+    }
+    int emin = 1 - f.bias;
+    int t = max(e, emin);  // the exponent the result is quantised at
+    int shift = min(23 - f.mbits + t - e, 30);
+    uint32_t odd = (m24 >> shift) & 1u;
+    uint32_t q = (m24 + (1u << (shift - 1)) - 1u + odd) >> shift;
+    code = ((uint32_t)(t - emin) << f.mbits) + q;
+  } else if (a != 0) {  // float32's exponent field
+    int shift = 23 - f.mbits;
+    uint32_t lsb = ((a | (a >= 0x800000u ? 0x800000u : 0u)) >> shift) & 1u;
+    code = (a + (1u << (shift - 1)) - 1u + lsb) >> shift;
+  }
+  if (code > (uint32_t)f.max_code) return over;
+  if (f.sign_bit == 0) return code;
+  return (code == 0 && !f.neg_zero) ? 0u : (code | sign);
+}
+
+__device__ __forceinline__ float nan_of(bool neg) {
+  return __uint_as_float(neg ? 0xFFC00000u : 0x7FC00000u);
+}
+
+__device__ __forceinline__ float decode(uint32_t c, const Fmt& f) {
+  uint32_t sb = (uint32_t)f.sign_bit;
+  uint32_t mag = c & ~sb;
+  bool neg = (c & sb) != 0;
+  if (f.has_nan && ((mag > (uint32_t)f.max_code && (int)mag != f.inf_code) ||
+                    (int)c == f.nan_code))
+    return nan_of(f.nan_signed && neg);
+  uint32_t bits;
+  if ((int)mag == f.inf_code) {
+    bits = 0x7F800000u;
+  } else {
+    uint32_t field = mag >> f.mbits, m = mag & ((1u << f.mbits) - 1u);
+    if (field == 0 && f.subnormals) {  // m 2^(1 - bias - mbits), exact
+      bits = __float_as_uint((float)m * __uint_as_float((uint32_t)(128 - f.bias - f.mbits) << 23));
+    } else {
+      int fe = (int)field - f.bias + 127;
+      uint32_t sig = 0x800000u | (m << (23 - f.mbits));
+      bits = fe >= 1 ? (((uint32_t)fe << 23) | (sig & 0x7FFFFFu)) : (sig >> (1 - fe));
+    }
+  }
+  return __uint_as_float(bits | (neg ? 0x80000000u : 0u));
+}
+
+// float16 rounding, NaN passed through with its sign
+__device__ __forceinline__ float h16(float x) {
+  return isnan(x) ? x : __half2float(__float2half_rn(x));
+}
+
+__device__ __forceinline__ float load(const float* p, int64_t i) { return __ldg(p + i); }
+__device__ __forceinline__ float load(const __half* p, int64_t i) {
+  unsigned short b = __half_as_ushort(p[i]);  // a NaN: a quiet NaN of its sign
+  if ((b & 0x7FFFu) > 0x7C00u) return nan_of(b & 0x8000u);
+  return __half2float(p[i]);
+}
+
+__device__ __forceinline__ void store(float* p, int64_t i, float v, uint32_t) { p[i] = v; }
+__device__ __forceinline__ void store(__half* p, int64_t i, float v, uint32_t) {
+  p[i] = isnan(v) ? __ushort_as_half((unsigned short)(signbit(v) ? 0xFE00u : 0x7E00u))
+                  : __float2half_rn(v);  // exact: the value is the format's
+}
+__device__ __forceinline__ void store(uint8_t* p, int64_t i, float, uint32_t code) {
+  p[i] = (uint8_t)code;
+}
+
+// eight values to 16-byte aligned outputs
+__device__ __forceinline__ void store8(float* p, int64_t i, const float* v) {
+  ((float4*)(p + i))[0] = make_float4(v[0], v[1], v[2], v[3]);
+  ((float4*)(p + i))[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__half* p, int64_t i, const float* v) {
+  uint4 w;
+  unsigned short* h = (unsigned short*)&w;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    __half x;
+    store(&x, 0, v[e], 0u);
+    h[e] = __half_as_ushort(x);
+  }
+  *(uint4*)(p + i) = w;
+}
+
+__device__ __forceinline__ float round_fmt(float x, const Fmt& f, bool via) {
+  return decode(encode(via ? h16(x) : x, f), f);
+}
+
+template <typename In, typename Out>
+__global__ void __launch_bounds__(kThreads) epilogue_kernel(
+    const In* __restrict__ y, const float* __restrict__ bias, Out* __restrict__ out,
+    int rows, int channels, int hw, Fmt f, int via_f16, int relu) {
+  bool via = via_f16 != 0;
+  float zero = decode(encode(0.0f, f), f);
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    float b = round_fmt(bias[row % channels], f, false);
+    int64_t base = (int64_t)row * hw;
+    int step = kThreads * gridDim.x;
+    for (int j0 = blockIdx.x * kThreads + threadIdx.x; j0 < hw; j0 += step * kUnroll) {
+      float v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        int j = j0 + u * step;
+        v[u] = j < hw ? load(y, base + j) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        int j = j0 + u * step;
+        if (j >= hw) break;
+        float r = round_fmt(isnan(v[u]) ? nan_of(true) : v[u], f, via);
+        float sum = __fadd_rn(r, b);
+        if (isnan(sum)) sum = isnan(r) ? r : isnan(b) ? b : nan_of(true);
+        float s = round_fmt(sum, f, via);
+        if (relu) s = isnan(zero) ? zero : (s > 0.0f || isnan(s)) ? s : zero;
+        store(out, base + j, s, 0u);
+      }
+    }
+  }
+}
+
+// The float16 input's codes: for every float16 bit pattern, the code of
+// fmt(y) (a NaN as the default NaN), the epilogue's first rounding.
+__global__ void __launch_bounds__(kThreads) table_kernel(Fmt f, uint8_t* __restrict__ table) {
+  int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= kTable) return;
+  __half h = __ushort_as_half((unsigned short)i);
+  float v = __hisnan(h) ? nan_of(true) : __half2float(h);
+  table[i] = (uint8_t)encode(v, f);
+}
+
+// The epilogue of a float16 y in a format that goes through float16: the
+// first rounding is the code table (in shared memory), the rest depends
+// on the code and the channel alone, so a (frame, channel) row's 2^bits
+// outputs are computed once into shared memory and each element is two
+// lookups. Each CTA takes a contiguous run of kChunk-element pieces of
+// rows, so it rebuilds the value table about once a row.
+template <typename Out>
+__global__ void __launch_bounds__(kThreads) epilogue_table_kernel(
+    const __half* __restrict__ y, const float* __restrict__ bias,
+    const uint8_t* __restrict__ table, Out* __restrict__ out, int rows, int channels, int hw,
+    int64_t per_cta, Fmt f, int relu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint8_t* codes = smem;
+  float* values = (float*)(smem + kTable);
+  for (int i = threadIdx.x; i < kTable / 16; i += kThreads)
+    ((uint4*)codes)[i] = __ldg((const uint4*)table + i);
+  float zero = decode(encode(0.0f, f), f);
+  int ncodes = 1 << (f.ebits + f.mbits + (f.sign_bit ? 1 : 0));
+  int pieces = (hw + kChunk - 1) / kChunk;
+  bool vec = hw % 8 == 0 && ((uintptr_t)y % 16) == 0 && ((uintptr_t)out % 16) == 0;
+  int64_t first = (int64_t)blockIdx.x * per_cta;
+  int64_t last = min(first + per_cta, (int64_t)rows * pieces);
+  int cur = -1;
+  for (int64_t it = first; it < last; ++it) {
+    int row = (int)(it / pieces);
+    if (row != cur) {  // uniform across the CTA
+      __syncthreads();
+      float b = round_fmt(bias[row % channels], f, false);
+      for (int c = threadIdx.x; c < ncodes; c += kThreads) {
+        float r = decode((uint32_t)c, f);
+        float sum = __fadd_rn(r, b);
+        if (isnan(sum)) sum = isnan(r) ? r : isnan(b) ? b : nan_of(true);
+        float s = round_fmt(sum, f, true);
+        if (relu) s = isnan(zero) ? zero : (s > 0.0f || isnan(s)) ? s : zero;
+        values[c] = s;
+      }
+      __syncthreads();
+      cur = row;
+    }
+    int64_t base = (int64_t)row * hw;
+    int j0 = (int)(it % pieces) * kChunk, end = min(j0 + kChunk, hw);
+    if (vec) {  // 8 elements a thread a step: 16-byte loads, kUnroll in flight
+      for (int j = j0 + threadIdx.x * 8; j < end; j += kThreads * 8 * kUnroll) {
+        uint4 v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          int k = j + u * kThreads * 8;
+          if (k < end) v[u] = __ldg((const uint4*)(y + base + k));
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          int k = j + u * kThreads * 8;
+          if (k >= end) break;
+          const unsigned short* h = (const unsigned short*)&v[u];
+          float o[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) o[e] = values[codes[h[e]]];
+          store8(out, base + k, o);
+        }
+      }
+      continue;
+    }
+    for (int j = j0 + threadIdx.x; j < end; j += kThreads * kUnroll) {
+      unsigned short v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        int k = j + u * kThreads;
+        v[u] = k < end ? __half_as_ushort(y[base + k]) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        int k = j + u * kThreads;
+        if (k < end) store(out, base + k, values[codes[v[u]]], 0u);
+      }
+    }
+  }
+}
+
+template <typename In, typename Out>
+__global__ void __launch_bounds__(kThreads) cast_kernel(
+    const In* __restrict__ x, Out* __restrict__ out, int64_t n, Fmt f) {
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * kThreads) {
+    float v = load(x, i);
+    uint32_t code = encode(v, f);
+    store(out, i, decode(code, f), code);
+  }
+}
+
+Fmt fmt_of(const int* p) {
+  return Fmt{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11]};
+}
+
+int grid_for(int64_t n, int per_block) {
+  int64_t g = (n + per_block - 1) / per_block;
+  return (int)(g < 1 ? 1 : g > 65535 ? 65535 : g);
+}
+
+template <typename In, typename Out>
+int launch_epilogue(const void* y, const float* bias, void* out, int rows, int channels,
+                    int hw, const Fmt& f, int via_f16, int relu, cudaStream_t s) {
+  dim3 grid(grid_for(hw, kThreads * kUnroll), rows < 65535 ? rows : 65535);
+  epilogue_kernel<In, Out><<<grid, kThreads, 0, s>>>((const In*)y, bias, (Out*)out, rows,
+                                                    channels, hw, f, via_f16, relu);
+  return (int)cudaGetLastError();
+}
+
+template <typename Out>
+int launch_table_epilogue(const void* y, const float* bias, const uint8_t* table, void* out,
+                          int rows, int channels, int hw, const Fmt& f, int relu,
+                          cudaStream_t s) {
+  int err = (int)cudaFuncSetAttribute(epilogue_table_kernel<Out>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, kTableSmem);
+  if (err != 0) return err;
+  int dev, sms;
+  if ((err = (int)cudaGetDevice(&dev)) != 0) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
+    return err;
+  int64_t items = (int64_t)rows * ((hw + kChunk - 1) / kChunk);
+  int64_t ctas = items < 3 * sms ? items : 3 * sms;  // three CTAs' tables fit an SM
+  int64_t per_cta = (items + ctas - 1) / ctas;
+  ctas = (items + per_cta - 1) / per_cta;
+  epilogue_table_kernel<Out><<<(int)ctas, kThreads, kTableSmem, s>>>(
+      (const __half*)y, bias, table, (Out*)out, rows, channels, hw, per_cta, f, relu);
+  return (int)cudaGetLastError();
+}
+
+template <typename In, typename Out>
+int launch_cast(const void* x, void* out, int64_t n, const Fmt& f, cudaStream_t s) {
+  int blocks = grid_for(n, kThreads * kUnroll);
+  cast_kernel<In, Out><<<blocks, kThreads, 0, s>>>((const In*)x, (Out*)out, n, f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// y (rows = B * C, hw) float32 (in_kind 0) or float16 (1), bias (C,)
+// float32 -> out (rows, hw) float32 (out_kind 0) or float16 (1).
+// params: N_PARAMS ints on the host (small_float.py SmallFloat.params).
+// A float16 y in a format that goes through float16 takes the table
+// kernel: `table` holds the format's code table (kTable bytes on the
+// device), which a launch of table_kernel writes first where
+// `build_table` is set; any other y the element-wise kernel.
+extern "C" int tf_small_float_epilogue(const void* y, int in_kind, const void* bias, void* out,
+                                       int out_kind, int rows, int channels, int hw,
+                                       const int* params, int via_f16, int relu, void* table,
+                                       int build_table, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (rows <= 0 || hw <= 0) return (int)cudaGetLastError();
+  if (channels <= 0 || (int64_t)rows * hw >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  Fmt f = fmt_of(params);
+  const float* b = (const float*)bias;
+  if (in_kind == 1 && via_f16 && table != nullptr && (out_kind == 0 || out_kind == 1)) {
+    if (build_table) {
+      table_kernel<<<kTable / kThreads, kThreads, 0, s>>>(f, (uint8_t*)table);
+      int err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
+    if (out_kind == 0)
+      return launch_table_epilogue<float>(y, b, (const uint8_t*)table, out, rows, channels, hw,
+                                          f, relu, s);
+    return launch_table_epilogue<__half>(y, b, (const uint8_t*)table, out, rows, channels, hw,
+                                         f, relu, s);
+  }
+  if (in_kind == 0 && out_kind == 0)
+    return launch_epilogue<float, float>(y, b, out, rows, channels, hw, f, via_f16, relu, s);
+  if (in_kind == 0 && out_kind == 1)
+    return launch_epilogue<float, __half>(y, b, out, rows, channels, hw, f, via_f16, relu, s);
+  if (in_kind == 1 && out_kind == 0)
+    return launch_epilogue<__half, float>(y, b, out, rows, channels, hw, f, via_f16, relu, s);
+  if (in_kind == 1 && out_kind == 1)
+    return launch_epilogue<__half, __half>(y, b, out, rows, channels, hw, f, via_f16, relu, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x (n,) float32 (in_kind 0) or float16 (1) -> out (n,) float32 (out_kind
+// 0), float16 (1) or the format's codes as uint8 (2).
+extern "C" int tf_small_float_cast(const void* x, int in_kind, void* out, int out_kind,
+                                   long long n, const int* params, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaGetLastError();
+  Fmt f = fmt_of(params);
+  if (in_kind == 0 && out_kind == 0) return launch_cast<float, float>(x, out, n, f, s);
+  if (in_kind == 0 && out_kind == 1) return launch_cast<float, __half>(x, out, n, f, s);
+  if (in_kind == 0 && out_kind == 2) return launch_cast<float, uint8_t>(x, out, n, f, s);
+  if (in_kind == 1 && out_kind == 0) return launch_cast<__half, float>(x, out, n, f, s);
+  if (in_kind == 1 && out_kind == 1) return launch_cast<__half, __half>(x, out, n, f, s);
+  if (in_kind == 1 && out_kind == 2) return launch_cast<__half, uint8_t>(x, out, n, f, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -61,8 +61,12 @@ frames k 1, 16 frames k 4 and 63 rows, and every lane at 2048 candidates
 (at most 6 sets); with --old-csrc, DIR's vote (the three-launch design,
 through its own C interface, reading y_pred's channel 1) in the same
 turns. `--kernels` picks among exact, cc, packed, encode, encode_direct,
-decode_direct and corner_vote. With `--out FILE` the rows are also
-written there as JSON.
+decode_direct, corner_vote and small_float: the small-float
+epilogue (`csrc/small_float.cu`) on the eight layers of one forward of
+the shipped asset in float8_e4m3fn at 64 x 32 x 1801, the kernel, its
+plain version and torch's own cast chain (`small_float_yardstick`) in
+turns, beside the bound of its bytes. With `--out FILE` the rows are
+also written there as JSON.
 
     python -m tpufusion_torch.kernel_bench --dsmem-probe
 
@@ -1053,6 +1057,165 @@ def corner_vote_rows(sets: int = 6, shapes=CORNER_SHAPES, old=None) -> list[dict
     return rows
 
 
+SMALL_FLOAT_FORMAT = "float8_e4m3fn"  # the format of the small_float rows
+
+
+@contextlib.contextmanager
+def recorded_epilogues(into: list):
+    """While open, every FCN layer's epilogue call appends (y, bias,
+    relu) to `into`: its raw convolution output, its bias, its relu."""
+    from tpufusion_torch.models import fcn
+
+    real = fcn._Layer._finish
+
+    def finish(self, y, relu):
+        into.append((y, self.bias.detach(), relu))
+        return real(self, y, relu)
+
+    fcn._Layer._finish = finish
+    try:
+        yield into
+    finally:
+        fcn._Layer._finish = real
+
+
+def small_float_bound_ms(ins, outs) -> float:
+    """Least time for an elementwise pass that reads each of `ins` and
+    writes each of `outs` once, at 3.35 TB/s."""
+    n = sum(t.numel() * t.element_size() for t in (*ins, *outs))
+    return n / HBM_BYTES_PER_S * 1e3
+
+
+def small_float_forward(layers, fmt, out, epilogue=None):
+    """One forward's epilogues (the list `small_float_layers` returns) through
+    `epilogue` (the kernel's wrapper by default)."""
+    from tpufusion_torch.ops import small_float
+
+    epilogue = epilogue or small_float.conv_epilogue
+    return [epilogue(y, b, fmt, relu, out=out) for y, b, relu in layers]
+
+
+def small_float_yardstick(layers, dtype: torch.dtype):
+    """torch's own cast chain for one forward's epilogues where torch has
+    the format (`dtype`): fmt(f16(y)), plus fmt(bias), through float16 to
+    fmt, relu; several launches a layer, and torch's conversions, not
+    ml_dtypes'."""
+    outs = []
+    for y, b, relu in layers:
+        r = y.half().to(dtype).float()
+        s = (r + b.to(dtype).float().view(-1, 1, 1)).half().to(dtype).float()
+        outs.append(torch.relu(s) if relu else s)
+    return outs
+
+
+def _queued_by_layer(fn, sets) -> float:
+    """Device ms of `fn` on a forward's layers, each layer queued on its
+    own (`queued_ms`): a whole forward of the plain version, an integer
+    op at a time on every element, does not queue behind the sleep."""
+    return sum(queued_ms(fn, [[layer]]) for layers in sets
+               for layer in layers) / len(sets)
+
+
+def small_float_layers(model, images) -> tuple:
+    """The kernel's inputs in one forward of a small-float `model` on
+    `images`: (the input cast's: the normalised, padded float32 input;
+    the epilogues': [(raw convolution output, bias, relu)] of its eight
+    layers)."""
+    rec: list = []
+    inputs: list = []
+    real = model._cast_input
+    model._cast_input = lambda x: (inputs.append(x), real(x))[1]
+    try:
+        with torch.inference_mode(), recorded_epilogues(rec):
+            model(images)
+    finally:
+        del model._cast_input
+    return inputs[0], rec
+
+
+def small_float_rows(sets: int = 4, batch: int = 64) -> list[dict]:
+    """The small-float epilogue's rows at the live asset's shapes: the
+    eight epilogues of one forward of the asset in SMALL_FLOAT_FORMAT at
+    `batch` x 32 x 1801 (beam scans), the kernel, its plain version and
+    torch's cast chain (`small_float_yardstick`) in turns, beside the
+    bound of the kernel's bytes; each set's kernel output checked bit for
+    bit against the plain version first; the input cast (the kernel's
+    direct mode) and its plain version; and the wrapper's host time a
+    call (`wrapper_host_us`: 200 calls on 8 elements, which the card
+    runs faster than the host issues them)."""
+    from tpufusion_torch import RangeViewSpec
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.ops import small_float
+
+    import numpy as np
+
+    dev = torch.device("cuda", 0)
+    model, _ = _asset_fcn(dev, SMALL_FLOAT_FORMAT)
+    fmt, out = model.fmt, model.act_dtype
+    spec, inputs, casts = RangeViewSpec(), [], []
+    for i in range(sets):
+        p, _, v = synthesize_beam_scan_batch(np.random.default_rng(100 + i), batch, 32768)
+        with torch.inference_mode():
+            images = range_view_project_batch(torch.from_numpy(p).to(dev), spec,
+                                              torch.from_numpy(v).to(dev))
+        x, layers = small_float_layers(model, images)
+        casts.append(x)
+        inputs.append(layers)
+    with torch.inference_mode():
+        for layers in inputs[:2]:
+            got = small_float_forward(layers, fmt, out)
+            want = small_float_forward(layers, fmt, out, small_float.conv_epilogue_reference)
+            assert all(map(small_float.same_bits, got, want)), (
+                "small_float epilogue differs from its plain version")
+        fns = {"new": lambda ls: small_float_forward(ls, fmt, out),
+               "plain": lambda ls: small_float_forward(
+                   ls, fmt, out, small_float.conv_epilogue_reference)}
+        if fmt.torch_dtype is not None:
+            fns["yardstick"] = lambda ls: small_float_yardstick(ls, fmt.torch_dtype)
+        call = time_turns(fns, inputs, time_ms)
+        dev_t = time_turns(fns, inputs, lambda fn, xs: (
+            _queued_by_layer if fn is fns["plain"] else queued_ms)(fn, xs))
+        cast_t = time_turns({
+            "cast": lambda x: small_float.cast(x, fmt, out=out),
+            "cast_plain": lambda x: small_float.cast_reference(x, fmt, out=out)},
+            casts, lambda fn, xs: queued_each(fn, xs))
+        tiny = (torch.ones(1, 1, 1, 8, dtype=out, device=dev), torch.zeros(1, device=dev))
+        for _ in range(20):
+            small_float.conv_epilogue(*tiny, fmt, out=out)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            small_float.conv_epilogue(*tiny, fmt, out=out)
+        host_us = (time.perf_counter() - t0) / 200 * 1e6  # the card keeps up: host-paced
+        torch.cuda.synchronize()
+    layers = inputs[0]
+    bound = small_float_bound_ms([y for y, _, _ in layers] + [b for _, b, _ in layers],
+                                 small_float_forward(layers, fmt, out))
+    return [{"shape": f"{batch} x 32 x 1801, 8 layers, {fmt.name}", "kernel": "small_float",
+             "elements": sum(y.numel() for y, _, _ in layers), "bound_ms": bound,
+             "wrapper_host_us": host_us,
+             "input_cast_shape": tuple(casts[0].shape),
+             "input_cast_bound_ms": small_float_bound_ms(casts[:1], [casts[0].to(out)]),
+             **{f"{k}_device_ms": v for k, v in cast_t.items()},
+             **{f"{k}_call_ms": v for k, v in call.items()},
+             **{f"{k}_device_ms": v for k, v in dev_t.items()}}]
+
+
+def _asset_fcn(dev, dtype: str):
+    """The shipped asset's FCN in `dtype` on `dev` and its DecodeConfig."""
+    import dataclasses
+
+    from tpufusion_torch.models.fcn import FCN
+    from tpufusion_torch.models.io import asset_configs, load_state_npz
+
+    asset = os.path.join(_REPO, "tpufusion", "assets", "synthetic_detector.npz")
+    mcfg, dcfg = asset_configs(asset)
+    model = FCN(dataclasses.replace(mcfg, dtype=dtype))
+    load_state_npz(asset, model)
+    return model.to(dev).eval(), dcfg
+
+
 def dsmem_probe() -> str:
     """Builds and runs probes/dsmem_min64.cu; returns what it prints."""
     from tpufusion_torch import _build
@@ -1070,7 +1233,8 @@ def main() -> int:
     ap.add_argument("--old-csrc", help="directory with the earlier design's .cu sources")
     ap.add_argument("--sets", type=int, default=12, help="distinct batches per timing")
     ap.add_argument("--kernels",
-                    default="exact,cc,packed,encode,encode_direct,decode_direct,corner_vote",
+                    default="exact,cc,packed,encode,encode_direct,decode_direct,corner_vote,"
+                            "small_float",
                     help="which kernels' rows: exact and cc need --old-csrc")
     ap.add_argument("--dsmem-probe", action="store_true",
                     help="also build and run probes/dsmem_min64.cu")
@@ -1107,6 +1271,8 @@ def main() -> int:
                                    low=tuple(getattr(torch, d) for d in dtypes if d != "float32"))
     if "corner_vote" in kernels:
         rows += corner_vote_rows(min(args.sets, 6), old=old)
+    if "small_float" in kernels:
+        rows += small_float_rows(min(args.sets, 4))
     for r in rows:
         names = [k[: -len("_device_ms")] for k in r if k.endswith("_device_ms")]
         times = ", ".join(

@@ -25,8 +25,24 @@ input, the softmax on d6a cast to float32, and the regression output is
 cast to float32. Parameters stay float32, so the same npz loads for any
 dtype. Dtype names resolve as `jnp.dtype` reads them (`compute_dtype`):
 "half" is float16, "float64" computes in float32 with a warning (JAX
-without x64), a name that is not inexact raises; the float8 and complex
-names, which JAX runs, raise as not ported.
+without x64), a name that is not inexact raises (the float6 names among
+them, as JAX raises at its first call).
+
+The small floats (the eight "float8_*" names and "float4_e2m1fn", see
+`ops/small_float.py`) compute as XLA computes flax's convolution in
+them: the normalised, padded input and each kernel are cast to the
+format once (the kernel's direct mode), the convolution runs on torch's
+ops on the format's values, and one epilogue launch a layer rounds its
+output twice (through float16, as XLA does), adds the layer's bias in
+the format, rounds again and applies the layer's relu
+(`small_float.conv_epilogue`). Between layers the values travel in
+SMALL_FLOAT_CONV (float32 for float8_e8m0fnu, which float16 cannot
+hold); the output is float32, and `features` comes back in torch's dtype
+of the format's name where torch has one, else float16 holding the
+values. "complex64" computes the float32 net (JAX's complex net has a
+zero imaginary part throughout) and returns complex64 features;
+"complex128" does the same after JAX's x64 warning. Backward through a
+small-float net raises NotImplementedError (training is not ported).
 
 Weights keep flax's layouts (kernels HWIO) in the state dict so the npz
 keys and arrays load as they are; the forward maps them to torch's:
@@ -75,6 +91,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpufusion_torch.config import ModelConfig
+from tpufusion_torch.ops import small_float as sf
 from tpufusion_torch.geometry.encoding import (  # noqa: F401  (re-exported)
     DIRECT_CHANNELS,
     DIRECT_CHANNELS_DUAL,
@@ -89,27 +106,44 @@ from tpufusion_torch.parallel.mesh import (
 
 _KERAS_EPSILON = 1e-7
 _K = 5
-_F8_PREFIXES = ("float8_", "float6_", "float4_")  # ml_dtypes' small floats
+_NOT_INEXACT = ("float6_e2m3fn", "float6_e3m2fn")  # ml_dtypes' names JAX's FCN refuses
+# The dtype of a small-float net's convolutions and of the values between
+# its layers, where the format fits float16: float16 with float32
+# accumulation, whose rounded output is XLA's first rounding (an H100
+# gave every raw output of the asset's eight layers at 64 frames equal,
+# bit for bit, to its float32 convolution's rounded to float16:
+# chip_smoke.py phase 1g, PERF.md)
+SMALL_FLOAT_CONV = torch.float16
+COMPLEX_CAST_WARNING = ("Casting from complex to real dtypes: the FCN's complex64 output is "
+                        "cast to float32 (its imaginary part is zero), as JAX warns")
 
 
-def compute_dtype(name: str) -> torch.dtype:
-    """The torch dtype the convolutions run in for ModelConfig.dtype
-    `name`, as `jnp.dtype(name)` resolves it and flax computes with it:
-    float16 names ("float16", "half", "f2", "e") are float16, float32
-    names float32, "bfloat16" bf16; float64 names compute in float32, as
-    JAX does with x64 off, and warn. A name that is no inexact dtype
-    raises ValueError, as JAX does; the float8 and complex names, which
-    JAX runs, raise a ValueError saying they are not ported."""
+def compute_dtype(name: str) -> torch.dtype | sf.SmallFloat:
+    """What the convolutions compute in for ModelConfig.dtype `name`, as
+    `jnp.dtype(name)` resolves it and flax computes with it: float16
+    names ("float16", "half", "f2", "e") are float16, float32 names
+    float32, "bfloat16" bf16; the small-float names their
+    `small_float.SmallFloat`; float64 names compute in float32, as JAX
+    does with x64 off, and warn; complex64 computes in float32 (the
+    complex net's imaginary part is zero) and complex128 does too, after
+    JAX's x64 warning. A name that is no inexact dtype (the float6
+    names among them) raises ValueError, as JAX does."""
     if name == "bfloat16":
         return torch.bfloat16
-    if name.startswith(_F8_PREFIXES):
-        raise ValueError(f"FCN dtype {name!r} is not ported yet (no float8 convolution)")
+    fmt = sf.FORMATS.get(name)
+    if fmt is not None:
+        return fmt
+    if name in _NOT_INEXACT:
+        raise ValueError(f"FCN dtype must be inexact, got {name!r}")
     try:
         dt = np.dtype(name)
     except TypeError:
         raise ValueError(f"unknown FCN dtype {name!r}") from None
-    if dt.kind == "c":
-        raise ValueError(f"FCN dtype {name!r} is not ported yet (no complex convolution)")
+    if dt.kind == "c" and dt.itemsize in (8, 16):
+        if dt.itemsize == 16:
+            warnings.warn(f"FCN dtype {name!r}: complex128 is not available (JAX without "
+                          "x64) and is truncated to complex64", UserWarning, stacklevel=2)
+        return torch.float32
     if dt.kind != "f":
         raise ValueError(f"FCN dtype must be inexact, got {name!r}")
     if dt.itemsize == 2:
@@ -121,6 +155,20 @@ def compute_dtype(name: str) -> torch.dtype:
                       "computing in float32", UserWarning, stacklevel=2)
         return torch.float32
     raise ValueError(f"unknown FCN dtype {name!r}")
+
+
+def _is_complex(name: str) -> bool:
+    try:
+        return np.dtype(name).kind == "c"
+    except TypeError:
+        return False
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raises NotImplementedError where training an FCN in cfg.dtype is
+    not ported: the small floats and complex (JAX's trainers run both)."""
+    if cfg.dtype in sf.FORMATS or _is_complex(cfg.dtype):
+        raise NotImplementedError(f"training an FCN in {cfg.dtype!r} is not ported yet")
 
 
 def _same_pad(n: int, s: int, k: int = _K) -> tuple[int, int]:
@@ -163,27 +211,62 @@ def uniform_init_(model: nn.Module, seed: int | torch.Generator) -> None:
                 param.copy_(torch.rand(param.shape, generator=gen) * 0.1 - 0.05)
 
 
-class Conv(nn.Module):
-    """flax nnx.Conv(k=5, padding="SAME" or "VALID"); `kernel` is HWIO."""
+class _Layer(nn.Module):
+    """What Conv and ConvTranspose share: the kernel and bias, and the
+    small-float format the FCN sets (`fmt`, None otherwise)."""
 
-    def __init__(self, cin: int, cout: int, strides: tuple[int, int], padding: str = "SAME"):
+    def __init__(self, cin: int, cout: int, strides: tuple[int, int], padding: str):
         super().__init__()
         self.strides = strides
         self.padding = _check_padding(padding)
         self.kernel = nn.Parameter(torch.zeros(_K, _K, cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout))
+        self.fmt: sf.SmallFloat | None = None
+        self._cast: tuple | None = None  # (the kernel's state, its cast to fmt)
+
+    def _weight(self, x: torch.Tensor) -> torch.Tensor:
+        """The kernel OIHW in x's dtype; in a small float its cast to the
+        format (one launch, kept while the kernel's storage and version
+        and the inference mode stay: inference casts it once)."""
+        if self.fmt is None:
+            return self.kernel.to(x.dtype).permute(3, 2, 0, 1)
+        k = self.kernel
+        state = (k.data_ptr(), k._version, x.dtype, self.fmt, torch.is_inference_mode_enabled())
+        if self._cast is None or self._cast[0] != state:
+            self._cast = state, sf.cast(k, self.fmt, out=x.dtype).permute(3, 2, 0, 1)
+        return self._cast[1]
+
+    def _finish(self, y: torch.Tensor, relu: bool) -> torch.Tensor:
+        """flax's `y += bias` and the layer's relu: in y's dtype, or the
+        small-float epilogue (one launch)."""
+        if self.fmt is not None:
+            return sf.conv_epilogue(y, self.bias, self.fmt, relu, out=y.dtype)
+        y = y + _bias(self.bias, y)
+        return F.relu(y) if relu else y
+
+
+class Conv(_Layer):
+    """flax nnx.Conv(k=5, padding="SAME" or "VALID"); `kernel` is HWIO."""
+
+    def __init__(self, cin: int, cout: int, strides: tuple[int, int], padding: str = "SAME"):
+        super().__init__(cin, cout, strides, padding)
 
     def pads(self, n: int, s: int) -> tuple[int, int]:
         return _same_pad(n, s) if self.padding == "SAME" else (0, 0)
 
-    def forward(self, x: torch.Tensor, pw: tuple[int, int] | None = None) -> torch.Tensor:
-        """NCHW in x's dtype. `pw` given, the width is padded by it instead
-        of the layer's own padding (a window cut from a wider input)."""
+    def raw(self, x: torch.Tensor, pw: tuple[int, int] | None = None) -> torch.Tensor:
+        """The convolution alone, NCHW in x's dtype. `pw` given, the width
+        is padded by it instead of the layer's own padding (a window cut
+        from a wider input)."""
         (sh, sw), (h, w) = self.strides, x.shape[2:]
         ph, pw = self.pads(h, sh), self.pads(w, sw) if pw is None else pw
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        wt = self.kernel.to(x.dtype).permute(3, 2, 0, 1)  # OIHW
-        return F.conv2d(x, wt, stride=self.strides) + _bias(self.bias, x)
+        return F.conv2d(x, self._weight(x), stride=self.strides)
+
+    def forward(self, x: torch.Tensor, pw: tuple[int, int] | None = None,
+                relu: bool = False) -> torch.Tensor:
+        """NCHW in x's dtype: the convolution, the bias, relu if asked."""
+        return self._finish(self.raw(x, pw), relu)
 
     def window(self, out: slice, width: int) -> tuple[int, int]:
         """The global input columns [a, b) that output columns `out` read,
@@ -192,7 +275,7 @@ class Conv(nn.Module):
         return out.start * s - pad_l, (out.stop - 1) * s - pad_l + _K
 
 
-class ConvTranspose(nn.Module):
+class ConvTranspose(_Layer):
     """flax nnx.ConvTranspose(k=5, padding="SAME" or "VALID"); `kernel` is
     HWIO.
 
@@ -203,23 +286,22 @@ class ConvTranspose(nn.Module):
     batch 1 (H100 80GB HBM3, 700 W)."""
 
     def __init__(self, cin: int, cout: int, strides: tuple[int, int], padding: str = "SAME"):
-        super().__init__()
-        self.strides = strides
-        self.padding = _check_padding(padding)
-        self.kernel = nn.Parameter(torch.zeros(_K, _K, cin, cout))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        super().__init__(cin, cout, strides, padding)
 
     def pads(self, s: int) -> tuple[int, int]:
         return _transpose_pad(s, padding=self.padding)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # NCHW
+    def raw(self, x: torch.Tensor) -> torch.Tensor:
+        """The transposed convolution alone, NCHW in x's dtype."""
         (sh, sw), (b, c, h, w) = self.strides, x.shape
         z = x.new_zeros(b, c, (h - 1) * sh + 1, (w - 1) * sw + 1)
         z[:, :, ::sh, ::sw] = x
         ph, pw = self.pads(sh), self.pads(sw)
         z = F.pad(z, (pw[0], pw[1], ph[0], ph[1]))
-        wt = self.kernel.to(x.dtype).permute(3, 2, 0, 1)
-        return F.conv2d(z, wt) + _bias(self.bias, x)
+        return F.conv2d(z, self._weight(x))
+
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:  # NCHW
+        return self._finish(self.raw(x), relu)
 
     def window(self, out: slice) -> tuple[int, int]:
         """The global input columns [a, b) that output columns `out` read:
@@ -229,7 +311,7 @@ class ConvTranspose(nn.Module):
         pad_a = self.pads(s)[0]
         return -((pad_a - out.start) // s), (out.stop + _K - 2 - pad_a) // s + 1
 
-    def forward_window(self, xw: torch.Tensor, out: slice) -> torch.Tensor:
+    def forward_window(self, xw: torch.Tensor, out: slice, relu: bool = False) -> torch.Tensor:
         """Output columns `out` from xw, the input columns `window(out)`."""
         (sh, sw), (b, c, h, n) = self.strides, xw.shape
         lead = self.window(out)[0] * sw + self.pads(sw)[0] - out.start
@@ -237,8 +319,7 @@ class ConvTranspose(nn.Module):
         z[:, :, ::sh, lead: lead + (n - 1) * sw + 1: sw] = xw
         ph = self.pads(sh)
         z = F.pad(z, (0, 0, ph[0], ph[1]))
-        wt = self.kernel.to(xw.dtype).permute(3, 2, 0, 1)
-        return F.conv2d(z, wt) + _bias(self.bias, xw)
+        return self._finish(F.conv2d(z, self._weight(xw)), relu)
 
 
 def _move_running(stat: torch.Tensor, batch_stat: torch.Tensor, momentum: float) -> None:
@@ -350,6 +431,9 @@ class FCN(nn.Module):
         super().__init__()
         self.compute_dtype = compute_dtype(cfg.dtype)
         self.cfg = cfg
+        fmt = self.compute_dtype if isinstance(self.compute_dtype, sf.SmallFloat) else None
+        self.fmt = fmt
+        self.complex = _is_complex(cfg.dtype)
         vs = cfg.vertical_stride
         wm = cfg.width_multiplier
         if cfg.sample_wise_bn:
@@ -368,6 +452,9 @@ class FCN(nn.Module):
             nreg = self.num_reg_channels
             self.deconv5b = ConvTranspose(22 * wm, nreg, (vs, 2))
             self.deconv6b = ConvTranspose(4 * wm + nreg, nreg, (vs, 4))
+        for layer in self.modules():
+            if isinstance(layer, _Layer):
+                layer.fmt = fmt
         if seed is not None:
             uniform_init_(self, seed)
 
@@ -378,6 +465,22 @@ class FCN(nn.Module):
         if self.cfg.yaw_codec == "dual":
             return DIRECT_CHANNELS_DUAL
         return DIRECT_CHANNELS
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        """The dtype of the values between layers: the compute dtype, or a
+        small float's values in SMALL_FLOAT_CONV (float32 where float16
+        cannot hold them)."""
+        if self.fmt is None:
+            return self.compute_dtype
+        return SMALL_FLOAT_CONV if self.fmt.via_f16 else torch.float32
+
+    def _cast_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The normalised, padded float32 input in the compute dtype: flax's
+        cast, for a small float the kernel's direct mode (one launch)."""
+        if self.fmt is not None:
+            return sf.cast(x, self.fmt, out=self.act_dtype)
+        return x.to(self.act_dtype)
 
     def _trunk(self, x: torch.Tensor, train: bool = False, mesh=None):
         """Shared encoder and the deconv6a head, NCHW in the compute
@@ -390,16 +493,16 @@ class FCN(nn.Module):
         x = x.to(torch.float32).permute(0, 3, 1, 2)
         if cfg.batch_norm or cfg.sample_wise_bn:
             x = self.norm(x, train, mesh)
-        x = F.pad(x, (0, 3)).to(self.compute_dtype)
+        x = self._cast_input(F.pad(x, (0, 3)))
 
-        c1 = F.relu(self.conv1(x))
-        c2 = F.relu(self.conv2(c1))
-        c3 = F.relu(self.conv3(c2))
-        d4 = F.relu(self.deconv4(c3))
+        c1 = self._relu(self.conv1, x)
+        c2 = self._relu(self.conv2, c1)
+        c3 = self._relu(self.conv3, c2)
+        d4 = self._relu(self.deconv4, c3)
         cat4 = torch.cat([c2, d4], dim=1)
         crop5 = 2 * c2.shape[3] - c1.shape[3]  # 1 when conv1 width is odd
 
-        d5a = F.relu(self.deconv5a(cat4))[:, :, :, crop5:]
+        d5a = self._relu(self.deconv5a, cat4)[:, :, :, crop5:]
         d6a = self.deconv6a(torch.cat([c1, d5a], dim=1))[:, :, :, :w]
         return d6a, (c1, cat4, crop5, w)
 
@@ -425,7 +528,8 @@ class FCN(nn.Module):
 
         def conv(layer, t, w_in, w_pad, w_out):
             outs = column_blocks(w_out, k)
-            return layer(fetch_columns(t, mesh, w_in, [layer.window(o, w_pad) for o in outs]), pw=(0, 0))
+            windows = [layer.window(o, w_pad) for o in outs]
+            return self._relu(layer, fetch_columns(t, mesh, w_in, windows), pw=(0, 0))
 
         def fetch(layer, t, w_in, outs):
             return fetch_columns(t, mesh, w_in, [layer.window(o) for o in outs])
@@ -433,22 +537,40 @@ class FCN(nn.Module):
         x = x.to(torch.float32).permute(0, 3, 1, 2)
         if cfg.batch_norm or cfg.sample_wise_bn:
             x = self.norm(x, train, mesh, width)
-        x = x.to(self.compute_dtype)
-        c1 = F.relu(conv(self.conv1, x, width, width + 3, w1))
-        c2 = F.relu(conv(self.conv2, c1, w1, w1, w2))
-        c3 = F.relu(conv(self.conv3, c2, w2, w2, w3))
+        x = self._cast_input(x)
+        c1 = conv(self.conv1, x, width, width + 3, w1)
+        c2 = conv(self.conv2, c1, w1, w1, w2)
+        c3 = conv(self.conv3, c2, w2, w2, w3)
         outs4 = column_blocks(w2, k)
-        d4 = F.relu(self.deconv4.forward_window(fetch(self.deconv4, c3, w3, outs4), outs4[s]))
+        d4 = self._relu(self.deconv4.forward_window, fetch(self.deconv4, c3, w3, outs4), outs4[s])
         outs5 = [slice(o.start + crop5, o.stop + crop5) for o in column_blocks(w1, k)]
         cat4 = fetch(self.deconv5a, torch.cat([c2, d4], dim=1), w2, outs5)
         outs6 = column_blocks(width, k)
 
-        def head(up5, up6):
-            d5 = F.relu(up5.forward_window(cat4, outs5[s]))
-            return up6.forward_window(fetch(up6, torch.cat([c1, d5], dim=1), w1, outs6), outs6[s])
+        def head(up5, up6, relu=False):
+            d5 = self._relu(up5.forward_window, cat4, outs5[s])
+            window = fetch(up6, torch.cat([c1, d5], dim=1), w1, outs6)
+            return self._relu(up6.forward_window, window, outs6[s], relu=relu)
 
         d6a = head(self.deconv5a, self.deconv6a)
-        return d6a, head(self.deconv5b, self.deconv6b) if cfg.use_regression else None
+        return d6a, head(self.deconv5b, self.deconv6b, self._reg_relu) if cfg.use_regression \
+            else None
+
+    def _relu(self, layer, *args, relu: bool = True, **kw):
+        """layer(*args), relu'd where `relu`: torch's relu after it, as flax
+        applies it, or in a small-float layer's epilogue (jax.nn.relu in
+        the format: a NaN in float8_e8m0fnu, where 0 is one)."""
+        if not relu:
+            return layer(*args, **kw)
+        if self.fmt is not None:
+            return layer(*args, relu=True, **kw)
+        return F.relu(layer(*args, **kw))
+
+    @property
+    def _reg_relu(self) -> bool:
+        """deconv6b's relu: a corner head's reference-compat option (the
+        direct head's targets are signed)."""
+        return self.cfg.head == "corner" and self.cfg.reg_output_activation == "relu"
 
     def forward(self, x: torch.Tensor, train: bool = False, mesh=None, width: int | None = None) -> torch.Tensor:
         """(B, H, W, C) float32 -> (B, H, W, 2 [+ reg]) float32. With
@@ -463,18 +585,28 @@ class FCN(nn.Module):
         else:
             d6a, (c1, cat4, crop5, w) = self._trunk(x, train, mesh)
             if cfg.use_regression:
-                d5b = F.relu(self.deconv5b(cat4))[:, :, :, crop5:]
-                d6b = self.deconv6b(torch.cat([c1, d5b], dim=1))[:, :, :, :w]
+                d5b = self._relu(self.deconv5b, cat4)[:, :, :, crop5:]
+                d6b = self._relu(self.deconv6b, torch.cat([c1, d5b], dim=1),
+                                 relu=self._reg_relu)[:, :, :, :w]
+        if self.complex:  # JAX casts its complex d6a (and d6b) to float32
+            warnings.warn(COMPLEX_CAST_WARNING, DeprecationWarning, stacklevel=2)
         probs = torch.softmax(d6a.float(), dim=1).clamp(_KERAS_EPSILON, 1.0)
         if not cfg.use_regression:
             return probs.permute(0, 2, 3, 1).contiguous()
-        if cfg.head == "corner" and cfg.reg_output_activation == "relu":
-            d6b = F.relu(d6b)  # reference-compat; direct targets are signed
         return torch.cat([probs, d6b.float()], dim=1).permute(0, 2, 3, 1).contiguous()
 
     def features(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, H, W, C) -> the pre-softmax deconv6a map (B, H', W, 2) in
         the compute dtype, NHWC: the tap the fusion net consumes. H' is H
         for vertical_stride 1 and for heights the three vertical strides
-        divide (the camera's 512 at stride 2)."""
-        return self._trunk(x, train)[0].permute(0, 2, 3, 1)
+        divide (the camera's 512 at stride 2). A small float comes back in
+        torch's dtype of its name (its codes, one launch of the kernel's
+        direct mode), or as float16 values where torch has no such dtype;
+        complex as complex64 with a zero imaginary part."""
+        d6a = self._trunk(x, train)[0].permute(0, 2, 3, 1)
+        fmt = self.fmt
+        if fmt is not None:
+            if fmt.torch_dtype is not None:
+                return sf.cast(d6a, fmt, out=torch.uint8).view(fmt.torch_dtype)
+            return d6a.to(fmt.carrier)
+        return d6a.to(torch.complex64) if self.complex else d6a

@@ -120,6 +120,13 @@ class FusionNet(nn.Module):
         super().__init__()
         self.lidar_fcn = FCN(lidar_model, in_channels=3)
         self.camera_fcn = FCN(camera_model, in_channels=camera.channels)
+        for fcn in (self.lidar_fcn, self.camera_fcn):
+            if fcn.fmt is not None:  # JAX raises at its dense layers' promotion
+                raise TypeError(f"FusionNet: the {fcn.cfg.dtype} features meet float32 dense "
+                                "layers, a promotion JAX refuses for its small floats")
+            if fcn.complex:
+                raise NotImplementedError(f"FusionNet with a {fcn.cfg.dtype} FCN (complex "
+                                          "outputs in JAX) is not ported yet")
         self.lidar_pool = None if lidar_pool is None else tuple(lidar_pool)
         self.cam_pool = tuple(cam_pool)
         cam_flat = (camera.height // cam_pool[0]) * (camera.width // cam_pool[1]) * 2

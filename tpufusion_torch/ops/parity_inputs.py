@@ -981,3 +981,46 @@ def corner_inputs(spec, kind: str = "ties", batch: int = 2, seed: int = 0):
             y[b, rr, pix_c, 2:] = _regressions(targets, rr, pix_c, image[b], spec)
     y[..., 0] = 1.0 - y[..., 1]
     return y, image, bbox, centroid, lanes
+
+
+def small_float_specials() -> np.ndarray:
+    """float32 values at the small formats' edges: +-0, +-inf, NaNs of
+    both signs, float32's extremes and subnormals, and for each format of
+    `ops/small_float.py` its largest value, the midpoint above it (the
+    overflow edge) and the float32 values either side, its smallest
+    subnormal, half of it and the values either side, and exact ties
+    between neighbouring values of every binade (and a float32 step
+    either side of each)."""
+    import torch
+
+    from tpufusion_torch.ops.small_float import FORMATS, decode
+
+    base = [0.0, -0.0, np.inf, -np.inf, np.nan, 3.4028235e38, 1.1754944e-38, 1e-45, 1e-40,
+            2.0**-127, 1.5 * 2.0**-127, 0.75 * 2.0**-127]
+    vals = [np.array(base, np.float32),
+            np.array([0x7F800001, 0xFFC00000, 0xFFFFFFFF, 0x7FBFFFFF, 0x00400001, 0x005FFFFF],
+                     np.uint32).view(np.float32)]
+    for fmt in FORMATS.values():
+        codes = np.arange(1 << (fmt.ebits + fmt.mbits + fmt.signed), dtype=np.int64)
+        v = decode(torch.from_numpy(codes), fmt).numpy()
+        v = np.unique(v[np.isfinite(v) & (v >= 0)]).astype(np.float64)
+        mids = (v[:-1] + v[1:]) / 2  # ties, exact in float32
+        top = v[-1] + (v[-1] - v[-2]) / 2
+        edges = np.array([*mids, top, v[0] / 2, v[1] / 2, v[-1]], np.float32)
+        vals += [edges, np.nextafter(edges, np.float32(np.inf)),
+                 np.nextafter(edges, np.float32(0))]
+    v = np.concatenate(vals)
+    return np.concatenate([v, -v])
+
+
+def small_float_inputs(seed: int = 0, n: int = 100_000) -> tuple[np.ndarray, np.ndarray]:
+    """(every float16 bit pattern (65,536, uint16), float32 values:
+    `small_float_specials` and n seeded values over float32's exponent
+    range, many of them near the formats' ranges)."""
+    rng = np.random.default_rng(seed)
+    mant = rng.uniform(1.0, 2.0, n) * np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    wide = rng.uniform(-150, 126.9, n // 4)
+    near = rng.uniform(-30, 20, n - n // 4)
+    x = (mant * np.exp2(np.concatenate([wide, near]))).astype(np.float32)
+    return (np.arange(1 << 16, dtype=np.uint32).astype(np.uint16),
+            np.concatenate([small_float_specials(), x]))

@@ -12,6 +12,7 @@ import logging
 import numpy as np
 import torch
 
+from tpufusion_torch.models.fcn import check_trainable
 from tpufusion_torch.models.fusion import FusionNet, fusion_loss, trainable_parameters
 from tpufusion_torch.train.optim import Adam, ReduceOnPlateau
 
@@ -65,6 +66,8 @@ def train_fusion(
     for "cpu") and returns each epoch's mean loss. The whole dataset is
     staged on the device once; the last partial batch of an epoch is
     dropped, as in the reference; one loss is read back a step."""
+    for fcn in (net.lidar_fcn, net.camera_fcn):
+        check_trainable(fcn.cfg)
     device = torch.device(device)
     net.to(device)
     n = len(data["cam"])
