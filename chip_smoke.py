@@ -9,7 +9,7 @@ and the adversarial ones of `tpufusion_torch/ops/parity_inputs.py`, which
 aim at fdlibm's branches and the pixel borders (the pixel kernel, bit for
 bit, the plain version run on the CPU and on the card), at the CC's tile
 borders at 32, 33, 63, 64 and 128 rows (batches 1
-and 16; 64 too at 32 rows) and at 24,001 columns, and at the z-buffer's
+and 16; 64 in the cuda tests) and at 24,001 columns, and at the z-buffer's
 cluster at 32 x 1801 and 63 x 1801), and drives the
 lidar detector's serving paths at full geometry (32 x 1801 range view) through
 the entry points a user calls, each with the kernels' launch counts set
@@ -95,6 +95,20 @@ to 0 before it and read after it, and then the training paths:
                float8_e5m2 on the golden's frames against JAX's; the
                epilogue's device time in turns with its plain version and
                torch's cast chain, beside its bound
+  phase 1h     training in the small floats (`csrc/small_float.cu`'s
+               backward: a layer's cotangents summed at XLA's rounding
+               points, relu's select, the bias gradient's reduce in
+               XLA's windows, and a dgrad's or wgrad's rounding) bit for
+               bit its plain version in every format on
+               `parity_inputs.small_float_backward_cases` and on the
+               calls of a train step at 2 and 32 frames; `Trainer.fit`
+               with the asset in float8_e4m3fn at 32 x 1801 held to the
+               f8 gradient golden (tests/data/torch_port_golden_f8_grad.npz,
+               JAX's gradients) at its first step, then an epoch on phase
+               16's scene batches, its checkpoint resumed; a
+               float8_e8m0fnu step (a NaN loss) aborting without a
+               checkpoint and restoring one; the backward's device time
+               beside its plain version and its bound
   phases 4-5   the float32 direct path with the shipped detector asset
                (`LidarPipeline.predict_position`, `make_e2e_step`,
                batch 64 x 32,768-point beam scans)
@@ -372,6 +386,7 @@ GOLDEN_VIEWER = os.path.join(HERE, "tests", "data", "torch_port_golden_viewer.np
 GOLDEN_TALL = os.path.join(HERE, "tests", "data", "torch_port_golden_tall.npz")
 GOLDEN_F16 = os.path.join(HERE, "tests", "data", "torch_port_golden_f16.npz")
 GOLDEN_F8 = os.path.join(HERE, "tests", "data", "torch_port_golden_f8.npz")
+GOLDEN_F8_GRAD = os.path.join(HERE, "tests", "data", "torch_port_golden_f8_grad.npz")
 GOLDEN_BENCH = os.path.join(HERE, "tests", "data", "torch_port_golden_bench.npz")
 GOLDEN_PACKED = os.path.join(HERE, "tests", "data", "torch_port_golden_packed.npz")
 GOLDEN_BF16 = os.path.join(HERE, "tests", "data", "torch_port_golden_bf16.npz")
@@ -417,7 +432,7 @@ MEASURE_CALLS = 1 + 6 * 3 + 1 + 6
 # `expect` names those it must launch
 KERNELS = ("project_points", "project_2d", "nearest_wins_image", "connected_components_with_bbox",
            "nearest_wins_packed_image", "encode_label", "encode_direct_label", "decode_direct",
-           "corner_vote", "small_float")
+           "corner_vote", "small_float", "small_float_backward")
 SERVING = ("project_points", "nearest_wins_image", "connected_components_with_bbox")
 RANGE_VIEW = SERVING[:2]  # a path that projects points and decodes nothing
 CC_ONLY = SERVING[2:]  # a decode of a view or a mask it is given
@@ -457,6 +472,7 @@ def _reset_launches() -> None:
     pixels.LAUNCHES = pixels.LAUNCHES_2D = projection.LAUNCHES = cc.LAUNCHES = 0
     projection.PACKED_LAUNCHES = label_encode.LAUNCHES = label_encode.LAUNCHES_DIRECT = 0
     decode_direct.LAUNCHES = corner_vote.LAUNCHES = small_float.LAUNCHES = 0
+    small_float.BACKWARD_LAUNCHES = 0
 
 
 def _launches() -> dict[str, int]:
@@ -477,7 +493,8 @@ def _launches() -> dict[str, int]:
             "encode_label": label_encode.LAUNCHES,
             "encode_direct_label": label_encode.LAUNCHES_DIRECT,
             "decode_direct": decode_direct.LAUNCHES, "corner_vote": corner_vote.LAUNCHES,
-            "small_float": small_float.LAUNCHES}
+            "small_float": small_float.LAUNCHES,
+            "small_float_backward": small_float.BACKWARD_LAUNCHES}
 
 
 def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
@@ -506,10 +523,30 @@ def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
         f"{label} launched the corner vote kernel")
     assert counts["small_float"] == 0 or "small_float" in expect, (
         f"{label} launched the small-float kernel")
+    assert counts["small_float_backward"] == 0 or "small_float_backward" in expect, (
+        f"{label} launched the small-float backward")
     assert counts["project_points"] == (
         counts["nearest_wins_image"] + counts["nearest_wins_packed_image"]), (
         f"{label}: a range view without the pixel kernel")
     return out, {k: counts[k] for k in DRIVE_COUNTS}
+
+
+def _abs_err(got, want) -> float:
+    """The largest |got - want| over two tensors or tuples of them (None
+    skipped): 0 where both are NaN or the same infinity, inf where one
+    alone is NaN."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        if g is None:
+            continue
+        g, w = g.cpu().double(), w.cpu().double()
+        if not torch.equal(g.isnan(), w.isnan()):
+            return float("inf")
+        d = (g - w).abs()[~((g == w) | g.isnan())]
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
 
 
 def _same_bits(got, want) -> bool:
@@ -1444,6 +1481,244 @@ def phase_small_float(dev, spec, gm, scans) -> tuple[dict, dict]:
     return out, driven
 
 
+def _grad_readings(grads: dict, golden: dict, name: str, fmt) -> dict:
+    """A step's gradients against the f8 gradient golden's `name` part:
+    each convolution's share of values equal to JAX's and its largest
+    distance in steps of the format; the input norm's largest difference
+    relative to its largest entry."""
+    from tpufusion_torch._golden import format_steps
+
+    out = {}
+    for k, got in grads.items():
+        want = golden[f"{name}/{k.replace('.', '/')}"]
+        if k.startswith("norm."):
+            out[k] = ("rel", float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)))
+        else:
+            steps = format_steps(got, want, fmt)
+            out[k] = ("steps", float((steps == 0).mean()), int(steps.max()))
+    return out
+
+
+def phase_small_float_backward(dev, spec) -> tuple[dict, dict]:
+    """Phase 1h: the small-float backward (`csrc/small_float.cu`,
+    `tf_small_float_backward`: the epilogue's gradient with its bias
+    gradient's reduce, and the no-bias rounding of a dgrad or wgrad) bit
+    for bit its plain version (`ops/small_float.py`, run on the CPU) in
+    every format (into its carrier, and float32 in float8_e4m3fn; the
+    cuda tests take every output): `parity_inputs.small_float_backward_cases`
+    (one to three cotangents, float16 and float32, a strided view, with
+    and without relu; every float16 pattern, the formats' edges, +-0 and
+    NaNs of both signs; windows with padding, over the batch, a second
+    level) and the no-bias mode on every float16 pattern and the float32
+    edges; then `Trainer.fit` with the shipped asset in float8_e4m3fn at
+    32 x 1801: its first step on the f8 gradient golden's two beam scans
+    (`tests/data/torch_port_golden_f8_grad.npz`) held to JAX's gradients
+    (F8_GRAD_SAME of each convolution's values equal, none more than
+    F8_GRAD_STEPS steps of the format off, the input norm's within
+    F8_GRAD_NORM_RTOL x 100), the backward's calls of that step and of a
+    step at TRAIN_BATCH frames bit for bit their plain version, then an
+    epoch on phase 16's scene batches (TRAIN_SCENE_BATCHES steps of
+    TRAIN_BATCH) through `drive`, its checkpoint resumed; one
+    float8_e8m0fnu step (its loss a NaN): the trainer aborts
+    with no checkpoint and restores one it has; the asset's step in
+    float16 and float8_e4m3fn and its split (`step_times`); the backward's
+    device time at a train step's calls and at its largest beside its
+    plain version and its bound (`kernel_bench.small_float_backward_rows`).
+    Returns (its readings, the driven launches)."""
+    import tempfile
+
+    from tpufusion_torch._golden import (
+        F8_GRAD_FRAMES,
+        F8_GRAD_LOSS,
+        F8_GRAD_NORM_RTOL,
+        F8_GRAD_SAME,
+        F8_GRAD_STEPS,
+        load_npz,
+    )
+    from tpufusion_torch.config import DEFAULT, LossConfig, TrainConfig
+    from tpufusion_torch.data.pipeline import BatchPipeline
+    from tpufusion_torch.kernel_bench import recorded_backwards, small_float_backward_rows
+    from tpufusion_torch.models.fcn import FCN
+    from tpufusion_torch.models.io import asset_configs, load_state_npz
+    from tpufusion_torch.ops import parity_inputs
+    from tpufusion_torch.ops import small_float as sf
+    from tpufusion_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    log("phase 1h small-float backward (tf_small_float_backward) against its plain version; "
+        "Trainer.fit in float8_e4m3fn against the JAX golden")
+    out: dict = {"err": 0.0}
+    n_checks = 0
+    for fmt in sf.FORMATS.values():  # the carrier, float32 too in the main path's format
+        outs = (fmt.carrier,) + ((torch.float32,) if fmt.name == "float8_e4m3fn" else ())
+        for shape in parity_inputs.SMALL_FLOAT_BACKWARD_SHAPES:
+            for label, grads, saved, relu in parity_inputs.small_float_backward_cases(shape, dev):
+                for o in outs:
+                    got, want, same = sf.backward_against_plain(grads, saved, fmt, relu, o)
+                    out["err"] = max(out["err"], _abs_err(got, want))
+                    if not same:
+                        log(f"  {fmt.name} {shape} {label} {o}: bias kernel {got[1].tolist()}, "
+                            f"plain {want[1].tolist()}")
+                        raise AssertionError(f"small_float backward differs from its plain "
+                                             f"version ({fmt.name}, {shape}, {label}, {o})")
+                    n_checks += 1
+        patterns, values = parity_inputs.small_float_inputs(seed=31)
+        for a in (patterns.view(np.float16), values):
+            x = torch.from_numpy(a).view(1, 1, 1, -1)
+            for o in (torch.float32,) + ((torch.float16,) if fmt.via_f16 else ()):
+                got, want = sf.round_grad(x.to(dev), fmt, o).cpu(), sf.round_grad(x, fmt, o)
+                out["err"] = max(out["err"], _abs_err(got, want))
+                assert sf.same_bits(got, want), (
+                    f"the no-bias rounding differs from its plain version ({fmt.name})")
+                n_checks += 1
+    log(f"  every format, case and output against the plain version on the CPU: {n_checks} "
+        f"checks, bit for bit ({time.perf_counter() - t0:.1f} s)")
+
+    g8 = load_npz(GOLDEN_F8_GRAD)
+    amcfg, adcfg = asset_configs(ASSET)
+    driven = dict.fromkeys(KERNELS, 0)
+    expect = RANGE_VIEW + ("encode_direct_label", "small_float", "small_float_backward")
+
+    def trainer_for(name, outdir, batch_size):
+        cfg = DEFAULT.replace(
+            model=dataclasses.replace(amcfg, dtype=name), decode=adcfg,
+            loss=LossConfig(**F8_GRAD_LOSS),
+            train=TrainConfig(batch_size=batch_size, epochs=1, learning_rate=3e-3,
+                              augment=False, seed=0, divergence_check_every=1))
+        model = FCN(cfg.model)
+        load_state_npz(ASSET, model)
+        return Trainer(cfg, model=model, outdir=outdir, device=dev)
+
+    def recording(trainer, into: dict):
+        """The trainer's first step records its gradients and the
+        backward's calls into `into`."""
+        real = trainer.train_step
+
+        def step(model, opt, batch, gen=None):
+            if into:
+                return real(model, opt, batch, gen)
+            calls: list = []
+            with recorded_backwards(calls):
+                res = real(model, opt, batch, gen)
+            into["calls"] = calls
+            into["grads"] = {k: p.grad.detach().cpu().numpy()
+                             for k, p in model.named_parameters()}
+            into["loss"] = float(res[0])
+            return res
+
+        trainer.train_step = step
+
+    name = "float8_e4m3fn"
+    fmt = sf.FORMATS[name]
+    golden_data = {k: g8[k] for k in ("points", "valid", "center", "size", "yaw")}
+
+    def held(tag, rec):
+        readings = _grad_readings(rec["grads"], g8, name, fmt)
+        want_loss = float(g8[f"{name}/loss"])
+        dl = abs(rec["loss"] - want_loss) / abs(want_loss)
+        worst = min(r[1] for r in readings.values() if r[0] == "steps")
+        steps = max(r[2] for r in readings.values() if r[0] == "steps")
+        norm = max(r[1] for r in readings.values() if r[0] == "rel")
+        log(f"  {tag}: loss {rec['loss']:.7g} vs JAX's {want_loss:.7g} (relative "
+            f"{dl:.2e}); convolutions' gradients equal JAX's: least share {worst:.4%}, "
+            f"largest distance {steps} steps; the norm's within {norm:.2e} of its largest")
+        log("    " + ", ".join(f"{k} {r[1]:.4f}/{r[2]}" if r[0] == "steps" else
+                               f"{k} {r[1]:.1e}" for k, r in readings.items()))
+        return dl, worst, steps, norm
+
+    with tempfile.TemporaryDirectory() as outdir:
+        trainer = trainer_for(name, outdir, F8_GRAD_FRAMES)
+        first: dict = {}
+        recording(trainer, first)
+        pipe = BatchPipeline(golden_data, F8_GRAD_FRAMES, shuffle=False, seed=0, device=dev)
+        drive(f"Trainer.fit in {name}, the golden's {F8_GRAD_FRAMES} frames at 32 x 1801",
+              lambda: trainer.fit(pipe), driven, expect=expect)
+        dl, worst, steps, norm = held("the first step vs the f8 gradient golden", first)
+        out.update(golden_loss_rel=dl, golden_grad_same=worst, golden_grad_steps=steps,
+                   golden_norm_rel=norm)
+        assert dl < 1e-3 and worst >= F8_GRAD_SAME and steps <= F8_GRAD_STEPS, (
+            "the card's first step is off JAX's gradients")
+        assert norm <= 100 * F8_GRAD_NORM_RTOL, "the norm's gradients are off JAX's"
+        elems = 0
+        for grads, saved, f, relu, o, bias in first["calls"]:
+            got, want, same = sf.backward_against_plain(grads, saved, f, relu, o, bias)
+            out["err"] = max(out["err"], _abs_err(got, want))
+            assert same, "the backward differs from its plain version on the step's cotangents"
+            elems += grads[0].numel()
+        log(f"  the step's {len(first['calls'])} backward calls ({elems} elements) bit for "
+            f"bit their plain version")
+
+        data = scene_batches()
+        main: dict = {}
+        recording(trainer, main)
+        pipe16 = BatchPipeline(data, TRAIN_BATCH, seed=0, device=dev)
+        hist, _ = drive(f"Trainer.fit in {name}, phase 16's {TRAIN_SCENE_BATCHES} scene batches "
+                        f"of {TRAIN_BATCH}", lambda: trainer.fit(pipe16), driven, expect=expect)
+        losses = hist.batch["loss"]
+        log(f"    step losses {[round(x, 4) for x in losses]}; checkpoints "
+            f"{trainer.ckpt.steps()}")
+        assert len(losses) == 1 + TRAIN_SCENE_BATCHES and np.isfinite(losses).all()
+        assert trainer.ckpt.latest_step() == 1 + TRAIN_SCENE_BATCHES
+        assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+        t1 = time.perf_counter()
+        elems = 0
+        for grads, saved, f, relu, o, bias in main["calls"]:
+            got, want, same = sf.backward_against_plain(grads, saved, f, relu, o, bias)
+            out["err"] = max(out["err"], _abs_err(got, want))
+            assert same, "the backward differs from its plain version at the train batch's shapes"
+            elems += grads[0].numel()
+        log(f"  a {TRAIN_BATCH}-frame step's {len(main['calls'])} backward calls ({elems} "
+            f"elements) bit for bit their plain version ({time.perf_counter() - t1:.1f} s)")
+        out["main_calls"], out["main_elements"] = len(main["calls"]), elems
+        fresh = trainer_for(name, outdir, TRAIN_BATCH)
+        assert fresh.resume() and fresh.step == trainer.step
+        assert all(torch.equal(a, b) for a, b in zip(fresh.model.parameters(),
+                                                     trainer.model.parameters()))
+        log(f"  resumed at step {fresh.step}: the parameters equal")
+        batches = list(pipe16.epoch())
+        for dtype in ("float16", name):
+            with tempfile.TemporaryDirectory() as tdir:
+                t = trainer_for(dtype, tdir, TRAIN_BATCH)
+                row = step_times(t, batches, spec, t.cfg.loss, "direct",
+                                 adcfg.direct_yaw_frame)
+            out.setdefault("steps", {}).setdefault(dtype, []).append(row)
+            log(f"    the asset's {dtype} step over {len(batches)} scene batches of "
+                f"{TRAIN_BATCH}: {json.dumps(row)} [{card_line()}]")
+
+    for with_ckpt in (False, True):
+        with tempfile.TemporaryDirectory() as outdir:
+            trainer = trainer_for("float8_e8m0fnu", outdir, F8_GRAD_FRAMES)
+            if with_ckpt:
+                trainer.ckpt.save(0, trainer.model, trainer.optimizer)
+            before = [p.detach().clone() for p in trainer.model.parameters()]
+            pipe = BatchPipeline(golden_data, F8_GRAD_FRAMES, shuffle=False, seed=0, device=dev)
+            hist, _ = drive(f"Trainer.fit in float8_e8m0fnu, {'a' if with_ckpt else 'no'} "
+                            "checkpoint", lambda: trainer.fit(pipe), driven, expect=expect)
+            finite = trainer._params_finite()
+            log(f"  float8_e8m0fnu ({'with' if with_ckpt else 'without'} a checkpoint): "
+                f"recorded losses {hist.batch['loss']}, step {trainer.step}, checkpoints "
+                f"{trainer.ckpt.steps()}, finite weights {finite}")
+            assert hist.batch["loss"] == [] and finite == with_ckpt
+            assert trainer.ckpt.steps() == ([0] if with_ckpt else [])
+            if with_ckpt:
+                assert all(torch.equal(a, b) for a, b in zip(trainer.model.parameters(),
+                                                             before))
+
+    row = small_float_backward_rows(calls_sets=[main["calls"]])[0]
+    out["row"] = row
+    log(f"  the backward at {row['shape']} ({row['calls']} calls, {row['elements']} "
+        f"elements in its epilogues): kernel {row['step_device_ms']:.4f} ms, bound "
+        f"{row['step_bound_ms']:.4f} ms by bytes; its largest call {row['call_shape']}: "
+        f"kernel {row['new_device_ms']:.4f} ms ({row['new_call_ms']:.4f} a call), plain "
+        f"{row['plain_call_ms']:.1f} ms (between events, host-paced), bound "
+        f"{row['bound_ms']:.4f} ms; kernel at {row['bound_ms'] / row['new_device_ms']:.1%} of it")
+    log("    by call (shape, cotangents: device ms): " + ", ".join(
+        f"{shape}: {ms:.3f}" for shape, ms in zip(row["per_call_shapes"],
+                                                  row["per_call_device_ms"])))
+    log(f"  phase 1h took {time.perf_counter() - t0:.1f} s")
+    return out, driven
+
+
 def check_zbuffer(label: str, points, valid, spec) -> None:
     """Holds the z-buffer kernel against its plain version on a path's
     own (B, N) points: bit-identical, or the run fails."""
@@ -2189,6 +2464,20 @@ def _sync_events(prof) -> dict[str, int]:
     return {k: n for k, n in counts.items() if n > 0}
 
 
+def scene_batches() -> dict:
+    """Phase 16's dataset: TRAIN_SCENE_BATCHES x TRAIN_BATCH beam scans of
+    N_POINTS with their boxes, as numpy."""
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+
+    parts = [synthesize_beam_scan_batch(np.random.default_rng(1600 + i), TRAIN_BATCH, N_POINTS)
+             for i in range(TRAIN_SCENE_BATCHES)]
+    data = {"points": np.concatenate([p for p, _, _ in parts]),
+            "valid": np.concatenate([v for _, _, v in parts])}
+    for k in ("center", "size", "yaw"):
+        data[k] = np.concatenate([gt[k] for _, gt, _ in parts])
+    return data
+
+
 def phase_trainer(dev, spec, card, totals):
     """Phase 16: Trainer.fit at full width, a checkpoint, resume, and the
     step's time and split."""
@@ -2198,24 +2487,16 @@ def phase_trainer(dev, spec, card, totals):
 
     from tpufusion_torch.config import DEFAULT, LossConfig, ModelConfig, TrainConfig
     from tpufusion_torch.data.pipeline import BatchPipeline
-    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
     from tpufusion_torch.geometry.encoding import (
         encode_direct_label_reference,
         encode_label_reference,
     )
     from tpufusion_torch.geometry.range_view import range_view_project_batch
     from tpufusion_torch.models.io import asset_configs
-    from tpufusion_torch.models.losses import weighted_pose_loss
     from tpufusion_torch.train.stats import population_weights
-    from tpufusion_torch.train.train_step import encode_batch
     from tpufusion_torch.train.trainer import Trainer
 
-    parts = [synthesize_beam_scan_batch(np.random.default_rng(1600 + i), TRAIN_BATCH, N_POINTS)
-             for i in range(TRAIN_SCENE_BATCHES)]
-    data = {"points": np.concatenate([p for p, _, _ in parts]),
-            "valid": np.concatenate([v for _, _, v in parts])}
-    for k in ("center", "size", "yaw"):
-        data[k] = np.concatenate([gt[k] for _, gt, _ in parts])
+    data = scene_batches()
     stats = population_weights(data["center"], data["size"], data["yaw"], spec, device=dev)
     loss_cfg = LossConfig(obj_to_bkg_ratio=stats["positive_to_negative_ratio"],
                           avg_obj_size=stats["average_area"])
@@ -2282,51 +2563,64 @@ def phase_trainer(dev, spec, card, totals):
 
             # times: the step and its parts over 8 distinct batches
             batches = [b for _ in range(2) for b in pipe.epoch()]
-            model, opt, gen = trainer.model, trainer.optimizer, trainer.generator
             head, yaw_frame = mcfg.head, dcfg.direct_yaw_frame
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            resident = torch.cuda.memory_allocated() / 2**20
-            step_ms = time_ms(lambda b: trainer.train_step(model, opt, b, gen), batches)
-            peak = torch.cuda.max_memory_allocated() / 2**20
-            busy_ms = device_ms(lambda b: trainer.train_step(model, opt, b, gen), batches)
+            rows[tag] = step_times(trainer, batches, spec, loss_cfg, head, yaw_frame)
             with torch.no_grad():
-                images = [range_view_project_batch(b["points"], spec, b["valid"]) for b in batches]
-                with_images = [dict(b, images=im) for b, im in zip(batches, images)]
-                labels = [encode_batch(b, spec, head, yaw_frame)[1] for b in with_images]
-                proj_ms = time_ms(
-                    lambda b: range_view_project_batch(b["points"], spec, b["valid"]), batches)
-                enc_ms = time_ms(lambda b: encode_batch(b, spec, head, yaw_frame), with_images)
+                with_images = [dict(b, images=range_view_project_batch(
+                    b["points"], spec, b["valid"])) for b in batches]
                 # the composition the fused kernel replaced
                 plain = (encode_label_reference if head == "corner" else functools.partial(
                     encode_direct_label_reference, yaw_frame=yaw_frame))
-                enc_plain = {"label_encode_plain_ms": round(time_ms(
+                rows[tag]["label_encode_plain_ms"] = round(time_ms(
                     lambda b: plain(b["center"], b["size"], b["yaw"], b["images"], spec),
-                    with_images), 3)}
-            pairs = list(zip(images, labels))
-
-            def forward(il):
-                return weighted_pose_loss(model(il[0], train=True), il[1], loss_cfg)
-
-            def forward_backward(il):
-                opt.zero_grad(set_to_none=True)
-                forward(il).backward()
-
-            fwd_ms = time_ms(forward, pairs)
-            fb_ms = time_ms(forward_backward, pairs)
-            opt_ms = time_ms(lambda _: opt.step(), batches)
-            rows[tag] = {"ms_per_step": round(step_ms, 3),
-                         "frames_per_s": round(TRAIN_BATCH * 1e3 / step_ms, 1),
-                         "device_ms_per_step": round(busy_ms, 3),
-                         "device_busy": round(busy_ms / step_ms, 3),
-                         "projection_ms": round(proj_ms, 3), "label_encode_ms": round(enc_ms, 3),
-                         **enc_plain,
-                         "forward_ms": round(fwd_ms, 3), "backward_ms": round(fb_ms - fwd_ms, 3),
-                         "optimizer_ms": round(opt_ms, 3), "peak_device_mib": round(peak, 1),
-                         "resident_before_mib": round(resident, 1)}
+                    with_images), 3)
             log(f"    times over {len(batches)} distinct batches of {TRAIN_BATCH} x {N_POINTS}: "
                 f"{json.dumps(rows[tag])} [{card}]")
     return rows
+
+
+def step_times(trainer, batches, spec, loss_cfg, head: str, yaw_frame: str) -> dict:
+    """A trainer's step over `batches` (CUDA events; device ms by
+    `device_ms`) and its parts: the projection, the label encode, the
+    forward with its loss, the backward, the optimizer; peak memory."""
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+    from tpufusion_torch.models.losses import weighted_pose_loss
+    from tpufusion_torch.train.train_step import encode_batch
+
+    model, opt, gen = trainer.model, trainer.optimizer, trainer.generator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**20
+    step_ms = time_ms(lambda b: trainer.train_step(model, opt, b, gen), batches)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    busy_ms = device_ms(lambda b: trainer.train_step(model, opt, b, gen), batches)
+    with torch.no_grad():
+        images = [range_view_project_batch(b["points"], spec, b["valid"]) for b in batches]
+        with_images = [dict(b, images=im) for b, im in zip(batches, images)]
+        labels = [encode_batch(b, spec, head, yaw_frame)[1] for b in with_images]
+        proj_ms = time_ms(
+            lambda b: range_view_project_batch(b["points"], spec, b["valid"]), batches)
+        enc_ms = time_ms(lambda b: encode_batch(b, spec, head, yaw_frame), with_images)
+    pairs = list(zip(images, labels))
+
+    def forward(il):
+        return weighted_pose_loss(model(il[0], train=True), il[1], loss_cfg)
+
+    def forward_backward(il):
+        opt.zero_grad(set_to_none=True)
+        forward(il).backward()
+
+    fwd_ms = time_ms(forward, pairs)
+    fb_ms = time_ms(forward_backward, pairs)
+    opt_ms = time_ms(lambda _: opt.step(), batches)
+    return {"ms_per_step": round(step_ms, 3),
+            "frames_per_s": round(len(images[0]) * 1e3 / step_ms, 1),
+            "device_ms_per_step": round(busy_ms, 3),
+            "device_busy": round(busy_ms / step_ms, 3),
+            "projection_ms": round(proj_ms, 3), "label_encode_ms": round(enc_ms, 3),
+            "forward_ms": round(fwd_ms, 3), "backward_ms": round(fb_ms - fwd_ms, 3),
+            "optimizer_ms": round(opt_ms, 3), "peak_device_mib": round(peak, 1),
+            "resident_before_mib": round(resident, 1)}
 
 
 def phase_fusion_train(dev, gf, gt, card, totals):
@@ -3958,6 +4252,7 @@ def main(argv=()) -> int:
     cv_err, cv_times, cv_lanes = phase_corner_vote(dev, load_npz(GOLDEN_MULTI))  # phase 1f
     sfr, sf_driven = phase_small_float(dev, spec, load_npz(GOLDEN_MULTI),
                                        (scan_pts, scan_valid))  # phase 1g
+    sbr, sb_driven = phase_small_float_backward(dev, spec)  # phase 1h
     proj_err = 0.0
     for label, p, v in (("proj_check 4x8192", pts, valid),
                         (f"beam scans {BATCH}x{N_POINTS}", scan_pts, scan_valid)):
@@ -4146,6 +4441,8 @@ def main(argv=()) -> int:
         totals[k] += n
     for k, n in sf_driven.items():  # phase 1g's small-float steps
         totals[k] += n
+    for k, n in sb_driven.items():  # phase 1h's small-float training
+        totals[k] += n
     g, gm = load_npz(GOLDEN), load_npz(GOLDEN_MULTI)
     models, adcfg = phase_bf16(dev, spec, g, gm)
     c5_step, seq_poses, seq_found = phase_config5(dev, spec, gm, models, adcfg, totals)
@@ -4196,6 +4493,7 @@ def main(argv=()) -> int:
     assert totals["decode_direct"] > 0, "no path launched the direct decode kernel"
     assert totals["corner_vote"] > 0, "no path launched the corner vote kernel"
     assert totals["small_float"] > 0, "no path launched the small-float kernel"
+    assert totals["small_float_backward"] > 0, "no path launched the small-float backward"
     assert totals["project_points"] == (
         totals["nearest_wins_image"] + totals["nearest_wins_packed_image"]), (
         "a driven range view without the pixel kernel")
@@ -4311,7 +4609,18 @@ def main(argv=()) -> int:
          "conv16_raw_differ": sfr["conv16_raw_differ"],
          "conv16_fmt_differ": sfr["conv16_fmt_differ"], "conv_outputs": sfr["conv_outputs"],
          **{k: v for k, v in sfr.items() if k.endswith(("_features_same", "_prob_diff"))},
-         "golden_pose_diff": sfr["pose_diff"]},
+         "golden_pose_diff": sfr["pose_diff"],
+         "input_cast_library_ms": sfr["row"].get("cast_library_device_ms")},
+        {"name": "small_float_backward", "route": "cuda",
+         "source": "tpufusion_torch/csrc/small_float.cu",
+         "replaces": "tpufusion/models/fcn.py:100",
+         "launches": totals["small_float_backward"], "max_abs_err": sbr["err"],
+         "ms": sbr["row"]["new_device_ms"], "plain_ms": sbr["row"]["plain_call_ms"],
+         "bound_ms": sbr["row"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "call_ms": sbr["row"]["new_call_ms"], "shape": sbr["row"]["call_shape"],
+         "step_ms": sbr["row"]["step_device_ms"], "step_bound_ms": sbr["row"]["step_bound_ms"],
+         "calls_a_step": sbr["row"]["calls"], "epilogue_elements": sbr["row"]["elements"],
+         **{k: v for k, v in sbr.items() if k.startswith(("golden_", "main_"))}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -146,18 +146,27 @@ tests/data/torch_port_golden_f8.npz: the small-float configurations
                 max_obstacles=F8_E2E_K) with the shipped asset in
                 float8_e4m3fn and in float8_e5m2 on the three frames
 
+tests/data/torch_port_golden_f8_grad.npz: training in the small floats
+(tpufusion_torch/_golden.py, F8_GRAD_*).
+  points, valid, center, size, yaw  two beam scans of the port's numpy
+                generator (seed F8_GRAD_SEED): the inputs
+  <format>/loss, <format>/<layer>/<param>  JAX's loss and gradients of
+                the shipped asset's FCN in each of the nine formats on
+                their full-width range views (train=True, the direct
+                head's labels, LossConfig(**F8_GRAD_LOSS))
+
 tests/test_torch_e2e.py, tests/test_torch_multi.py,
 tests/test_torch_fusion.py, tests/test_torch_train.py,
 tests/test_torch_viewer.py, tests/test_torch_tall_views.py,
-tests/test_torch_bench.py and tests/test_torch_projection_methods.py
-recompute them (the train golden's fusion steps excepted: 8 full-size
+tests/test_torch_bench.py, tests/test_torch_projection_methods.py and
+tests/test_torch_small_float_train.py recompute them (the train golden's fusion steps excepted: 8 full-size
 camera frames backward) and fail when a file is stale.
 
-    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer | tall | bench | packed | bf16 | f16 | f8]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py [train | viewer | tall | bench | packed | bf16 | f16 | f8 | f8_grad]
 
-With `train` (`viewer`, `tall`, `bench`, `packed`, `bf16`, `f16`, `f8`)
-only the train (viewer, tall, bench, packed, bf16, f16, f8) golden is
-rewritten.
+With `train` (`viewer`, `tall`, `bench`, `packed`, `bf16`, `f16`, `f8`,
+`f8_grad`) only the train (viewer, tall, bench, packed, bf16, f16, f8,
+f8 gradient) golden is rewritten.
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_golden.py
 """
@@ -988,6 +997,78 @@ def write_f8_golden() -> None:
                       if k.endswith("_found")))
 
 
+def jax_f8_grads(name: str, images: np.ndarray, labels: np.ndarray) -> dict[str, np.ndarray]:
+    """JAX's loss and gradients of the shipped asset's FCN in `name` on
+    (images, labels), train=True, LossConfig(**F8_GRAD_LOSS): {"loss",
+    "<layer>/<param>"}, float32."""
+    import jax
+    from flax import nnx
+
+    from tests.torch_golden import jax_asset_model
+    from tpufusion.config import LossConfig
+    from tpufusion.models.losses import weighted_pose_loss
+    from tpufusion_torch._golden import F8_GRAD_LOSS
+
+    graphdef, state = nnx.split(jax_asset_model(dtype=name))
+    loss_cfg = LossConfig(**F8_GRAD_LOSS)
+
+    def value_and_grad(state, images, labels):
+        model = nnx.merge(graphdef, state)
+        return nnx.value_and_grad(
+            lambda m: weighted_pose_loss(m(images, train=True), labels, loss_cfg))(model)
+
+    loss, grads = jax.jit(value_and_grad)(state, images, labels)
+    out = {"loss": np.asarray(loss, np.float32)}
+    for path, g in nnx.to_flat_state(grads):
+        out["/".join(map(str, path))] = np.asarray(g, np.float32)
+    return out
+
+
+def f8_grad_inputs() -> tuple[dict, np.ndarray, np.ndarray]:
+    """(the golden's batch, JAX's range views of it, JAX's direct-head
+    labels in the asset's yaw frame)."""
+    import jax.numpy as jnp
+
+    from tests.torch_golden import asset_configs
+    from tpufusion.config import RangeViewSpec
+    from tpufusion.geometry.encoding import encode_direct_label_batch
+    from tpufusion.geometry.range_view import range_view_project_batch
+    from tpufusion_torch._golden import F8_GRAD_FRAMES, F8_GRAD_SEED
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+
+    points, gt, valid = synthesize_beam_scan_batch(np.random.default_rng(F8_GRAD_SEED),
+                                                   F8_GRAD_FRAMES, 32768)
+    batch = {"points": points, "valid": valid, **{k: gt[k] for k in ("center", "size", "yaw")}}
+    spec = RangeViewSpec()
+    images = range_view_project_batch(jnp.asarray(points), spec, jnp.asarray(valid))
+    labels = encode_direct_label_batch(
+        *(jnp.asarray(gt[k]) for k in ("center", "size", "yaw")), images, spec,
+        yaw_frame=asset_configs()[1].direct_yaw_frame)
+    return batch, np.asarray(images), np.asarray(labels)
+
+
+def golden_f8_grad_arrays(names=None) -> dict[str, np.ndarray]:
+    """The small-float gradient golden (`_golden.py`, F8_GRAD_*): the batch
+    and JAX's loss and gradients in each of `names` (every format)."""
+    from tpufusion_torch.ops.small_float import FORMATS
+
+    batch, images, labels = f8_grad_inputs()
+    out = dict(batch)
+    for name in names or FORMATS:
+        out.update({f"{name}/{k}": v for k, v in jax_f8_grads(name, images, labels).items()})
+    return out
+
+
+def write_f8_grad_golden() -> None:
+    from tests.torch_golden import GOLDEN_F8_GRAD
+
+    arrays = golden_f8_grad_arrays()
+    np.savez_compressed(GOLDEN_F8_GRAD, **arrays)
+    print(f"wrote {GOLDEN_F8_GRAD} ({os.path.getsize(GOLDEN_F8_GRAD)} bytes): losses "
+          + ", ".join(f"{k[:-5]} {float(arrays[k]):.6g}" for k in sorted(arrays)
+                      if k.endswith("/loss")))
+
+
 def main() -> None:
     import jax
 
@@ -1014,6 +1095,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["f16"]:
         write_f16_golden()
+        return
+    if sys.argv[1:] == ["f8_grad"]:
+        write_f8_grad_golden()
         return
     if sys.argv[1:] == ["f8"]:
         write_f8_golden()
@@ -1045,6 +1129,7 @@ def main() -> None:
     write_bf16_golden()
     write_f16_golden()
     write_f8_golden()
+    write_f8_grad_golden()
 
 
 if __name__ == "__main__":

@@ -2003,3 +2003,102 @@ def test_small_float_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="cannot be written"):
         sf.conv_epilogue(y, torch.zeros(2, device=cuda_device), sf.FORMATS["float8_e8m0fnu"],
                          out=torch.float16)
+
+
+@pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "float8_e3m4", "float8_e4m3",
+                                  "float8_e4m3fnuz", "float8_e5m2fnuz", "float8_e4m3b11fnuz",
+                                  "float8_e8m0fnu", "float4_e2m1fn"])
+def test_small_float_backward_kernel_matches_its_plain_version(cuda_device, name):
+    """The backward of csrc/small_float.cu (`tf_small_float_backward`)
+    against its plain version run on the CPU, bit for bit, the bias
+    gradient included: `parity_inputs.small_float_backward_cases` (one to
+    three cotangents, float16 and float32, a strided view, with and
+    without relu; every float16 pattern, the formats' edges, +-0 and NaNs
+    of both signs) at each of SMALL_FLOAT_BACKWARD_SHAPES (windows with
+    padding, over the batch, a second level), into each output; one
+    launch a call."""
+    from tpufusion_torch.ops import small_float as sf
+
+    fmt = sf.FORMATS[name]
+    outs = (torch.float32,) + ((torch.float16,) if fmt.via_f16 else ())
+    for shape in parity_inputs.SMALL_FLOAT_BACKWARD_SHAPES:
+        for label, grads, saved, relu in parity_inputs.small_float_backward_cases(
+                shape, cuda_device):
+            for out in outs:
+                before = sf.BACKWARD_LAUNCHES
+                got, want, same = sf.backward_against_plain(grads, saved, fmt, relu, out)
+                assert sf.BACKWARD_LAUNCHES == before + 1
+                assert same, (shape, label, out, got[1], want[1])
+
+
+def test_small_float_round_grad_matches_its_plain_version(cuda_device):
+    """The backward's no-bias mode (`round_grad`: a dgrad's or wgrad's
+    fmt(h(g))) on every float16 pattern and the float32 edges, into
+    float32 and the carrier, bit for bit its plain version."""
+    from tpufusion_torch.ops import small_float as sf
+
+    patterns, values = parity_inputs.small_float_inputs(seed=29)
+    xs = [torch.from_numpy(a).view(1, 1, 1, -1) for a in (patterns.view(np.float16), values)]
+    for fmt in sf.FORMATS.values():
+        for x in xs:
+            for out in (torch.float32,) + ((torch.float16,) if fmt.via_f16 else ()):
+                got = sf.round_grad(x.to(cuda_device), fmt, out).cpu()
+                want = sf.round_grad(x, fmt, out)
+                assert sf.same_bits(got, want), (fmt.name, x.dtype, out)
+
+
+def test_small_float_train_step_launches_the_backward_a_layer(cuda_device):
+    """A float8_e4m3fn train step of the asset's geometry without its
+    input norm on the card (seeded weights, batch 2 at 32 x 201, a
+    foreground box): the backward kernel launches once a layer and once a
+    kernel (8 epilogues, 8 roundings; BACKWARD_LAUNCHES; the input takes
+    no gradient without the norm), the direct cast once an output
+    (LAUNCHES), and at
+    least 99 % of each layer's gradient equal to the CPU's step, NaN
+    where it is (the card's float32 dgrad and wgrad sum in cuDNN's order,
+    a rare value at a midpoint of the format rounds the other way)."""
+    from tpufusion_torch.config import LossConfig
+    from tpufusion_torch.models.losses import weighted_pose_loss
+    from tpufusion_torch.ops import small_float as sf
+
+    mcfg, _ = asset_configs(ASSET)
+    mcfg = dataclasses.replace(mcfg, dtype="float8_e4m3fn", batch_norm=False)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(0, 20, (2, 32, 201, 3)).astype(np.float32))
+    fg = np.zeros((2, 32, 201), bool)
+    fg[:, 13:19, 60:90] = True
+    reg = rng.uniform(-1, 1, (2, 32, 201, 8)) * fg[..., None]
+    labels = torch.from_numpy(np.concatenate([np.eye(2)[fg.astype(int)], reg], -1)
+                              .astype(np.float32))
+    state = FCN(mcfg, seed=3).state_dict()
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        model = FCN(mcfg)
+        model.load_state_dict(state)
+        model.to(dev)
+        loss = weighted_pose_loss(model(x.to(dev), train=True), labels.to(dev),
+                                  LossConfig(weight_bb=1.0))
+        before, casts = sf.BACKWARD_LAUNCHES, sf.LAUNCHES
+        loss.backward()
+        if dev != "cpu":  # 8 epilogues and 8 kernels' rounding; the outputs' casts
+            assert (sf.BACKWARD_LAUNCHES - before, sf.LAUNCHES - casts) == (16, 2)
+        grads[str(dev)] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    for k, want in grads["cpu"].items():
+        got = grads[str(cuda_device)][k]
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        assert float(same.float().mean()) >= 0.99, k
+
+
+def test_small_float_backward_rejects_bad_inputs(cuda_device):
+    from tpufusion_torch.ops import small_float as sf
+
+    fmt = sf.FORMATS["float8_e4m3fn"]
+    g = torch.ones(1, 2, 3, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="1 to 3"):
+        sf.conv_epilogue_backward([g] * 4, None, fmt, False)
+    with pytest.raises(ValueError, match="one"):
+        sf.conv_epilogue_backward([g, g[:, :1]], None, fmt, False)
+    with pytest.raises(ValueError, match="relu"):
+        sf.conv_epilogue_backward([g], None, fmt, True)
+    with pytest.raises(ValueError, match="float32 or float16"):
+        sf.conv_epilogue_backward([g.double()], None, fmt, False)

@@ -13,12 +13,14 @@ reference) against the port and against JAX run here; `make_e2e_step`
 with the asset in float8_e4m3fn and float8_e5m2 against JAX's step
 (found equal, poses within POSE_ATOL). complex64 and complex128: the
 float32 net's output, complex64 features and JAX's warnings. Training in
-these dtypes is not ported: the backward and the trainers raise.
+these dtypes: tests/test_torch_small_float_train.py; the backward's plain
+version against ml_dtypes' rounding and XLA's reduce order here.
 """
 
 import dataclasses
 import warnings
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -53,7 +55,6 @@ from tpufusion_torch._golden import (
     small_float_sample,
 )
 from tpufusion_torch.models import fcn
-from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.ops import parity_inputs
 from tpufusion_torch.ops import small_float as sf
 from tpufusion_torch.predict import make_e2e_step
@@ -302,38 +303,35 @@ def test_complex_names_run_the_float32_net(crop, name):
 
 
 
-@pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e8m0fnu"])
-def test_small_float_forward_trains_its_norm_and_refuses_backward(crop, name):
-    """forward(train=True) runs (only the input norm uses the batch's
-    statistics, which move); backward raises NotImplementedError from the
-    epilogue; the detector trainer refuses the dtype at construction."""
-    from tpufusion_torch.config import DEFAULT
-    from tpufusion_torch.train.trainer import Trainer
-
-    mcfg, _ = asset_configs()
-    model = FCN(dataclasses.replace(mcfg, dtype=name), seed=0)
-    before = model.norm.mean.clone()
-    out = model(torch.from_numpy(crop[:, :, :61]), train=True)
-    assert not torch.equal(model.norm.mean, before)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        out.sum().backward()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Trainer(DEFAULT.replace(model=dataclasses.replace(DEFAULT.model, dtype=name)),
-                device="cpu", outdir="/dev/null/unused")
-
-
 @pytest.mark.parametrize("name", ["float8_e5m2", "complex64"])
 def test_fusion_refuses_small_float_and_complex_fcns(name):
     """JAX's FusionNet refuses a float8 FCN (its features meet float32
-    dense layers, a promotion JAX refuses for 8-bit floats) and runs a
-    complex one into complex poses, which the port does not: both raise
-    at construction, and so does the fusion trainer."""
+    dense layers, a promotion JAX refuses for 8-bit floats): the port's
+    raises TypeError at construction. It builds over a complex FCN, into
+    complex poses, which JAX's fusion step refuses to differentiate: the
+    port's `train_fusion` raises TypeError at its first step
+    (tests/test_torch_small_float_train.py holds both nets' outputs and
+    trainers to JAX's)."""
+    from tpufusion_torch.config import CameraConfig
     from tpufusion_torch.models.fusion import FusionNet
+    from tpufusion_torch.train.fusion_trainer import train_fusion
 
     cfg = dataclasses.replace(ModelConfig(), dtype=name)
-    error = TypeError if name.startswith("float8") else NotImplementedError
-    with pytest.raises(error):
-        FusionNet(lidar_model=cfg)
+    if name.startswith("float8"):
+        with pytest.raises(TypeError, match="promotion"):
+            FusionNet(lidar_model=cfg)
+        return
+    camera = CameraConfig(width=136, height=64)
+    net = FusionNet(lidar_model=cfg, camera=camera, lidar_pool=(2, 8), cam_pool=(8, 8))
+    rng = np.random.default_rng(0)
+    data = {"cam": rng.random((2, 64, 136, 1), dtype=np.float32),
+            "lidar": rng.random((2, 32, 1801, 3), dtype=np.float32),
+            "radar": rng.random((2, 2), dtype=np.float32),
+            "centroid": np.zeros((2, 3), np.float32), "rz": np.zeros((2, 1), np.float32)}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with pytest.raises(TypeError, match="real-valued outputs"):
+            train_fusion(net, data, epochs=1, batch_size=2, device="cpu")
 
 
 def test_wrappers_run_the_plain_version_on_the_cpu_and_refuse_other_devices():
@@ -354,3 +352,102 @@ def test_wrappers_run_the_plain_version_on_the_cpu_and_refuse_other_devices():
         sf.cast(y.to("meta"), fmt)
     with pytest.raises(ValueError, match="cannot be written"):
         sf.cast(y, sf.FORMATS["float8_e8m0fnu"], out=torch.float16)
+
+
+# -- the backward's plain version ---------------------------------------------
+
+@pytest.mark.parametrize("name", NAMES)
+def test_add_table_is_ml_dtypes_sum_through_float16(name):
+    """`add_table`: every pair of the format's codes summed in float32,
+    rounded to float16 where the format goes through it, then to the
+    format, as ml_dtypes casts: XLA's add of two format values."""
+    fmt, dt = sf.FORMATS[name], _ml(name)
+    n = 1 << (fmt.ebits + fmt.mbits + fmt.signed)
+    vals = np.arange(n, dtype=np.uint8).view(dt).astype(np.float32)
+    with np.errstate(all="ignore"):
+        total = vals[:, None] + vals[None, :]
+        if fmt.via_f16:
+            total = total.astype(np.float16)
+        want = total.astype(dt).view(np.uint8)
+    got = sf.add_table(fmt).numpy().astype(np.uint8)
+    nan = np.isnan(want.view(dt).astype(np.float32))
+    np.testing.assert_array_equal(got[~nan], want[~nan])
+    assert np.isnan(sf.decode(torch.from_numpy(got[nan]), fmt).numpy()).all()
+
+
+def _hlo_windows(shape, dtype=jnp.float16):
+    """The reduce-windows XLA's CPU compiles a sum over the first three
+    axes of `shape` + (2,) into: [(window sizes, low paddings)] in order."""
+    import re
+
+    text = jax.jit(lambda x: jnp.sum(x, axis=(0, 1, 2))).lower(
+        jax.ShapeDtypeStruct(tuple(shape) + (2,), dtype)).compile().as_text()
+    found = []
+    for m in re.finditer(r"reduce-window\([^)]*\), window=\{size=([0-9x]+) stride=[0-9x]+"
+                         r"(?: pad=([0-9_x]+))?", text):
+        sizes = tuple(int(v) for v in m.group(1).split("x"))[:3]
+        pads = tuple(int(p.split("_")[0]) for p in m.group(2).split("x"))[:3] if m.group(2) \
+            else (0, 0, 0)
+        found.append((sizes, pads))
+    return found
+
+
+@pytest.mark.parametrize("dims", [(2, 8, 61), (2, 32, 451), (2, 32, 1804), (33, 3, 40),
+                                  (1, 1, 1100), (2, 8, 16)])
+def test_xla_sum_levels_are_the_windows_xla_compiles(dims):
+    """`xla_sum_levels` against the reduce-windows in XLA's optimized HLO
+    of a float16 sum over (B, H, W) on the CPU (TreeReductionRewriter):
+    each level's windows and low paddings, and none where every dimension
+    is at most 32."""
+    levels = sf.xla_sum_levels(dims)
+    want = [(tuple(w for w, _, _ in lv), tuple(lo for _, _, lo in lv)) for lv in levels[:-1]]
+    assert _hlo_windows(dims) == want
+
+
+@pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "float4_e2m1fn",
+                                  "float8_e4m3fnuz", "float8_e8m0fnu"])
+@pytest.mark.parametrize("shape", parity_inputs.SMALL_FLOAT_BACKWARD_SHAPES)
+def test_bias_grad_reference_is_jaxs_sum_in_the_format(name, shape):
+    """`bias_grad_reference` on (B, C, H, W) format values against
+    jnp.sum over batch, height and width of the same values (NHWC) in the
+    format, then float32: the bias gradient's reduce in XLA, every partial
+    sum rounded to the format, in its windowed order (bit for bit, NaN
+    where JAX's)."""
+    fmt, dt = sf.FORMATS[name], _ml(name)
+    arrays = parity_inputs.small_float_backward_inputs(shape, seed=5)
+    for key in ("small", "typical"):
+        g = arrays[key]
+        if not fmt.signed:
+            g = np.abs(g)
+        g = g.astype(dt)
+        want = np.asarray(jax.jit(lambda x: jnp.sum(x, axis=(0, 1, 2)).astype(jnp.float32))(
+            jnp.asarray(g.transpose(0, 2, 3, 1))))
+        got = sf.bias_grad_reference(torch.from_numpy(g.astype(np.float32)), fmt).numpy()
+        assert np.array_equal(got, want, equal_nan=True), (key, got, want)
+
+
+def test_backward_reference_rounds_each_sum_and_selects_relu():
+    """The backward's plain version, element by element: each cotangent
+    rounded through float16 to the format, each sum rounded, relu's
+    select on the forward's value (> 0), fmt(0) elsewhere; float8_e8m0fnu
+    selects its NaN; the carrier or float32 out; the no-bias mode is the
+    rounding alone."""
+    fmt = sf.FORMATS["float8_e4m3fn"]
+    g1 = torch.tensor([0.30, 0.0, 100.0, -2.1, 1e-3]).view(1, 1, 1, 5)
+    g2 = torch.tensor([0.26, 0.5, 300.0, 2.0, 1e-3]).view(1, 1, 1, 5)
+    saved = torch.tensor([1.0, 1.0, 1.0, 0.0, float("nan")]).view(1, 1, 1, 5)
+    got, gb = sf.conv_epilogue_backward_reference([g1, g2], saved, fmt, True, torch.float32)
+
+    def r(v):
+        return float(sf.round_small_float(torch.tensor(v), fmt, True))
+
+    want = [r(r(0.30) + r(0.26)), r(0.5), r(r(100.0) + r(300.0)), 0.0, 0.0]
+    assert got.view(-1).tolist() == want and want[2] == 384.0
+    acc = 0.0
+    for v in want:
+        acc = r(acc + v)
+    assert gb.shape == (1,) and float(gb) == acc
+    e8 = sf.FORMATS["float8_e8m0fnu"]
+    out, gb = sf.conv_epilogue_backward_reference([g1.abs() + 1], torch.zeros_like(g1), e8, True)
+    assert out.dtype == torch.float32 and torch.isnan(out).all() and torch.isnan(gb).all()
+    assert sf.same_bits(sf.round_grad(g1, fmt), sf.round_small_float(g1, fmt, True).half())

@@ -38,6 +38,7 @@ GOLDEN_TRAIN = os.path.join(REPO, "tests", "data", "torch_port_golden_train.npz"
 GOLDEN_VIEWER = os.path.join(REPO, "tests", "data", "torch_port_golden_viewer.npz")
 GOLDEN_BENCH = os.path.join(REPO, "tests", "data", "torch_port_golden_bench.npz")
 GOLDEN_PACKED = os.path.join(REPO, "tests", "data", "torch_port_golden_packed.npz")
+GOLDEN_F8_GRAD = os.path.join(REPO, "tests", "data", "torch_port_golden_f8_grad.npz")
 GOLDEN_BF16 = os.path.join(REPO, "tests", "data", "torch_port_golden_bf16.npz")
 GOLDEN_F16 = os.path.join(REPO, "tests", "data", "torch_port_golden_f16.npz")
 GOLDEN_F8 = os.path.join(REPO, "tests", "data", "torch_port_golden_f8.npz")

@@ -337,6 +337,51 @@ F8_PROB_ATOL = 1e-7
 F8_FEATURES_SAME = 0.99
 
 
+# tests/data/torch_port_golden_f8_grad.npz (tests/make_torch_port_golden.py
+# f8_grad): F8_GRAD_FRAMES beam scans of the port's numpy generator
+# (`synthesize_beam_scan_batch`, seed F8_GRAD_SEED; "points", "valid",
+# "center", "size", "yaw") and, for each format, JAX's loss and gradients
+# of the shipped asset's FCN in that format on their full-width range
+# views (train=True, the direct head's labels in the asset's yaw frame,
+# LossConfig(**F8_GRAD_LOSS): the asset was trained with weight_bb 1):
+# "<format>/loss" and "<format>/<layer>/<param>". On the CPU the port's
+# first step gives every small-float gradient bit for bit and the input
+# norm's within F8_GRAD_NORM_RTOL of its largest entry. On the card the
+# dgrad and wgrad are cuDNN's float32 convolutions (TF32 off), whose sums
+# run in another order than XLA's: a sum at a midpoint of float16 can
+# round the other way and land a code apart. There at least F8_GRAD_SAME
+# of each layer's gradient values must equal JAX's and every value lie
+# within F8_GRAD_STEPS step of the format of JAX's. chip_smoke.py phase 1h
+# read every value equal in float8_e4m3fn on an NVIDIA H100 80GB HBM3,
+# 700.00 W (golden_grad_same 1.0, golden_grad_steps 0, PERF.md); the
+# limits leave a layer of n values n // 1000 flips of one step: none in
+# a bias or in conv1's 600-value kernel.
+def format_steps(got: np.ndarray, want: np.ndarray, fmt) -> np.ndarray:
+    """How many of the small-float format `fmt`'s values lie between got
+    and want, element by element (0 where both are NaN, 2**20 where one
+    alone is)."""
+    import torch
+
+    from tpufusion_torch.ops.small_float import encode
+
+    def ordinal(v):
+        c = encode(torch.from_numpy(np.ascontiguousarray(v, np.float32)), fmt)
+        m = c & ~fmt.sign_bit
+        return torch.where((c & fmt.sign_bit) != 0, -m, m).numpy()
+
+    nan_g, nan_w = np.isnan(got), np.isnan(want)
+    steps = np.abs(ordinal(got) - ordinal(want))
+    return np.where(nan_g & nan_w, 0, np.where(nan_g | nan_w, 1 << 20, steps))
+
+
+F8_GRAD_SEED = 24
+F8_GRAD_FRAMES = 2
+F8_GRAD_LOSS = {"weight_bb": 1.0}
+F8_GRAD_NORM_RTOL = 1e-4
+F8_GRAD_SAME = 0.999
+F8_GRAD_STEPS = 1
+
+
 def small_float_sample(features_codes: np.ndarray, out: np.ndarray):
     """A small-float FCN's features as codes (B, H, W, 2) and its output
     (B, H, W, 2 + reg) -> what the f8 golden keeps: (the codes at every

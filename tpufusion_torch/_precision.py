@@ -1,6 +1,7 @@
-"""The pin that keeps float32 matmuls in full precision, shared by the
-decode (corner vote, head center) and the fusion net's dense layers; and
-the rounding of float32 values to bf16 or float16 on the host."""
+"""The pins that keep float32 matmuls (the decode's corner vote and head
+center, the fusion net's dense layers) and float32 convolutions (a
+small-float FCN's dgrad and wgrad) in full precision; and the rounding of
+float32 values to bf16 or float16 on the host."""
 
 from __future__ import annotations
 
@@ -50,3 +51,17 @@ def full_f32_matmuls():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+@contextlib.contextmanager
+def full_f32_convs():
+    """float32 convolutions in full precision inside the block, cuDNN's
+    TF32 setting restored after: torch lets cuDNN run them in TF32 by
+    default (`torch.backends.cudnn.allow_tf32`), which keeps 10 bits of
+    a product's operands."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

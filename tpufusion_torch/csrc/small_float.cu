@@ -305,6 +305,243 @@ __global__ void __launch_bounds__(kThreads) cast_kernel(
   }
 }
 
+// ---- backward ----------------------------------------------------------
+//
+// The epilogue's gradient, one wrapper call a layer (small_float.py,
+// conv_epilogue_backward_reference): up to kMaxGrads cotangents of the
+// layer's output g_i (raw convolution results or the format's values, any
+// strides) are rounded r(t) = fmt(h(t)) and summed in order, each sum
+// rounded, relu selects the sum where the forward's value is > 0 (else
+// fmt(0)), and the result is written in the carrier; the bias gradient
+// reduces it over batch, height and width in XLA's order
+// (xla_sum_levels: windows of 32 along each dimension over 32, padded
+// evenly, again until none is, each window row-major), every partial sum
+// rounded to the format, from fmt(0) (a NaN in float8_e8m0fnu, as XLA's
+// initial 0 converted). Each step of that reduce is one lookup of
+// fmt(h(a + b)) in the format's add table (codes x codes, built once a
+// format and device by add_table_kernel), staged into shared memory.
+// With one cotangent, no relu and no bias it is the no-bias rounding of a
+// dgrad or wgrad, fmt(h(g)).
+//
+// What bounds it on the H100: not bytes. The cotangent pass reads each
+// cotangent and the forward's value once and writes the result and a
+// code (at a train step of the asset at 32 x 32 x 1801, 46 M elements in
+// 8 layers: 0.094 ms of bytes), integer arithmetic on registers at full
+// occupancy. The reduce is a chain of dependent steps: XLA's first window
+// at 32 frames is 32 x 32 x 32 elements, 32,768 steps in order, each an
+// add-table lookup in shared memory (~30 cycles of latency: ~0.5 ms a
+// layer however many channels and windows run side by side, a thread
+// each; measured 1.2-1.4 ms); the next row's codes are loaded ahead.
+// Earlier designs (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W): the
+// cotangent recomputed inside the reduce's thread, 98 ms a step; a pass 1
+// through the forward's float16 code table (132 KB of shared memory a CTA,
+// so one CTA an SM) starved of loads in flight, 10.6 ms; this one 10.3.
+
+constexpr int kMaxGrads = 3;
+constexpr int kMaxLevels = 8;
+constexpr int kMaxCodes = 256;
+constexpr int kWindow = 32;  // XLA's window along a dimension (small_float.py XLA_WINDOW)
+
+struct Grads {
+  const void* p[kMaxGrads];
+  int kind[kMaxGrads];  // 0 float32, 1 float16
+  long long s[kMaxGrads][4];  // element strides over (B, C, H, W)
+  int n;
+};
+
+struct Levels {
+  int v[kMaxLevels][3][3];  // a level's (window, count, low padding) over (B, H, W)
+  int n;
+};
+
+__device__ __forceinline__ float load_kind(const void* p, int kind, int64_t i) {
+  return kind == 0 ? load((const float*)p, i) : load((const __half*)p, i);
+}
+
+__device__ __forceinline__ float nan_add(float a, float b) {
+  float s = __fadd_rn(a, b);
+  if (isnan(s)) s = isnan(a) ? a : isnan(b) ? b : nan_of(true);
+  return s;
+}
+
+// the cotangent of the convolution's output at (b, c, h, w), flat index i
+__device__ __forceinline__ float cotangent(const Grads& g, const void* saved, int saved_kind,
+                                           int relu, int b, int c, int h, int w, int64_t i,
+                                           const Fmt& f, bool via, float zero) {
+  float acc = 0.0f;
+  for (int k = 0; k < g.n; ++k) {
+    int64_t off = b * g.s[k][0] + c * g.s[k][1] + h * g.s[k][2] + w * g.s[k][3];
+    float t = round_fmt(load_kind(g.p[k], g.kind[k], off), f, via);
+    acc = k == 0 ? t : round_fmt(nan_add(acc, t), f, via);
+  }
+  if (relu) acc = load_kind(saved, saved_kind, i) > 0.0f ? acc : zero;
+  return acc;
+}
+
+__global__ void __launch_bounds__(kThreads) add_table_kernel(Fmt f, int via, int ncodes,
+                                                             uint8_t* __restrict__ table) {
+  int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= ncodes * ncodes) return;
+  int a = i / ncodes, b = i % ncodes;
+  float s = nan_add(decode((uint32_t)a, f), decode((uint32_t)b, f));
+  table[i] = (uint8_t)encode(via ? h16(s) : s, f);
+}
+
+constexpr int kBwdUnroll = 4;  // elements of pass 1 a thread has in flight
+
+// Pass 1: the cotangent, element by element, into `out` and, where the
+// bias gradient is wanted, its code into `codes` (one byte an element,
+// NCHW), which pass 2 reads. Integer arithmetic on registers alone, so
+// every SM holds as many threads as it can: the pass is bound by its
+// loads' latency, kBwdUnroll elements in flight a thread.
+template <typename Out>
+__global__ void __launch_bounds__(kThreads) backward_kernel(
+    Grads g, const void* __restrict__ saved, int saved_kind, int relu, Out* __restrict__ out,
+    uint8_t* __restrict__ codes, int B, int C, int H, int W, Fmt f, int via_f16) {
+  bool via = via_f16 != 0;
+  float zero = decode(encode(0.0f, f), f);
+  unsigned n = (unsigned)B * C * H * W;  // < 2^31: 32-bit index arithmetic
+  unsigned step = gridDim.x * kThreads;
+  for (unsigned i0 = blockIdx.x * kThreads + threadIdx.x; i0 < n; i0 += step * kBwdUnroll) {
+    float v[kBwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      unsigned i = i0 + u * step;
+      if (i >= n) break;
+      unsigned q = i / W, w = i - q * W, r = q / H, h = q - r * H, b = r / C, c = r - b * C;
+      v[u] = cotangent(g, saved, saved_kind, relu, b, c, h, w, i, f, via, zero);
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      unsigned i = i0 + u * step;
+      if (i >= n) break;
+      uint32_t code = encode(v[u], f);
+      store(out, i, v[u], code);
+      if (codes != nullptr) codes[i] = (uint8_t)code;
+    }
+  }
+}
+
+// Pass 2: the bias gradient's reduce. A warp a block, a thread a
+// (channel, first-level window) walking the window's codes in order, one
+// add-table lookup a step (the steps' loads issued ahead of them); the
+// last block to finish (a ticket on `counter`, reset at its end) runs the
+// later levels, a thread a channel, ping-ponging between the two halves
+// of scratch.
+__global__ void __launch_bounds__(32) reduce_kernel(
+    const uint8_t* __restrict__ codes, int B, int C, int H, int W,
+    float* __restrict__ bias_grad, Levels lv, const uint8_t* __restrict__ add_table,
+    int* __restrict__ scratch, int* __restrict__ counter, Fmt f) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int ncodes = 1 << (f.ebits + f.mbits + (f.sign_bit ? 1 : 0));
+  int tsize = ncodes * ncodes;
+  const uint8_t* add = smem;
+  for (int i = threadIdx.x; i < tsize / 16; i += 32)
+    ((uint4*)smem)[i] = __ldg((const uint4*)add_table + i);
+  __syncwarp();
+  int init = (int)encode(0.0f, f);  // the reduce's initial fmt(0)
+  const int(*l0)[3] = lv.v[0];
+  int n0 = l0[0][1] * l0[1][1] * l0[2][1];
+  int chain = blockIdx.x * 32 + threadIdx.x;
+  if (chain < C * n0) {
+    int c = chain / n0, j = chain % n0;
+    int jw = j % l0[2][1], jh = (j / l0[2][1]) % l0[1][1], jb = j / (l0[2][1] * l0[1][1]);
+    int acc = init;
+    int dims[3] = {B, H, W};
+    int lo[3], hi[3];
+    int start[3] = {jb, jh, jw};
+    for (int d = 0; d < 3; ++d) {
+      lo[d] = max(start[d] * l0[d][0] - l0[d][2], 0);
+      hi[d] = min(start[d] * l0[d][0] - l0[d][2] + l0[d][0], dims[d]);
+    }
+    // the window's rows (b, h) in order, each at most kWindow codes along
+    // w: the next row's codes are loaded before the current row's steps
+    int nh = hi[1] - lo[1], rows = (hi[0] - lo[0]) * nh, len = hi[2] - lo[2];
+    auto row = [&](int r) {
+      return codes + (((int64_t)(lo[0] + r / nh) * C + c) * H + lo[1] + r % nh) * W + lo[2];
+    };
+    uint8_t cur[kWindow], nxt[kWindow];
+    const uint8_t* p = row(0);
+#pragma unroll
+    for (int e = 0; e < kWindow; ++e) cur[e] = e < len ? __ldg(p + e) : 0;
+    for (int r = 0; r < rows; ++r) {
+      if (r + 1 < rows) {
+        p = row(r + 1);
+#pragma unroll
+        for (int e = 0; e < kWindow; ++e) nxt[e] = e < len ? __ldg(p + e) : 0;
+      }
+#pragma unroll
+      for (int e = 0; e < kWindow; ++e)
+        if (e < len) acc = add[acc * ncodes + cur[e]];
+#pragma unroll
+      for (int e = 0; e < kWindow; ++e) cur[e] = nxt[e];
+    }
+    scratch[chain] = acc;
+  }
+  __threadfence();
+  __syncwarp();
+  int ticket = 0;
+  if (threadIdx.x == 0) ticket = atomicAdd(counter, 1);
+  ticket = __shfl_sync(0xFFFFFFFFu, ticket, 0);
+  if (ticket != (int)gridDim.x - 1) return;
+  __threadfence();
+  for (int c = threadIdx.x; c < C; c += 32) {
+    int dims[3] = {l0[0][1], l0[1][1], l0[2][1]};
+    const int* in = scratch + (int64_t)c * n0;
+    int* buf[2] = {scratch + (int64_t)C * n0 + (int64_t)c * n0, scratch + (int64_t)c * n0};
+    for (int k = 1; k < lv.n; ++k) {
+      const int(*L)[3] = lv.v[k];
+      int* o = buf[(k - 1) & 1];
+      int cnt = L[0][1] * L[1][1] * L[2][1];
+      for (int j = 0; j < cnt; ++j) {
+        int jw = j % L[2][1], jh = (j / L[2][1]) % L[1][1], jb = j / (L[2][1] * L[1][1]);
+        int start[3] = {jb, jh, jw}, lo[3], hi[3];
+        for (int d = 0; d < 3; ++d) {
+          lo[d] = max(start[d] * L[d][0] - L[d][2], 0);
+          hi[d] = min(start[d] * L[d][0] - L[d][2] + L[d][0], dims[d]);
+        }
+        int acc = init;
+        for (int b = lo[0]; b < hi[0]; ++b)
+          for (int h = lo[1]; h < hi[1]; ++h)
+            for (int w = lo[2]; w < hi[2]; ++w)
+              acc = add[acc * ncodes + __ldcg(in + ((int64_t)b * dims[1] + h) * dims[2] + w)];
+        o[j] = acc;
+      }
+      in = o;
+      dims[0] = L[0][1], dims[1] = L[1][1], dims[2] = L[2][1];
+    }
+    bias_grad[c] = decode((uint32_t)__ldcg(in), f);
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
+int grid_for(int64_t n, int per_block);
+
+template <typename Out>
+int launch_backward(const Grads& g, const void* saved, int saved_kind, int relu, void* out,
+                    uint8_t* codes, int B, int C, int H, int W, const Fmt& f, int via_f16,
+                    cudaStream_t s) {
+  int64_t n = (int64_t)B * C * H * W;
+  int blocks = grid_for(n, kThreads * kBwdUnroll);
+  backward_kernel<Out><<<blocks, kThreads, 0, s>>>(g, saved, saved_kind, relu, (Out*)out, codes,
+                                                   B, C, H, W, f, via_f16);
+  return (int)cudaGetLastError();
+}
+
+int launch_reduce(const uint8_t* codes, int B, int C, int H, int W, float* bias_grad,
+                  const Levels& lv, const uint8_t* table, int* scratch, int* counter,
+                  const Fmt& f, cudaStream_t s) {
+  int ncodes = 1 << (f.ebits + f.mbits + (f.sign_bit ? 1 : 0));
+  int smem = ncodes * ncodes;
+  int err = (int)cudaFuncSetAttribute(reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      smem);
+  if (err != 0) return err;
+  int n0 = lv.v[0][0][1] * lv.v[0][1][1] * lv.v[0][2][1];
+  reduce_kernel<<<(C * n0 + 31) / 32, 32, smem, s>>>(codes, B, C, H, W, bias_grad, lv, table,
+                                                     scratch, counter, f);
+  return (int)cudaGetLastError();
+}
+
 Fmt fmt_of(const int* p) {
   return Fmt{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11]};
 }
@@ -405,4 +642,68 @@ extern "C" int tf_small_float_cast(const void* x, int in_kind, void* out, int ou
   if (in_kind == 1 && out_kind == 1) return launch_cast<__half, __half>(x, out, n, f, s);
   if (in_kind == 1 && out_kind == 2) return launch_cast<__half, uint8_t>(x, out, n, f, s);
   return (int)cudaErrorInvalidValue;
+}
+
+
+// The epilogue's backward. grads: n_grads (1..3) host pointers to device
+// tensors of (B, C, H, W) float32 (kind 0) or float16 (1) with element
+// strides `strides` (4 a tensor); saved: the forward's output (or the sum
+// relu took), contiguous, where relu; out (B, C, H, W) contiguous float32
+// (out_kind 0) or float16 (1). bias_grad (C,) float32, or null for the
+// no-bias rounding; with it levels (n_levels x 3 x 3 ints on the host,
+// small_float.py xla_sum_levels), the format's add table on the device
+// (written first where build_table), codes (B C H W bytes), scratch (2 C x
+// the first level's windows ints) and counter (one int, 0 between
+// launches). Two kernels: the cotangent (pass 1), then, with a bias
+// gradient, its reduce over the cotangent's codes (pass 2).
+extern "C" int tf_small_float_backward(const void* const* grads, const int* kinds,
+                                       const long long* strides, int n_grads, const void* saved,
+                                       int saved_kind, int relu, void* out, int out_kind, int B,
+                                       int C, int H, int W, float* bias_grad, const int* levels,
+                                       int n_levels, void* table, int build_table, void* codes,
+                                       void* scratch, void* counter, const int* params,
+                                       int via_f16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_grads < 1 || n_grads > kMaxGrads || (relu && saved == nullptr) ||
+      (out_kind != 0 && out_kind != 1))
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * C * H * W <= 0) return (int)cudaGetLastError();
+  if ((int64_t)B * C * H * W >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  Fmt f = fmt_of(params);
+  int ncodes = 1 << (f.ebits + f.mbits + (f.sign_bit ? 1 : 0));
+  if (ncodes > kMaxCodes) return (int)cudaErrorInvalidValue;
+  Grads g{};
+  g.n = n_grads;
+  for (int k = 0; k < n_grads; ++k) {
+    g.p[k] = grads[k];
+    g.kind[k] = kinds[k];
+    for (int d = 0; d < 4; ++d) g.s[k][d] = strides[4 * k + d];
+  }
+  Levels lv{};
+  uint8_t* cs = nullptr;
+  if (bias_grad != nullptr) {
+    if (n_levels < 1 || n_levels > kMaxLevels || table == nullptr || codes == nullptr ||
+        scratch == nullptr || counter == nullptr)
+      return (int)cudaErrorInvalidValue;
+    lv.n = n_levels;
+    for (int k = 0; k < n_levels; ++k)
+      for (int d = 0; d < 3; ++d)
+        for (int e = 0; e < 3; ++e) lv.v[k][d][e] = levels[(k * 3 + d) * 3 + e];
+    if (build_table) {
+      int cells = ncodes * ncodes;
+      add_table_kernel<<<(cells + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+          f, via_f16, ncodes, (uint8_t*)table);
+      int err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
+    cs = (uint8_t*)codes;
+  }
+  int err = out_kind == 0
+                ? launch_backward<float>(g, saved, saved_kind, relu, out, cs, B, C, H, W, f,
+                                         via_f16, s)
+                : launch_backward<__half>(g, saved, saved_kind, relu, out, cs, B, C, H, W, f,
+                                          via_f16, s);
+  if (err != 0 || bias_grad == nullptr) return err;
+  return launch_reduce(cs, B, C, H, W, bias_grad, lv, (const uint8_t*)table, (int*)scratch,
+                       (int*)counter, f, s);
 }

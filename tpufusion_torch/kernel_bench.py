@@ -61,12 +61,15 @@ frames k 1, 16 frames k 4 and 63 rows, and every lane at 2048 candidates
 (at most 6 sets); with --old-csrc, DIR's vote (the three-launch design,
 through its own C interface, reading y_pred's channel 1) in the same
 turns. `--kernels` picks among exact, cc, packed, encode, encode_direct,
-decode_direct, corner_vote and small_float: the small-float
-epilogue (`csrc/small_float.cu`) on the eight layers of one forward of
-the shipped asset in float8_e4m3fn at 64 x 32 x 1801, the kernel, its
-plain version and torch's own cast chain (`small_float_yardstick`) in
-turns, beside the bound of its bytes. With `--out FILE` the rows are
-also written there as JSON.
+decode_direct, corner_vote, small_float and small_float_backward: the
+small-float epilogue (`csrc/small_float.cu`) on the eight layers of one
+forward of the shipped asset in float8_e4m3fn at 64 x 32 x 1801, the
+kernel, its plain version and torch's own cast chain
+(`small_float_yardstick`) in turns, beside the bound of its bytes, and
+the input cast beside one `x.to(torch.float8_e4m3fn)`; the backward on
+the calls of one train step of that asset at 32 x 32 x 1801
+(`small_float_backward_rows`). With `--out FILE` the rows are also
+written there as JSON.
 
     python -m tpufusion_torch.kernel_bench --dsmem-probe
 
@@ -162,20 +165,21 @@ def queued_ms(fn, inputs, warmup: int = 2, tries: int = 4) -> float:
 def _device_kernel_us(fn, inputs) -> dict[str, float]:
     """{kernel or memset name: summed device µs} over one call of `fn` per
     input after a warm-up call (torch.profiler's CUPTI records). Raises
-    if the profile holds no device record."""
+    if two profiles in a row hold no device record."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(inputs[0])  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for x in inputs:
-            fn(x)
-        torch.cuda.synchronize()
-    rows = {e.key: e.device_time_total for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
-    if not any(rows.values()):
-        raise RuntimeError("torch.profiler returned no device record of the calls")
-    return rows
+    for _ in range(2):  # CUPTI has dropped a whole profile's records once: one more try
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for x in inputs:
+                fn(x)
+            torch.cuda.synchronize()
+        rows = {e.key: e.device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        if any(rows.values()):
+            return rows
+    raise RuntimeError("torch.profiler returned no device record of the calls")
 
 
 def device_ms(fn, inputs) -> float:
@@ -1068,9 +1072,9 @@ def recorded_epilogues(into: list):
 
     real = fcn._Layer._finish
 
-    def finish(self, y, relu):
+    def finish(self, y, relu, uses=1):
         into.append((y, self.bias.detach(), relu))
-        return real(self, y, relu)
+        return real(self, y, relu, uses)
 
     fcn._Layer._finish = finish
     try:
@@ -1176,10 +1180,11 @@ def small_float_rows(sets: int = 4, batch: int = 64) -> list[dict]:
         call = time_turns(fns, inputs, time_ms)
         dev_t = time_turns(fns, inputs, lambda fn, xs: (
             _queued_by_layer if fn is fns["plain"] else queued_ms)(fn, xs))
-        cast_t = time_turns({
-            "cast": lambda x: small_float.cast(x, fmt, out=out),
-            "cast_plain": lambda x: small_float.cast_reference(x, fmt, out=out)},
-            casts, lambda fn, xs: queued_each(fn, xs))
+        cast_fns = {"cast": lambda x: small_float.cast(x, fmt, out=out),
+                    "cast_plain": lambda x: small_float.cast_reference(x, fmt, out=out)}
+        if fmt.torch_dtype is not None:  # one PyTorch call computing the same cast
+            cast_fns["cast_library"] = lambda x: x.to(fmt.torch_dtype)
+        cast_t = time_turns(cast_fns, casts, lambda fn, xs: queued_each(fn, xs))
         tiny = (torch.ones(1, 1, 1, 8, dtype=out, device=dev), torch.zeros(1, device=dev))
         for _ in range(20):
             small_float.conv_epilogue(*tiny, fmt, out=out)
@@ -1200,6 +1205,120 @@ def small_float_rows(sets: int = 4, batch: int = 64) -> list[dict]:
              **{f"{k}_device_ms": v for k, v in cast_t.items()},
              **{f"{k}_call_ms": v for k, v in call.items()},
              **{f"{k}_device_ms": v for k, v in dev_t.items()}}]
+
+
+@contextlib.contextmanager
+def recorded_backwards(into: list):
+    """While open, every call of the small-float backward
+    (`small_float.conv_epilogue_backward`, the epilogues' and the casts'
+    `round_grad`) appends its arguments (grads, saved, fmt, relu, out,
+    bias) to `into`."""
+    from tpufusion_torch.ops import small_float
+
+    real = small_float.conv_epilogue_backward
+
+    def backward(grads, saved, fmt, relu, out=None, bias=True):
+        into.append((list(grads), saved, fmt, relu, out, bias))
+        return real(grads, saved, fmt, relu, out, bias)
+
+    small_float.conv_epilogue_backward = backward
+    try:
+        yield into
+    finally:
+        small_float.conv_epilogue_backward = real
+
+
+def small_float_step_backwards(model, batch, spec, loss_cfg, yaw_frame: str) -> list:
+    """The backward's calls (`recorded_backwards`) of one train step of a
+    small-float direct-head `model` on `batch` (a points batch on its
+    device)."""
+    from tpufusion_torch.train.optim import Adam
+    from tpufusion_torch.train.train_step import make_train_step
+
+    from tpufusion_torch.config import TrainConfig
+
+    step = make_train_step(spec, loss_cfg, TrainConfig(augment=False), head="direct",
+                           yaw_frame=yaw_frame, device=next(model.parameters()).device)
+    calls: list = []
+    with recorded_backwards(calls):
+        step(model, Adam(model.parameters(), 1e-3), batch)
+    return calls
+
+
+def small_float_backward(calls, plain: bool = False):
+    """The recorded backward calls again, through the kernel's wrapper or
+    its plain version (on the same device)."""
+    from tpufusion_torch.ops import small_float
+
+    fn = (small_float.conv_epilogue_backward_reference if plain
+          else small_float.conv_epilogue_backward)
+    return [fn(*call) for call in calls]
+
+
+def small_float_backward_rows(sets: int = 2, batch: int = 32, calls_sets=None) -> list[dict]:
+    """The small-float backward's row at the trainer's shapes: the calls of
+    one train step of the asset in SMALL_FLOAT_FORMAT at `batch` x 32 x
+    1801 (beam scans; 8 epilogues with their bias gradients, 9 no-bias
+    roundings), or `calls_sets` (such steps' calls, already held to the
+    plain version): the kernel's device time over a step's calls and over
+    each call; on the largest call (the first, deconv6b's epilogue) the
+    kernel's device time, and the kernel and its plain version on the
+    card between CUDA events (the plain version's reduce is a Python loop
+    of launches: host-paced, not queued; timed once); each beside the
+    bound of the bytes its calls read and write once. Without
+    `calls_sets` the first set is checked bit for bit against the plain
+    version on the CPU first."""
+    import numpy as np
+
+    from tpufusion_torch import RangeViewSpec
+    from tpufusion_torch.config import LossConfig
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.ops import small_float
+
+    dev = torch.device("cuda", 0)
+    fmt_name = SMALL_FLOAT_FORMAT
+    if calls_sets is None:
+        model, dcfg = _asset_fcn(dev, SMALL_FLOAT_FORMAT)
+        model.train()
+        spec, calls_sets = RangeViewSpec(), []
+        for i in range(sets):
+            p, gt, v = synthesize_beam_scan_batch(np.random.default_rng(200 + i), batch, 32768)
+            b = {"points": p, "valid": v, **{k: gt[k] for k in ("center", "size", "yaw")}}
+            b = {k: torch.from_numpy(x).to(dev) for k, x in b.items()}
+            calls_sets.append(small_float_step_backwards(
+                model, b, spec, LossConfig(weight_bb=1.0), dcfg.direct_yaw_frame))
+        for grads, saved, fmt, relu, out, bias in calls_sets[0]:
+            assert small_float.backward_against_plain(grads, saved, fmt, relu, out, bias)[2], (
+                "small_float backward differs from its plain version")
+    else:
+        fmt_name = calls_sets[0][0][2].name
+    calls = calls_sets[0]
+
+    def bound_of(cs):
+        outs = small_float_backward(cs)
+        ins = [t for c in cs for t in c[0] + ([c[1]] if c[1] is not None else [])]
+        return small_float_bound_ms(ins, [t for o in outs for t in o if t is not None])
+
+    # the step's calls; the largest (the first: deconv6b's epilogue) alone
+    # for the plain version, whose reduce loops on the host
+    largest = [calls[0]]
+    call = time_turns({"new": small_float_backward}, [largest],
+                      lambda fn, xs: time_ms(fn, xs, warmup=0))
+    call["plain"] = time_ms(lambda c: small_float_backward(c, plain=True), [largest], warmup=0)
+    dev_t = time_turns({"new": small_float_backward}, [largest], queued_ms)
+    step_t = time_turns({"step": small_float_backward}, calls_sets, queued_ms)
+    per_call = [queued_ms(small_float_backward, [[c]]) for c in calls]
+    epilogues = [c for c in calls if c[5]]
+    b = calls[0][0][0].shape[0]
+    return [{"shape": f"{b} x 32 x 1801, one train step, {fmt_name}",
+             "kernel": "small_float_backward", "calls": len(calls),
+             "epilogue_calls": len(epilogues),
+             "elements": sum(c[0][0].numel() for c in epilogues),
+             "call_shape": tuple(calls[0][0][0].shape), "bound_ms": bound_of(largest),
+             "step_bound_ms": bound_of(calls), "per_call_device_ms": per_call,
+             "per_call_shapes": [tuple(c[0][0].shape) + (len(c[0]),) for c in calls],
+             **{f"{k}_call_ms": v for k, v in call.items()},
+             **{f"{k}_device_ms": v for k, v in (dev_t | step_t).items()}}]
 
 
 def _asset_fcn(dev, dtype: str):
@@ -1234,7 +1353,7 @@ def main() -> int:
     ap.add_argument("--sets", type=int, default=12, help="distinct batches per timing")
     ap.add_argument("--kernels",
                     default="exact,cc,packed,encode,encode_direct,decode_direct,corner_vote,"
-                            "small_float",
+                            "small_float,small_float_backward",
                     help="which kernels' rows: exact and cc need --old-csrc")
     ap.add_argument("--dsmem-probe", action="store_true",
                     help="also build and run probes/dsmem_min64.cu")
@@ -1273,10 +1392,13 @@ def main() -> int:
         rows += corner_vote_rows(min(args.sets, 6), old=old)
     if "small_float" in kernels:
         rows += small_float_rows(min(args.sets, 4))
+    if "small_float_backward" in kernels:
+        rows += small_float_backward_rows(min(args.sets, 2))
     for r in rows:
         names = [k[: -len("_device_ms")] for k in r if k.endswith("_device_ms")]
         times = ", ".join(
-            f"{k} {r[f'{k}_device_ms'] * 1e3:.2f} us device / {r[f'{k}_call_ms'] * 1e3:.2f} us a call"
+            f"{k} {r[f'{k}_device_ms'] * 1e3:.2f} us device"
+            + (f" / {r[f'{k}_call_ms'] * 1e3:.2f} us a call" if f"{k}_call_ms" in r else "")
             for k in names)
         plans = "".join(f"; {k} {r[k]}" for k in ("plan_16", "plan_8") if k in r)
         lows = "".join(f"; {tag} bound {r[f'bound_ms_{tag}'] * 1e3:.3f} us"

@@ -41,8 +41,22 @@ hold); the output is float32, and `features` comes back in torch's dtype
 of the format's name where torch has one, else float16 holding the
 values. "complex64" computes the float32 net (JAX's complex net has a
 zero imaginary part throughout) and returns complex64 features;
-"complex128" does the same after JAX's x64 warning. Backward through a
-small-float net raises NotImplementedError (training is not ported).
+"complex128" does the same after JAX's x64 warning; both train as the
+float32 net (JAX's gradients of its complex net are float32's).
+
+Training a small float follows XLA's gradient of the same net: each
+layer's epilogue is an autograd Function whose backward
+(`small_float.conv_epilogue_backward`, one launch) takes the cotangents
+of the layer's output one consumer apart (c1, c2 and d4 feed several:
+`uses` aliases, summed in the order JAX's backward pass meets them, each
+sum rounded to the format), applies relu's select and reduces the bias
+gradient in XLA's order; the dgrad and wgrad run in float32 with TF32
+off (`_GradConv`) and come back through
+float16 and the format (`small_float.cast_for_conv`'s backward for the
+input and the kernels); the outputs' float32 casts take the format's
+rounding of their cotangent back (`small_float.cast`). Parameters and
+their gradients stay float32. On a spatial mesh the small floats'
+backward is not ported: it raises.
 
 Weights keep flax's layouts (kernels HWIO) in the state dict so the npz
 keys and arrays load as they are; the forward maps them to torch's:
@@ -90,6 +104,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpufusion_torch._precision import full_f32_convs
 from tpufusion_torch.config import ModelConfig
 from tpufusion_torch.ops import small_float as sf
 from tpufusion_torch.geometry.encoding import (  # noqa: F401  (re-exported)
@@ -164,13 +179,6 @@ def _is_complex(name: str) -> bool:
         return False
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raises NotImplementedError where training an FCN in cfg.dtype is
-    not ported: the small floats and complex (JAX's trainers run both)."""
-    if cfg.dtype in sf.FORMATS or _is_complex(cfg.dtype):
-        raise NotImplementedError(f"training an FCN in {cfg.dtype!r} is not ported yet")
-
-
 def _same_pad(n: int, s: int, k: int = _K) -> tuple[int, int]:
     out = -(-n // s)
     total = max((out - 1) * s + k - n, 0)
@@ -227,22 +235,73 @@ class _Layer(nn.Module):
     def _weight(self, x: torch.Tensor) -> torch.Tensor:
         """The kernel OIHW in x's dtype; in a small float its cast to the
         format (one launch, kept while the kernel's storage and version
-        and the inference mode stay: inference casts it once)."""
+        and the inference mode stay: inference casts it once; where its
+        gradient is taken, cast each call, differentiably)."""
         if self.fmt is None:
             return self.kernel.to(x.dtype).permute(3, 2, 0, 1)
         k = self.kernel
+        if torch.is_grad_enabled() and k.requires_grad:
+            return sf.cast_for_conv(k, self.fmt, out=x.dtype).permute(3, 2, 0, 1)
         state = (k.data_ptr(), k._version, x.dtype, self.fmt, torch.is_inference_mode_enabled())
         if self._cast is None or self._cast[0] != state:
             self._cast = state, sf.cast(k, self.fmt, out=x.dtype).permute(3, 2, 0, 1)
         return self._cast[1]
 
-    def _finish(self, y: torch.Tensor, relu: bool) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, w: torch.Tensor, stride=1) -> torch.Tensor:
+        """F.conv2d(x, w); in a small float where a gradient flows, with
+        the dgrad and wgrad in float32 (`_GradConv`)."""
+        if self.fmt is not None and torch.is_grad_enabled() and (x.requires_grad
+                                                                 or w.requires_grad):
+            return _GradConv.apply(x, w, stride)
+        return F.conv2d(x, w, stride=stride)
+
+    def _finish(self, y: torch.Tensor, relu: bool, uses: int = 1):
         """flax's `y += bias` and the layer's relu: in y's dtype, or the
-        small-float epilogue (one launch)."""
+        small-float epilogue (one launch). With `uses` > 1 a tuple of
+        that many aliases, one a consumer (`small_float.conv_epilogue`)."""
         if self.fmt is not None:
-            return sf.conv_epilogue(y, self.bias, self.fmt, relu, out=y.dtype)
+            return sf.conv_epilogue(y, self.bias, self.fmt, relu, out=y.dtype, uses=uses)
         y = y + _bias(self.bias, y)
-        return F.relu(y) if relu else y
+        y = F.relu(y) if relu else y
+        return y if uses == 1 else (y,) * uses
+
+
+class _NoBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError("training a small-float FCN on a spatial mesh is not "
+                                  "ported yet")
+
+
+class _GradConv(torch.autograd.Function):
+    """F.conv2d(x, w, stride) whose dgrad and wgrad run in float32 with
+    TF32 off, then come back in x's and w's dtype (float32 -> float16:
+    XLA's first rounding of its float32 results). Not in float16: XLA
+    computes both in float32 and rounds once, and torch's CPU float16
+    dgrad and wgrad are not that rounding
+    (tests/test_torch_small_float_train.py
+    ::test_float16_backward_convolutions_are_not_one_rounding)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        return F.conv2d(x, w, stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride = list(ctx.stride) if isinstance(ctx.stride, tuple) else [ctx.stride] * 2
+        with full_f32_convs():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g.float(), x.float(), w.float(), None, stride, [0, 0], [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return (None if gx is None else gx.to(x.dtype),
+                None if gw is None else gw.to(w.dtype), None)
 
 
 class Conv(_Layer):
@@ -261,12 +320,13 @@ class Conv(_Layer):
         (sh, sw), (h, w) = self.strides, x.shape[2:]
         ph, pw = self.pads(h, sh), self.pads(w, sw) if pw is None else pw
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self._weight(x), stride=self.strides)
+        return self._conv(x, self._weight(x), self.strides)
 
     def forward(self, x: torch.Tensor, pw: tuple[int, int] | None = None,
-                relu: bool = False) -> torch.Tensor:
-        """NCHW in x's dtype: the convolution, the bias, relu if asked."""
-        return self._finish(self.raw(x, pw), relu)
+                relu: bool = False, uses: int = 1):
+        """NCHW in x's dtype: the convolution, the bias, relu if asked;
+        `uses` as `_finish`."""
+        return self._finish(self.raw(x, pw), relu, uses)
 
     def window(self, out: slice, width: int) -> tuple[int, int]:
         """The global input columns [a, b) that output columns `out` read,
@@ -298,10 +358,10 @@ class ConvTranspose(_Layer):
         z[:, :, ::sh, ::sw] = x
         ph, pw = self.pads(sh), self.pads(sw)
         z = F.pad(z, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(z, self._weight(x))
+        return self._conv(z, self._weight(x))
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:  # NCHW
-        return self._finish(self.raw(x), relu)
+    def forward(self, x: torch.Tensor, relu: bool = False, uses: int = 1):  # NCHW
+        return self._finish(self.raw(x), relu, uses)
 
     def window(self, out: slice) -> tuple[int, int]:
         """The global input columns [a, b) that output columns `out` read:
@@ -311,7 +371,8 @@ class ConvTranspose(_Layer):
         pad_a = self.pads(s)[0]
         return -((pad_a - out.start) // s), (out.stop + _K - 2 - pad_a) // s + 1
 
-    def forward_window(self, xw: torch.Tensor, out: slice, relu: bool = False) -> torch.Tensor:
+    def forward_window(self, xw: torch.Tensor, out: slice, relu: bool = False,
+                       uses: int = 1) -> torch.Tensor:
         """Output columns `out` from xw, the input columns `window(out)`."""
         (sh, sw), (b, c, h, n) = self.strides, xw.shape
         lead = self.window(out)[0] * sw + self.pads(sw)[0] - out.start
@@ -319,7 +380,7 @@ class ConvTranspose(_Layer):
         z[:, :, ::sh, lead: lead + (n - 1) * sw + 1: sw] = xw
         ph = self.pads(sh)
         z = F.pad(z, (0, 0, ph[0], ph[1]))
-        return self._finish(F.conv2d(z, self._weight(xw)), relu)
+        return self._finish(self._conv(z, self._weight(xw)), relu, uses)
 
 
 def _move_running(stat: torch.Tensor, batch_stat: torch.Tensor, momentum: float) -> None:
@@ -479,8 +540,20 @@ class FCN(nn.Module):
         """The normalised, padded float32 input in the compute dtype: flax's
         cast, for a small float the kernel's direct mode (one launch)."""
         if self.fmt is not None:
-            return sf.cast(x, self.fmt, out=self.act_dtype)
+            return sf.cast_for_conv(x, self.fmt, out=self.act_dtype)
         return x.to(self.act_dtype)
+
+    def _float(self, t: torch.Tensor) -> torch.Tensor:
+        """An output map as float32; in a small float where a gradient
+        flows, through `small_float.cast`, whose backward rounds the
+        float32 cotangent to the format (XLA's transposed convert). A
+        complex net warns, as JAX warns at each cast of its complex d6a
+        and d6b to float32."""
+        if self.complex:
+            warnings.warn(COMPLEX_CAST_WARNING, DeprecationWarning, stacklevel=3)
+        if self.fmt is not None and torch.is_grad_enabled() and t.requires_grad:
+            return sf.cast(t, self.fmt, out=torch.float32)
+        return t.float()
 
     def _trunk(self, x: torch.Tensor, train: bool = False, mesh=None):
         """Shared encoder and the deconv6a head, NCHW in the compute
@@ -495,16 +568,22 @@ class FCN(nn.Module):
             x = self.norm(x, train, mesh)
         x = self._cast_input(F.pad(x, (0, 3)))
 
-        c1 = self._relu(self.conv1, x)
-        c2 = self._relu(self.conv2, c1)
+        # c1, c2 and d4 feed several consumers: one alias each, in the
+        # order JAX's backward pass meets their cotangents (the regression
+        # branch's first, the classification head's, the trunk's), which
+        # the small-float backward sums in
+        reg = int(cfg.use_regression)
+        *c1s, c1 = self._relu(self.conv1, x, uses=2 + reg)
+        *c2s, c2 = self._relu(self.conv2, c1, uses=2 + reg)
         c3 = self._relu(self.conv3, c2)
-        d4 = self._relu(self.deconv4, c3)
-        cat4 = torch.cat([c2, d4], dim=1)
+        d4s = self._relu(self.deconv4, c3, uses=1 + reg)
+        d4s = d4s if reg else (d4s,)
+        cat4s = [torch.cat([a, b], dim=1) for a, b in zip(c2s, d4s)]
         crop5 = 2 * c2.shape[3] - c1.shape[3]  # 1 when conv1 width is odd
 
-        d5a = self._relu(self.deconv5a, cat4)[:, :, :, crop5:]
-        d6a = self.deconv6a(torch.cat([c1, d5a], dim=1))[:, :, :, :w]
-        return d6a, (c1, cat4, crop5, w)
+        d5a = self._relu(self.deconv5a, cat4s[-1])[:, :, :, crop5:]
+        d6a = self.deconv6a(torch.cat([c1s[-1], d5a], dim=1))[:, :, :, :w]
+        return d6a, (c1s[0], cat4s[0], crop5, w)
 
     def _sharded(self, x: torch.Tensor, train: bool, mesh, width: int | None):
         """(d6a, d6b or None) on a spatial mesh: x (B, H, w, C) holds this
@@ -553,18 +632,23 @@ class FCN(nn.Module):
             return self._relu(up6.forward_window, window, outs6[s], relu=relu)
 
         d6a = head(self.deconv5a, self.deconv6a)
-        return d6a, head(self.deconv5b, self.deconv6b, self._reg_relu) if cfg.use_regression \
-            else None
+        d6b = head(self.deconv5b, self.deconv6b, self._reg_relu) if cfg.use_regression else None
+        if self.fmt is None or not torch.is_grad_enabled():
+            return d6a, d6b
+        # the fan-out sums of a small float's cotangents across the halos
+        # are not ported: its backward raises
+        return _NoBackward.apply(d6a), None if d6b is None else _NoBackward.apply(d6b)
 
-    def _relu(self, layer, *args, relu: bool = True, **kw):
+    def _relu(self, layer, *args, relu: bool = True, uses: int = 1, **kw):
         """layer(*args), relu'd where `relu`: torch's relu after it, as flax
         applies it, or in a small-float layer's epilogue (jax.nn.relu in
-        the format: a NaN in float8_e8m0fnu, where 0 is one)."""
-        if not relu:
-            return layer(*args, **kw)
+        the format: a NaN in float8_e8m0fnu, where 0 is one). With `uses`
+        > 1 a tuple of that many aliases (`_Layer._finish`)."""
         if self.fmt is not None:
-            return layer(*args, relu=True, **kw)
-        return F.relu(layer(*args, **kw))
+            return layer(*args, relu=relu, uses=uses, **kw)
+        y = layer(*args, **kw)
+        y = F.relu(y) if relu else y
+        return y if uses == 1 else (y,) * uses
 
     @property
     def _reg_relu(self) -> bool:
@@ -588,12 +672,10 @@ class FCN(nn.Module):
                 d5b = self._relu(self.deconv5b, cat4)[:, :, :, crop5:]
                 d6b = self._relu(self.deconv6b, torch.cat([c1, d5b], dim=1),
                                  relu=self._reg_relu)[:, :, :, :w]
-        if self.complex:  # JAX casts its complex d6a (and d6b) to float32
-            warnings.warn(COMPLEX_CAST_WARNING, DeprecationWarning, stacklevel=2)
-        probs = torch.softmax(d6a.float(), dim=1).clamp(_KERAS_EPSILON, 1.0)
+        probs = torch.softmax(self._float(d6a), dim=1).clamp(_KERAS_EPSILON, 1.0)
         if not cfg.use_regression:
             return probs.permute(0, 2, 3, 1).contiguous()
-        return torch.cat([probs, d6b.float()], dim=1).permute(0, 2, 3, 1).contiguous()
+        return torch.cat([probs, self._float(d6b)], dim=1).permute(0, 2, 3, 1).contiguous()
 
     def features(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, H, W, C) -> the pre-softmax deconv6a map (B, H', W, 2) in

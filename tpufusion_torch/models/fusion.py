@@ -124,9 +124,6 @@ class FusionNet(nn.Module):
             if fcn.fmt is not None:  # JAX raises at its dense layers' promotion
                 raise TypeError(f"FusionNet: the {fcn.cfg.dtype} features meet float32 dense "
                                 "layers, a promotion JAX refuses for its small floats")
-            if fcn.complex:
-                raise NotImplementedError(f"FusionNet with a {fcn.cfg.dtype} FCN (complex "
-                                          "outputs in JAX) is not ported yet")
         self.lidar_pool = None if lidar_pool is None else tuple(lidar_pool)
         self.cam_pool = tuple(cam_pool)
         cam_flat = (camera.height // cam_pool[0]) * (camera.width // cam_pool[1]) * 2
@@ -142,11 +139,13 @@ class FusionNet(nn.Module):
     def forward(self, cam_img, lidar_img, radar, train: bool = False,
                 generator: torch.Generator | None = None):
         """cam_img (B, Hc, Wc, 1), lidar_img (B, 32, 1801, 3), radar
-        (B, 2) [range, angle] -> (centroid (B, 3), rz (B, 1)), float32.
+        (B, 2) [range, angle] -> (centroid (B, 3), rz (B, 1)), float32
+        (complex64 with a zero imaginary part where an FCN is complex, as
+        JAX's).
         train=True: both FCNs' BatchNorms use the batch's statistics and
         the branches' dropouts draw from `generator`."""
-        cam_feat = _max_pool_nhwc(self.camera_fcn.features(cam_img, train), self.cam_pool)
-        lidar_feat = self.lidar_fcn.features(lidar_img, train)
+        cam_feat = _max_pool_nhwc(_real(self.camera_fcn.features(cam_img, train)), self.cam_pool)
+        lidar_feat = _real(self.lidar_fcn.features(lidar_img, train))
         if self.lidar_pool is not None:
             lidar_feat = _max_pool_nhwc(lidar_feat, self.lidar_pool)
         c = self.cam_branch(cam_feat, train, generator)
@@ -156,7 +155,19 @@ class FusionNet(nn.Module):
         r, a = radar[..., 0:1], radar[..., 1:2]
         radar_feats = torch.cat([r, a, r * torch.cos(a), r * torch.sin(a)], dim=-1)
         x = torch.cat([c, l, radar_feats], dim=-1)
-        return self.centroid_head(x), self.rz_head(x)
+        centroid, rz = self.centroid_head(x), self.rz_head(x)
+        if self.lidar_fcn.complex or self.camera_fcn.complex:
+            return centroid.to(torch.complex64), rz.to(torch.complex64)
+        return centroid, rz
+
+
+def _real(feat: torch.Tensor) -> torch.Tensor:
+    """A complex FCN's features (complex64, a zero imaginary part) as
+    their real part: JAX's complex net keeps the imaginary part exactly
+    zero through the max-pools (complex values ordered by real part,
+    then imaginary), the dense layers, relu and elu, so the float32 net
+    computes its real part."""
+    return feat.real if feat.is_complex() else feat
 
 
 def fusion_loss(outputs, targets) -> torch.Tensor:

@@ -1013,6 +1013,70 @@ def small_float_specials() -> np.ndarray:
     return np.concatenate([v, -v])
 
 
+# (B, C, H, W) cotangent shapes of the small-float backward's parity sets:
+# a row of windows with uneven padding (61 columns -> 64), more than 32
+# frames (windows over the batch too) and a second level of windows (a
+# width over 32 x 32)
+SMALL_FLOAT_BACKWARD_SHAPES = ((2, 3, 32, 61), (33, 2, 3, 40), (1, 2, 1, 1100))
+
+
+def small_float_backward_inputs(shape: tuple[int, int, int, int], seed: int = 0) -> dict:
+    """Cotangents and a forward's output for the small-float backward, as
+    numpy, each of `shape` (B, C, H, W): "f16", float16 from every bit
+    pattern in a seeded order (NaNs of both signs, infinities, +-0,
+    subnormals); "f32", float32 from `small_float_inputs` (the formats'
+    edges and ties, then seeded values), cycled; "typical" and "wide",
+    seeded normals at scales the formats hold (a convolution's sums and
+    the format's values, the latter in (B, C + 2, H, 2 W) to be read as
+    the strided view [:, 1:-1, :, ::2]); "small", normals whose sums stay
+    in every format's range (finite bias gradients); "saved", a forward's
+    output:
+    the formats' values of both signs with +-0 and NaNs of both signs."""
+    rng = np.random.default_rng(seed)
+    b, c, h, w = shape
+    n = b * c * h * w
+    patterns, values = small_float_inputs(seed)
+    f16 = rng.permutation(np.resize(patterns, max(n, len(patterns))))[:n].view(np.float16)
+    f32 = np.resize(values, n)
+    scale = np.exp2(rng.integers(-12, 8, n)).astype(np.float32)
+    typical = (rng.standard_normal(n) * scale).astype(np.float32)
+    small = (rng.standard_normal(n) * scale * 2.0**-8).astype(np.float32)
+    wide = (rng.standard_normal((b, c + 2, h, 2 * w)) * 4).astype(np.float32)
+    saved = (rng.standard_normal(n) * 3).astype(np.float32)
+    saved[rng.random(n) < 0.1] = 0.0
+    saved[rng.random(n) < 0.05] = -0.0
+    saved[rng.random(n) < 0.02] = np.nan
+    saved[rng.random(n) < 0.02] = -np.nan
+    return {"f16": f16.reshape(shape), "f32": f32.reshape(shape),
+            "typical": typical.reshape(shape), "small": small.reshape(shape), "wide": wide,
+            "saved": saved.reshape(shape)}
+
+
+def small_float_backward_cases(shape: tuple[int, int, int, int], device, seed: int = 0
+                               ) -> list[tuple]:
+    """[(label, cotangents, saved, relu)] of `small_float_backward_inputs`
+    as tensors on `device`: one, two and three cotangents (the FCN's
+    fan-outs), float16 and float32, contiguous and a strided view, with
+    and without relu; all float16 (as the FCN's) and mixed."""
+    import torch
+
+    arrays = small_float_backward_inputs(shape, seed)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
+    view = t["wide"][:, 1:-1, :, ::2]
+    return [("float16 patterns", [t["f16"]], None, False),
+            ("float16 patterns, relu", [t["f16"]], t["saved"], True),
+            ("float32 edges + float16 patterns, relu", [t["f32"], t["f16"]], t["saved"], True),
+            ("typical + strided + edges, relu", [t["typical"], view, t["f32"]], t["saved"],
+             True),
+            ("strided + typical", [view, t["typical"]], None, False),
+            ("small + small strided, relu", [t["small"], view * 2.0**-9], t["saved"], True),
+            ("small", [t["small"]], None, False),
+            ("small magnitudes", [t["small"].abs()], None, False),
+            ("float16: patterns + small + a strided view, relu on float16",
+             [t["f16"], t["small"].half(), (view * 2.0**-9).half()], t["saved"].half(), True),
+            ("float16 small, relu on float16", [t["small"].half()], t["saved"].half(), True)]
+
+
 def small_float_inputs(seed: int = 0, n: int = 100_000) -> tuple[np.ndarray, np.ndarray]:
     """(every float16 bit pattern (65,536, uint16), float32 values:
     `small_float_specials` and n seeded values over float32's exponent

@@ -17,7 +17,17 @@ of their hand-written kernel (`csrc/small_float.cu`).
   conv_epilogue   the kernel's epilogue mode: a convolution's raw output
                   y (NCHW) and the layer's float32 bias ->
                   relu?(fmt(h(fmt(h(y)) + fmt(bias[c])))), h the float16
-                  rounding where the format goes through float16
+                  rounding where the format goes through float16;
+                  differentiable, one alias of its output a consumer
+  conv_epilogue_backward  the kernel's backward: the cotangents of a
+                  layer's output, each rounded fmt(h(g)) and summed in
+                  order, each sum rounded; relu's select; the bias
+                  gradient reduced in XLA's order (`xla_sum_levels`),
+                  every partial sum rounded to the format
+  round_grad      its no-bias mode: a dgrad's or wgrad's fmt(h(g))
+  cast_for_conv   `cast` of a convolution's operand, whose backward is
+                  `round_grad` (`cast`'s is the direct mode: XLA's
+                  transposed convert)
 
 How XLA computes a flax convolution in one of these formats (its
 optimized HLO on the CPU): the input, the kernel and the bias are cast
@@ -40,8 +50,9 @@ which holds every value of the eight formats that go through float16,
 and float32 for float8_e8m0fnu. For tensors on the CPU the wrappers run
 the plain version; for CUDA tensors they call the kernel once (one
 launch; a float16 y's first epilogue on a device also launches the build
-of the format's code table, `_TABLES`), or raise. Backward is not
-ported: the epilogue's autograd Function raises.
+of the format's code table, `_TABLES`), or raise. The backward counts
+its launches apart (BACKWARD_LAUNCHES); its first launch on a device in
+a format also builds the format's add table (`_ADD_TABLES`).
 """
 
 from __future__ import annotations
@@ -54,7 +65,8 @@ import torch
 
 from tpufusion_torch import _build
 
-LAUNCHES = 0  # kernel launches since import (or since a caller reset it), both modes
+LAUNCHES = 0  # forward launches since import (or since a caller reset it): epilogue and cast
+BACKWARD_LAUNCHES = 0  # backward launches (with its no-bias mode), counted apart
 OVERFLOWS = ("inf", "nan", "saturate")  # what a value past the largest finite one gives
 IN_DTYPES = (torch.float32, torch.float16)  # the kernel's input types, by code
 N_PARAMS = 12  # the int parameters the C entry points read from a host array
@@ -308,12 +320,15 @@ def _out_dtype(fmt: SmallFloat, out: torch.dtype | None) -> torch.dtype:
 
 
 def _launch(what: str, fn: str, dev: torch.device, *args) -> None:
-    global LAUNCHES
+    global LAUNCHES, BACKWARD_LAUNCHES
     lib = _build.load()
     with torch.cuda.device(dev):
         err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, what)
-    LAUNCHES += 1
+    if fn == "tf_small_float_backward":
+        BACKWARD_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
 
 
 def _check_input(name: str, t: torch.Tensor) -> None:
@@ -325,12 +340,7 @@ def _check_input(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must hold fewer than 2**31 elements, got {t.numel()}")
 
 
-def cast(x: torch.Tensor, fmt: SmallFloat, out: torch.dtype | None = None) -> torch.Tensor:
-    """fmt(x) of a float32 or float16 tensor as `out`: float32, float16
-    (fmt's carrier, the default) or uint8 (the codes). The plain version
-    on the CPU, one launch of the kernel's direct mode for CUDA tensors.
-    Not differentiable."""
-    out = _out_dtype(fmt, out)
+def _cast(x: torch.Tensor, fmt: SmallFloat, out: torch.dtype) -> torch.Tensor:
     if x.device.type == "cpu":
         return cast_reference(x, fmt, out)
     _check_input("x", x)
@@ -389,25 +399,295 @@ TABLE_BYTES = 1 << 16  # one code a float16 bit pattern
 
 
 class _Epilogue(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, y, bias, fmt, relu, out):
-        return _epilogue(y, bias, fmt, relu, out)
+    """The epilogue, returned as `uses` aliases of one output: one for
+    each consumer, so that each consumer's cotangent reaches `backward`
+    apart (None where a consumer is not on the graph) and they are summed
+    in XLA's order, each sum rounded to the format."""
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError("training an FCN in a small floating-point format is not "
-                                  "ported yet (no backward through the rounding epilogue)")
+    def forward(ctx, y, bias, fmt, relu, out, uses):
+        ctx.set_materialize_grads(False)
+        if relu and not fmt.signed:  # its relu is a NaN: keep the sum relu selects on
+            s = _epilogue(y, bias, fmt, False, out)
+            res = torch.full_like(s, float("nan"))
+            ctx.save_for_backward(s)
+        else:
+            res = _epilogue(y, bias, fmt, relu, out)
+            ctx.save_for_backward(res if relu else None)
+        ctx.fmt, ctx.relu, ctx.y_dtype = fmt, relu, y.dtype
+        ctx.bias_grad = bias.requires_grad
+        return tuple([res] + [res.view_as(res) for _ in range(uses - 1)])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g for g in grads if g is not None]
+        (saved,) = ctx.saved_tensors
+        if not grads:
+            return (None,) * 6
+        gy, gb = conv_epilogue_backward(grads, saved, ctx.fmt, ctx.relu, out=ctx.y_dtype,
+                                        bias=ctx.bias_grad)
+        return gy, gb, None, None, None, None
 
 
 def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, fmt: SmallFloat, relu: bool = False,
-                  out: torch.dtype | None = None) -> torch.Tensor:
+                  out: torch.dtype | None = None, uses: int = 1):
     """A convolution's raw output y (B, C, H, W), float32 or float16 (a
     float16 y is taken as XLA's first rounding, f16(y)), and the layer's
     float32 bias (C,) -> relu?(fmt(h(fmt(h(y)) + fmt(bias)))) as `out`
     (float32, or float16 = fmt's carrier, the default): the plain version
-    on the CPU, one kernel launch for CUDA tensors. Its backward raises
-    NotImplementedError (autograd records it only where a gradient could
-    flow: inference skips the Function's host cost)."""
+    on the CPU, one kernel launch for CUDA tensors. Where a gradient can
+    flow it returns `uses` aliases of the output (a tuple where `uses` >
+    1), one a consumer, in the order their cotangents are summed
+    (`conv_epilogue_backward`); autograd records nothing otherwise
+    (inference skips the Function's host cost)."""
     if torch.is_grad_enabled() and (y.requires_grad or bias.requires_grad):
-        return _Epilogue.apply(y, bias, fmt, relu, out)
-    return _epilogue(y, bias, fmt, relu, out)
+        res = _Epilogue.apply(y, bias, fmt, relu, out, uses)
+        return res[0] if uses == 1 else res
+    res = _epilogue(y, bias, fmt, relu, out)
+    return res if uses == 1 else (res,) * uses
+
+
+# -- backward --------------------------------------------------------------
+#
+# XLA's gradient of the same layer (its optimized HLO on the CPU): each
+# consumer's cotangent of a layer's output arrives as a convolution's
+# float32 result (the next layer's dgrad), rounded f32 -> h -> format, or
+# as format values (the output's transposed convert f32 -> format,
+# direct); the cotangents of an output that feeds several consumers are
+# added in float16 in the order JAX's backward pass meets them, each sum
+# rounded to the format; relu's cotangent selects that sum where the
+# forward's value (the sum relu took) is > 0, else fmt(0) (a NaN in
+# float8_e8m0fnu); the bias gradient is a reduce of that cotangent over
+# batch, height and width whose every partial sum is rounded to the
+# format, in the order the CPU's TreeReductionRewriter gives (windows of
+# 32 along each reduced dimension over 32, padded evenly at both ends,
+# again until none is over 32; the elements of a window in row-major
+# (batch, height, width) order), then format -> float32; the dgrad and
+# wgrad are float32 convolutions rounded f32 -> h -> format, and the
+# casts of the input and the kernel transpose into plain converts.
+
+XLA_WINDOW = 32  # the CPU's TreeReductionRewriter's window
+_PAD = -1  # a padded position of a window: skipped, as XLA's reduce-window skips it
+MAX_GRADS = 3  # the cotangents one backward launch sums (the FCN's c1 has three consumers)
+# (format, device) -> the format's add table on the device (`add_table`'s
+# codes as uint8), built by the first backward launch that needs it
+_ADD_TABLES: dict = {}
+_COUNTERS: dict = {}  # device -> the backward's count of finished CTAs (back to 0 at its end)
+
+
+def xla_sum_levels(dims: tuple[int, ...]) -> list[tuple[tuple[int, int, int], ...]]:
+    """The windows XLA's CPU reduces `dims` (the reduced sizes, major to
+    minor) through: one level a rewrite, each dimension's (window, count,
+    low padding); the last level's windows are whole dimensions (a plain
+    reduce)."""
+    levels = []
+    dims = tuple(dims)
+    while True:
+        if all(n <= XLA_WINDOW for n in dims):
+            levels.append(tuple((n, 1, 0) for n in dims))
+            return levels
+        level = []
+        for n in dims:
+            w = min(n, XLA_WINDOW)
+            count = -(-n // w)
+            level.append((w, count, (count * w - n) // 2))
+        levels.append(tuple(level))
+        dims = tuple(c for _, c, _ in level)
+
+
+def _n_codes(fmt: SmallFloat) -> int:
+    return 1 << (fmt.ebits + fmt.mbits + int(fmt.signed))
+
+
+def _nan_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b in float32 with x86's NaNs: a's NaN, else b's, else (inf -
+    inf) the default NaN."""
+    total = a + b
+    default = _nan(torch.ones_like(a, dtype=torch.bool))
+    first = torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b, default))
+    return torch.where(torch.isnan(total), first, total)
+
+
+@functools.lru_cache(maxsize=None)
+def add_table(fmt: SmallFloat) -> torch.Tensor:
+    """The codes of fmt(h(a + b)) for every pair (a, b) of the format's
+    codes, (n, n) int64: the step of the bias gradient's reduce, whose
+    initial value is fmt(0) (a NaN in float8_e8m0fnu, so its every bias
+    gradient is one, as XLA's)."""
+    n = _n_codes(fmt)
+    v = decode(torch.arange(n), fmt)
+    return encode(_h(_nan_add(v.view(-1, 1).expand(n, n), v.view(1, -1).expand(n, n)),
+                     fmt.via_f16), fmt)
+
+
+def bias_grad_reference(g: torch.Tensor, fmt: SmallFloat) -> torch.Tensor:
+    """XLA's bias gradient of a layer: g (B, C, H, W), the cotangent of
+    the convolution's output (the format's values, float32 or float16)
+    -> (C,) float32, reduced over batch, height and width through
+    `xla_sum_levels`, every partial sum rounded to the format."""
+    n = _n_codes(fmt)
+    table = add_table(fmt).reshape(-1).to(g.device)
+    c = g.shape[1]
+    codes = encode(_f32(g), fmt).permute(1, 0, 2, 3)  # (C, B, H, W)
+    for windows in xla_sum_levels(tuple(codes.shape[1:])):
+        pads = [(lo, w * count - size - lo) for (w, count, lo), size in zip(windows,
+                                                                            codes.shape[1:])]
+        codes = torch.nn.functional.pad(codes, [p for lo_hi in pads[::-1] for p in lo_hi],
+                                        value=_PAD)
+        (wb, cb, _), (wh, ch, _), (ww, cw, _) = windows
+        rows = codes.reshape(c, cb, wb, ch, wh, cw, ww).permute(0, 1, 3, 5, 2, 4, 6)
+        rows = rows.reshape(c * cb * ch * cw, wb * wh * ww)
+        acc = encode(torch.zeros(rows.shape[0], device=g.device), fmt)  # the initial fmt(0)
+        for k in range(rows.shape[1]):
+            x = rows[:, k]
+            acc = torch.where(x == _PAD, acc, table[acc * n + x.clamp(min=0)])
+        codes = acc.view(c, cb, ch, cw)
+    return decode(codes.reshape(c), fmt)
+
+
+def conv_epilogue_backward_reference(grads, saved: torch.Tensor | None, fmt: SmallFloat,
+                                     relu: bool, out: torch.dtype | None = None,
+                                     bias: bool = True):
+    """The backward's plain version. `grads`: the cotangents of one
+    layer's output, (B, C, H, W) each, float32 or float16, any strides,
+    in the order XLA sums them (a convolution's raw result, or the
+    format's values); `saved`: the forward's output where `relu` (the sum
+    relu took, for a format without zero) -> (the cotangent of the
+    convolution's output in `out` (fmt's carrier by default), the bias
+    gradient (C,) float32, or None without `bias`)."""
+    h = fmt.via_f16
+    acc = None
+    for g in grads:
+        t = round_small_float(g, fmt, h)
+        acc = t if acc is None else round_small_float(_nan_add(acc, t), fmt, h)
+    if relu:
+        acc = torch.where(_f32(saved) > 0, acc, round_small_float(torch.zeros(()), fmt))
+    gb = bias_grad_reference(acc, fmt) if bias else None
+    return _to(acc, out or fmt.carrier), gb
+
+
+def conv_epilogue_backward(grads, saved: torch.Tensor | None, fmt: SmallFloat, relu: bool,
+                           out: torch.dtype | None = None, bias: bool = True):
+    """The epilogue's backward (`conv_epilogue_backward_reference`'s
+    contract): the plain version on the CPU, one launch of the kernel's
+    backward for CUDA tensors (at most three cotangents)."""
+    out = _out_dtype(fmt, out)
+    if out == torch.uint8:
+        raise ValueError("the backward writes values, not codes")
+    grads = list(grads)
+    if not grads or len(grads) > MAX_GRADS:
+        raise ValueError(f"the backward sums 1 to {MAX_GRADS} cotangents, got {len(grads)}")
+    shape = tuple(grads[0].shape)
+    if len(shape) != 4 or any(tuple(g.shape) != shape for g in grads):
+        raise ValueError(f"the cotangents must be one (B, C, H, W) shape, got "
+                         f"{[tuple(g.shape) for g in grads]}")
+    if relu and (saved is None or tuple(saved.shape) != shape):
+        raise ValueError("relu's backward needs the forward's output of the cotangents' shape")
+    if all(g.device.type == "cpu" for g in grads):
+        return conv_epilogue_backward_reference(grads, saved, fmt, relu, out, bias)
+    dev = grads[0].device
+    for i, g in enumerate(grads):
+        _check_input(f"grads[{i}]", g)
+        if g.device != dev:
+            raise ValueError(f"grads[{i}] is on {g.device}, not {dev}")
+    if relu:
+        _check_input("saved", saved)
+        saved = saved.contiguous()
+    b, c, hh, w = shape
+    res = torch.empty(shape, dtype=out, device=dev)
+    gb = torch.empty(c, dtype=torch.float32, device=dev) if bias else None
+    if res.numel():
+        ptrs = (ctypes.c_void_p * MAX_GRADS)(*[g.data_ptr() for g in grads])
+        kinds = (ctypes.c_int * MAX_GRADS)(*[IN_DTYPES.index(g.dtype) for g in grads])
+        strides = (ctypes.c_longlong * (4 * MAX_GRADS))(*[s for g in grads for s in g.stride()])
+        levels = xla_sum_levels((b, hh, w)) if bias else []
+        flat = [v for level in levels for dim in level for v in dim]
+        lv = (ctypes.c_int * max(len(flat), 1))(*flat)
+        table = counter = scratch = codes = None
+        key = (fmt.name, dev)
+        if bias:
+            table = _ADD_TABLES.get(key)
+            if table is None:
+                table = torch.empty(_n_codes(fmt) ** 2, dtype=torch.uint8, device=dev)
+            counter = _COUNTERS.get(dev)
+            if counter is None:
+                counter = _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+            first = [cnt for _, cnt, _ in levels[0]]
+            scratch = torch.empty(2 * c * first[0] * first[1] * first[2], dtype=torch.int32,
+                                  device=dev)
+            codes = torch.empty(shape, dtype=torch.uint8, device=dev)  # pass 1 -> pass 2
+        _launch("small_float backward", "tf_small_float_backward", dev, ptrs, kinds, strides,
+                len(grads), None if saved is None else saved.data_ptr(),
+                IN_DTYPES.index(saved.dtype) if relu else 0, int(relu), res.data_ptr(),
+                OUT_DTYPES.index(out), b, c, hh, w,
+                None if gb is None else gb.data_ptr(), lv, len(levels),
+                None if table is None else table.data_ptr(),
+                int(table is not None and key not in _ADD_TABLES),
+                None if codes is None else codes.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                None if counter is None else counter.data_ptr(), _params(fmt),
+                int(fmt.via_f16))
+        if table is not None:
+            _ADD_TABLES[key] = table
+    return res, gb
+
+
+def round_grad(g: torch.Tensor, fmt: SmallFloat, out: torch.dtype | None = None
+               ) -> torch.Tensor:
+    """A convolution's raw gradient (dgrad or wgrad, float32 or float16)
+    rounded as XLA rounds it, fmt(h(g)), with no bias, as `out` (float32
+    or fmt's carrier): the backward's no-bias mode (one launch for a CUDA
+    tensor), its plain version on the CPU; g (B, C, H, W), a dgrad's or a
+    kernel's (HWIO) layout alike."""
+    return conv_epilogue_backward([g], None, fmt, False, out, bias=False)[0]
+
+
+def backward_against_plain(grads, saved, fmt: SmallFloat, relu: bool,
+                           out: torch.dtype | None = None, bias: bool = True) -> tuple:
+    """The backward on CUDA tensors (one launch) and its plain version on
+    their CPU copies -> (the kernel's cotangent and bias gradient on the
+    CPU, the plain version's, both bit for bit)."""
+    got = conv_epilogue_backward(grads, saved, fmt, relu, out, bias)
+    want = conv_epilogue_backward_reference([g.cpu() for g in grads],
+                                            None if saved is None else saved.cpu(), fmt, relu,
+                                            out, bias)
+    got = tuple(None if t is None else t.cpu() for t in got)
+    same = all(w is None if g is None else same_bits(g, w) for g, w in zip(got, want))
+    return got, want, same
+
+
+class _Cast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fmt, out, conv_grad):
+        ctx.fmt, ctx.in_dtype, ctx.conv_grad = fmt, x.dtype, conv_grad
+        return _cast(x, fmt, out)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.conv_grad:
+            return round_grad(g, ctx.fmt, ctx.in_dtype), None, None, None
+        return _cast(g, ctx.fmt, ctx.in_dtype), None, None, None
+
+
+def cast(x: torch.Tensor, fmt: SmallFloat, out: torch.dtype | None = None) -> torch.Tensor:
+    """fmt(x) of a float32 or float16 tensor as `out`: float32, float16
+    (fmt's carrier, the default) or uint8 (the codes). The plain version
+    on the CPU, one launch of the kernel's direct mode for CUDA tensors.
+    Values are differentiable: the backward is XLA's transposed convert,
+    fmt(g) in x's dtype (the direct mode again)."""
+    out = _out_dtype(fmt, out)
+    if out != torch.uint8 and torch.is_grad_enabled() and x.requires_grad:
+        return _Cast.apply(x, fmt, out, False)
+    return _cast(x, fmt, out)
+
+
+def cast_for_conv(x: torch.Tensor, fmt: SmallFloat, out: torch.dtype | None = None
+                  ) -> torch.Tensor:
+    """`cast` of a convolution's operand (the input, a kernel): its
+    backward takes the convolution's raw gradient and rounds it as XLA
+    rounds the dgrad and the wgrad, fmt(h(g)), into x's dtype
+    (`round_grad`), which the transposed convert then keeps."""
+    out = _out_dtype(fmt, out)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Cast.apply(x, fmt, out, True)
+    return _cast(x, fmt, out)

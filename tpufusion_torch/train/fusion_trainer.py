@@ -12,13 +12,15 @@ import logging
 import numpy as np
 import torch
 
-from tpufusion_torch.models.fcn import check_trainable
 from tpufusion_torch.models.fusion import FusionNet, fusion_loss, trainable_parameters
 from tpufusion_torch.train.optim import Adam, ReduceOnPlateau
 
 log = logging.getLogger("tpufusion_torch.fusion")
 
 _KEYS = ("cam", "lidar", "radar", "centroid", "rz")
+COMPLEX_GRAD_ERROR = ("grad requires real-valued outputs (output dtype that is a sub-dtype of "
+                      "np.floating), but got {}: the fusion loss of a net with a complex FCN, "
+                      "which JAX's fusion step refuses")
 
 
 def make_fusion_train_step():
@@ -31,6 +33,8 @@ def make_fusion_train_step():
         opt.zero_grad(set_to_none=True)
         outputs = net(cam[rows], lidar[rows], radar[rows], train=True, generator=generator)
         loss = fusion_loss(outputs, (centroid[rows], rz[rows]))
+        if loss.is_complex():  # a complex FCN's net: JAX's grad refuses it at the first step
+            raise TypeError(COMPLEX_GRAD_ERROR.format(loss.dtype))
         loss.backward()
         loss = loss.detach()
         opt.step(value=loss)  # the plateau rule reads the loss
@@ -66,8 +70,6 @@ def train_fusion(
     for "cpu") and returns each epoch's mean loss. The whole dataset is
     staged on the device once; the last partial batch of an epoch is
     dropped, as in the reference; one loss is read back a step."""
-    for fcn in (net.lidar_fcn, net.camera_fcn):
-        check_trainable(fcn.cfg)
     device = torch.device(device)
     net.to(device)
     n = len(data["cam"])

@@ -24,7 +24,7 @@ import torch
 
 from tpufusion_torch.config import PipelineConfig
 from tpufusion_torch.data.pipeline import BatchPipeline
-from tpufusion_torch.models.fcn import FCN, check_trainable
+from tpufusion_torch.models.fcn import FCN
 from tpufusion_torch.train.checkpoint import CheckpointManager
 from tpufusion_torch.train.optim import Adam, cosine_decay_schedule
 from tpufusion_torch.train.train_step import make_eval_step, make_train_step
@@ -86,7 +86,6 @@ class Trainer:
         so a resumed trainer draws what the interrupted one would have."""
         if cfg.model.head not in ("corner", "direct"):
             raise ValueError(f"unknown model head {cfg.model.head!r}")
-        check_trainable(model.cfg if model is not None else cfg.model)
         self.cfg = cfg
         self.outdir = outdir
         self.device = torch.device(device)
