@@ -84,7 +84,10 @@ to 0 before it and read after it, and then the training paths:
                and the direct casts of the FCN in the nine formats of
                `ops/small_float.py`) bit for bit their plain version in
                every format and mode on every float16 pattern and seeded
-               float32 values with the formats' edges, and at the main
+               float32 values with the formats' edges, the direct cast
+               (its vector design: Hopper's fp8 conversion for e4m3fn and
+               e5m2) on every float32 bit pattern in the nine formats
+               against the plain version on the card, and at the main
                path's shapes (float8_e4m3fn, 64 x 32 x 1801); each
                layer's float16 convolution against its float32 one
                rounded to float16; the asset's FCN in every format
@@ -94,14 +97,17 @@ to 0 before it and read after it, and then the training paths:
                single frames, and the step in float8_e4m3fn and
                float8_e5m2 on the golden's frames against JAX's; the
                epilogue's device time in turns with its plain version and
-               torch's cast chain, beside its bound
+               torch's cast chain, and the input cast's with its plain
+               version and x.to(torch.float8_e4m3fn), beside their bounds
   phase 1h     training in the small floats (`csrc/small_float.cu`'s
                backward: a layer's cotangents summed at XLA's rounding
                points, relu's select, the bias gradient's reduce in
                XLA's windows, and a dgrad's or wgrad's rounding) bit for
                bit its plain version in every format on
                `parity_inputs.small_float_backward_cases` and on the
-               calls of a train step at 2 and 32 frames; `Trainer.fit`
+               calls of a train step at 2 and 32 frames; the reduce alone
+               (its segment-map design) on adversarial windows
+               (`parity_inputs.small_float_reduce_inputs`); `Trainer.fit`
                with the asset in float8_e4m3fn at 32 x 1801 held to the
                f8 gradient golden (tests/data/torch_port_golden_f8_grad.npz,
                JAX's gradients) at its first step, then an epoch on phase
@@ -177,7 +183,10 @@ to 0 before it and read after it, and then the training paths:
                (c) the same on two ranks of the one card laid out as 1
                data x 2 spatial: the FCN width-sharded with halo
                exchanges (`parallel/halo.py`), the halo's columns and ms a
-               step printed
+               step printed; in (b) and (c) the dry run's float8_e4m3fn
+               case (`dryrun.small_float_phase`): the f8 mesh golden's
+               step on that mesh, every rank's gradients held to JAX's
+               same-mesh step (tests/data/torch_port_golden_f8_mesh.npz)
   phase 20     config 5 (`benchmarks.config5_waymo_scale`): 16 x 131,072
                points (64 beams) through the asset's top-4 decode, the
                two-vehicle sequence through the tracker, and the oriented
@@ -387,6 +396,7 @@ GOLDEN_TALL = os.path.join(HERE, "tests", "data", "torch_port_golden_tall.npz")
 GOLDEN_F16 = os.path.join(HERE, "tests", "data", "torch_port_golden_f16.npz")
 GOLDEN_F8 = os.path.join(HERE, "tests", "data", "torch_port_golden_f8.npz")
 GOLDEN_F8_GRAD = os.path.join(HERE, "tests", "data", "torch_port_golden_f8_grad.npz")
+GOLDEN_F8_MESH = os.path.join(HERE, "tests", "data", "torch_port_golden_f8_mesh.npz")
 GOLDEN_BENCH = os.path.join(HERE, "tests", "data", "torch_port_golden_bench.npz")
 GOLDEN_PACKED = os.path.join(HERE, "tests", "data", "torch_port_golden_packed.npz")
 GOLDEN_BF16 = os.path.join(HERE, "tests", "data", "torch_port_golden_bf16.npz")
@@ -432,7 +442,8 @@ MEASURE_CALLS = 1 + 6 * 3 + 1 + 6
 # `expect` names those it must launch
 KERNELS = ("project_points", "project_2d", "nearest_wins_image", "connected_components_with_bbox",
            "nearest_wins_packed_image", "encode_label", "encode_direct_label", "decode_direct",
-           "corner_vote", "small_float", "small_float_backward")
+           "corner_vote", "small_float", "small_float_cast", "small_float_backward",
+           "small_float_reduce")
 SERVING = ("project_points", "nearest_wins_image", "connected_components_with_bbox")
 RANGE_VIEW = SERVING[:2]  # a path that projects points and decodes nothing
 CC_ONLY = SERVING[2:]  # a decode of a view or a mask it is given
@@ -441,10 +452,16 @@ DRIVE_COUNTS = KERNELS[2:4]  # the counts `drive` returns: the exact z-buffer's 
 DIRECT = SERVING + ("decode_direct",)  # a path that decodes with the direct head
 CORNER = SERVING + ("corner_vote",)  # a path that decodes with the corner head
 DIRECT_TRAIN = DIRECT + ("encode_direct_label",)  # a direct head's training with its evals
+SMALL_FLOAT = ("small_float", "small_float_cast")  # a small-float forward: its input's cast
+SMALL_FLOAT_TRAIN = ("small_float_backward", "small_float_reduce")  # its backward: bias gradients
 PACKED_TIMED = 4  # phase 27: distinct input sets a shape for the packed kernel's times
 PIXEL_SETS = 4  # phase 5: distinct batches for the pixel kernel's times
 DECODE_SETS = 4  # phase 1e: distinct batches a shape for the direct decode's times
 CORNER_SETS = 4  # phase 1f: distinct batches a shape for the corner vote's times
+CAST_CHUNK = 1 << 26  # phase 1g: float32 patterns a chunk of the cast's exhaustive check
+# phase 1g: the chunks also cast as an NHWC input of 1 x 16 x (CAST_CHUNK // 48) x 3 (their
+# first patterns: 2.0, 2^121 (up to inf and NaN), -2.0, -2^121 (up to -inf and -NaN))
+NHWC_CHUNKS = (0x40000000, 0x7C000000, 0xC0000000, 0xFC000000)
 
 
 _T0 = time.perf_counter()
@@ -472,7 +489,7 @@ def _reset_launches() -> None:
     pixels.LAUNCHES = pixels.LAUNCHES_2D = projection.LAUNCHES = cc.LAUNCHES = 0
     projection.PACKED_LAUNCHES = label_encode.LAUNCHES = label_encode.LAUNCHES_DIRECT = 0
     decode_direct.LAUNCHES = corner_vote.LAUNCHES = small_float.LAUNCHES = 0
-    small_float.BACKWARD_LAUNCHES = 0
+    small_float.CAST_LAUNCHES = small_float.BACKWARD_LAUNCHES = small_float.REDUCE_LAUNCHES = 0
 
 
 def _launches() -> dict[str, int]:
@@ -494,7 +511,9 @@ def _launches() -> dict[str, int]:
             "encode_direct_label": label_encode.LAUNCHES_DIRECT,
             "decode_direct": decode_direct.LAUNCHES, "corner_vote": corner_vote.LAUNCHES,
             "small_float": small_float.LAUNCHES,
-            "small_float_backward": small_float.BACKWARD_LAUNCHES}
+            "small_float_cast": small_float.CAST_LAUNCHES,
+            "small_float_backward": small_float.BACKWARD_LAUNCHES,
+            "small_float_reduce": small_float.REDUCE_LAUNCHES}
 
 
 def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
@@ -523,6 +542,8 @@ def drive(label: str, fn, totals: dict[str, int], expect=SERVING):
         f"{label} launched the corner vote kernel")
     assert counts["small_float"] == 0 or "small_float" in expect, (
         f"{label} launched the small-float kernel")
+    for k in ("small_float_cast", "small_float_reduce"):
+        assert counts[k] == 0 or k in expect, f"{label} launched {k}"
     assert counts["small_float_backward"] == 0 or "small_float_backward" in expect, (
         f"{label} launched the small-float backward")
     assert counts["project_points"] == (
@@ -1338,6 +1359,40 @@ def phase_small_float(dev, spec, gm, scans) -> tuple[dict, dict]:
     log(f"  every format and mode against the plain version on the CPU: {n_checks} checks, "
         f"{n_elems} elements, bit for bit")
 
+    # the direct cast on every float32 bit pattern, in every format, against
+    # the plain version on the card: the codes and the carrier's values
+    t1, n_nhwc = time.perf_counter(), 0
+    for fmt in sf.FORMATS.values():
+        for start in range(0, 1 << 32, CAST_CHUNK):
+            x = torch.arange(start, start + CAST_CHUNK, dtype=torch.int64, device=dev).to(
+                torch.int32).view(torch.float32)
+            codes = sf.encode(x, fmt)
+            for o, want in ((torch.uint8, codes.to(torch.uint8)),
+                            (fmt.carrier, sf._to(sf.decode(codes, fmt), fmt.carrier))):
+                got = sf.cast(x, fmt, o)
+                if not sf.same_bits(got, want):
+                    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[want.element_size()]
+                    bad = torch.nonzero(got.view(ints) != want.view(ints)).reshape(-1)[:8]
+                    log(f"  {fmt.name} cast into {o}: float32 patterns "
+                        f"{[hex(int(v) & 0xFFFFFFFF) for v in x.view(torch.int32)[bad]]}: kernel "
+                        f"{got.view(ints)[bad].tolist()}, plain {want.view(ints)[bad].tolist()}")
+                    raise AssertionError(f"the {fmt.name} cast differs from its plain version")
+            if start in NHWC_CHUNKS:  # the same patterns as an NHWC input (the FCN's layout)
+                xn = x[: CAST_CHUNK // 48 * 48].view(1, 16, -1, 3).permute(0, 3, 1, 2)
+                cn = sf.encode(xn, fmt)
+                for o, want in ((torch.uint8, cn.to(torch.uint8)),
+                                (fmt.carrier, sf._to(sf.decode(cn, fmt), fmt.carrier))):
+                    assert sf.same_bits(sf.cast(xn, fmt, o), want.contiguous()), (
+                        f"the {fmt.name} cast of an NHWC input into {o} differs from its plain "
+                        "version")
+                n_nhwc += xn.numel()
+            del x, codes
+    out["cast_patterns"] = 1 << 32
+    log(f"  the direct cast on every float32 bit pattern (2^32, chunks of {CAST_CHUNK}) in the 9 "
+        f"formats, into the codes and the carrier, and {len(NHWC_CHUNKS)} chunks a format as NHWC "
+        f"inputs ({n_nhwc} casts, the tiled transpose): bit for bit the plain version on the card "
+        f"({time.perf_counter() - t1:.1f} s)")
+
     # the main path's shapes: the asset in float8_e4m3fn at 64 frames
     model, dcfg = asset_fcn(ASSET, "float8_e4m3fn", dev)
     fmt = model.fmt
@@ -1428,7 +1483,7 @@ def phase_small_float(dev, spec, gm, scans) -> tuple[dict, dict]:
     f32, _ = asset_fcn(ASSET, "float32", dev)
     (poses, found), _ = drive(f"make_e2e_step with the asset's FCN in {fmt.name}, "
                               f"{BATCH} x {N_POINTS}", lambda: step(p, v), driven,
-                              expect=DIRECT + ("small_float",))
+                              expect=DIRECT + SMALL_FLOAT)
     found32 = make_e2e_step(f32, spec, dcfg, head="direct", device=dev)(p, v)[1]
     assert bool(torch.isfinite(poses).all()) and found.shape == (BATCH,)
     agree = float((found == found32).float().mean())
@@ -1443,7 +1498,7 @@ def phase_small_float(dev, spec, gm, scans) -> tuple[dict, dict]:
     frames = [scans[0][i][scans[1][i]] for i in range(REQUESTS)]
     answers, _ = drive(f"LidarPipeline in {fmt.name}, {REQUESTS} requests",
                        lambda: [pipe.predict_position(f) for f in frames], driven,
-                       expect=DIRECT + ("small_float",))
+                       expect=DIRECT + SMALL_FLOAT)
     req = np.stack([a[0] for a in answers])
     req_found = np.array([a[1] for a in answers])
     assert np.array_equal(req_found, found[:REQUESTS].cpu().numpy())
@@ -1456,7 +1511,7 @@ def phase_small_float(dev, spec, gm, scans) -> tuple[dict, dict]:
         gstep = make_e2e_step(m, spec, dcfg, max_obstacles=F8_E2E_K, head="direct", device=dev)
         (gp, gf), _ = drive(f"make_e2e_step in {name}, the golden's frames, k {F8_E2E_K}",
                             lambda: gstep(gm["multi_points"], gm["multi_valid"]), driven,
-                            expect=DIRECT + ("small_float",))
+                            expect=DIRECT + SMALL_FLOAT)
         want_found = g8[f"e2e_{name}_found"]
         diff = float(wrapped_pose_diff(gp.cpu().numpy(), g8[f"e2e_{name}_poses"])[
             want_found].max())
@@ -1537,7 +1592,12 @@ def phase_small_float_backward(dev, spec) -> tuple[dict, dict]:
     )
     from tpufusion_torch.config import DEFAULT, LossConfig, TrainConfig
     from tpufusion_torch.data.pipeline import BatchPipeline
-    from tpufusion_torch.kernel_bench import recorded_backwards, small_float_backward_rows
+    from tpufusion_torch.kernel_bench import (
+        recorded_backwards,
+        reduce_distinct_codes,
+        small_float_backward_rows,
+        small_float_reduce_rows,
+    )
     from tpufusion_torch.models.fcn import FCN
     from tpufusion_torch.models.io import asset_configs, load_state_npz
     from tpufusion_torch.ops import parity_inputs
@@ -1573,11 +1633,34 @@ def phase_small_float_backward(dev, spec) -> tuple[dict, dict]:
                 n_checks += 1
     log(f"  every format, case and output against the plain version on the CPU: {n_checks} "
         f"checks, bit for bit ({time.perf_counter() - t0:.1f} s)")
+    # the reduce alone on adversarial windows: NaN, +-inf, overflowing sums,
+    # subnormals, the zeros it skips, every code; odd window lengths with
+    # padding, windows over the batch, a second level, one column
+    n_reduce = 0
+    for fmt in sf.FORMATS.values():
+        for shape in parity_inputs.SMALL_FLOAT_REDUCE_SHAPES:
+            x = torch.from_numpy(parity_inputs.small_float_reduce_inputs(fmt, shape))
+            wide = torch.zeros(*shape[:3], 2 * shape[3])
+            wide[..., ::2] = x
+            for dtype in (torch.float32, fmt.carrier):
+                for t in (x.to(dtype), wide.to(dtype)[..., ::2]):
+                    got = sf.bias_grad(t.to(dev), fmt).cpu()
+                    want = sf.bias_grad_reference(t, fmt)
+                    out["err"] = max(out["err"], _abs_err((got,), (want,)))
+                    if not sf.same_bits(got, want):
+                        log(f"  {fmt.name} {shape} {dtype}: reduce {got.tolist()}, plain "
+                            f"{want.tolist()}")
+                        raise AssertionError(f"the reduce differs from its plain version "
+                                             f"({fmt.name}, {shape})")
+                    n_reduce += 1
+    out["reduce_checks"] = n_reduce
+    log(f"  the reduce alone (tf_small_float_bias_grad) on adversarial windows: {n_reduce} "
+        f"checks in the 9 formats, bit for bit the plain version on the CPU")
 
     g8 = load_npz(GOLDEN_F8_GRAD)
     amcfg, adcfg = asset_configs(ASSET)
     driven = dict.fromkeys(KERNELS, 0)
-    expect = RANGE_VIEW + ("encode_direct_label", "small_float", "small_float_backward")
+    expect = RANGE_VIEW + ("encode_direct_label",) + SMALL_FLOAT + SMALL_FLOAT_TRAIN
 
     def trainer_for(name, outdir, batch_size):
         cfg = DEFAULT.replace(
@@ -1706,6 +1789,24 @@ def phase_small_float_backward(dev, spec) -> tuple[dict, dict]:
 
     row = small_float_backward_rows(calls_sets=[main["calls"]])[0]
     out["row"] = row
+    red = out["reduce_row"] = small_float_reduce_rows([main["calls"]])[0]
+    log(f"  the reduce alone at a {TRAIN_BATCH}-frame step's {red['reduces']} bias gradients "
+        f"({red['elements']} elements): {red['step_device_ms']:.4f} ms, bound "
+        f"{red['step_bound_ms']:.4f} ms by bytes; its largest {red['shape']}: "
+        f"{red['new_device_ms']:.4f} ms, plain {red['plain_call_ms']:.1f} ms (between events, "
+        f"host-paced), bound {red['bound_ms']:.4f} ms")
+    t1, sms = time.perf_counter(), torch.cuda.get_device_properties(dev).multi_processor_count
+    codes = out["reduce_codes"] = [
+        {"shape": tuple(c[0][0].shape), **reduce_distinct_codes(sf.conv_epilogue_backward(*c)[0],
+                                                                c[2], sms)}
+        for c in main["calls"] if c[5]]
+    log(f"  what the reduce's segments carry on those cotangents, all "
+        f"{sf._n_codes(main['calls'][0][2])} start codes through each run "
+        f"(`reduce_distinct_codes`, {time.perf_counter() - t1:.1f} s): " + "; ".join(
+            f"{r['shape']}: {r['chains']} chains x {r['segments']} runs of {r['steps']:.0f} "
+            f"steps, {r['nonzero_steps']:.2%} nonzero, distinct codes "
+            + ", ".join(f"{k}: {v['mean']:.1f} (least {v['min']})"
+                        for k, v in r["distinct"].items()) for r in codes))
     log(f"  the backward at {row['shape']} ({row['calls']} calls, {row['elements']} "
         f"elements in its epilogues): kernel {row['step_device_ms']:.4f} ms, bound "
         f"{row['step_bound_ms']:.4f} ms by bytes; its largest call {row['call_shape']}: "
@@ -2839,10 +2940,17 @@ def phase_data_parallel(dev, spec, card, totals):
             times[which].append(time_ms(lambda b: step(model, opt, b, gen), batches))
             device_times[which].append(device_ms(lambda b: step(model, opt, b, gen), batches))
         ar_ms = time_ms(lambda _: average_gradients(params, mesh), batches)
-        ar_dev = device_ms(lambda _: average_gradients(params, mesh), batches)
+        try:
+            ar_dev = device_ms(lambda _: average_gradients(params, mesh), batches)
+            ar_source = "torch.profiler's device records"
+        except RuntimeError as e:  # late in the process the profiler may record no device event
+            log(f"  the all-reduce's device time: {e}; taken from the queued calls instead")
+            ar_dev = queued_ms(lambda _: average_gradients(params, mesh), batches)
+            ar_source = "CUDA events around the calls queued behind a sleep (queued_ms)"
         dp = {"ms_per_step": {k: [round(x, 3) for x in v] for k, v in times.items()},
               "device_ms_per_step": {k: [round(x, 3) for x in v] for k, v in device_times.items()},
               "allreduce_ms": round(ar_ms, 3), "allreduce_device_ms": round(ar_dev, 4),
+              "allreduce_device_source": ar_source,
               "allreduce_floats": n_floats, "backend": mesh.backend, "world_size": mesh.world_size}
         log(f"  times in turns {order} over {len(batches)} distinct batches: {json.dumps(dp)} [{card}]")
     finally:
@@ -2857,11 +2965,13 @@ def phase_data_parallel(dev, spec, card, totals):
             f"dryrun_multichip at 32 x 1801, {2 * n} x {N_POINTS} points (phases 1-3), {n} x {N_POINTS} (phase 4)")
         t0 = time.perf_counter()
         out = dryrun.dryrun_multichip(n, device=dev, backend="gloo", spec=spec, n_points=N_POINTS,
-                                      full_points=N_POINTS, timed_steps=3, mesh_cfg=cfg)
+                                      full_points=N_POINTS, timed_steps=3, mesh_cfg=cfg,
+                                      small_float_golden=GOLDEN_F8_MESH)
         wall = time.perf_counter() - t0
+        phases = ("train", "corner", "flagship", "full_width")
         for r, rank in enumerate(out["ranks"]):
-            holds = {ph: rank[ph]["kernels"] for ph in rank}
-            log(f"  rank {r}: launches {json.dumps({ph: rank[ph]['launches'] for ph in rank})}; "
+            holds = {ph: rank[ph]["kernels"] for ph in phases}
+            log(f"  rank {r}: launches {json.dumps({ph: rank[ph]['launches'] for ph in phases})}; "
                 f"kernels against plain on its own points {json.dumps(holds)}")
             assert rank["train"]["launches"] == {
                 "project_points": 1, "nearest_wins_image": 1, "connected_components_with_bbox": 0,
@@ -2871,7 +2981,15 @@ def phase_data_parallel(dev, spec, card, totals):
                     "project_points": 1, "nearest_wins_image": 1, "connected_components_with_bbox": 1,
                     "corner_vote": int(ph == "corner")}
                 assert all(rank[ph]["kernels"][k] for k in ("pixels_equal", "zbuffer_equal", "cc_equal"))
+            sfl = rank["small_float"]
+            log(f"  rank {r}: the f8 mesh golden's step ({sfl['layout']}): gradients equal to JAX's "
+                f"same-mesh step: at least {sfl['same']:.4%} of each tensor (the least: "
+                f"{sfl['worst']}); at most {sfl['steps']} steps off, loss "
+                f"{sfl['loss']:.6g} ({sfl['loss_rel']:.2e} relative); launches {sfl['launches']}; "
+                f"3 more steps {sfl['ms_per_step']:.3f} ms a step (host clock) [{card}]")
+            assert all(sfl["launches"][k] > 0 for k in dryrun.SMALL_FLOAT_KERNELS), sfl["launches"]
         tr = train[label] = out["ranks"][0]["train"]
+        tr["small_float"] = out["ranks"][0]["small_float"]
         if cfg.n_spatial > 1:
             halo = tr["halo"]
             log(f"  halo exchanges of one train step: {halo['calls']} forward, {halo['columns']} columns "
@@ -4462,7 +4580,7 @@ def main(argv=()) -> int:
     training_phases(dev, spec, gm, gf, card, totals)
 
     # -- phases 19-21: data parallelism, config 5, host syncs --------------
-    phase_data_parallel(dev, spec, card, totals)
+    _, dpt = phase_data_parallel(dev, spec, card, totals)
     phase_config5_bench(dev, spec, card, totals)
     syncs = phase_host_syncs(dev, spec, card)
     assert not any(syncs.values()), f"a serving path synchronizes with the host: {syncs}"
@@ -4494,6 +4612,8 @@ def main(argv=()) -> int:
     assert totals["corner_vote"] > 0, "no path launched the corner vote kernel"
     assert totals["small_float"] > 0, "no path launched the small-float kernel"
     assert totals["small_float_backward"] > 0, "no path launched the small-float backward"
+    assert totals["small_float_cast"] > 0, "no path launched the small-float cast"
+    assert totals["small_float_reduce"] > 0, "no path launched the small-float reduce"
     assert totals["project_points"] == (
         totals["nearest_wins_image"] + totals["nearest_wins_packed_image"]), (
         "a driven range view without the pixel kernel")
@@ -4621,6 +4741,29 @@ def main(argv=()) -> int:
          "step_ms": sbr["row"]["step_device_ms"], "step_bound_ms": sbr["row"]["step_bound_ms"],
          "calls_a_step": sbr["row"]["calls"], "epilogue_elements": sbr["row"]["elements"],
          **{k: v for k, v in sbr.items() if k.startswith(("golden_", "main_"))}},
+        {"name": "small_float_cast", "route": "cuda",
+         "source": "tpufusion_torch/csrc/small_float.cu",
+         "replaces": "tpufusion/models/fcn.py:100",
+         "launches": totals["small_float_cast"], "max_abs_err": sfr["err"],
+         "ms": sfr["row"]["cast_device_ms"], "plain_ms": sfr["row"]["cast_plain_device_ms"],
+         "bound_ms": sfr["row"]["input_cast_bound_ms"], "bound_by": "bytes",
+         "library_ms": sfr["row"].get("cast_library_device_ms"),
+         "shape": sfr["row"]["input_cast_shape"], "float32_patterns_checked": sfr["cast_patterns"]},
+        {"name": "small_float_reduce", "route": "cuda",
+         "source": "tpufusion_torch/csrc/small_float.cu",
+         "replaces": "tpufusion/models/fcn.py:100",
+         "launches": totals["small_float_reduce"], "max_abs_err": sbr["err"],
+         "ms": sbr["reduce_row"]["new_device_ms"], "plain_ms": sbr["reduce_row"]["plain_call_ms"],
+         "bound_ms": sbr["reduce_row"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "shape": sbr["reduce_row"]["shape"], "step_ms": sbr["reduce_row"]["step_device_ms"],
+         "step_bound_ms": sbr["reduce_row"]["step_bound_ms"],
+         "reduces_a_step": sbr["reduce_row"]["reduces"], "adversarial_checks": sbr["reduce_checks"],
+         "distinct_codes_at_end": [round(r["distinct"]["end"]["mean"], 1)
+                                   for r in sbr["reduce_codes"]],
+         "nonzero_steps": [round(r["nonzero_steps"], 4) for r in sbr["reduce_codes"]],
+         "mesh": {k: {f: v["small_float"][f] for f in ("layout", "same", "worst", "steps",
+                                                         "loss_rel", "ms_per_step")}
+                  for k, v in dpt.items()}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

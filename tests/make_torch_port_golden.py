@@ -1069,7 +1069,96 @@ def write_f8_grad_golden() -> None:
                       if k.endswith("/loss")))
 
 
+def f8_mesh_arrays(name: str | None = None, norm: bool = False) -> dict[str, np.ndarray]:
+    """npz-style float32 arrays of the mesh golden's FCN in `name`
+    (`_golden.f8_mesh_config`): the port's `FCN(..., seed=F8_MESH_SEED)`."""
+    from tpufusion_torch._golden import F8_MESH_NAME, F8_MESH_SEED, f8_mesh_config
+    from tpufusion_torch.models.fcn import FCN
+
+    model = FCN(f8_mesh_config(name or F8_MESH_NAME, norm), seed=F8_MESH_SEED)
+    return {k.replace(".", "/"): v.numpy() for k, v in model.state_dict().items()}
+
+
+def jax_f8_mesh_step(ranks: int, n_spatial: int, name: str | None = None, norm: bool = False,
+                     inputs=None) -> dict[str, np.ndarray]:
+    """JAX's train step of the mesh golden's FCN in `name` on a mesh of
+    `ranks` virtual CPU devices (`n_spatial` spatial), optax's SGD at a
+    rate of 1: {"loss", "<layer>/<param>": the gradient}, the gradient
+    read back from each parameter's move (a small float's snapped to the
+    format: the move is the gradient within a float32 rounding of the
+    parameter)."""
+    import jax
+    import optax
+    import torch
+    from flax import nnx
+
+    from tests.torch_golden import jax_model_from_arrays
+    from tpufusion.config import LossConfig, MeshConfig, RangeViewSpec, TrainConfig
+    from tpufusion.parallel import mesh as jax_mesh
+    from tpufusion.train import train_step as jax_train_step
+    from tpufusion_torch._golden import F8_GRAD_LOSS, F8_MESH_NAME, f8_mesh_config, f8_mesh_inputs
+    from tpufusion_torch.ops.small_float import FORMATS, round_small_float
+
+    name = name or F8_MESH_NAME
+    images, labels = inputs if inputs is not None else f8_mesh_inputs()
+    cfg = f8_mesh_config(name, norm)
+    arrays = f8_mesh_arrays(name, norm)
+    jmesh = jax_mesh.make_mesh(MeshConfig(n_devices=ranks, n_spatial=n_spatial))
+    model = jax_model_from_arrays(cfg, arrays)
+    opt = nnx.Optimizer(model, optax.sgd(1.0), wrt=nnx.Param)
+    for mod in (model, opt):
+        nnx.update(mod, jax_mesh.replicate(nnx.state(mod), jmesh))
+    step = jax_train_step.make_train_step(
+        RangeViewSpec(res_h_deg=1.8), LossConfig(**F8_GRAD_LOSS), TrainConfig(augment=False),
+        mesh=jmesh, head="direct", yaw_frame="local")
+    sh = jax_mesh.batch_sharding(jmesh)
+    batch = {"images": jax.device_put(images, sh), "labels": jax.device_put(labels, sh)}
+    with jmesh:
+        loss, _ = step(model, opt, batch, jax.random.PRNGKey(0))
+    out = {"loss": np.asarray(loss, np.float32)}
+    fmt = FORMATS[name]
+    for path, p in nnx.to_flat_state(nnx.state(model, nnx.Param)):
+        key = "/".join(map(str, path))
+        move = arrays[key] - np.asarray(p, np.float32)
+        if not key.startswith("norm/"):
+            move = round_small_float(torch.from_numpy(move), fmt).numpy()
+        out[key] = move
+    return out
+
+
+def golden_f8_mesh_arrays(layouts=None) -> dict[str, np.ndarray]:
+    """The mesh golden (`_golden.py`, F8_MESH_*): each layout's loss and
+    gradient codes, and a digest of the inputs."""
+    import torch
+
+    from tpufusion_torch._golden import F8_MESH_LAYOUTS, F8_MESH_NAME, _sha256, f8_mesh_inputs
+    from tpufusion_torch.ops.small_float import FORMATS, encode
+
+    inputs = f8_mesh_inputs()
+    out = {"inputs_sha256": np.array(_sha256(*inputs))}
+    for layout in layouts or F8_MESH_LAYOUTS:
+        got = jax_f8_mesh_step(*F8_MESH_LAYOUTS[layout], inputs=inputs)
+        out[f"{layout}/loss"] = got.pop("loss")
+        for k, v in got.items():
+            out[f"{layout}/{k}"] = encode(torch.from_numpy(v), FORMATS[F8_MESH_NAME]).to(
+                torch.uint8).numpy()
+    return out
+
+
+def write_f8_mesh_golden() -> None:
+    from tests.torch_golden import GOLDEN_F8_MESH
+
+    arrays = golden_f8_mesh_arrays()
+    np.savez_compressed(GOLDEN_F8_MESH, **arrays)
+    print(f"wrote {GOLDEN_F8_MESH} ({os.path.getsize(GOLDEN_F8_MESH)} bytes): losses "
+          + ", ".join(f"{k[:-5]} {float(arrays[k]):.6g}" for k in sorted(arrays)
+                      if k.endswith("/loss")))
+
+
 def main() -> None:
+    if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                                   + " --xla_force_host_platform_device_count=8").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -1095,6 +1184,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["f16"]:
         write_f16_golden()
+        return
+    if sys.argv[1:] == ["f8_mesh"]:
+        write_f8_mesh_golden()
         return
     if sys.argv[1:] == ["f8_grad"]:
         write_f8_grad_golden()

@@ -2089,6 +2089,73 @@ def test_small_float_train_step_launches_the_backward_a_layer(cuda_device):
         assert float(same.float().mean()) >= 0.99, k
 
 
+@pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "float8_e3m4", "float8_e4m3",
+                                  "float8_e4m3fnuz", "float8_e5m2fnuz", "float8_e4m3b11fnuz",
+                                  "float8_e8m0fnu", "float4_e2m1fn"])
+def test_small_float_cast_vectors_match_their_plain_version(cuda_device, name):
+    """The direct cast (csrc/small_float.cu `cast_kernel`: Hopper's
+    conversion for float8_e4m3fn and float8_e5m2, the integer encode for
+    the rest) on float32 values at and around the two formats' overflow
+    midpoints (464, 61440), both signs, infinities and NaNs, at lengths
+    that leave a tail (n % 16) and from views 4 and 2 bytes off 16-byte
+    alignment (the scalar path), over several tiles, float32 and float16
+    in, and NHWC tensors in NCHW's shape (the FCN's input: the tiled
+    transpose, with whole 16-byte vectors where H W is a multiple of 16
+    and element by element where it is not), into every output: bit for
+    bit the plain version."""
+    from tpufusion_torch.ops import small_float as sf
+
+    fmt = sf.FORMATS[name]
+    edges = np.array([464.0, 61440.0, 448.0, 57344.0, 480.0, 65536.0, np.inf, np.nan, 0.0,
+                      1e-40, 2.0**-10, 2.0**-17], np.float32)
+    edges = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                            np.nextafter(edges, np.float32(0))])
+    x = np.concatenate([edges, -edges, np.random.default_rng(9).standard_normal(1003)
+                        .astype(np.float32) * 100]).astype(np.float32)
+    xs = torch.from_numpy(x)
+    outs = (torch.float32, torch.uint8) + ((torch.float16,) if fmt.via_f16 else ())
+    nhwc = xs[:2 * 4 * 41 * 3].view(2, 4, 41, 3).permute(0, 3, 1, 2)  # H W = 164
+    tiles = torch.from_numpy(np.resize(x, 3 * 4096 + 5))
+    wide = tiles[:2 * 32 * 64 * 3].view(2, 32, 64, 3).permute(0, 3, 1, 2)  # H W = 2048
+    for label, t in {"float32": xs, "float32 + 1 element": xs[1:], "float16": xs.half(),
+                     "float16 + 1 element": xs.half()[1:], "tail": xs[:1003],
+                     "several tiles": tiles, "NHWC in memory": nhwc,
+                     "NHWC cropped": nhwc[..., :37], "NHWC float16": nhwc.half(),
+                     "NHWC, whole vectors": wide, "NHWC float16, whole vectors": wide.half()
+                     }.items():
+        for out in outs:
+            got = sf.cast(t.to(cuda_device), fmt, out).cpu()
+            assert sf.same_bits(got, sf.cast_reference(t, fmt, out)), (label, out)
+
+
+@pytest.mark.parametrize("name", ["float8_e4m3fn", "float8_e5m2", "float8_e3m4", "float8_e4m3",
+                                  "float8_e4m3fnuz", "float8_e5m2fnuz", "float8_e4m3b11fnuz",
+                                  "float8_e8m0fnu", "float4_e2m1fn"])
+def test_small_float_bias_grad_kernel_matches_its_plain_version(cuda_device, name):
+    """The bias gradient's reduce alone (`tf_small_float_bias_grad`, the
+    segments' maps composed) on `parity_inputs.small_float_reduce_inputs`
+    (NaN, +-inf, overflowing sums, subnormals, zeros it skips, every code)
+    at each of SMALL_FLOAT_REDUCE_SHAPES, contiguous and as a strided
+    view, in float32 and the carrier: bit for bit the plain version, a
+    NaN where float8_e8m0fnu starts (fmt(0)); one launch a call."""
+    from tpufusion_torch.ops import small_float as sf
+
+    fmt = sf.FORMATS[name]
+    for shape in parity_inputs.SMALL_FLOAT_REDUCE_SHAPES:
+        x = torch.from_numpy(parity_inputs.small_float_reduce_inputs(fmt, shape))
+        wide = torch.zeros(shape[0], shape[1], shape[2], 2 * shape[3])
+        wide[..., ::2] = x
+        for dtype in (torch.float32, fmt.carrier):
+            for label, t in {"contiguous": x.to(dtype), "strided": wide.to(dtype)[..., ::2]}.items():
+                want = sf.bias_grad_reference(t, fmt)
+                before = sf.BACKWARD_LAUNCHES
+                got = sf.bias_grad(t.to(cuda_device), fmt).cpu()
+                assert sf.BACKWARD_LAUNCHES == before + 1
+                assert sf.same_bits(got, want), (shape, dtype, label, got, want)
+    if name == "float8_e8m0fnu":
+        assert bool(torch.isnan(want).all())
+
+
 def test_small_float_backward_rejects_bad_inputs(cuda_device):
     from tpufusion_torch.ops import small_float as sf
 

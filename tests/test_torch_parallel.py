@@ -25,6 +25,15 @@ and every rank's parameters and statistics equal rank 0's bit for bit.
 A BatchNorm with per-rank statistics (DDP's default) fails them. Against
 the reference's four-device sharded step (`tpufusion.parallel.mesh`, the
 roll off) the limits are the single-process train golden's (_golden.py).
+
+The small floats: ranks 0 and 1 also form a data x 2 and a 1 x 2 spatial
+mesh of their own (`_pair_mesh`) and run the f8 mesh golden's step
+(`_golden.py`, F8_MESH_*) on each, and all four ranks run it as data x 4.
+Every gradient equals JAX's train step on the same mesh bit for bit (the
+golden file's for float8_e4m3fn on data x 2 and 1 x 2, a live JAX step
+otherwise), the loss within 1e-5; today's data-parallel path for a small
+float (each rank's loss over its own rows, `average_gradients`' float32
+mean of the rounded gradients) does not (the negative control).
 """
 
 import os
@@ -97,8 +106,64 @@ CASES = {
 }
 
 
+def _pair_mesh(mesh, n_spatial: int):
+    """Ranks 0 and 1 as a mesh of their own, data x 2 (n_spatial 1) or 1 x
+    2; None on the other ranks. Every rank creates every group."""
+    import torch.distributed as dist
+
+    pair = dist.new_group([0, 1])
+    singles = [dist.new_group([r]) for r in (0, 1)]
+    if mesh.rank > 1:
+        return None
+    if n_spatial == 1:
+        return Mesh(group=pair, rank=mesh.rank, world_size=2, device=mesh.device, backend=mesh.backend)
+    return Mesh(group=pair, rank=mesh.rank, world_size=2, device=mesh.device, backend=mesh.backend,
+                axis_names=("data", "spatial"), n_spatial=2, data_group=singles[mesh.rank],
+                spatial_group=pair)
+
+
+def _todays_small_float_path():
+    """The data-parallel step as it combined a small float's gradients
+    before it followed XLA (the negative control): each rank's loss its
+    rows' mean, `average_gradients`' float32 mean of the ranks' rounded
+    gradients. Returns a function that restores the step."""
+    from tpufusion_torch.parallel.mesh import all_reduce_mean, average_gradients
+    from tpufusion_torch.train import train_step
+
+    keep = train_step.weighted_pose_loss, train_step.reduce_gradients, train_step.all_reduce_sum
+    train_step.weighted_pose_loss = lambda *a, global_share=False, **kw: keep[0](*a, **kw)
+    train_step.reduce_gradients = lambda plan, mesh, fmt: average_gradients([p for p, _ in plan], mesh)
+    train_step.all_reduce_sum = all_reduce_mean
+
+    def restore():
+        train_step.weighted_pose_loss, train_step.reduce_gradients, train_step.all_reduce_sum = keep
+    return restore
+
+
+# the small-float steps: case -> (mesh: "data2", "spatial2" or "data4", format)
+F8_CASES = {"f8_data2": ("data2", "float8_e4m3fn"), "f8_spatial2": ("spatial2", "float8_e4m3fn"),
+            "f8_data2_e5m2": ("data2", "float8_e5m2"), "f8_data4": ("data4", "float8_e4m3fn"),
+            "f8_data2_today": ("data2", "float8_e4m3fn")}
+
+
+def _small_float_checks(mesh, outdir):
+    meshes = {"data2": _pair_mesh(mesh, 1), "spatial2": _pair_mesh(mesh, 2), "data4": mesh}
+    for case, (layout, name) in F8_CASES.items():
+        m = meshes[layout]
+        if m is None:
+            continue
+        restore = _todays_small_float_path() if case.endswith("_today") else (lambda: None)
+        try:
+            out = dryrun.small_float_step(m, name)
+        finally:
+            restore()
+        np.savez(os.path.join(outdir, f"{case}_rank{mesh.rank}.npz"), **out)
+
+
 def _rank_checks(mesh, outdir):
-    """Every rank: the train steps of CASES, the pipelines, the mesh helpers."""
+    """Every rank: the train steps of CASES, the small-float steps, the
+    pipelines, the mesh helpers."""
+    _small_float_checks(mesh, outdir)
     batch = shard_batch(_global_batch(), mesh)
     arrays = dict(np.load(os.path.join(outdir, "arrays.npz")))
     for case, (mcfg, loss_cfg, augment, from_arrays) in CASES.items():
@@ -297,17 +362,26 @@ def test_dryrun_multichip_four_ranks(capsys):
     reference's dry run lays out four devices (2 data x 2 spatial): the
     train step, the corner e2e step, the flagship and the flagship at 32 x
     1801, each sharded and held against one process (found equal, poses
-    1e-4)."""
-    out = dryrun.dryrun_multichip(4, device="cpu", timeout=SPAWN_TIMEOUT)
+    1e-4); with the f8 mesh golden, the train phase's float8_e4m3fn case
+    on every rank equal to JAX's same-mesh step."""
+    from tests.torch_golden import GOLDEN_F8_MESH
+
+    out = dryrun.dryrun_multichip(4, device="cpu", timeout=SPAWN_TIMEOUT,
+                                  small_float_golden=GOLDEN_F8_MESH)
     printed = capsys.readouterr().out.strip().splitlines()
-    assert printed == out["lines"] and len(printed) == 4
+    assert printed == out["lines"] and len(printed) == 5
     assert out["mesh"] == {"data": 2, "spatial": 2}
     assert all("{'data': 2, 'spatial': 2}" in line for line in printed)
     for phase in ("corner", "flagship", "full_width"):
         got = out["ranks"][0][phase]
         assert got["found_equal"] and got["pose_abs"] <= dryrun.POSE_ATOL
     assert out["ranks"][0]["full_width"]["found"] > 0
-    assert out["launches"] == dict.fromkeys(dryrun.KERNELS, 0)  # the CPU runs the plain versions
+    for rank in out["ranks"]:
+        sfr = rank["small_float"]
+        assert (sfr["layout"], sfr["same"], sfr["steps"]) == ("2x2", 1.0, 0)
+        assert sfr["loss_rel"] <= dryrun.LOSS_RTOL
+    # the CPU runs the plain versions
+    assert out["launches"] == dict.fromkeys(dryrun.KERNELS + dryrun.SMALL_FLOAT_KERNELS, 0)
 
 
 def test_spatial_axis_and_wrong_arguments_raise():
@@ -337,3 +411,87 @@ def test_spatial_axis_and_wrong_arguments_raise():
                             sharding=BatchSharding(mesh), device="cuda")
     assert sharded.device == torch.device("cpu")  # the mesh's device, not the argument
     assert [b["x"].tolist() for b in sharded.epoch()] == [[2.0, 3.0], [10.0, 11.0]]
+
+
+F8_LAYOUTS = {"data2": (2, 1), "spatial2": (2, 2), "data4": (4, 1)}
+
+
+@pytest.fixture(scope="module")
+def golden_f8_mesh():
+    from tests.torch_golden import GOLDEN_F8_MESH
+    from tpufusion_torch import _golden
+
+    return _golden.load_npz(GOLDEN_F8_MESH)
+
+
+def _jax_grads(case: str, golden) -> dict:
+    """JAX's train step of `case`'s mesh and format: {"loss", "<layer>.<param>"}."""
+    from tests.make_torch_port_golden import jax_f8_mesh_step
+    from tpufusion_torch import _golden
+    from tpufusion_torch.ops.small_float import FORMATS, decode
+
+    layout, name = F8_CASES[case]
+    if layout in _golden.F8_MESH_LAYOUTS and name == _golden.F8_MESH_NAME:
+        out = {"loss": golden[f"{layout}/loss"]}
+        for k, v in golden.items():
+            if k.startswith(layout + "/") and not k.endswith("/loss"):
+                out[k[len(layout) + 1:].replace("/", ".")] = decode(torch.from_numpy(v),
+                                                                    FORMATS[name]).numpy()
+        return out
+    return {k.replace("/", "."): v for k, v in jax_f8_mesh_step(*F8_LAYOUTS[layout], name).items()}
+
+
+def _equal_share(got: dict, want: dict) -> dict:
+    """Each gradient's share of values equal to JAX's, where not all are
+    (NaN equal to NaN)."""
+    out = {}
+    for k, w in want.items():
+        if k == "loss":
+            continue
+        g = got[f"grad/{k}"]
+        same = (g == w) | (np.isnan(g) & np.isnan(w))
+        if not same.all():
+            out[k] = float(same.mean())
+    return out
+
+
+@pytest.mark.parametrize("case", ["f8_data2", "f8_spatial2", "f8_data2_e5m2", "f8_data4"])
+def test_small_float_step_matches_jaxs_same_mesh_step(case, four_ranks, golden_f8_mesh):
+    """Every rank of the mesh: the gradients JAX's train step on the same
+    mesh takes, bit for bit, and its loss within 1e-5; the ranks' updated
+    parameters equal rank 0's."""
+    load, _ = four_ranks
+    want = _jax_grads(case, golden_f8_mesh)
+    ranks = F8_LAYOUTS[F8_CASES[case][0]][0]
+    lead = load(case)
+    for rank in range(ranks):
+        got = load(case, rank)
+        assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * abs(float(want["loss"]))
+        assert _equal_share(got, want) == {}, (rank, _equal_share(got, want))
+        assert all(np.array_equal(got[k], lead[k]) for k in lead if k.startswith("param/")), rank
+
+
+def test_todays_data_parallel_path_differs_from_jaxs_step(four_ranks, golden_f8_mesh):
+    """The negative control: each rank's gradient rounded over its own rows
+    and the ranks' float32 mean leave some gradient of the data x 2 step
+    off JAX's, while the path it replaced gives every one."""
+    load, _ = four_ranks
+    want = _jax_grads("f8_data2", golden_f8_mesh)
+    assert _equal_share(load("f8_data2"), want) == {}
+    off = _equal_share(load("f8_data2_today"), want)
+    assert off and min(off.values()) < 0.999, off
+
+
+def test_golden_f8_mesh_file_is_current(golden_f8_mesh):
+    """The f8 mesh golden equals what JAX's train step computes now on each
+    layout (rerun `tests/make_torch_port_golden.py f8_mesh` if not): the
+    inputs' digest and every gradient code equal, the loss within 1e-6."""
+    from tests.make_torch_port_golden import golden_f8_mesh_arrays
+
+    fresh = golden_f8_mesh_arrays()
+    assert sorted(fresh) == sorted(golden_f8_mesh)
+    for k, v in fresh.items():
+        if k.endswith("/loss"):
+            np.testing.assert_allclose(golden_f8_mesh[k], v, rtol=0, atol=1e-6, err_msg=k)
+        else:
+            assert np.array_equal(golden_f8_mesh[k], v), k

@@ -25,9 +25,20 @@ of the eight virtual devices of tests/conftest.py, the roll off) the limits
 are the train golden's. The halo exchanges receive at most one kernel
 width (5 columns) from the two neighbours together, each strip counted
 once per other rank of the row.
+
+The small floats (F8_CASES): the f8 mesh golden's step (`_golden.py`,
+F8_MESH_*: the flagship FCN without its input norm, 4 frames at 32 x
+201) in float8_e4m3fn and float8_e5m2 on both layouts, held to JAX's
+train step on the same mesh of virtual devices (its gradients read back
+from an SGD step at a rate of 1, `make_torch_port_golden.jax_f8_mesh_step`;
+the 2 x 2 float8_e4m3fn step is the golden file's): every gradient bit
+for bit, the loss within LOSS_RTOL, every rank's parameters equal to the
+port's Adam on JAX's gradients bit for bit. With the input norm, the one
+process's limits of tests/test_torch_small_float_train.py.
 """
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -110,10 +121,18 @@ def _fcn_inputs(width: int):
     return torch.from_numpy(x), torch.from_numpy(g.astype(np.float32))
 
 
+# each rank's small-float steps: (format, input norm)
+F8_CASES = {"f8_e4m3fn": ("float8_e4m3fn", False), "f8_e5m2": ("float8_e5m2", False),
+            "f8_norm": ("float8_e4m3fn", True)}
+
+
 def _run_layout(mesh, layout: str, outdir: str) -> None:
     """One layout's checks on this rank."""
     def save(name, **arrays):
         np.savez(os.path.join(outdir, f"{layout}_{name}_rank{mesh.rank}.npz"), **arrays)
+
+    for case, (name, norm) in F8_CASES.items():
+        save(case, **dryrun.small_float_step(mesh, name, norm))
 
     arrays = dict(np.load(os.path.join(outdir, "arrays.npz")))
     batch = shard_batch(_global_batch(), mesh)
@@ -396,3 +415,94 @@ def test_too_narrow_shards_raise():
         FCN(ModelConfig(), seed=0)(x, mesh=_fake_mesh(4))
     with pytest.raises(ValueError, match="does not round-trip"):
         FCN(ModelConfig(), seed=0)(torch.zeros(1, 32, 91, 3), mesh=_fake_mesh(2), width=181)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mesh_step(layout: str, name: str, norm: bool) -> dict:
+    """JAX's small-float train step on `layout`'s mesh of virtual devices:
+    {"loss", "<layer>.<param>": gradient}; the golden file's where it
+    holds the step."""
+    from tests.make_torch_port_golden import jax_f8_mesh_step
+
+    if layout == "2x2" and name == _golden.F8_MESH_NAME and not norm:
+        return _golden_step(layout)
+    out = jax_f8_mesh_step(RANKS, LAYOUTS[layout].n_spatial, name, norm)
+    return {k.replace("/", "."): v for k, v in out.items()}
+
+
+def _golden_step(layout: str) -> dict:
+    from tests.torch_golden import GOLDEN_F8_MESH
+    from tpufusion_torch.ops.small_float import FORMATS, decode
+
+    golden = _golden.load_npz(GOLDEN_F8_MESH)
+    fmt = FORMATS[_golden.F8_MESH_NAME]
+    out = {"loss": golden[f"{layout}/loss"]}
+    for k, v in golden.items():
+        if k.startswith(layout + "/") and not k.endswith("/loss"):
+            out[k[len(layout) + 1:].replace("/", ".")] = decode(torch.from_numpy(v), fmt).numpy()
+    return out
+
+
+def _same_values(got, want) -> bool:
+    """Equal values, NaN where the other is NaN."""
+    return got.shape == want.shape and bool(np.all((got == want) | (np.isnan(got) & np.isnan(want))))
+
+
+def _adam_on(grads: dict, name: str, norm: bool) -> dict:
+    """The port's Adam (`small_float_step`'s rate) from the golden's
+    weights, on `grads`: {"<param>": the parameter after one step}."""
+    model = FCN(_golden.f8_mesh_config(name, norm), seed=_golden.F8_MESH_SEED)
+    for n, p in model.named_parameters():
+        p.grad = torch.from_numpy(np.asarray(grads[n], np.float32)).clone()
+    Adam(model.parameters(), 1e-3).step()
+    return {n: p.detach().numpy() for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("case", ["f8_e4m3fn", "f8_e5m2"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_small_float_step_matches_jaxs_same_mesh_step(layout, case, four_ranks):
+    """Without the input norm: every rank's gradients equal JAX's step on
+    the same mesh bit for bit (NaN where JAX's is), the loss within
+    LOSS_RTOL, and every rank's parameters are the port's Adam on JAX's
+    gradients, bit for bit."""
+    load, _ = four_ranks
+    name, norm = F8_CASES[case]
+    want = _jax_mesh_step(layout, name, norm)
+    adam = _adam_on(want, name, norm)
+    for rank in range(RANKS):
+        got = load(layout, case, rank)
+        assert abs(float(got["loss"]) - float(want["loss"])) <= dryrun.LOSS_RTOL * abs(float(want["loss"]))
+        off = {k: float(np.mean(got[f"grad/{k}"] == want[k])) for k in adam
+               if not _same_values(got[f"grad/{k}"], want[k])}
+        assert not off, (rank, off)
+        assert [k for k in adam if not np.array_equal(got[f"param/{k}"], adam[k])] == [], rank
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_small_float_step_with_the_norm_within_the_one_process_limits(layout, four_ranks):
+    """float8_e4m3fn with the input norm, whose float32 statistics both
+    packages sum in their own orders: each convolution's gradient within
+    GRAD_DIFFER of its values off JAX's same-mesh step's (at least one)
+    and none more than GRAD_STEPS steps of the format, the norm's
+    gradients within NORM_FLIP_RTOL of their largest entry, the loss
+    within NORM_LOSS_RTOL (tests/test_torch_small_float_train.py's limits
+    for one process); every rank holds rank 0's parameters."""
+    from tests.test_torch_small_float_train import GRAD_DIFFER, GRAD_STEPS, NORM_FLIP_RTOL, NORM_LOSS_RTOL
+    from tpufusion_torch.ops.small_float import FORMATS
+
+    load, _ = four_ranks
+    name, norm = F8_CASES["f8_norm"]
+    want = _jax_mesh_step(layout, name, norm)
+    got = load(layout, "f8_norm")
+    assert abs(float(got["loss"]) - float(want["loss"])) <= NORM_LOSS_RTOL * abs(float(want["loss"]))
+    for k in (k for k in want if k != "loss"):
+        g = got[f"grad/{k}"]
+        if k.startswith("norm."):
+            assert np.abs(g - want[k]).max() <= NORM_FLIP_RTOL * max(np.abs(want[k]).max(), 1e-30), k
+            continue
+        steps = _golden.format_steps(g, want[k], FORMATS[name])
+        assert int((steps > 0).sum()) <= max(1, GRAD_DIFFER * steps.size), (k, int((steps > 0).sum()))
+        assert int(steps.max()) <= GRAD_STEPS, k
+    for rank in range(1, RANKS):
+        other = load(layout, "f8_norm", rank)
+        assert all(np.array_equal(other[k], got[k]) for k in got if k.startswith(("param/", "grad/")))

@@ -42,6 +42,7 @@ GOLDEN_F8_GRAD = os.path.join(REPO, "tests", "data", "torch_port_golden_f8_grad.
 GOLDEN_BF16 = os.path.join(REPO, "tests", "data", "torch_port_golden_bf16.npz")
 GOLDEN_F16 = os.path.join(REPO, "tests", "data", "torch_port_golden_f16.npz")
 GOLDEN_F8 = os.path.join(REPO, "tests", "data", "torch_port_golden_f8.npz")
+GOLDEN_F8_MESH = os.path.join(REPO, "tests", "data", "torch_port_golden_f8_mesh.npz")
 FUSION_ASSET = os.path.join(ASSETS, "fusion_net.npz")
 GOLDEN_SEED = 11  # JAX PRNGKey of the golden frames
 

@@ -138,12 +138,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ip = ctypes.POINTER(ctypes.c_int)
     lib.tf_small_float_epilogue.argtypes = [p, i, p, p, i, i, i, i, ip, i, i, p, i, p]
     lib.tf_small_float_epilogue.restype = i
-    lib.tf_small_float_cast.argtypes = [p, i, p, i, ll, ip, p]
+    lib.tf_small_float_cast.argtypes = [p, i, p, i, i, ll, i, ip, p]
     lib.tf_small_float_cast.restype = i
     lib.tf_small_float_backward.argtypes = [
         ctypes.POINTER(p), ip, ctypes.POINTER(ll), i, p, i, i, p, i, i, i, i, i, p, ip, i, p, i,
-        p, p, p, ip, i, p]
+        p, i, p, p, ip, i, p]
     lib.tf_small_float_backward.restype = i
+    lib.tf_small_float_bias_grad.argtypes = [p, i, ctypes.POINTER(ll), i, i, i, i, p, ip, i, p,
+                                             i, p, i, p, p, ip, i, p]
+    lib.tf_small_float_bias_grad.restype = i
     lib.tf_error_string.argtypes = [i]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib

@@ -382,6 +382,87 @@ F8_GRAD_SAME = 0.999
 F8_GRAD_STEPS = 1
 
 
+# tests/data/torch_port_golden_f8_mesh.npz (tests/make_torch_port_golden.py
+# f8_mesh): JAX's train step (`make_train_step(..., mesh=...)`) of the
+# flagship FCN in F8_MESH_NAME without its input norm (`f8_mesh_config`,
+# the weights of `FCN(..., seed=F8_MESH_SEED)`) on each mesh of
+# F8_MESH_LAYOUTS (ranks, spatial ranks) over the virtual CPU devices, on
+# F8_MESH_FRAMES beam scans at 32 x 201 (`f8_mesh_inputs`: the port's
+# range views and direct labels, made on the host), LossConfig(
+# **F8_GRAD_LOSS), optax's SGD at a rate of 1, so that each parameter's
+# move is its gradient: "<layout>/loss" and "<layout>/<layer>/<param>",
+# the gradient as the format's codes (uint8). XLA's partitioned program
+# rounds and combines a small float's gradient where its mesh puts it, so
+# each layout's gradients differ from one device's. The port on the CPU
+# gives every code. On the card the dgrads are cuDNN's float32 sums in
+# another order than XLA's, so there, as for the one-process golden, at
+# least F8_GRAD_SAME of each tensor's values must equal JAX's and none lie
+# more than F8_GRAD_STEPS step of the format off. (The transposed
+# convolutions' wgrads run without cuDNN, `models/fcn.py::_GradConv`: with
+# cuDNN, 29 of deconv5a's 17,600 kernel gradient values read 1-2 steps off
+# on data x 2 on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md.)
+F8_MESH_NAME = "float8_e4m3fn"
+F8_MESH_SEED = 25
+F8_MESH_FRAMES = 4
+F8_MESH_POINTS = 4096
+F8_MESH_LAYOUTS = {"data2": (2, 1), "spatial2": (2, 2), "2x2": (4, 2)}
+
+
+def f8_mesh_config(name: str = F8_MESH_NAME, norm: bool = False):
+    """The flagship FCN (direct head, width 2, linear regression output)
+    computing in `name`, with or without its input norm."""
+    import dataclasses
+
+    from tpufusion_torch.config import ModelConfig
+
+    return dataclasses.replace(ModelConfig(), head="direct", width_multiplier=2,
+                               reg_output_activation="linear", dtype=name, batch_norm=norm)
+
+
+def f8_mesh_inputs() -> tuple[np.ndarray, np.ndarray]:
+    """(images (F8_MESH_FRAMES, 32, 201, 3), labels (..., 10)), float32:
+    the port's range views and direct-head labels of F8_MESH_FRAMES beam
+    scans (numpy seed F8_MESH_SEED), computed on the host's CPU."""
+    import torch
+
+    from tpufusion_torch.config import RangeViewSpec
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    from tpufusion_torch.geometry.encoding import encode_direct_label_batch
+    from tpufusion_torch.geometry.range_view import range_view_project_batch
+
+    spec = RangeViewSpec(res_h_deg=1.8)
+    points, gt, valid = synthesize_beam_scan_batch(np.random.default_rng(F8_MESH_SEED),
+                                                   F8_MESH_FRAMES, F8_MESH_POINTS)
+    with torch.no_grad():
+        images = range_view_project_batch(torch.from_numpy(points), spec, torch.from_numpy(valid))
+        labels = encode_direct_label_batch(*(torch.from_numpy(gt[k]) for k in ("center", "size",
+                                                                                 "yaw")),
+                                           images, spec)
+    return images.numpy(), labels.numpy()
+
+
+def f8_mesh_readings(grads: dict, loss: float, golden: dict, layout: str) -> dict:
+    """A port step's gradients ({"<layer>.<param>": array}) and loss on
+    `layout` against the mesh golden: {"same" (the smallest share of a
+    tensor's values equal to JAX's), "worst" (that tensor), "steps" (the
+    most steps of the format any value lies off), "loss_rel"}."""
+    import torch
+
+    from tpufusion_torch.ops.small_float import FORMATS, decode
+
+    fmt = FORMATS[F8_MESH_NAME]
+    same, worst, steps = 1.0, None, 0
+    for name, g in grads.items():
+        want = decode(torch.from_numpy(golden[f"{layout}/{name.replace('.', '/')}"]), fmt).numpy()
+        n = format_steps(np.asarray(g, np.float32), want, fmt)
+        if float((n == 0).mean()) < same or worst is None:
+            same, worst = float((n == 0).mean()), name
+        steps = max(steps, int(n.max()))
+    want_loss = float(golden[f"{layout}/loss"])
+    return {"same": same, "worst": worst, "steps": steps,
+            "loss_rel": abs(loss - want_loss) / abs(want_loss)}
+
+
 def small_float_sample(features_codes: np.ndarray, out: np.ndarray):
     """A small-float FCN's features as codes (B, H, W, 2) and its output
     (B, H, W, 2 + reg) -> what the f8 golden keeps: (the codes at every

@@ -47,6 +47,24 @@
 // a multiple of eight). A float32 y (float8_e8m0fnu, whose values
 // float16 cannot hold) takes the element-wise kernel: a CTA a (frame,
 // channel) row, its threads striding the row, kUnroll elements in flight.
+//
+// The direct cast (cast_kernel) is bound by bytes too: at the input
+// cast of 64 x 3 x 32 x 1804 float32 values into float16, 66.5 MB, 19.9 us
+// at 3.35 TB/s. Its first design, a grid-stride loop of one element an
+// iteration through the integer encode and decode, ran at the card's
+// integer rate (96.6 us, 4.2x x.to(torch.float8_e4m3fn); PERF.md). The
+// FCN's input is NHWC in memory and its convolutions take NCHW, so the
+// cast is a tiled transpose: a CTA reads a tile of the channels-last
+// input in 16-byte vectors into shared memory, converts it two elements a
+// thread into the channels' planes in shared memory, and writes the
+// planes in 16-byte vectors (a contiguous input is the one-channel case).
+// float8_e4m3fn and float8_e5m2 round in Hopper's conversion
+// (cvt.rn.satfinite.e4m3x2 / e5m2x2.f32, two elements an instruction, and
+// cvt.rn.f16x2.e4m3x2 / e5m2x2 back), which is ml_dtypes' round to nearest
+// even but saturates: NaN and overflow (e4m3fn past 464: NaN; e5m2 from
+// 61440: infinity) are a select on the input. The other seven formats keep
+// the integer encode, their values read from a 256-entry table in shared
+// memory.
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -294,14 +312,148 @@ __global__ void __launch_bounds__(kThreads) epilogue_table_kernel(
   }
 }
 
-template <typename In, typename Out>
+// ---- the direct cast ------------------------------------------------------
+
+constexpr int kCastTile = 4096;  // input elements a CTA stages at a time
+enum CastMode { kGeneric = 0, kE4M3 = 1, kE5M2 = 2 };  // which conversion rounds
+
+// a staged element as float32 (a float16 NaN: a quiet NaN of its sign, as `load`)
+__device__ __forceinline__ float staged(float v) { return v; }
+__device__ __forceinline__ float staged(__half v) {
+  unsigned short b = __half_as_ushort(v);
+  return (b & 0x7FFFu) > 0x7C00u ? nan_of(b & 0x8000u) : __half2float(v);
+}
+
+// two float32 -> two codes of float8_e4m3fn or float8_e5m2 in Hopper's
+// conversion (lo in the low byte), saturating
+template <int Mode>
+__device__ __forceinline__ uint32_t cvt_pair(float lo, float hi) {
+  unsigned short r;
+  if (Mode == kE4M3)
+    asm("cvt.rn.satfinite.e4m3x2.f32 %0, %1, %2;" : "=h"(r) : "f"(hi), "f"(lo));
+  else
+    asm("cvt.rn.satfinite.e5m2x2.f32 %0, %1, %2;" : "=h"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// two codes (lo in the low byte) -> their values as two float16 (exact)
+template <int Mode>
+__device__ __forceinline__ uint32_t cvt_back(uint32_t pair) {
+  uint32_t r;
+  unsigned short a = (unsigned short)pair;
+  if (Mode == kE4M3)
+    asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(r) : "h"(a));
+  else
+    asm("cvt.rn.f16x2.e5m2x2 %0, %1;" : "=r"(r) : "h"(a));
+  return r;
+}
+
+// two elements' codes and values: Hopper's conversion with ml_dtypes' NaN
+// and overflow selected in, or the integer encode and the value table
+template <int Mode>
+__device__ __forceinline__ void convert2(const float x[2], uint32_t c[2], float v[2],
+                                         const Fmt& f, const float* values) {
+  if (Mode == kGeneric) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      c[k] = encode(x[k], f);
+      v[k] = values[c[k]];
+    }
+    return;
+  }
+  uint32_t pair = cvt_pair<Mode>(x[0], x[1]);
+  uint32_t halves = cvt_back<Mode>(pair);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    uint32_t bits = __float_as_uint(x[k]), sign = bits >> 31, a = bits & 0x7FFFFFFFu;
+    uint32_t code = (pair >> (8 * k)) & 0xFFu;
+    float val = __half2float(__ushort_as_half((unsigned short)(halves >> (16 * k))));
+    // ml_dtypes: a NaN keeps its sign; e4m3fn overflows (past 464, its
+    // midpoint to 480) to NaN, e5m2 (from 61440, its midpoint to 65536,
+    // ties to even) to infinity
+    bool over = Mode == kE4M3 ? a > 0x43E80000u : a >= 0x47700000u;
+    if (a > 0x7F800000u) {
+      code = (uint32_t)f.nan_code ^ (sign << 7);
+      val = nan_of(sign);
+    } else if (over) {
+      code = Mode == kE4M3 ? ((uint32_t)f.nan_code | (sign << 7)) : (0x7Cu | (sign << 7));
+      val = Mode == kE4M3 ? nan_of(sign) : __uint_as_float(0x7F800000u | (sign << 31));
+    }
+    c[k] = code;
+    v[k] = val;
+  }
+}
+
+// `bytes` bytes from shared memory to global memory, 16 at a time where
+// `vec` (both 16-byte aligned), the rest one at a time
+__device__ __forceinline__ void copy_out(unsigned char* dst, const unsigned char* src,
+                                         int bytes, int vec) {
+  int nv = vec ? bytes / 16 : 0;
+  for (int i = threadIdx.x; i < nv; i += kThreads) ((uint4*)dst)[i] = ((const uint4*)src)[i];
+  for (int i = nv * 16 + threadIdx.x; i < bytes; i += kThreads) dst[i] = src[i];
+}
+
+// x (B, N, C) -> out (B, C, N): a channels-last tensor (the FCN's NHWC
+// input, N = H W) cast into its channels-first layout, a contiguous one
+// with B = C = 1. A CTA takes tiles of T places along N of one b (T * C
+// <= kCastTile), grid-stride: (A) the tile's T * C contiguous inputs,
+// fetched into registers in 16-byte vectors while the last tile was
+// converted, go to shared memory; (B) they are converted two a thread at a
+// time, lanes along N (a stride of C elements in shared memory: no bank
+// conflicts for an odd C), into C planes of T outputs in shared memory;
+// (C) each plane is written to its place in out in 16-byte vectors. `vec`
+// (the launch's check) says every tile's input and output runs start
+// 16-byte aligned; without it every access is one element.
+template <typename In, typename Out, int Mode>
 __global__ void __launch_bounds__(kThreads) cast_kernel(
-    const In* __restrict__ x, Out* __restrict__ out, int64_t n, Fmt f) {
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * kThreads) {
-    float v = load(x, i);
-    uint32_t code = encode(v, f);
-    store(out, i, decode(code, f), code);
+    const In* __restrict__ x, Out* __restrict__ out, int B, int64_t N, int C, int T, Fmt f,
+    int vec) {
+  constexpr int kPer = kCastTile * (int)sizeof(In) / 16 / kThreads;  // vectors a thread a tile
+  __shared__ __align__(16) In tile_in[kCastTile];
+  __shared__ __align__(16) Out tile_out[kCastTile];
+  __shared__ float values[256];  // the generic path's code -> value
+  if (Mode == kGeneric) {
+    int ncodes = 1 << (f.ebits + f.mbits + (f.sign_bit ? 1 : 0));
+    for (int c = threadIdx.x; c < ncodes; c += kThreads) values[c] = decode((uint32_t)c, f);
+  }
+  int64_t per_b = (N + T - 1) / T, tiles = (int64_t)B * per_b;
+  uint4 next[kPer];
+  auto fetch = [&](int64_t tile) {  // the tile's whole vectors into `next`
+    int64_t b = tile / per_b, n0 = (tile - b * per_b) * T;
+    int nv = (int)min((int64_t)T, N - n0) * C * (int)sizeof(In) / 16;
+    const uint4* src = (const uint4*)(x + (b * N + n0) * C);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      if (threadIdx.x + k * kThreads < nv) next[k] = __ldg(src + threadIdx.x + k * kThreads);
+  };
+  if (vec && blockIdx.x < tiles) fetch(blockIdx.x);
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int64_t b = tile / per_b, n0 = (tile - b * per_b) * T;
+    int t = (int)min((int64_t)T, N - n0), cnt = t * C;
+    const In* src = x + (b * N + n0) * C;
+    int nv = vec ? cnt * (int)sizeof(In) / 16 : 0;
+    __syncthreads();  // the last tile's planes are out (and the value table in)
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      if (threadIdx.x + k * kThreads < nv) ((uint4*)tile_in)[threadIdx.x + k * kThreads] = next[k];
+    for (int i = nv * 16 / (int)sizeof(In) + threadIdx.x; i < cnt; i += kThreads)
+      tile_in[i] = src[i];
+    __syncthreads();
+    if (vec && tile + gridDim.x < tiles) fetch(tile + gridDim.x);  // in flight during (B), (C)
+    for (int c = 0; c < C; ++c)
+      for (int j = threadIdx.x; j < t; j += 2 * kThreads) {
+        int j2 = j + kThreads;
+        float xs[2] = {staged(tile_in[j * C + c]), j2 < t ? staged(tile_in[j2 * C + c]) : 0.0f};
+        uint32_t cs[2];
+        float vs[2];
+        convert2<Mode>(xs, cs, vs, f, values);
+        store(tile_out, c * t + j, vs[0], cs[0]);
+        if (j2 < t) store(tile_out, c * t + j2, vs[1], cs[1]);
+      }
+    __syncthreads();
+    for (int c = 0; c < C; ++c)
+      copy_out((unsigned char*)(out + (b * C + c) * N + n0),
+               (const unsigned char*)(tile_out + c * t), t * (int)sizeof(Out), vec);
   }
 }
 
@@ -318,24 +470,44 @@ __global__ void __launch_bounds__(kThreads) cast_kernel(
 // evenly, again until none is, each window row-major), every partial sum
 // rounded to the format, from fmt(0) (a NaN in float8_e8m0fnu, as XLA's
 // initial 0 converted). Each step of that reduce is one lookup of
-// fmt(h(a + b)) in the format's add table (codes x codes, built once a
+// fmt(h(acc + x)) in the format's add table (codes x codes, built once a
 // format and device by add_table_kernel), staged into shared memory.
 // With one cotangent, no relu and no bias it is the no-bias rounding of a
-// dgrad or wgrad, fmt(h(g)).
+// dgrad or wgrad, fmt(h(g)). The reduce alone (tf_small_float_bias_grad)
+// also takes any values of the format with their strides: a mesh's block
+// of a layer's cotangent (models/fcn.py).
 //
 // What bounds it on the H100: not bytes. The cotangent pass reads each
-// cotangent and the forward's value once and writes the result and a
-// code (at a train step of the asset at 32 x 32 x 1801, 46 M elements in
-// 8 layers: 0.094 ms of bytes), integer arithmetic on registers at full
-// occupancy. The reduce is a chain of dependent steps: XLA's first window
-// at 32 frames is 32 x 32 x 32 elements, 32,768 steps in order, each an
-// add-table lookup in shared memory (~30 cycles of latency: ~0.5 ms a
-// layer however many channels and windows run side by side, a thread
-// each; measured 1.2-1.4 ms); the next row's codes are loaded ahead.
-// Earlier designs (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W): the
-// cotangent recomputed inside the reduce's thread, 98 ms a step; a pass 1
-// through the forward's float16 code table (132 KB of shared memory a CTA,
-// so one CTA an SM) starved of loads in flight, 10.6 ms; this one 10.3.
+// cotangent and the forward's value once and writes the result (at a
+// train step of the asset at 32 x 32 x 1801, 46 M elements in 8 layers:
+// 0.094 ms of bytes), integer arithmetic on registers at full occupancy.
+// The reduce is a chain of dependent steps: XLA's first window at 32
+// frames is 32 x 32 x 32 elements, 32,768 steps in order, and the asset's
+// layers give only 96-570 such chains. The first design walked each chain
+// in one thread (~75 cycles a step, 1.2-1.4 ms a layer whatever the
+// card's width; 10.3 ms a step, PERF.md). The format's addition is not
+// associative, but each step is a map acc -> add[acc][x] on the format's
+// <= 256 codes, and maps compose. So each chain is cut into segments
+// that run side by side, a warp a segment, each carrying every possible
+// start code to its end code (the enumerative method of Mytkowicz,
+// Musuvathi and Schulte, "Data-parallel finite-state machines", ASPLOS
+// 2014): lane l holds the codes that started as l, l + 32, ...; every
+// step, every lane looks up its codes' successors in the row of x, the
+// table laid out x-major (add[x][acc]) so the lanes of a warp read
+// neighbouring bytes. The start codes do not merge on the asset's
+// cotangents (a chain's large codes are fixed points of its small steps:
+// 255.7-256 of 256 still distinct at a segment's end on an H100, PERF.md),
+// so a step costs n lookups where the chain's cost one: 256 for the
+// 8-bit formats. Adding 0 maps every code to itself but -0, which no
+// chain holds (it starts at +0 and a sum of the format's values is -0
+// only from -0 + -0), so zero steps are skipped, and on the asset all but
+// 0-0.007 % of the steps are zeros: what a segment waits for is its
+// rows' loads. So a warp loads kSegRows rows at a time, a lane a place
+// along w, the next kSegRows in flight while these are walked, and walks
+// only a row's nonzero steps (a ballot). A second kernel then composes
+// each chain's segment maps in order from fmt(0), and its last CTA runs
+// the later levels. The result is the serial chain's code, bit for bit,
+// with XLA's windows and padding unchanged.
 
 constexpr int kMaxGrads = 3;
 constexpr int kMaxLevels = 8;
@@ -378,26 +550,27 @@ __device__ __forceinline__ float cotangent(const Grads& g, const void* saved, in
   return acc;
 }
 
+// the add table, x-major: table[x * ncodes + acc] = fmt(h(acc + x)), acc
+// the first operand (x86's NaN rule takes the first NaN)
 __global__ void __launch_bounds__(kThreads) add_table_kernel(Fmt f, int via, int ncodes,
                                                              uint8_t* __restrict__ table) {
   int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= ncodes * ncodes) return;
-  int a = i / ncodes, b = i % ncodes;
-  float s = nan_add(decode((uint32_t)a, f), decode((uint32_t)b, f));
+  int x = i / ncodes, acc = i % ncodes;
+  float s = nan_add(decode((uint32_t)acc, f), decode((uint32_t)x, f));
   table[i] = (uint8_t)encode(via ? h16(s) : s, f);
 }
 
 constexpr int kBwdUnroll = 4;  // elements of pass 1 a thread has in flight
 
-// Pass 1: the cotangent, element by element, into `out` and, where the
-// bias gradient is wanted, its code into `codes` (one byte an element,
-// NCHW), which pass 2 reads. Integer arithmetic on registers alone, so
-// every SM holds as many threads as it can: the pass is bound by its
-// loads' latency, kBwdUnroll elements in flight a thread.
+// Pass 1: the cotangent, element by element, into `out`, which the
+// reduce reads. Integer arithmetic on registers alone, so every SM holds
+// as many threads as it can: the pass is bound by its loads' latency,
+// kBwdUnroll elements in flight a thread.
 template <typename Out>
 __global__ void __launch_bounds__(kThreads) backward_kernel(
     Grads g, const void* __restrict__ saved, int saved_kind, int relu, Out* __restrict__ out,
-    uint8_t* __restrict__ codes, int B, int C, int H, int W, Fmt f, int via_f16) {
+    int B, int C, int H, int W, Fmt f, int via_f16) {
   bool via = via_f16 != 0;
   float zero = decode(encode(0.0f, f), f);
   unsigned n = (unsigned)B * C * H * W;  // < 2^31: 32-bit index arithmetic
@@ -415,77 +588,138 @@ __global__ void __launch_bounds__(kThreads) backward_kernel(
     for (int u = 0; u < kBwdUnroll; ++u) {
       unsigned i = i0 + u * step;
       if (i >= n) break;
-      uint32_t code = encode(v[u], f);
-      store(out, i, v[u], code);
-      if (codes != nullptr) codes[i] = (uint8_t)code;
+      store(out, i, v[u], 0u);
     }
   }
 }
 
-// Pass 2: the bias gradient's reduce. A warp a block, a thread a
-// (channel, first-level window) walking the window's codes in order, one
-// add-table lookup a step (the steps' loads issued ahead of them); the
-// last block to finish (a ticket on `counter`, reset at its end) runs the
-// later levels, a thread a channel, ping-ponging between the two halves
-// of scratch.
-__global__ void __launch_bounds__(32) reduce_kernel(
-    const uint8_t* __restrict__ codes, int B, int C, int H, int W,
-    float* __restrict__ bias_grad, Levels lv, const uint8_t* __restrict__ add_table,
-    int* __restrict__ scratch, int* __restrict__ counter, Fmt f) {
+// Pass 2 of the bias gradient: its reduce. A chain is a (channel,
+// first-level window); its elements are the window's (b, h) rows in
+// order, each at most kWindow values along w. `segments` cuts a chain's
+// rows into that many runs; a warp takes one and writes its map (every
+// start code's end code) to maps[(chain * segments + segment) * ncodes].
+struct Values {
+  const void* p;
+  int kind;  // 0 float32, 1 float16
+  long long s[4];  // element strides over (B, C, H, W)
+};
+
+// chain `chain`'s first-level window: [lo, hi) along (B, H, W)
+__device__ __forceinline__ void window_of(const Levels& lv, int chain, int n0, int B, int H,
+                                          int W, int* c, int lo[3], int hi[3]) {
+  const int(*l0)[3] = lv.v[0];
+  *c = chain / n0;
+  int j = chain % n0;
+  int start[3] = {j / (l0[2][1] * l0[1][1]), (j / l0[2][1]) % l0[1][1], j % l0[2][1]};
+  int dims[3] = {B, H, W};
+  for (int d = 0; d < 3; ++d) {
+    lo[d] = max(start[d] * l0[d][0] - l0[d][2], 0);
+    hi[d] = min(start[d] * l0[d][0] - l0[d][2] + l0[d][0], dims[d]);
+  }
+}
+
+constexpr int kSegWarps = 8;  // warps (segments) a CTA
+constexpr int kSegRows = 8;  // rows of a segment a warp loads at a time
+constexpr int kMaxStates = kMaxCodes / 32;  // start codes a lane carries
+
+__global__ void __launch_bounds__(32 * kSegWarps) segment_kernel(
+    Values g, int B, int C, int H, int W, Levels lv, const uint8_t* __restrict__ add_table,
+    uint8_t* __restrict__ maps, int segments, Fmt f) {
   extern __shared__ __align__(16) unsigned char smem[];
   int ncodes = 1 << (f.ebits + f.mbits + (f.sign_bit ? 1 : 0));
+  int shift = f.ebits + f.mbits + (f.sign_bit ? 1 : 0);
   int tsize = ncodes * ncodes;
-  const uint8_t* add = smem;
-  for (int i = threadIdx.x; i < tsize / 16; i += 32)
+  for (int i = threadIdx.x; i < tsize / 16; i += blockDim.x)
     ((uint4*)smem)[i] = __ldg((const uint4*)add_table + i);
-  __syncwarp();
+  for (int i = tsize / 16 * 16 + threadIdx.x; i < tsize; i += blockDim.x)
+    smem[i] = __ldg(add_table + i);
+  __syncthreads();
+  const uint8_t* add = smem;
+  const int(*l0)[3] = lv.v[0];
+  int n0 = l0[0][1] * l0[1][1] * l0[2][1];
+  int lane = threadIdx.x & 31;
+  int item = blockIdx.x * kSegWarps + (threadIdx.x >> 5);
+  if (item >= C * n0 * segments) return;
+  int chain = item / segments, seg = item % segments;
+  int c, lo[3], hi[3];
+  window_of(lv, chain, n0, B, H, W, &c, lo, hi);
+  int nh = hi[1] - lo[1], rows = (hi[0] - lo[0]) * nh, len = hi[2] - lo[2];
+  int per = (rows + segments - 1) / segments;
+  int r0 = min(seg * per, rows), r1 = min(r0 + per, rows);
+  int st[kMaxStates];
+#pragma unroll
+  for (int i = 0; i < kMaxStates; ++i) st[i] = i * 32 + lane;
+  // the format's zeros: adding one maps every code a chain can hold to itself
+  int zero0 = f.subnormals ? 0 : -1, zero1 = f.subnormals && f.neg_zero ? f.sign_bit : -1;
+  const char* base = (const char*)g.p;
+  // kSegRows rows' values a lane (its place along w), the next kSegRows
+  // loaded while these are walked
+  auto fetch = [&](int r, float v[kSegRows]) {
+#pragma unroll
+    for (int k = 0; k < kSegRows; ++k) {
+      v[k] = 0.0f;
+      if (r + k < r1 && lane < len) {
+        int b = lo[0] + (r + k) / nh, h = lo[1] + (r + k) % nh;
+        int64_t off = b * g.s[0] + c * g.s[1] + h * g.s[2] + (lo[2] + lane) * g.s[3];
+        v[k] = g.kind == 0 ? load((const float*)base, off) : load((const __half*)base, off);
+      }
+    }
+  };
+  float cur[kSegRows], nxt[kSegRows];
+  fetch(r0, cur);
+  for (int r = r0; r < r1; r += kSegRows) {
+    if (r + kSegRows < r1) fetch(r + kSegRows, nxt);
+#pragma unroll
+    for (int k = 0; k < kSegRows; ++k) {
+      if (r + k >= r1) break;
+      int x = (int)encode(cur[k], f);
+      // the row's nonzero steps, in order along w
+      unsigned steps = __ballot_sync(0xFFFFFFFFu, lane < len && x != zero0 && x != zero1);
+      while (steps) {
+        int xe = __shfl_sync(0xFFFFFFFFu, x, __ffs(steps) - 1);
+        steps &= steps - 1;
+        const uint8_t* row = add + (xe << shift);
+#pragma unroll
+        for (int i = 0; i < kMaxStates; ++i)
+          if (i * 32 < ncodes) st[i] = row[st[i] & (ncodes - 1)];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSegRows; ++k) cur[k] = nxt[k];
+  }
+  uint8_t* m = maps + (int64_t)item * ncodes;
+#pragma unroll
+  for (int i = 0; i < kMaxStates; ++i)
+    if (i * 32 + lane < ncodes) m[i * 32 + lane] = (uint8_t)st[i];
+}
+
+// Each chain's segment maps composed in order from the reduce's initial
+// fmt(0), a thread a chain, into scratch; the last CTA to finish (a
+// ticket on `counter`, reset at its end) runs the later levels, a thread
+// a channel, ping-ponging between the two halves of scratch.
+__global__ void __launch_bounds__(kThreads) compose_kernel(
+    int C, float* __restrict__ bias_grad, Levels lv, const uint8_t* __restrict__ add_table,
+    const uint8_t* __restrict__ maps, int segments, int* __restrict__ scratch,
+    int* __restrict__ counter, Fmt f) {
+  int ncodes = 1 << (f.ebits + f.mbits + (f.sign_bit ? 1 : 0));
   int init = (int)encode(0.0f, f);  // the reduce's initial fmt(0)
   const int(*l0)[3] = lv.v[0];
   int n0 = l0[0][1] * l0[1][1] * l0[2][1];
-  int chain = blockIdx.x * 32 + threadIdx.x;
+  int chain = blockIdx.x * kThreads + threadIdx.x;
   if (chain < C * n0) {
-    int c = chain / n0, j = chain % n0;
-    int jw = j % l0[2][1], jh = (j / l0[2][1]) % l0[1][1], jb = j / (l0[2][1] * l0[1][1]);
     int acc = init;
-    int dims[3] = {B, H, W};
-    int lo[3], hi[3];
-    int start[3] = {jb, jh, jw};
-    for (int d = 0; d < 3; ++d) {
-      lo[d] = max(start[d] * l0[d][0] - l0[d][2], 0);
-      hi[d] = min(start[d] * l0[d][0] - l0[d][2] + l0[d][0], dims[d]);
-    }
-    // the window's rows (b, h) in order, each at most kWindow codes along
-    // w: the next row's codes are loaded before the current row's steps
-    int nh = hi[1] - lo[1], rows = (hi[0] - lo[0]) * nh, len = hi[2] - lo[2];
-    auto row = [&](int r) {
-      return codes + (((int64_t)(lo[0] + r / nh) * C + c) * H + lo[1] + r % nh) * W + lo[2];
-    };
-    uint8_t cur[kWindow], nxt[kWindow];
-    const uint8_t* p = row(0);
-#pragma unroll
-    for (int e = 0; e < kWindow; ++e) cur[e] = e < len ? __ldg(p + e) : 0;
-    for (int r = 0; r < rows; ++r) {
-      if (r + 1 < rows) {
-        p = row(r + 1);
-#pragma unroll
-        for (int e = 0; e < kWindow; ++e) nxt[e] = e < len ? __ldg(p + e) : 0;
-      }
-#pragma unroll
-      for (int e = 0; e < kWindow; ++e)
-        if (e < len) acc = add[acc * ncodes + cur[e]];
-#pragma unroll
-      for (int e = 0; e < kWindow; ++e) cur[e] = nxt[e];
-    }
+    const uint8_t* m = maps + (int64_t)chain * segments * ncodes;
+    for (int j = 0; j < segments; ++j) acc = __ldg(m + (int64_t)j * ncodes + acc);
     scratch[chain] = acc;
   }
   __threadfence();
-  __syncwarp();
-  int ticket = 0;
+  __syncthreads();
+  __shared__ int ticket;
   if (threadIdx.x == 0) ticket = atomicAdd(counter, 1);
-  ticket = __shfl_sync(0xFFFFFFFFu, ticket, 0);
+  __syncthreads();
   if (ticket != (int)gridDim.x - 1) return;
   __threadfence();
-  for (int c = threadIdx.x; c < C; c += 32) {
+  for (int c = threadIdx.x; c < C; c += kThreads) {
     int dims[3] = {l0[0][1], l0[1][1], l0[2][1]};
     const int* in = scratch + (int64_t)c * n0;
     int* buf[2] = {scratch + (int64_t)C * n0 + (int64_t)c * n0, scratch + (int64_t)c * n0};
@@ -504,7 +738,8 @@ __global__ void __launch_bounds__(32) reduce_kernel(
         for (int b = lo[0]; b < hi[0]; ++b)
           for (int h = lo[1]; h < hi[1]; ++h)
             for (int w = lo[2]; w < hi[2]; ++w)
-              acc = add[acc * ncodes + __ldcg(in + ((int64_t)b * dims[1] + h) * dims[2] + w)];
+              acc = add_table[__ldcg(in + ((int64_t)b * dims[1] + h) * dims[2] + w) * ncodes +
+                              acc];
         o[j] = acc;
       }
       in = o;
@@ -519,26 +754,29 @@ int grid_for(int64_t n, int per_block);
 
 template <typename Out>
 int launch_backward(const Grads& g, const void* saved, int saved_kind, int relu, void* out,
-                    uint8_t* codes, int B, int C, int H, int W, const Fmt& f, int via_f16,
-                    cudaStream_t s) {
+                    int B, int C, int H, int W, const Fmt& f, int via_f16, cudaStream_t s) {
   int64_t n = (int64_t)B * C * H * W;
   int blocks = grid_for(n, kThreads * kBwdUnroll);
-  backward_kernel<Out><<<blocks, kThreads, 0, s>>>(g, saved, saved_kind, relu, (Out*)out, codes,
-                                                   B, C, H, W, f, via_f16);
+  backward_kernel<Out><<<blocks, kThreads, 0, s>>>(g, saved, saved_kind, relu, (Out*)out, B, C, H,
+                                                   W, f, via_f16);
   return (int)cudaGetLastError();
 }
 
-int launch_reduce(const uint8_t* codes, int B, int C, int H, int W, float* bias_grad,
-                  const Levels& lv, const uint8_t* table, int* scratch, int* counter,
-                  const Fmt& f, cudaStream_t s) {
+int launch_reduce(const Values& g, int B, int C, int H, int W, float* bias_grad,
+                  const Levels& lv, const uint8_t* table, uint8_t* maps, int segments,
+                  int* scratch, int* counter, const Fmt& f, cudaStream_t s) {
   int ncodes = 1 << (f.ebits + f.mbits + (f.sign_bit ? 1 : 0));
   int smem = ncodes * ncodes;
-  int err = (int)cudaFuncSetAttribute(reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                      smem);
+  int err = (int)cudaFuncSetAttribute(segment_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != 0) return err;
   int n0 = lv.v[0][0][1] * lv.v[0][1][1] * lv.v[0][2][1];
-  reduce_kernel<<<(C * n0 + 31) / 32, 32, smem, s>>>(codes, B, C, H, W, bias_grad, lv, table,
-                                                     scratch, counter, f);
+  int64_t items = (int64_t)C * n0 * segments;
+  segment_kernel<<<(int)((items + kSegWarps - 1) / kSegWarps), 32 * kSegWarps, smem, s>>>(
+      g, B, C, H, W, lv, table, maps, segments, f);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  compose_kernel<<<(C * n0 + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      C, bias_grad, lv, table, maps, segments, scratch, counter, f);
   return (int)cudaGetLastError();
 }
 
@@ -580,10 +818,44 @@ int launch_table_epilogue(const void* y, const float* bias, const uint8_t* table
   return (int)cudaGetLastError();
 }
 
+// which conversion rounds `f`: Hopper's for float8_e4m3fn and float8_e5m2
+// (small_float.py FORMATS' parameters), the integer encode otherwise
+int cast_mode(const Fmt& f) {
+  if (f.ebits == 4 && f.mbits == 3 && f.bias == 7 && f.sign_bit == 0x80 && f.neg_zero &&
+      f.subnormals && f.max_code == 0x7E && f.has_nan && f.nan_code == 0x7F && f.nan_signed &&
+      f.overflow == 1)
+    return kE4M3;
+  if (f.ebits == 5 && f.mbits == 2 && f.bias == 15 && f.sign_bit == 0x80 && f.neg_zero &&
+      f.subnormals && f.max_code == 0x7B && f.has_nan && f.nan_code == 0x7E && f.nan_signed &&
+      f.inf_code == 0x7C && f.overflow == 0)
+    return kE5M2;
+  return kGeneric;
+}
+
 template <typename In, typename Out>
-int launch_cast(const void* x, void* out, int64_t n, const Fmt& f, cudaStream_t s) {
-  int blocks = grid_for(n, kThreads * kUnroll);
-  cast_kernel<In, Out><<<blocks, kThreads, 0, s>>>((const In*)x, (Out*)out, n, f);
+int launch_cast(const void* x, void* out, int B, int64_t N, int C, const Fmt& f,
+                cudaStream_t s) {
+  // whole 16-byte vectors: every tile starts at a multiple of 16 places
+  // (T is one), so N must be too unless there is one plane
+  int vec = ((uintptr_t)x % 16) == 0 && ((uintptr_t)out % 16) == 0 &&
+            (N % 16 == 0 || (B == 1 && C == 1));
+  int T = kCastTile / C / 16 * 16;
+  int64_t tiles = (int64_t)B * ((N + T - 1) / T);
+  int mode = cast_mode(f);
+  auto kernel = mode == kE4M3   ? cast_kernel<In, Out, kE4M3>
+                : mode == kE5M2 ? cast_kernel<In, Out, kE5M2>
+                                : cast_kernel<In, Out, kGeneric>;
+  // the resident CTAs, each taking an even share of the tiles
+  int dev, sms, per_sm, err;
+  if ((err = (int)cudaGetDevice(&dev)) != 0) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
+    return err;
+  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)) != 0)
+    return err;
+  int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  int64_t rounds = (tiles + resident - 1) / resident;
+  int blocks = (int)((tiles + rounds - 1) / rounds);
+  kernel<<<blocks, kThreads, 0, s>>>((const In*)x, (Out*)out, B, N, C, T, f, vec);
   return (int)cudaGetLastError();
 }
 
@@ -628,22 +900,49 @@ extern "C" int tf_small_float_epilogue(const void* y, int in_kind, const void* b
   return (int)cudaErrorInvalidValue;
 }
 
-// x (n,) float32 (in_kind 0) or float16 (1) -> out (n,) float32 (out_kind
-// 0), float16 (1) or the format's codes as uint8 (2).
-extern "C" int tf_small_float_cast(const void* x, int in_kind, void* out, int out_kind,
-                                   long long n, const int* params, void* stream) {
+// x (B, N, C) float32 (in_kind 0) or float16 (1), contiguous -> out
+// (B, C, N) float32 (out_kind 0), float16 (1) or the format's codes as
+// uint8 (2): a contiguous tensor with B = C = 1, N its size; a
+// channels-last (NHWC) one with N = H W. C <= kCastTile / 16.
+extern "C" int tf_small_float_cast(const void* x, int in_kind, void* out, int out_kind, int B,
+                                   long long N, int C, const int* params, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n <= 0) return (int)cudaGetLastError();
+  if ((int64_t)B * N * C <= 0) return (int)cudaGetLastError();
+  if (B < 1 || C < 1 || C > kCastTile / 16) return (int)cudaErrorInvalidValue;
   Fmt f = fmt_of(params);
-  if (in_kind == 0 && out_kind == 0) return launch_cast<float, float>(x, out, n, f, s);
-  if (in_kind == 0 && out_kind == 1) return launch_cast<float, __half>(x, out, n, f, s);
-  if (in_kind == 0 && out_kind == 2) return launch_cast<float, uint8_t>(x, out, n, f, s);
-  if (in_kind == 1 && out_kind == 0) return launch_cast<__half, float>(x, out, n, f, s);
-  if (in_kind == 1 && out_kind == 1) return launch_cast<__half, __half>(x, out, n, f, s);
-  if (in_kind == 1 && out_kind == 2) return launch_cast<__half, uint8_t>(x, out, n, f, s);
+  if (in_kind == 0 && out_kind == 0) return launch_cast<float, float>(x, out, B, N, C, f, s);
+  if (in_kind == 0 && out_kind == 1) return launch_cast<float, __half>(x, out, B, N, C, f, s);
+  if (in_kind == 0 && out_kind == 2) return launch_cast<float, uint8_t>(x, out, B, N, C, f, s);
+  if (in_kind == 1 && out_kind == 0) return launch_cast<__half, float>(x, out, B, N, C, f, s);
+  if (in_kind == 1 && out_kind == 1) return launch_cast<__half, __half>(x, out, B, N, C, f, s);
+  if (in_kind == 1 && out_kind == 2) return launch_cast<__half, uint8_t>(x, out, B, N, C, f, s);
   return (int)cudaErrorInvalidValue;
 }
 
+namespace {
+
+// levels (n_levels x 3 x 3 ints on the host) into `lv`, and the add table
+// built first where `build_table`; false on bad arguments
+int reduce_setup(const int* levels, int n_levels, void* table, int build_table, const Fmt& f,
+                 int via_f16, Levels* lv, cudaStream_t s) {
+  int ncodes = 1 << (f.ebits + f.mbits + (f.sign_bit ? 1 : 0));
+  if (ncodes > kMaxCodes || n_levels < 1 || n_levels > kMaxLevels || table == nullptr ||
+      levels[2 * 3] > kWindow)  // the first level's window along W: a warp's row
+    return (int)cudaErrorInvalidValue;
+  lv->n = n_levels;
+  for (int k = 0; k < n_levels; ++k)
+    for (int d = 0; d < 3; ++d)
+      for (int e = 0; e < 3; ++e) lv->v[k][d][e] = levels[(k * 3 + d) * 3 + e];
+  if (build_table) {
+    int cells = ncodes * ncodes;
+    add_table_kernel<<<(cells + kThreads - 1) / kThreads, kThreads, 0, s>>>(f, via_f16, ncodes,
+                                                                            (uint8_t*)table);
+    return (int)cudaGetLastError();
+  }
+  return 0;
+}
+
+}  // namespace
 
 // The epilogue's backward. grads: n_grads (1..3) host pointers to device
 // tensors of (B, C, H, W) float32 (kind 0) or float16 (1) with element
@@ -652,17 +951,19 @@ extern "C" int tf_small_float_cast(const void* x, int in_kind, void* out, int ou
 // (out_kind 0) or float16 (1). bias_grad (C,) float32, or null for the
 // no-bias rounding; with it levels (n_levels x 3 x 3 ints on the host,
 // small_float.py xla_sum_levels), the format's add table on the device
-// (written first where build_table), codes (B C H W bytes), scratch (2 C x
-// the first level's windows ints) and counter (one int, 0 between
-// launches). Two kernels: the cotangent (pass 1), then, with a bias
-// gradient, its reduce over the cotangent's codes (pass 2).
+// (x-major, written first where build_table), maps (C x the first
+// level's windows x segments x the format's codes bytes), segments (the
+// runs a chain is cut into), scratch (2 C x the first level's windows
+// ints) and counter (one int, 0 between launches). Three kernels: the
+// cotangent (pass 1), then, with a bias gradient, its reduce over `out`:
+// the segments' maps, their composition and the later levels (pass 2).
 extern "C" int tf_small_float_backward(const void* const* grads, const int* kinds,
                                        const long long* strides, int n_grads, const void* saved,
                                        int saved_kind, int relu, void* out, int out_kind, int B,
                                        int C, int H, int W, float* bias_grad, const int* levels,
-                                       int n_levels, void* table, int build_table, void* codes,
-                                       void* scratch, void* counter, const int* params,
-                                       int via_f16, void* stream) {
+                                       int n_levels, void* table, int build_table, void* maps,
+                                       int segments, void* scratch, void* counter,
+                                       const int* params, int via_f16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n_grads < 1 || n_grads > kMaxGrads || (relu && saved == nullptr) ||
       (out_kind != 0 && out_kind != 1))
@@ -670,8 +971,6 @@ extern "C" int tf_small_float_backward(const void* const* grads, const int* kind
   if ((int64_t)B * C * H * W <= 0) return (int)cudaGetLastError();
   if ((int64_t)B * C * H * W >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
   Fmt f = fmt_of(params);
-  int ncodes = 1 << (f.ebits + f.mbits + (f.sign_bit ? 1 : 0));
-  if (ncodes > kMaxCodes) return (int)cudaErrorInvalidValue;
   Grads g{};
   g.n = n_grads;
   for (int k = 0; k < n_grads; ++k) {
@@ -680,30 +979,42 @@ extern "C" int tf_small_float_backward(const void* const* grads, const int* kind
     for (int d = 0; d < 4; ++d) g.s[k][d] = strides[4 * k + d];
   }
   Levels lv{};
-  uint8_t* cs = nullptr;
   if (bias_grad != nullptr) {
-    if (n_levels < 1 || n_levels > kMaxLevels || table == nullptr || codes == nullptr ||
-        scratch == nullptr || counter == nullptr)
+    if (maps == nullptr || segments < 1 || scratch == nullptr || counter == nullptr)
       return (int)cudaErrorInvalidValue;
-    lv.n = n_levels;
-    for (int k = 0; k < n_levels; ++k)
-      for (int d = 0; d < 3; ++d)
-        for (int e = 0; e < 3; ++e) lv.v[k][d][e] = levels[(k * 3 + d) * 3 + e];
-    if (build_table) {
-      int cells = ncodes * ncodes;
-      add_table_kernel<<<(cells + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-          f, via_f16, ncodes, (uint8_t*)table);
-      int err = (int)cudaGetLastError();
-      if (err != 0) return err;
-    }
-    cs = (uint8_t*)codes;
+    int err = reduce_setup(levels, n_levels, table, build_table, f, via_f16, &lv, s);
+    if (err != 0) return err;
   }
   int err = out_kind == 0
-                ? launch_backward<float>(g, saved, saved_kind, relu, out, cs, B, C, H, W, f,
+                ? launch_backward<float>(g, saved, saved_kind, relu, out, B, C, H, W, f,
                                          via_f16, s)
-                : launch_backward<__half>(g, saved, saved_kind, relu, out, cs, B, C, H, W, f,
+                : launch_backward<__half>(g, saved, saved_kind, relu, out, B, C, H, W, f,
                                           via_f16, s);
   if (err != 0 || bias_grad == nullptr) return err;
-  return launch_reduce(cs, B, C, H, W, bias_grad, lv, (const uint8_t*)table, (int*)scratch,
-                       (int*)counter, f, s);
+  Values v{out, out_kind, {(long long)C * H * W, (long long)H * W, W, 1}};
+  return launch_reduce(v, B, C, H, W, bias_grad, lv, (const uint8_t*)table, (uint8_t*)maps,
+                       segments, (int*)scratch, (int*)counter, f, s);
+}
+
+// The bias gradient's reduce alone: values (B, C, H, W) float32 (kind 0)
+// or float16 (1) holding the format's values, element strides `strides`
+// (4) -> bias_grad (C,) float32; the other arguments as the backward's.
+extern "C" int tf_small_float_bias_grad(const void* values, int kind, const long long* strides,
+                                        int B, int C, int H, int W, float* bias_grad,
+                                        const int* levels, int n_levels, void* table,
+                                        int build_table, void* maps, int segments,
+                                        void* scratch, void* counter, const int* params,
+                                        int via_f16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((kind != 0 && kind != 1) || bias_grad == nullptr || maps == nullptr || segments < 1 ||
+      scratch == nullptr || counter == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * C * H * W <= 0) return (int)cudaGetLastError();
+  Fmt f = fmt_of(params);
+  Levels lv{};
+  int err = reduce_setup(levels, n_levels, table, build_table, f, via_f16, &lv, s);
+  if (err != 0) return err;
+  Values v{values, kind, {strides[0], strides[1], strides[2], strides[3]}};
+  return launch_reduce(v, B, C, H, W, bias_grad, lv, (const uint8_t*)table, (uint8_t*)maps,
+                       segments, (int*)scratch, (int*)counter, f, s);
 }

@@ -378,9 +378,89 @@ def _build_old(csrc: str) -> ctypes.CDLL:
         lib.tf_corner_vote.argtypes = [p, i, p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                        ctypes.POINTER(f), p, p, p, p, p, p, p, p, p, p]
         lib.tf_corner_vote.restype = i
+    if hasattr(lib, "tf_small_float_cast"):  # the one-element-an-iteration cast: x (n,) -> out (n,)
+        lib.tf_small_float_cast.argtypes = [p, i, p, i, ctypes.c_longlong, ctypes.POINTER(i), p]
+        lib.tf_small_float_cast.restype = i
+    if hasattr(lib, "tf_small_float_backward") and not hasattr(lib, "tf_small_float_bias_grad"):
+        # the serial reduce: a codes buffer in place of the segments' maps
+        ll = ctypes.c_longlong
+        ip = ctypes.POINTER(i)
+        lib.tf_small_float_backward.argtypes = [
+            ctypes.POINTER(p), ip, ctypes.POINTER(ll), i, p, i, i, p, i, i, i, i, i, p, ip, i, p,
+            i, p, p, p, ip, i, p]
+        lib.tf_small_float_backward.restype = i
     lib.tf_error_string.argtypes = [i]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _old_small_float_cast(lib):
+    """The earlier design's direct cast (the same C interface): fn(x, fmt,
+    out) -> fmt(x) as `out`, one launch."""
+    from tpufusion_torch import _build
+    from tpufusion_torch.ops import small_float
+
+    def cast(x, fmt, out):
+        x = x.contiguous()  # as its wrapper did
+        res = torch.empty(x.shape, dtype=out, device=x.device)
+        err = lib.tf_small_float_cast(x.data_ptr(), small_float.IN_DTYPES.index(x.dtype),
+                                      res.data_ptr(), small_float.OUT_DTYPES.index(out), x.numel(),
+                                      small_float._params(fmt),
+                                      torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, err, "the earlier small_float cast")
+        return res
+    return cast
+
+
+def _old_small_float_backward(lib):
+    """The earlier design's backward (the serial reduce, its own add table
+    in its own layout, acc-major): fn(call) for a `recorded_backwards`
+    call, one launch, as its wrapper made it."""
+    from tpufusion_torch import _build
+    from tpufusion_torch.ops import small_float as sf
+
+    tables: dict = {}
+    counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def backward(grads, saved, fmt, relu, out=None, bias=True):
+        out = sf._out_dtype(fmt, out)
+        dev = grads[0].device
+        shape = tuple(grads[0].shape)
+        b, c, hh, w = shape
+        res = torch.empty(shape, dtype=out, device=dev)
+        gb = torch.empty(c, dtype=torch.float32, device=dev) if bias else None
+        ptrs = (ctypes.c_void_p * sf.MAX_GRADS)(*[g.data_ptr() for g in grads])
+        kinds = (ctypes.c_int * sf.MAX_GRADS)(*[sf.IN_DTYPES.index(g.dtype) for g in grads])
+        strides = (ctypes.c_longlong * (4 * sf.MAX_GRADS))(*[x for g in grads for x in g.stride()])
+        levels = sf.xla_sum_levels((b, hh, w)) if bias else []
+        flat = [v for level in levels for dim in level for v in dim]
+        lv = (ctypes.c_int * max(len(flat), 1))(*flat)
+        table = scratch = codes = None
+        build = 0
+        if bias:
+            table = tables.get(fmt.name)
+            build = int(table is None)
+            if table is None:
+                table = tables[fmt.name] = torch.empty(sf._n_codes(fmt) ** 2, dtype=torch.uint8,
+                                                       device=dev)
+            first = [cnt for _, cnt, _ in levels[0]]
+            scratch = torch.empty(2 * c * first[0] * first[1] * first[2], dtype=torch.int32,
+                                  device=dev)
+            codes = torch.empty(shape, dtype=torch.uint8, device=dev)
+        if relu:
+            saved = saved.contiguous()
+        err = lib.tf_small_float_backward(
+            ptrs, kinds, strides, len(grads), None if saved is None else saved.data_ptr(),
+            sf.IN_DTYPES.index(saved.dtype) if relu else 0, int(relu), res.data_ptr(),
+            sf.OUT_DTYPES.index(out), b, c, hh, w, None if gb is None else gb.data_ptr(), lv,
+            len(levels), None if table is None else table.data_ptr(), build,
+            None if codes is None else codes.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            counter.data_ptr() if bias else None, sf._params(fmt), int(fmt.via_f16),
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, err, "the earlier small_float backward")
+        return res, gb
+    return backward
 
 
 @contextlib.contextmanager
@@ -1072,9 +1152,9 @@ def recorded_epilogues(into: list):
 
     real = fcn._Layer._finish
 
-    def finish(self, y, relu, uses=1):
+    def finish(self, y, relu, uses=1, bias_block=None):
         into.append((y, self.bias.detach(), relu))
-        return real(self, y, relu, uses)
+        return real(self, y, relu, uses, bias_block)
 
     fcn._Layer._finish = finish
     try:
@@ -1137,7 +1217,7 @@ def small_float_layers(model, images) -> tuple:
     return inputs[0], rec
 
 
-def small_float_rows(sets: int = 4, batch: int = 64) -> list[dict]:
+def small_float_rows(sets: int = 4, batch: int = 64, old=None) -> list[dict]:
     """The small-float epilogue's rows at the live asset's shapes: the
     eight epilogues of one forward of the asset in SMALL_FLOAT_FORMAT at
     `batch` x 32 x 1801 (beam scans), the kernel, its plain version and
@@ -1146,7 +1226,9 @@ def small_float_rows(sets: int = 4, batch: int = 64) -> list[dict]:
     bit against the plain version first; the input cast (the kernel's
     direct mode) and its plain version; and the wrapper's host time a
     call (`wrapper_host_us`: 200 calls on 8 elements, which the card
-    runs faster than the host issues them)."""
+    runs faster than the host issues them). With `old` (an earlier
+    library, `_build_old`), its direct cast in the same turns
+    (`cast_old`), each set's output held bit for bit to the new one's."""
     from tpufusion_torch import RangeViewSpec
     from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
     from tpufusion_torch.geometry.range_view import range_view_project_batch
@@ -1184,6 +1266,12 @@ def small_float_rows(sets: int = 4, batch: int = 64) -> list[dict]:
                     "cast_plain": lambda x: small_float.cast_reference(x, fmt, out=out)}
         if fmt.torch_dtype is not None:  # one PyTorch call computing the same cast
             cast_fns["cast_library"] = lambda x: x.to(fmt.torch_dtype)
+        if old is not None:
+            old_cast = _old_small_float_cast(old)
+            for x in casts:
+                assert small_float.same_bits(old_cast(x, fmt, out),
+                                             small_float.cast(x, fmt, out=out))
+            cast_fns["cast_old"] = lambda x: old_cast(x, fmt, out)
         cast_t = time_turns(cast_fns, casts, lambda fn, xs: queued_each(fn, xs))
         tiny = (torch.ones(1, 1, 1, 8, dtype=out, device=dev), torch.zeros(1, device=dev))
         for _ in range(20):
@@ -1255,7 +1343,30 @@ def small_float_backward(calls, plain: bool = False):
     return [fn(*call) for call in calls]
 
 
-def small_float_backward_rows(sets: int = 2, batch: int = 32, calls_sets=None) -> list[dict]:
+def small_float_calls(sets: int = 2, batch: int = 32) -> list:
+    """The backward's calls (`recorded_backwards`) of `sets` train steps of
+    the asset in SMALL_FLOAT_FORMAT at `batch` x 32 x 1801 (beam scans)."""
+    import numpy as np
+
+    from tpufusion_torch import RangeViewSpec
+    from tpufusion_torch.config import LossConfig
+    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+
+    dev = torch.device("cuda", 0)
+    model, dcfg = _asset_fcn(dev, SMALL_FLOAT_FORMAT)
+    model.train()
+    calls_sets = []
+    for i in range(sets):
+        p, gt, v = synthesize_beam_scan_batch(np.random.default_rng(200 + i), batch, 32768)
+        b = {"points": p, "valid": v, **{k: gt[k] for k in ("center", "size", "yaw")}}
+        b = {k: torch.from_numpy(x).to(dev) for k, x in b.items()}
+        calls_sets.append(small_float_step_backwards(
+            model, b, RangeViewSpec(), LossConfig(weight_bb=1.0), dcfg.direct_yaw_frame))
+    return calls_sets
+
+
+def small_float_backward_rows(sets: int = 2, batch: int = 32, calls_sets=None,
+                              old=None) -> list[dict]:
     """The small-float backward's row at the trainer's shapes: the calls of
     one train step of the asset in SMALL_FLOAT_FORMAT at `batch` x 32 x
     1801 (beam scans; 8 epilogues with their bias gradients, 9 no-bias
@@ -1267,26 +1378,15 @@ def small_float_backward_rows(sets: int = 2, batch: int = 32, calls_sets=None) -
     of launches: host-paced, not queued; timed once); each beside the
     bound of the bytes its calls read and write once. Without
     `calls_sets` the first set is checked bit for bit against the plain
-    version on the CPU first."""
-    import numpy as np
-
-    from tpufusion_torch import RangeViewSpec
-    from tpufusion_torch.config import LossConfig
-    from tpufusion_torch.data.synthetic import synthesize_beam_scan_batch
+    version on the CPU first. With `old` (an earlier library,
+    `_build_old`), its backward in the same turns over a step's calls
+    (`step_old`) and on the largest call (`old`), held to the new one's
+    bits first."""
     from tpufusion_torch.ops import small_float
 
-    dev = torch.device("cuda", 0)
     fmt_name = SMALL_FLOAT_FORMAT
     if calls_sets is None:
-        model, dcfg = _asset_fcn(dev, SMALL_FLOAT_FORMAT)
-        model.train()
-        spec, calls_sets = RangeViewSpec(), []
-        for i in range(sets):
-            p, gt, v = synthesize_beam_scan_batch(np.random.default_rng(200 + i), batch, 32768)
-            b = {"points": p, "valid": v, **{k: gt[k] for k in ("center", "size", "yaw")}}
-            b = {k: torch.from_numpy(x).to(dev) for k, x in b.items()}
-            calls_sets.append(small_float_step_backwards(
-                model, b, spec, LossConfig(weight_bb=1.0), dcfg.direct_yaw_frame))
+        calls_sets = small_float_calls(sets, batch)
         for grads, saved, fmt, relu, out, bias in calls_sets[0]:
             assert small_float.backward_against_plain(grads, saved, fmt, relu, out, bias)[2], (
                 "small_float backward differs from its plain version")
@@ -1305,8 +1405,18 @@ def small_float_backward_rows(sets: int = 2, batch: int = 32, calls_sets=None) -
     call = time_turns({"new": small_float_backward}, [largest],
                       lambda fn, xs: time_ms(fn, xs, warmup=0))
     call["plain"] = time_ms(lambda c: small_float_backward(c, plain=True), [largest], warmup=0)
-    dev_t = time_turns({"new": small_float_backward}, [largest], queued_ms)
-    step_t = time_turns({"step": small_float_backward}, calls_sets, queued_ms)
+    fns = {"new": small_float_backward}
+    steps = {"step": small_float_backward}
+    if old is not None:
+        old_bwd = _old_small_float_backward(old)
+        for c in calls:
+            got, want = old_bwd(*c), small_float.conv_epilogue_backward(*c)
+            assert all(w is None if g is None else small_float.same_bits(g, w)
+                       for g, w in zip(got, want)), "the earlier backward differs from the new"
+        fns["old"] = lambda cs: [old_bwd(*c) for c in cs]
+        steps["step_old"] = lambda cs: [old_bwd(*c) for c in cs]
+    dev_t = time_turns(fns, [largest], queued_ms)
+    step_t = time_turns(steps, calls_sets, queued_ms)
     per_call = [queued_ms(small_float_backward, [[c]]) for c in calls]
     epilogues = [c for c in calls if c[5]]
     b = calls[0][0][0].shape[0]
@@ -1319,6 +1429,97 @@ def small_float_backward_rows(sets: int = 2, batch: int = 32, calls_sets=None) -
              "per_call_shapes": [tuple(c[0][0].shape) + (len(c[0]),) for c in calls],
              **{f"{k}_call_ms": v for k, v in call.items()},
              **{f"{k}_device_ms": v for k, v in (dev_t | step_t).items()}}]
+
+
+def small_float_reduce_rows(calls_sets) -> list[dict]:
+    """The bias gradient's reduce alone (`small_float.bias_grad`, the
+    segments' maps and their composition) on the cotangents of a train
+    step's epilogue calls (`recorded_backwards` sets, already held to the
+    plain version): each reduce first held bit for bit to its plain
+    version on the CPU, then the kernel's device time over a step's
+    reduces and on the largest (the first, deconv6b's), the plain version
+    on the card on the largest between CUDA events (a Python loop of a
+    step's launches a window element: host-paced, timed once), each
+    beside the bound of the bytes they read and write once."""
+    from tpufusion_torch.ops import small_float
+
+    fmt = calls_sets[0][0][2]
+    sets = [[small_float.conv_epilogue_backward(*c)[0] for c in cs if c[5]] for cs in calls_sets]
+    for g in sets[0]:
+        assert small_float.same_bits(small_float.bias_grad(g, fmt).cpu(),
+                                     small_float.bias_grad_reference(g.cpu(), fmt)), (
+            "the reduce differs from its plain version")
+
+    def reduce(gs):
+        return [small_float.bias_grad(g, fmt) for g in gs]
+
+    def bound(gs):
+        return small_float_bound_ms(gs, [torch.empty(g.shape[1]) for g in gs])
+
+    largest = [sets[0][0]]
+    dev_t = time_turns({"new": reduce}, [largest], queued_ms)
+    step_t = time_turns({"step": reduce}, sets, queued_ms)
+    plain = time_ms(lambda gs: [small_float.bias_grad_reference(g, fmt) for g in gs], [largest],
+                    warmup=0)
+    return [{"shape": f"{tuple(largest[0].shape)}, {fmt.name}", "kernel": "small_float_reduce",
+             "reduces": len(sets[0]), "elements": sum(g.numel() for g in sets[0]),
+             "bound_ms": bound(largest), "step_bound_ms": bound(sets[0]),
+             "plain_call_ms": plain, "per_reduce_shapes": [tuple(g.shape) for g in sets[0]],
+             **{f"{k}_device_ms": v for k, v in (dev_t | step_t).items()}}]
+
+
+REDUCE_MARKS = (32, 128, 512, 2048)  # steps into a segment at which its distinct codes are counted
+
+
+def reduce_distinct_codes(g: torch.Tensor, fmt, sms: int, marks=REDUCE_MARKS) -> dict:
+    """What the reduce's segments carry on a cotangent g (B, C, H, W) of
+    the format's values: each chain (a channel's first-level window,
+    `small_float.xla_sum_levels`) cut into `small_float.reduce_segments`
+    runs for a card of `sms` multiprocessors (here equal runs of the
+    padded window, its padding skipped), every one of the format's codes
+    carried through each run by the add table, as the kernel's segments
+    carry them -> {"chains", "segments", "steps" (a run's elements, the
+    mean), "nonzero_steps" (of them, the mean share that adds a nonzero
+    value), "distinct": {k: the mean, least and most distinct codes a run
+    holds after k of its elements, for each k of `marks` below its
+    length, and "end"}}. Computed with torch ops on g's device."""
+    from tpufusion_torch.ops import small_float as sf
+
+    n = sf._n_codes(fmt)
+    table = sf.add_table(fmt).reshape(-1).to(g.device)
+    levels = sf.xla_sum_levels((g.shape[0], g.shape[2], g.shape[3]))
+    segments = sf.reduce_segments(levels, g.shape[1], sms)
+    codes = sf.encode(sf._f32(g), fmt).permute(1, 0, 2, 3)
+    windows = levels[0]
+    pads = [(lo, w * count - size - lo) for (w, count, lo), size in zip(windows, codes.shape[1:])]
+    codes = torch.nn.functional.pad(codes, [p for lo_hi in pads[::-1] for p in lo_hi],
+                                    value=sf._PAD)
+    c = codes.shape[0]
+    (wb, cb, _), (wh, ch, _), (ww, cw, _) = windows
+    rows = codes.reshape(c, cb, wb, ch, wh, cw, ww).permute(0, 1, 3, 5, 2, 4, 6)
+    rows = rows.reshape(c * cb * ch * cw, wb * wh * ww)
+    run = -(-rows.shape[1] // segments)
+    rows = torch.nn.functional.pad(rows, (0, run * segments - rows.shape[1]), value=sf._PAD)
+    runs = rows.reshape(-1, segments, run).reshape(-1, run)  # (chains x segments, run)
+    zeros = sf.encode(torch.tensor([0.0, -0.0]), fmt).tolist()
+    real = runs != sf._PAD
+    nonzero = real & (runs != zeros[0]) & (runs != zeros[1])
+    state = torch.arange(n, device=g.device).expand(runs.shape[0], n).clone()
+
+    def distinct():
+        d = 1 + (state.sort(dim=1).values.diff(dim=1) != 0).sum(dim=1)
+        return {"mean": float(d.float().mean()), "min": int(d.min()), "max": int(d.max())}
+
+    out = {}
+    for k in range(run):
+        if k in marks:
+            out[k] = distinct()
+        x = runs[:, k:k + 1]  # a zero or a padded place: skipped, as the kernel skips it
+        state = torch.where(nonzero[:, k:k + 1], table[state * n + x.clamp(min=0)], state)
+    out["end"] = distinct()
+    return {"chains": rows.shape[0], "segments": segments,
+            "steps": float(real.sum(dim=1).float().mean()),
+            "nonzero_steps": float(nonzero.sum() / real.sum().clamp(min=1)), "distinct": out}
 
 
 def _asset_fcn(dev, dtype: str):
@@ -1353,7 +1554,7 @@ def main() -> int:
     ap.add_argument("--sets", type=int, default=12, help="distinct batches per timing")
     ap.add_argument("--kernels",
                     default="exact,cc,packed,encode,encode_direct,decode_direct,corner_vote,"
-                            "small_float,small_float_backward",
+                            "small_float,small_float_backward,small_float_reduce",
                     help="which kernels' rows: exact and cc need --old-csrc")
     ap.add_argument("--dsmem-probe", action="store_true",
                     help="also build and run probes/dsmem_min64.cu")
@@ -1391,11 +1592,19 @@ def main() -> int:
     if "corner_vote" in kernels:
         rows += corner_vote_rows(min(args.sets, 6), old=old)
     if "small_float" in kernels:
-        rows += small_float_rows(min(args.sets, 4))
-    if "small_float_backward" in kernels:
-        rows += small_float_backward_rows(min(args.sets, 2))
+        rows += small_float_rows(min(args.sets, 4), old=old)
+    if "small_float_backward" in kernels or "small_float_reduce" in kernels:
+        calls = small_float_calls(min(args.sets, 2))
+        if "small_float_backward" in kernels:
+            rows += small_float_backward_rows(calls_sets=calls, old=old)
+        if "small_float_reduce" in kernels:
+            rows += small_float_reduce_rows(calls)
+    if args.out:  # before the print, which a row's odd field must not cost
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "rows": rows}, f, indent=1)
     for r in rows:
-        names = [k[: -len("_device_ms")] for k in r if k.endswith("_device_ms")]
+        names = [k[: -len("_device_ms")] for k in r
+                 if k.endswith("_device_ms") and isinstance(r[k], float)]
         times = ", ".join(
             f"{k} {r[f'{k}_device_ms'] * 1e3:.2f} us device"
             + (f" / {r[f'{k}_call_ms'] * 1e3:.2f} us a call" if f"{k}_call_ms" in r else "")
@@ -1405,9 +1614,6 @@ def main() -> int:
                        for tag in LOW_TAGS.values() if f"bound_ms_{tag}" in r)
         print(f"{r['kernel']} {r['shape']}: {times}; bound {r['bound_ms'] * 1e3:.2f} us, "
               f"new at {r['bound_ms'] / r['new_device_ms']:.1%} of it{plans}{lows} [{card}]")
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump({"card": card, "rows": rows}, f, indent=1)
     return 0
 
 

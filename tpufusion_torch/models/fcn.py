@@ -55,8 +55,19 @@ off (`_GradConv`) and come back through
 float16 and the format (`small_float.cast_for_conv`'s backward for the
 input and the kernels); the outputs' float32 casts take the format's
 rounding of their cotangent back (`small_float.cast`). Parameters and
-their gradients stay float32. On a spatial mesh the small floats'
-backward is not ported: it raises.
+their gradients stay float32.
+
+On a mesh a small float's gradient follows XLA's partitioned program
+(its HLO for JAX's sharded step): each layer's dgrad is the whole float32
+sum for the columns a rank owns before any rounding (the halo exchange
+sums its neighbours' partial dgrads in float32: each consumer fetches its
+own float32 window), the fan-outs' cotangents are summed in the format as
+off the mesh, a transposed convolution's wgrad is summed over the spatial
+axis in float32 before its rounding (XLA gathers the width for it), and
+each bias gradient reduces a rank's block of XLA's layout of the layer's
+whole output (`gradient_blocks`: ceil(W / k) columns, zeros past the
+width and in the cropped columns). The ranks' gradients are then combined
+in the format (`gradient_plan`, `parallel.mesh.reduce_gradients`).
 
 Weights keep flax's layouts (kernels HWIO) in the state dict so the npz
 keys and arrays load as they are; the forward maps them to torch's:
@@ -101,6 +112,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -111,7 +123,7 @@ from tpufusion_torch.geometry.encoding import (  # noqa: F401  (re-exported)
     DIRECT_CHANNELS,
     DIRECT_CHANNELS_DUAL,
 )
-from tpufusion_torch.parallel.halo import fetch_columns
+from tpufusion_torch.parallel.halo import block_columns, fetch_columns
 from tpufusion_torch.parallel.mesh import (
     all_gather_columns,
     all_reduce_mean,
@@ -234,74 +246,101 @@ class _Layer(nn.Module):
 
     def _weight(self, x: torch.Tensor) -> torch.Tensor:
         """The kernel OIHW in x's dtype; in a small float its cast to the
-        format (one launch, kept while the kernel's storage and version
-        and the inference mode stay: inference casts it once; where its
-        gradient is taken, cast each call, differentiably)."""
+        format in the dtype the FCN's values travel in (`FCN.act_dtype`;
+        one launch, kept while the kernel's storage and version and the
+        inference mode stay: inference casts it once; where its gradient
+        is taken, cast each call, differentiably)."""
         if self.fmt is None:
             return self.kernel.to(x.dtype).permute(3, 2, 0, 1)
         k = self.kernel
+        dtype = SMALL_FLOAT_CONV if self.fmt.via_f16 else torch.float32
         if torch.is_grad_enabled() and k.requires_grad:
-            return sf.cast_for_conv(k, self.fmt, out=x.dtype).permute(3, 2, 0, 1)
-        state = (k.data_ptr(), k._version, x.dtype, self.fmt, torch.is_inference_mode_enabled())
+            return sf.cast_for_conv(k, self.fmt, out=dtype).permute(3, 2, 0, 1)
+        state = (k.data_ptr(), k._version, dtype, self.fmt, torch.is_inference_mode_enabled())
         if self._cast is None or self._cast[0] != state:
-            self._cast = state, sf.cast(k, self.fmt, out=x.dtype).permute(3, 2, 0, 1)
+            self._cast = state, sf.cast(k, self.fmt, out=dtype).permute(3, 2, 0, 1)
         return self._cast[1]
 
-    def _conv(self, x: torch.Tensor, w: torch.Tensor, stride=1) -> torch.Tensor:
-        """F.conv2d(x, w); in a small float where a gradient flows, with
-        the dgrad and wgrad in float32 (`_GradConv`)."""
+    def _conv(self, x: torch.Tensor, w: torch.Tensor, stride=1, group=None, xs=None,
+              dilated=None) -> torch.Tensor:
+        """F.conv2d(x, w) in w's dtype; in a small float where a gradient
+        flows, with the dgrad and wgrad in float32 (`_GradConv`; `group`
+        sums the wgrad over it before its rounding; x dilated from xs as
+        `dilated` says, the wgrad comes from xs)."""
         if self.fmt is not None and torch.is_grad_enabled() and (x.requires_grad
                                                                  or w.requires_grad):
-            return _GradConv.apply(x, w, stride)
-        return F.conv2d(x, w, stride=stride)
+            return _GradConv.apply(x, w, stride, group, xs, dilated)
+        return F.conv2d(x.to(w.dtype), w, stride=stride)
 
-    def _finish(self, y: torch.Tensor, relu: bool, uses: int = 1):
+    def _finish(self, y: torch.Tensor, relu: bool, uses: int = 1, bias_block=None):
         """flax's `y += bias` and the layer's relu: in y's dtype, or the
         small-float epilogue (one launch). With `uses` > 1 a tuple of
-        that many aliases, one a consumer (`small_float.conv_epilogue`)."""
+        that many aliases, one a consumer (`small_float.conv_epilogue`);
+        `bias_block` is the epilogue's (a mesh's layout of the bias
+        gradient's reduce)."""
         if self.fmt is not None:
-            return sf.conv_epilogue(y, self.bias, self.fmt, relu, out=y.dtype, uses=uses)
+            return sf.conv_epilogue(y, self.bias, self.fmt, relu, out=y.dtype, uses=uses,
+                                    bias_block=bias_block)
         y = y + _bias(self.bias, y)
         y = F.relu(y) if relu else y
         return y if uses == 1 else (y,) * uses
 
 
-class _NoBackward(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        raise NotImplementedError("training a small-float FCN on a spatial mesh is not "
-                                  "ported yet")
-
-
 class _GradConv(torch.autograd.Function):
-    """F.conv2d(x, w, stride) whose dgrad and wgrad run in float32 with
-    TF32 off, then come back in x's and w's dtype (float32 -> float16:
-    XLA's first rounding of its float32 results). Not in float16: XLA
-    computes both in float32 and rounds once, and torch's CPU float16
-    dgrad and wgrad are not that rounding
+    """F.conv2d(x, w, stride) in w's dtype whose dgrad and wgrad run in
+    float32 with TF32 off, then come back in x's and w's dtype (float32
+    -> float16: XLA's first rounding of its float32 results). Not in
+    float16: XLA computes both in float32 and rounds once, and torch's
+    CPU float16 dgrad and wgrad are not that rounding
     (tests/test_torch_small_float_train.py
-    ::test_float16_backward_convolutions_are_not_one_rounding)."""
+    ::test_float16_backward_convolutions_are_not_one_rounding). A float32
+    x holding the format's values (a window fetched on a spatial mesh)
+    gets its dgrad in float32, unrounded; `group` given, the wgrad is
+    summed over it in float32 before it is rounded.
+
+    A transposed convolution (x dilated from xs: `dilated` is its strides
+    and the offset of xs's first element in x) takes its backward from
+    the strided convolution of the padded cotangent gp with the kernel
+    flipped, w2: xs's dgrad is conv2d(gp, w2, stride), the kernel's wgrad
+    that convolution's wgrad against xs, flipped back. The same products
+    as the dilated form's, none with a zero, and no FFT: cuDNN takes FFT
+    algorithms for stride-1 convolutions, whose results are not float32
+    sums of the products (on an H100 at 2 frames a rank, 29 of
+    deconv5a's 17,600 kernel gradient values landed 1-2 steps of
+    float8_e4m3fn off JAX's). The FCN's other convolutions are strided."""
 
     @staticmethod
-    def forward(ctx, x, w, stride):
-        ctx.save_for_backward(x, w)
-        ctx.stride = stride
-        return F.conv2d(x, w, stride=stride)
+    def forward(ctx, x, w, stride, group, xs=None, dilated=None):
+        ctx.save_for_backward(x if dilated is None else None, w, xs)  # a dilated x: not read
+        ctx.stride, ctx.group, ctx.dilated = stride, group, dilated
+        return F.conv2d(x.to(w.dtype), w, stride=stride)
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        stride = list(ctx.stride) if isinstance(ctx.stride, tuple) else [ctx.stride] * 2
+        x, w, xs = ctx.saved_tensors
+        gx = gw = gxs = None
         with full_f32_convs():
-            gx, gw, _ = torch.ops.aten.convolution_backward(
-                g.float(), x.float(), w.float(), None, stride, [0, 0], [1, 1], False, [0, 0], 1,
-                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+            if ctx.dilated is None:
+                stride = list(ctx.stride) if isinstance(ctx.stride, tuple) else [ctx.stride] * 2
+                gx, gw, _ = torch.ops.aten.convolution_backward(
+                    g.float(), x.float(), w.float(), None, stride, [0, 0], [1, 1], False, [0, 0],
+                    1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+            else:  # x[.., lead + s m] = xs[.., m], zeros elsewhere
+                s, lead = ctx.dilated
+                gp = F.pad(g.float(), [p for d in (1, 0) for p in (
+                    _K - 1 - lead[d], s[d] * (xs.shape[2 + d] - 1) + lead[d] + 1 - g.shape[2 + d])])
+                w2 = w.float().flip(2, 3).transpose(0, 1)
+                if ctx.needs_input_grad[4]:
+                    gxs = F.conv2d(gp, w2, stride=s)
+                if ctx.needs_input_grad[1]:
+                    gw = torch.ops.aten.convolution_backward(
+                        xs.float(), gp, w2, None, list(s), [0, 0], [1, 1], False, [0, 0], 1,
+                        [False, True, False])[1].flip(2, 3).transpose(0, 1)
+        if gw is not None and ctx.group is not None:
+            dist.all_reduce(gw, group=ctx.group)
         return (None if gx is None else gx.to(x.dtype),
-                None if gw is None else gw.to(w.dtype), None)
+                None if gw is None else gw.to(w.dtype), None, None,
+                None if gxs is None else gxs.to(xs.dtype), None)
 
 
 class Conv(_Layer):
@@ -323,10 +362,10 @@ class Conv(_Layer):
         return self._conv(x, self._weight(x), self.strides)
 
     def forward(self, x: torch.Tensor, pw: tuple[int, int] | None = None,
-                relu: bool = False, uses: int = 1):
+                relu: bool = False, uses: int = 1, bias_block=None):
         """NCHW in x's dtype: the convolution, the bias, relu if asked;
-        `uses` as `_finish`."""
-        return self._finish(self.raw(x, pw), relu, uses)
+        `uses` and `bias_block` as `_finish`."""
+        return self._finish(self.raw(x, pw), relu, uses, bias_block)
 
     def window(self, out: slice, width: int) -> tuple[int, int]:
         """The global input columns [a, b) that output columns `out` read,
@@ -358,7 +397,7 @@ class ConvTranspose(_Layer):
         z[:, :, ::sh, ::sw] = x
         ph, pw = self.pads(sh), self.pads(sw)
         z = F.pad(z, (pw[0], pw[1], ph[0], ph[1]))
-        return self._conv(z, self._weight(x))
+        return self._conv(z, self._weight(x), xs=x, dilated=((sh, sw), (ph[0], pw[0])))
 
     def forward(self, x: torch.Tensor, relu: bool = False, uses: int = 1):  # NCHW
         return self._finish(self.raw(x), relu, uses)
@@ -372,15 +411,18 @@ class ConvTranspose(_Layer):
         return -((pad_a - out.start) // s), (out.stop + _K - 2 - pad_a) // s + 1
 
     def forward_window(self, xw: torch.Tensor, out: slice, relu: bool = False,
-                       uses: int = 1) -> torch.Tensor:
-        """Output columns `out` from xw, the input columns `window(out)`."""
+                       uses: int = 1, bias_block=None, group=None) -> torch.Tensor:
+        """Output columns `out` from xw, the input columns `window(out)`;
+        `uses` and `bias_block` as `_finish`, `group` as `_conv`'s."""
         (sh, sw), (b, c, h, n) = self.strides, xw.shape
         lead = self.window(out)[0] * sw + self.pads(sw)[0] - out.start
         z = xw.new_zeros(b, c, (h - 1) * sh + 1, out.stop - out.start + _K - 1)
         z[:, :, ::sh, lead: lead + (n - 1) * sw + 1: sw] = xw
         ph = self.pads(sh)
         z = F.pad(z, (0, 0, ph[0], ph[1]))
-        return self._finish(self._conv(z, self._weight(xw)), relu, uses)
+        y = self._conv(z, self._weight(xw), group=group, xs=xw,
+                       dilated=((sh, sw), (ph[0], lead)))
+        return self._finish(y, relu, uses, bias_block)
 
 
 def _move_running(stat: torch.Tensor, batch_stat: torch.Tensor, momentum: float) -> None:
@@ -593,51 +635,117 @@ class FCN(nn.Module):
         (`parallel/halo.py`). The zero pad (0, 3) is the zeros past the
         width that the halo already gives; the crops shift the global
         columns a layer computes, so the concatenated maps own the same
-        columns. deconv5a and deconv5b read one fetch of cat4."""
+        columns. deconv5a and deconv5b read one fetch of cat4. A small
+        float's training step (the module docstring) fetches a float32
+        window for each consumer instead, c1, c2 and d4 giving one alias
+        a consumer as off the mesh."""
         if width is None:
             raise ValueError("on a spatial mesh the FCN needs the input's global width")
         cfg, k, s = self.cfg, mesh.n_spatial, mesh.spatial_index
-        w1 = -(-(width + 3) // self.conv1.strides[1])
-        w2 = -(-w1 // self.conv2.strides[1])
-        w3 = -(-w2 // self.conv3.strides[1])
+        w1, w2, w3, crop5 = self._widths(width)
         if w3 * self.deconv4.strides[1] != w2:  # the unsharded torch.cat raises too
             raise ValueError(f"a width of {width} does not round-trip the FCN ({w2} vs "
                              f"{w3 * self.deconv4.strides[1]} columns)")
-        crop5 = w2 * self.deconv5a.strides[1] - w1
+        grad = self.fmt is not None and torch.is_grad_enabled()
+        reg = int(cfg.use_regression)
+        group = mesh.spatial_group if grad else None
+        blocks = self.gradient_blocks(width) if grad else {}
 
-        def conv(layer, t, w_in, w_pad, w_out):
-            outs = column_blocks(w_out, k)
-            windows = [layer.window(o, w_pad) for o in outs]
-            return self._relu(layer, fetch_columns(t, mesh, w_in, windows), pw=(0, 0))
+        def window(t, w_in, windows):
+            return fetch_columns(t.float() if grad else t, mesh, w_in, windows)
 
-        def fetch(layer, t, w_in, outs):
-            return fetch_columns(t, mesh, w_in, [layer.window(o) for o in outs])
+        def bias_block(name):
+            if name not in blocks:
+                return None
+            w_map, offset, w_whole = blocks[name]
+            per = -(-w_whole // k)  # XLA's block of the layer's whole output
+            windows = [(r * per - offset, (r + 1) * per - offset) for r in range(k)]
+            return lambda g: block_columns(g, mesh, w_map, windows)
+
+        def conv(name, t, w_in, w_pad, w_out, uses):
+            layer, outs = getattr(self, name), column_blocks(w_out, k)
+            res = self._relu(layer, window(t, w_in, [layer.window(o, w_pad) for o in outs]),
+                             pw=(0, 0), uses=uses if grad else 1, bias_block=bias_block(name))
+            return list(res) if grad and uses > 1 else [res] * uses
+
+        def fetch(name, t, w_in, outs):
+            layer = getattr(self, name)
+            return window(t, w_in, [layer.window(o) for o in outs])
+
+        def up(name, xw, outs, uses=1, relu=True):
+            res = self._relu(getattr(self, name).forward_window, xw, outs[s], relu=relu,
+                             uses=uses if grad else 1, bias_block=bias_block(name), group=group)
+            return list(res) if grad and uses > 1 else [res] * uses
 
         x = x.to(torch.float32).permute(0, 3, 1, 2)
         if cfg.batch_norm or cfg.sample_wise_bn:
             x = self.norm(x, train, mesh, width)
         x = self._cast_input(x)
-        c1 = conv(self.conv1, x, width, width + 3, w1)
-        c2 = conv(self.conv2, c1, w1, w1, w2)
-        c3 = conv(self.conv3, c2, w2, w2, w3)
+        # the consumers of c1 and c2 in the order JAX's backward meets their
+        # cotangents: the regression branch's, the classification head's,
+        # the trunk's (d4: the first two)
+        *c1s, c1 = conv("conv1", x, width, width + 3, w1, 2 + reg)
+        *c2s, c2 = conv("conv2", c1, w1, w1, w2, 2 + reg)
+        (c3,) = conv("conv3", c2, w2, w2, w3, 1)
         outs4 = column_blocks(w2, k)
-        d4 = self._relu(self.deconv4.forward_window, fetch(self.deconv4, c3, w3, outs4), outs4[s])
+        d4s = up("deconv4", fetch("deconv4", c3, w3, outs4), outs4, 1 + reg)
         outs5 = [slice(o.start + crop5, o.stop + crop5) for o in column_blocks(w1, k)]
-        cat4 = fetch(self.deconv5a, torch.cat([c2, d4], dim=1), w2, outs5)
         outs6 = column_blocks(width, k)
+        cat4s = [fetch("deconv5a", torch.cat([a, b], dim=1), w2, outs5)
+                 for a, b in (zip(c2s, d4s) if grad else [(c2, d4s[0])])]  # one fetch serves both
 
-        def head(up5, up6, relu=False):
-            d5 = self._relu(up5.forward_window, cat4, outs5[s])
-            window = fetch(up6, torch.cat([c1, d5], dim=1), w1, outs6)
-            return self._relu(up6.forward_window, window, outs6[s], relu=relu)
+        def head(up5, up6, cat4, c1_alias, relu=False):
+            (d5,) = up(up5, cat4, outs5)
+            (d6,) = up(up6, fetch(up6, torch.cat([c1_alias, d5], dim=1), w1, outs6), outs6,
+                       relu=relu)
+            return d6
 
-        d6a = head(self.deconv5a, self.deconv6a)
-        d6b = head(self.deconv5b, self.deconv6b, self._reg_relu) if cfg.use_regression else None
-        if self.fmt is None or not torch.is_grad_enabled():
-            return d6a, d6b
-        # the fan-out sums of a small float's cotangents across the halos
-        # are not ported: its backward raises
-        return _NoBackward.apply(d6a), None if d6b is None else _NoBackward.apply(d6b)
+        d6a = head("deconv5a", "deconv6a", cat4s[-1], c1s[-1])
+        d6b = (head("deconv5b", "deconv6b", cat4s[0], c1s[0], self._reg_relu)
+               if cfg.use_regression else None)
+        return d6a, d6b
+
+    def _widths(self, width: int) -> tuple[int, int, int, int]:
+        """(w1, w2, w3, crop5): conv1-3's output widths and the columns
+        deconv5's crop drops, for an input `width` wide."""
+        w1 = -(-(width + 3) // self.conv1.strides[1])
+        w2 = -(-w1 // self.conv2.strides[1])
+        w3 = -(-w2 // self.conv3.strides[1])
+        return w1, w2, w3, w2 * self.deconv5a.strides[1] - w1
+
+    def gradient_blocks(self, width: int) -> dict:
+        """{layer: (the width of the map its epilogue writes, the map's
+        first column's place in the layer's whole output, that output's
+        width)} for an input `width` wide: deconv5 writes 2 w2 - crop5
+        columns of its 2 w2, deconv6 the input's width of its 4 w1."""
+        w1, w2, w3, crop5 = self._widths(width)
+        out = {"conv1": (w1, 0, w1), "conv2": (w2, 0, w2), "conv3": (w3, 0, w3),
+               "deconv4": (w2, 0, w2), "deconv5a": (w1, crop5, w1 + crop5),
+               "deconv6a": (width, 0, w1 * self.deconv6a.strides[1])}
+        if self.cfg.use_regression:
+            out.update(deconv5b=out["deconv5a"], deconv6b=out["deconv6a"])
+        return out
+
+    def gradient_plan(self) -> list:
+        """How a small float's gradients are combined over a mesh, as XLA's
+        partitioned program combines them (`parallel.mesh.reduce_gradients`):
+        (parameter, the mesh axes its rank values are summed over, in
+        order), the axes None for a float32 parameter (the input norm's).
+        Biases: spatial, then data; conv1-3's kernels (each rank's wgrad of
+        its own columns): data, then spatial; a transposed convolution's
+        kernel: data (its spatial sum ran in float32, `_GradConv`)."""
+        plan = []
+        for name, p in self.named_parameters():
+            layer = name.rsplit(".", 1)[0]
+            if not isinstance(getattr(self, layer, None), _Layer):
+                plan.append((p, None))
+            elif name.endswith(".bias"):
+                plan.append((p, ("spatial", "data")))
+            elif isinstance(getattr(self, layer), ConvTranspose):
+                plan.append((p, ("data",)))
+            else:
+                plan.append((p, ("data", "spatial")))
+        return plan
 
     def _relu(self, layer, *args, relu: bool = True, uses: int = 1, **kw):
         """layer(*args), relu'd where `relu`: torch's relu after it, as flax

@@ -43,9 +43,15 @@ def weighted_pose_loss(
     use_regression: bool = True,
     mesh=None,
     width: int | None = None,
+    global_share: bool = False,
 ) -> torch.Tensor:
     """The loss of (B, H, W, C) or (B, P, C) predictions; on a spatial
-    `mesh`, (B, H, w, C) columns of a global `width`."""
+    `mesh`, (B, H, w, C) columns of a global `width`. With `global_share`
+    a rank on a mesh returns its share of the global batch's loss (its
+    terms summed over the global count, every data row's frames and
+    pixels; the shares sum to the loss over the whole mesh), whose
+    gradient is the one-process gradient's, scale included: a small
+    float's step rounds it as JAX's sharded step does."""
     spatial = mesh is not None and mesh.n_spatial > 1
     if spatial and (y_pred.ndim != 4 or width is None):
         raise ValueError("on a spatial mesh the loss takes (B, H, w, C) columns and their global width")
@@ -98,6 +104,8 @@ def weighted_pose_loss(
             norm = _safe_norm((diff * diff).sum(dim=-1, keepdim=True))
         loss = loss + cfg.weight_bb * (w2r * norm).sum(dim=-1)
 
+    if global_share and mesh is not None and mesh.n_data > 1:
+        return loss.sum() / (loss.shape[0] * mesh.n_data * max_pixels)
     if spatial:  # this rank's share of its row's mean
         return loss.sum() / (loss.shape[0] * max_pixels)
     return loss.mean()

@@ -1077,6 +1077,47 @@ def small_float_backward_cases(shape: tuple[int, int, int, int], device, seed: i
             ("float16 small, relu on float16", [t["small"].half()], t["saved"].half(), True)]
 
 
+# (B, C, H, W) shapes of the bias gradient's reduce alone: an odd window
+# length with uneven padding at both ends (45 -> 64 columns), windows over
+# more than 32 frames, a second level along the width, one column
+SMALL_FLOAT_REDUCE_SHAPES = ((3, 8, 33, 45), (35, 8, 2, 7), (1, 8, 2, 1100), (2, 8, 32, 1))
+
+
+def small_float_reduce_inputs(fmt, shape: tuple[int, int, int, int], seed: int = 0):
+    """Adversarial values of the format `fmt` (`small_float.SmallFloat`)
+    for the bias gradient's reduce, float32 (B, C, H, W), one kind a
+    channel of the 8: seeded normals; mostly zeros of both signs (the
+    steps the kernel skips); values near the largest (sums that overflow);
+    the smallest values (subnormals); normals with one NaN; +inf then
+    -inf; every code of the format, seeded order; normals whose sum
+    cancels."""
+    import torch
+
+    from tpufusion_torch.ops.small_float import decode, round_small_float
+
+    rng = np.random.default_rng(seed)
+    b, c, h, w = shape
+    n = b * h * w
+    codes = np.arange(1 << (fmt.ebits + fmt.mbits + fmt.signed), dtype=np.int64)
+    every = decode(torch.from_numpy(codes), fmt).numpy()
+    finite = every[np.isfinite(every)]
+    top, tiny = np.abs(finite).max(), np.abs(finite[finite != 0]).min()
+    chans = [rng.standard_normal(n),
+             np.where(rng.random(n) < 0.95, np.where(rng.random(n) < 0.5, 0.0, -0.0),
+                      rng.standard_normal(n)),
+             top * rng.uniform(0.5, 1.0, n) * np.sign(rng.standard_normal(n)),
+             tiny * rng.integers(-3, 4, n),
+             rng.standard_normal(n), rng.standard_normal(n) * 4,
+             rng.permutation(np.resize(every, n)),
+             rng.standard_normal(n)]
+    chans[4][n // 2] = np.nan
+    chans[5][n // 3], chans[5][2 * n // 3] = np.inf, -np.inf
+    half = n // 2
+    chans[7][half: 2 * half] = -chans[7][:half]
+    x = np.stack([ch.reshape(b, h, w) for ch in chans[:c]], axis=1).astype(np.float32)
+    return round_small_float(torch.from_numpy(x), fmt).numpy()
+
+
 def small_float_inputs(seed: int = 0, n: int = 100_000) -> tuple[np.ndarray, np.ndarray]:
     """(every float16 bit pattern (65,536, uint16), float32 values:
     `small_float_specials` and n seeded values over float32's exponent

@@ -24,6 +24,10 @@ of their hand-written kernel (`csrc/small_float.cu`).
                   order, each sum rounded; relu's select; the bias
                   gradient reduced in XLA's order (`xla_sum_levels`),
                   every partial sum rounded to the format
+  bias_grad       that reduce alone, on any values of the format (a
+                  mesh's block of a layer's cotangent, `models/fcn.py`)
+  sum_in_order    the ranks' values of a gradient combined as XLA's CPU
+                  all-reduce combines a small float's
   round_grad      its no-bias mode: a dgrad's or wgrad's fmt(h(g))
   cast_for_conv   `cast` of a convolution's operand, whose backward is
                   `round_grad` (`cast`'s is the direct mode: XLA's
@@ -50,9 +54,11 @@ which holds every value of the eight formats that go through float16,
 and float32 for float8_e8m0fnu. For tensors on the CPU the wrappers run
 the plain version; for CUDA tensors they call the kernel once (one
 launch; a float16 y's first epilogue on a device also launches the build
-of the format's code table, `_TABLES`), or raise. The backward counts
-its launches apart (BACKWARD_LAUNCHES); its first launch on a device in
-a format also builds the format's add table (`_ADD_TABLES`).
+of the format's code table, `_TABLES`), or raise. LAUNCHES counts the
+forward's launches, CAST_LAUNCHES the direct casts among them; the
+backward counts its launches apart (BACKWARD_LAUNCHES, and
+REDUCE_LAUNCHES those that reduce a bias gradient); its first reduce on a
+device in a format also builds the format's add table (`_ADD_TABLES`).
 """
 
 from __future__ import annotations
@@ -66,7 +72,9 @@ import torch
 from tpufusion_torch import _build
 
 LAUNCHES = 0  # forward launches since import (or since a caller reset it): epilogue and cast
-BACKWARD_LAUNCHES = 0  # backward launches (with its no-bias mode), counted apart
+CAST_LAUNCHES = 0  # the direct casts among them
+BACKWARD_LAUNCHES = 0  # backward launches (with its no-bias mode, and the reduce alone), apart
+REDUCE_LAUNCHES = 0  # the bias gradient's reduces among them
 OVERFLOWS = ("inf", "nan", "saturate")  # what a value past the largest finite one gives
 IN_DTYPES = (torch.float32, torch.float16)  # the kernel's input types, by code
 N_PARAMS = 12  # the int parameters the C entry points read from a host array
@@ -319,16 +327,18 @@ def _out_dtype(fmt: SmallFloat, out: torch.dtype | None) -> torch.dtype:
     return out
 
 
-def _launch(what: str, fn: str, dev: torch.device, *args) -> None:
-    global LAUNCHES, BACKWARD_LAUNCHES
+def _launch(what: str, fn: str, dev: torch.device, *args, reduce: bool = False) -> None:
+    global LAUNCHES, CAST_LAUNCHES, BACKWARD_LAUNCHES, REDUCE_LAUNCHES
     lib = _build.load()
     with torch.cuda.device(dev):
         err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, what)
-    if fn == "tf_small_float_backward":
+    if fn in ("tf_small_float_backward", "tf_small_float_bias_grad"):
         BACKWARD_LAUNCHES += 1
+        REDUCE_LAUNCHES += int(reduce)
     else:
         LAUNCHES += 1
+        CAST_LAUNCHES += int(fn.startswith("tf_small_float_cast"))
 
 
 def _check_input(name: str, t: torch.Tensor) -> None:
@@ -340,16 +350,27 @@ def _check_input(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must hold fewer than 2**31 elements, got {t.numel()}")
 
 
+CAST_MAX_CHANNELS = 64  # a channels-last input the kernel transposes (else copied first)
+
+
 def _cast(x: torch.Tensor, fmt: SmallFloat, out: torch.dtype) -> torch.Tensor:
     if x.device.type == "cpu":
         return cast_reference(x, fmt, out)
     _check_input("x", x)
-    x = x.detach().contiguous()
+    x = x.detach()
     res = torch.empty(x.shape, dtype=out, device=x.device)
-    if x.numel():
-        _launch("small_float cast", "tf_small_float_cast", x.device, x.data_ptr(),
-                IN_DTYPES.index(x.dtype), res.data_ptr(), OUT_DTYPES.index(out), x.numel(),
-                _params(fmt))
+    if not x.numel():
+        return res
+    if x.is_contiguous():
+        shape = 1, x.numel(), 1
+    elif (x.dim() == 4 and x.shape[1] <= CAST_MAX_CHANNELS
+          and x.is_contiguous(memory_format=torch.channels_last)):
+        shape = x.shape[0], x.shape[2] * x.shape[3], x.shape[1]  # NHWC: (B, H W, C)
+    else:
+        return _cast(x.contiguous(), fmt, out)
+    _launch("small_float cast", "tf_small_float_cast", x.device, x.data_ptr(),
+            IN_DTYPES.index(x.dtype), res.data_ptr(), OUT_DTYPES.index(out), *shape,
+            _params(fmt))
     return res
 
 
@@ -405,7 +426,7 @@ class _Epilogue(torch.autograd.Function):
     in XLA's order, each sum rounded to the format."""
 
     @staticmethod
-    def forward(ctx, y, bias, fmt, relu, out, uses):
+    def forward(ctx, y, bias, fmt, relu, out, uses, bias_block):
         ctx.set_materialize_grads(False)
         if relu and not fmt.signed:  # its relu is a NaN: keep the sum relu selects on
             s = _epilogue(y, bias, fmt, False, out)
@@ -415,7 +436,7 @@ class _Epilogue(torch.autograd.Function):
             res = _epilogue(y, bias, fmt, relu, out)
             ctx.save_for_backward(res if relu else None)
         ctx.fmt, ctx.relu, ctx.y_dtype = fmt, relu, y.dtype
-        ctx.bias_grad = bias.requires_grad
+        ctx.bias_grad, ctx.bias_block = bias.requires_grad, bias_block
         return tuple([res] + [res.view_as(res) for _ in range(uses - 1)])
 
     @staticmethod
@@ -423,14 +444,17 @@ class _Epilogue(torch.autograd.Function):
         grads = [g for g in grads if g is not None]
         (saved,) = ctx.saved_tensors
         if not grads:
-            return (None,) * 6
+            return (None,) * 7
+        block = ctx.bias_block if ctx.bias_grad else None
         gy, gb = conv_epilogue_backward(grads, saved, ctx.fmt, ctx.relu, out=ctx.y_dtype,
-                                        bias=ctx.bias_grad)
-        return gy, gb, None, None, None, None
+                                        bias=ctx.bias_grad and block is None)
+        if block is not None:
+            gb = bias_grad(block(gy), ctx.fmt)
+        return gy, gb, None, None, None, None, None
 
 
 def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, fmt: SmallFloat, relu: bool = False,
-                  out: torch.dtype | None = None, uses: int = 1):
+                  out: torch.dtype | None = None, uses: int = 1, bias_block=None):
     """A convolution's raw output y (B, C, H, W), float32 or float16 (a
     float16 y is taken as XLA's first rounding, f16(y)), and the layer's
     float32 bias (C,) -> relu?(fmt(h(fmt(h(y)) + fmt(bias)))) as `out`
@@ -439,9 +463,11 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, fmt: SmallFloat, relu: bo
     flow it returns `uses` aliases of the output (a tuple where `uses` >
     1), one a consumer, in the order their cotangents are summed
     (`conv_epilogue_backward`); autograd records nothing otherwise
-    (inference skips the Function's host cost)."""
+    (inference skips the Function's host cost). `bias_block` given (a
+    rank's layout on a mesh: the cotangent of y -> the block its bias
+    gradient reduces), the bias gradient is `bias_grad` of that block."""
     if torch.is_grad_enabled() and (y.requires_grad or bias.requires_grad):
-        res = _Epilogue.apply(y, bias, fmt, relu, out, uses)
+        res = _Epilogue.apply(y, bias, fmt, relu, out, uses, bias_block)
         return res[0] if uses == 1 else res
     res = _epilogue(y, bias, fmt, relu, out)
     return res if uses == 1 else (res,) * uses
@@ -470,9 +496,11 @@ XLA_WINDOW = 32  # the CPU's TreeReductionRewriter's window
 _PAD = -1  # a padded position of a window: skipped, as XLA's reduce-window skips it
 MAX_GRADS = 3  # the cotangents one backward launch sums (the FCN's c1 has three consumers)
 # (format, device) -> the format's add table on the device (`add_table`'s
-# codes as uint8), built by the first backward launch that needs it
+# codes as uint8, x-major: [x, acc]), built by the first launch that needs it
 _ADD_TABLES: dict = {}
-_COUNTERS: dict = {}  # device -> the backward's count of finished CTAs (back to 0 at its end)
+_COUNTERS: dict = {}  # device -> the reduce's count of finished CTAs (back to 0 at its end)
+SEGMENT_WARPS = 16  # the reduce's segments aim at this many warps an SM
+_SMS: dict = {}  # device -> its multiprocessors
 
 
 def xla_sum_levels(dims: tuple[int, ...]) -> list[tuple[tuple[int, int, int], ...]]:
@@ -545,6 +573,43 @@ def bias_grad_reference(g: torch.Tensor, fmt: SmallFloat) -> torch.Tensor:
     return decode(codes.reshape(c), fmt)
 
 
+def bias_grad(g: torch.Tensor, fmt: SmallFloat) -> torch.Tensor:
+    """`bias_grad_reference`'s contract: the plain version on the CPU, one
+    launch of the kernel's reduce for a CUDA g (B, C, H, W) of the
+    format's values (float32 or float16, any strides), counted in
+    BACKWARD_LAUNCHES."""
+    if g.device.type == "cpu":
+        return bias_grad_reference(g, fmt)
+    _check_input("g", g)
+    if g.dim() != 4:
+        raise ValueError(f"g must be (B, C, H, W), got {tuple(g.shape)}")
+    b, c, hh, w = g.shape
+    gb = torch.empty(c, dtype=torch.float32, device=g.device)
+    if g.numel():
+        levels = xla_sum_levels((b, hh, w))
+        flat = [v for level in levels for dim in level for v in dim]
+        r = _Reduce(fmt, g.device, levels, c)
+        _launch("small_float bias gradient", "tf_small_float_bias_grad", g.device, g.data_ptr(),
+                IN_DTYPES.index(g.dtype), (ctypes.c_longlong * 4)(*g.stride()), b, c, hh, w,
+                gb.data_ptr(), (ctypes.c_int * len(flat))(*flat), len(levels), *r.args(),
+                _params(fmt), int(fmt.via_f16), reduce=True)
+        r.done()
+    return gb
+
+
+def sum_in_order(parts, fmt: SmallFloat) -> torch.Tensor:
+    """Rank values of one gradient combined as XLA's CPU all-reduce
+    combines a small float's (its partitioned program carries them in
+    float16): parts[0] + parts[1] + ..., in order, each sum rounded to
+    float16 (float32 for float8_e8m0fnu), x86's NaNs, then the total
+    rounded to the format (`cast`: one launch for CUDA tensors), as
+    float32."""
+    acc = _f32(parts[0])
+    for p in parts[1:]:
+        acc = _h(_nan_add(acc, _f32(p)), fmt.via_f16)
+    return cast(acc, fmt, out=torch.float32)
+
+
 def conv_epilogue_backward_reference(grads, saved: torch.Tensor | None, fmt: SmallFloat,
                                      relu: bool, out: torch.dtype | None = None,
                                      bias: bool = True):
@@ -603,33 +668,59 @@ def conv_epilogue_backward(grads, saved: torch.Tensor | None, fmt: SmallFloat, r
         levels = xla_sum_levels((b, hh, w)) if bias else []
         flat = [v for level in levels for dim in level for v in dim]
         lv = (ctypes.c_int * max(len(flat), 1))(*flat)
-        table = counter = scratch = codes = None
-        key = (fmt.name, dev)
-        if bias:
-            table = _ADD_TABLES.get(key)
-            if table is None:
-                table = torch.empty(_n_codes(fmt) ** 2, dtype=torch.uint8, device=dev)
-            counter = _COUNTERS.get(dev)
-            if counter is None:
-                counter = _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-            first = [cnt for _, cnt, _ in levels[0]]
-            scratch = torch.empty(2 * c * first[0] * first[1] * first[2], dtype=torch.int32,
-                                  device=dev)
-            codes = torch.empty(shape, dtype=torch.uint8, device=dev)  # pass 1 -> pass 2
+        r = _Reduce(fmt, dev, levels, c) if bias else None
         _launch("small_float backward", "tf_small_float_backward", dev, ptrs, kinds, strides,
                 len(grads), None if saved is None else saved.data_ptr(),
                 IN_DTYPES.index(saved.dtype) if relu else 0, int(relu), res.data_ptr(),
                 OUT_DTYPES.index(out), b, c, hh, w,
                 None if gb is None else gb.data_ptr(), lv, len(levels),
-                None if table is None else table.data_ptr(),
-                int(table is not None and key not in _ADD_TABLES),
-                None if codes is None else codes.data_ptr(),
-                None if scratch is None else scratch.data_ptr(),
-                None if counter is None else counter.data_ptr(), _params(fmt),
-                int(fmt.via_f16))
-        if table is not None:
-            _ADD_TABLES[key] = table
+                *(r.args() if r else (None, 0, None, 0, None, None)), _params(fmt),
+                int(fmt.via_f16), reduce=r is not None)
+        if r:
+            r.done()
     return res, gb
+
+
+def reduce_segments(levels, channels: int, sms: int) -> int:
+    """The runs the reduce cuts each chain (a channel's first-level window
+    of `levels`, `xla_sum_levels`) into, whole (b, h) rows each: enough
+    that chains x segments give each of `sms` multiprocessors
+    SEGMENT_WARPS warps, at most a window's rows."""
+    (wb, cb, _), (wh, ch, _), (_, cw, _) = levels[0]
+    return max(1, min(-(-SEGMENT_WARPS * sms // (channels * cb * ch * cw)), wb * wh))
+
+
+class _Reduce:
+    """The device buffers of one launch of the bias gradient's reduce: the
+    format's add table (built by this launch where the device has none
+    yet), the segments' maps, the first level's scratch, the CTA counter;
+    a chain (a channel's first-level window) cut into segments so that
+    chains x segments give each multiprocessor SEGMENT_WARPS warps."""
+
+    def __init__(self, fmt: SmallFloat, dev: torch.device, levels, channels: int):
+        self.key = (fmt.name, dev)
+        n = _n_codes(fmt)
+        self.table = _ADD_TABLES.get(self.key)
+        self.build = self.table is None
+        if self.build:
+            self.table = torch.empty(n * n, dtype=torch.uint8, device=dev)
+        self.counter = _COUNTERS.get(dev)
+        if self.counter is None:
+            self.counter = _COUNTERS[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+        (_, cb, _), (_, ch, _), (_, cw, _) = levels[0]
+        chains = channels * cb * ch * cw
+        if dev not in _SMS:
+            _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.segments = reduce_segments(levels, channels, _SMS[dev])
+        self.maps = torch.empty(chains * self.segments * n, dtype=torch.uint8, device=dev)
+        self.scratch = torch.empty(2 * chains, dtype=torch.int32, device=dev)
+
+    def args(self) -> tuple:
+        return (self.table.data_ptr(), int(self.build), self.maps.data_ptr(), self.segments,
+                self.scratch.data_ptr(), self.counter.data_ptr())
+
+    def done(self) -> None:
+        _ADD_TABLES[self.key] = self.table
 
 
 def round_grad(g: torch.Tensor, fmt: SmallFloat, out: torch.dtype | None = None

@@ -22,7 +22,10 @@ on the same global batch (rank 0 runs that process's answer itself):
      parameters equal to rank 0's;
   2. the corner e2e step (projection + FCN + `decode_batch`);
   3. the flagship direct step (direct head, width 2, `decode_batch_direct`);
-  4. the flagship at the full 32 x 1801 geometry, one frame a rank.
+  4. the flagship at the full 32 x 1801 geometry, one frame a rank;
+  and, given the f8 mesh golden (`small_float_golden`), the train
+  phase's float8_e4m3fn case: the golden's step on this mesh
+  (`small_float_step`), held to JAX's same-mesh step.
 
 Each data row projects its frames at full width; on a spatial mesh the
 image and labels are cut to each rank's columns, the FCN runs
@@ -87,6 +90,13 @@ ADAM_FLOOR = 1e-6
 STATS_RTOL = 1e-6
 SWEEP_CAP = 16384  # plain CC sweeps when a rank holds the kernel against them
 KERNELS = ("project_points", "nearest_wins_image", "connected_components_with_bbox", "corner_vote")
+# the small-float step's kernels (`small_float_phase`), by chip_smoke.py's names
+SMALL_FLOAT_KERNELS = ("small_float", "small_float_cast", "small_float_backward",
+                       "small_float_reduce")
+# the small-float step's loss against the golden's, relative: the card's
+# float16 convolutions and cuDNN's sums move some outputs a format step.
+# An H100 read 9e-8 and 2e-7 (data x 2, 1 x 2; PERF.md), the CPU less.
+SMALL_FLOAT_LOSS_RTOL = 1e-6
 
 
 def _entry(rank: int, fn, n: int, port: int, device: str, backend: str | None, args: tuple,
@@ -244,6 +254,62 @@ def _train_phase(mesh, spec: RangeViewSpec, frames: int, n_points: int, timed_st
     return out
 
 
+def small_float_step(mesh, name: str | None = None, norm: bool = False, lr: float = 1e-3,
+                     timed_steps: int = 0) -> dict:
+    """The f8 mesh golden's train step (`_golden.py`, F8_MESH_*) on this
+    rank: the flagship FCN in `name` (default F8_MESH_NAME) with or
+    without its input norm, the weights of its seed, this rank's share of
+    the golden's inputs -> {"loss", "grad/<param>" (after the mesh's
+    combine), "param/<param>" (after the port's Adam at `lr`)} as numpy.
+    `timed_steps` > 0 then times that many more steps on the same batch
+    ("ms_per_step", host clock, the device synchronized)."""
+    from tpufusion_torch._golden import F8_GRAD_LOSS, F8_MESH_SEED, f8_mesh_config, f8_mesh_inputs
+    from tpufusion_torch.models.fcn import FCN
+    from tpufusion_torch.train.optim import Adam
+    from tpufusion_torch.train.train_step import make_train_step
+
+    images, labels = f8_mesh_inputs()
+    model = replicate(FCN(f8_mesh_config(*((name,) if name else ()), norm=norm),
+                          seed=F8_MESH_SEED).to(mesh.device), mesh)
+    step = make_train_step(RangeViewSpec(res_h_deg=1.8), LossConfig(**F8_GRAD_LOSS),
+                           TrainConfig(augment=False), mesh=mesh, head="direct")
+    opt, batch = Adam(model.parameters(), lr), shard_batch({"images": images, "labels": labels}, mesh)
+    loss, _ = step(model, opt, batch)
+    out = {"loss": loss.cpu().numpy()}
+    for n, p in model.named_parameters():
+        out[f"grad/{n}"] = p.grad.cpu().numpy()
+        out[f"param/{n}"] = p.detach().cpu().numpy()
+    if timed_steps:
+        out["ms_per_step"] = _time(lambda: step(model, opt, batch), timed_steps, mesh.device)
+    return out
+
+
+def small_float_phase(mesh, golden_path: str, timed_steps: int = 0) -> dict:
+    """`small_float_step` on this rank, its kernels' launches counted,
+    against the f8 mesh golden's layout of this mesh (F8_MESH_LAYOUTS):
+    {"launches", "layout", "loss", `f8_mesh_readings`' keys}; with
+    `timed_steps`, "ms_per_step" as `small_float_step`'s."""
+    from tpufusion_torch._golden import F8_MESH_LAYOUTS, f8_mesh_readings, load_npz
+    from tpufusion_torch.ops import small_float as sf
+
+    layouts = {v: k for k, v in F8_MESH_LAYOUTS.items()}
+    layout = layouts.get((mesh.world_size, mesh.n_spatial))
+    if layout is None:
+        raise ValueError(f"the f8 mesh golden has no {mesh.shape} layout: {F8_MESH_LAYOUTS}")
+    sf.LAUNCHES = sf.CAST_LAUNCHES = sf.BACKWARD_LAUNCHES = sf.REDUCE_LAUNCHES = 0
+    got = small_float_step(mesh)
+    _sync(mesh.device)
+    launches = {"small_float": sf.LAUNCHES, "small_float_cast": sf.CAST_LAUNCHES,
+                "small_float_backward": sf.BACKWARD_LAUNCHES,
+                "small_float_reduce": sf.REDUCE_LAUNCHES}
+    grads = {k[5:]: v for k, v in got.items() if k.startswith("grad/")}
+    readings = f8_mesh_readings(grads, float(got["loss"]), load_npz(golden_path), layout)
+    res = {"launches": launches, "layout": layout, "loss": float(got["loss"]), **readings}
+    if timed_steps:
+        res["ms_per_step"] = float(small_float_step(mesh, timed_steps=timed_steps)["ms_per_step"])
+    return res
+
+
 def _replay_halo(mesh, records) -> None:
     """A step's halo exchanges alone, forward and backward, on tensors of
     the shapes the step exchanged."""
@@ -306,12 +372,14 @@ def _e2e_phase(mesh, model, spec: RangeViewSpec, head: str, pts: np.ndarray, dcf
 
 
 def _rank_phases(mesh, spec: RangeViewSpec, frames: int, n_points: int, full_points: int,
-                 timed_steps: int, outdir: str) -> None:
+                 timed_steps: int, outdir: str, small_float_golden: str | None = None) -> None:
     from tpufusion_torch.data.synthetic import synthesize_points_batch
     from tpufusion_torch.models.fcn import FCN
 
     dev, n = mesh.device, mesh.world_size
     res = {"train": _train_phase(mesh, spec, frames, n_points, timed_steps)}
+    if small_float_golden:
+        res["small_float"] = small_float_phase(mesh, small_float_golden, timed_steps)
     pts, _ = synthesize_points_batch(np.random.default_rng(1), frames * n, n_points)
     corner = FCN(ModelConfig(), in_channels=3, seed=0).to(dev)
     res["corner"] = _e2e_phase(mesh, replicate(corner, mesh), spec, "corner", pts, DecodeConfig())
@@ -389,6 +457,7 @@ def dryrun_multichip(
     timed_steps: int = 0,
     timeout: float = 900.0,
     mesh_cfg: MeshConfig | None = None,
+    small_float_golden: str | None = None,
 ) -> dict:
     """Runs the four phases of the module docstring on `n_devices` ranks
     and asserts each against one process. The mesh is `mesh_cfg`, by
@@ -401,6 +470,14 @@ def dryrun_multichip(
     its gradient all-reduce alone, on a spatial mesh its halo exchanges
     alone (forward and backward), and, on rank 0, the one-process step on
     the global batch (host clock, the card synchronized).
+    `small_float_golden` (the path of tests/data/torch_port_golden_f8_mesh.npz)
+    adds the train phase's float8_e4m3fn case (`small_float_phase`): the
+    golden's step on this mesh, every rank's gradients equal to JAX's
+    same-mesh step (on the CPU every value; on the card, whose cuDNN
+    dgrads sum in another order than XLA, F8_GRAD_SAME of each tensor's
+    values and none more than F8_GRAD_STEPS step of the format off:
+    `_golden.py`), the loss within SMALL_FLOAT_LOSS_RTOL; with
+    `timed_steps`, that step timed too.
     Returns {"mesh", "lines", "launches" (each kernel's launches summed
     over the ranks' sharded calls), "ranks" (each rank's readings)}."""
     device = torch.device(device)
@@ -417,7 +494,8 @@ def dryrun_multichip(
     shape = mesh_shape(mesh_cfg)
     with tempfile.TemporaryDirectory() as outdir:
         spawn(_rank_phases, n_devices, device, backend,
-              (spec, frames_per_rank, n_points, full_points, timed_steps, outdir), timeout, mesh_cfg)
+              (spec, frames_per_rank, n_points, full_points, timed_steps, outdir,
+               small_float_golden), timeout, mesh_cfg)
         ranks = []
         for r in range(n_devices):
             with open(os.path.join(outdir, f"rank{r}.json")) as f:
@@ -471,6 +549,30 @@ def dryrun_multichip(
         lines.append(f"dryrun_multichip {phase} {'ok' if held else 'FAILED'}: {what} sharded over {shape}, "
                      f"poses match one process within {got['pose_abs']:.2e} ({got['frames_over']} frames over "
                      f"{POSE_ATOL:.0e}; found {got['found']}); the FCN's maps within {got['maps_abs']:.2e}")
+    if small_float_golden:
+        from tpufusion_torch._golden import F8_GRAD_SAME, F8_GRAD_STEPS, F8_MESH_NAME
+
+        sfs = [r["small_float"] for r in ranks]
+        worst = min(sfs, key=lambda x: x["same"])
+        same, steps = worst["same"], max(x["steps"] for x in sfs)
+        loss_rel = max(x["loss_rel"] for x in sfs)
+        exact = same == 1.0 and steps == 0
+        held = all([
+            hold(exact or (device.type == "cuda" and same >= F8_GRAD_SAME
+                           and steps <= F8_GRAD_STEPS),
+                 f"small_float: gradients off JAX's same-mesh step ({same:.4%} of "
+                 f"{worst['worst']} equal, {steps} steps)"),
+            hold(loss_rel <= SMALL_FLOAT_LOSS_RTOL, f"small_float: loss off by {loss_rel:.3e}"),
+            hold(all(x["launches"]["small_float_reduce"] > 0 for x in sfs),
+                 "small_float: a rank never reduced a bias gradient in the kernel")
+            if device.type == "cuda" else True])
+        lines.append(f"dryrun_multichip small-float {'ok' if held else 'FAILED'}: the f8 mesh golden's "
+                     f"{F8_MESH_NAME} step (layout {sfs[0]['layout']}) over {shape}; every rank's "
+                     f"gradients against JAX's same-mesh step: at least {same:.4%} of each tensor "
+                     f"equal (the least: {worst['worst']}), at most {steps} steps of the format "
+                     f"off; loss within {loss_rel:.2e}"
+                     + (f"; {timed_steps} more steps {sfs[0]['ms_per_step']:.3f} ms a step (host "
+                        "clock)" if timed_steps else ""))
     launches = dict.fromkeys(KERNELS, 0)
     for r in ranks:
         for phase in ("train", *names):
@@ -478,6 +580,8 @@ def dryrun_multichip(
                 launches[name] += v
             bad = [name for name, v in r[phase]["kernels"].items() if name.endswith("equal") and not v]
             hold(not bad, f"{phase}: {bad} differ from the plain versions")
+        for name, v in r.get("small_float", {}).get("launches", {}).items():
+            launches[name] = launches.get(name, 0) + v
     for line in lines:
         print(line, flush=True)
     if failures:

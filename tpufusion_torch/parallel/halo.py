@@ -20,7 +20,13 @@ CUDA tensors as well as NCCL does; gloo's point-to-point sends are for
 CPU tensors): every rank contributes its first `SL` and its last `SR`
 columns, `SL` and `SR` being the most any rank needs from its right and
 its left neighbour. The backward sends each fetched column's gradient
-back to the column's owner the same way, and the owner adds it.
+back to the column's owner the same way, and the owner adds it, in the
+window's dtype: a small float's FCN fetches float32 windows in training,
+so that a column's partial dgrads are summed before any rounding, as
+XLA's partitioned dgrad (the whole sum for a rank's own columns, from
+the cotangent's halo) is rounded once. `block_columns` moves a
+backward's columns into other blocks (a small float's bias gradient
+reduces XLA's blocks of a layer's output, not the port's).
 
 Every call adds to the mesh's `HaloStats` (`mesh.halo`) the columns it
 received: (n_spatial - 1) * (SL + SR) a call, each a (B, C, H) slab.
@@ -114,32 +120,38 @@ def _gather(send: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
     return parts
 
 
+def _window(x: torch.Tensor, mesh: Mesh, plan: HaloPlan) -> torch.Tensor:
+    """This rank's window of `plan` from x, its block of the width."""
+    s = mesh.spatial_index
+    own = plan.blocks[s]
+    if x.shape[-1] != own.stop - own.start:
+        raise ValueError(f"spatial rank {s} holds {x.shape[-1]} columns of a width of "
+                         f"{plan.width}; its block is [{own.start}, {own.stop})")
+    a, b = plan.windows[s]
+    sl, sr = plan.strip_left, plan.strip_right
+    out = _zeros(x, b - a, _is_channels_last(x))
+    lo, hi = max(a, own.start), min(b, own.stop)
+    if lo < hi:
+        out[..., lo - a: hi - a] = x[..., lo - own.start: hi - own.start]
+    if sl + sr:
+        parts = _gather(torch.cat([_fit(x, sl, False), _fit(x, sr, True)], dim=-1), mesh)
+        if plan.left[s]:  # the last columns of the left neighbour's block
+            src = parts[s - 1][..., sl:]
+            lo, hi = max(a, 0), min(b, own.start)
+            out[..., lo - a: hi - a] = src[..., sr - (own.start - lo): sr - (own.start - hi)]
+        if plan.right[s]:  # the first columns of the right neighbour's block
+            src = parts[s + 1][..., :sl]
+            lo, hi = max(a, own.stop), min(b, plan.width)
+            out[..., lo - a: hi - a] = src[..., lo - own.stop: hi - own.stop]
+    return out
+
+
 class _Halo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh: Mesh, plan: HaloPlan):
-        s = mesh.spatial_index
         ctx.mesh, ctx.plan, ctx.own_width = mesh, plan, x.shape[-1]
         ctx.channels_last = _is_channels_last(x)
-        own = plan.blocks[s]
-        if x.shape[-1] != own.stop - own.start:
-            raise ValueError(f"spatial rank {s} holds {x.shape[-1]} columns of a width of "
-                             f"{plan.width}; its block is [{own.start}, {own.stop})")
-        a, b = plan.windows[s]
-        sl, sr = plan.strip_left, plan.strip_right
-        out = _zeros(x, b - a, ctx.channels_last)
-        lo, hi = max(a, own.start), min(b, own.stop)
-        if lo < hi:
-            out[..., lo - a: hi - a] = x[..., lo - own.start: hi - own.start]
-        if sl + sr:
-            parts = _gather(torch.cat([_fit(x, sl, False), _fit(x, sr, True)], dim=-1), mesh)
-            if plan.left[s]:  # the last columns of the left neighbour's block
-                src = parts[s - 1][..., sl:]
-                lo, hi = max(a, 0), min(b, own.start)
-                out[..., lo - a: hi - a] = src[..., sr - (own.start - lo): sr - (own.start - hi)]
-            if plan.right[s]:  # the first columns of the right neighbour's block
-                src = parts[s + 1][..., :sl]
-                lo, hi = max(a, own.stop), min(b, plan.width)
-                out[..., lo - a: hi - a] = src[..., lo - own.stop: hi - own.stop]
+        out = _window(x, mesh, plan)
         stats = mesh.halo
         stats.calls += 1
         stats.columns += plan.received
@@ -189,3 +201,15 @@ def fetch_columns(x: torch.Tensor, mesh: Mesh, width: int, windows) -> torch.Ten
     width): `windows[s]` is spatial rank s's (a, b), this rank's is
     `windows[mesh.spatial_index]`. Differentiable."""
     return _Halo.apply(x, mesh, halo_plan(width, windows))
+
+
+def block_columns(x: torch.Tensor, mesh: Mesh, width: int, windows) -> torch.Tensor:
+    """`fetch_columns` without autograd and without the forward's count: a
+    backward's columns moved into other blocks than the forward's (the
+    small floats' bias gradient reduces each rank's block of XLA's layout,
+    `models/fcn.py`). The columns it receives count as `grad_columns`."""
+    plan = halo_plan(width, windows)
+    with torch.no_grad():
+        out = _window(x, mesh, plan)
+    mesh.halo.grad_columns += plan.received
+    return out

@@ -37,7 +37,8 @@ ranks' pixels reach every rank's gradient). BatchNorm takes flax's own
 terms E[x] and E[x^2] over the global batch through them
 (`models/fcn.py`), and `average_gradients` sums each rank's share of the
 gradient over the spatial axis and averages over the data axis in one
-flat all-reduce. On a mesh of one every collective returns its input's
+flat all-reduce. A small float's gradients are combined in the format
+instead, axis by axis in XLA's order (`reduce_gradients`). On a mesh of one every collective returns its input's
 values, bit for bit, and a data-only mesh runs the ops it ran before the
 spatial axis existed.
 
@@ -384,6 +385,45 @@ def average_gradients(params, mesh: Mesh) -> None:
     flat.div_(mesh.n_data)
     for p, g in zip(params, flat.split([g.numel() for g in grads])):
         p.grad = g.view_as(p)
+
+
+def reduce_gradients(plan, mesh: Mesh, fmt) -> None:
+    """A small float's gradients combined over the mesh as XLA's
+    partitioned program combines them (`average_gradients` for every
+    other dtype). `plan`: (parameter, axes) pairs (`FCN.gradient_plan`),
+    each rank's gradient already the format's values and its share of the
+    global batch's gradient (the loss's `global_share`), so nothing is
+    divided. Over each axis in turn ("data", "spatial"; an axis of one
+    rank, or one the mesh lacks, is skipped) the ranks' values are
+    gathered and every rank sums them in rank order, each sum rounded to
+    float16, the total to the format (`small_float.sum_in_order`, XLA's
+    CPU all-reduce of the format's float16 values); axes None: a float32
+    gradient summed over the whole mesh. A missing gradient counts as
+    zeros."""
+    from tpufusion_torch.ops.small_float import sum_in_order
+
+    sizes = {"data": mesh.n_data, "spatial": mesh.n_spatial}
+    for p, _ in plan:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    plain = [p for p, axes in plan if axes is None]
+    if plain:
+        flat = torch.cat([p.grad.reshape(-1) for p in plain])
+        dist.all_reduce(flat, group=mesh.group)
+        for p, g in zip(plain, flat.split([p.numel() for p in plain])):
+            p.grad = g.view_as(p).clone()
+    for step in range(2):
+        for axis in ("data", "spatial"):
+            params = [p for p, axes in plan if axes is not None and len(axes) > step
+                      and axes[step] == axis]
+            if not params or sizes[axis] == 1:
+                continue
+            flat = torch.cat([p.grad.reshape(-1) for p in params])
+            parts = [torch.empty_like(flat) for _ in range(sizes[axis])]
+            dist.all_gather(parts, flat.contiguous(), group=mesh.axis_group(axis))
+            total = sum_in_order(parts, fmt)
+            for p, g in zip(params, total.split([p.numel() for p in params])):
+                p.grad = g.view_as(p).clone()
 
 
 def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

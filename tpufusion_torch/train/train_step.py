@@ -27,8 +27,10 @@ rank's columns (`constrain_spatial`, as the reference pins them to the
 data x spatial layout) and the FCN runs width-sharded. Each rank's
 gradient is its share of its data row's; one flat all-reduce sums them
 over the mesh and divides by the number of data rows before the
-optimizer. The collectives are enqueued on the stream; nothing waits for
-the card.
+optimizer. A small-float FCN (`model.fmt`) takes its share of the global
+batch's loss instead and combines its gradients in the format, as XLA's
+partitioned program does (`parallel.mesh.reduce_gradients`). The
+collectives are enqueued on the stream; nothing waits for the card.
 """
 
 from __future__ import annotations
@@ -42,7 +44,14 @@ from tpufusion_torch.geometry.encoding import encode_direct_label_batch, encode_
 from tpufusion_torch.geometry.range_view import range_view_project_batch
 from tpufusion_torch.models.losses import weighted_pose_loss
 from tpufusion_torch.models.metrics import batch_metrics
-from tpufusion_torch.parallel.mesh import Mesh, all_reduce_mean, average_gradients, constrain_spatial
+from tpufusion_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_mean,
+    all_reduce_sum,
+    average_gradients,
+    constrain_spatial,
+    reduce_gradients,
+)
 
 
 def _on_device(model: torch.nn.Module, batch: dict, device: torch.device):
@@ -119,10 +128,15 @@ def make_train_step(
             images, labels = constrain_spatial(images, mesh), constrain_spatial(labels, mesh)
         optimizer.zero_grad(set_to_none=True)
         preds = model(images, train=True, mesh=mesh, width=width)
-        loss = weighted_pose_loss(preds, labels, loss_cfg, use_regression, mesh=mesh, width=width)
+        fmt = getattr(model, "fmt", None) if mesh is not None else None
+        loss = weighted_pose_loss(preds, labels, loss_cfg, use_regression, mesh=mesh, width=width,
+                                  global_share=fmt is not None)
         loss.backward()
         loss = loss.detach()
-        if mesh is not None:
+        if fmt is not None:  # a small float: XLA's partitioned combine, in the format
+            reduce_gradients(model.gradient_plan(), mesh, fmt)
+            loss = all_reduce_sum(loss, mesh)
+        elif mesh is not None:
             average_gradients(model.parameters(), mesh)
             loss = all_reduce_mean(loss, mesh)
         optimizer.step(value=loss)
